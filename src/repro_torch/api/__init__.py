@@ -1,0 +1,21 @@
+"""Public typed API of the port's serving pipeline.
+
+    from repro_torch.api import (StreamSplitGateway, FrameRequest,
+                                 QoSClass, make_policy)
+"""
+from repro_torch.api.gateway import StreamSplitGateway, TickPlan
+from repro_torch.api.policies import (EntropyThresholdPolicy, FixedKPolicy,
+                                      RulePolicy, SplitPolicy, make_policy)
+from repro_torch.api.types import (AdmissionError, FrameRequest, FrameResult,
+                                   GatewayStats, QoSClass, SessionInfo,
+                                   SessionSnapshot)
+from repro_torch.core.fleet_backend import FleetBackend, HostFleetBackend
+
+__all__ = [
+    "StreamSplitGateway", "TickPlan",
+    "FleetBackend", "HostFleetBackend",
+    "SplitPolicy", "make_policy", "FixedKPolicy", "RulePolicy",
+    "EntropyThresholdPolicy",
+    "FrameRequest", "FrameResult", "SessionInfo", "GatewayStats",
+    "QoSClass", "AdmissionError", "SessionSnapshot",
+]

@@ -1,0 +1,184 @@
+"""Typed request/response surface of the StreamSplit gateway.
+
+Port of ``repro.api.types``, serving-tick half: a client session
+``submit``s ``FrameRequest``s, the gateway ``tick`` turns them into
+``FrameResult``s, and ``GatewayStats`` is the serving plane's
+scoreboard.  Everything here is a frozen dataclass of host values (numpy
+arrays, Python scalars), never a tensor.  The streaming-runtime and
+cluster types come with those layers.
+"""
+from __future__ import annotations
+
+import pickle
+from dataclasses import dataclass
+from enum import Enum
+
+import numpy as np
+
+from repro_torch.core.fleet_buffer import FleetFullError
+from repro_torch.core.sync import SyncCfg
+
+
+class QoSClass(Enum):
+    """Admission class of a session.
+
+    ``INTERACTIVE`` sessions may use every fleet row; ``STANDARD`` and
+    ``BULK`` are refused progressively earlier so that headroom remains
+    for latency-sensitive tenants (see ``StreamSplitGateway.open_session``).
+    """
+
+    INTERACTIVE = "interactive"
+    STANDARD = "standard"
+    BULK = "bulk"
+
+
+class AdmissionError(FleetFullError):
+    """Typed admission failure of ``open_session``: a ``FleetFullError``
+    carrying the refused class and the fleet's fill at refusal time."""
+
+    def __init__(self, qos: QoSClass, n_active: int, capacity: int):
+        self.qos = qos
+        self.n_active = n_active
+        self.capacity = capacity
+        super().__init__(
+            f"admission refused for {qos.value} session: "
+            f"{n_active}/{capacity} fleet rows in use")
+
+
+@dataclass(frozen=True)
+class FrameRequest:
+    """One client frame: the mel payload plus the client-side telemetry
+    the split policy consumes.
+
+    ``t`` is the session-local absolute frame index (the temporal-buffer
+    key).  ``u`` / ``cpu`` are normalized to [0, 1] like the control-plane
+    observation ``s_t = [U_t, R_cpu, B_net]``; ``bandwidth_mbps`` is raw
+    so the lazy sync protocol can apply its Wi-Fi threshold.
+    """
+
+    t: int
+    mel: np.ndarray            # (frames, n_mels) — one sample, no batch dim
+    label: int = -1
+    u: float = 0.5             # GMM-entropy uncertainty U_t
+    cpu: float = 0.25          # edge CPU load fraction
+    bandwidth_mbps: float = 10.0
+    charging: bool = False     # lazy-sync weight-push eligibility
+
+
+@dataclass(frozen=True)
+class FrameResult:
+    """What came back for one frame after the tick's bucketed dispatch."""
+
+    sid: int
+    t: int
+    z: np.ndarray              # (d_embed,) l2-normalized embedding
+    route: str                 # "edge" (k=L) | "server" (k=0) | "split"
+    k: int                     # split index the policy chose
+    wire_bytes: int            # synchronous split-link payload (0 at k=L)
+    # dispatch wall-clock per frame: the tick's dispatch time over its
+    # frames on the overlapped plane; per bucket under tick(profile=True)
+    latency_ms: float
+    bucket_size: int           # how many frames shared this dispatch
+    shard: int = 0             # dispatch shard (0: the port has one)
+
+
+@dataclass(frozen=True)
+class SessionInfo:
+    """Point-in-time snapshot of one session."""
+
+    sid: int
+    platform: str
+    qos: QoSClass
+    frames: int                # frames served through the gateway
+    wire_bytes: int            # cumulative split-link bytes
+    sync_bytes: int            # cumulative lazy-sync downlink bytes
+    sync_events: int
+    transitions: int           # split-index changes (atomic transitions)
+    last_k: int                # -1 before the first served frame
+    fill_fraction: float       # of the server-side temporal ring
+
+
+@dataclass(frozen=True)
+class SessionSnapshot:
+    """Everything one session *is*, frozen and serializable — the unit
+    of live migration between gateways: the gateway's per-session books,
+    the lazy-sync protocol state, and the fleet ring row in the host
+    representation.  (The reference's ``server`` field, the streaming
+    runtime's half, comes with that runtime.)"""
+
+    platform: str
+    qos: QoSClass
+    # gateway per-session books
+    frames: int
+    wire_bytes: int
+    transitions: int
+    last_k: int
+    # lazy-sync protocol state (core/sync.py)
+    sync_cfg: SyncCfg
+    sync_last_gmm: int
+    sync_last_weights: int
+    sync_total_bytes: int
+    sync_total_energy_j: float
+    sync_events: tuple         # emitted SyncEvents, oldest first
+    # fleet ring row (host representation; see FleetBackend.export_row)
+    ring_z: np.ndarray         # (W, d) float32
+    ring_t: np.ndarray         # (W,) int64, T_SENTINEL marks empty slots
+    ring_label: np.ndarray     # (W,) int64
+    ring_newest: int
+    version: int = 1
+
+    def to_bytes(self) -> bytes:
+        return pickle.dumps(self, protocol=pickle.HIGHEST_PROTOCOL)
+
+    @staticmethod
+    def from_bytes(payload: bytes) -> "SessionSnapshot":
+        """Unpickles: pass only bytes this program wrote."""
+        snap = pickle.loads(payload)
+        if not isinstance(snap, SessionSnapshot):
+            raise TypeError("payload is not a SessionSnapshot")
+        return snap
+
+    @property
+    def nbytes(self) -> int:
+        return len(self.to_bytes())
+
+
+@dataclass(frozen=True)
+class GatewayStats:
+    """Aggregate serving-plane counters (one pipeline, one scoreboard)."""
+
+    ticks: int
+    frames: int
+    sessions_open: int
+    sessions_opened: int
+    sessions_closed: int
+    admission_refusals: int
+    dispatches: int            # k-bucket SplitEngine dispatches issued
+    wire_bytes: int
+    sync_bytes: int            # lazy-sync downlink across all sessions
+    sync_events: int
+    refine_rounds: int
+    last_refine_loss: float    # nan before the first round
+    routed: dict               # route -> frame count ("edge"/"split"/"server")
+    backend: str = "host"      # FleetBackend.kind
+    shards: int = 1            # session shards of the fleet backend
+    shard_frames: tuple = ()   # frames ingested per session shard
+    dispatch_shards: int = 1   # devices the tick dispatch spreads over
+    dispatch_shard_frames: tuple = ()  # frames dispatched per shard
+    snapshot_h2d_bytes: int = 0  # fleet snapshot bytes copied per refine
+    ingest_h2d_bytes: int = 0  # frame payload bytes moved host->device
+    # the overlapped tick syncs ONCE and copies embeddings to the host
+    # ONCE, however many buckets it has; both count the last tick
+    device_syncs_per_tick: int = 0
+    d2h_copies_per_tick: int = 0
+    staged_h2d_bytes: int = 0  # cumulative mel bytes staged host->device
+    uptime_s: float = 0.0      # clock() - clock() at construction
+    last_tick_ms: float = 0.0  # wall-clock of the most recent tick
+    sessions_exported: int = 0
+    sessions_imported: int = 0
+
+    @property
+    def frames_per_dispatch(self) -> float:
+        """The batching win: 1.0 is the per-frame loop; N/buckets when
+        k-bucketing collapses a tick into few dispatches."""
+        return self.frames / self.dispatches if self.dispatches else 0.0

@@ -1,0 +1,104 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled with
+``nvcc`` into its own shared library, loaded with ``ctypes``: no
+PyTorch headers, so a build takes seconds.  Libraries go to
+``build/repro_torch/`` at the repository root (git-ignored), named by a
+hash of the source and the flags, so an edited source rebuilds and an
+unchanged one loads from disk.  Nothing is built at import time: the
+first launch of a kernel builds it, and ``chip_smoke.py`` calls
+``build_all`` once up front so the build time is measured apart.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# -fmad=false: no FMA contraction, the wire kernel's bitwise contract
+# depends on it.  No --use_fast_math anywhere.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signature of every entry point, by source file
+SIGNATURES = {
+    "wire_roundtrip.cu": {
+        "wire_roundtrip_f32": ([_P, _P, _I, _I, _P], _I),
+        "wire_roundtrip_error_string": ([_I], ctypes.c_char_p),
+    },
+}
+SOURCES = tuple(SIGNATURES)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in "
+                           f"{cuda_home}/bin): the CUDA kernels cannot be "
+                           "built on this machine")
+    return path
+
+
+def library_path(source: str) -> Path:
+    digest = hashlib.sha256(
+        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` unless its library is already built;
+    -> the library's path.  The compiler writes to a temporary name and
+    the result is renamed into place, so a concurrent or interrupted
+    build never leaves a half-written library behind."""
+    out = library_path(source)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        r = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp,
+                            str(CSRC / source)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source} "
+                               f"(rc={r.returncode}):\n{r.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def build_all() -> list[Path]:
+    """Build every kernel source, one ``nvcc`` per source, all at once."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        return list(pool.map(build, SOURCES))
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>`` with every entry point's
+    ``argtypes``/``restype`` declared (pointers and the stream as
+    ``c_void_p``, so none is cut to 32 bits)."""
+    lib = _loaded.get(source)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(source)))
+        for name, (argtypes, restype) in SIGNATURES[source].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _loaded[source] = lib
+    return lib

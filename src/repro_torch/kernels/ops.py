@@ -1,0 +1,54 @@
+"""Public kernel wrappers, plus the device and precision set-up every
+entry point goes through.
+
+Counterpart of ``repro.kernels.ops``.  The reference switches between
+compiled and interpreted Pallas with an environment variable; the port
+has no such switch.  Each wrapper dispatches on its input's device: a
+CUDA tensor launches the hand-written kernel (or the wrapper raises), a
+CPU tensor runs the kernel's plain PyTorch version.
+
+The reference computes in float32, so ``resolve_device`` turns TF32 off
+for cuDNN convolutions and for matrix products (cuDNN convolutions use
+TF32 by default, which keeps about three decimal digits), and pins
+cuDNN to deterministic algorithms with autotuning off, so the same
+shapes give the same bits from run to run.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.int8_quant import wire_roundtrip, wire_roundtrip_ref
+
+__all__ = ["KERNELS", "resolve_device", "set_precision", "wire_roundtrip",
+           "wire_roundtrip_ref"]
+
+# every hand-written kernel's public wrapper (each carries ``launches``)
+KERNELS = {"wire_roundtrip": wire_roundtrip}
+
+
+def set_precision() -> None:
+    """float32 everywhere (no TF32) and deterministic cuDNN."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def resolve_device(device) -> torch.device:
+    """The ``device=`` argument of an entry point as a ``torch.device``.
+
+    A CUDA device without a usable GPU raises: the port never falls back
+    to the CPU on its own — a caller that wants the CPU passes
+    ``device="cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' but torch sees no CUDA device; pass "
+                "device='cpu' to run the port's plain PyTorch path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    set_precision()
+    return dev

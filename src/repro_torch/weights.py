@@ -1,0 +1,75 @@
+"""Encoder weights across the two packages.
+
+The reference keeps convolution weights as ``(K, Cin, Cout)`` for its
+``NWC``/``WIO`` convolutions; ``F.conv1d`` wants ``(Cout, Cin, K)``.
+GroupNorm ``scale``/``bias``, the head ``(Cin, d)`` and the optional
+``proj`` entries carry across as they are.  The port's parity tests
+convert the reference's weights with ``params_from_jax`` rather than
+drawing new ones, so both packages run the same model.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_CONVS = ("conv1", "conv2", "proj")
+
+
+def _conv_from(w):
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(w, np.float32).transpose(2, 1, 0)))
+
+
+def _vec_from(v):
+    return torch.from_numpy(np.array(v, np.float32))
+
+
+def params_from_jax(tree) -> dict:
+    """Reference pytree (leaves as numpy arrays) -> port params on the
+    CPU."""
+    blocks = []
+    for blk in tree["blocks"]:
+        out = {}
+        for name, sub in blk.items():
+            if name in _CONVS:
+                out[name] = {"w": _conv_from(sub["w"])}
+            else:                                        # gn1 / gn2
+                out[name] = {"scale": _vec_from(sub["scale"]),
+                             "bias": _vec_from(sub["bias"])}
+        blocks.append(out)
+    return {"stem": {"w": _conv_from(tree["stem"]["w"])},
+            "blocks": blocks,
+            "head": {"w": _vec_from(tree["head"]["w"])}}
+
+
+def params_to_jax(params) -> dict:
+    """Inverse of ``params_from_jax``: port params -> a pytree of numpy
+    arrays in the reference's layout (the tests hand port-initialised
+    weights to the reference with it)."""
+    def conv(w):
+        return w.detach().cpu().numpy().transpose(2, 1, 0).copy()
+
+    def vec(v):
+        return v.detach().cpu().numpy().copy()
+
+    blocks = []
+    for blk in params["blocks"]:
+        out = {}
+        for name, sub in blk.items():
+            if name in _CONVS:
+                out[name] = {"w": conv(sub["w"])}
+            else:
+                out[name] = {"scale": vec(sub["scale"]),
+                             "bias": vec(sub["bias"])}
+        blocks.append(out)
+    return {"stem": {"w": conv(params["stem"]["w"])}, "blocks": blocks,
+            "head": {"w": vec(params["head"]["w"])}}
+
+
+def to_device(params, device) -> dict:
+    """Every tensor of a params dict moved to ``device`` (a new dict)."""
+    if isinstance(params, dict):
+        return {k: to_device(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [to_device(v, device) for v in params]
+    return params.to(device)

@@ -1,0 +1,58 @@
+"""The PyTorch port stands on its own: no file of ``src/repro_torch/`` and
+not ``chip_smoke.py`` imports JAX or the reference package ``repro``.
+A static AST scan, so a guarded or lazy import is caught too."""
+import ast
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in sorted(files)
+                if f.endswith(".py")]
+    return sorted(os.path.relpath(p, REPO) for p in out)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, str(node.args[0].value)
+
+
+def test_port_has_files():
+    files = _port_files()
+    assert "chip_smoke.py" in files
+    assert len(files) > 10
+
+
+def test_forbidden_prefix_check():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("repro") and _forbidden("repro.core.sync")
+    assert not _forbidden("repro_torch") and not _forbidden("repro_torch.api")
+    assert not _forbidden("torch") and not _forbidden("numpy")
+
+
+@pytest.mark.parametrize("rel", _port_files())
+def test_no_jax_or_reference_import(rel):
+    with open(os.path.join(REPO, rel)) as fh:
+        tree = ast.parse(fh.read(), filename=rel)
+    bad = [(line, mod) for line, mod in _imports(tree) if _forbidden(mod)]
+    assert not bad, f"{rel} imports {bad}"
