@@ -4,7 +4,8 @@
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 It builds every hand-written CUDA kernel from ``src/repro_torch`` and
-then drives the port's serving path at the paper's full encoder width.
+then drives the port's two paths at the paper's full encoder width: the
+serving tick, and the tick with a fleet refine round after it.
 
 Phase 1 holds each kernel against its plain PyTorch version on the card,
 bitwise, at every shape the serving path gives it (plus constant and
@@ -19,6 +20,25 @@ kernels' launch counts set to 0 just before and read just after.  It
 checks results, counters and launches, compares the first tick with
 ``overlap=False`` on the card (bitwise) and with the same port run on
 the CPU (atol 1e-4), and times each kernel at the shapes of the run.
+
+Phase 3 holds each refine kernel (``swd_sessions``, ``laplacian_energy``,
+``gmm_posterior``) against its plain PyTorch version on the card at the
+refine shapes (256 sessions x 100 frames x 128 dims, 50 directions,
+k = 5, 64 components), at W in {16, 100, 128}, k >= T, T = 1, with an
+all-masked row, a zero session and direction counts that are not a
+multiple of the kernel's block; tolerances SWD rtol 1e-4, Laplacian rtol
+1e-5, GMM resp atol 1e-4 and entropy atol 5e-4, the reference's own for
+its Pallas kernels.  Two launches on one input must be bitwise equal.
+
+Phase 4 runs the gateway with ``refine_every=1`` over a
+``HostFleetBackend`` of 256 sessions x 100 frames with a linear 128->10
+head and a 64-component GMM memory, rings pre-filled with 99 frames per
+session: one warm-up and 8 timed ticks, the counts set to 0 just before
+and read just after.  Every tick must refine once and launch each refine
+kernel once; the first round is compared with the port on the CPU (same
+snapshot, draws, head and memory; rtol 1e-4).  It prints the refine
+round's host p50/p95, the tick p50 against phase 2's, a profiled round,
+and each refine kernel's time at the refine shape.
 
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
@@ -44,6 +64,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BATCH_SIZES = (1, 3, 8, 32, 256)
 CPU_ATOL = 1e-4
+# the refine path: fleet rings, SW directions, Laplacian window, GMM
+WINDOW, N_DIRS, KNN, N_COMPONENTS, N_CLASSES = 100, 50, 5, 64, 10
+SWD_RTOL, LAP_RTOL, RESP_ATOL, ENT_ATOL = 1e-4, 1e-5, 1e-4, 5e-4
+REFINE_RTOL = 1e-4      # card vs CPU, relative to each tensor's max |x|
 
 
 def fail(msg):
@@ -120,14 +144,15 @@ def phase1(cfg, dev, ops, dequantize, quantize):
     return worst
 
 
-def serve(gw, sids, mels_by_tick, *, timed, t0=0):
-    """Submit and tick, frame indices from ``t0``; -> (results of each
-    tick, tick seconds)."""
+def serve(gw, sids, mels_by_tick, *, timed, t0=0, label_mod=0):
+    """Submit and tick, frame indices from ``t0`` (labelled ``t %
+    label_mod`` when given); -> (results of each tick, tick seconds)."""
     from repro_torch.api import FrameRequest
     out, secs = [], []
     for t, mels in enumerate(mels_by_tick, start=t0):
+        label = t % label_mod if label_mod else -1
         for i, sid in enumerate(sids):
-            gw.submit(sid, FrameRequest(t=t, mel=mels[i]))
+            gw.submit(sid, FrameRequest(t=t, mel=mels[i], label=label))
         start = time.perf_counter()
         out.append(gw.tick())
         secs.append(time.perf_counter() - start)
@@ -233,7 +258,7 @@ def phase2(cfg, dev, ops):
           f"|dz| {cpu_err:.3e} (atol {CPU_ATOL}); bucketed vs per-frame "
           f"SplitEngine.run max |dz| {frame_err:.3e}")
     profile_tick(gw, sids, mels[0], 1 + TIMED_TICKS, tick_ms)
-    return launches
+    return launches, tick_ms
 
 
 def device_ms(fn, x, reps=40, spin_cycles=200_000_000):
@@ -330,6 +355,335 @@ def kernel_times(cfg, dev, ops):
     return tot
 
 
+# --- the refine path -------------------------------------------------------
+
+def unit_rows(g, shape, dev):
+    z = torch.randn(*shape, device=dev, generator=g)
+    return z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+
+
+def refine_inputs(g, dev, S, W, d, M):
+    """Unit-norm z (S, W, d) with ~10% gaps (z = 0, mask = 0), row 1
+    all-masked (its z kept), session 2 all zero; M unit directions and
+    the sorted slice quantiles of a W-sample sphere prior."""
+    z = unit_rows(g, (S, W, d), dev)
+    mask = (torch.rand(S, W, device=dev, generator=g) >= 0.1).float()
+    keep = z[1].clone() if S > 1 else None
+    z *= mask[..., None]
+    if S > 2:
+        z[1], mask[1] = keep, 0.0
+        z[2], mask[2] = 0.0, 0.0
+    dirs = unit_rows(g, (M, d), dev)
+    prior = unit_rows(g, (W, d), dev)
+    prior_q = torch.sort(prior @ dirs.T, dim=0).values.contiguous()
+    return z.contiguous(), mask, dirs, prior_q
+
+
+def gmm_inputs(g, dev, B, C, d, floor=False):
+    """z (B, d) on the sphere against a GMM from ``gmm.init_gmm`` (var
+    0.05); ``floor`` puts half the variances at the 1e-4 floor and every
+    third frame next to one of those means."""
+    from repro_torch.core import gmm
+    pi, mu, var = gmm.params_of(gmm.init_gmm(
+        torch.Generator(device=dev).manual_seed(C + d), C, d))
+    z = unit_rows(g, (B, d), dev)
+    var = var.clone()
+    if floor:
+        var[::2] = 1e-4
+        idx = torch.arange(0, B, 3, device=dev)
+        z[idx] = mu[(idx * 2) % C] + 1e-3 * torch.randn(
+            len(idx), d, device=dev, generator=g)
+    return z, mu.contiguous(), var.contiguous(), torch.log(pi)
+
+
+def hold(name, kernel, plain, args, tols, what):
+    """``kernel(*args)`` against ``plain(*args)``, output by output,
+    within ``tols`` [(rtol, atol)], and bitwise against a second launch
+    -> the largest |difference|."""
+    got, again, want = kernel(*args), kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for a, b, c, (rtol, atol) in zip(got, again, want, tols):
+        check(torch.equal(a, b), f"{name} not bitwise from run to run at "
+              f"{what}")
+        err = (a - c).abs().max().item()
+        worst = max(worst, err)
+        check(torch.allclose(a, c, rtol=rtol, atol=atol),
+              f"{name} != plain version at {what}: max |err| {err} "
+              f"(rtol {rtol}, atol {atol})")
+    return worst
+
+
+def phase3(dev, ops):
+    """Each refine kernel against its plain version on the card ->
+    {name: max |err|}."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    d, S = 128, SESSIONS
+    worst = dict.fromkeys(("swd_sessions", "laplacian_energy",
+                           "gmm_posterior"), 0.0)
+    swd = lambda z, dirs, pq: (ops.swd_sessions(z, dirs, pq),)  # noqa: E731
+    swd_ref = lambda z, dirs, pq: (  # noqa: E731
+        ops.swd_sessions_ref(z, dirs, pq),)
+    for s_, W, M in ((S, WINDOW, N_DIRS), (S, 16, N_DIRS), (S, 128, N_DIRS),
+                     (64, WINDOW, 8), (64, WINDOW, 3), (7, 37, 13)):
+        z, _, dirs, pq = refine_inputs(g, dev, s_, W, d, M)
+        worst["swd_sessions"] = max(worst["swd_sessions"], hold(
+            "swd_sessions", swd, swd_ref, (z, dirs, pq), [(SWD_RTOL, 0.0)],
+            f"S={s_} W={W} M={M}"))
+    for s_, T, k in ((S, WINDOW, KNN), (S, 16, KNN), (S, 128, KNN),
+                     (64, 16, 20), (16, 1, KNN), (9, 37, 3)):
+        z, mask, _, _ = refine_inputs(g, dev, s_, T, d, 1)
+        lap = lambda z, m: ops.laplacian_energy(z, m, k)  # noqa: E731
+        lap_ref = lambda z, m: ops.laplacian_energy_ref(z, m, k)  # noqa
+        worst["laplacian_energy"] = max(worst["laplacian_energy"], hold(
+            "laplacian_energy", lap, lap_ref, (z, mask),
+            [(LAP_RTOL, 0.0), (0.0, 0.0)], f"B={s_} T={T} k={k}"))
+    for B, C, floor in ((S * WINDOW, N_COMPONENTS, False),
+                        (1007, N_COMPONENTS, True), (333, 10, False)):
+        worst["gmm_posterior"] = max(worst["gmm_posterior"], hold(
+            "gmm_posterior", ops.gmm_posterior, ops.gmm_posterior_ref,
+            gmm_inputs(g, dev, B, C, d, floor),
+            [(0.0, RESP_ATOL), (0.0, ENT_ATOL)],
+            f"B={B} C={C}{' at the variance floor' if floor else ''}"))
+    print("phase 3: swd_sessions (rtol 1e-4), laplacian_energy (rtol 1e-5, "
+          "counts exact) and gmm_posterior (resp atol 1e-4, entropy atol "
+          "5e-4) == plain version at the refine shapes and edge cases, "
+          "bitwise from run to run; max |err| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def init_linear_head(generator):
+    """A linear 128 -> 10 head from a seeded generator."""
+    return {"w": 0.01 * torch.randn(128, N_CLASSES, generator=generator),
+            "b": torch.zeros(N_CLASSES)}
+
+
+def linear_head(p, z):
+    return z @ p["w"] + p["b"]
+
+
+def refine_backend(cfg, device, head_init):
+    from repro_torch.api import HostFleetBackend
+    from repro_torch.core.hybrid import HybridCfg
+    return HostFleetBackend(
+        capacity=SESSIONS, window=WINDOW, dim=cfg.d_embed,
+        head_init=head_init, head_apply=linear_head, cfg=HybridCfg(),
+        lr=1e-2, seed=0, n_components=N_COMPONENTS, memory_decay=0.05,
+        device=device)
+
+
+def prefill(backend, sids, rng):
+    """99 frames a session of unit-norm embeddings with ~10% drops,
+    labelled t mod 10 (as ``benchmarks/fleet_serve.py`` fills rings)."""
+    sids = np.asarray(sids)
+    for t in range(WINDOW - 1):
+        keep = sids[rng.random(len(sids)) >= 0.1]
+        z = rng.standard_normal((len(keep), 128)).astype(np.float32)
+        z /= np.linalg.norm(z, axis=1, keepdims=True)
+        backend.insert_batch(keep, np.full(len(keep), t), z,
+                             np.full(len(keep), t % N_CLASSES))
+
+
+def rel_err(a, b):
+    """max |a - b| / max |b| over two tensors (or arrays)."""
+    a, b = (torch.as_tensor(np.asarray(x), dtype=torch.float32)
+            for x in (a, b))
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def phase4(cfg, dev, ops, serve_tick_ms):
+    """The gateway with a refine round every tick at full width ->
+    (launch counts of the counted run, refine round host ms)."""
+    from repro_torch.api import QoSClass, StreamSplitGateway
+    from repro_torch.models.audio_encoder import init_audio_encoder
+    L = cfg.n_blocks
+    params = init_audio_encoder(cfg, torch.Generator().manual_seed(0))
+    be = refine_backend(cfg, "cuda", init_linear_head)
+    gw = StreamSplitGateway(cfg, params, policy=SpreadPolicy(L), backend=be,
+                            qos_reserve=0, refine_every=1, device="cuda")
+    sids = [gw.open_session(qos=QoSClass.INTERACTIVE).sid
+            for _ in range(SESSIONS)]
+    rng = np.random.default_rng(1)
+    prefill(be, sids, rng)
+    mels = [rng.standard_normal((SESSIONS, cfg.frames, cfg.n_mels),
+                                np.float32) for _ in range(1 + TIMED_TICKS)]
+    head0 = {k: v.detach().cpu().clone()
+             for k, v in be.refiner.state.params.items()}
+    mem0 = be.memory.to("cpu")
+    rounds = []          # (loss, parts, per-session losses), host seconds
+    refine = be.refine
+
+    def timed_refine(rnd):
+        start = time.perf_counter()
+        out = refine(rnd)
+        rounds.append((out, time.perf_counter() - start))
+        return out
+    be.refine = timed_refine
+
+    # --- the refine path, counted: warm-up tick + timed ticks -----------
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    secs = []
+    for i in range(1 + TIMED_TICKS):
+        _, sec = serve(gw, sids, [mels[i]], timed=True, t0=WINDOW - 1 + i,
+                       label_mod=N_CLASSES)
+        secs += sec
+        if i == 0:       # round 0's snapshot, and the state it left
+            rows = [be.export_row(sid) for sid in sids]
+            head1 = {k: v.detach().cpu().clone()
+                     for k, v in be.refiner.state.params.items()}
+            mem1 = be.memory.to("cpu")
+    launches = {name: w.launches for name, w in ops.KERNELS.items()}
+    torch.cuda.synchronize()
+
+    n_rounds = 1 + TIMED_TICKS
+    stats = gw.stats()
+    check(stats.ticks == n_rounds and stats.refine_rounds == n_rounds
+          and len(rounds) == n_rounds,
+          f"{stats.refine_rounds} refine rounds in {stats.ticks} ticks")
+    for (loss, parts, per), _ in rounds:
+        check(np.isfinite(loss) and np.isfinite(list(parts.values())).all()
+              and np.isfinite(per).all() and per.shape == (SESSIONS,),
+              f"refine round not finite: {loss}, {parts}")
+    check(stats.last_refine_loss == rounds[-1][0][0], "last_refine_loss")
+    for name in ("swd_sessions", "laplacian_energy", "gmm_posterior"):
+        check(launches[name] == n_rounds,
+              f"{name} launched {launches[name]} times in {n_rounds} rounds")
+    check(launches["wire_roundtrip"] == L * n_rounds, f"launches {launches}")
+    snap = (SESSIONS * WINDOW * (cfg.d_embed * 4 + 4 + 8) + SESSIONS)
+    check(stats.snapshot_h2d_bytes == n_rounds * snap,
+          f"snapshot_h2d_bytes {stats.snapshot_h2d_bytes} != {n_rounds} x "
+          f"{snap}")
+    refine_ms = np.array([sec for _, sec in rounds[1:]]) * 1e3
+    tick_ms = np.array(secs[1:]) * 1e3
+    print(f"phase 4: {n_rounds} ticks x {SESSIONS} frames with a refine "
+          f"round each, 1 sync + 1 D2H per tick, launches "
+          f"{launches}, snapshot "
+          f"{stats.snapshot_h2d_bytes} bytes ({n_rounds} x {snap}); losses "
+          f"{rounds[0][0][0]:.6f} -> {rounds[-1][0][0]:.6f}")
+    warm_ms = rounds[0][1] * 1e3
+    print(f"refine round ms p50 {np.percentile(refine_ms, 50):.3f} p95 "
+          f"{np.percentile(refine_ms, 95):.3f} (warm-up {warm_ms:.1f}); "
+          f"tick with refine ms p50 {np.percentile(tick_ms, 50):.3f} "
+          f"p95 {np.percentile(tick_ms, 95):.3f} against phase 2's p50 "
+          f"{np.percentile(serve_tick_ms, 50):.3f}")
+
+    # --- round 0 against the port on the CPU (outside the counted run) --
+    cpu = refine_backend(cfg, "cpu", lambda generator: head0)
+    cpu.memory = mem0
+    for sid, row in zip(sids, rows):
+        check(cpu.admit() == sid, "CPU backend admitted another row")
+        cpu.import_row(sid, *row)
+    (loss, parts, per), _ = rounds[0]
+    c_loss, c_parts, c_per = cpu.refine(0)
+    errs = {"loss": abs(loss - c_loss) / abs(c_loss),
+            **{k: abs(parts[k] - c_parts[k]) / abs(c_parts[k])
+               for k in parts},
+            "per-session": float(np.max(np.abs(per - c_per)
+                                        / np.abs(c_per))),
+            **{f"head.{k}": rel_err(head1[k], v)
+               for k, v in cpu.refiner.state.params.items()},
+            **{f"gmm.{k}": rel_err(getattr(mem1, k), getattr(cpu.memory, k))
+               for k in ("s0", "s1", "s2")}}
+    print("round 0, card vs the port on the CPU (relative; head and GMM "
+          "relative to each tensor's max |x|): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()))
+    for k, v in errs.items():
+        check(v <= REFINE_RTOL, f"round 0 card vs CPU: {k} {v} > "
+              f"{REFINE_RTOL}")
+    profile_refine(be, n_rounds, float(np.percentile(refine_ms, 50)))
+    return launches, refine_ms
+
+
+def profile_refine(be, rnd, p50):
+    """The host numpy snapshot's share of a round, then one more round
+    under torch.profiler: device time by kind and the device's idle share
+    of the unprofiled p50 round."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    start = time.perf_counter()
+    for _ in range(5):
+        be.snapshot()
+    print(f"host snapshot of the rings (numpy, inside every round): "
+          f"{(time.perf_counter() - start) / 5 * 1e3:.3f} ms")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        be.refine(rnd)
+    events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    if not events:
+        print("profiled refine round: not measured (torch.profiler recorded "
+              "no device activity)")
+        return
+    kinds = dict.fromkeys(("swd", "laplacian", "gmm_posterior", "gemm",
+                           "copy", "other"), 0.0)
+    for name, us in events:
+        low = name.lower()
+        kind = next((k for k in ("swd", "laplacian", "gmm_posterior")
+                     if k in low), None) or (
+            "copy" if low.startswith(("memcpy", "memset")) else
+            "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma"))
+            else "other")
+        kinds[kind] += us
+    busy_ms = sum(kinds.values()) / 1e3
+    print(f"profiled refine round: {len(events)} device activities, busy "
+          f"{busy_ms:.3f} ms (" + ", ".join(
+              f"{k} {v / 1e3:.3f} ms" for k, v in kinds.items())
+          + f"); idle share of the unprofiled p50 round ({p50:.3f} ms): "
+          f"{1.0 - busy_ms / p50:.3f}")
+
+
+def refine_kernel_times(dev, ops):
+    """Each refine kernel and its plain version at the refine shape:
+    device time (``device_ms``) and the bound from these inputs."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    S, W, d, M, C = SESSIONS, WINDOW, 128, N_DIRS, N_COMPONENTS
+    B = S * W
+    z, mask, dirs, pq = refine_inputs(g, dev, S, W, d, M)
+    gz, mu, var, logpi = gmm_inputs(g, dev, B, C, d)
+    pairs = sum(T for T in range(W - 1, W - 1 - min(KNN, W - 1), -1))
+    cases = {
+        # projection multiply-adds + (sorted - q)^2 summed; the sort
+        # network's compares are not counted, so this is a lower bound
+        "swd_sessions": (
+            lambda a: ops.swd_sessions(*a), lambda a: ops.swd_sessions_ref(*a),
+            (z, dirs, pq), 4 * (S * W * d + M * d + W * M + S),
+            2 * S * W * d * M + 3 * S * W * M),
+        # per pair: subtract, square, add over d, then weight and sums
+        "laplacian_energy": (
+            lambda a: ops.laplacian_energy(*a, KNN),
+            lambda a: ops.laplacian_energy_ref(*a, KNN), (z, mask),
+            4 * (S * W * d + S * W + 2 * S), S * pairs * (3 * d + 4)),
+        # direct Mahalanobis: subtract, square, divide, add per (b, c, j),
+        # then ~11 operations per (b, c) for the log joint and softmax
+        "gmm_posterior": (
+            lambda a: ops.gmm_posterior(*a),
+            lambda a: ops.gmm_posterior_ref(*a), (gz, mu, var, logpi),
+            4 * (B * d + 2 * C * d + C + B * C + B),
+            4 * B * C * d + 11 * B * C),
+    }
+    # calls of each plain version: they launch ~6, ~50 and ~140 kernels a
+    # call, and the launches queued behind the spin must stay under the
+    # queue's depth (about a thousand), past which enqueueing blocks
+    plain_reps = {"swd_sessions": 40, "laplacian_energy": 10,
+                  "gmm_posterior": 4}
+    out = {}
+    for name, (fn, plain, args, nbytes, nops) in cases.items():
+        ms = device_ms(fn, args)
+        plain_ms = device_ms(plain, args, reps=plain_reps[name])
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = nops / FP32_OPS_PER_S * 1e3
+        out[name] = {"ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(b_ms, o_ms),
+                     "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+        print(f"{name} at the refine shape: device kernel {ms * 1e3:.2f} us, "
+              f"plain {plain_ms * 1e3:.2f} us; bound "
+              f"{max(b_ms, o_ms) * 1e3:.2f} us ({out[name]['bound_by']}: "
+              f"{nbytes} bytes, {nops} operations)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -353,19 +707,36 @@ def main():
           f"{[os.path.basename(p) for p in libs]}")
 
     worst = phase1(CFG, dev, ops, dequantize, quantize)
-    launches = phase2(CFG, dev, ops)
+    launches, serve_tick_ms = phase2(CFG, dev, ops)
     tot = kernel_times(CFG, dev, ops)
-    print("kernels: " + ", ".join(f"{n} launches={c}"
-                                  for n, c in launches.items()))
+    refine_worst = phase3(dev, ops)
+    refine_launches, _ = phase4(CFG, dev, ops, serve_tick_ms)
+    refine_times = refine_kernel_times(dev, ops)
+    print("kernels: serving path " + ", ".join(
+        f"{n} launches={c}" for n, c in launches.items()) + "; refine path "
+        + ", ".join(f"{n} launches={c}" for n, c in refine_launches.items()))
     bound_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
-    print(json.dumps({"kernels": [{
+    records = [{
         "name": "wire_roundtrip", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wire_roundtrip.cu",
         "replaces": "src/repro/kernels/int8_quant.py:90",
         "launches": launches["wire_roundtrip"], "max_abs_err": worst,
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": max(tot["bytes_ms"], tot["ops_ms"]),
-        "bound_by": bound_by, "library_ms": None}]}))
+        "bound_by": bound_by, "library_ms": None}]
+    for name, source, replaces in (
+            ("swd_sessions", "swd.cu", "swd_kernel.py:67"),
+            ("laplacian_energy", "laplacian_energy.cu",
+             "laplacian_energy.py:33"),
+            ("gmm_posterior", "gmm_posterior.cu", "gmm_posterior.py:50")):
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": refine_launches[name],
+            "max_abs_err": refine_worst[name], **refine_times[name],
+            "library_ms": None})
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

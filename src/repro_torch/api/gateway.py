@@ -1,7 +1,7 @@
 """``StreamSplitGateway`` — the way to run the StreamSplit pipeline.
 
-Port of ``repro.api.gateway`` (serving; fleet refinement and the sharded
-dispatch plane are later slices):
+Port of ``repro.api.gateway`` (the sharded dispatch plane is a later
+slice):
 
     gw = StreamSplitGateway(enc_cfg, params, policy=make_policy("rule", L))
     info = gw.open_session(platform="pi4", qos=QoSClass.STANDARD)
@@ -22,14 +22,19 @@ The tick is an **overlapped, single-sync data plane**.  One tick:
 4. one gather puts the embeddings back in submission order, one
    non-blocking copy takes them to pinned host memory, and the tick
    waits ONCE (``_block``) before reading them;
-5. the embeddings go into the fleet rings.
+5. the embeddings go into the fleet rings;
+6. every ``refine_every`` ticks, one fleet refine round
+   (``HostFleetBackend.refine``) takes an SGD step on the shared head and
+   an EM step of the optional GMM memory.
 
 ``_block`` and ``_d2h`` count every wait and every embedding copy, so
 ``GatewayStats.device_syncs_per_tick == 1`` and ``d2h_copies_per_tick
-== 1`` are counted facts.  ``overlap=False`` keeps the per-bucket-sync
-dispatch as the baseline, and ``tick(profile=True)`` waits after each
-bucket to time it.  All wall-clock reads go through the injectable
-``clock=``.
+== 1`` are counted facts.  A refine round waits for its own loss and
+copies its own snapshot; as in the reference, neither is on that
+scoreboard (``snapshot_h2d_bytes`` counts the copy).  ``overlap=False``
+keeps the per-bucket-sync dispatch as the baseline, and
+``tick(profile=True)`` waits after each bucket to time it.  All
+wall-clock reads go through the injectable ``clock=``.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ from repro_torch.api.policies import BW_NORM, SplitPolicy
 from repro_torch.api.types import (AdmissionError, FrameRequest, FrameResult,
                                    GatewayStats, QoSClass, SessionInfo,
                                    SessionSnapshot)
-from repro_torch.core.fleet_backend import REFINE_PENDING, HostFleetBackend
+from repro_torch.core.fleet_backend import HostFleetBackend
 from repro_torch.core.fleet_buffer import FleetFullError, pad_pow2
 from repro_torch.core.splitter import SplitEngine
 from repro_torch.core.sync import LazySync, SyncCfg
@@ -102,10 +107,14 @@ class StreamSplitGateway:
         ``device`` once, here.
     policy : a batched ``SplitPolicy``.
     backend : a ``FleetBackend``; defaults to a ``HostFleetBackend`` of
-        ``capacity`` x ``window`` rows of ``enc_cfg.d_embed``.
-    head_init, head_apply, refine_every : fleet refinement, which is not
-        ported yet — anything but the defaults raises
-        ``NotImplementedError``.
+        ``capacity`` x ``window`` rows of ``enc_cfg.d_embed`` built from
+        ``head_init`` / ``head_apply`` / ``refine_lr`` / ``seed`` on
+        ``device``.  A backend that refines on another device raises.
+    head_init, head_apply : optional task head for fleet refinement
+        (``head_init(generator) -> params``, ``head_apply(params, z) ->
+        logits``); without them the gateway serves but never refines.
+    refine_every : one fleet refine round every this many ticks (0
+        disables); round r's SWD draw is seeded from ``(seed, r)``.
     qos_reserve : fleet rows held back from BULK (2x) and STANDARD (1x)
         admissions; defaults to ``capacity // 8``.
     overlap : serve ticks through the overlapped single-sync plane
@@ -120,8 +129,8 @@ class StreamSplitGateway:
     def __init__(self, enc_cfg, params, *, policy: SplitPolicy,
                  backend=None, capacity=64, window=100, head_init=None,
                  head_apply=None, refine_every=0, quantize_wire=True,
-                 sync_cfg=None, qos_reserve=None, overlap=True,
-                 shard_dispatch=None, clock=time.perf_counter,
+                 sync_cfg=None, qos_reserve=None, refine_lr=1e-2, seed=0,
+                 overlap=True, shard_dispatch=None, clock=time.perf_counter,
                  registry: MetricsRegistry | None = None, device="cuda"):
         if policy.L != enc_cfg.n_blocks:
             raise ValueError(
@@ -131,8 +140,6 @@ class StreamSplitGateway:
             raise NotImplementedError(
                 "shard_dispatch (per-device chains over a sharded fleet) is "
                 "not ported yet: it is the sharded slice of the port")
-        if refine_every:
-            raise NotImplementedError(REFINE_PENDING)
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self.cfg = enc_cfg
@@ -143,15 +150,20 @@ class StreamSplitGateway:
         if backend is None:
             backend = HostFleetBackend(
                 capacity=capacity, window=window, dim=enc_cfg.d_embed,
-                head_init=head_init, head_apply=head_apply)
+                head_init=head_init, head_apply=head_apply, lr=refine_lr,
+                seed=seed, device=self.device)
         elif backend.dim != enc_cfg.d_embed:
             raise ValueError(
                 f"backend dim={backend.dim} != encoder "
                 f"d_embed={enc_cfg.d_embed}")
+        if backend.can_refine and backend.device != self.device:
+            raise ValueError(f"backend refines on {backend.device}, the "
+                             f"gateway runs on {self.device}")
         self.backend = backend
         self.sync_cfg = sync_cfg or SyncCfg()
         self.qos_reserve = (backend.capacity // 8 if qos_reserve is None
                             else qos_reserve)
+        self.refine_every = refine_every
         self.overlap = overlap
         self._dispatch_shard_frames = np.zeros(1, np.int64)
         self._last_profile = None
@@ -176,6 +188,7 @@ class StreamSplitGateway:
         self._sync_bytes = R.counter("gateway_sync_bytes")
         self._sync_events = R.counter("gateway_sync_events")
         self._refine_rounds = R.counter("gateway_refine_rounds")
+        self._last_refine_loss = float("nan")
         self._last_tick_ms = 0.0
         self._routed = {r: R.counter("gateway_routed_frames", route=r)
                         for r in ("edge", "split", "server")}
@@ -393,12 +406,27 @@ class StreamSplitGateway:
         return buckets
 
     def _finish_tick(self, t0):
+        """Tick epilogue: counters, the periodic fleet refine round, the
+        tick latency and its gauges."""
         self._ticks.inc()
+        if (self.backend.can_refine and self.refine_every
+                and self._ticks.value % self.refine_every == 0
+                and self.backend.n_active):
+            loss, _, _ = self.backend.refine(self._refine_rounds.value)
+            self._refine_rounds.inc()
+            self._last_refine_loss = loss
         self._last_tick_ms = (self._clock() - t0) * 1e3
         self._g_last_tick_ms.set(self._last_tick_ms)
         self._stage_ewma["tick"].ewma(self._last_tick_ms)
         self._g_syncs.set(self._tick_syncs)
         self._g_d2h.set(self._tick_d2h)
+
+    def refine_due_next_tick(self) -> bool:
+        """True when the NEXT collected tick will run a fleet refine round
+        (``_finish_tick``'s condition, ``n_active`` included)."""
+        return bool(self.backend.can_refine and self.refine_every
+                    and (self._ticks.value + 1) % self.refine_every == 0
+                    and self.backend.n_active)
 
     # instrumented sync points: every wait for the device and every
     # embedding copy to the host in the dispatch plane goes through these
@@ -627,7 +655,7 @@ class StreamSplitGateway:
             sync_bytes=self._sync_bytes.value,
             sync_events=self._sync_events.value,
             refine_rounds=self._refine_rounds.value,
-            last_refine_loss=float("nan"),
+            last_refine_loss=self._last_refine_loss,
             routed={r: c.value for r, c in self._routed.items()},
             backend=self.backend.kind, shards=self.backend.shards,
             shard_frames=tuple(int(v) for v in self._shard_frames),

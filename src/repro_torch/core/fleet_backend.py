@@ -1,10 +1,11 @@
 """The fleet data plane behind one ``FleetBackend`` seam.
 
-Port of ``repro.core.fleet_backend``, serving half: ``HostFleetBackend``
-keeps the session rings in host numpy (``FleetBuffer``).  Fleet
-refinement (the reference's ``FleetRefiner`` and GMM memory) and the
-device-resident ``ShardedFleetBackend`` are later slices of the port;
-asking for them raises ``NotImplementedError``.
+Port of ``repro.core.fleet_backend``: ``HostFleetBackend`` keeps the
+session rings in host numpy (``FleetBuffer``) and, given a task head,
+refines it: each round copies one ``(N, W, d)`` snapshot to the device
+(counted in ``snapshot_h2d_bytes``), takes one ``FleetRefiner`` step and,
+with ``n_components``, one EM step of the GMM fleet memory.  The
+device-resident ``ShardedFleetBackend`` is a later slice of the port.
 
 Both the reference's backends and this one are thread-safe by contract:
 every state transition holds one re-entrant lock.
@@ -15,22 +16,24 @@ import abc
 import threading
 
 import numpy as np
+import torch
 
+from repro_torch.core import gmm
 from repro_torch.core.fleet_buffer import FleetBuffer
-
-REFINE_PENDING = ("fleet refinement (FleetRefiner, the hybrid loss and the "
-                  "GMM memory) is not ported yet: it is the refine slice "
-                  "of the PyTorch port")
+from repro_torch.core.fleet_refiner import FleetRefiner, fetch
+from repro_torch.core.hybrid import HybridCfg
+from repro_torch.kernels.ops import resolve_device
 
 
 class FleetBackend(abc.ABC):
     """Everything the gateway needs from the fleet data plane.
 
     ``capacity``/``window``/``dim`` describe the (N, W, d) session rings;
-    ``shards`` is 1 on the host backend.  ``snapshot_h2d_bytes`` and
-    ``ingest_h2d_bytes`` count host->device bytes moved for refinement
-    and ingest (0 here: the host backend neither refines nor ingests
-    on a device)."""
+    ``shards`` is 1 on the host backend.  ``snapshot_h2d_bytes`` counts
+    the fleet snapshot bytes copied host->device for refinement and
+    ``ingest_h2d_bytes`` the frame payload moved host->device at ingest
+    (0 on the host backend, whose rings stay on the host).  ``device``
+    is where refinement runs (``None`` for a backend without a head)."""
 
     capacity: int
     window: int
@@ -39,6 +42,7 @@ class FleetBackend(abc.ABC):
     kind: str = "abstract"
     snapshot_h2d_bytes: int = 0
     ingest_h2d_bytes: int = 0
+    device = None
 
     def __init__(self):
         self._lock = threading.RLock()
@@ -78,7 +82,13 @@ class FleetBackend(abc.ABC):
     # -- refinement ----------------------------------------------------------
     @property
     def can_refine(self) -> bool:
-        return False
+        return getattr(self, "refiner", None) is not None
+
+    @abc.abstractmethod
+    def refine(self, rnd):
+        """One fleet-wide hybrid-loss step with round ``rnd``'s draws
+        -> (mean active loss, mean active parts, per-session losses
+        (N,))."""
 
     # -- observability -------------------------------------------------------
     @abc.abstractmethod
@@ -92,18 +102,45 @@ class FleetBackend(abc.ABC):
 
 
 class HostFleetBackend(FleetBackend):
-    """Numpy ``FleetBuffer`` rings behind the backend seam."""
+    """Numpy ``FleetBuffer`` rings plus an optional ``FleetRefiner`` and
+    GMM fleet memory.
+
+    ``head_init(generator) -> params`` and ``head_apply(params, z)`` give
+    the task head (``FleetRefiner``); without them the backend serves but
+    never refines.  The head is drawn from a generator seeded with
+    ``seed``, the memory (``gmm.init_gmm``) from one seeded with
+    ``seed + 1``, and round r's SWD draw from ``(seed, r)`` unless
+    ``draws(r) -> (dirs, prior)`` is given.  A caller with its own head
+    returns it from ``head_init``; ``memory`` may be set to any
+    ``GMMState`` on ``device`` before a round.  ``device`` (default
+    ``"cuda"``, raising without a GPU) is where refinement runs."""
 
     kind = "host"
 
     def __init__(self, *, capacity=32, window=100, dim=128, head_init=None,
-                 head_apply=None, n_components=0):
+                 head_apply=None, cfg: HybridCfg = HybridCfg(), lr=1e-2,
+                 seed=0, n_components=0, memory_decay=0.05, draws=None,
+                 device="cuda"):
         super().__init__()
-        if head_init is not None or head_apply is not None or n_components:
-            raise NotImplementedError(REFINE_PENDING)
+        if n_components and head_init is None:
+            raise ValueError("fleet memory (n_components) updates ride the "
+                             "refine round: pass head_init/head_apply too")
         self.capacity, self.window, self.dim = capacity, window, dim
         self.shards = 1
         self.buffer = FleetBuffer(capacity=capacity, window=window, dim=dim)
+        self.refiner = None
+        self.memory = None
+        self.memory_decay = memory_decay
+        if head_init is not None:
+            self.device = resolve_device(device)
+            self.refiner = FleetRefiner(head_init, head_apply, cfg=cfg, lr=lr,
+                                        seed=seed, draws=draws,
+                                        device=self.device)
+        if n_components:
+            g = torch.Generator().manual_seed(seed + 1)
+            self.memory = gmm.init_gmm(g, n_components, dim).to(self.device)
+        self.snapshot_h2d_bytes = 0
+        self.ingest_h2d_bytes = 0
 
     @property
     def n_active(self):
@@ -144,3 +181,25 @@ class HostFleetBackend(FleetBackend):
     def snapshot(self):
         with self._lock:
             return self.buffer.snapshot()
+
+    def refine(self, rnd):
+        """One refine round: the snapshot's copy to the device, the
+        ``FleetRefiner`` step, the memory's EM step (the reference's
+        ``em_update`` with ``weights=mask`` and no reseeding), then ONE
+        wait for the round's loss, parts and per-session losses."""
+        if self.refiner is None:
+            raise RuntimeError("backend built without a head: no refiner")
+        with self._lock:
+            z, mask, labels = self.buffer.snapshot()
+            active = self.buffer.active
+            self.snapshot_h2d_bytes += (z.nbytes + mask.nbytes
+                                        + labels.nbytes + active.nbytes)
+            dz, dmask, dlabels, dactive = self.refiner.to_device(
+                z, mask, labels, active)
+            out = self.refiner.step(rnd, dz, dmask, dlabels, dactive)
+            if self.memory is not None:
+                self.memory = gmm.em_update(
+                    self.memory, dz.reshape(-1, self.dim),
+                    weights=dmask.reshape(-1), decay=self.memory_decay,
+                    reseed_frac=0.0)
+            return fetch(out)

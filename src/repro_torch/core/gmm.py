@@ -1,0 +1,151 @@
+"""Distributional Memory: streaming Gaussian Mixture Model (paper §4.1).
+
+Port of ``repro.core.gmm`` (single device; the reference's ``axis_name``
+psum of the sufficient statistics comes with the sharded backend).  A
+C-component diagonal GMM replaces the contrastive memory bank and is
+updated by stepwise online EM.  ``responsibilities`` and ``entropy`` go
+through the hand-written ``gmm_posterior`` kernel; the sufficient
+statistics ``rwᵀz`` and ``rwᵀz²`` are plain matrix products, as they are
+outside any Pallas kernel in the reference.  ``boundary_logits`` and
+``sample_virtual_negatives`` come with the edge slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import gmm_posterior
+
+
+class GMMState(NamedTuple):
+    s0: torch.Tensor      # (C,)    EMA count per component
+    s1: torch.Tensor      # (C, d)  EMA sum of r*z
+    s2: torch.Tensor      # (C, d)  EMA sum of r*z^2
+    step: torch.Tensor    # ()      update counter (int32)
+
+    @property
+    def n_components(self):
+        return self.s0.shape[0]
+
+    @property
+    def dim(self):
+        return self.s1.shape[1]
+
+    def to(self, device):
+        return GMMState(*(x.to(device) for x in self))
+
+
+def init_gmm(generator, n_components, dim, *, var0=0.05):
+    """Unit-norm random means, unit counts, variance ``var0``; drawn on
+    the generator's device."""
+    mu = torch.randn(n_components, dim, generator=generator,
+                     device=generator.device)
+    mu = mu / torch.linalg.vector_norm(mu, dim=-1, keepdim=True)
+    return GMMState(s0=torch.ones(n_components, device=mu.device), s1=mu,
+                    s2=mu.square() + var0,
+                    step=torch.zeros((), dtype=torch.int32, device=mu.device))
+
+
+def params_of(state: GMMState, *, var_floor=1e-4):
+    """-> (pi (C,), mu (C, d), var (C, d))."""
+    s0 = state.s0.clamp_min(1e-8)
+    pi = s0 / s0.sum()
+    mu = state.s1 / s0[:, None]
+    var = (state.s2 / s0[:, None] - mu.square()).clamp_min(var_floor)
+    return pi, mu, var
+
+
+def size_bytes(state: GMMState, *, dtype_bytes=2):
+    """Wire/storage size of the distributional memory (Eq. 8)."""
+    C, d = state.n_components, state.dim
+    return 2 * C * d * dtype_bytes + C * dtype_bytes
+
+
+def log_joint(state: GMMState, z):
+    """log pi_c + log N(z; mu_c, diag var_c) -> (B, C), plain PyTorch."""
+    pi, mu, var = params_of(state)
+    return gmm_posterior.log_joint(z.float(), mu, var, torch.log(pi))
+
+
+def posterior(state: GMMState, z):
+    """-> (responsibilities (B, C), entropy (B,)) from the kernel."""
+    pi, mu, var = params_of(state)
+    return gmm_posterior.gmm_posterior(z.float().contiguous(),
+                                       mu.contiguous(), var.contiguous(),
+                                       torch.log(pi))
+
+
+def responsibilities(state: GMMState, z):
+    """Posterior p(c | z) via Bayes' rule -> (B, C)."""
+    return posterior(state, z)[0]
+
+
+def entropy(state: GMMState, z):
+    """U_t = H(p(c|z_t)) in nats (Eq. 11) -> (B,)."""
+    return posterior(state, z)[1]
+
+
+def normalized_entropy(state: GMMState, z):
+    """U_t / log C in [0, 1] — the RL state feature."""
+    return entropy(state, z) / math.log(state.n_components)
+
+
+def em_update(state: GMMState, z, *, decay=0.05, reseed_frac=0.2,
+              weights=None) -> GMMState:
+    """One streaming-EM step on a batch of embeddings z: (B, d) -> the new
+    state (the old one is left as it was).
+
+    Stepwise EM: S <- (1-λ) S + λ * batch sufficient statistics, the
+    batch statistics scaled to ``sum(s0) / n`` so the decay does not
+    depend on the batch size.  ``weights`` (B,) down-weights frames (0
+    drops one): the fleet backend feeds the gap-masked snapshot this way.
+
+    Components whose mixing weight falls below ``reseed_frac / C`` are
+    re-seeded at the batch's least-explained frames (lowest max
+    responsibility; zero-weight frames sort strictly last)."""
+    z = z.float()
+    r = responsibilities(state, z)                        # (B, C)
+    if weights is None:
+        rw = r
+        n = torch.tensor(float(z.shape[0]), device=z.device)
+    else:
+        w = weights.float()
+        rw = r * w[:, None]
+        n = w.sum()
+    b0 = rw.sum(0)
+    b1 = rw.T @ z
+    b2 = rw.T @ z.square()
+    scale = state.s0.sum() / n.clamp_min(1.0)
+    lam = decay
+    s0 = (1 - lam) * state.s0 + lam * b0 * scale
+    s1 = (1 - lam) * state.s1 + lam * b1 * scale
+    s2 = (1 - lam) * state.s2 + lam * b2 * scale
+
+    if reseed_frac:
+        C = s0.shape[0]
+        pi = s0 / s0.sum().clamp_min(1e-8)
+        dead = pi < (reseed_frac / C)
+        novelty = r.amax(-1)
+        if weights is not None:
+            novelty = novelty + 2.0 * (1.0 - w.clamp(max=1.0))
+        order = torch.argsort(novelty, stable=True)
+        rank = torch.cumsum(dead.to(torch.int32), 0) - 1
+        seed_z = z[order[rank.clamp(0, z.shape[0] - 1)]]  # (C, d)
+        s0_new = s0.mean().expand_as(s0)
+        mean_var = (s2 / s0.clamp_min(1e-8)[:, None]
+                    - (s1 / s0.clamp_min(1e-8)[:, None]).square()
+                    ).clamp_min(1e-4).mean()
+        s1_new = seed_z * s0_new[:, None]
+        s2_new = (seed_z.square() + mean_var) * s0_new[:, None]
+        s0 = torch.where(dead, s0_new, s0)
+        s1 = torch.where(dead[:, None], s1_new, s1)
+        s2 = torch.where(dead[:, None], s2_new, s2)
+
+    return GMMState(s0=s0, s1=s1, s2=s2, step=state.step + 1)
+
+
+def assign(state: GMMState, z):
+    """Hard component assignment c* -> (B,) int32."""
+    return log_joint(state, z).argmax(-1).to(torch.int32)

@@ -1,0 +1,71 @@
+"""The Hybrid Loss (paper Eq. 13):
+
+    L_server = L_task + λ₁·L_SW(p_θ, U) + λ₂·L_Lap(G)
+
+Port of ``repro.core.hybrid``.  L_task is InfoNCE over the buffer in the
+self-supervised setting, or CE when sparse labels are available.  Also
+the ablation variants of Table 5 (MSE-only, KL, task+SW, task+Lap).
+``key`` is a ``torch.Generator`` or a ``(dirs, prior)`` pair
+(``core.swd.draw``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core.infonce import batch_infonce
+from repro_torch.core.laplacian import laplacian_loss
+from repro_torch.core.swd import swd_loss
+
+
+@dataclass(frozen=True)
+class HybridCfg:
+    lam_sw: float = 0.1      # λ₁ (paper grid search)
+    lam_lap: float = 0.01    # λ₂
+    n_dirs: int = 50         # SWD projections M
+    knn: int = 5             # temporal graph neighbours
+    tau: float = 0.1
+
+
+def task_loss(z, *, labels=None, logits=None, z_pos=None, tau=0.1):
+    if logits is not None and labels is not None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(1, labels[:, None].long()).mean()
+    if z_pos is not None:
+        return batch_infonce(z, z_pos, tau=tau)
+    return torch.zeros((), device=z.device)
+
+
+def hybrid_loss(key, z_seq, cfg: HybridCfg = HybridCfg(), *, mask=None,
+                labels=None, logits=None, z_pos=None, variant="hybrid"):
+    """z_seq: (T, d) or (B, T, d) temporally ordered embeddings.
+
+    variant ∈ {hybrid, task_sw, task_lap, mse, kl} (Table 5 ablation).
+    -> (loss, parts)."""
+    z_flat = z_seq.reshape(-1, z_seq.shape[-1])
+    parts = {"task": task_loss(z_flat, labels=labels, logits=logits,
+                               z_pos=z_pos, tau=cfg.tau)}
+    if variant in ("hybrid", "task_sw"):
+        parts["sw"] = swd_loss(key, z_flat, n_dirs=cfg.n_dirs)
+    if variant in ("hybrid", "task_lap"):
+        parts["lap"] = laplacian_loss(z_seq, k=cfg.knn, mask=mask)
+    if variant == "mse":
+        # naive consistency: pull adjacent frames together with plain MSE
+        parts["mse"] = (z_seq[..., 1:, :] - z_seq[..., :-1, :]).square() \
+            .mean()
+    if variant == "kl":
+        # KL of the batch feature distribution to N(0, I) (moment-matched)
+        mu = z_flat.mean(0)
+        var = z_flat.var(0, unbiased=False) + 1e-6
+        parts["kl"] = 0.5 * (mu ** 2 + var - torch.log(var) - 1.0).mean()
+
+    loss = parts["task"]
+    if "sw" in parts:
+        loss = loss + cfg.lam_sw * parts["sw"]
+    if "lap" in parts:
+        loss = loss + cfg.lam_lap * parts["lap"]
+    for extra in ("mse", "kl"):
+        if extra in parts:
+            loss = loss + parts[extra]
+    return loss, parts

@@ -20,6 +20,8 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # -fmad=false: no FMA contraction, the wire kernel's bitwise contract
@@ -29,11 +31,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_S = ctypes.c_char_p
 # C signature of every entry point, by source file
 SIGNATURES = {
     "wire_roundtrip.cu": {
         "wire_roundtrip_f32": ([_P, _P, _I, _I, _P], _I),
-        "wire_roundtrip_error_string": ([_I], ctypes.c_char_p),
+        "wire_roundtrip_error_string": ([_I], _S),
+    },
+    "swd.cu": {
+        "swd_sessions_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "swd_dirs_per_block": ([], _I),
+        "swd_error_string": ([_I], _S),
+    },
+    "laplacian_energy.cu": {
+        "laplacian_energy_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "laplacian_energy_error_string": ([_I], _S),
+    },
+    "gmm_posterior.cu": {
+        "gmm_posterior_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+                              _I),
+        "gmm_posterior_error_string": ([_I], _S),
     },
 }
 SOURCES = tuple(SIGNATURES)
@@ -87,6 +105,38 @@ def build_all() -> list[Path]:
     """Build every kernel source, one ``nvcc`` per source, all at once."""
     with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
         return list(pool.map(build, SOURCES))
+
+
+def check_inputs(name: str, *tensors) -> None:
+    """The checks every refine kernel's wrapper makes before it picks a
+    path: float32, contiguous, on one CPU or CUDA device, and not
+    requiring a gradient (the kernels have no backward)."""
+    dev = tensors[0].device
+    for x in tensors:
+        if x.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: no kernel for device {x.device}")
+        if x.device != dev:
+            raise ValueError(f"{name}: inputs on {dev} and {x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} takes float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+        if x.requires_grad:
+            raise ValueError(f"{name} has no backward: pass tensors that "
+                             "do not require a gradient")
+
+
+def raise_on_error(lib, prefix: str, err: int) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if err:
+        msg = getattr(lib, f"{prefix}_error_string")(err).decode()
+        raise RuntimeError(f"{prefix} launch failed: {msg}")
+
+
+def stream_of(x) -> int:
+    """PyTorch's current stream on ``x``'s device, as the launchers take
+    it."""
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -17,13 +17,22 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.gmm_posterior import gmm_posterior, gmm_posterior_ref
 from repro_torch.kernels.int8_quant import wire_roundtrip, wire_roundtrip_ref
+from repro_torch.kernels.laplacian_energy import (laplacian_energy,
+                                                  laplacian_energy_ref)
+from repro_torch.kernels.swd import swd_sessions, swd_sessions_ref
 
-__all__ = ["KERNELS", "resolve_device", "set_precision", "wire_roundtrip",
-           "wire_roundtrip_ref"]
+__all__ = ["KERNELS", "resolve_device", "set_precision",
+           "wire_roundtrip", "wire_roundtrip_ref", "swd_sessions",
+           "swd_sessions_ref", "laplacian_energy", "laplacian_energy_ref",
+           "gmm_posterior", "gmm_posterior_ref"]
 
 # every hand-written kernel's public wrapper (each carries ``launches``)
-KERNELS = {"wire_roundtrip": wire_roundtrip}
+KERNELS = {"wire_roundtrip": wire_roundtrip,
+           "swd_sessions": swd_sessions,
+           "laplacian_energy": laplacian_energy,
+           "gmm_posterior": gmm_posterior}
 
 
 def set_precision() -> None:

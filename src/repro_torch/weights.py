@@ -1,16 +1,20 @@
-"""Encoder weights across the two packages.
+"""Weights and states across the two packages.
 
 The reference keeps convolution weights as ``(K, Cin, Cout)`` for its
 ``NWC``/``WIO`` convolutions; ``F.conv1d`` wants ``(Cout, Cin, K)``.
 GroupNorm ``scale``/``bias``, the head ``(Cin, d)`` and the optional
 ``proj`` entries carry across as they are.  The port's parity tests
 convert the reference's weights with ``params_from_jax`` rather than
-drawing new ones, so both packages run the same model.
+drawing new ones, so both packages run the same model.  Task heads
+(``head_from_jax``) and GMM memory states (``gmm_from_jax``) cross the
+same way, so a refine round starts from the reference's own state.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core.gmm import GMMState
 
 _CONVS = ("conv1", "conv2", "proj")
 
@@ -73,3 +77,38 @@ def to_device(params, device) -> dict:
     if isinstance(params, list):
         return [to_device(v, device) for v in params]
     return params.to(device)
+
+
+def head_from_jax(tree):
+    """A task head's params (any nested dict/list of arrays, as the
+    reference's ``head_init`` returns them) -> the same tree of float32
+    CPU tensors."""
+    if isinstance(tree, dict):
+        return {k: head_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(head_from_jax(v) for v in tree)
+    return _vec_from(tree)
+
+
+def head_to_jax(params):
+    """Inverse of ``head_from_jax``: a tree of numpy arrays."""
+    if isinstance(params, dict):
+        return {k: head_to_jax(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(head_to_jax(v) for v in params)
+    return params.detach().cpu().numpy().copy()
+
+
+def gmm_from_jax(state):
+    """The reference's ``GMMState`` (or any ``(s0, s1, s2, step)``) -> the
+    port's ``GMMState`` on the CPU."""
+    s0, s1, s2, step = state
+    return GMMState(_vec_from(s0), _vec_from(s1), _vec_from(s2),
+                    torch.tensor(int(np.asarray(step)), dtype=torch.int32))
+
+
+def gmm_to_jax(state):
+    """The port's ``GMMState`` -> ``(s0, s1, s2, step)`` numpy arrays, the
+    field order of the reference's ``GMMState``."""
+    s0, s1, s2, step = (x.detach().cpu().numpy().copy() for x in state)
+    return s0, s1, s2, step.astype(np.int32)

@@ -70,6 +70,15 @@ def test_host_backend_serves_without_refine():
     assert be.shards_of([0, 3]).tolist() == [0, 0]
 
 
+def test_host_backend_memory_needs_a_head():
+    with pytest.raises(ValueError, match="head_init"):
+        HostFleetBackend(capacity=4, window=3, dim=2, n_components=4)
+    be = HostFleetBackend(capacity=4, window=3, dim=2)
+    assert be.device is None and be.memory is None
+    with pytest.raises(RuntimeError, match="no refiner"):
+        be.refine(0)
+
+
 def test_helpers():
     assert [pad_pow2(n) for n in (0, 1, 2, 3, 9, 32, 33)] == \
         [1, 1, 2, 4, 16, 32, 64]

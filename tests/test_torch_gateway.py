@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.api import StreamSplitGateway as JaxGateway  # noqa: E402
+from repro.core import swd as jswd  # noqa: E402
 from repro.models import audio_encoder as jenc  # noqa: E402
 from repro_torch.api import (AdmissionError, FixedKPolicy,  # noqa: E402
                              FrameRequest, HostFleetBackend, QoSClass,
@@ -26,7 +27,7 @@ from repro_torch.core.fleet_buffer import FleetFullError, pad_pow2  # noqa: E402
 from repro_torch.core.splitter import SplitEngine  # noqa: E402
 from repro_torch.models import audio_encoder as enc  # noqa: E402
 from repro_torch.obs import validate_prometheus  # noqa: E402
-from repro_torch.weights import params_from_jax  # noqa: E402
+from repro_torch.weights import head_from_jax, params_from_jax  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -243,15 +244,107 @@ def test_gateway_defaults_to_cuda_and_refuses_without_it(params):
 def test_unported_options_raise(params):
     _, tp = params
     with pytest.raises(NotImplementedError):
-        _gw(tp, refine_every=2)
-    with pytest.raises(NotImplementedError):
         _gw(tp, shard_dispatch=True)
     with pytest.raises(NotImplementedError):
-        _gw(tp, head_init=lambda key: {})
-    with pytest.raises(NotImplementedError):
-        HostFleetBackend(capacity=4, n_components=4)
-    with pytest.raises(NotImplementedError):
         make_policy("rl", L)
+
+
+N_CLASSES = 4
+
+
+def _jhead_init(key):
+    return {"w": 0.1 * jax.random.normal(key, (CFG.d_embed, N_CLASSES))}
+
+
+def _head_apply(p, z):
+    return z @ p["w"]
+
+
+def _head_of(seed):
+    """The reference's head for ``seed``, as the port's ``head_init``."""
+    p = head_from_jax(jax.tree.map(np.asarray,
+                                   _jhead_init(jax.random.PRNGKey(seed))))
+    return lambda generator: p
+
+
+def _gateway_draws(seed, window):
+    """Round r's SWD draw of the reference gateway:
+    split(fold_in(PRNGKey(seed), r)) -> (dirs, prior)."""
+    def draws(r):
+        kd, kp = jax.random.split(
+            jax.random.fold_in(jax.random.PRNGKey(seed), r))
+        return (np.array(jswd.random_directions(kd, 50, CFG.d_embed)),
+                np.array(jswd.sphere_prior_samples(kp, window, CFG.d_embed)))
+    return draws
+
+
+def test_refine_cadence_and_due_next_tick(params):
+    _, tp = params
+    gw = _gw(tp, head_init=_head_of(0), head_apply=_head_apply,
+             refine_every=3)
+    assert gw.backend.can_refine and gw.backend.device.type == "cpu"
+    assert not gw.refine_due_next_tick()             # no session yet
+    gw.tick()
+    assert gw.stats().refine_rounds == 0             # an empty fleet
+    sids = [gw.open_session().sid for _ in range(N)]
+    rng = np.random.default_rng(2)
+    snapshot_bytes = sum(a.nbytes for a in gw.backend.snapshot()) \
+        + gw.backend.active.nbytes
+    due, rounds = [], []
+    for t in range(6):
+        due.append(gw.refine_due_next_tick())
+        _serve(gw, sids, [_mels(rng, N)])
+        s = gw.stats()
+        rounds.append(s.refine_rounds)
+        assert s.device_syncs_per_tick == 1 and s.d2h_copies_per_tick == 1
+    # ticks 2..7 run; rounds at ticks 3 and 6
+    assert due == [False, True, False, False, True, False]
+    assert rounds == [0, 1, 1, 1, 2, 2]
+    assert np.isfinite(s.last_refine_loss)
+    assert s.snapshot_h2d_bytes == 2 * snapshot_bytes
+    no_refine = _gw(tp)
+    assert not no_refine.backend.can_refine
+    assert np.isnan(no_refine.stats().last_refine_loss)
+
+
+def test_refine_matches_reference_gateway(params):
+    """Same frames, head and draws: the port's refine rounds and their
+    loss match the reference gateway's.  The rings differ by the
+    embeddings' atol 1e-4 (module docstring), which moves the loss by
+    far less than rtol 1e-4."""
+    jp, tp = params
+    W = 8
+    jgw = JaxGateway(JCFG, jp, policy=SpreadPolicy(L), capacity=N, window=W,
+                     qos_reserve=0, head_init=_jhead_init,
+                     head_apply=_head_apply, refine_every=2, seed=5)
+    gw = _gw(tp, refine_every=2, backend=HostFleetBackend(
+        capacity=N, window=W, dim=CFG.d_embed, head_init=_head_of(5),
+        head_apply=_head_apply, seed=5, draws=_gateway_draws(5, W),
+        device="cpu"))
+    j_sids = [jgw.open_session().sid for _ in range(N)]
+    sids = [gw.open_session().sid for _ in range(N)]
+    rng = np.random.default_rng(21)
+    ticks = [_mels(rng, N) for _ in range(5)]
+    _serve(jgw, j_sids, ticks)
+    _serve(gw, sids, ticks)
+    js, s = jgw.stats(), gw.stats()
+    assert s.refine_rounds == js.refine_rounds == 2
+    np.testing.assert_allclose(s.last_refine_loss, js.last_refine_loss,
+                               rtol=1e-4)
+    assert s.snapshot_h2d_bytes == js.snapshot_h2d_bytes
+    np.testing.assert_allclose(gw.backend.refiner.state.params["w"].numpy(),
+                               np.asarray(jgw.backend.refiner.state.params[
+                                   "w"]), rtol=1e-4, atol=1e-6)
+
+
+def test_backend_on_another_device_raises(params):
+    _, tp = params
+    be = HostFleetBackend(capacity=4, window=8, dim=CFG.d_embed,
+                          head_init=_head_of(0), head_apply=_head_apply,
+                          device="cpu")
+    be.device = torch.device("cuda", 0)   # as a backend built on a GPU is
+    with pytest.raises(ValueError, match="refines on"):
+        _gw(tp, backend=be)
 
 
 def test_session_lifecycle_and_admission(params):
