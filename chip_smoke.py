@@ -4,8 +4,9 @@
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 It builds every hand-written CUDA kernel from ``src/repro_torch`` and
-then drives the port's two paths at the paper's full encoder width: the
-serving tick, and the tick with a fleet refine round after it.
+then drives the port's three paths at the paper's full encoder width: the
+serving tick, the tick with a fleet refine round after it, and the edge
+learner's training step.
 
 Phase 1 holds each kernel against its plain PyTorch version on the card,
 bitwise, at every shape the serving path gives it (plus constant and
@@ -39,6 +40,29 @@ kernel once; the first round is compared with the port on the CPU (same
 snapshot, draws, head and memory; rtol 1e-4).  It prints the refine
 round's host p50/p95, the tick p50 against phase 2's, a profiled round,
 and each refine kernel's time at the refine shape.
+
+Phase 5 holds the training path's kernels against their plain PyTorch
+versions on the card: ``infonce_vneg`` forward and backward at the
+path's (8, 264, 128) and at (1, 1, 128), (3, 100, 64), (5, 77, 128);
+``swd_rank`` forward (loss, projections, ranks) and backward at W in
+{104, 16, 128} and M in {32, 50}, with 96 (or W/2) identical rows;
+``laplacian_energy`` forward and backward at (1, 104, 128) k = 3, k >= T,
+T = 1 and an all-masked row.  Forwards within phase 3's tolerances
+(InfoNCE rtol 1e-5, SWD loss rtol 1e-4, ranks exact against
+``torch.sort(stable=True)`` of the kernel's projections), gradients
+within 1e-5 of each gradient's max |g|; the autograd entries must give
+their backward kernel's bits, and two launches on one input the same
+bits.
+
+Phase 6 runs ``train_representation("streamsplit")`` at full width
+(``AudioEncCfg()``, batch 8, 256 virtual negatives, 98 mel frames) for 60
+steps, so steps 50-59 are past cold start, then evaluates on 240 frames.
+The counts are set to 0 just before and read just after; every step must
+launch each training kernel once.  Step 0's loss, every gradient and the
+GMM after ``em_update`` are compared with the port on the CPU (same
+weights, data and draws; rtol 1e-4 of each tensor's max |x|).  It prints
+cold and warm step times, a profiled step, the final loss, probe accuracy
+and collapse, and each training kernel's time at the path's shape.
 
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
@@ -684,6 +708,352 @@ def refine_kernel_times(dev, ops):
     return out
 
 
+# --- the training path -------------------------------------------------------
+
+# the edge learner's objective: virtual negatives + batch, SW directions,
+# Laplacian window, buffer frames; tolerances of phase 5 (forwards as in
+# phase 3; gradients relative to each gradient's max |g|)
+TRAIN_BATCH, N_SYN, TRAIN_DIRS, TRAIN_KNN, BUFFER = 8, 256, 32, 3, 96
+TRAIN_STEPS, COLD_STEPS, EVAL_N = 60, 50, 240
+INFONCE_RTOL, TRAIN_SWD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-5
+TRAIN_KERNELS = ("infonce_vneg_fwd", "infonce_vneg_bwd", "swd_rank_fwd",
+                 "swd_rank_bwd", "laplacian_energy", "laplacian_energy_bwd",
+                 "gmm_posterior")
+
+
+def grad_err(got, want, what):
+    """max |got - want| against GRAD_ATOL x max |want| -> max |err|."""
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err <= GRAD_ATOL * scale, f"{what}: max |err| {err} > "
+          f"{GRAD_ATOL} x max |g| {scale}")
+    return err
+
+
+def same_bits(fn, args, what):
+    """Two launches on one input -> the first's outputs; fails unless the
+    two are bitwise equal."""
+    a, b = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        check(torch.equal(x, y), f"{what} not bitwise from run to run")
+    return a
+
+
+def infonce_inputs(g, dev, B, N, d):
+    z, zp = unit_rows(g, (B, d), dev), unit_rows(g, (B, d), dev)
+    zn = unit_rows(g, (B, N, d), dev)
+    return z, zp, zn, torch.randn(B, device=dev, generator=g)
+
+
+def swd_train_inputs(g, dev, W, d, M):
+    """x (W, d) on the sphere whose first rows repeat one row (96 of them
+    when W > 96, as the edge trainer's cold buffer), M directions and the
+    sorted prior quantiles."""
+    x = unit_rows(g, (W, d), dev)
+    dup = BUFFER if W > BUFFER else W // 2
+    x[:dup] = x[0]
+    dirs = unit_rows(g, (M, d), dev)
+    prior_q = torch.sort(unit_rows(g, (W, d), dev) @ dirs.T,
+                         dim=0).values.contiguous()
+    return x.contiguous(), dirs, prior_q
+
+
+def phase5(dev, ops):
+    """The training path's kernels against their plain versions on the
+    card, forward values and gradients -> {name: max |err|}."""
+    from repro_torch.kernels.swd import rank_of
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = dict.fromkeys(("infonce_vneg_fwd", "infonce_vneg_bwd",
+                           "swd_rank_fwd", "swd_rank_bwd",
+                           "laplacian_energy_bwd"), 0.0)
+    for B, N, d in ((TRAIN_BATCH, N_SYN + TRAIN_BATCH, 128), (1, 1, 128),
+                    (3, 100, 64), (5, 77, 128)):
+        what = f"B={B} N={N} d={d}"
+        z, zp, zn, cot = infonce_inputs(g, dev, B, N, d)
+        loss, lse = same_bits(lambda *a: ops.infonce_vneg_fwd(*a, 0.1),
+                              (z, zp, zn), f"infonce_vneg_fwd at {what}")
+        p_loss, p_lse = ops.infonce_vneg_fwd_ref(z, zp, zn, 0.1)
+        for a, b in ((loss, p_loss), (lse, p_lse)):
+            err = (a - b).abs().max().item()
+            worst["infonce_vneg_fwd"] = max(worst["infonce_vneg_fwd"], err)
+            check(torch.allclose(a, b, rtol=INFONCE_RTOL, atol=0.0),
+                  f"infonce_vneg_fwd != plain at {what}: max |err| {err}")
+        got = same_bits(lambda *a: ops.infonce_vneg_bwd(*a, 0.1),
+                        (z, zp, zn, lse, cot), f"infonce_vneg_bwd at {what}")
+        want = ops.infonce_vneg_bwd_ref(z, zp, zn, p_lse, cot, 0.1)
+        for a, b, n in zip(got, want, ("dz", "dz_pos", "dz_neg")):
+            worst["infonce_vneg_bwd"] = max(worst["infonce_vneg_bwd"], grad_err(
+                a, b, f"infonce_vneg_bwd {n} at {what}"))
+        # the autograd entry on the card: the kernels, wired as the plain
+        # version's autograd
+        leaves = [x.clone().requires_grad_() for x in (z, zp, zn)]
+        with torch.enable_grad():
+            a = torch.autograd.grad(ops.infonce_vneg(*leaves, 0.1), leaves,
+                                    cot)
+            b = torch.autograd.grad(ops.infonce_vneg_ref(*leaves, 0.1),
+                                    leaves, cot)
+        for x, y, n in zip(a, b, ("dz", "dz_pos", "dz_neg")):
+            grad_err(x, y, f"infonce_vneg autograd {n} at {what}")
+    for W, M in ((BUFFER + TRAIN_BATCH, TRAIN_DIRS), (BUFFER + TRAIN_BATCH, 50),
+                 (16, TRAIN_DIRS), (16, 50), (128, TRAIN_DIRS), (128, 50)):
+        what = f"W={W} M={M}"
+        x, dirs, pq = swd_train_inputs(g, dev, W, 128, M)
+        loss, proj, rank = same_bits(ops.swd_rank_fwd, (x, dirs, pq),
+                                     f"swd_rank_fwd at {what}")
+        p_loss, p_proj, _ = ops.swd_rank_fwd_ref(x, dirs, pq)
+        err = max((loss - p_loss).abs().item(),
+                  (proj - p_proj).abs().max().item())
+        worst["swd_rank_fwd"] = max(worst["swd_rank_fwd"], err)
+        check(torch.allclose(loss, p_loss, rtol=TRAIN_SWD_RTOL, atol=0.0)
+              and torch.allclose(proj, p_proj, rtol=0.0,
+                                 atol=GRAD_ATOL * p_proj.abs().max().item()),
+              f"swd_rank_fwd != plain at {what}: max |err| {err}")
+        check(torch.equal(rank, rank_of(torch.sort(
+            proj, dim=0, stable=True).indices)),
+              f"swd_rank_fwd ranks != torch.sort(stable=True) at {what}")
+        cot = torch.rand((), device=dev, generator=g) + 0.5
+        dx, = same_bits(lambda *a: (ops.swd_rank_bwd(*a),),
+                        (cot, proj, rank, pq, dirs), f"swd_rank_bwd at {what}")
+        worst["swd_rank_bwd"] = max(worst["swd_rank_bwd"], grad_err(
+            dx, ops.swd_rank_bwd_ref(cot, proj, rank, pq, dirs),
+            f"swd_rank_bwd at {what}"))
+        xl = x.clone().requires_grad_()
+        with torch.enable_grad():
+            a, = torch.autograd.grad(ops.swd_single(xl, dirs, pq), xl, cot)
+        check(torch.equal(a, dx), f"swd_single autograd != swd_rank_bwd at "
+              f"{what}")
+    for B, T, d, k, masked in ((1, BUFFER + TRAIN_BATCH, 128, TRAIN_KNN, False),
+                               (2, 16, 128, 20, False),
+                               (4, 1, 128, TRAIN_KNN, False),
+                               (3, 37, 64, TRAIN_KNN, True)):
+        what = f"B={B} T={T} d={d} k={k}"
+        z, mask, _, _ = refine_inputs(g, dev, B, T, d, 1)
+        if masked:
+            mask[1] = 0.0
+        cot = torch.randn(B, device=dev, generator=g)
+        hold("laplacian_energy", lambda z, m: ops.laplacian_energy(z, m, k),
+             lambda z, m: ops.laplacian_energy_ref(z, m, k), (z, mask),
+             [(LAP_RTOL, 0.0), (0.0, 0.0)], what)
+        dz, = same_bits(lambda *a: (ops.laplacian_energy_bwd(*a, k),),
+                        (z, mask, cot), f"laplacian_energy_bwd at {what}")
+        want = ops.laplacian_energy_bwd_ref(z, mask, cot, k)
+        err = (dz - want).abs().max().item()
+        check(err <= GRAD_ATOL * max(want.abs().max().item(), 1e-30)
+              or err == 0.0, f"laplacian_energy_bwd at {what}: max |err| "
+              f"{err}")
+        worst["laplacian_energy_bwd"] = max(worst["laplacian_energy_bwd"], err)
+        if masked:
+            check(bool((dz[1] == 0).all()), "laplacian_energy_bwd: masked "
+                  "row has a gradient")
+        zl = z.clone().requires_grad_()
+        with torch.enable_grad():
+            a, = torch.autograd.grad(
+                ops.laplacian_energy_diff(zl, mask, k)[0], zl, cot)
+        check(torch.equal(a, dz), f"laplacian_energy_diff autograd != "
+              f"laplacian_energy_bwd at {what}")
+    torch.cuda.synchronize()
+    print(f"phase 5: infonce_vneg fwd (rtol {INFONCE_RTOL}) and bwd, "
+          f"swd_rank fwd (loss rtol {TRAIN_SWD_RTOL}, ranks exact) and bwd, "
+          f"laplacian_energy fwd (rtol {LAP_RTOL}) and bwd == plain versions "
+          f"(gradients within {GRAD_ATOL} x max |g|), autograd entries == "
+          f"their backward kernels, bitwise from run to run; max |err| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def phase6(cfg, dev, ops):
+    """The edge learner's training path at full width: TRAIN_STEPS steps of
+    ``train_representation("streamsplit")`` with the counts set to 0 just
+    before and read just after, step 0 against the port on the CPU, and
+    one profiled step -> (launch counts of the run, step ms)."""
+    from repro_torch.optim.sgd import tree_leaves
+    from repro_torch.runtime.edge_train import (EdgeTrainer,
+                                                train_representation)
+    kw = dict(enc_cfg=cfg, batch=TRAIN_BATCH, n_syn=N_SYN, seed=0)
+    ends, per_step, first, trainer = [], [], {}, []
+    prev = {}
+
+    def on_step(i, loss, grads, tr):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        now = {n: ops.KERNELS[n].launches for n in TRAIN_KERNELS}
+        per_step.append({n: now[n] - prev.get(n, 0) for n in TRAIN_KERNELS})
+        prev.update(now)
+        if i == 0:
+            first.update(loss=loss.item(), grads=[g.cpu() for g in grads],
+                         gmm=tr.gmm.to("cpu"))
+            trainer.append(tr)
+
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    start = time.perf_counter()
+    res = train_representation("streamsplit", steps=TRAIN_STEPS,
+                               eval_n=EVAL_N, device="cuda", on_step=on_step,
+                               **kw)
+    launches = {name: w.launches for name, w in ops.KERNELS.items()}
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - start
+
+    check(res.losses.shape == (TRAIN_STEPS,) and np.isfinite(res.losses).all(),
+          f"losses not finite: {res.losses}")
+    check(res.eval_z.shape == (EVAL_N, cfg.d_embed)
+          and np.isfinite(res.eval_z).all(), "eval embeddings")
+    norm_err = float(np.abs(np.linalg.norm(res.eval_z, axis=1) - 1).max())
+    check(norm_err <= 1e-5, f"eval | ||z|| - 1 | = {norm_err}")
+    want = {n: 1 for n in TRAIN_KERNELS}
+    for i, c in enumerate(per_step):
+        check(c == want, f"step {i}: launches {c}, want {want}")
+    for n in TRAIN_KERNELS:
+        check(launches[n] == TRAIN_STEPS, f"{n} launched {launches[n]} "
+              f"times in {TRAIN_STEPS} steps")
+    check(launches["wire_roundtrip"] == 0 and launches["swd_sessions"] == 0,
+          f"serving/refine kernels on the training path: {launches}")
+    step_ms = np.diff(np.array(ends)) * 1e3          # steps 1 .. 59
+    cold_ms, warm_ms = step_ms[:COLD_STEPS - 1], step_ms[COLD_STEPS - 1:]
+    print(f"phase 6: {TRAIN_STEPS} steps of the streamsplit edge learner at "
+          f"full width (batch {TRAIN_BATCH}, {N_SYN} virtual negatives, "
+          f"{min(cfg.frames, 98)} mel frames: the stream's 98 cut at "
+          f"frames={cfg.frames}), launches per step {want} on "
+          f"every step, run total {launches}")
+    print(f"step ms: cold (steps 1-{COLD_STEPS - 1}) p50 "
+          f"{np.percentile(cold_ms, 50):.3f} p95 "
+          f"{np.percentile(cold_ms, 95):.3f}; warm (steps {COLD_STEPS}-"
+          f"{TRAIN_STEPS - 1}) p50 {np.percentile(warm_ms, 50):.3f} p95 "
+          f"{np.percentile(warm_ms, 95):.3f}; steps/s "
+          f"{1e3 / step_ms.mean():.2f}; step 0 with set-up "
+          f"{(ends[0] - start) * 1e3:.1f} ms; whole run with eval "
+          f"{total_s:.2f} s")
+    print(f"loss step 0 {res.losses[0]:.6f}, step {COLD_STEPS - 1} "
+          f"{res.losses[COLD_STEPS - 1]:.6f}, final {res.losses[-1]:.6f}; "
+          f"eval set of {EVAL_N}: linear-probe accuracy {res.probe_acc:.4f}, "
+          f"collapse {res.collapse:.4f}")
+
+    # --- step 0 against the port on the CPU (outside the counted run) ---
+    cpu = EdgeTrainer("streamsplit", device="cpu", **kw)
+    c_loss, c_grads = cpu.step()
+    errs = {"loss": abs(first["loss"] - float(c_loss)) / abs(float(c_loss))}
+    names = [f"grad[{i}]{tuple(g.shape)}" for i, g in enumerate(c_grads)]
+    grad_errs = [rel_err(a, b) for a, b in zip(first["grads"], c_grads)]
+    errs["grads (worst)"] = max(grad_errs)
+    for k in ("s0", "s1", "s2"):
+        errs[f"gmm.{k}"] = rel_err(getattr(first["gmm"], k),
+                                   getattr(cpu.gmm, k))
+    check(len(first["grads"]) == len(tree_leaves(cpu.params)), "grads")
+    print(f"step 0, card vs the port on the CPU (relative; gradients and GMM "
+          f"relative to each tensor's max |x|, {len(c_grads)} gradients, "
+          f"worst {names[int(np.argmax(grad_errs))]}): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()))
+    for k, v in errs.items():
+        check(v <= REFINE_RTOL, f"step 0 card vs CPU: {k} {v} > {REFINE_RTOL}")
+    profile_train_step(trainer[0], float(np.percentile(warm_ms, 50)))
+    return launches, step_ms
+
+
+def profile_train_step(tr, p50):
+    """One more (warm) step under torch.profiler: device busy time, the
+    idle share of the unprofiled p50 warm step, the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.step()
+        torch.cuda.synchronize()
+    events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    if not events:
+        print("profiled step: not measured (torch.profiler recorded no "
+              "device activity)")
+        return
+    by_name = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    busy_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"profiled warm step: {len(events)} device activities, busy "
+          f"{busy_ms:.3f} ms; idle share of the unprofiled warm p50 step "
+          f"({p50:.3f} ms): {1.0 - busy_ms / p50:.3f}; top: " + "; ".join(
+              f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top))
+
+
+def train_kernel_times(dev, ops):
+    """Each training kernel and its plain version at the path's shape:
+    device time (``device_ms``) and the bound from these inputs."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, N, d = TRAIN_BATCH, N_SYN + TRAIN_BATCH, 128
+    W, M, T, K = BUFFER + TRAIN_BATCH, TRAIN_DIRS, BUFFER + TRAIN_BATCH, \
+        TRAIN_KNN
+    z, zp, zn, cot = infonce_inputs(g, dev, B, N, d)
+    _, lse = ops.infonce_vneg_fwd(z, zp, zn, 0.1)
+    x, dirs, pq = swd_train_inputs(g, dev, W, d, M)
+    _, proj, rank = ops.swd_rank_fwd(x, dirs, pq)
+    one = torch.ones((), device=dev)
+    lz, lmask, _, _ = refine_inputs(g, dev, 1, T, d, 1)
+    lg = torch.ones(1, device=dev)
+    C = 16                                    # the edge learner's GMM
+    gmm_args = gmm_inputs(g, dev, BUFFER, C, d)
+    pairs = sum(T - delta for delta in range(1, K + 1))
+    cases = {
+        # read z, z_pos, z_neg once, write loss and lse; a dot product per
+        # logit, then max, subtract, exp and add per logit
+        "infonce_vneg_fwd": (
+            lambda a: ops.infonce_vneg_fwd(*a, 0.1),
+            lambda a: ops.infonce_vneg_fwd_ref(*a, 0.1), (z, zp, zn),
+            4 * (2 * B * d + B * N * d + 2 * B),
+            2 * B * N * d + 2 * B * d + 4 * B * (N + 1)),
+        # read the inputs, lse and g, write dz, dz_pos, dz_neg: the dot
+        # products again, dz's sum over the negatives, dz_neg's products
+        "infonce_vneg_bwd": (
+            lambda a: ops.infonce_vneg_bwd(*a, 0.1),
+            lambda a: ops.infonce_vneg_bwd_ref(*a, 0.1),
+            (z, zp, zn, lse, cot),
+            4 * (4 * B * d + 2 * B * N * d + 2 * B),
+            5 * B * N * d + 6 * B * d + 3 * B * N),
+        # projection multiply-adds and (sorted - q)^2 summed; the sort
+        # network's compares are not counted, so this is a lower bound
+        "swd_rank_fwd": (
+            lambda a: ops.swd_rank_fwd(*a), lambda a: ops.swd_rank_fwd_ref(*a),
+            (x, dirs, pq), 4 * (W * d + M * d + W * M + 1 + 2 * W * M),
+            2 * W * d * M + 3 * W * M),
+        # the (W, M) weights, then dx = weights @ dirs
+        "swd_rank_bwd": (
+            lambda a: ops.swd_rank_bwd(*a), lambda a: ops.swd_rank_bwd_ref(*a),
+            (one, proj, rank, pq, dirs), 4 * (1 + 3 * W * M + M * d + W * d),
+            2 * W * M * d + 4 * W * M),
+        # per pair and element: subtract, multiply by the pair's weight,
+        # add, for each of its two ends; then the scale by 2g
+        "laplacian_energy_bwd": (
+            lambda a: ops.laplacian_energy_bwd(*a, K),
+            lambda a: ops.laplacian_energy_bwd_ref(*a, K), (lz, lmask, lg),
+            4 * (2 * T * d + T + 1), 6 * pairs * d + 2 * T * d),
+        # the two forward kernels the refine path shares, at this path's
+        # shapes (counted as in refine_kernel_times)
+        "laplacian_energy": (
+            lambda a: ops.laplacian_energy(*a, K),
+            lambda a: ops.laplacian_energy_ref(*a, K), (lz, lmask),
+            4 * (T * d + T + 2), pairs * (3 * d + 4)),
+        "gmm_posterior": (
+            lambda a: ops.gmm_posterior(*a), lambda a: ops.gmm_posterior_ref(*a),
+            gmm_args, 4 * (BUFFER * d + 2 * C * d + C + BUFFER * C + BUFFER),
+            4 * BUFFER * C * d + 11 * BUFFER * C),
+    }
+    out = {}
+    for name, (fn, plain, args, nbytes, nops) in cases.items():
+        ms = device_ms(fn, args)
+        plain_ms = device_ms(plain, args, reps=20)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = nops / FP32_OPS_PER_S * 1e3
+        out[name] = {"ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(b_ms, o_ms),
+                     "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+        print(f"{name} at the training shape: device kernel {ms * 1e3:.2f} "
+              f"us, plain {plain_ms * 1e3:.2f} us; bound "
+              f"{max(b_ms, o_ms) * 1e3:.3f} us ({out[name]['bound_by']}: "
+              f"{nbytes} bytes, {nops} operations)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -712,9 +1082,17 @@ def main():
     refine_worst = phase3(dev, ops)
     refine_launches, _ = phase4(CFG, dev, ops, serve_tick_ms)
     refine_times = refine_kernel_times(dev, ops)
-    print("kernels: serving path " + ", ".join(
-        f"{n} launches={c}" for n, c in launches.items()) + "; refine path "
-        + ", ".join(f"{n} launches={c}" for n, c in refine_launches.items()))
+    train_worst = phase5(dev, ops)
+    train_launches, _ = phase6(CFG, dev, ops)
+    train_times = train_kernel_times(dev, ops)
+    paths = {"serve": launches, "refine": refine_launches,
+             "train": train_launches}
+    print("kernels: " + "; ".join(f"{p} path " + ", ".join(
+        f"{n} launches={c}" for n, c in counts.items())
+        for p, counts in paths.items()))
+
+    def by_path(name):
+        return {p: counts[name] for p, counts in paths.items()}
     bound_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
     records = [{
         "name": "wire_roundtrip", "route": "cuda",
@@ -723,7 +1101,8 @@ def main():
         "launches": launches["wire_roundtrip"], "max_abs_err": worst,
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": max(tot["bytes_ms"], tot["ops_ms"]),
-        "bound_by": bound_by, "library_ms": None}]
+        "bound_by": bound_by, "library_ms": None,
+        "launches_by_path": by_path("wire_roundtrip")}]
     for name, source, replaces in (
             ("swd_sessions", "swd.cu", "swd_kernel.py:67"),
             ("laplacian_energy", "laplacian_energy.cu",
@@ -735,7 +1114,27 @@ def main():
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": refine_launches[name],
             "max_abs_err": refine_worst[name], **refine_times[name],
-            "library_ms": None})
+            "library_ms": None, "launches_by_path": by_path(name)})
+        if name in train_times:              # also on the training path
+            records[-1]["train_shape"] = train_times.pop(name)
+    no_pallas = ("no Pallas counterpart: the reference differentiates the "
+                 "jnp twin ({})")
+    for name, source, replaces in (
+            ("infonce_vneg_fwd", "infonce_vneg.cu",
+             "src/repro/kernels/infonce_vneg.py:52"),
+            ("infonce_vneg_bwd", "infonce_vneg.cu", no_pallas.format(
+                "src/repro/core/infonce.py:19")),
+            ("swd_rank_fwd", "swd.cu", "src/repro/kernels/swd_kernel.py:67"),
+            ("swd_rank_bwd", "swd.cu", no_pallas.format(
+                "src/repro/core/swd.py:108")),
+            ("laplacian_energy_bwd", "laplacian_energy.cu", no_pallas.format(
+                "src/repro/core/laplacian.py:29"))):
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": train_worst[name], **train_times[name],
+            "library_ms": None, "launches_by_path": by_path(name)})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,11 @@ updated by stepwise online EM.  ``responsibilities`` and ``entropy`` go
 through the hand-written ``gmm_posterior`` kernel; the sufficient
 statistics ``rwᵀz`` and ``rwᵀz²`` are plain matrix products, as they are
 outside any Pallas kernel in the reference.  ``boundary_logits`` and
-``sample_virtual_negatives`` come with the edge slice.
+``sample_virtual_negatives`` give the edge learner its virtual negatives
+(Eq. 9).  Their random draws come from a ``torch.Generator`` or are
+handed in as a ``(gumbel, eps)`` pair (``draw_virtual``), as
+``core.swd.draw`` takes ``(dirs, prior)``: the parity tests pass the
+reference's own draws that way.
 """
 from __future__ import annotations
 
@@ -149,3 +153,60 @@ def em_update(state: GMMState, z, *, decay=0.05, reseed_frac=0.2,
 def assign(state: GMMState, z):
     """Hard component assignment c* -> (B,) int32."""
     return log_joint(state, z).argmax(-1).to(torch.int32)
+
+
+def boundary_logits(state: GMMState, c_star, *, tau=0.1):
+    """Eq. 9: p(c | z+, c*) ∝ pi_c · exp(−‖mu_c* − mu_c‖² / 2τ²), c ≠ c*.
+
+    c_star: (B,) -> (B, C) sampling logits."""
+    pi, mu, _ = params_of(state)
+    d2 = (mu[:, None] - mu[None]).square().sum(-1)               # (C, C)
+    logits = torch.log(pi)[None] - d2 / (2.0 * tau * tau)
+    eye = torch.eye(pi.shape[0], dtype=torch.bool, device=pi.device)
+    logits = logits.masked_fill(eye, -math.inf)
+    return logits[c_star.long()]                                 # (B, C)
+
+
+def draw_virtual(key, B, n_syn, C, d):
+    """``key`` -> (gumbel (B, n_syn, C), eps (B, n_syn, d)): a generator
+    is drawn from (Gumbel noise, then standard normals, on its device), a
+    ``(gumbel, eps)`` pair is returned as it is."""
+    if isinstance(key, torch.Generator):
+        tiny = torch.finfo(torch.float32).tiny
+        u = torch.rand(B, n_syn, C, generator=key, device=key.device)
+        gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+        eps = torch.randn(B, n_syn, d, generator=key, device=key.device)
+        return gumbel, eps
+    gumbel, eps = key
+    if tuple(gumbel.shape) != (B, n_syn, C) or \
+            tuple(eps.shape) != (B, n_syn, d):
+        raise ValueError(f"drawn gumbel {tuple(gumbel.shape)} and eps "
+                         f"{tuple(eps.shape)} != ({B}, {n_syn}, {C}) and "
+                         f"({B}, {n_syn}, {d})")
+    return gumbel, eps
+
+
+def virtual_components(state: GMMState, z_anchor, gumbel, *, tau=0.1):
+    """The component of each virtual negative: the Gumbel argmax over
+    ``boundary_logits`` of the anchor's assigned component, which is what
+    the reference's ``jax.random.categorical`` computes -> (B, n_syn)."""
+    logits = boundary_logits(state, assign(state, z_anchor), tau=tau)
+    return (logits[:, None, :] + gumbel.to(logits.device)).argmax(-1)
+
+
+def sample_virtual_negatives(key, state: GMMState, z_anchor, n_syn, *,
+                             tau=0.1):
+    """Boundary-aware virtual negatives (Eq. 9) -> (B, n_syn, d),
+    l2-normed.
+
+    Per negative, a component near the anchor's decision boundary is
+    drawn from ``boundary_logits`` by the Gumbel argmax (what the
+    reference's ``jax.random.categorical`` computes), then a point from
+    that component's Gaussian, projected to the sphere."""
+    gumbel, eps = draw_virtual(key, z_anchor.shape[0], n_syn,
+                               state.n_components, state.dim)
+    _, mu, var = params_of(state)
+    comps = virtual_components(state, z_anchor, gumbel, tau=tau)
+    z = mu[comps] + eps.to(mu.device) * torch.sqrt(var[comps])
+    return z / torch.linalg.vector_norm(z, dim=-1, keepdim=True).clamp_min(
+        1e-6)

@@ -3,9 +3,13 @@
 
 Port of ``repro.core.laplacian``.  The temporal graph connects each frame
 to its k nearest temporal neighbours (|i−j| ≤ k); a validity mask drops
-the edges that touch a missing frame.  ``dirichlet_energy`` is plain
-PyTorch (differentiable); the refine round reaches the same sums through
-the ``laplacian_energy`` kernel instead.  The dense-graph utilities are
+the edges that touch a missing frame.  ``dirichlet_energy`` on a CPU
+tensor is plain PyTorch (differentiable).  On a CUDA tensor without
+``weights`` it is ``Σtot / max(Σcnt, 1)`` from the hand-written kernels
+(``kernels.laplacian_energy.laplacian_energy_diff``: the forward kernel,
+and the backward kernel under autograd); the weighted variant, which no
+kernel computes, stays plain.  The refine round reaches the same sums
+through the ``laplacian_energy`` kernel.  The dense-graph utilities are
 numpy, as in the reference.
 
 Theorem 3.2's bound (Eq. 5) holds only for sparse temporal graphs,
@@ -17,6 +21,8 @@ import warnings
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.laplacian_energy import laplacian_energy_diff
 
 
 def dirichlet_energy(z, *, k=5, mask=None, weights=None):
@@ -32,6 +38,10 @@ def dirichlet_energy(z, *, k=5, mask=None, weights=None):
     z = z.float()
     mask = torch.ones(B, T, device=z.device) if mask is None \
         else mask.float()
+    if z.device.type == "cuda" and weights is None:
+        tot, cnt = laplacian_energy_diff(z.contiguous(),
+                                         mask.detach().contiguous(), k)
+        return tot.sum() / cnt.sum().clamp_min(1.0)
     total = torch.zeros((), device=z.device)
     count = torch.zeros((), device=z.device)
     for delta in range(1, min(k, T - 1) + 1):

@@ -14,11 +14,21 @@ cannot replay threefry.
 True)``, whose values and subgradient (the gradient flows back through
 the sorting permutation) are those of the reference's argsort+gather and
 bitonic network.
+
+On a CUDA tensor ``sliced_w2`` (and so ``swd_to_uniform`` and
+``swd_loss``) goes through the hand-written kernels: the prior's sorted
+projections ``prior_q`` are ``torch.sort(y @ dirs.T, dim=0)`` without a
+gradient, as the refine round and the reference's ``ops.swd`` sort them,
+and ``kernels.swd.swd_single`` gives the loss and its gradient to x
+through the sort.  The gradient reaches x only: ``y`` and ``dirs`` must
+not require one there.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.swd import swd_single
 
 
 def random_directions(generator, n_dirs, dim):
@@ -36,13 +46,19 @@ def sphere_prior_samples(generator, n, dim):
         1e-9)
 
 
-def seeded_draws(seed, rnd, n_dirs, n, dim):
-    """The directions and prior of refine round ``rnd``: drawn on the CPU
-    from a generator seeded from ``(seed, rnd)``, so every device gets
-    the same numbers -> (dirs (n_dirs, dim), prior (n, dim))."""
-    g = torch.Generator().manual_seed(
+def seeded_generator(seed, rnd):
+    """A CPU generator seeded from ``(seed, rnd)``: draws that every device
+    then sees as the same numbers."""
+    return torch.Generator().manual_seed(
         int(np.random.SeedSequence([seed, rnd]).generate_state(1, np.uint64)[0]
             >> np.uint64(1)))
+
+
+def seeded_draws(seed, rnd, n_dirs, n, dim):
+    """The directions and prior of refine round ``rnd``, from
+    ``seeded_generator(seed, rnd)`` -> (dirs (n_dirs, dim), prior (n,
+    dim))."""
+    g = seeded_generator(seed, rnd)
     return random_directions(g, n_dirs, dim), sphere_prior_samples(g, n, dim)
 
 
@@ -75,6 +91,14 @@ def bitonic_diff_sort(x):
 def sliced_w2(x, y, dirs):
     """Empirical SW₂² between point sets x (N, d), y (N, d) over ``dirs``
     (M, d)."""
+    if x.device.type == "cuda":
+        if y.requires_grad:
+            raise ValueError("sliced_w2 on the card differentiates x only: "
+                             "pass a y that does not require a gradient")
+        dirs = dirs.float().contiguous()
+        with torch.no_grad():
+            prior_q = torch.sort(y.float() @ dirs.T, dim=0).values
+        return swd_single(x.float().contiguous(), dirs, prior_q.contiguous())
     px = diff_sort(x.float() @ dirs.T, axis=0)
     py = diff_sort(y.float() @ dirs.T, axis=0)
     return (px - py).square().mean()

@@ -41,17 +41,29 @@ SIGNATURES = {
     },
     "swd.cu": {
         "swd_sessions_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "swd_rank_fwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+                             _I),
+        "swd_rank_bwd_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
         "swd_dirs_per_block": ([], _I),
         "swd_error_string": ([_I], _S),
     },
     "laplacian_energy.cu": {
         "laplacian_energy_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "laplacian_energy_bwd_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _P],
+                                     _I),
         "laplacian_energy_error_string": ([_I], _S),
     },
     "gmm_posterior.cu": {
         "gmm_posterior_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
                               _I),
         "gmm_posterior_error_string": ([_I], _S),
+    },
+    "infonce_vneg.cu": {
+        "infonce_vneg_fwd_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+                                 _I),
+        "infonce_vneg_bwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _F, _P], _I),
+        "infonce_vneg_error_string": ([_I], _S),
     },
 }
 SOURCES = tuple(SIGNATURES)
@@ -108,9 +120,10 @@ def build_all() -> list[Path]:
 
 
 def check_inputs(name: str, *tensors) -> None:
-    """The checks every refine kernel's wrapper makes before it picks a
-    path: float32, contiguous, on one CPU or CUDA device, and not
-    requiring a gradient (the kernels have no backward)."""
+    """The checks every kernel wrapper but the wire's makes before it
+    picks a path: float32, contiguous, on one CPU or CUDA device, and not
+    requiring a gradient (a wrapper launches one kernel; the
+    differentiable entries call it with detached tensors)."""
     dev = tensors[0].device
     for x in tensors:
         if x.device.type not in ("cpu", "cuda"):

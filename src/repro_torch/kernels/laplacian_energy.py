@@ -11,6 +11,15 @@ launches the hand-written kernel ``csrc/laplacian_energy.cu`` or raises;
 on a CPU tensor it runs ``laplacian_energy_ref``, the plain PyTorch
 version, which is also what the kernel is held against on the card.
 Neither takes a gradient.
+
+The edge trainer differentiates ``tot``.  ``laplacian_energy_diff`` is
+its differentiable entry: on a CUDA tensor a ``torch.autograd.Function``
+whose forward is ``laplacian_energy`` and whose backward is
+``laplacian_energy_bwd``, the kernel of the explicit gradient
+dz_t = 2·g_b·Σ_{δ≤K} [m_t m_{t−δ}(z_t − z_{t−δ}) − m_t m_{t+δ}(z_{t+δ} − z_t)]
+(K = min(k, T−1); ``cnt`` has no gradient); on a CPU tensor the plain
+per-δ loop under ordinary autograd.  ``laplacian_energy_bwd_ref`` is the
+backward kernel's plain version.
 """
 from __future__ import annotations
 
@@ -63,3 +72,78 @@ def laplacian_energy(z, mask, k):
 
 
 laplacian_energy.launches = 0
+
+
+def laplacian_energy_bwd_ref(z, mask, g, k):
+    """Plain version of the backward kernel, the explicit formula: the
+    gradient of ``tot`` for the cotangent ``g`` (B,) -> dz (B, T, d)."""
+    T = z.shape[1]
+    dz = torch.zeros_like(z)
+    for delta in range(1, min(k, T - 1) + 1):
+        pair = mask[:, delta:] * mask[:, :-delta]
+        w = pair[..., None] * (z[:, delta:] - z[:, :-delta])
+        dz[:, delta:] += w
+        dz[:, :-delta] -= w
+    return 2 * g[:, None, None] * dz
+
+
+def laplacian_energy_bwd(z, mask, g, k):
+    """The gradient of ``laplacian_energy``'s ``tot`` with respect to z for
+    the cotangent ``g`` (B,) -> dz (B, T, d) float32.
+
+    Float32, contiguous inputs on one device.  A CUDA launch adds one to
+    ``laplacian_energy_bwd.launches``."""
+    build.check_inputs("laplacian_energy_bwd", z, mask, g)
+    if z.dim() != 3 or tuple(mask.shape) != tuple(z.shape[:2]) \
+            or tuple(g.shape) != (z.shape[0],):
+        raise ValueError(f"laplacian_energy_bwd takes z (B, T, d), mask "
+                         f"(B, T) and g (B,), got {tuple(z.shape)}, "
+                         f"{tuple(mask.shape)} and {tuple(g.shape)}")
+    B, T, d = z.shape
+    if min(B, T, d) == 0 or k < 0:
+        raise ValueError("laplacian_energy_bwd needs non-empty inputs, "
+                         "k >= 0")
+    if z.device.type == "cpu":
+        return laplacian_energy_bwd_ref(z, mask, g, k)
+    lib = build.load("laplacian_energy.cu")
+    dz = torch.empty_like(z)
+    with torch.cuda.device(z.device):
+        err = lib.laplacian_energy_bwd_f32(z.data_ptr(), mask.data_ptr(),
+                                           g.data_ptr(), dz.data_ptr(), B, T,
+                                           d, int(k), build.stream_of(z))
+    build.raise_on_error(lib, "laplacian_energy", err)
+    laplacian_energy_bwd.launches += 1
+    return dz
+
+
+laplacian_energy_bwd.launches = 0
+
+
+class _LaplacianEnergy(torch.autograd.Function):
+    """The CUDA path: forward and backward are the hand-written kernels;
+    the gradient goes to z through tot."""
+
+    @staticmethod
+    def forward(ctx, z, mask, k):
+        z, mask = z.detach(), mask.detach()
+        tot, cnt = laplacian_energy(z, mask, k)
+        ctx.save_for_backward(z, mask)
+        ctx.k = k
+        ctx.mark_non_differentiable(cnt)
+        return tot, cnt
+
+    @staticmethod
+    def backward(ctx, g_tot, g_cnt):
+        z, mask = ctx.saved_tensors
+        return laplacian_energy_bwd(z, mask, g_tot.contiguous(), ctx.k), \
+            None, None
+
+
+def laplacian_energy_diff(z, mask, k):
+    """``laplacian_energy`` with a gradient to ``z`` through ``tot`` ->
+    ``(tot (B,), cnt (B,))``.  ``mask`` must not require a gradient."""
+    if mask.requires_grad:
+        raise ValueError("laplacian_energy_diff differentiates z only")
+    if z.device.type == "cpu":
+        return laplacian_energy_ref(z, mask, k)
+    return _LaplacianEnergy.apply(z, mask, k)

@@ -18,21 +18,44 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.gmm_posterior import gmm_posterior, gmm_posterior_ref
+from repro_torch.kernels.infonce_vneg import (infonce_vneg, infonce_vneg_bwd,
+                                              infonce_vneg_bwd_ref,
+                                              infonce_vneg_fwd,
+                                              infonce_vneg_fwd_ref,
+                                              infonce_vneg_ref)
 from repro_torch.kernels.int8_quant import wire_roundtrip, wire_roundtrip_ref
 from repro_torch.kernels.laplacian_energy import (laplacian_energy,
+                                                  laplacian_energy_bwd,
+                                                  laplacian_energy_bwd_ref,
+                                                  laplacian_energy_diff,
                                                   laplacian_energy_ref)
-from repro_torch.kernels.swd import swd_sessions, swd_sessions_ref
+from repro_torch.kernels.swd import (swd_rank_bwd, swd_rank_bwd_ref,
+                                     swd_rank_fwd, swd_rank_fwd_ref,
+                                     swd_sessions, swd_sessions_ref,
+                                     swd_single)
 
 __all__ = ["KERNELS", "resolve_device", "set_precision",
            "wire_roundtrip", "wire_roundtrip_ref", "swd_sessions",
            "swd_sessions_ref", "laplacian_energy", "laplacian_energy_ref",
-           "gmm_posterior", "gmm_posterior_ref"]
+           "gmm_posterior", "gmm_posterior_ref", "infonce_vneg",
+           "infonce_vneg_ref", "infonce_vneg_fwd", "infonce_vneg_fwd_ref",
+           "infonce_vneg_bwd", "infonce_vneg_bwd_ref", "swd_single",
+           "swd_rank_fwd", "swd_rank_fwd_ref",
+           "swd_rank_bwd", "swd_rank_bwd_ref", "laplacian_energy_diff",
+           "laplacian_energy_bwd", "laplacian_energy_bwd_ref"]
 
-# every hand-written kernel's public wrapper (each carries ``launches``)
+# every hand-written kernel's wrapper (each carries ``launches``), the
+# backward kernels too; the differentiable entries (``infonce_vneg``,
+# ``swd_single``, ``laplacian_energy_diff``) launch through these
 KERNELS = {"wire_roundtrip": wire_roundtrip,
            "swd_sessions": swd_sessions,
            "laplacian_energy": laplacian_energy,
-           "gmm_posterior": gmm_posterior}
+           "gmm_posterior": gmm_posterior,
+           "infonce_vneg_fwd": infonce_vneg_fwd,
+           "infonce_vneg_bwd": infonce_vneg_bwd,
+           "swd_rank_fwd": swd_rank_fwd,
+           "swd_rank_bwd": swd_rank_bwd,
+           "laplacian_energy_bwd": laplacian_energy_bwd}
 
 
 def set_precision() -> None:

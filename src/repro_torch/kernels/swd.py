@@ -12,6 +12,17 @@ the hand-written kernel ``csrc/swd.cu`` or raises; on a CPU tensor it
 runs ``swd_sessions_ref``, the plain PyTorch version, which is also what
 the kernel is held against on the card.  Neither takes a gradient: on
 the refine path ``z`` is ring data, not a parameter.
+
+The edge trainer differentiates the SW term of one point set through the
+sort.  ``swd_single(x, dirs, prior_q)`` is its differentiable entry: on
+a CUDA tensor a ``torch.autograd.Function`` whose forward is
+``swd_rank_fwd`` (the loss, the projections and each row's rank in its
+sorted column, ties broken by row index as ``torch.sort(stable=True)``
+breaks them) and whose backward is ``swd_rank_bwd``
+(dx_i = Σ_m 2g(proj_im − prior_q[rank_im, m])/(W·M) · dirs_m), both
+kernels of ``csrc/swd.cu``; on a CPU tensor the plain
+``swd_rank_fwd_ref`` under ordinary autograd.  ``swd_rank_fwd_ref`` and ``swd_rank_bwd_ref`` are
+the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -63,3 +74,143 @@ def swd_sessions(z, dirs, prior_q):
 
 
 swd_sessions.launches = 0
+
+
+def rank_of(perm):
+    """The inverse of a column-wise sorting permutation (W, M): each row's
+    place in its sorted column, int32."""
+    W, M = perm.shape
+    rows = torch.arange(W, dtype=torch.int32, device=perm.device)
+    return torch.empty(W, M, dtype=torch.int32, device=perm.device) \
+        .scatter_(0, perm, rows[:, None].expand(W, M).contiguous())
+
+
+def swd_rank_fwd_ref(x, dirs, prior_q):
+    """Plain version of the forward kernel, differentiable in x -> (loss
+    (), proj (W, M), rank (W, M) int32), ``rank[i, m]`` the place of row i
+    in column m sorted ascending, ties by row index."""
+    W, M = prior_q.shape
+    proj = x @ dirs.T
+    srt, perm = torch.sort(proj, dim=0, stable=True)
+    loss = (srt - prior_q).square().sum() / (W * M)
+    return loss, proj, rank_of(perm)
+
+
+def swd_rank_bwd_ref(g, proj, rank, prior_q, dirs):
+    """Plain version of the backward kernel, the explicit formula ->
+    dx (W, d)."""
+    W, M = prior_q.shape
+    gp = 2 * g * (proj - prior_q.gather(0, rank.long())) / (W * M)
+    return gp @ dirs
+
+
+def _check_single(name, x, dirs, prior_q):
+    if x.dim() != 2 or dirs.dim() != 2 or prior_q.dim() != 2 \
+            or dirs.shape[1] != x.shape[1] \
+            or tuple(prior_q.shape) != (x.shape[0], dirs.shape[0]):
+        raise ValueError(f"{name} takes x (W, d), dirs (M, d) and prior_q "
+                         f"(W, M), got {tuple(x.shape)}, "
+                         f"{tuple(dirs.shape)}, {tuple(prior_q.shape)}")
+    if min(*x.shape, dirs.shape[0]) == 0:
+        raise ValueError(f"{name} needs non-empty inputs")
+
+
+def swd_rank_fwd(x, dirs, prior_q):
+    """SW² of one point set ``x`` (W, d) against the sorted prior
+    quantiles ``prior_q`` (W, M) over ``dirs`` (M, d) -> ``(loss (),
+    proj (W, M), rank (W, M) int32)``.
+
+    Float32, contiguous inputs on one device, none requiring a gradient
+    (``swd_single`` is the differentiable entry).  A CUDA launch adds one
+    to ``swd_rank_fwd.launches``."""
+    build.check_inputs("swd_rank_fwd", x, dirs, prior_q)
+    _check_single("swd_rank_fwd", x, dirs, prior_q)
+    if x.device.type == "cpu":
+        return swd_rank_fwd_ref(x, dirs, prior_q)
+    W, d = x.shape
+    M = dirs.shape[0]
+    lib = build.load("swd.cu")
+    per_block = lib.swd_dirs_per_block()
+    partial = torch.empty(-(-M // per_block), dtype=torch.float32,
+                          device=x.device)
+    loss = torch.empty((), dtype=torch.float32, device=x.device)
+    proj = torch.empty(W, M, dtype=torch.float32, device=x.device)
+    rank = torch.empty(W, M, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.swd_rank_fwd_f32(x.data_ptr(), dirs.data_ptr(),
+                                   prior_q.data_ptr(), loss.data_ptr(),
+                                   proj.data_ptr(), rank.data_ptr(),
+                                   partial.data_ptr(), W, d, M,
+                                   build.stream_of(x))
+    build.raise_on_error(lib, "swd", err)
+    swd_rank_fwd.launches += 1
+    return loss, proj, rank
+
+
+swd_rank_fwd.launches = 0
+
+
+def swd_rank_bwd(g, proj, rank, prior_q, dirs):
+    """The gradient of ``swd_rank_fwd``'s loss with respect to x for the
+    cotangent ``g`` () -> dx (W, d) float32.
+
+    Float32 (``rank`` int32), contiguous inputs on one device.  A CUDA
+    launch adds one to ``swd_rank_bwd.launches``."""
+    build.check_inputs("swd_rank_bwd", g, proj, prior_q, dirs)
+    W, M = prior_q.shape
+    d = dirs.shape[1]
+    if g.numel() != 1 or tuple(proj.shape) != (W, M) \
+            or tuple(rank.shape) != (W, M) or dirs.shape[0] != M:
+        raise ValueError(f"swd_rank_bwd: g {tuple(g.shape)}, proj "
+                         f"{tuple(proj.shape)}, rank {tuple(rank.shape)}, "
+                         f"prior_q {tuple(prior_q.shape)}, dirs "
+                         f"{tuple(dirs.shape)} do not agree")
+    if rank.dtype != torch.int32 or rank.device != g.device \
+            or not rank.is_contiguous():
+        raise TypeError("swd_rank_bwd takes a contiguous int32 rank on the "
+                        "inputs' device")
+    if g.device.type == "cpu":
+        return swd_rank_bwd_ref(g, proj, rank, prior_q, dirs)
+    lib = build.load("swd.cu")
+    dx = torch.empty(W, d, dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        err = lib.swd_rank_bwd_f32(g.data_ptr(), proj.data_ptr(),
+                                   rank.data_ptr(), prior_q.data_ptr(),
+                                   dirs.data_ptr(), dx.data_ptr(), W, d, M,
+                                   build.stream_of(g))
+    build.raise_on_error(lib, "swd", err)
+    swd_rank_bwd.launches += 1
+    return dx
+
+
+swd_rank_bwd.launches = 0
+
+
+class _SWDSingle(torch.autograd.Function):
+    """The CUDA path: both directions are the hand-written kernels; the
+    gradient goes to x only (dirs and prior_q are draws)."""
+
+    @staticmethod
+    def forward(ctx, x, dirs, prior_q):
+        loss, proj, rank = swd_rank_fwd(x.detach(), dirs, prior_q)
+        ctx.save_for_backward(proj, rank, prior_q, dirs)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        proj, rank, prior_q, dirs = ctx.saved_tensors
+        return swd_rank_bwd(g.contiguous(), proj, rank, prior_q, dirs), \
+            None, None
+
+
+def swd_single(x, dirs, prior_q):
+    """Differentiable SW² of ``x`` (W, d) against ``prior_q`` (W, M) over
+    ``dirs`` (M, d) -> () float32, the gradient flowing to ``x`` through
+    the sort.  ``dirs`` and ``prior_q`` must not require a gradient."""
+    if dirs.requires_grad or prior_q.requires_grad:
+        raise ValueError("swd_single differentiates x only: pass dirs and "
+                         "prior_q that do not require a gradient")
+    if x.device.type == "cpu":
+        _check_single("swd_single", x, dirs, prior_q)
+        return swd_rank_fwd_ref(x, dirs, prior_q)[0]
+    return _SWDSingle.apply(x, dirs, prior_q)

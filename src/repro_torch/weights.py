@@ -7,7 +7,8 @@ GroupNorm ``scale``/``bias``, the head ``(Cin, d)`` and the optional
 convert the reference's weights with ``params_from_jax`` rather than
 drawing new ones, so both packages run the same model.  Task heads
 (``head_from_jax``) and GMM memory states (``gmm_from_jax``) cross the
-same way, so a refine round starts from the reference's own state.
+same way, so a refine round starts from the reference's own state, and
+an AdamW state (``adamw_from_jax``) likewise for the edge learner.
 """
 from __future__ import annotations
 
@@ -112,3 +113,18 @@ def gmm_to_jax(state):
     field order of the reference's ``GMMState``."""
     s0, s1, s2, step = (x.detach().cpu().numpy().copy() for x in state)
     return s0, s1, s2, step.astype(np.int32)
+
+
+def adamw_from_jax(state) -> dict:
+    """The reference's AdamW state ``{"m", "v", "step"}`` over an encoder's
+    pytree -> the port's, on the CPU (moments in the port's layout)."""
+    return {"m": params_from_jax(state["m"]), "v": params_from_jax(state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32)}
+
+
+def adamw_to_jax(state) -> dict:
+    """Inverse of ``adamw_from_jax``: numpy arrays in the reference's
+    layout."""
+    return {"m": params_to_jax(state["m"]), "v": params_to_jax(state["v"]),
+            "step": np.asarray(int(state["step"]), np.int32)}

@@ -8,7 +8,9 @@ mode (through ``repro.kernels.ops.laplacian_energy``), at rtol 1e-5 as
 the reference holds its Pallas kernel: float32 sums in another order.
 The edge counts are sums of 0/1 products and must be equal exactly.
 ``core/laplacian.py`` is held against ``repro.core.laplacian`` at 1e-5
-and its dense numpy utilities exactly.
+and its dense numpy utilities exactly.  ``laplacian_energy_bwd_ref``, the
+backward kernel's explicit formula, is held against autograd of the
+plain forward and ``jax.grad`` of the oracle at 1e-5 of max |dz|.
 """
 import jax
 import numpy as np
@@ -22,7 +24,8 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import laplacian as lap  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.laplacian_energy import (  # noqa: E402
-    laplacian_energy, laplacian_energy_ref)
+    laplacian_energy, laplacian_energy_bwd, laplacian_energy_diff,
+    laplacian_energy_ref)
 
 RTOL = 1e-5
 
@@ -126,3 +129,55 @@ def test_laplacian_wrapper_checks_and_counts():
         laplacian_energy(z.requires_grad_(), m, 2)
     with pytest.raises(ValueError):
         laplacian_energy(torch.ones(2, 6, 3, device="meta"), m, 2)
+
+
+# --- the edge trainer's gradient of tot -----------------------------------
+
+@pytest.mark.parametrize("B,T,d,k", [(1, 104, 32, 3), (3, 16, 8, 5),
+                                     (2, 7, 16, 12), (2, 1, 8, 5)])
+def test_laplacian_backward_formula_matches_autograd_and_jax_grad(B, T, d,
+                                                                   k):
+    """dz from the explicit formula against autograd of the plain
+    forward's tot and ``jax.grad`` of the oracle's, for a cotangent g (B,),
+    at 1e-5 relative to max |dz|; k >= T clamps, T = 1 and an all-masked
+    row give zeros."""
+    z, m = _inputs(B, T, d, 7 * B + T + k)
+    g = np.random.default_rng(k).normal(size=B).astype(np.float32)
+    tz, tm, tg = map(torch.from_numpy, (z, m, g))
+    formula = laplacian_energy_bwd(tz, tm, tg, k).numpy()
+    tzg = tz.clone().requires_grad_()
+    with torch.enable_grad():
+        tot = laplacian_energy_ref(tzg, tm, k)[0]
+        # T = 1 has no edge: tot is a constant, its gradient zero
+        auto, = torch.autograd.grad(tot, tzg, tg) if tot.requires_grad \
+            else (torch.zeros_like(tz),)
+    jg = jax.grad(lambda a: jax.numpy.sum(jax.vmap(
+        lambda zb, mb: jref.laplacian_energy_ref(zb, mb, k)[0])(a, m) * g))(z)
+    scale = max(np.abs(np.asarray(jg)).max(), 1e-30)
+    np.testing.assert_allclose(formula, auto.numpy(), rtol=0,
+                               atol=1e-5 * scale)
+    np.testing.assert_allclose(formula, np.asarray(jg), rtol=0,
+                               atol=1e-5 * scale)
+    assert (formula[-1] == 0).all()             # the all-masked row
+    if T == 1:
+        assert (formula == 0).all()
+
+
+def test_laplacian_diff_entry_on_cpu_and_checks():
+    z, m = _inputs(2, 9, 4, 1, masked_row=False)
+    tz, tm = torch.from_numpy(z), torch.from_numpy(m)
+    before = laplacian_energy_bwd.launches
+    for a, b in zip(laplacian_energy_diff(tz, tm, 3),
+                    laplacian_energy_ref(tz, tm, 3)):
+        assert torch.equal(a, b)
+    laplacian_energy_bwd(tz, tm, torch.ones(2), 3)
+    assert laplacian_energy_bwd.launches == before
+    assert ops.KERNELS["laplacian_energy_bwd"] is laplacian_energy_bwd
+    with pytest.raises(ValueError):
+        laplacian_energy_diff(tz, tm.clone().requires_grad_(), 3)
+    with pytest.raises(ValueError):
+        laplacian_energy_bwd(tz, tm, torch.ones(3), 3)
+    with pytest.raises(TypeError):
+        laplacian_energy_bwd(tz, tm, torch.ones(2).double(), 3)
+    with pytest.raises(ValueError):
+        laplacian_energy_bwd(tz, tm, torch.ones(2), -1)

@@ -8,8 +8,14 @@ N <= 64 so interpret mode stays fast), with the reference's own random
 draws handed across.  Tolerance rtol 1e-4, as the reference holds its
 Pallas kernel (``tests/test_kernels.py``): float32 sums in another order.
 ``core/swd.py`` is held against ``repro.core.swd`` at 1e-5 (same sums,
-short) and its gradients through the sort at 1e-5.  On the card
-``chip_smoke.py`` holds the kernel against the plain version.
+short) and its gradients through the sort at 1e-5.  The edge trainer's
+single-set entry: ``swd_rank_fwd_ref`` (the forward kernel's plain
+version) against ``sliced_w2`` at rtol 1e-5 and its ranks exactly against
+the reference's stable argsort, and ``swd_rank_bwd_ref`` (the backward
+kernel's explicit formula) against autograd and ``jax.grad`` at 1e-5 of
+max |dx|, with 96 tied rows as the edge trainer's cold buffer has them.
+On the card ``chip_smoke.py`` holds the kernels against the plain
+versions.
 """
 import jax
 import jax.numpy as jnp
@@ -23,7 +29,9 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import swd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.swd import swd_sessions, swd_sessions_ref  # noqa: E402
+from repro_torch.kernels.swd import (swd_rank_bwd, swd_rank_fwd,  # noqa: E402
+                                     swd_rank_fwd_ref, swd_sessions,
+                                     swd_sessions_ref, swd_single)
 
 RTOL = 1e-4
 
@@ -170,3 +178,89 @@ def test_swd_wrapper_checks_and_counts():
         swd_sessions(torch.zeros(2, 8, 4, device="meta"), dirs, pq)
     with pytest.raises(ValueError):
         swd_sessions(torch.zeros(2, 8, 4), dirs, torch.zeros(7, 3))
+
+
+# --- the edge trainer's differentiable SW term ----------------------------
+
+def _single_inputs(seed, W, d, M, dup=0):
+    """x (W, d) on the sphere whose first ``dup`` rows are one repeated
+    row (the edge trainer's cold-start buffer), and the reference's
+    draws."""
+    rng = np.random.default_rng(seed)
+    x = _sphere(rng, (W, d))
+    if dup:
+        x[:dup] = 0.0
+        x[:dup, 0] = 1.0
+    dirs, prior = _draws(seed, M, W, d)
+    return x, dirs, prior
+
+
+@pytest.mark.parametrize("W,d,M,dup", [(104, 32, 32, 96), (16, 8, 5, 0),
+                                       (37, 12, 9, 10)])
+def test_swd_rank_forward_matches_reference(W, d, M, dup):
+    """The loss against ``sliced_w2`` and the ranks against the inverse of
+    the reference's stable argsort, ties included (exactly)."""
+    x, dirs, prior = _single_inputs(W + M, W, d, M, dup)
+    loss, proj, rank = swd_rank_fwd(*map(torch.from_numpy, (x, dirs)),
+                                    _prior_q(prior, dirs))
+    np.testing.assert_allclose(float(loss),
+                               float(jswd.sliced_w2(x, prior, dirs)),
+                               rtol=1e-5)
+    np.testing.assert_allclose(proj.numpy(), x @ dirs.T, rtol=1e-5,
+                               atol=1e-6)
+    perm = np.asarray(jnp.argsort(jnp.asarray(proj.numpy()), axis=0,
+                                  stable=True))
+    want = np.empty_like(perm)
+    np.put_along_axis(want, perm, np.arange(W)[:, None], axis=0)
+    assert rank.dtype == torch.int32
+    np.testing.assert_array_equal(rank.numpy(), want)
+
+
+@pytest.mark.parametrize("W,d,M,dup", [(104, 32, 32, 96), (16, 8, 5, 0),
+                                       (37, 12, 9, 10)])
+def test_swd_rank_backward_formula_matches_autograd_and_jax_grad(W, d, M,
+                                                                 dup):
+    """dx = Σ_m 2g(proj − prior_q[rank])/(W·M)·dirs_m against autograd
+    through ``torch.sort`` and ``jax.grad`` of the reference's
+    ``sliced_w2``, at 1e-5 relative to max |dx|; with 96 tied rows the
+    tie order decides the gradient."""
+    x, dirs, prior = _single_inputs(2 * W + M, W, d, M, dup)
+    tdirs, pq = torch.from_numpy(dirs), _prior_q(prior, dirs)
+    g = torch.tensor(1.7)
+    _, proj, rank = swd_rank_fwd(torch.from_numpy(x), tdirs, pq)
+    formula = swd_rank_bwd(g, proj, rank, pq, tdirs).numpy()
+    tx = torch.from_numpy(x).requires_grad_()
+    with torch.enable_grad():
+        auto, = torch.autograd.grad(swd_rank_fwd_ref(tx, tdirs, pq)[0], tx,
+                                    g)
+    jg = jax.grad(lambda a: 1.7 * jswd.sliced_w2(a, prior, dirs))(x)
+    scale = np.abs(np.asarray(jg)).max()
+    assert scale > 0
+    np.testing.assert_allclose(formula, auto.numpy(), rtol=0,
+                               atol=1e-5 * scale)
+    np.testing.assert_allclose(formula, np.asarray(jg), rtol=0,
+                               atol=1e-5 * scale)
+
+
+def test_swd_single_on_cpu_and_checks():
+    x, dirs, prior = _single_inputs(1, 12, 6, 4, 3)
+    tx, td, pq = torch.from_numpy(x), torch.from_numpy(dirs), \
+        _prior_q(prior, dirs)
+    before = (swd_rank_fwd.launches, swd_rank_bwd.launches)
+    assert torch.equal(swd_single(tx, td, pq),
+                       swd_rank_fwd_ref(tx, td, pq)[0])
+    loss, proj, rank = swd_rank_fwd(tx, td, pq)
+    swd_rank_bwd(torch.tensor(1.0), proj, rank, pq, td)
+    assert (swd_rank_fwd.launches, swd_rank_bwd.launches) == before
+    assert ops.KERNELS["swd_rank_fwd"] is swd_rank_fwd
+    assert ops.KERNELS["swd_rank_bwd"] is swd_rank_bwd
+    with pytest.raises(ValueError):
+        swd_single(tx, td.clone().requires_grad_(), pq)
+    with pytest.raises(ValueError):
+        swd_rank_fwd(tx, td, pq[:-1].contiguous())
+    with pytest.raises(TypeError):
+        swd_rank_fwd(tx.double(), td, pq)
+    with pytest.raises(TypeError):
+        swd_rank_bwd(torch.tensor(1.0), proj, rank.long(), pq, td)
+    with pytest.raises(ValueError):
+        swd_rank_bwd(torch.ones(2), proj, rank, pq, td)
