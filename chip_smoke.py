@@ -4,13 +4,14 @@
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 It builds every hand-written CUDA kernel from ``src/repro_torch`` and
-then drives the port's three paths at the paper's full encoder width: the
-serving tick, the tick with a fleet refine round after it, and the edge
-learner's training step.
+then drives the port's paths at the paper's full encoder width: the
+serving tick, the per-frame split path (``SplitEngine.run``), the tick
+with a fleet refine round after it, the edge learner's training step, and
+the always-on ``StreamServer`` with the RL split policy.
 
 Phase 1 holds each kernel against its plain PyTorch version on the card,
-bitwise, at every shape the serving path gives it (plus constant and
-outlier rows), and the wire kernel at B=1 against the per-tensor
+bitwise, at every shape the serving path gives it (plus constant,
+outlier and NaN rows), and the wire kernel at B=1 against the per-tensor
 quantize∘dequantize.
 
 Phase 2 runs ``StreamSplitGateway`` (``AudioEncCfg()``, random weights
@@ -21,6 +22,13 @@ kernels' launch counts set to 0 just before and read just after.  It
 checks results, counters and launches, compares the first tick with
 ``overlap=False`` on the card (bitwise) and with the same port run on
 the CPU (atol 1e-4), and times each kernel at the shapes of the run.
+Then the per-frame split path: ``SplitEngine.run`` on each of the first
+tick's 256 frames at its k, counted the same way, whose per-tensor wire
+must launch ``int8_quantize`` and ``int8_dequantize`` once for each
+frame with k < L (and ``wire_roundtrip`` never), and each frame's
+embedding must equal, bitwise, the same stages run on the plain
+per-tensor wire of that frame's edge activation; it prints the bucketed
+against per-frame bound.
 
 Phase 3 holds each refine kernel (``swd_sessions``, ``laplacian_energy``,
 ``gmm_posterior``) against its plain PyTorch version on the card at the
@@ -64,6 +72,35 @@ weights, data and draws; rtol 1e-4 of each tensor's max |x|).  It prints
 cold and warm step times, a profiled step, the final loss, probe accuracy
 and collapse, and each training kernel's time at the path's shape.
 
+Phase 7 holds the per-tensor wire kernels ``int8_quantize`` (two
+passes) and ``int8_dequantize`` bitwise against their plain versions on
+the card: every full-width boundary shape of ``SplitEngine.run`` at B=1
+(k = 0..7, 3,200-12,800 elements, 3,328 and 6,656 at k = 6 and 7), B=32
+at k=0, sizes 1, 4095, 4097 and 2^24 + 3, a constant tensor (the scale
+floor), one outlier, a view that is not 16-byte aligned and one NaN,
++inf or -inf element (NaN equal to NaN); two launches
+must give the same bits, and ``run`` at B=1 must equal
+``run_batch_async`` at B=1 bitwise at every k.  It times both kernels,
+their plain versions and ``torch.aminmax`` (beside pass 1) at the
+per-frame shapes and at 2^24 + 3.
+
+Phase 8 runs ``StreamServer`` over a full-width gateway (capacity 256,
+window 100, overlapped) with ``make_policy("rl")`` on ``init_policy``
+from a seed: 16 INTERACTIVE, 48 STANDARD and 192 BULK sessions send 8
+frames each with seeded telemetry, ``SchedulerCfg(max_batch=128)``, half
+of what a round offers.  (a) Stepped on a fake clock, counted: every
+served embedding must equal, bitwise, a sequential gateway on the card
+replaying ``schedule()``; every tick 1 sync and 1 D2H; pipelined ticks;
+conservation at every round; preemption of BULK only.  (b) Live: the
+serving thread on the real clock, 4 client threads submitting and then
+closing their sessions, gated on conservation and the sync counts only;
+it prints frames/s, tick period and launch-to-collect p50/p95, the
+pipelined share, per-class queue waits, deadline misses and sheds, and
+the k histogram.  (c) (a)'s frames queued up front and stepped back to
+back with ``pipeline`` on and off in turns (on, off, off, on): host ms
+a tick, so the difference is what the overlap hides.  Last, a profiled
+pipelined tick pair: device busy time and idle share.
+
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
 result.  The line before the last is the kernels' JSON record; the last
@@ -102,6 +139,13 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+def same_values(a, b):
+    """Equal tensors, NaN equal to NaN at the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0),
+                                               b.masked_fill(nb, 0))
 
 
 class SpreadPolicy:
@@ -150,12 +194,13 @@ def phase1(cfg, dev, ops, dequantize, quantize):
             if B >= 3:
                 x[0] = 1.25                  # constant row: scale floor
                 x[1, 17] = 1e4               # outlier row
+                x[2, 5] = float("nan")       # NaN row: NaN throughout
             got = ops.wire_roundtrip(x)
             want = ops.wire_roundtrip_ref(x)
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
+            err = (got - want).nan_to_num().abs().max().item()
             worst = max(worst, err)
-            check(torch.equal(got, want),
+            check(same_values(got, want),
                   f"wire_roundtrip != plain version at B={B}, n={n} "
                   f"(max |err| {err})")
         x = torch.randn(1, n, device=dev, generator=g)
@@ -163,7 +208,8 @@ def phase1(cfg, dev, ops, dequantize, quantize):
               f"wire_roundtrip at B=1, n={n} != per-tensor round trip")
     torch.cuda.synchronize()
     print(f"phase 1: wire_roundtrip bitwise == plain version at B in "
-          f"{BATCH_SIZES} x n in {sorted(set(wire_widths(cfg)))}, and == "
+          f"{BATCH_SIZES} x n in {sorted(set(wire_widths(cfg)))} (constant, "
+          f"outlier and NaN rows at B >= 3), and == "
           f"per-tensor at B=1 (max |err| {worst})")
     return worst
 
@@ -273,16 +319,43 @@ def phase2(cfg, dev, ops):
     check(cpu_err <= CPU_ATOL, f"card vs CPU max |dz| {cpu_err}")
     eng = SplitEngine(cfg, device=dev)
     p_dev = to_device(params, dev)
+
+    # --- the per-frame split path, counted: SplitEngine.run per frame,
+    # its per-tensor wire through the int8_quantize/int8_dequantize
+    # kernels ------------------------------------------------------------
+    # Each frame's z is held bitwise against the same stages with the
+    # plain wire (int8_dequantize_ref(int8_quantize_ref(act))) on the same
+    # edge activation, which launches no kernel.
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
     frame_err = 0.0
     for i, r in enumerate(results[0]):
-        z, _ = eng.run(p_dev, mels[0][i:i + 1], r.k)
+        mel = mels[0][i:i + 1]
+        z, _ = eng.run(p_dev, mel, r.k)
+        if r.k < L:
+            act = eng._edge_fn(r.k, p_dev, eng._to_device(mel))
+            plain = eng._server_fn(r.k, p_dev, ops.int8_dequantize_ref(
+                ops.int8_quantize_ref(act)))
+            check(torch.equal(z, plain), f"SplitEngine.run frame {i} (k="
+                  f"{r.k}) != the same stages on the plain per-tensor wire")
         frame_err = max(frame_err, float(np.abs(z.cpu().numpy()[0]
                                                 - r.z).max()))
+    frame_launches = {name: w.launches for name, w in ops.KERNELS.items()}
+    n_wire = sum(r.k < L for r in results[0])
+    check(frame_launches["int8_quantize"] == n_wire
+          and frame_launches["int8_dequantize"] == n_wire
+          and frame_launches["wire_roundtrip"] == 0,
+          f"per-frame run launches {frame_launches}, want {n_wire} of each "
+          "per-tensor kernel and no wire_roundtrip")
     print(f"overlap=False == overlap=True bitwise; card vs CPU port max "
           f"|dz| {cpu_err:.3e} (atol {CPU_ATOL}); bucketed vs per-frame "
-          f"SplitEngine.run max |dz| {frame_err:.3e}")
+          f"SplitEngine.run max |dz| {frame_err:.3e} (per-frame path: "
+          f"{SESSIONS} frames, each bitwise == its stages on the plain "
+          f"per-tensor wire, int8_quantize launches "
+          f"{frame_launches['int8_quantize']}, int8_dequantize launches "
+          f"{frame_launches['int8_dequantize']})")
     profile_tick(gw, sids, mels[0], 1 + TIMED_TICKS, tick_ms)
-    return launches, tick_ms
+    return launches, tick_ms, frame_launches
 
 
 def device_ms(fn, x, reps=40, spin_cycles=200_000_000):
@@ -1054,6 +1127,480 @@ def train_kernel_times(dev, ops):
     return out
 
 
+# --- the per-frame split path's per-tensor wire kernels ----------------------
+
+def boundary_shapes(cfg):
+    """The wire's tensor at k = 0..L-1 for one frame: the raw mel at k=0,
+    then the activation after block k ((1, frames, width); "SAME"
+    convolutions keep ⌈t/s⌉ frames)."""
+    out, t = [(1, cfg.frames, cfg.n_mels)], cfg.frames
+    for w, s in zip(cfg.widths[:-1], cfg.strides[:-1]):
+        t = -(-t // s)
+        out.append((1, t, w))
+    return out
+
+
+def quant_cases(cfg, g, dev):
+    """(what, x) for phase 7: every per-frame boundary shape, B=32 at k=0,
+    sizes around the kernels' vector width and block, 2^24 + 3, a
+    constant tensor, one outlier, a view that is not 16-byte aligned
+    (the scalar path), and one NaN, +inf or -inf element."""
+    cases = [(f"k={k} {shape}", torch.randn(*shape, device=dev, generator=g)
+              * 3.0 + 1.0) for k, shape in enumerate(boundary_shapes(cfg))]
+    cases.append(("B=32 k=0", torch.randn(32, cfg.frames, cfg.n_mels,
+                                          device=dev, generator=g)))
+    for n in (1, 4095, 4097, 2 ** 24 + 3):
+        cases.append((f"n={n}", torch.randn(n, device=dev, generator=g)))
+    cases.append(("constant", torch.full((3328,), 1.25, device=dev)))
+    x = torch.randn(6656, device=dev, generator=g)
+    x[17] = 1e4
+    cases.append(("outlier", x))
+    cases.append(("unaligned view", torch.randn(
+        12801, device=dev, generator=g)[1:]))
+    for what, v in (("nan", float("nan")), ("inf", float("inf")),
+                    ("-inf", -float("inf"))):
+        x = torch.randn(3328, device=dev, generator=g)
+        x[5] = v
+        cases.append((what, x))
+    return cases
+
+
+def phase7(cfg, dev, ops):
+    """The per-tensor quantize and dequantize kernels against their plain
+    versions on the card, bitwise; ``run`` against ``run_batch_async`` at
+    B=1 -> max |err| of (quantize levels, dequantized values)."""
+    from repro_torch.core.splitter import SplitEngine
+    from repro_torch.models.audio_encoder import init_audio_encoder
+    from repro_torch.weights import to_device
+    g = torch.Generator(device=dev).manual_seed(7)
+    worst = {"int8_quantize": 0.0, "int8_dequantize": 0.0}
+    cases = quant_cases(cfg, g, dev)
+    for what, x in cases:
+        qt, again, want = (ops.int8_quantize(x), ops.int8_quantize(x),
+                           ops.int8_quantize_ref(x))
+        out, out2 = ops.int8_dequantize(qt), ops.int8_dequantize(qt)
+        want_out = ops.int8_dequantize_ref(want)
+        torch.cuda.synchronize()
+        worst["int8_quantize"] = max(worst["int8_quantize"], (
+            qt.q.int() - want.q.int()).abs().max().item())
+        worst["int8_dequantize"] = max(worst["int8_dequantize"], (
+            out - want_out).nan_to_num().abs().max().item())
+        check(qt.q.dtype == torch.int8 and qt.q.shape == x.shape
+              and all(same_values(a, b) for a, b in zip(qt, want)),
+              f"int8_quantize != plain version at {what}")
+        check(all(same_values(a, b) for a, b in zip(qt, again)),
+              f"int8_quantize not bitwise from run to run at {what}")
+        check(same_values(out, want_out) and same_values(out, out2),
+              f"int8_dequantize != plain version (or not bitwise from run "
+              f"to run) at {what}")
+        if what == "constant":
+            check(torch.equal(out, x), "constant tensor not restored")
+        if what == "nan":
+            check(not qt.q.any() and bool(torch.isnan(out).all()),
+                  "a NaN element must give NaN scale, levels 0, NaN out")
+    # SplitEngine.run (per-tensor kernels) == run_batch_async (per-row
+    # wire kernel) at B=1, every k, at full width
+    params = to_device(init_audio_encoder(
+        cfg, torch.Generator().manual_seed(7)), dev)
+    eng = SplitEngine(cfg, device=dev)
+    mel = np.random.default_rng(7).standard_normal(
+        (1, cfg.frames, cfg.n_mels), np.float32)
+    for k in range(cfg.n_blocks + 1):
+        a, wa = eng.run(params, mel, k)
+        b, wb = eng.run_batch_async(params, torch.from_numpy(mel).to(dev), k)
+        torch.cuda.synchronize()
+        check(wa == wb and torch.equal(a, b),
+              f"run != run_batch_async at B=1, k={k}")
+    print(f"phase 7: int8_quantize and int8_dequantize bitwise == plain "
+          f"versions at {len(cases)} cases (every per-frame boundary shape, "
+          f"B=32 at k=0, n in 1, 4095, 4097, 2^24+3, constant, outlier, "
+          f"unaligned, NaN, +inf, -inf) and from run to run; run == "
+          f"run_batch_async at B=1 "
+          f"for k = 0..{cfg.n_blocks}, bitwise; max |err| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def quant_kernel_times(cfg, dev, ops):
+    """Each per-tensor kernel, its plain version and ``torch.aminmax``
+    (the library call beside pass 1) at every per-frame shape (summed:
+    one frame through each k) and at the largest shape, 2^24 + 3."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    shapes = [(f"k={k} {s}", s) for k, s in enumerate(boundary_shapes(cfg))]
+    shapes.append(("largest", (2 ** 24 + 3,)))
+    rows = {name: {"per_frame": dict.fromkeys(
+        ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms"),
+        0.0)} for name in ("int8_quantize", "int8_dequantize")}
+    for what, shape in shapes:
+        x = torch.randn(*shape, device=dev, generator=g)
+        qt = ops.int8_quantize(x)
+        n = x.numel()
+        lib = device_ms(torch.aminmax, x)
+        for name, fn, plain, arg, nbytes, nops in (
+                # read x once, write q and the 8-byte (scale, zero)
+                # header; min + max, then divide, add, round, 2 clamps,
+                # convert (the kernel's pass 2 reads x again: not counted)
+                ("int8_quantize", ops.int8_quantize, ops.int8_quantize_ref,
+                 x, 5 * n + 8, 8 * n),
+                # read q and the header, write out: subtract, multiply
+                ("int8_dequantize", ops.int8_dequantize,
+                 ops.int8_dequantize_ref, qt, 5 * n + 8, 2 * n)):
+            ms = device_ms(fn, arg)
+            plain_ms = device_ms(plain, arg)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            o_ms = nops / FP32_OPS_PER_S * 1e3
+            cell = {"ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": max(b_ms, o_ms),
+                    "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                    "library_ms": lib if name == "int8_quantize" else None}
+            print(f"{name} {what} ({n} elements): device kernel "
+                  f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us"
+                  + (f", torch.aminmax {lib * 1e3:.2f} us"
+                     if name == "int8_quantize" else "")
+                  + f"; bound {max(b_ms, o_ms) * 1e3:.3f} us "
+                  f"({'bytes' if b_ms >= o_ms else 'operations'})")
+            if what == "largest":
+                rows[name]["largest"] = cell
+            else:
+                acc = rows[name]["per_frame"]
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    acc[key] += cell[key]
+                acc["library_ms"] += lib
+                acc["bytes_ms"] += b_ms
+                acc["ops_ms"] += o_ms
+    for name, r in rows.items():
+        pf = r["per_frame"]
+        print(f"{name} per frame through k = 0..{cfg.n_blocks - 1} (summed):"
+              f" device kernel {pf['ms'] * 1e3:.2f} us, plain "
+              f"{pf['plain_ms'] * 1e3:.2f} us, torch.aminmax "
+              f"{pf['library_ms'] * 1e3:.2f} us, bound "
+              f"{pf['bound_ms'] * 1e3:.3f} us")
+    return rows
+
+
+# --- StreamServer at full width with the RL split policy ---------------------
+
+STREAM_CLASSES = (("interactive", 16), ("standard", 48), ("bulk", 192))
+STREAM_FRAMES = 8          # frames per session
+STREAM_BATCH = 128         # SchedulerCfg(max_batch): half a round
+STREAM_DT = 0.05           # fake-clock seconds per step
+STREAM_QUEUE = 2048        # per-class queue bound: the backlog never refuses
+
+
+class FakeClock:
+    """A clock that moves only when the caller moves it."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def stream_server(cfg, params, device, clock=None, pipeline=True):
+    """A full-width gateway (capacity 256, window 100, overlapped, the RL
+    policy on ``init_policy`` from a seed) behind a ``StreamServer`` with
+    ``max_batch`` 128, and its 256 sessions -> (server, sids)."""
+    from repro_torch.api import QoSClass, StreamSplitGateway, make_policy
+    from repro_torch.core.ppo import init_policy
+    from repro_torch.serving import SchedulerCfg, StreamServer
+    L = cfg.n_blocks
+    policy = make_policy("rl", L, rl_params=init_policy(
+        torch.Generator().manual_seed(0), 3, L + 1))
+    kw = {"clock": clock} if clock is not None else {}
+    gw = StreamSplitGateway(cfg, params, policy=policy, capacity=SESSIONS,
+                            window=100, overlap=True, qos_reserve=0,
+                            device=device, **kw)
+    srv = StreamServer(gw, cfg=SchedulerCfg(max_batch=STREAM_BATCH),
+                       queue_maxlen=STREAM_QUEUE, pipeline=pipeline)
+    sids = [srv.open_session(qos=QoSClass(c)).sid
+            for c, n in STREAM_CLASSES for _ in range(n)]
+    return srv, sids
+
+
+def stream_frames(cfg, sids, seed):
+    """{(sid, t): FrameRequest}: a seeded mel and telemetry (u, cpu,
+    bandwidth) for each session's STREAM_FRAMES frames."""
+    from repro_torch.api import FrameRequest
+    rng = np.random.default_rng(seed)
+    frames = {}
+    for t in range(STREAM_FRAMES):
+        mels = rng.standard_normal((len(sids), cfg.frames, cfg.n_mels),
+                                   np.float32)
+        tel = rng.random((len(sids), 3))
+        for i, sid in enumerate(sids):
+            frames[(sid, t)] = FrameRequest(
+                t=t, mel=mels[i], u=float(tel[i, 0]), cpu=float(tel[i, 1]),
+                bandwidth_mbps=float(60.0 * tel[i, 2]))
+    return frames
+
+
+def conserved(st):
+    """The server's conservation identities at one snapshot -> a failure
+    message, or None when they hold."""
+    for c in st.frames_submitted:
+        if st.frames_submitted[c] != (st.frames_served[c] + st.queue_depth[c]
+                                      + st.in_flight[c] + st.shed_expired[c]):
+            return f"class {c}: {st}"
+    if st.preempted != st.requeued:
+        return f"preempted {st.preempted} != requeued {st.requeued}"
+    return None
+
+
+def count_ticks(gw):
+    """Wrap ``gw.tick_collect`` so that each collected tick records (its
+    syncs, its D2H copies, the host clock, its launch-to-collect ms) ->
+    the list they go to."""
+    counts, collect = [], gw.tick_collect
+
+    def counted(plan):
+        out = collect(plan)
+        counts.append((gw.registry.value("gateway_device_syncs_per_tick"),
+                       gw.registry.value("gateway_d2h_copies_per_tick"),
+                       time.perf_counter(),
+                       gw.registry.value("gateway_last_tick_ms")))
+        return out
+    gw.tick_collect = counted
+    return counts
+
+
+def phase8(cfg, dev, ops):
+    """``StreamServer`` at full width with the RL policy: (a) a stepped
+    fake-clock run held bitwise against a sequential replay, counted;
+    (b) a live run on the real clock; then one profiled pipelined tick
+    pair -> the kernels' launch counts from (a)."""
+    import threading
+
+    from repro_torch.api import StreamSplitGateway
+    from repro_torch.models.audio_encoder import init_audio_encoder
+    L = cfg.n_blocks
+    params = init_audio_encoder(cfg, torch.Generator().manual_seed(0))
+
+    # --- (a) deterministic: step() on a fake clock, counted -------------
+    clock = FakeClock()
+    srv, sids = stream_server(cfg, params, "cuda", clock)
+    frames = stream_frames(cfg, sids, 8)
+    counts = count_ticks(srv.gateway)
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    for t in range(STREAM_FRAMES):
+        for sid in sids:
+            srv.submit(sid, frames[(sid, t)])
+        clock.t += STREAM_DT
+        srv.step()
+        msg = conserved(srv.stats())
+        check(msg is None, f"phase 8 (a) conservation after round {t}: {msg}")
+    while srv.busy():
+        clock.t += STREAM_DT
+        srv.step()
+    launches = {name: w.launches for name, w in ops.KERNELS.items()}
+    torch.cuda.synchronize()
+    st = srv.stats()
+    results = {(r.sid, r.t): r for r in srv.drain_results()}
+    n = len(sids) * STREAM_FRAMES
+    check(len(results) == n and st.ticks == len(counts),
+          f"(a) {len(results)} results of {n}, {st.ticks} ticks")
+    check(all(c[:2] == (1, 1) for c in counts),
+          f"(a) syncs/D2H per tick {[c[:2] for c in counts]}, want 1 and 1")
+    check(st.pipelined_ticks > 0, "(a) no pipelined tick")
+    msg = conserved(st)
+    check(msg is None, f"(a) conservation: {msg}")
+    check(sum(st.frames_served.values()) == n
+          and sum(st.shed_expired.values()) == 0, "(a) served")
+    check(st.preempted["bulk"] > 0 and st.preempted["interactive"] == 0
+          and st.preempted["standard"] == 0,
+          f"(a) preemption {st.preempted}: want BULK only, and some")
+    schedule = srv.schedule()
+    want_wire = sum(len({results[key].k for key in tick} - {L})
+                    for tick in schedule)
+    check(launches["wire_roundtrip"] == want_wire,
+          f"(a) wire launches {launches['wire_roundtrip']}, want {want_wire}")
+    ks = np.bincount([r.k for r in results.values()], minlength=L + 1)
+    check((ks > 0).sum() >= 3, f"(a) the policy chose k {ks}")
+    # the sequential replay on the card: same schedule, same embeddings
+    gw = StreamSplitGateway(cfg, params, policy=srv.gateway.policy,
+                            capacity=SESSIONS, window=100, qos_reserve=0,
+                            device="cuda")
+    check([gw.open_session(qos=srv.gateway.session(sid).qos).sid
+           for sid in sids] == sids, "replay sids")
+    for tick in schedule:
+        for key in tick:
+            gw.submit(key[0], frames[key])
+        for r in gw.tick():
+            ref = results[(r.sid, r.t)]
+            check(r.k == ref.k and np.array_equal(r.z, ref.z),
+                  f"(a) ({r.sid}, {r.t}) != the sequential replay")
+    z = np.stack([r.z for r in results.values()])
+    check(np.isfinite(z).all() and np.abs(np.linalg.norm(z, axis=1) - 1)
+          .max() <= 1e-5, "(a) embeddings not finite unit vectors")
+    print(f"phase 8 (a): StreamServer, {len(sids)} sessions ("
+          + ", ".join(f"{n} {c}" for c, n in STREAM_CLASSES)
+          + f") x {STREAM_FRAMES} frames, "
+          f"max_batch {STREAM_BATCH}, fake clock {STREAM_DT} s a step: "
+          f"{st.ticks} ticks, {st.pipelined_ticks} pipelined, 1 sync + 1 "
+          f"D2H on every tick; preempted {st.preempted} == requeued; "
+          f"deadline misses {st.deadline_misses}; k histogram "
+          f"{ks.tolist()}; every embedding bitwise == the sequential replay "
+          f"of schedule() ({len(schedule)} ticks); launches {launches}")
+
+    # --- (b) live: the serving thread on the real clock ------------------
+    srv_b, sids_b = stream_server(cfg, params, "cuda")
+    frames_b = stream_frames(cfg, sids_b, 9)
+    counts_b = count_ticks(srv_b.gateway)
+    errors = []
+
+    def client(my_sids):
+        try:
+            for t in range(STREAM_FRAMES):
+                for sid in my_sids:
+                    srv_b.submit(sid, frames_b[(sid, t)])
+                time.sleep(0.005)
+            for sid in my_sids:
+                srv_b.close_session(sid, timeout=300.0)
+        except BaseException as e:        # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(sids_b[i::4],))
+               for i in range(4)]
+    start = time.perf_counter()
+    srv_b.start()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600.0)
+    wall = time.perf_counter() - start
+    srv_b.stop(timeout=120.0)
+    check(not any(th.is_alive() for th in threads), "(b) a client hung")
+    check(not errors, f"(b) client error: {errors[:1]}")
+    st_b = srv_b.stats()
+    msg = conserved(st_b)
+    check(msg is None, f"(b) conservation: {msg}")
+    check(all(c[:2] == (1, 1) for c in counts_b),
+          f"(b) syncs/D2H per tick {[c[:2] for c in counts_b]}")
+    res_b = srv_b.drain_results()
+    served = sum(st_b.frames_served.values())
+    check(served + sum(st_b.shed_expired.values()) == n
+          and len(res_b) == served, f"(b) served {served} of {n}")
+    period = np.diff([c[2] for c in counts_b]) * 1e3
+    span = np.array([c[3] for c in counts_b])
+    ks_b = np.bincount([r.k for r in res_b], minlength=L + 1)
+    waits = {c: {q: round(v, 3) for q, v in w.items() if q in ("p50", "p95")}
+             for c, w in st_b.queue_wait_ms.items()}
+    print(f"phase 8 (b): live, 4 client threads, {n} frames in "
+          f"{wall:.3f} s = {served / wall:.1f} frames/s; {st_b.ticks} ticks,"
+          f" {st_b.pipelined_ticks} pipelined (share "
+          f"{st_b.pipelined_ticks / max(st_b.ticks, 1):.3f}); tick period "
+          f"(collect to collect) ms p50 {np.percentile(period, 50):.3f} p95 "
+          f"{np.percentile(period, 95):.3f}; tick in flight (launch to "
+          f"collect) ms p50 {np.percentile(span, 50):.3f} p95 "
+          f"{np.percentile(span, 95):.3f}; queue wait ms {waits}; deadline "
+          f"misses {st_b.deadline_misses}; shed {st_b.shed_expired}; "
+          f"preempted {st_b.preempted}; k histogram {ks_b.tolist()}; 1 sync "
+          f"+ 1 D2H on every tick")
+    pipeline_on_off(cfg, params, frames)
+    profile_pipelined_pair(srv, sids, frames, clock,
+                           float(np.percentile(period, 50)))
+    return launches
+
+
+def pipeline_on_off(cfg, params, frames):
+    """(a)'s frames, all queued up front, then stepped back to back until
+    served, with ``pipeline`` on and off in turns (on, off, off, on) ->
+    host ms a tick of the stepping loop, of ``tick_launch`` and of the
+    collect's wait.  Off, each step collects tick t (waiting for its
+    device tail) before it launches t+1; on, t+1's launches run while t's
+    chains finish, so only a tail that outlasts them is waited for."""
+    per_tick = {True: [], False: []}
+    for pipeline in (True, False, False, True):
+        clock = FakeClock()
+        srv, sids = stream_server(cfg, params, "cuda", clock, pipeline)
+        gw, spent = srv.gateway, {"launch": 0.0, "wait": 0.0}
+        launch, block = gw.tick_launch, gw._block
+
+        def timed(key, fn):
+            def call(*args, **kwargs):
+                start = time.perf_counter()
+                out = fn(*args, **kwargs)
+                spent[key] += time.perf_counter() - start
+                return out
+            return call
+        gw.tick_launch, gw._block = timed("launch", launch), timed(
+            "wait", block)
+        for t in range(STREAM_FRAMES):
+            for sid in sids:
+                srv.submit(sid, frames[(sid, t)])
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        while srv.busy():
+            clock.t += STREAM_DT
+            srv.step()
+        total = time.perf_counter() - start
+        st = srv.stats()
+        check(sum(st.frames_served.values()) == len(frames)
+              and (st.pipelined_ticks > 0) == pipeline,
+              f"pipeline={pipeline}: {st.frames_served}, "
+              f"{st.pipelined_ticks} pipelined")
+        per_tick[pipeline].append(tuple(
+            v * 1e3 / st.ticks for v in (total, spent["launch"],
+                                         spent["wait"])))
+    def mean_ms(pipeline):
+        return float(np.mean([x[0] for x in per_tick[pipeline]]))
+    print("stepped back to back, pipeline on / off in turns (on, off, off, "
+          "on): ms a tick (of which tick_launch, collect's wait) "
+          + ", ".join(f"{'on' if p else 'off'} {a:.3f} ({b:.3f}, {c:.3f})"
+                      for p, (a, b, c) in (
+                          (True, per_tick[True][0]),
+                          (False, per_tick[False][0]),
+                          (False, per_tick[False][1]),
+                          (True, per_tick[True][1])))
+          + f"; on saves {mean_ms(False) - mean_ms(True):.3f} ms a tick")
+
+
+def profile_pipelined_pair(srv, sids, frames, clock, period_p50):
+    """Two more pipelined steps of the stepped server under
+    torch.profiler (each launches tick t+1 before it collects tick t):
+    device busy time, the idle share of the profiled window, and a tick's
+    busy time against the live run's p50 tick period."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import FrameRequest
+    for t in range(STREAM_FRAMES, STREAM_FRAMES + 2):
+        for sid in sids:
+            f = frames[(sid, t - STREAM_FRAMES)]
+            srv.submit(sid, FrameRequest(t=t, mel=f.mel, u=f.u, cpu=f.cpu,
+                                         bandwidth_mbps=f.bandwidth_mbps))
+    clock.t += STREAM_DT
+    srv.step()                         # a tick in flight
+    torch.cuda.synchronize()
+    pipelined = srv.stats().pipelined_ticks
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(2):
+            clock.t += STREAM_DT
+            srv.step()
+        window_ms = (time.perf_counter() - start) * 1e3
+    while srv.busy():
+        clock.t += STREAM_DT
+        srv.step()
+    check(srv.stats().pipelined_ticks >= pipelined + 2,
+          "profiled steps were not pipelined")
+    events = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    if not events:
+        print("profiled pipelined tick pair: not measured (torch.profiler "
+              "recorded no device activity)")
+        return
+    busy_ms = sum(events) / 1e3
+    print(f"profiled pipelined tick pair: {len(events)} device activities, "
+          f"busy {busy_ms:.3f} ms in a {window_ms:.3f} ms window (idle "
+          f"share {1.0 - busy_ms / window_ms:.3f} under the profiler); a "
+          f"tick's busy {busy_ms / 2:.3f} ms against the live p50 tick "
+          f"period {period_p50:.3f} ms: idle share "
+          f"{1.0 - busy_ms / 2 / period_p50:.3f}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -1077,7 +1624,7 @@ def main():
           f"{[os.path.basename(p) for p in libs]}")
 
     worst = phase1(CFG, dev, ops, dequantize, quantize)
-    launches, serve_tick_ms = phase2(CFG, dev, ops)
+    launches, serve_tick_ms, frame_launches = phase2(CFG, dev, ops)
     tot = kernel_times(CFG, dev, ops)
     refine_worst = phase3(dev, ops)
     refine_launches, _ = phase4(CFG, dev, ops, serve_tick_ms)
@@ -1085,8 +1632,12 @@ def main():
     train_worst = phase5(dev, ops)
     train_launches, _ = phase6(CFG, dev, ops)
     train_times = train_kernel_times(dev, ops)
+    quant_worst = phase7(CFG, dev, ops)
+    quant_times = quant_kernel_times(CFG, dev, ops)
+    stream_launches = phase8(CFG, dev, ops)
     paths = {"serve": launches, "refine": refine_launches,
-             "train": train_launches}
+             "train": train_launches, "per_frame": frame_launches,
+             "stream": stream_launches}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -1135,6 +1686,23 @@ def main():
             "replaces": replaces, "launches": train_launches[name],
             "max_abs_err": train_worst[name], **train_times[name],
             "library_ms": None, "launches_by_path": by_path(name)})
+    for name in ("int8_quantize", "int8_dequantize"):
+        per_frame = quant_times[name]["per_frame"]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/int8_quant.cu",
+            "replaces": "src/repro/kernels/int8_quant.py:"
+                        + ("36" if name == "int8_quantize" else "129"),
+            "launches": frame_launches[name],
+            "max_abs_err": quant_worst[name], "ms": per_frame["ms"],
+            "plain_ms": per_frame["plain_ms"],
+            "bound_ms": per_frame["bound_ms"],
+            "bound_by": ("bytes" if per_frame["bytes_ms"]
+                         >= per_frame["ops_ms"] else "operations"),
+            "library_ms": (per_frame["library_ms"]
+                           if name == "int8_quantize" else None),
+            "launches_by_path": by_path(name),
+            "largest_shape": quant_times[name]["largest"]})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,17 +5,20 @@
 """
 from repro_torch.api.gateway import StreamSplitGateway, TickPlan
 from repro_torch.api.policies import (EntropyThresholdPolicy, FixedKPolicy,
-                                      RulePolicy, SplitPolicy, make_policy)
+                                      RLPolicy, RulePolicy, SplitPolicy,
+                                      make_policy)
 from repro_torch.api.types import (AdmissionError, FrameRequest, FrameResult,
-                                   GatewayStats, QoSClass, SessionInfo,
-                                   SessionSnapshot)
+                                   GatewayStats, QoSClass, QueuedFrameSnapshot,
+                                   ResourceSignals, ServerSessionSnapshot,
+                                   SessionInfo, SessionSnapshot, StreamStats)
 from repro_torch.core.fleet_backend import FleetBackend, HostFleetBackend
 
 __all__ = [
     "StreamSplitGateway", "TickPlan",
     "FleetBackend", "HostFleetBackend",
     "SplitPolicy", "make_policy", "FixedKPolicy", "RulePolicy",
-    "EntropyThresholdPolicy",
+    "RLPolicy", "EntropyThresholdPolicy",
     "FrameRequest", "FrameResult", "SessionInfo", "GatewayStats",
-    "QoSClass", "AdmissionError", "SessionSnapshot",
+    "QoSClass", "AdmissionError", "SessionSnapshot", "StreamStats",
+    "ResourceSignals", "ServerSessionSnapshot", "QueuedFrameSnapshot",
 ]

@@ -20,8 +20,9 @@ The tick is an **overlapped, single-sync data plane**.  One tick:
    runs edge -> wire kernel -> server on the current stream, without
    waiting;
 4. one gather puts the embeddings back in submission order, one
-   non-blocking copy takes them to pinned host memory, and the tick
-   waits ONCE (``_block``) before reading them;
+   non-blocking copy takes them to pinned host memory and an event is
+   recorded behind it — the end of ``tick_launch``; ``tick_collect``
+   waits ONCE (``_block``), on that event alone, before reading them;
 5. the embeddings go into the fleet rings;
 6. every ``refine_every`` ticks, one fleet refine round
    (``HostFleetBackend.refine``) takes an SGD step on the shared head and
@@ -29,7 +30,10 @@ The tick is an **overlapped, single-sync data plane**.  One tick:
 
 ``_block`` and ``_d2h`` count every wait and every embedding copy, so
 ``GatewayStats.device_syncs_per_tick == 1`` and ``d2h_copies_per_tick
-== 1`` are counted facts.  A refine round waits for its own loss and
+== 1`` are counted facts.  Because each tick waits for its own event and
+not for the stream, a caller that launches tick t+1 before it collects
+tick t (``StreamServer``'s pipeline) runs t+1's chains on the device
+while t is delivered.  A refine round waits for its own loss and
 copies its own snapshot; as in the reference, neither is on that
 scoreboard (``snapshot_h2d_bytes`` counts the copy).  ``overlap=False``
 keeps the per-bucket-sync dispatch as the baseline, and
@@ -61,8 +65,8 @@ class TickPlan:
     ``tick_collect``: the launched device chains plus the host context
     needed to deliver their results."""
 
-    __slots__ = ("pending", "t0", "profile", "launched", "z_all", "t_d0",
-                 "syncs", "d2h", "seq")
+    __slots__ = ("pending", "t0", "profile", "launched", "z_all", "z_host",
+                 "done", "t_d0", "syncs", "d2h", "seq")
 
     def __init__(self, pending, t0, profile=False, seq=0):
         self.pending = pending     # [(sid, FrameRequest, mel f32)] served
@@ -70,6 +74,8 @@ class TickPlan:
         self.profile = profile
         self.launched = []         # (k, idx, wire bytes, bucket ms, shard)
         self.z_all = None          # (n, d) device embeddings, in flight
+        self.z_host = None         # their pinned host copy, in flight
+        self.done = None           # CUDA event behind that copy
         self.t_d0 = t0             # clock at dispatch start
         self.syncs = 0             # launch-phase waits (profile mode only)
         self.d2h = 0
@@ -354,9 +360,10 @@ class StreamSplitGateway:
 
     def tick_launch(self, *, profile=False) -> TickPlan:
         """Launch phase of the overlapped tick: decide, stage, issue every
-        bucket's chain and do the host bookkeeping that needs no
-        embedding values — without waiting for the device.  Pass the
-        returned plan to ``tick_collect``."""
+        bucket's chain, the reassembly and the tick's ONE embedding copy
+        to the host (with an event behind it), and do the host
+        bookkeeping that needs no embedding values — without waiting for
+        the device.  Pass the returned plan to ``tick_collect``."""
         if not self.overlap:
             raise RuntimeError(
                 "tick_launch/tick_collect phase the overlapped data plane; "
@@ -374,9 +381,10 @@ class StreamSplitGateway:
         return plan
 
     def tick_collect(self, plan: TickPlan) -> list[FrameResult]:
-        """Collect phase: the tick's ONE device sync and ONE embedding
-        copy, results in submission order, fleet ingest and the tick
-        counters.  Plans collect exactly once, in launch order."""
+        """Collect phase: the tick's ONE device sync, on the event behind
+        its own copy (a tick launched after it is not waited for), then
+        results in submission order, fleet ingest and the tick counters.
+        Plans collect exactly once, in launch order."""
         if plan.seq != self._collect_seq:
             raise RuntimeError(
                 f"tick_collect out of launch order: plan #{plan.seq} "
@@ -430,17 +438,21 @@ class StreamSplitGateway:
 
     # instrumented sync points: every wait for the device and every
     # embedding copy to the host in the dispatch plane goes through these
-    def _block(self, x=None):
-        """Wait for everything queued on the current stream."""
+    def _block(self, done=None):
+        """Wait for the device: for the event ``done`` when given (a
+        tick's own copy), else for everything queued on the current
+        stream.  A no-op on the CPU."""
         self._tick_syncs += 1
         if self._cuda:
-            torch.cuda.current_stream(self.device).synchronize()
-        return x
+            if done is not None:
+                done.synchronize()
+            else:
+                torch.cuda.current_stream(self.device).synchronize()
 
     def _d2h(self, x):
         """Start the copy of ``x`` into pinned host memory without
-        waiting; the result may be read only after the next ``_block``.
-        A CPU tensor is already on the host."""
+        waiting; the result may be read only after a ``_block`` that
+        covers it.  A CPU tensor is already on the host."""
         self._tick_d2h += 1
         if not self._cuda:
             return x
@@ -507,21 +519,28 @@ class StreamSplitGateway:
             z_dev, wire = self.engine.run_batch_async(self.params, mel_b, k)
             ms = None
             if profile:   # diagnostic mode: per-bucket round trips
-                self._block(z_dev)
+                self._block()
                 ms = (self._clock() - t_b) * 1e3 / len(idx)
             z_bufs.append(z_dev)
             plan.launched.append((k, idx, wire, ms, 0))
-        # back into submission order on the device, pad rows dropped
+        # back into submission order on the device, pad rows dropped, and
+        # the tick's one copy to the host, queued behind its own chains
+        # (before any later tick's) with an event to wait on
         plan.z_all = torch.cat(z_bufs).index_select(0, index[offset:])
+        plan.z_host = self._d2h(plan.z_all)
+        if self._cuda:
+            plan.done = torch.cuda.Event()
+            plan.done.record(torch.cuda.current_stream(self.device))
         for k, idx, wire, _, s in plan.launched:
             self._account_bucket(k, idx, pending, wire, shard=s)
         self._sync_accounting(pending, now=plan.t_d0)
 
     def _collect_overlapped(self, plan, results):
-        """Collect half: the tick's one D2H copy and one sync, then
-        ``FrameResult`` delivery and the host ring insert."""
+        """Collect half: the tick's one sync, on the event behind its
+        copy, then ``FrameResult`` delivery and the host ring insert."""
         pending = plan.pending
-        z_host = self._fetch(plan.z_all)
+        self._block(plan.done)
+        z_host = plan.z_host.numpy()
         tick_ms = (self._clock() - plan.t_d0) * 1e3 / len(pending)
         self._ingest_fleet(pending, z_host)
         for k, idx, wire, ms, _s in plan.launched:

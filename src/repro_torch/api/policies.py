@@ -6,14 +6,18 @@ Port of ``repro.api.policies``:
 
 where each observation row is the control-plane state
 ``[U_t, R_cpu/100, B_net]`` and each output is the split index for that
-frame's dispatch.  The PPO policy (``"rl"``) waits for ``core/ppo.py``
-to be ported.
+frame's dispatch.  Every policy decides on the host: the PPO actor
+(``"rl"``) runs its small MLP on the CPU in float32, as the rules run
+numpy, so a tick's decision never waits for the device.
 """
 from __future__ import annotations
 
 from typing import Protocol, runtime_checkable
 
 import numpy as np
+import torch
+
+from repro_torch.core.ppo import policy_apply
 
 # bandwidth normalization of the control-plane observation, in Mbps (the
 # reference's ``EdgeCloudEnv.BW_NORM``)
@@ -60,6 +64,25 @@ class RulePolicy:
         return np.where(offload, self.offload_k, self.L).astype(np.int64)
 
 
+class RLPolicy:
+    """Greedy PPO policy (``core/ppo.py``), batched over the tick in one
+    forward.  ``params`` (tensors on any device, or numpy arrays) are
+    copied once to float32 CPU tensors; ``decide`` runs the actor there
+    and takes the argmax, first index on a tie as ``jnp.argmax``."""
+
+    def __init__(self, L, params):
+        self.L = L
+        self.params = {k: torch.as_tensor(v).detach().to("cpu",
+                                                          torch.float32)
+                       for k, v in params.items()}
+
+    def decide(self, obs_batch):
+        obs = torch.from_numpy(np.asarray(obs_batch, np.float32))
+        with torch.no_grad():
+            logits, _ = policy_apply(self.params, obs)
+        return torch.argmax(logits, dim=-1).numpy().astype(np.int64)
+
+
 class EntropyThresholdPolicy:
     """The cascade server's routing as a split policy (paper §6.5.2:
     offload when U_t > 0.7 regardless of platform): easy frames stay
@@ -77,15 +100,18 @@ class EntropyThresholdPolicy:
         return np.where(hard, self.offload_k, self.L).astype(np.int64)
 
 
-def make_policy(kind, L, *, static_k=3, threshold=0.7, offload_k=2,
-                bw_threshold=0.12, cpu_threshold=0.6) -> SplitPolicy:
+def make_policy(kind, L, *, rl_params=None, static_k=3, threshold=0.7,
+                offload_k=2, bw_threshold=0.12,
+                cpu_threshold=0.6) -> SplitPolicy:
     """One constructor for every placement convention.
 
-    kind ∈ {"rl", "rule", "static", "edge", "server", "entropy"}."""
+    kind ∈ {"rl", "rule", "static", "edge", "server", "entropy"}; "rl"
+    takes the actor-critic's ``rl_params`` (``core.ppo.init_policy``'s
+    dict, or the reference's through ``weights.ppo_from_jax``)."""
     if kind == "rl":
-        raise NotImplementedError(
-            "the rl policy runs the PPO actor (core/ppo.py), which is not "
-            "ported yet")
+        if rl_params is None:
+            raise ValueError("rl policy needs rl_params")
+        return RLPolicy(L, rl_params)
     if kind == "rule":
         return RulePolicy(L, bw_threshold=bw_threshold,
                           cpu_threshold=cpu_threshold, offload_k=offload_k)

@@ -1,11 +1,13 @@
 """Typed request/response surface of the StreamSplit gateway.
 
-Port of ``repro.api.types``, serving-tick half: a client session
+Port of ``repro.api.types``, serving half: a client session
 ``submit``s ``FrameRequest``s, the gateway ``tick`` turns them into
 ``FrameResult``s, and ``GatewayStats`` is the serving plane's
-scoreboard.  Everything here is a frozen dataclass of host values (numpy
-arrays, Python scalars), never a tensor.  The streaming-runtime and
-cluster types come with those layers.
+scoreboard; ``StreamStats``, ``ResourceSignals`` and the server half of
+a ``SessionSnapshot`` belong to the streaming runtime
+(``repro_torch.serving``).  Everything here is a frozen dataclass of
+host values (numpy arrays, Python scalars), never a tensor.  The cluster
+types come with that layer.
 """
 from __future__ import annotations
 
@@ -99,12 +101,48 @@ class SessionInfo:
 
 
 @dataclass(frozen=True)
+class QueuedFrameSnapshot:
+    """One queued-but-unserved frame inside a ``SessionSnapshot`` —
+    enough to re-enqueue it on another server with its ORIGINAL arrival
+    time and deadline (migration must not grant waiting frames a fresh
+    deadline budget, nor steal the wait they already paid)."""
+
+    frame: FrameRequest
+    enq_s: float               # original submit time (caller clock)
+    deadline_s: float          # original deadline — survives migration
+    preemptions: int = 0
+    promoted: bool = False
+    weight: float = 1.0
+    # the frame's live FrameTrace (repro_torch.obs.trace) when it is
+    # sampled — the span migrates with it (None when tracing is off)
+    trace: object = None
+
+
+@dataclass(frozen=True)
+class ServerSessionSnapshot:
+    """The streaming-runtime half of a ``SessionSnapshot``: per-session
+    conservation books, fair-share weight, token-bucket level, and every
+    frame still waiting in the QoS queues (oldest first)."""
+
+    submitted: int             # frames accepted into the queues
+    served: int                # frames delivered as FrameResults
+    shed: int                  # frames visibly shed past the horizon
+    weight: float              # STANDARD DRR fair-share weight
+    # (rate_per_s, burst, tokens, last_refill_s) or None — the bucket
+    # level migrates so a rate-limited tenant cannot reset its budget by
+    # riding a rebalance
+    bucket: tuple | None = None
+    queued: tuple = ()         # QueuedFrameSnapshot, oldest first
+
+
+@dataclass(frozen=True)
 class SessionSnapshot:
     """Everything one session *is*, frozen and serializable — the unit
     of live migration between gateways: the gateway's per-session books,
     the lazy-sync protocol state, and the fleet ring row in the host
-    representation.  (The reference's ``server`` field, the streaming
-    runtime's half, comes with that runtime.)"""
+    representation.  ``server`` carries the streaming runtime's half
+    when the session was exported from a ``StreamServer`` (None from a
+    bare gateway)."""
 
     platform: str
     qos: QoSClass
@@ -125,6 +163,7 @@ class SessionSnapshot:
     ring_t: np.ndarray         # (W,) int64, T_SENTINEL marks empty slots
     ring_label: np.ndarray     # (W,) int64
     ring_newest: int
+    server: ServerSessionSnapshot | None = None
     version: int = 1
 
     def to_bytes(self) -> bytes:
@@ -182,3 +221,83 @@ class GatewayStats:
         """The batching win: 1.0 is the per-frame loop; N/buckets when
         k-bucketing collapses a tick into few dispatches."""
         return self.frames / self.dispatches if self.dispatches else 0.0
+
+
+@dataclass(frozen=True)
+class StreamStats:
+    """Point-in-time scoreboard of the streaming serving runtime
+    (``repro_torch.serving.StreamServer``).
+
+    Every per-class dict is keyed by the ``QoSClass.value`` strings
+    (``"interactive"``/``"standard"``/``"bulk"``) so the whole snapshot
+    is JSON-serializable as-is.  Conservation is an invariant, not a
+    hope: per class, ``frames_submitted == frames_served + queue_depth
+    + in_flight + shed_expired`` at every snapshot, and ``preempted ==
+    requeued`` always — a preempted frame goes back to the front of its queue; a
+    frame only ever leaves the system as a served ``FrameResult`` or as
+    a *counted* shed (deadline expired past the configured horizon),
+    never silently.  Frames refused at submit raise a typed error and
+    count WITHOUT entering ``frames_submitted``: ``QueueFullError`` →
+    ``rejected_full`` (bounded queue) and ``RateLimitError`` →
+    ``rejected_rate_limited`` (per-session token bucket).
+    """
+
+    running: bool              # serving thread alive right now
+    ticks: int                 # ticks the runtime has collected
+    pipelined_ticks: int       # launched while the previous tick's chains
+    #                            were still in flight (cross-tick overlap)
+    frames_submitted: dict     # class -> frames accepted into the queues
+    frames_served: dict        # class -> frames delivered as FrameResults
+    queue_depth: dict          # class -> frames waiting (queued + staged)
+    in_flight: dict            # class -> frames launched, not yet collected
+    rejected_full: dict        # class -> bounded-queue refusals at submit
+    rejected_rate_limited: dict  # class -> token-bucket refusals at submit
+    preempted: dict            # class -> frames bumped from a staged tick
+    requeued: dict             # class -> preempted frames put back (== preempted)
+    shed_expired: dict         # class -> frames dropped visibly: deadline
+    #                            expired past SchedulerCfg.shed_horizon_ms
+    promoted: dict             # class -> frames staged via the aging lane
+    #                            (waited past SchedulerCfg.max_wait_ms)
+    deadline_misses: dict      # class -> frames admitted past their deadline
+    #                            PLUS shed frames (starved-in-queue misses
+    #                            are counted at shed time, not hidden)
+    queue_wait_ms: dict        # class -> {"p50","p95","mean","max"} wait
+    #                            between submit and tick admission (shed
+    #                            frames sample their terminal wait too)
+    gateway: GatewayStats      # the dispatch-plane scoreboard underneath
+
+
+@dataclass(frozen=True)
+class ResourceSignals:
+    """The serving plane's resource state as a control-plane
+    observation (``StreamServer.resource_signals()``).
+
+    This is the view the paper's RL splitter needs beside embedding
+    ambiguity — "real-time resource monitoring" (the paper's §1).
+    Everything is derived from the metrics registry at call time: queue
+    pressure (depth over capacity), tail latency (p95 admission wait + the
+    always-on EWMA stage timings), and loss pressure (shed/reject
+    fraction of recent submissions).  ``as_observation()`` flattens to
+    a normalized float vector shaped like the existing ``SplitPolicy``
+    observation convention (each component in [0, 1] or clamped there).
+    """
+
+    queue_depth: int           # frames waiting across all classes
+    queue_fill: float          # depth / total capacity, in [0, 1]
+    in_flight: int             # frames launched, not yet collected
+    wait_p95_ms: float         # p95 submit->admit wait (sketch)
+    stage_ewma_ms: float       # EWMA tick launch+collect span
+    shed_rate: float           # shed / submitted (cumulative), [0, 1]
+    reject_rate: float         # refused / offered at the door, [0, 1]
+    throughput_fps: float      # frames served per second of uptime
+
+    def as_observation(self) -> "np.ndarray":
+        """Normalized float32 vector for a ``SplitPolicy``: load,
+        latency (saturating at 1s), and loss pressure."""
+        return np.asarray(
+            [min(1.0, max(0.0, self.queue_fill)),
+             min(1.0, self.wait_p95_ms / 1e3),
+             min(1.0, self.stage_ewma_ms / 1e3),
+             min(1.0, max(0.0, self.shed_rate)),
+             min(1.0, max(0.0, self.reject_rate))],
+            dtype=np.float32)

@@ -19,7 +19,6 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.int8_quant import wire_roundtrip_ref
 from repro_torch.models import audio_encoder as enc
-from repro_torch.quant.int8 import dequantize, quantize
 
 
 class SplitEngine:
@@ -29,7 +28,8 @@ class SplitEngine:
     (``repro_torch.weights.to_device``).  Wire formats, as in the
     reference: ``run`` quantises per tensor (one scale/zero for its whole
     batch), ``run_batch`` and ``run_batch_async`` per sample — identical
-    at B=1.  ``run_batch`` uses the plain per-row round trip, as the
+    at B=1.  ``run`` goes through the per-tensor quantize and dequantize
+    kernels; ``run_batch`` uses the plain per-row round trip, as the
     reference's ``run_batch`` uses its vmapped ``quantize∘dequantize``;
     ``run_batch_async`` uses the wire kernel, held bitwise against it.
     """
@@ -71,8 +71,11 @@ class SplitEngine:
             return self._edge_fn(L, params, mel), 0
         act = self._edge_fn(k, params, mel)
         if self.quantize_wire:
+            # the wire as the edge ships it: the int8 payload plus its
+            # (scale, zero) header, materialised on the device, and the
+            # activation the server reads back from them
             wire_bytes = act.numel() + 8  # int8 payload + scale/zero header
-            act = dequantize(quantize(act))   # "received" on the server
+            act = kernel_ops.int8_dequantize(kernel_ops.int8_quantize(act))
         else:
             wire_bytes = act.numel() * 4
         return self._server_fn(k, params, act), wire_bytes

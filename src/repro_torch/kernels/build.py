@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _S = ctypes.c_char_p
 # C signature of every entry point, by source file
@@ -38,6 +39,11 @@ SIGNATURES = {
     "wire_roundtrip.cu": {
         "wire_roundtrip_f32": ([_P, _P, _I, _I, _P], _I),
         "wire_roundtrip_error_string": ([_I], _S),
+    },
+    "int8_quant.cu": {
+        "int8_quantize_f32": ([_P, _P, _P, _P, _L, _P], _I),
+        "int8_dequantize_f32": ([_P, _P, _P, _P, _L, _P], _I),
+        "int8_quant_error_string": ([_I], _S),
     },
     "swd.cu": {
         "swd_sessions_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
@@ -119,19 +125,22 @@ def build_all() -> list[Path]:
         return list(pool.map(build, SOURCES))
 
 
-def check_inputs(name: str, *tensors) -> None:
-    """The checks every kernel wrapper but the wire's makes before it
-    picks a path: float32, contiguous, on one CPU or CUDA device, and not
+def check_inputs(name: str, *tensors, dtype=torch.float32) -> None:
+    """The checks a kernel wrapper makes on its inputs: ``dtype``
+    (float32 unless given), contiguous, on one CPU or CUDA device, and not
     requiring a gradient (a wrapper launches one kernel; the
-    differentiable entries call it with detached tensors)."""
+    differentiable entries call it with detached tensors).  The refine
+    and training wrappers make them before they pick a path; the
+    per-tensor INT8 wrappers on their CUDA path only, as their plain
+    versions take any float tensor; the wire's makes its own."""
     dev = tensors[0].device
     for x in tensors:
         if x.device.type not in ("cpu", "cuda"):
             raise ValueError(f"{name}: no kernel for device {x.device}")
         if x.device != dev:
             raise ValueError(f"{name}: inputs on {dev} and {x.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} takes float32, got {x.dtype}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} takes {dtype}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors")
         if x.requires_grad:

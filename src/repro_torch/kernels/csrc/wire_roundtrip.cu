@@ -17,7 +17,10 @@
 // divisions by `scale` are IEEE (__fdiv_rn); rintf rounds half to even.
 // Every operation is an explicit _rn intrinsic and the library is built
 // with -fmad=false, so no FMA contraction changes (q - zero) * scale.
-// Min and max are exact in any order, so the reduction tree is free.
+// Min and max are exact in any order, so the reduction tree is free.  A
+// NaN element makes the row's lo, hi, scale and zero NaN, and so the whole
+// row NaN, as in the plain version: the min/max fold and the scale floor
+// keep NaN, where fminf/fmaxf would drop it.
 //
 // Bound: the function reads each input once and writes each output once,
 // 8 bytes per element, against a handful of float operations: on an H100
@@ -44,6 +47,22 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kInv255 = 0x1.010102p-8f;  // float32(1/255), 0x3B808081
 
+// min and max that keep a NaN operand (fminf/fmaxf drop it), and are
+// fminf/fmaxf otherwise: one PTX instruction each (sm_80+), as cheap as
+// fminf, where a select on `a != a` costs a quarter of the kernel's time
+// at the per-frame sizes (tools/int8_fold_compare.py)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ float roundtrip(float v, float scale, float zero) {
   float q = rintf(__fadd_rn(__fdiv_rn(v, scale), zero));
   q = fminf(fmaxf(q, -128.0f), 127.0f);
@@ -66,18 +85,18 @@ wire_roundtrip_kernel(const float* __restrict__ x, float* __restrict__ out,
     const float4* x4 = reinterpret_cast<const float4*>(xr);
     for (int i = tid; i < n / 4; i += kThreads) {
       float4 v = x4[i];
-      lo = fminf(lo, fminf(fminf(v.x, v.y), fminf(v.z, v.w)));
-      hi = fmaxf(hi, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+      lo = min_nan(lo, min_nan(min_nan(v.x, v.y), min_nan(v.z, v.w)));
+      hi = max_nan(hi, max_nan(max_nan(v.x, v.y), max_nan(v.z, v.w)));
     }
   } else {
     for (int i = tid; i < n; i += kThreads) {
-      lo = fminf(lo, xr[i]);
-      hi = fmaxf(hi, xr[i]);
+      lo = min_nan(lo, xr[i]);
+      hi = max_nan(hi, xr[i]);
     }
   }
   for (int off = 16; off > 0; off >>= 1) {
-    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    lo = min_nan(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max_nan(hi, __shfl_xor_sync(0xffffffffu, hi, off));
   }
   __shared__ float s_lo[kWarps], s_hi[kWarps];
   __shared__ float s_scale, s_zero;
@@ -90,10 +109,11 @@ wire_roundtrip_kernel(const float* __restrict__ x, float* __restrict__ out,
     lo = s_lo[0];
     hi = s_hi[0];
     for (int w = 1; w < kWarps; ++w) {
-      lo = fminf(lo, s_lo[w]);
-      hi = fmaxf(hi, s_hi[w]);
+      lo = min_nan(lo, s_lo[w]);
+      hi = max_nan(hi, s_hi[w]);
     }
-    const float scale = fmaxf(__fmul_rn(__fsub_rn(hi, lo), kInv255), 1e-12f);
+    const float span = __fmul_rn(__fsub_rn(hi, lo), kInv255);
+    const float scale = span < 1e-12f ? 1e-12f : span;   // keeps NaN
     s_scale = scale;
     s_zero = __fsub_rn(-128.0f, __fdiv_rn(lo, scale));
   }

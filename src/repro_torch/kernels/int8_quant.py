@@ -1,18 +1,32 @@
-"""The split link's fused INT8 wire stage.
+"""The split link's INT8 wire: the fused per-row round trip and the
+per-tensor quantize and dequantize.
 
-Port of ``repro.kernels.int8_quant.wire_roundtrip_pallas``: per-row
-``quantize∘dequantize`` of a ``(B, ...)`` batch, one row per sample.
-``wire_roundtrip`` is the public wrapper.  On a CUDA tensor it launches
-the hand-written kernel ``csrc/wire_roundtrip.cu`` or raises; on a CPU
-tensor it runs ``wire_roundtrip_ref``, the plain PyTorch version, which
-is also what the kernel is held against bitwise on the card.
+Port of ``repro.kernels.int8_quant``:
+
+- ``wire_roundtrip`` (``wire_roundtrip_pallas``): per-row
+  ``quantize∘dequantize`` of a ``(B, ...)`` batch, one row per sample,
+  the wire stage of ``SplitEngine.run_batch_async``; kernel
+  ``csrc/wire_roundtrip.cu``.
+- ``int8_quantize`` / ``int8_dequantize`` (``int8_quantize_pallas``,
+  ``int8_dequantize_pallas``): one scale and zero for the whole tensor,
+  the wire format of ``SplitEngine.run``; the int8 payload and its
+  8-byte (scale, zero) header are materialised on the device, as the
+  edge ships them.  Kernels in ``csrc/int8_quant.cu``.
+
+Each public wrapper dispatches on its input's device.  On a CUDA tensor
+it launches its hand-written kernel or raises; on a CPU tensor it runs
+its ``*_ref``, the plain PyTorch version, which is also what the kernel
+is held against bitwise on the card.  Each wrapper counts its launches
+in ``<wrapper>.launches`` (one a call: ``int8_quantize``'s call is its
+two passes).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.quant.int8 import levels, scale_zero
+from repro_torch.quant.int8 import (QTensor, dequantize, levels,
+                                   quantize, scale_zero)
 
 
 def wire_roundtrip_ref(x):
@@ -63,3 +77,77 @@ def wire_roundtrip(x):
 
 
 wire_roundtrip.launches = 0
+
+
+# the plain versions of the per-tensor kernels ARE the port's
+# ``quant.int8`` quantize and dequantize
+int8_quantize_ref = quantize
+int8_dequantize_ref = dequantize
+
+
+# pass 1's scratch: (lo, hi) for at most kMaxBlocks blocks (csrc/int8_quant.cu)
+_PARTIALS = 2 * 1024
+
+
+def _non_empty(name, x):
+    if x.numel() == 0:
+        raise ValueError(f"{name} needs a non-empty tensor")
+
+
+def int8_quantize(x) -> QTensor:
+    """Per-tensor INT8 quantize of ``x`` (any shape, taken flat) ->
+    ``QTensor(q int8 like x, scale () f32, zero () f32)``.
+
+    A CUDA tensor must be contiguous float32: the two passes run on the
+    current stream with no host round trip between them, and scale and
+    zero stay on the device.  A CPU tensor goes to
+    ``int8_quantize_ref``."""
+    if x.device.type == "cpu":
+        return int8_quantize_ref(x)
+    build.check_inputs("int8_quantize", x)
+    _non_empty("int8_quantize", x)
+    lib = build.load("int8_quant.cu")
+    n = x.numel()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    sz = torch.empty(2, dtype=torch.float32, device=x.device)
+    partials = torch.empty(_PARTIALS, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.int8_quantize_f32(x.data_ptr(), q.data_ptr(),
+                                    partials.data_ptr(), sz.data_ptr(), n,
+                                    build.stream_of(x))
+    build.raise_on_error(lib, "int8_quant", err)
+    int8_quantize.launches += 1
+    return QTensor(q=q, scale=sz[0], zero=sz[1])
+
+
+def int8_dequantize(qt: QTensor, dtype=torch.float32):
+    """``(q − zero) · scale`` of a per-tensor ``QTensor`` -> ``dtype``
+    (the kernel writes float32; another ``dtype`` is a cast after it).
+
+    On the card ``q`` must be contiguous int8 and ``scale``/``zero``
+    float32 scalars on its device: the kernel reads them from device
+    memory.  A ``q`` on the CPU goes to ``int8_dequantize_ref``."""
+    q = qt.q
+    if q.device.type == "cpu":
+        return int8_dequantize_ref(qt, dtype)
+    build.check_inputs("int8_dequantize", q, dtype=torch.int8)
+    _non_empty("int8_dequantize", q)
+    for name, v in (("scale", qt.scale), ("zero", qt.zero)):
+        if (v.device != q.device or v.dtype != torch.float32
+                or v.numel() != 1):
+            raise ValueError(f"int8_dequantize: {name} must be one float32 "
+                             f"on {q.device}, got {v.dtype} {tuple(v.shape)}"
+                             f" on {v.device}")
+    lib = build.load("int8_quant.cu")
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.int8_dequantize_f32(q.data_ptr(), qt.scale.data_ptr(),
+                                      qt.zero.data_ptr(), out.data_ptr(),
+                                      q.numel(), build.stream_of(q))
+    build.raise_on_error(lib, "int8_quant", err)
+    int8_dequantize.launches += 1
+    return out if dtype == torch.float32 else out.to(dtype)
+
+
+int8_quantize.launches = 0
+int8_dequantize.launches = 0

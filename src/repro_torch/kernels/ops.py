@@ -23,7 +23,10 @@ from repro_torch.kernels.infonce_vneg import (infonce_vneg, infonce_vneg_bwd,
                                               infonce_vneg_fwd,
                                               infonce_vneg_fwd_ref,
                                               infonce_vneg_ref)
-from repro_torch.kernels.int8_quant import wire_roundtrip, wire_roundtrip_ref
+from repro_torch.kernels.int8_quant import (int8_dequantize,
+                                            int8_dequantize_ref,
+                                            int8_quantize, int8_quantize_ref,
+                                            wire_roundtrip, wire_roundtrip_ref)
 from repro_torch.kernels.laplacian_energy import (laplacian_energy,
                                                   laplacian_energy_bwd,
                                                   laplacian_energy_bwd_ref,
@@ -35,7 +38,9 @@ from repro_torch.kernels.swd import (swd_rank_bwd, swd_rank_bwd_ref,
                                      swd_single)
 
 __all__ = ["KERNELS", "resolve_device", "set_precision",
-           "wire_roundtrip", "wire_roundtrip_ref", "swd_sessions",
+           "wire_roundtrip", "wire_roundtrip_ref", "int8_quantize",
+           "int8_quantize_ref", "int8_dequantize", "int8_dequantize_ref",
+           "swd_sessions",
            "swd_sessions_ref", "laplacian_energy", "laplacian_energy_ref",
            "gmm_posterior", "gmm_posterior_ref", "infonce_vneg",
            "infonce_vneg_ref", "infonce_vneg_fwd", "infonce_vneg_fwd_ref",
@@ -48,6 +53,8 @@ __all__ = ["KERNELS", "resolve_device", "set_precision",
 # backward kernels too; the differentiable entries (``infonce_vneg``,
 # ``swd_single``, ``laplacian_energy_diff``) launch through these
 KERNELS = {"wire_roundtrip": wire_roundtrip,
+           "int8_quantize": int8_quantize,
+           "int8_dequantize": int8_dequantize,
            "swd_sessions": swd_sessions,
            "laplacian_energy": laplacian_energy,
            "gmm_posterior": gmm_posterior,

@@ -8,7 +8,10 @@ convert the reference's weights with ``params_from_jax`` rather than
 drawing new ones, so both packages run the same model.  Task heads
 (``head_from_jax``) and GMM memory states (``gmm_from_jax``) cross the
 same way, so a refine round starts from the reference's own state, and
-an AdamW state (``adamw_from_jax``) likewise for the edge learner.
+an AdamW state (``adamw_from_jax``) likewise for the edge learner.  The
+PPO actor-critic of the RL split policy (``ppo_from_jax``) carries
+across as it is: ``w1 (3, H)``, ``b1 (H,)``, ``wp (H, L+1)``, ``bp``,
+``wv (H, 1)``, ``bv (1,)``.
 """
 from __future__ import annotations
 
@@ -128,3 +131,18 @@ def adamw_to_jax(state) -> dict:
     layout."""
     return {"m": params_to_jax(state["m"]), "v": params_to_jax(state["v"]),
             "step": np.asarray(int(state["step"]), np.int32)}
+
+
+PPO_KEYS = ("w1", "b1", "wp", "bp", "wv", "bv")
+
+
+def ppo_from_jax(tree) -> dict:
+    """The reference's PPO actor-critic params (``core/ppo.py``'s
+    ``init_policy`` layout) -> the same dict of float32 CPU tensors."""
+    return {k: _vec_from(tree[k]) for k in PPO_KEYS}
+
+
+def ppo_to_jax(params) -> dict:
+    """Inverse of ``ppo_from_jax``: a dict of float32 numpy arrays."""
+    return {k: params[k].detach().cpu().numpy().astype(np.float32)
+            for k in PPO_KEYS}

@@ -199,9 +199,17 @@ def test_pipelined_phases_match_sequential_ticks(params):
     plan0 = gw_p.tick_launch()
     submit(gw_p, sids_p, 1)
     plan1 = gw_p.tick_launch()
+    # each tick's one D2H copy is issued at the end of its own launch,
+    # before the next tick's chains; its collect is its one wait
+    for plan in (plan0, plan1):
+        assert (plan.syncs, plan.d2h) == (0, 1) and plan.z_host is not None
     with pytest.raises(RuntimeError):
         gw_p.tick_collect(plan1)                 # out of launch order
-    res_p = [gw_p.tick_collect(plan0), gw_p.tick_collect(plan1)]
+    res_p = []
+    for plan in (plan0, plan1):
+        res_p.append(gw_p.tick_collect(plan))
+        sp = gw_p.stats()
+        assert sp.device_syncs_per_tick == 1 and sp.d2h_copies_per_tick == 1
     submit(gw_p, sids_p, 2)
     res_p.append(gw_p.tick())
     res_s = _serve(gw_s, sids_s, ticks)
@@ -242,10 +250,12 @@ def test_gateway_defaults_to_cuda_and_refuses_without_it(params):
 
 
 def test_unported_options_raise(params):
+    """The sharded dispatch plane is not ported; the rl policy is, and
+    without its params it raises as the reference does."""
     _, tp = params
     with pytest.raises(NotImplementedError):
         _gw(tp, shard_dispatch=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="rl_params"):
         make_policy("rl", L)
 
 

@@ -80,6 +80,17 @@ def test_wire_ref_constant_and_outlier_rows():
     np.testing.assert_array_equal(port[0], x[0])
 
 
+def test_wire_ref_nan_row():
+    """A NaN element makes its row NaN (NaN scale and zero) and leaves the
+    other rows as they were, in the reference and the port alike."""
+    x = _x(3, (300,), 8)
+    x[1, 17] = np.nan
+    port = wire_roundtrip_ref(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(port, np.asarray(jops.wire_roundtrip(x)))
+    np.testing.assert_array_equal(port, np.asarray(_vmapped(x)))
+    assert np.isnan(port[1]).all() and not np.isnan(port[[0, 2]]).any()
+
+
 def test_wire_b1_equals_per_tensor_round_trip():
     x = _x(1, (24, 16), 9)
     t = torch.from_numpy(x)
