@@ -6,8 +6,9 @@
 It builds every hand-written CUDA kernel from ``src/repro_torch`` and
 then drives the port's paths at the paper's full encoder width: the
 serving tick, the per-frame split path (``SplitEngine.run``), the tick
-with a fleet refine round after it, the edge learner's training step, and
-the always-on ``StreamServer`` with the RL split policy.
+with a fleet refine round after it, the edge learner's training step, the
+always-on ``StreamServer`` with the RL split policy, and the LM cascade
+server at the full width and depth of qwen1.5-0.5b and qwen3-1.7b.
 
 Phase 1 holds each kernel against its plain PyTorch version on the card,
 bitwise, at every shape the serving path gives it (plus constant,
@@ -35,9 +36,11 @@ Phase 3 holds each refine kernel (``swd_sessions``, ``laplacian_energy``,
 refine shapes (256 sessions x 100 frames x 128 dims, 50 directions,
 k = 5, 64 components), at W in {16, 100, 128}, k >= T, T = 1, with an
 all-masked row, a zero session and direction counts that are not a
-multiple of the kernel's block; tolerances SWD rtol 1e-4, Laplacian rtol
-1e-5, GMM resp atol 1e-4 and entropy atol 5e-4, the reference's own for
-its Pallas kernels.  Two launches on one input must be bitwise equal.
+multiple of the kernel's block, and the GMM also at the cascade's
+(8, 64, 1,024) and at (64, 64, 2,048); tolerances SWD rtol 1e-4,
+Laplacian rtol 1e-5, GMM resp atol 1e-4 and entropy atol 5e-4, the
+reference's own for its Pallas kernels.  Two launches on one input must
+be bitwise equal.
 
 Phase 4 runs the gateway with ``refine_every=1`` over a
 ``HostFleetBackend`` of 256 sessions x 100 frames with a linear 128->10
@@ -100,6 +103,27 @@ the k histogram.  (c) (a)'s frames queued up front and stepped back to
 back with ``pipeline`` on and off in turns (on, off, off, on): host ms
 a tick, so the difference is what the overlap hides.  Last, a profiled
 pipelined tick pair: device busy time and idle share.
+
+Phase 9 holds ``flash_attention_fwd`` against its plain version on the
+card (o atol 2e-5, lse atol 1e-5, two launches bitwise equal) at both
+tiers' layers (B 8, H 16, S 1,024, hd 64; B 4, H 16 over KV 8, hd 128),
+S = 4,096, ragged and single-row lengths, Sq != Sk without the mask, and
+head dims 16 and 32; it times the kernel, its plain version and
+``scaled_dot_product_attention`` (timed only) at the two layer shapes
+beside the bound.
+
+Phase 10 runs ``CascadeServer`` with qwen1.5-0.5b (small tier) and
+qwen3-1.7b (large) at full width and depth, float32, weights from seeded
+generators: a warm-up on a server that escalates everything, then 6
+batches of 8 requests x 1,024 tokens, threshold "auto", with the counts
+set to 0 just before and read just after.  Every request must be
+answered once and finite, each forward must launch the flash kernel once
+a layer (24 small, 28 large) and each batch the GMM kernel twice.  Then
+the small tier's hidden states with the kernel against plain attention
+on the card (atol 1e-4), a 2-layer qwen3-1.7b at (2, 256) on the card
+against the port on the CPU (1e-4 of each tensor's max), and one
+profiled small forward; it prints route, small and large ms,
+requests/s and tokens/s.
 
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
@@ -542,11 +566,20 @@ def phase3(dev, ops):
             gmm_inputs(g, dev, B, C, d, floor),
             [(0.0, RESP_ATOL), (0.0, ENT_ATOL)],
             f"B={B} C={C}{' at the variance floor' if floor else ''}"))
+    # the cascade's GMM at d_model = 1,024, and d = 2,048: the kernel
+    # walks d in chunks of 128 columns
+    wide = max(hold(
+        "gmm_posterior", ops.gmm_posterior, ops.gmm_posterior_ref,
+        gmm_inputs(g, dev, B, C, d_), [(0.0, RESP_ATOL), (0.0, ENT_ATOL)],
+        f"B={B} C={C} d={d_}")
+        for B, C, d_ in ((8, N_COMPONENTS, 1024), (64, N_COMPONENTS, 2048)))
     print("phase 3: swd_sessions (rtol 1e-4), laplacian_energy (rtol 1e-5, "
           "counts exact) and gmm_posterior (resp atol 1e-4, entropy atol "
           "5e-4) == plain version at the refine shapes and edge cases, "
           "bitwise from run to run; max |err| " + ", ".join(
-              f"{k} {v:.3e}" for k, v in worst.items()))
+              f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; gmm_posterior at d = 1,024 and 2,048 {wide:.3e}")
+    worst["gmm_posterior"] = max(worst["gmm_posterior"], wide)
     return worst
 
 
@@ -1601,6 +1634,289 @@ def profile_pipelined_pair(srv, sids, frames, clock, period_p50):
           f"{1.0 - busy_ms / 2 / period_p50:.3f}")
 
 
+# --- the cascade's attention kernel -------------------------------------------
+
+# (B, H, KV, Sq, Sk, hd, causal): the two tiers' layers (qwen1.5-0.5b MHA,
+# qwen3-1.7b GQA), a long causal row, ragged and single-row tails,
+# Sq != Sk without the mask, and the two small head dims
+FLASH_CASES = ((8, 16, 16, 1024, 1024, 64, True),
+               (4, 16, 8, 1024, 1024, 128, True),
+               (1, 16, 16, 4096, 4096, 64, True),
+               (2, 4, 4, 1000, 1000, 64, True),
+               (1, 2, 2, 1, 1, 64, True),
+               (2, 2, 2, 128, 256, 64, False),
+               (2, 4, 2, 200, 200, 16, True),
+               (2, 4, 4, 300, 300, 32, False))
+FLASH_O_ATOL, FLASH_LSE_ATOL = 2e-5, 1e-5
+# the tiers' layer shapes at phase 10's batch of 8 x 1,024 tokens (the
+# large tier's padded sub-batch of 4)
+FLASH_TIMED = {"small": (8, 16, 16, 1024, 1024, 64),
+               "large": (4, 16, 8, 1024, 1024, 128)}
+
+
+def flash_inputs(g, dev, B, H, KV, Sq, Sk, hd):
+    return (torch.randn(B, H, Sq, hd, device=dev, generator=g),
+            torch.randn(B, KV, Sk, hd, device=dev, generator=g),
+            torch.randn(B, KV, Sk, hd, device=dev, generator=g))
+
+
+def phase9(dev, ops):
+    """``flash_attention_fwd`` against its plain version on the card ->
+    max |err| of o and lse."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    worst = 0.0
+    for B, H, KV, Sq, Sk, hd, causal in FLASH_CASES:
+        fa = lambda q, k, v: ops.flash_attention_fwd(  # noqa: E731
+            q, k, v, causal=causal)
+        ref = lambda q, k, v: ops.flash_attention_ref(  # noqa: E731
+            q, k, v, causal)
+        worst = max(worst, hold(
+            "flash_attention_fwd", fa, ref,
+            flash_inputs(g, dev, B, H, KV, Sq, Sk, hd),
+            [(0.0, FLASH_O_ATOL), (0.0, FLASH_LSE_ATOL)],
+            f"B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} hd={hd} causal={causal}"))
+    print(f"phase 9: flash_attention_fwd == plain version (o atol "
+          f"{FLASH_O_ATOL}, lse atol {FLASH_LSE_ATOL}), bitwise from run to "
+          f"run, at (B, H, KV, Sq, Sk, hd, causal) in {FLASH_CASES}; max "
+          f"|err| {worst:.3e}")
+    return worst
+
+
+def cascade_kernel_times(dev, ops):
+    """The flash kernel, its plain version and
+    ``scaled_dot_product_attention`` (timed only: the port never calls it)
+    at each tier's layer shape, and the GMM kernel at the cascade's
+    (8, 64, 1,024) -> {"small" | "large" | "gmm": times and bound}."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(10)
+    out = {}
+    for tier, (B, H, KV, Sq, Sk, hd) in FLASH_TIMED.items():
+        q, k, v = flash_inputs(g, dev, B, H, KV, Sq, Sk, hd)
+        ms = device_ms(lambda a: ops.flash_attention_fwd(*a), (q, k, v))
+        plain_ms = device_ms(lambda a: ops.flash_attention_ref(*a),
+                             (q, k, v), reps=5)
+        lib_ms = device_ms(lambda a: F.scaled_dot_product_attention(
+            *a, is_causal=True, enable_gqa=True), (q, k, v))
+        pairs = sum(min(i + 1, Sk) for i in range(Sq))    # causal (i, j)
+        nops = 4 * B * H * pairs * hd          # two products, 2 ops a FMA
+        nbytes = 4 * (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd + B * H * Sq)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = nops / FP32_OPS_PER_S * 1e3
+        out[tier] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": max(b_ms, o_ms),
+                     "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                     "shape": [B, H, KV, Sq, Sk, hd]}
+        print(f"flash_attention_fwd at the {tier} tier's layer (B {B}, H {H}, "
+              f"KV {KV}, S {Sq}, hd {hd}, causal): device kernel "
+              f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+              f"scaled_dot_product_attention {lib_ms * 1e3:.2f} us; bound "
+              f"{max(b_ms, o_ms) * 1e3:.2f} us ({out[tier]['bound_by']}: "
+              f"{nops} operations, {nbytes} bytes); kernel at "
+              f"{max(b_ms, o_ms) / ms:.3f} of the bound")
+    B, C, d = CASCADE_B, N_COMPONENTS, 1024
+    args = gmm_inputs(g, dev, B, C, d)
+    ms = device_ms(lambda a: ops.gmm_posterior(*a), args)
+    plain_ms = device_ms(lambda a: ops.gmm_posterior_ref(*a), args, reps=10)
+    nbytes = 4 * (B * d + 2 * C * d + C + B * C + B)
+    nops = 4 * B * C * d + 11 * B * C
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    out["gmm"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_ms, o_ms),
+                  "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                  "shape": [B, C, d]}
+    print(f"gmm_posterior at the cascade's shape (B {B}, C {C}, d {d}): "
+          f"device kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; "
+          f"bound {max(b_ms, o_ms) * 1e3:.2f} us ({out['gmm']['bound_by']}: "
+          f"{nbytes} bytes, {nops} operations)")
+    return out
+
+
+# --- the cascade server ------------------------------------------------------
+
+# phase 10's traffic: 6 batches (after one warm-up) of 8 requests x 1,024
+# tokens; the two tiers' parameter counts (the reference's jax.eval_shape
+# of init_lm)
+CASCADE_BATCHES, CASCADE_B, CASCADE_S = 6, 8, 1024
+PARAMS = {"qwen1.5-0.5b": 463_987_712, "qwen3-1.7b": 1_720_574_976}
+CASCADE_ATOL = 1e-4      # kernel vs plain attention; card vs CPU (of max)
+
+
+def plain_attention(attn_mod):
+    """A context in which ``attention`` takes the reference's plain path on
+    the card too (the comparisons only; the served path never does)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        rule = attn_mod.uses_kernel
+        attn_mod.uses_kernel = lambda cfg, window, S: False
+        try:
+            yield
+        finally:
+            attn_mod.uses_kernel = rule
+    return ctx()
+
+
+def phase10(dev, ops):
+    """``CascadeServer`` at full width and depth on the card: one warm-up
+    batch, then the counted batches with the counts set to 0 just before
+    and read just after; then the kernel against plain attention inside
+    the small tier, a 2-layer large tier against the port on the CPU, and
+    one profiled small forward -> the launch counts of the counted run."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import CascadeServer, CascadeStats
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import lm
+    from repro_torch.weights import to_device
+    small, large = get_config("qwen1.5-0.5b"), get_config("qwen3-1.7b")
+    t0 = time.perf_counter()
+    sp = lm.init_lm(small, torch.Generator(device=dev).manual_seed(0))
+    lp = lm.init_lm(large, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    for cfg, p in ((small, sp), (large, lp)):
+        check(lm.param_count(p) == PARAMS[cfg.name],
+              f"{cfg.name}: {lm.param_count(p)} parameters, want "
+              f"{PARAMS[cfg.name]}")
+    rng = np.random.default_rng(10)
+    batches = [rng.integers(0, small.vocab, (CASCADE_B, CASCADE_S))
+               for _ in range(1 + CASCADE_BATCHES)]
+    # warm-up on a server of the same weights that escalates every
+    # request (both tiers at full batch); the served one calibrates its
+    # "auto" threshold on its own first batch, as the reference's does
+    CascadeServer(small, sp, large, lp, threshold=-1.0,
+                  device=dev).handle(batches[0])
+    srv = CascadeServer(small, sp, large, lp, threshold="auto", device=dev)
+    flash, gmm = ops.KERNELS["flash_attention_fwd"], ops.KERNELS[
+        "gmm_posterior"]
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    batch_ms, per_batch, n_hard = [], [], []
+    prev = CascadeStats()
+    for toks in batches[1:]:
+        f0, g0 = flash.launches, gmm.launches
+        start = time.perf_counter()
+        out, hard = srv.handle(toks)
+        batch_ms.append((time.perf_counter() - start) * 1e3)
+        st = srv.stats
+        per_batch.append((st.route_ms - prev.route_ms,
+                          st.small_ms - prev.small_ms,
+                          st.large_ms - prev.large_ms))
+        prev = CascadeStats(**vars(st))
+        n_hard.append(int(hard.sum()))
+        check(out.shape == (CASCADE_B, small.vocab) and hard.shape
+              == (CASCADE_B,) and np.isfinite(out).all(),
+              f"batch: logits {out.shape} (finite {np.isfinite(out).all()})"
+              f", hard {hard.shape}")
+        check((np.abs(out).max(-1) > 0).all(), "a request left unanswered")
+        want_flash = small.n_layers + (large.n_layers if hard.any() else 0)
+        check(flash.launches - f0 == want_flash,
+              f"flash_attention_fwd launched {flash.launches - f0} times in "
+              f"a batch with {hard.sum()} hard requests, want {want_flash}")
+        check(gmm.launches - g0 == 2, f"gmm_posterior launched "
+              f"{gmm.launches - g0} times in a batch, want 2")
+    launches = {name: w.launches for name, w in ops.KERNELS.items()}
+    st = srv.stats
+    n_req = CASCADE_BATCHES * CASCADE_B
+    check(st.served_small + st.served_large == n_req
+          and st.served_large == sum(n_hard),
+          f"served small {st.served_small} + large {st.served_large} != "
+          f"{n_req} (hard {sum(n_hard)})")
+    check(launches["flash_attention_fwd"] == CASCADE_BATCHES * small.n_layers
+          + st.large_batches * large.n_layers
+          and launches["gmm_posterior"] == 2 * CASCADE_BATCHES,
+          f"launches {launches}")
+    total_s = sum(batch_ms) / 1e3
+    route, small_ms, large_ms = (np.array(c) for c in zip(*per_batch))
+    print(f"phase 10: CascadeServer, qwen1.5-0.5b ({PARAMS[small.name]:,} "
+          f"parameters) -> qwen3-1.7b ({PARAMS[large.name]:,}) at full width "
+          f"and depth, float32, weights from seeded generators ({init_s:.2f} "
+          f"s); threshold {srv.threshold!r} from the first batch; "
+          f"{CASCADE_BATCHES} batches of {CASCADE_B} x {CASCADE_S} tokens: "
+          f"served small {st.served_small}, large {st.served_large} (hard "
+          f"per batch {n_hard}) in {st.large_batches} large sub-batches; "
+          f"launches flash_attention_fwd {launches['flash_attention_fwd']} "
+          f"({small.n_layers} per small forward, {large.n_layers} per large)"
+          f", gmm_posterior {launches['gmm_posterior']} (2 per batch)")
+    print(f"cascade ms p50: batch {np.percentile(batch_ms, 50):.3f} (p95 "
+          f"{np.percentile(batch_ms, 95):.3f}), route {np.percentile(route, 50):.3f}"
+          f", small {np.percentile(small_ms, 50):.3f}, large (batches with "
+          f"hard requests) {np.percentile(large_ms[large_ms > 0], 50) if (large_ms > 0).any() else 0.0:.3f}; "
+          f"{n_req / total_s:.2f} requests/s, "
+          f"{n_req * CASCADE_S / total_s:.1f} tokens/s")
+
+    # --- comparisons, outside the counted run ---
+    toks = torch.as_tensor(batches[1]).to(dev)
+    with torch.no_grad():
+        h_kernel, _ = lm.forward(small, srv.small_params, tokens=toks)
+        with plain_attention(attn_mod):
+            h_plain, _ = lm.forward(small, srv.small_params, tokens=toks)
+    err = (h_kernel - h_plain).abs().max().item()
+    print(f"small tier hidden states (8 x 1,024 x 1,024), kernel vs plain "
+          f"attention on the card: max |err| {err:.3e} (atol {CASCADE_ATOL})")
+    check(err <= CASCADE_ATOL, f"kernel vs plain attention: {err}")
+    del h_kernel, h_plain
+    two = replace(large, n_layers=2)
+    p2 = lm.init_lm(two, torch.Generator(device=dev).manual_seed(2))
+    t2 = torch.as_tensor(rng.integers(0, two.vocab, (2, 256)))
+    with torch.no_grad():
+        h_card, _ = lm.forward(two, p2, tokens=t2.to(dev))
+        l_card = lm.logits_from_hidden(two, p2, h_card[:, -1:])[:, -1].cpu()
+        p2_cpu = to_device(p2, "cpu")
+        h_cpu, _ = lm.forward(two, p2_cpu, tokens=t2)
+        l_cpu = lm.logits_from_hidden(two, p2_cpu, h_cpu[:, -1:])[:, -1]
+    errs = {"hidden": rel_err(h_card.cpu(), h_cpu),
+            "logits": rel_err(l_card, l_cpu)}
+    print("2-layer qwen3-1.7b at full width, (2, 256), card (flash kernel) "
+          "vs the port on the CPU (plain attention), relative to each "
+          "tensor's max |x|: " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in errs.items()))
+    for k, v in errs.items():
+        check(v <= CASCADE_ATOL, f"card vs CPU {k}: {v} > {CASCADE_ATOL}")
+    del p2, p2_cpu
+    profile_small_forward(srv, toks)
+    return launches
+
+
+def profile_small_forward(srv, toks):
+    """The small tier's forward (the routing embedding and the easy
+    answers) timed alone, then once under torch.profiler: device busy,
+    idle share, top kernels and the flash kernel's share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    times = []
+    with torch.no_grad():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            srv._embed(toks)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            srv._embed(toks)
+            torch.cuda.synchronize()
+    p50 = float(np.percentile(times, 50))
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    if not by_name:
+        print(f"small forward p50 {p50:.3f} ms; profiled: not measured "
+              "(torch.profiler recorded no device activity)")
+        return
+    busy = sum(by_name.values()) / 1e3
+    flash = sum(v for k, v in by_name.items() if "flash_fwd" in k) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"small forward (8 x 1,024): p50 {p50:.3f} ms unprofiled; "
+          f"profiled: device busy {busy:.3f} ms, idle share of the p50 "
+          f"{1.0 - busy / p50:.3f}; flash kernel {flash:.3f} ms "
+          f"({flash / busy:.3f} of busy); top: " + "; ".join(
+              f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -1635,9 +1951,12 @@ def main():
     quant_worst = phase7(CFG, dev, ops)
     quant_times = quant_kernel_times(CFG, dev, ops)
     stream_launches = phase8(CFG, dev, ops)
+    flash_worst = phase9(dev, ops)
+    cascade_times = cascade_kernel_times(dev, ops)
+    cascade_launches = phase10(dev, ops)
     paths = {"serve": launches, "refine": refine_launches,
              "train": train_launches, "per_frame": frame_launches,
-             "stream": stream_launches}
+             "stream": stream_launches, "cascade": cascade_launches}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -1703,6 +2022,16 @@ def main():
                            if name == "int8_quantize" else None),
             "launches_by_path": by_path(name),
             "largest_shape": quant_times[name]["largest"]})
+    records.append({
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:143",
+        "launches": cascade_launches["flash_attention_fwd"],
+        "max_abs_err": flash_worst, **cascade_times["small"],
+        "launches_by_path": by_path("flash_attention_fwd"),
+        "large_tier_shape": cascade_times["large"]})
+    next(r for r in records if r["name"] == "gmm_posterior")[
+        "cascade_shape"] = cascade_times["gmm"]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

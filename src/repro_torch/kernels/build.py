@@ -71,6 +71,11 @@ SIGNATURES = {
                                   _F, _P], _I),
         "infonce_vneg_error_string": ([_I], _S),
     },
+    "flash_attention.cu": {
+        "flash_attention_fwd_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _F, _I, _P], _I),
+        "flash_attention_error_string": ([_I], _S),
+    },
 }
 SOURCES = tuple(SIGNATURES)
 

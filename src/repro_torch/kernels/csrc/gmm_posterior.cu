@@ -18,16 +18,21 @@
 // C=64, d=128), 12.5 us at 67 TFLOP/s float32, against 19.8 MB of z, resp
 // and ent (5.9 us at 3.35 TB/s): operations bound it.
 //
-// Design (simple and right first): a block of 256 threads owns kRows rows.
-// mu and var (64 KB at C=64, d=128, above the 48 KB static limit) and the
-// block's z rows sit in dynamic shared memory with a row pitch of d+1, so
-// the 32 components a warp reads at once fall in 32 banks.  One warp per
-// component sums its log-variances; one thread per (row, component) sums
-// its Mahalanobis terms over d in order; one warp per row takes the max,
-// the sum of exponentials and the entropy with fixed xor trees.  No atomics,
-// so the result is the same bits from run to run.  Shared memory grows as
-// 4*((2C + kRows)(d+1) + kRows*C + C) bytes; past the card's 227 KB the
-// launch is refused and the wrapper raises (tiling over d is later work).
+// Design (simple and right first): a block of 256 threads owns kRows rows
+// and walks d in chunks of kChunk = 128 columns.  Each chunk stages its
+// slice of mu and var (C x 129) and of the block's z rows (kRows x 129) in
+// dynamic shared memory; the pitch of 129 puts the 32 components a warp
+// reads at once in 32 banks.  One warp per component sums its
+// log-variances, each lane over j = lane, lane+32, ... in order, and keeps
+// its partial in shared memory across chunks; one thread per (row,
+// component) sums its Mahalanobis terms over j in order, its accumulator
+// kept in the (row, component) slot of the log-joint table across chunks.
+// After the last chunk the lanes' log-variance partials meet in a fixed xor
+// tree, and one warp per row takes the max, the sum of exponentials and the
+// entropy with fixed xor trees.  The chunks reorder no sum, so the result
+// does not depend on kChunk.  No atomics, so the result is the same bits
+// from run to run.  Shared memory is 4*((2C + kRows)*129 + kRows*C + 33*C)
+// bytes whatever d is: 99,200 at C = 64.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -36,6 +41,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 32;
+constexpr int kChunk = 128;
+constexpr int kPitch = kChunk + 1;
 
 __global__ void __launch_bounds__(kThreads)
 gmm_posterior_kernel(const float* __restrict__ z,
@@ -45,33 +52,59 @@ gmm_posterior_kernel(const float* __restrict__ z,
                      float* __restrict__ resp, float* __restrict__ ent,
                      int B, int C, int d, float d_log2pi) {
   extern __shared__ float smem[];
-  const int pitch = d + 1;
-  float* mu_s = smem;                       // C x pitch
-  float* var_s = mu_s + C * pitch;          // C x pitch
-  float* z_s = var_s + C * pitch;           // kRows x pitch
-  float* lj_s = z_s + kRows * pitch;        // kRows x C
-  float* logdet_s = lj_s + kRows * C;       // C
+  float* mu_s = smem;                       // C x kPitch, one chunk
+  float* var_s = mu_s + C * kPitch;         // C x kPitch
+  float* z_s = var_s + C * kPitch;          // kRows x kPitch
+  float* lj_s = z_s + kRows * kPitch;       // kRows x C: Mahalanobis, then lj
+  float* part_s = lj_s + kRows * C;         // C x 32 lanes' log-var partials
+  float* logdet_s = part_s + 32 * C;        // C
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int row0 = blockIdx.x * kRows;
   const int rows = min(kRows, B - row0);
 
-  for (int i = tid; i < C * d; i += kThreads) {
-    const int c = i / d, j = i % d;
-    mu_s[c * pitch + j] = mu[i];
-    var_s[c * pitch + j] = var[i];
-  }
-  for (int i = tid; i < rows * d; i += kThreads) {
-    const int r = i / d, j = i % d;
-    z_s[r * pitch + j] = z[static_cast<size_t>(row0) * d + i];
+  for (int i = tid; i < rows * C; i += kThreads) lj_s[i] = 0.0f;
+  for (int i = tid; i < 32 * C; i += kThreads) part_s[i] = 0.0f;
+
+  for (int j0 = 0; j0 < d; j0 += kChunk) {
+    const int w = min(kChunk, d - j0);
+    __syncthreads();                        // the last chunk is consumed
+    for (int i = tid; i < C * w; i += kThreads) {
+      const int c = i / w, j = i % w;
+      mu_s[c * kPitch + j] = mu[static_cast<size_t>(c) * d + j0 + j];
+      var_s[c * kPitch + j] = var[static_cast<size_t>(c) * d + j0 + j];
+    }
+    for (int i = tid; i < rows * w; i += kThreads) {
+      const int r = i / w, j = i % w;
+      z_s[r * kPitch + j] = z[static_cast<size_t>(row0 + r) * d + j0 + j];
+    }
+    __syncthreads();
+
+    for (int c = warp; c < C; c += kWarps) {
+      float acc = part_s[c * 32 + lane];
+      for (int j = lane; j < w; j += 32) {
+        acc = __fadd_rn(acc, logf(var_s[c * kPitch + j]));
+      }
+      part_s[c * 32 + lane] = acc;
+    }
+
+    for (int e = tid; e < rows * C; e += kThreads) {
+      const int r = e / C, c = e % C;
+      const float* zr = z_s + r * kPitch;
+      const float* mr = mu_s + c * kPitch;
+      const float* vr = var_s + c * kPitch;
+      float maha = lj_s[e];
+      for (int j = 0; j < w; ++j) {
+        const float diff = __fsub_rn(zr[j], mr[j]);
+        maha = __fadd_rn(maha, __fdiv_rn(__fmul_rn(diff, diff), vr[j]));
+      }
+      lj_s[e] = maha;
+    }
   }
   __syncthreads();
 
   for (int c = warp; c < C; c += kWarps) {
-    float acc = 0.0f;
-    for (int j = lane; j < d; j += 32) {
-      acc = __fadd_rn(acc, logf(var_s[c * pitch + j]));
-    }
+    float acc = part_s[c * 32 + lane];
     for (int off = 16; off > 0; off >>= 1) {
       acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
     }
@@ -80,17 +113,9 @@ gmm_posterior_kernel(const float* __restrict__ z,
   __syncthreads();
 
   for (int e = tid; e < rows * C; e += kThreads) {
-    const int r = e / C, c = e % C;
-    const float* zr = z_s + r * pitch;
-    const float* mr = mu_s + c * pitch;
-    const float* vr = var_s + c * pitch;
-    float maha = 0.0f;
-    for (int j = 0; j < d; ++j) {
-      const float diff = __fsub_rn(zr[j], mr[j]);
-      maha = __fadd_rn(maha, __fdiv_rn(__fmul_rn(diff, diff), vr[j]));
-    }
-    const float inner = __fadd_rn(__fadd_rn(maha, logdet_s[c]), d_log2pi);
-    lj_s[r * C + c] = __fsub_rn(logpi[c], __fmul_rn(0.5f, inner));
+    const int c = e % C;
+    const float inner = __fadd_rn(__fadd_rn(lj_s[e], logdet_s[c]), d_log2pi);
+    lj_s[e] = __fsub_rn(logpi[c], __fmul_rn(0.5f, inner));
   }
   __syncthreads();
 
@@ -138,8 +163,8 @@ int gmm_posterior_f32(const float* z, const float* mu, const float* var,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem =
-      sizeof(float) * ((2 * static_cast<size_t>(C) + kRows) * (d + 1) +
-                       static_cast<size_t>(kRows) * C + C);
+      sizeof(float) * ((2 * static_cast<size_t>(C) + kRows) * kPitch +
+                       static_cast<size_t>(kRows) * C + 33 * C);
   cudaError_t err = cudaFuncSetAttribute(
       gmm_posterior_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                 flash_attention_ref)
 from repro_torch.kernels.gmm_posterior import gmm_posterior, gmm_posterior_ref
 from repro_torch.kernels.infonce_vneg import (infonce_vneg, infonce_vneg_bwd,
                                               infonce_vneg_bwd_ref,
@@ -47,7 +49,8 @@ __all__ = ["KERNELS", "resolve_device", "set_precision",
            "infonce_vneg_bwd", "infonce_vneg_bwd_ref", "swd_single",
            "swd_rank_fwd", "swd_rank_fwd_ref",
            "swd_rank_bwd", "swd_rank_bwd_ref", "laplacian_energy_diff",
-           "laplacian_energy_bwd", "laplacian_energy_bwd_ref"]
+           "laplacian_energy_bwd", "laplacian_energy_bwd_ref",
+           "flash_attention_fwd", "flash_attention_ref"]
 
 # every hand-written kernel's wrapper (each carries ``launches``), the
 # backward kernels too; the differentiable entries (``infonce_vneg``,
@@ -62,7 +65,8 @@ KERNELS = {"wire_roundtrip": wire_roundtrip,
            "infonce_vneg_bwd": infonce_vneg_bwd,
            "swd_rank_fwd": swd_rank_fwd,
            "swd_rank_bwd": swd_rank_bwd,
-           "laplacian_energy_bwd": laplacian_energy_bwd}
+           "laplacian_energy_bwd": laplacian_energy_bwd,
+           "flash_attention_fwd": flash_attention_fwd}
 
 
 def set_precision() -> None:

@@ -11,7 +11,9 @@ same way, so a refine round starts from the reference's own state, and
 an AdamW state (``adamw_from_jax``) likewise for the edge learner.  The
 PPO actor-critic of the RL split policy (``ppo_from_jax``) carries
 across as it is: ``w1 (3, H)``, ``b1 (H,)``, ``wp (H, L+1)``, ``bp``,
-``wv (H, 1)``, ``bv (1,)``.
+``wv (H, 1)``, ``bv (1,)``.  An LM's parameters (``lm_from_jax``) are
+the reference's ``init_lm`` pytree as it is, layers stacked on a leading
+axis.
 """
 from __future__ import annotations
 
@@ -146,3 +148,8 @@ def ppo_to_jax(params) -> dict:
     """Inverse of ``ppo_from_jax``: a dict of float32 numpy arrays."""
     return {k: params[k].detach().cpu().numpy().astype(np.float32)
             for k in PPO_KEYS}
+
+
+# an LM's params (the reference's ``init_lm`` pytree, float32) cross as a
+# task head's do: the same nested dicts, every leaf bitwise
+lm_from_jax, lm_to_jax = head_from_jax, head_to_jax
