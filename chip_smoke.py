@@ -7,13 +7,14 @@ It builds every hand-written CUDA kernel from ``src/repro_torch`` and
 then drives the port's paths at the paper's full encoder width: the
 serving tick, the per-frame split path (``SplitEngine.run``), the tick
 with a fleet refine round after it, the edge learner's training step, the
-always-on ``StreamServer`` with the RL split policy, and the LM cascade
-server at the full width and depth of qwen1.5-0.5b and qwen3-1.7b.
+always-on ``StreamServer`` with the RL split policy, the LM cascade
+server at the full width and depth of qwen1.5-0.5b and qwen3-1.7b, and
+the LM trainer at the full width and depth of qwen1.5-0.5b.
 
 Phase 1 holds each kernel against its plain PyTorch version on the card,
 bitwise, at every shape the serving path gives it (plus constant,
-outlier and NaN rows), and the wire kernel at B=1 against the per-tensor
-quantize∘dequantize.
+outlier, NaN, +inf and -inf rows), and the wire kernel at B=1 against the
+per-tensor quantize∘dequantize.
 
 Phase 2 runs ``StreamSplitGateway`` (``AudioEncCfg()``, random weights
 from a seed, a host fleet of 256 sessions x 100 frames, refine off)
@@ -125,10 +126,41 @@ against the port on the CPU (1e-4 of each tensor's max), and one
 profiled small forward; it prints route, small and large ms,
 requests/s and tokens/s.
 
+Phase 11 holds the flash-attention backward kernels,
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``, against the
+plain backward and against autograd through ``flash_attention_ref`` on the
+card (1e-5 of each gradient's max |g|) at phase 9's cases plus Sq > Sk
+under the mask and ragged GQA at hd 128; two launches must give the same
+bits and the autograd entry ``flash_attention`` the kernels' bits.  It
+times both kernels, their plain versions and the backward of
+``scaled_dot_product_attention`` (timed only) at the two tiers' layers
+beside their bounds.  SDPA's backward gives dq, dk and dv in one call,
+so the kernels' records carry it as ``pair_library_ms`` beside
+``pair_ms`` (dq + dk/dv), and ``library_ms`` is null: no one PyTorch
+call computes dq or dk/dv alone.
+
+Phase 12 trains.  First a 2-layer qwen1.5-0.5b at full width, (2, 256):
+step 0's loss and every gradient with the hybrid term on, card against
+the port on the CPU (same weights, batch and SW draws; 1e-4 of each
+tensor's max; the k bias's gradient, a cancellation over the dk rows,
+also on its own line), and packed positions (two sequences a row) must take the
+plain path on the card (no flash launch) and match the CPU.  Then
+``Trainer`` (AdamW, cosine, grad_clip 1.0, the hybrid term on, remat on,
+float32) at qwen1.5-0.5b's full width and depth, B 8 x S 1,024 (3 warm-up
+steps, 5 counted), and at qwen3-1.7b's full width with 4 layers, B 4 x S
+1,024 (its GQA, hd-128 backward; 2 and 3), random tokens from seeded
+generators on the card.  In each counted run every step must launch the
+flash forward twice a layer (remat replays it), dq and dk/dv once a
+layer, and ``swd_rank_fwd``/``_bwd`` and ``laplacian_energy``/``_bwd``
+once, and no other kernel; the loss must be finite and lower at the end
+than at step 0.  It prints step p50/p95, tokens/s, peak memory and a
+profiled step's device time by kind of kernel and idle share.
+
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
-result.  The line before the last is the kernels' JSON record; the last
-line is ``{"ok": true, "device": {...}}``.
+result.  The line before the last is the kernels' JSON record (after a
+line with phase 12's summaries); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -219,6 +251,9 @@ def phase1(cfg, dev, ops, dequantize, quantize):
                 x[0] = 1.25                  # constant row: scale floor
                 x[1, 17] = 1e4               # outlier row
                 x[2, 5] = float("nan")       # NaN row: NaN throughout
+            if B >= 5:
+                x[3, 11] = float("inf")      # NaN but +inf's own element
+                x[4, 7] = float("-inf")      # NaN throughout
             got = ops.wire_roundtrip(x)
             want = ops.wire_roundtrip_ref(x)
             torch.cuda.synchronize()
@@ -233,7 +268,8 @@ def phase1(cfg, dev, ops, dequantize, quantize):
     torch.cuda.synchronize()
     print(f"phase 1: wire_roundtrip bitwise == plain version at B in "
           f"{BATCH_SIZES} x n in {sorted(set(wire_widths(cfg)))} (constant, "
-          f"outlier and NaN rows at B >= 3), and == "
+          f"outlier and NaN rows at B >= 3, +inf and -inf rows at B >= 5), "
+          f"and == "
           f"per-tensor at B=1 (max |err| {worst})")
     return worst
 
@@ -1917,6 +1953,338 @@ def profile_small_forward(srv, toks):
               f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
 
 
+# --- the flash-attention backward kernels -------------------------------------
+
+# phase 9's cases, and Sq > Sk under the mask and GQA at hd 128 with ragged
+# Sq != Sk
+FLASH_BWD_CASES = FLASH_CASES + ((1, 2, 2, 100, 37, 16, True),
+                                 (2, 8, 2, 129, 65, 128, False))
+FLASH_BWD_RTOL = 1e-5    # of each gradient's max |g| (see rel_grads)
+BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def rel_grads(gots, wants):
+    """max |got - want| over max |want|, gradient by gradient, with a floor
+    of 0.1x the largest of the set: dq and dk at Sk = 1 are exactly 0 (the
+    softmax of one key is constant) and come out as rounding of
+    dp - delta."""
+    floor = 0.1 * max(w.abs().max().item() for w in wants)
+    return max((a - w).abs().max().item() / max(w.abs().max().item(), floor)
+               for a, w in zip(gots, wants))
+
+
+def phase11(dev, ops):
+    """``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` against
+    the plain backward and against autograd through ``flash_attention_ref``
+    on the card; bitwise from run to run, and the autograd entry
+    ``flash_attention`` gives the kernels' bits -> {name: max |err|}."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    worst = dict.fromkeys(BWD_KERNELS, 0.0)
+    worst_rel = 0.0
+    for B, H, KV, Sq, Sk, hd, causal in FLASH_BWD_CASES:
+        what = (f"B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} hd={hd} "
+                f"causal={causal}")
+        q, k, v = flash_inputs(g, dev, B, H, KV, Sq, Sk, hd)
+        do = torch.randn(B, H, Sq, hd, device=dev, generator=g)
+        o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+        args = (q, k, v, do, lse, (do * o).sum(-1))
+        (dq,) = same_bits(lambda *a: (ops.flash_attention_bwd_dq(
+            *a, causal=causal),), args, f"flash_attention_bwd_dq at {what}")
+        dk, dv = same_bits(lambda *a: ops.flash_attention_bwd_dkv(
+            *a, causal=causal), args, f"flash_attention_bwd_dkv at {what}")
+        plain = (ops.flash_attention_bwd_dq_ref(*args, causal),
+                 *ops.flash_attention_bwd_dkv_ref(*args, causal))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o_ref, _ = ops.flash_attention_ref(*leaves, causal)
+        auto = torch.autograd.grad(o_ref, leaves, do)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        entry = torch.autograd.grad(ops.flash_attention(*leaves, causal),
+                                    leaves, do)
+        torch.cuda.synchronize()
+        for name, want in (("plain backward", plain), ("autograd", auto)):
+            err = rel_grads((dq, dk, dv), want)
+            worst_rel = max(worst_rel, err)
+            check(err <= FLASH_BWD_RTOL, f"flash backward kernels != {name}"
+                  f" at {what}: {err} of the max |g| > {FLASH_BWD_RTOL}")
+        check(all(torch.equal(a, b) for a, b in zip(entry, (dq, dk, dv))),
+              f"flash_attention's gradients != the kernels' bits at {what}")
+        worst["flash_attention_bwd_dq"] = max(
+            worst["flash_attention_bwd_dq"],
+            (dq - plain[0]).abs().max().item())
+        worst["flash_attention_bwd_dkv"] = max(
+            worst["flash_attention_bwd_dkv"],
+            (dk - plain[1]).abs().max().item(),
+            (dv - plain[2]).abs().max().item())
+        del q, k, v, do, o, lse, args, plain, auto, entry, leaves, o_ref
+        torch.cuda.empty_cache()
+    print(f"phase 11: flash_attention_bwd_dq and flash_attention_bwd_dkv == "
+          f"the plain backward and autograd through flash_attention_ref "
+          f"(within {FLASH_BWD_RTOL} of each gradient's max |g|; worst "
+          f"{worst_rel:.3e}), bitwise from run to run, flash_attention's "
+          f"gradients == the kernels' bits, at (B, H, KV, Sq, Sk, hd, causal)"
+          f" in {FLASH_BWD_CASES}; max |err| vs plain: dq "
+          f"{worst['flash_attention_bwd_dq']:.3e}, dk/dv "
+          f"{worst['flash_attention_bwd_dkv']:.3e}")
+    return worst
+
+
+def bwd_kernel_times(dev, ops):
+    """dq and dk/dv kernels, their plain versions and the backward of
+    ``scaled_dot_product_attention`` (timed only: the port never calls it;
+    one call gives dq, dk and dv) at each tier's layer -> {tier: {name:
+    times and bound}}."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    for tier, (B, H, KV, Sq, Sk, hd) in FLASH_TIMED.items():
+        q, k, v = flash_inputs(g, dev, B, H, KV, Sq, Sk, hd)
+        do = torch.randn(B, H, Sq, hd, device=dev, generator=g)
+        o, lse = ops.flash_attention_fwd(q, k, v)
+        args = (q, k, v, do, lse, (do * o).sum(-1))
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o_sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                enable_gqa=True)
+        lib_ms = device_ms(lambda a: torch.autograd.grad(
+            o_sdpa, leaves, a, retain_graph=True), do)
+        pairs = sum(min(i + 1, Sk) for i in range(Sq))    # causal (i, j)
+        product = 2 * B * H * pairs * hd                  # 2 ops a FMA
+        qkv_bytes = 4 * (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd
+                         + 2 * B * H * Sq)     # q, do, k, v, lse, delta
+        out[tier] = {}
+        for name, fn, plain, n_products, out_bytes in (
+                ("flash_attention_bwd_dq", ops.flash_attention_bwd_dq,
+                 ops.flash_attention_bwd_dq_ref, 3, 4 * B * H * Sq * hd),
+                ("flash_attention_bwd_dkv", ops.flash_attention_bwd_dkv,
+                 ops.flash_attention_bwd_dkv_ref, 4,
+                 8 * B * KV * Sk * hd)):
+            ms = device_ms(lambda a, fn=fn: fn(*a), args)
+            plain_ms = device_ms(lambda a, fn=plain: fn(*a), args, reps=5)
+            nops, nbytes = n_products * product, qkv_bytes + out_bytes
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            o_ms = nops / FP32_OPS_PER_S * 1e3
+            out[tier][name] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "shape": [B, H, KV, Sq, Sk, hd]}
+            print(f"{name} at the {tier} tier's layer (B {B}, H {H}, KV {KV}"
+                  f", S {Sq}, hd {hd}, causal): device kernel "
+                  f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; bound "
+                  f"{max(b_ms, o_ms) * 1e3:.2f} us ({out[tier][name]['bound_by']}"
+                  f": {nops} operations, {n_products} products; {nbytes} "
+                  f"bytes); kernel at {max(b_ms, o_ms) / ms:.3f} of the bound")
+        least = 5 * product / FP32_OPS_PER_S * 1e3
+        both = sum(r["ms"] for r in out[tier].values())
+        for r in out[tier].values():
+            # SDPA's backward gives dq, dk and dv in one call: it is timed
+            # against the pair, not against either kernel
+            r.update(pair_ms=both, pair_library_ms=lib_ms)
+        print(f"flash backward at the {tier} tier's layer: dq + dk/dv "
+              f"{both * 1e3:.2f} us against the backward's least work (five "
+              f"products, {5 * product} operations) {least * 1e3:.2f} us; "
+              f"scaled_dot_product_attention's backward {lib_ms * 1e3:.2f} "
+              f"us (dq, dk and dv in one call)")
+        del q, k, v, do, o, lse, args, leaves, o_sdpa
+        torch.cuda.empty_cache()
+    return out
+
+
+# --- the LM trainer -----------------------------------------------------------
+
+# phase 12: qwen1.5-0.5b at full width and depth, and qwen3-1.7b at full
+# width with 4 layers (its GQA, hd-128 backward), B x S tokens a step;
+# warm-up steps, then the counted, timed steps
+LM_TRAIN = (("qwen1.5-0.5b", None, 8, 1024, 3, 5),
+            ("qwen3-1.7b", 4, 4, 1024, 2, 3))
+LM_PATH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv", "swd_rank_fwd", "swd_rank_bwd",
+                   "laplacian_energy", "laplacian_energy_bwd")
+LM_RTOL = 1e-4           # card vs CPU, of each tensor's max |x|
+
+
+def lm_train_cfg(steps, S):
+    """The launcher's TrainCfg (AdamW, cosine, grad_clip 1.0) with the
+    hybrid term on, as ``launch/train.py --hybrid`` makes it."""
+    from repro_torch.runtime.trainer import TrainCfg
+    return TrainCfg(total_steps=steps, warmup=max(steps // 20, 5),
+                    hybrid=True, hybrid_pool=max(S // 16, 8))
+
+
+def lm_train_run(dev, ops, name, n_layers, B, S, warm, timed):
+    """``Trainer`` on the card: ``warm`` steps, then ``timed`` steps with
+    the counts set to 0 just before and read just after, then one profiled
+    step -> (launches of the counted run, summary)."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import random_batch
+    from repro_torch.models import lm
+    from repro_torch.runtime.trainer import Trainer
+    cfg = get_config(name)
+    if n_layers:
+        cfg = replace(cfg, n_layers=n_layers)
+    L = cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, lm_train_cfg(warm + timed, S), lambda step: random_batch(
+        torch.Generator(device=dev).manual_seed(100 + step), cfg.vocab, B, S),
+        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_count(tr.state["params"])
+    tr.run(warm, log_every=0)
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    tr.run(timed, log_every=0)
+    launches = {n: w.launches for n, w in ops.KERNELS.items()}
+    want = {"flash_attention_fwd": 2 * L * timed,
+            "flash_attention_bwd_dq": L * timed,
+            "flash_attention_bwd_dkv": L * timed, "swd_rank_fwd": timed,
+            "swd_rank_bwd": timed, "laplacian_energy": timed,
+            "laplacian_energy_bwd": timed}
+    check(launches == {n: want.get(n, 0) for n in launches},
+          f"{name}: launches {launches} in {timed} steps, want {want} (2 "
+          f"flash forwards a layer under remat, 1 dq and 1 dk/dv a layer, "
+          f"1 of each hybrid kernel a step) and no other")
+    hist = tr.history
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{name}: losses {losses} not finite and falling")
+    times = [h["time_s"] * 1e3 for h in hist[warm:]]
+    p50, p95 = np.percentile(times, 50), np.percentile(times, 95)
+    peak = torch.cuda.max_memory_allocated()
+    summary = {"name": name, "layers": L, "params": n_params, "B": B, "S": S,
+               "step_ms_p50": p50, "step_ms_p95": p95,
+               "tokens_per_s": B * S / (p50 / 1e3), "peak_bytes": peak,
+               "loss_first": losses[0], "loss_last": losses[-1]}
+    print(f"phase 12: Trainer, {name} at full width ({L} layers, "
+          f"{n_params:,} parameters; init {init_s:.2f} s), float32, AdamW, "
+          f"cosine, hybrid on, remat on; B {B} x S {S}; {warm} warm-up and "
+          f"{timed} counted steps: step ms p50 {p50:.3f} (p95 {p95:.3f}), "
+          f"{summary['tokens_per_s']:.1f} tokens/s; peak memory "
+          f"{peak / 1e9:.3f} GB; loss {losses[0]:.4f} (step 0) -> "
+          f"{losses[-1]:.4f} (step {len(losses) - 1}); launches "
+          + ", ".join(f"{n} {launches[n]}" for n in LM_PATH_KERNELS))
+    summary["profile"] = profile_train_lm_step(tr, p50)
+    del tr
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def profile_train_lm_step(tr, p50):
+    """One more step under torch.profiler: device time by kind of kernel
+    and the idle share of the p50 -> {kind: ms} or None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.run(1, log_every=0)
+        torch.cuda.synchronize()
+    by_kind = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n = e.name.lower()
+        kind = ("flash forward" if "flash_fwd" in n else
+                "dq" if "flash_bwd_dq" in n else
+                "dk/dv" if "flash_bwd_dkv" in n else
+                "GEMMs" if "gemm" in n else
+                "SWD and Laplacian" if ("swd" in n or "laplacian" in n) else
+                "copies" if "memcpy" in n or "memset" in n else
+                "elementwise and other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.time_range.elapsed_us()
+    if not by_kind:
+        print("profiled step: not measured (torch.profiler recorded no "
+              "device activity)")
+        return None
+    busy = sum(by_kind.values()) / 1e3
+    out = {k: v / 1e3 for k, v in sorted(by_kind.items(),
+                                         key=lambda kv: -kv[1])}
+    print(f"profiled step: device busy {busy:.3f} ms, idle share of the p50 "
+          f"{1.0 - busy / p50:.3f}; " + "; ".join(
+              f"{k} {v:.3f} ms ({v / busy:.3f})" for k, v in out.items()))
+    return {"busy_ms": busy, "idle_share": 1.0 - busy / p50, **out}
+
+
+def lm_card_vs_cpu(dev, ops):
+    """qwen1.5-0.5b at full width with 2 layers, (2, 256): step 0's loss
+    and gradients (hybrid on, the same draws) on the card against the
+    port on the CPU; then packed positions, which must take the plain path
+    on the card and match the CPU -> {what: max relative error}."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.swd import draw, seeded_generator
+    from repro_torch.data.tokens import random_batch
+    from repro_torch.models import lm
+    from repro_torch.optim.sgd import value_and_grad
+    from repro_torch.runtime.trainer import make_loss_fn
+    from repro_torch.weights import to_device
+    two = replace(get_config("qwen1.5-0.5b"), n_layers=2)
+    B, S = 2, 256
+    tcfg = lm_train_cfg(1, S)
+    p_cpu = lm.init_lm(two, torch.Generator().manual_seed(3))
+    p_dev = to_device(p_cpu, dev)
+    batch = random_batch(torch.Generator().manual_seed(4), two.vocab, B, S)
+    dirs, prior = draw(seeded_generator(0, 0), 50,
+                       B * (S // tcfg.hybrid_pool), two.d_model)
+    loss_fn = make_loss_fn(two, tcfg)
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    (l_dev, m_dev), g_dev = value_and_grad(
+        loss_fn, p_dev, {k: v.to(dev) for k, v in batch.items()},
+        (dirs.to(dev), prior.to(dev)))
+    g_dev = [g.cpu() for g in g_dev]
+    check(ops.KERNELS["flash_attention_bwd_dq"].launches == 2
+          and ops.KERNELS["flash_attention_fwd"].launches == 4,
+          "the 2-layer step did not run the flash kernels")
+    (l_cpu, m_cpu), g_cpu = value_and_grad(loss_fn, p_cpu, batch,
+                                           (dirs, prior))
+    from repro_torch.checkpoint.serial import _paths
+    names = [k for k, _ in _paths(p_cpu)]
+    errs = {"loss": abs(l_dev.item() - l_cpu.item()) / abs(l_cpu.item())}
+    for k in ("ce", "swd", "lap"):
+        errs[k] = abs(m_dev[k].item() - m_cpu[k].item()) / abs(m_cpu[k].item())
+    leaf = {n: rel_err(a, b) for n, a, b in zip(names, g_dev, g_cpu)}
+    errs["gradients"] = max(leaf.values())
+    # the k bias's gradient is a cancellation over the dk rows (the bias
+    # enters before RoPE as q_i . R_(j-i) b_k): the leaf most exposed to
+    # the dk kernel's summation order, reported on its own
+    errs["k bias gradient"] = max(v for n, v in leaf.items()
+                                  if n.endswith("attn/wk/b"))
+    # packed positions: two sequences a row, the second restarting at 0
+    row = torch.cat([torch.arange(100), torch.arange(S - 100)]).int()
+    pos = row.expand(B, S)
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    with torch.no_grad():
+        h_dev, _ = lm.forward(two, p_dev, tokens=batch["tokens"].to(dev),
+                              positions=pos.to(dev))
+        packed_launches = ops.KERNELS["flash_attention_fwd"].launches
+        h_cpu, _ = lm.forward(two, p_cpu, tokens=batch["tokens"],
+                              positions=pos)
+    check(packed_launches == 0, f"packed positions launched the flash "
+          f"kernel {packed_launches} times: its mask is by index")
+    errs["packed positions hidden"] = rel_err(h_dev.cpu(), h_cpu)
+    print("phase 12: 2-layer qwen1.5-0.5b at full width, (2, 256), card "
+          "(flash kernels) vs the port on the CPU, relative to each tensor's "
+          "max |x|: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; packed positions took the plain path on the card "
+          f"({packed_launches} flash launches)")
+    for k, v in errs.items():
+        check(v <= LM_RTOL, f"card vs CPU {k}: {v} > {LM_RTOL}")
+    return errs
+
+
+def phase12(dev, ops):
+    """The LM training slice on the card -> (launches of qwen1.5-0.5b's
+    counted run, the two runs' summaries, the card-vs-CPU errors)."""
+    errs = lm_card_vs_cpu(dev, ops)
+    runs = [lm_train_run(dev, ops, *spec) for spec in LM_TRAIN]
+    return runs[0][0], [s for _, s in runs], errs
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -1954,9 +2322,13 @@ def main():
     flash_worst = phase9(dev, ops)
     cascade_times = cascade_kernel_times(dev, ops)
     cascade_launches = phase10(dev, ops)
+    bwd_worst = phase11(dev, ops)
+    bwd_times = bwd_kernel_times(dev, ops)
+    lm_launches, lm_runs, _ = phase12(dev, ops)
     paths = {"serve": launches, "refine": refine_launches,
              "train": train_launches, "per_frame": frame_launches,
-             "stream": stream_launches, "cascade": cascade_launches}
+             "stream": stream_launches, "cascade": cascade_launches,
+             "lm_train": lm_launches}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -2030,8 +2402,17 @@ def main():
         "max_abs_err": flash_worst, **cascade_times["small"],
         "launches_by_path": by_path("flash_attention_fwd"),
         "large_tier_shape": cascade_times["large"]})
+    for name, line in zip(BWD_KERNELS, ("190", "207")):
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "launches": lm_launches[name], "max_abs_err": bwd_worst[name],
+            **bwd_times["small"][name], "launches_by_path": by_path(name),
+            "large_tier_shape": bwd_times["large"][name]})
     next(r for r in records if r["name"] == "gmm_posterior")[
         "cascade_shape"] = cascade_times["gmm"]
+    print(json.dumps({"lm_train": lm_runs}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 Port of ``repro.configs.base`` without JAX: ``ModelCfg.xdtype`` and
 ``pdtype`` are torch dtypes and ``layer_windows()`` is a list of ints.
-``ShapeCfg`` and ``input_specs`` serve the reference's dry run only and
-come with ``launch/dryrun.py``.
+``ShapeCfg`` and ``SHAPES`` are the launchers' named shapes; ``cells``
+and ``input_specs`` serve the reference's dry run only and come with
+``launch/dryrun.py`` (ROADMAP §1 item 8).
 """
 from __future__ import annotations
 
@@ -90,6 +91,21 @@ class ModelCfg:
                 if self.attn_pattern[i % len(self.attn_pattern)] == "sliding"
                 else GLOBAL_WINDOW for i in range(self.n_layers)]
 
+
+@dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+}
 
 _REGISTRY: dict = {}
 

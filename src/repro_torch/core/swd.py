@@ -46,10 +46,12 @@ def sphere_prior_samples(generator, n, dim):
         1e-9)
 
 
-def seeded_generator(seed, rnd):
-    """A CPU generator seeded from ``(seed, rnd)``: draws that every device
-    then sees as the same numbers."""
-    return torch.Generator().manual_seed(
+def seeded_generator(seed, rnd, device="cpu"):
+    """A generator on ``device`` seeded from ``(seed, rnd)``.  A CPU one
+    gives draws that every device then sees as the same numbers; one on the
+    card draws there, with no copy to the device (its numbers are the
+    card's own)."""
+    return torch.Generator(device=device).manual_seed(
         int(np.random.SeedSequence([seed, rnd]).generate_state(1, np.uint64)[0]
             >> np.uint64(1)))
 

@@ -74,6 +74,11 @@ SIGNATURES = {
     "flash_attention.cu": {
         "flash_attention_fwd_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _F, _I, _P], _I),
+        "flash_attention_bwd_dq_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                        _I, _I, _I, _I, _F, _I, _P], _I),
+        "flash_attention_bwd_dkv_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _I, _I, _I, _F, _I, _P],
+                                        _I),
         "flash_attention_error_string": ([_I], _S),
     },
 }

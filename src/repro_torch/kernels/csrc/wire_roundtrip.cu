@@ -14,13 +14,15 @@
 // jitted per-sample quantize∘dequantize.  XLA folds the reference's
 // "(hi - lo) / 255" into a multiply by float32(1/255) = 0x3B808081, so the
 // scale is a correctly rounded multiply by that constant; the two
-// divisions by `scale` are IEEE (__fdiv_rn); rintf rounds half to even.
+// divisions by `scale` are IEEE (__fdiv_rn); __float2int_rn rounds half to
+// even.
 // Every operation is an explicit _rn intrinsic and the library is built
 // with -fmad=false, so no FMA contraction changes (q - zero) * scale.
 // Min and max are exact in any order, so the reduction tree is free.  A
 // NaN element makes the row's lo, hi, scale and zero NaN, and so the whole
 // row NaN, as in the plain version: the min/max fold and the scale floor
-// keep NaN, where fminf/fmaxf would drop it.
+// keep NaN, where fminf/fmaxf would drop it.  The level converts to int
+// before it is dequantized, NaN to 0, as the reference's int8 cast does.
 //
 // Bound: the function reads each input once and writes each output once,
 // 8 bytes per element, against a handful of float operations: on an H100
@@ -63,10 +65,14 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return r;
 }
 
+// The level goes through int as the int8 payload would: round half to even
+// (__float2int_rn, as rintf), then clamp.  The conversion gives 0 for NaN
+// (PTX cvt), as XLA's float-to-int8 does, so the +inf element of a row whose
+// scale is +inf comes back +inf, as in the reference.
 __device__ __forceinline__ float roundtrip(float v, float scale, float zero) {
-  float q = rintf(__fadd_rn(__fdiv_rn(v, scale), zero));
-  q = fminf(fmaxf(q, -128.0f), 127.0f);
-  return __fmul_rn(__fsub_rn(q, zero), scale);
+  int q = __float2int_rn(__fadd_rn(__fdiv_rn(v, scale), zero));
+  q = min(max(q, -128), 127);
+  return __fmul_rn(__fsub_rn(static_cast<float>(q), zero), scale);
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -32,12 +32,18 @@ from repro_torch.quant.int8 import (QTensor, dequantize, levels,
 def wire_roundtrip_ref(x):
     """Plain per-row ``dequantize(quantize(row))`` over the leading
     (batch) dim -> float32, same shape as ``x``.  At B=1 it equals the
-    per-tensor ``quant.int8`` round trip."""
+    per-tensor ``quant.int8`` round trip.
+
+    It dequantizes the level as the int8 payload holds it: a NaN level
+    (the +inf element of a row whose scale is +inf) converts to 0, as
+    XLA's float-to-int8 conversion gives it, so that element comes back
+    +inf where the reference's does."""
     B = x.shape[0]
     flat = x.reshape(B, -1).to(torch.float32)
     scale, zero = scale_zero(flat.amin(dim=1, keepdim=True),
                              flat.amax(dim=1, keepdim=True))
-    return ((levels(flat, scale, zero) - zero) * scale).reshape(x.shape)
+    q = torch.nan_to_num(levels(flat, scale, zero), nan=0.0)
+    return ((q - zero) * scale).reshape(x.shape)
 
 
 def wire_roundtrip(x):

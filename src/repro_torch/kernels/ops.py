@@ -17,8 +17,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                 flash_attention_ref)
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dkv_ref,
+    flash_attention_bwd_dq, flash_attention_bwd_dq_ref, flash_attention_fwd,
+    flash_attention_ref)
 from repro_torch.kernels.gmm_posterior import gmm_posterior, gmm_posterior_ref
 from repro_torch.kernels.infonce_vneg import (infonce_vneg, infonce_vneg_bwd,
                                               infonce_vneg_bwd_ref,
@@ -50,11 +52,14 @@ __all__ = ["KERNELS", "resolve_device", "set_precision",
            "swd_rank_fwd", "swd_rank_fwd_ref",
            "swd_rank_bwd", "swd_rank_bwd_ref", "laplacian_energy_diff",
            "laplacian_energy_bwd", "laplacian_energy_bwd_ref",
-           "flash_attention_fwd", "flash_attention_ref"]
+           "flash_attention_fwd", "flash_attention_ref", "flash_attention",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dq_ref",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_ref"]
 
 # every hand-written kernel's wrapper (each carries ``launches``), the
 # backward kernels too; the differentiable entries (``infonce_vneg``,
-# ``swd_single``, ``laplacian_energy_diff``) launch through these
+# ``swd_single``, ``laplacian_energy_diff``, ``flash_attention``) launch
+# through these
 KERNELS = {"wire_roundtrip": wire_roundtrip,
            "int8_quantize": int8_quantize,
            "int8_dequantize": int8_dequantize,
@@ -66,7 +71,9 @@ KERNELS = {"wire_roundtrip": wire_roundtrip,
            "swd_rank_fwd": swd_rank_fwd,
            "swd_rank_bwd": swd_rank_bwd,
            "laplacian_energy_bwd": laplacian_energy_bwd,
-           "flash_attention_fwd": flash_attention_fwd}
+           "flash_attention_fwd": flash_attention_fwd,
+           "flash_attention_bwd_dq": flash_attention_bwd_dq,
+           "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
 
 
 def set_precision() -> None:

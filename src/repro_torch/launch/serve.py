@@ -8,7 +8,9 @@ default (``device="cuda"``; the tests pass ``device="cpu"``): every
 attention layer of both tiers goes through the flash-attention kernel and
 the GMM's entropy and EM update through the GMM posterior kernel.
 
-  python -m repro_torch.launch.serve --demo [--device cpu]
+  python -m repro_torch.launch.serve [--demo] [--device cpu]
+
+The demo runs with or without ``--demo``, as the reference's does.
 """
 from __future__ import annotations
 
@@ -160,10 +162,15 @@ def demo(n_batches=8, batch=8, seq=64, device="cuda"):
     return s
 
 
-if __name__ == "__main__":
+def main(argv=None):
+    """The reference's ``__main__``: the demo runs whatever ``--demo``
+    says (the flag is kept for its command line)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--demo", action="store_true")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
-    if args.demo:
-        demo(device=args.device)
+    args = ap.parse_args(argv)
+    return demo(device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,15 +7,21 @@ Port of ``repro.models.attention`` (``KVCache``, ``attention_decode`` and
 head_dim); KV heads may be fewer than Q heads (GQA), Q heads grouped as
 (kv_heads, q_per_kv).
 
-On a CUDA tensor, ``attention`` sends a layer to
-``kernels.flash_attention.flash_attention_fwd`` when the configuration
-allows it (``uses_kernel``): no score soft-cap, a window that masks
-nothing at this length (``None`` or >= S, as the 'global' sentinel
-``1 << 30`` is), a head dim the kernel supports and float32 activations.
-The kernel's causal mask is by index, which is the reference's mask by
-position for the contiguous positions ``lm.forward`` gives.  Otherwise,
-and on the CPU, it takes ``_attend_dense`` / ``_attend_chunked`` exactly as
-the reference does.
+On a CUDA tensor, ``attention`` sends a layer to the hand-written
+flash-attention kernels through their differentiable entry
+``kernels.flash_attention.flash_attention`` (the forward kernel, and the
+dq and dk/dv kernels under autograd) when the configuration allows it
+(``uses_kernel``: no score soft-cap, a window that masks nothing at this
+length (``None`` or >= S, as the 'global' sentinel ``1 << 30`` is), a
+head dim the kernel supports and float32 activations) and the caller
+says the positions are the index, ``arange(S)`` on every row
+(``index_positions=True``, which ``lm.forward`` passes when it built the
+positions itself).  The kernel masks by index; the reference masks by
+position, so any other positions (packed sequences that restart, say)
+take the plain path, and the flag is taken on trust rather than read
+from the tensor, which would sync the host.  Otherwise, and on the CPU,
+``attention`` takes ``_attend_dense`` / ``_attend_chunked`` exactly as the
+reference does.
 """
 from __future__ import annotations
 
@@ -138,20 +144,23 @@ def uses_kernel(cfg, window, S) -> bool:
 
 
 def _attend_kernel(cfg, q, k, v):
-    """The kernel on (B, H, S, hd) copies of q, k, v -> (B, S, H, hd)."""
-    o, _ = fa.flash_attention_fwd(q.transpose(1, 2).contiguous(),
-                                  k.transpose(1, 2).contiguous(),
-                                  v.transpose(1, 2).contiguous(),
-                                  causal=True, scale=_scale(cfg))
+    """The kernels on (B, H, S, hd) copies of q, k, v -> (B, S, H, hd),
+    differentiable in q, k and v."""
+    o = fa.flash_attention(q.transpose(1, 2).contiguous(),
+                           k.transpose(1, 2).contiguous(),
+                           v.transpose(1, 2).contiguous(),
+                           True, _scale(cfg))
     return o.transpose(1, 2)
 
 
-def attention(p, cfg, x, positions, *, window=None):
-    """Full-sequence (training / prefill) attention."""
+def attention(p, cfg, x, positions, *, window=None, index_positions=False):
+    """Full-sequence (training / prefill) attention.  ``index_positions``:
+    the caller vouches that ``positions`` is ``arange(S)`` on every row,
+    which lets the card take the flash kernels."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     S = x.shape[1]
     pos1 = positions[0] if positions.ndim > 1 else positions
-    if x.is_cuda and uses_kernel(cfg, window, S):
+    if index_positions and x.is_cuda and uses_kernel(cfg, window, S):
         out = _attend_kernel(cfg, q, k, v)
     elif cfg.attn_chunk and S > cfg.attn_chunk:
         out = _attend_chunked(cfg, q, k, v, pos1, pos1, window, cfg.attn_chunk)

@@ -8,12 +8,14 @@ convert the reference's weights with ``params_from_jax`` rather than
 drawing new ones, so both packages run the same model.  Task heads
 (``head_from_jax``) and GMM memory states (``gmm_from_jax``) cross the
 same way, so a refine round starts from the reference's own state, and
-an AdamW state (``adamw_from_jax``) likewise for the edge learner.  The
+an AdamW state (``adamw_from_jax``) likewise for the edge learner and,
+with ``lm_from_jax`` as its layout, for an LM.  The
 PPO actor-critic of the RL split policy (``ppo_from_jax``) carries
 across as it is: ``w1 (3, H)``, ``b1 (H,)``, ``wp (H, L+1)``, ``bp``,
 ``wv (H, 1)``, ``bv (1,)``.  An LM's parameters (``lm_from_jax``) are
 the reference's ``init_lm`` pytree as it is, layers stacked on a leading
-axis.
+axis, and an LM's whole train state (``train_state_from_jax``: its
+parameters, the AdamW, Adafactor or SGD state and the step) with it.
 """
 from __future__ import annotations
 
@@ -120,19 +122,27 @@ def gmm_to_jax(state):
     return s0, s1, s2, step.astype(np.int32)
 
 
-def adamw_from_jax(state) -> dict:
-    """The reference's AdamW state ``{"m", "v", "step"}`` over an encoder's
-    pytree -> the port's, on the CPU (moments in the port's layout)."""
-    return {"m": params_from_jax(state["m"]), "v": params_from_jax(state["v"]),
-            "step": torch.tensor(int(np.asarray(state["step"])),
-                                 dtype=torch.int32)}
+def _step_from(step):
+    return torch.tensor(int(np.asarray(step)), dtype=torch.int32)
 
 
-def adamw_to_jax(state) -> dict:
+def _step_to(step):
+    return np.asarray(int(step), np.int32)
+
+
+def adamw_from_jax(state, params_from=params_from_jax) -> dict:
+    """The reference's AdamW state ``{"m", "v", "step"}`` -> the port's, on
+    the CPU, the moments converted as ``params_from`` converts parameters
+    (an encoder's by default; ``lm_from_jax`` for an LM's)."""
+    return {"m": params_from(state["m"]), "v": params_from(state["v"]),
+            "step": _step_from(state["step"])}
+
+
+def adamw_to_jax(state, params_to=params_to_jax) -> dict:
     """Inverse of ``adamw_from_jax``: numpy arrays in the reference's
     layout."""
-    return {"m": params_to_jax(state["m"]), "v": params_to_jax(state["v"]),
-            "step": np.asarray(int(state["step"]), np.int32)}
+    return {"m": params_to(state["m"]), "v": params_to(state["v"]),
+            "step": _step_to(state["step"])}
 
 
 PPO_KEYS = ("w1", "b1", "wp", "bp", "wv", "bv")
@@ -153,3 +163,48 @@ def ppo_to_jax(params) -> dict:
 # an LM's params (the reference's ``init_lm`` pytree, float32) cross as a
 # task head's do: the same nested dicts, every leaf bitwise
 lm_from_jax, lm_to_jax = head_from_jax, head_to_jax
+
+
+def adafactor_from_jax(state) -> dict:
+    """The reference's Adafactor state ``{"stats", "step"}`` over an LM's
+    pytree -> the port's, on the CPU: the ``vr``/``vc``/``v`` statistics as
+    they are (a parameter tree in the reference's layout, as an LM's is;
+    an encoder's transposed convolutions would not factor the same way)."""
+    return {"stats": head_from_jax(state["stats"]),
+            "step": _step_from(state["step"])}
+
+
+def adafactor_to_jax(state) -> dict:
+    """Inverse of ``adafactor_from_jax``."""
+    return {"stats": head_to_jax(state["stats"]),
+            "step": _step_to(state["step"])}
+
+
+def train_state_from_jax(state, optimizer="adamw") -> dict:
+    """The reference's LM train state ``{"params", "opt", "step"}``
+    (``runtime/trainer.py``'s ``init_train_state``) -> the port's, on the
+    CPU, for ``optimizer`` in ("adamw", "adafactor", "sgd")."""
+    if optimizer == "adamw":
+        opt = adamw_from_jax(state["opt"], lm_from_jax)
+    elif optimizer == "adafactor":
+        opt = adafactor_from_jax(state["opt"])
+    elif optimizer == "sgd":
+        opt = tuple(lm_from_jax(m) for m in state["opt"])
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    return {"params": lm_from_jax(state["params"]), "opt": opt,
+            "step": _step_from(state["step"])}
+
+
+def train_state_to_jax(state, optimizer="adamw") -> dict:
+    """Inverse of ``train_state_from_jax``: numpy arrays."""
+    if optimizer == "adamw":
+        opt = adamw_to_jax(state["opt"], lm_to_jax)
+    elif optimizer == "adafactor":
+        opt = adafactor_to_jax(state["opt"])
+    elif optimizer == "sgd":
+        opt = tuple(lm_to_jax(m) for m in state["opt"])
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    return {"params": lm_to_jax(state["params"]), "opt": opt,
+            "step": _step_to(state["step"])}

@@ -127,6 +127,16 @@ def test_port_demo_routes_both_tiers():
     assert 0.0 < stats.escalation_rate < 1.0
 
 
+def test_main_runs_the_demo_without_the_flag(monkeypatch):
+    """As the reference's ``__main__``: the demo runs whatever ``--demo``
+    says."""
+    calls = []
+    monkeypatch.setattr(serve, "demo", lambda **kw: calls.append(kw) or kw)
+    serve.main(["--device", "cpu"])
+    serve.main(["--demo", "--device", "cpu"])
+    assert calls == [{"device": "cpu"}, {"device": "cpu"}]
+
+
 def test_bucket():
     assert [serve._bucket(n) for n in (1, 2, 3, 5, 8, 9)] == [
         1, 2, 4, 8, 8, 16] == [jserve._bucket(n) for n in (1, 2, 3, 5, 8, 9)]

@@ -10,6 +10,15 @@ the oracle), ragged lengths, Sq != Sk and S = 1; its lse against
 ``flash_attention`` itself no longer traces on this jax, so the oracle is
 its plain reference.  The kernel runs only on the card (``chip_smoke.py``
 phase 9).
+
+The backward: the plain backward (``flash_attention_bwd_dq_ref`` and
+``flash_attention_bwd_dkv_ref``, the CUDA kernels' plain versions) against
+``jax.vjp`` of the same oracle, within 2e-5 of each gradient's max |g|
+(float32 sums in another order), GQA summed by JAX through the
+``jnp.repeat``; the autograd entry ``flash_attention`` on the CPU against
+autograd through ``flash_attention_ref`` (1e-5 of the max: the explicit
+formulas against torch's own backward of the same forward).  The backward
+kernels run only on the card (``chip_smoke.py`` phase 11).
 """
 import functools
 import math
@@ -24,9 +33,13 @@ torch = pytest.importorskip("torch")
 from repro.kernels import flash_attention as jfa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_fwd, flash_attention_ref)
+    flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dkv_ref,
+    flash_attention_bwd_dq, flash_attention_bwd_dq_ref, flash_attention_fwd,
+    flash_attention_ref)
 
 O_ATOL, LSE_ATOL = 2e-5, 1e-5
+GRAD_RTOL = 2e-5         # of each gradient's max |g|, against jax.vjp
+AUTOGRAD_RTOL = 1e-5     # of the max, against torch autograd of the ref
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -153,3 +166,166 @@ def test_refuses_devices_without_a_kernel():
         flash_attention_fwd(meta, meta, meta)
     assert "flash_attention.cu" in build.SOURCES
     assert (build.CSRC / "flash_attention.cu").exists()
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [
+    # the reference's own four shapes, causal and not
+    (2, 4, 4, 128, 128, 64, True, None),
+    (1, 2, 2, 256, 256, 32, True, None),
+    (2, 2, 2, 128, 256, 64, False, None),
+    (1, 1, 1, 64, 64, 128, True, None),
+    (1, 1, 1, 64, 64, 128, False, None),
+    # GQA: 4 query heads over 2 KV heads, 8 over 2
+    (2, 4, 2, 64, 64, 16, True, None),
+    (1, 8, 2, 48, 80, 32, False, None),
+    # ragged, Sq != Sk both ways, a single row, a custom scale
+    (2, 2, 2, 100, 100, 64, True, None),
+    (1, 2, 1, 100, 37, 16, False, None),
+    (1, 2, 2, 37, 100, 16, True, None),
+    (1, 2, 2, 1, 1, 64, True, None),
+    (2, 2, 2, 1, 9, 32, False, None),
+    (1, 4, 2, 70, 70, 32, True, 0.37),
+]
+
+
+@functools.partial(jax.jit, static_argnums=(4, 5))
+def _oracle_vjp(q, k, v, do, causal, scale):
+    """jax.vjp of the reference's oracle (its 1/sqrt(d) turned into
+    ``scale`` by scaling q) with k and v repeated inside the function, so
+    JAX sums the GQA groups -> (dq, dk, dv)."""
+    G = q.shape[1] // k.shape[1]
+    d = q.shape[-1]
+    mult = 1.0 if scale is None else scale * math.sqrt(d)
+
+    def f(q, k, v):
+        return jfa.flash_attention_ref(q * mult, jnp.repeat(k, G, axis=1),
+                                       jnp.repeat(v, G, axis=1), causal)
+    _, vjp = jax.vjp(f, q, k, v)
+    return vjp(do)
+
+
+def _rel(gots, wants):
+    """max |got - want| over max |want|, gradient by gradient.  Every
+    gradient here has a max of at least 0.39x the largest of its call's
+    but dq and dk at S = 1, which are exactly 0 (the softmax of one key is
+    constant) and come out of the explicit formula as rounding of
+    dp - delta: those are held against 0.1x the largest."""
+    wants = [np.asarray(w) for w in wants]
+    floor = 0.1 * max(np.abs(w).max() for w in wants)
+    return [float(np.abs(np.asarray(g) - w).max()
+                  / max(np.abs(w).max(), floor))
+            for g, w in zip(gots, wants)]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,d,causal,scale", BWD_CASES)
+def test_plain_backward_matches_jax_vjp(B, H, KV, Sq, Sk, d, causal, scale):
+    q, k, v = _qkv(B, H, KV, Sq, Sk, d, seed=7 * Sq + Sk + d)
+    do = np.random.default_rng(Sq + 3 * d).normal(
+        size=q.shape).astype(np.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = flash_attention_ref(tq, tk, tv, causal, scale)
+    delta = (tdo * o).sum(-1)
+    dq = flash_attention_bwd_dq_ref(tq, tk, tv, tdo, lse, delta, causal,
+                                    scale)
+    dk, dv = flash_attention_bwd_dkv_ref(tq, tk, tv, tdo, lse, delta, causal,
+                                         scale)
+    assert dq.shape == q.shape and dk.shape == k.shape \
+        and dv.shape == v.shape
+    errs = _rel((dq, dk, dv), _oracle_vjp(q, k, v, do, causal, scale))
+    assert max(errs) <= GRAD_RTOL, errs
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,d,causal,scale", BWD_CASES[4:])
+def test_autograd_entry_matches_autograd_of_plain(B, H, KV, Sq, Sk, d, causal,
+                                                 scale):
+    """On the CPU the entry's forward is the plain forward, bitwise, and its
+    backward (the explicit formulas) is torch's autograd of that forward;
+    no launch is counted."""
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(B, H, KV, Sq, Sk, d, seed=Sq + d))
+    do = torch.from_numpy(np.random.default_rng(d).normal(
+        size=q.shape).astype(np.float32))
+    before = (flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches)
+    o = flash_attention(q, k, v, causal, scale)
+    want_o, _ = flash_attention_ref(q, k, v, causal, scale)
+    assert torch.equal(o, want_o)
+    errs = _rel(torch.autograd.grad(o, (q, k, v), do),
+                torch.autograd.grad(want_o, (q, k, v), do))
+    assert max(errs) <= AUTOGRAD_RTOL, errs
+    assert (flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkv.launches) == before == (0, 0)
+
+
+def test_cpu_backward_wrappers_are_the_plain_versions():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 4, 2, 30, 30, 32, 5))
+    do = torch.ones_like(q)
+    o, lse = flash_attention_ref(q, k, v, True)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    assert torch.equal(flash_attention_bwd_dq(*args),
+                       flash_attention_bwd_dq_ref(*args))
+    for a, b in zip(flash_attention_bwd_dkv(*args),
+                    flash_attention_bwd_dkv_ref(*args)):
+        assert torch.equal(a, b)
+    assert ops.KERNELS["flash_attention_bwd_dq"] is flash_attention_bwd_dq
+    assert ops.KERNELS["flash_attention_bwd_dkv"] is flash_attention_bwd_dkv
+    assert ops.flash_attention is flash_attention
+
+
+def _bwd_args(q_shape=(1, 4, 8, 16), kv_shape=(1, 2, 8, 16), dtype=None,
+              device="cpu"):
+    z = dict(dtype=dtype or torch.float32, device=device)
+    q = torch.zeros(q_shape, **z)
+    kv = torch.zeros(kv_shape, **z)
+    return (q, kv, kv.clone(), torch.zeros(q_shape, **z),
+            torch.zeros(q_shape[:3], **z), torch.zeros(q_shape[:3], **z))
+
+
+@pytest.mark.parametrize("wrapper", [flash_attention_bwd_dq,
+                                     flash_attention_bwd_dkv])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_backward_wrappers_refuse_other_dtypes(wrapper, dtype):
+    with pytest.raises(TypeError):
+        wrapper(*_bwd_args(dtype=dtype))
+
+
+@pytest.mark.parametrize("wrapper", [flash_attention_bwd_dq,
+                                     flash_attention_bwd_dkv])
+@pytest.mark.parametrize("bad", ["kv_heads", "head_dim", "do", "lse",
+                                 "delta"])
+def test_backward_wrappers_refuse_bad_shapes(wrapper, bad):
+    args = list(_bwd_args())
+    if bad == "kv_heads":
+        args[1] = args[2] = torch.zeros(1, 3, 8, 16)
+    elif bad == "head_dim":
+        args = list(_bwd_args((1, 4, 8, 48), (1, 2, 8, 48)))
+    elif bad == "do":
+        args[3] = torch.zeros(1, 4, 9, 16)
+    elif bad == "lse":
+        args[4] = torch.zeros(1, 4, 9)
+    else:
+        args[5] = torch.zeros(1, 4)
+    with pytest.raises(ValueError):
+        wrapper(*args)
+
+
+@pytest.mark.parametrize("wrapper", [flash_attention_bwd_dq,
+                                     flash_attention_bwd_dkv])
+def test_backward_wrappers_refuse_devices_and_gradients(wrapper):
+    """No fallback: meta tensors raise, as does an input that requires a
+    gradient (the autograd entry passes detached tensors)."""
+    with pytest.raises(ValueError, match="no kernel"):
+        wrapper(*_bwd_args(device="meta"))
+    args = list(_bwd_args())
+    args[0] = args[0].requires_grad_()
+    with pytest.raises(ValueError, match="gradient"):
+        wrapper(*args)
+    args = list(_bwd_args())
+    args[3] = torch.zeros(1, 16, 8, 4).transpose(1, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(*args)

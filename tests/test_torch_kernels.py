@@ -91,6 +91,30 @@ def test_wire_ref_nan_row():
     assert np.isnan(port[1]).all() and not np.isnan(port[[0, 2]]).any()
 
 
+@pytest.mark.parametrize("where", ["+inf", "-inf", "nan", "both_infs"])
+def test_wire_ref_infinite_and_nan_rows(where):
+    """A row with +inf, -inf or NaN: every element of the row is NaN but
+    for +inf's own element, which comes back +inf (the reference
+    dequantizes the level converted to int8, and NaN converts to 0); the
+    other rows keep their values.  Against the Pallas wire and the jitted
+    per-sample quantize∘dequantize."""
+    x = _x(4, (300,), 10)
+    if where in ("+inf", "both_infs"):
+        x[1, 17] = np.inf
+    if where in ("-inf", "both_infs"):
+        x[1, 40] = -np.inf
+    if where == "nan":
+        x[1, 17] = np.nan
+    port = wire_roundtrip_ref(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(port, np.asarray(jops.wire_roundtrip(x)))
+    np.testing.assert_array_equal(port, np.asarray(_vmapped(x)))
+    assert not np.isnan(port[[0, 2, 3]]).any()
+    if where == "+inf":
+        assert port[1, 17] == np.inf and np.isnan(np.delete(port[1], 17)).all()
+    else:
+        assert np.isnan(port[1]).all()
+
+
 def test_wire_b1_equals_per_tensor_round_trip():
     x = _x(1, (24, 16), 9)
     t = torch.from_numpy(x)

@@ -323,3 +323,75 @@ def test_other_families_wait(family):
                   family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.init_lm(cfg, torch.Generator())
+
+
+# ---------------------------------------------------------------------------
+# positions and the kernel route
+# ---------------------------------------------------------------------------
+
+def _packed_positions(B, S, restart):
+    """Two packed sequences a row: positions 0..restart-1, then 0.. again."""
+    row = np.concatenate([np.arange(restart), np.arange(S - restart)])
+    return np.broadcast_to(row.astype(np.int32), (B, S))
+
+
+@pytest.mark.parametrize("name", TIERS)
+@pytest.mark.parametrize("S,restart", [(16, 9), (48, 20)])
+def test_forward_with_packed_positions_matches_reference(name, S, restart):
+    """Positions that restart mid-row (packed sequences): the reference
+    masks by position, and so must the port."""
+    jc = jbase.smoke_config(jbase.get_config(name))
+    c = base.smoke_config(base.get_config(name))
+    jp = _np(jlm.init_lm(jc, jax.random.PRNGKey(5))[0])
+    toks = np.random.default_rng(S).integers(0, jc.vocab, (2, S)).astype(
+        np.int32)
+    pos = _packed_positions(2, S, restart)
+    jh, _ = jlm.forward(jc, jp, tokens=jnp.asarray(toks),
+                        positions=jnp.asarray(pos))
+    h, _ = lm.forward(c, lm_from_jax(jp), tokens=_t(toks), positions=_t(pos))
+    _close(h, jh)
+    # and they differ from the index positions' output: the mask matters
+    h_index, _ = lm.forward(c, lm_from_jax(jp), tokens=_t(toks))
+    assert not torch.allclose(h, h_index, atol=1e-3)
+
+
+def test_forward_vouches_only_for_its_own_positions(monkeypatch):
+    """``forward`` tells ``attention`` the positions are the index only
+    when it built them: passed-in positions never reach the kernel, whose
+    causal mask is by index."""
+    c = base.smoke_config(base.get_config("qwen1.5-0.5b"))
+    p = lm.init_lm(c, torch.Generator().manual_seed(0))
+    seen = []
+    real = attention.attention
+
+    def spy(*args, **kw):
+        seen.append(kw["index_positions"])
+        return real(*args, **kw)
+    monkeypatch.setattr(attention, "attention", spy)
+    toks = torch.zeros(2, 8, dtype=torch.int32)
+    lm.forward(c, p, tokens=toks)
+    assert seen == [True] * c.n_layers
+    seen.clear()
+    lm.forward(c, p, tokens=toks, positions=torch.arange(8).expand(2, 8))
+    assert seen == [False] * c.n_layers
+
+
+@pytest.mark.parametrize("name", TIERS)
+def test_kernel_route_matches_dense_path_with_gradients(name):
+    """``_attend_kernel`` (the differentiable flash entry on (B, H, S, hd)
+    copies; its plain versions on the CPU) gives the dense path's output
+    and gradients for index positions, GQA and qk-norm included."""
+    c = base.smoke_config(base.get_config(name))
+    rng = np.random.default_rng(11)
+    S = 24
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, S, h, c.head_dim))
+                                .astype(np.float32)).requires_grad_()
+               for h in (c.n_heads, c.n_kv_heads, c.n_kv_heads))
+    pos = torch.arange(S)
+    got = attention._attend_kernel(c, q, k, v)
+    want = attention._attend_dense(c, q, k, v, pos, pos, None)
+    _close(got, want.detach())
+    g = torch.from_numpy(rng.normal(size=got.shape).astype(np.float32))
+    for a, b in zip(torch.autograd.grad(got, (q, k, v), g),
+                    torch.autograd.grad(want, (q, k, v), g)):
+        _close(a, b.detach())
