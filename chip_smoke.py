@@ -111,7 +111,10 @@ tiers' layers (B 8, H 16, S 1,024, hd 64; B 4, H 16 over KV 8, hd 128),
 S = 4,096, ragged and single-row lengths, Sq != Sk without the mask, and
 head dims 16 and 32; it times the kernel, its plain version and
 ``scaled_dot_product_attention`` (timed only) at the two layer shapes
-beside the bound.
+beside the bound.  The three attention rows share one bound: their
+products at float32 accuracy on the tensor cores, 3xTF32 at a third of
+the data sheet's TF32 rate (``bound_ms``), with the float32 SIMT figure
+beside it (``simt_bound_ms``).
 
 Phase 10 runs ``CascadeServer`` with qwen1.5-0.5b (small tier) and
 qwen3-1.7b (large) at full width and depth, float32, weights from seeded
@@ -134,10 +137,11 @@ under the mask and ragged GQA at hd 128; two launches must give the same
 bits and the autograd entry ``flash_attention`` the kernels' bits.  It
 times both kernels, their plain versions and the backward of
 ``scaled_dot_product_attention`` (timed only) at the two tiers' layers
-beside their bounds.  SDPA's backward gives dq, dk and dv in one call,
-so the kernels' records carry it as ``pair_library_ms`` beside
-``pair_ms`` (dq + dk/dv), and ``library_ms`` is null: no one PyTorch
-call computes dq or dk/dv alone.
+beside their bounds, and the delta op of ``flash_attention``'s backward
+(``delta_ms``).  SDPA's backward gives dq, dk and dv in one call, its
+own delta included, so the kernels' records carry it as
+``pair_library_ms`` beside ``pair_ms`` (dq + dk/dv + delta), and
+``library_ms`` is null: no one PyTorch call computes dq or dk/dv alone.
 
 Phase 12 trains.  First a 2-layer qwen1.5-0.5b at full width, (2, 256):
 step 0's loss and every gradient with the hybrid term on, card against
@@ -179,6 +183,10 @@ TIMED_TICKS = 8
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor) peak
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# the same data sheet's dense TF32 tensor-core peak, 495 TFLOP/s, over the
+# three TF32 products a float32-accurate product takes in 3xTF32: the
+# attention rows' yardstick, since float32 accuracy is their contract
+TF32X3_OPS_PER_S = 495e12 / 3
 BATCH_SIZES = (1, 3, 8, 32, 256)
 CPU_ATOL = 1e-4
 # the refine path: fleet rings, SW directions, Laplacian window, GMM
@@ -1737,17 +1745,21 @@ def cascade_kernel_times(dev, ops):
         nops = 4 * B * H * pairs * hd          # two products, 2 ops a FMA
         nbytes = 4 * (2 * B * H * Sq * hd + 2 * B * KV * Sk * hd + B * H * Sq)
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        o_ms = nops / FP32_OPS_PER_S * 1e3
+        o_ms = nops / TF32X3_OPS_PER_S * 1e3
         out[tier] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": max(b_ms, o_ms),
                      "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                     "simt_bound_ms": max(b_ms,
+                                          nops / FP32_OPS_PER_S * 1e3),
                      "shape": [B, H, KV, Sq, Sk, hd]}
         print(f"flash_attention_fwd at the {tier} tier's layer (B {B}, H {H}, "
               f"KV {KV}, S {Sq}, hd {hd}, causal): device kernel "
               f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
               f"scaled_dot_product_attention {lib_ms * 1e3:.2f} us; bound "
-              f"{max(b_ms, o_ms) * 1e3:.2f} us ({out[tier]['bound_by']}: "
-              f"{nops} operations, {nbytes} bytes); kernel at "
+              f"{max(b_ms, o_ms) * 1e3:.2f} us in 3xTF32 "
+              f"({out[tier]['bound_by']}: {nops} operations, {nbytes} "
+              f"bytes; float32 SIMT "
+              f"{out[tier]['simt_bound_ms'] * 1e3:.2f} us); kernel at "
               f"{max(b_ms, o_ms) / ms:.3f} of the bound")
     B, C, d = CASCADE_B, N_COMPONENTS, 1024
     args = gmm_inputs(g, dev, B, C, d)
@@ -2029,10 +2041,11 @@ def phase11(dev, ops):
 
 
 def bwd_kernel_times(dev, ops):
-    """dq and dk/dv kernels, their plain versions and the backward of
+    """dq and dk/dv kernels, their plain versions, the delta op of
+    ``flash_attention``'s backward and the backward of
     ``scaled_dot_product_attention`` (timed only: the port never calls it;
-    one call gives dq, dk and dv) at each tier's layer -> {tier: {name:
-    times and bound}}."""
+    one call gives dq, dk and dv, its own delta included) at each tier's
+    layer -> {tier: {name: times and bound}}."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(12)
     out = {}
@@ -2041,6 +2054,8 @@ def bwd_kernel_times(dev, ops):
         do = torch.randn(B, H, Sq, hd, device=dev, generator=g)
         o, lse = ops.flash_attention_fwd(q, k, v)
         args = (q, k, v, do, lse, (do * o).sum(-1))
+        # the delta op as _FlashAttention.backward runs it
+        delta_ms = device_ms(lambda a: (a[0] * a[1]).sum(-1), (do, o))
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         o_sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                                 enable_gqa=True)
@@ -2061,29 +2076,36 @@ def bwd_kernel_times(dev, ops):
             plain_ms = device_ms(lambda a, fn=plain: fn(*a), args, reps=5)
             nops, nbytes = n_products * product, qkv_bytes + out_bytes
             b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            o_ms = nops / FP32_OPS_PER_S * 1e3
+            o_ms = nops / TF32X3_OPS_PER_S * 1e3
+            simt_ms = max(b_ms, nops / FP32_OPS_PER_S * 1e3)
             out[tier][name] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                 "bound_ms": max(b_ms, o_ms),
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "simt_bound_ms": simt_ms,
                 "shape": [B, H, KV, Sq, Sk, hd]}
             print(f"{name} at the {tier} tier's layer (B {B}, H {H}, KV {KV}"
                   f", S {Sq}, hd {hd}, causal): device kernel "
                   f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us; bound "
-                  f"{max(b_ms, o_ms) * 1e3:.2f} us ({out[tier][name]['bound_by']}"
-                  f": {nops} operations, {n_products} products; {nbytes} "
-                  f"bytes); kernel at {max(b_ms, o_ms) / ms:.3f} of the bound")
-        least = 5 * product / FP32_OPS_PER_S * 1e3
-        both = sum(r["ms"] for r in out[tier].values())
+                  f"{max(b_ms, o_ms) * 1e3:.2f} us in 3xTF32 "
+                  f"({out[tier][name]['bound_by']}: {nops} operations, "
+                  f"{n_products} products; {nbytes} bytes; float32 SIMT "
+                  f"{simt_ms * 1e3:.2f} us); kernel at "
+                  f"{max(b_ms, o_ms) / ms:.3f} of the bound")
+        least = 5 * product / TF32X3_OPS_PER_S * 1e3
+        both = sum(r["ms"] for r in out[tier].values()) + delta_ms
         for r in out[tier].values():
-            # SDPA's backward gives dq, dk and dv in one call: it is timed
-            # against the pair, not against either kernel
-            r.update(pair_ms=both, pair_library_ms=lib_ms)
-        print(f"flash backward at the {tier} tier's layer: dq + dk/dv "
-              f"{both * 1e3:.2f} us against the backward's least work (five "
-              f"products, {5 * product} operations) {least * 1e3:.2f} us; "
+            # SDPA's backward gives dq, dk and dv in one call, its delta
+            # included: it is timed against the pair and the delta op, not
+            # against either kernel
+            r.update(delta_ms=delta_ms, pair_ms=both, pair_library_ms=lib_ms)
+        print(f"flash backward at the {tier} tier's layer: dq + dk/dv + "
+              f"delta {both * 1e3:.2f} us (delta {delta_ms * 1e3:.2f} us) "
+              f"against the backward's least work (five products, "
+              f"{5 * product} operations) {least * 1e3:.2f} us in 3xTF32; "
               f"scaled_dot_product_attention's backward {lib_ms * 1e3:.2f} "
-              f"us (dq, dk and dv in one call)")
+              f"us (dq, dk and dv in one call), the pair at "
+              f"{both / lib_ms:.3f}x it")
         del q, k, v, do, o, lse, args, leaves, o_sdpa
         torch.cuda.empty_cache()
     return out

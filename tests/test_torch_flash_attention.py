@@ -329,3 +329,75 @@ def test_backward_wrappers_refuse_devices_and_gradients(wrapper):
     args[3] = torch.zeros(1, 16, 8, 4).transpose(1, 3)
     with pytest.raises(ValueError, match="contiguous"):
         wrapper(*args)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' numerics: 3xTF32 on the tensor cores
+# ---------------------------------------------------------------------------
+
+KERNEL_GRAD_RTOL = 1e-5  # chip_smoke.py phase 11's bar for the CUDA kernels
+
+
+def _tf32(x):
+    """x rounded to TF32 as the kernels round it: to nearest, ties away
+    from zero, at mantissa bit 13 (``(bits + 0x1000) & 0xffffe000``)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a (..., M, K) @ b (..., K, N) as the kernels' mma.sync runs it:
+    each operand split as hi = tf32(x), lo = tf32(x - hi); for every 8
+    steps of K the products lo*hi, hi*lo and hi*hi (``passes`` 3), or hi*hi
+    alone (``passes`` 1: one TF32 product), each summed in float32 and
+    added to a float32 sum."""
+    ah, bh = _tf32(a), _tf32(b)
+    terms = [(_tf32(a - ah), bh), (ah, _tf32(b - bh)), (ah, bh)]
+    out = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in terms[3 - passes:]:
+            out = out + x[..., k0:k0 + 8] @ y[..., k0:k0 + 8, :]
+    return out
+
+
+def _tf32_backward(q, k, v, do, lse, delta, passes):
+    """The recomputation of ``flash_attention_bwd_dq_ref`` and
+    ``flash_attention_bwd_dkv_ref`` (causal, default scale) with every
+    product through ``_mm_tf32`` in the kernels' order: s = scale (q k^T),
+    each KV head's dk and dv one sum over its G query heads' rows."""
+    B, H, S, d = q.shape
+    KV = k.shape[1]
+    G, sc = H // KV, 1.0 / math.sqrt(d)
+    kg, vg = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    s = _mm_tf32(q, kg.transpose(-1, -2), passes) * sc
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (_mm_tf32(do, vg.transpose(-1, -2), passes) - delta[..., None])
+    dq = _mm_tf32(ds, kg, passes) * sc
+
+    def by_kv_head(x):          # (B, H, Sq, Sk) -> (B, KV, Sk, G * Sq)
+        return x.reshape(B, KV, G, S, S).permute(0, 1, 4, 2, 3).reshape(
+            B, KV, S, G * S)
+    dk = _mm_tf32(by_kv_head(ds), q.reshape(B, KV, G * S, d), passes) * sc
+    dv = _mm_tf32(by_kv_head(p), do.reshape(B, KV, G * S, d), passes)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_core_numerics(d, passes):
+    """The CUDA backward kernels run every product in 3xTF32: emulated
+    here, their recomputation stays within phase 11's 1e-5 of each
+    gradient's max from ``jax.vjp`` of the oracle (GQA, 4 query heads over
+    2, causal, S 256), while one TF32 product (``passes`` 1) misses that
+    bar, so the bar would catch a kernel that dropped to plain TF32."""
+    B, H, KV, S = 1, 4, 2, 256
+    q, k, v = _qkv(B, H, KV, S, S, d, seed=17 + d)
+    do = np.random.default_rng(d).normal(size=q.shape).astype(np.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = flash_attention_ref(tq, tk, tv, True)
+    got = _tf32_backward(tq, tk, tv, tdo, lse, (tdo * o).sum(-1), passes)
+    worst = max(_rel(got, _oracle_vjp(q, k, v, do, True, None)))
+    if passes == 3:
+        assert worst <= KERNEL_GRAD_RTOL, worst
+    else:
+        assert worst > KERNEL_GRAD_RTOL, worst
