@@ -60,8 +60,9 @@ SIGNATURES = {
         "laplacian_energy_error_string": ([_I], _S),
     },
     "gmm_posterior.cu": {
-        "gmm_posterior_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-                              _I),
+        "gmm_posterior_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                               _P], _I),
+        "gmm_posterior_scratch_floats": ([_I, _I, _I], _L),
         "gmm_posterior_error_string": ([_I], _S),
     },
     "infonce_vneg.cu": {

@@ -1,40 +1,73 @@
-// Flash attention, forward and backward, float32, for Hopper (sm_90a).
+// Flash attention, forward and backward, float32, on Hopper's tensor cores
+// (sm_90a).
 //
-// The forward replaces the TPU kernel `_fwd` / `_fwd_kernel` in
-// src/repro/kernels/flash_attention.py; the two backward kernels below
-// replace `_bwd_rule`'s `_dq_kernel` and `_dkv_kernel` (see the section
-// "Backward").  For q (B, H, Sq, hd) and k, v
-// (B, KV, Sk, hd), query head h reading KV head h / (H / KV) (the grouping
-// of models/attention.py), and each query row i:
-//   s_ij = (q_i * scale) . k_j,  masked to -1e30 where causal and i < j
-//   o_i  = sum_j exp(s_ij - m_i) v_j / max(l_i, 1e-30)
+// Replaces the TPU kernels of src/repro/kernels/flash_attention.py: the
+// forward `_fwd` / `_fwd_kernel` (flash_fwd_kernel) and `_bwd_rule`'s
+// `_dq_kernel` and `_dkv_kernel` (see the section "Backward").  For q (B,
+// H, Sq, hd) and k, v (B, KV, Sk, hd), query head h reading KV head h / (H
+// / KV) (the grouping of models/attention.py), and each query row i:
+//   s_ij  = scale * (q_i . k_j),  masked to -1e30 where causal and i < j
+//   o_i   = sum_j exp(s_ij - m_i) v_j / max(l_i, 1e-30)
 //   lse_i = m_i + log(max(l_i, 1e-30))
 // with the running max m and sum l of an online softmax over key tiles, so
 // no (Sq, Sk) score matrix reaches device memory.  Unlike the TPU kernel it
 // takes any Sq and Sk (ragged tiles are masked: keys past Sk weigh 0) and
-// GQA without expanding k and v.
+// GQA without expanding k and v.  The reference scales q before the
+// product; here the scale multiplies the product, as in the backward: a
+// difference at the level of rounding.
 //
-// Bound: 4 * Sq * Sk * hd * B * H float operations (two products; half of
-// that under the causal mask), against 4 bytes for each element of q, k, v,
-// o and lse.  At the small tier's layer (B 8, H 16, S 1,024, hd 64, causal)
-// that is 17.2 GFLOP, 0.26 ms at 67 TFLOP/s float32, against 134 MB, 0.04 ms
-// at 3.35 TB/s: operations bound it, as they do at every shape of the cascade.
+// Numerics: every product runs on the tensor cores in 3xTF32.  Each operand
+// x is split as hi = tf32(x), lo = tf32(x - hi) (to nearest, ties away, at
+// mantissa bit 13), and a product is lo*hi + hi*lo + hi*hi, three mma.sync
+// m16n8k8 TF32 issues: the error of a float32 product, not of a TF32 one
+// (tests/test_torch_flash_attention.py emulates both on the CPU: 3xTF32
+// keeps chip_smoke.py's tolerances, one TF32 product misses them).  The
+// sums over a whole sequence (o over keys here; dq over keys, dk and dv
+// over queries in the backward) join float32 accumulators by rounded adds,
+// a tile at a time (see accumulate), and so do dp's sums over the head
+// dim, 16 columns at a time (see product_t).  The forward and the dq
+// kernel compute s with the same code (product_t), so the backward's p =
+// exp(s - lse) recomputes the forward's probabilities from the very scores
+// the forward summed.
 //
-// Design (simple and right first): one block of 256 threads per 64 query
-// rows of one (b, h).  The scaled q tile and each 64-key tile of k sit
-// transposed in dynamic shared memory (hd x 68, so a float4 of 4 rows or 4
-// keys is one aligned load), v as it is (64 x hd), and the tile's
-// probabilities transposed (64 x 68): 120 KB at hd = 128, above the 48 KB
-// default, so the launcher raises the limit first.  Thread (tx, ty) of a
-// 16 x 16 grid owns rows 4ty..4ty+3: it computes their scores against keys
-// 4tx..4tx+3 by float32 FMA over hd in order, and their output columns
-// tx-strided by 4 (hd / 16 of them).  The 16 threads of a row meet in fixed
-// xor shuffles for the row's max and sum, which every one of them then
-// holds.  Key tiles past the causal diagonal are skipped.  No atomics and a
-// fixed order everywhere, so two launches give the same bits.  The forward
-// is still float32 SIMT; the backward kernels below run on the tensor cores
-// in 3xTF32, which keeps float32 accuracy where one TF32 product would not.
-// The forward's move there, and TMA, are later work.
+// Bound (forward): two products, 4 * Sq * Sk * hd * B * H float operations
+// (about half of that under the causal mask), against 4 bytes for each
+// element of q, k, v, o and lse.  At the small tier's layer (B 8, H 16, S
+// 1,024, hd 64, causal) that is 17.2 GFLOP: 0.10 ms at the 165 TFLOP/s of
+// float32-accurate products that 3xTF32 leaves of the 495 TFLOP/s dense
+// TF32 of NVIDIA's H100 SXM data sheet (700 W), against 134 MB, 0.04 ms at
+// 3.35 TB/s: operations bound it, at every shape of the cascade and the
+// trainer.
+//
+// Design (forward).  A warp owns 16 query rows of one (b, h) and runs both
+// products of those rows.  The block's q tile is loaded once with cp.async
+// and split once (hi in place, lo beside it); k and v tiles stream through
+// a two-stage ring of cp.async copies (16 bytes, zero-filled past Sk), the
+// next tile in flight while this one is multiplied, and their fragments
+// split as they load (PRE: each tile split once as it lands instead).  The
+// score tile s = scale * (q k^T) comes out of the tensor cores as m16n8
+// accumulators: lane (g, t) holds columns 2t and 2t+1 of rows g and g+8, so
+// the online softmax runs in registers, the row max and sum over the 4
+// lanes of a quad by xor shuffles 1 and 2.  The probabilities then feed the
+// P V product from registers (acc_to_a: its k index permuted, V read by
+// load_b to match), with no pass through shared memory.  Each key tile's P
+// V sums in the tensor cores from 0 and joins o, rescaled by alpha first,
+// in one rounded add.  Key tiles past the causal diagonal are skipped, and
+// within the diagonal tile a warp whose rows all precede the tile's first
+// key skips it (exactly: alpha would be 1 and p 0); the query tiles with
+// the most key tiles start first.  No atomics and a fixed order
+// everywhere, so two launches give the same bits.
+// Tiles and shared memory a block (BQ query rows, a warp per 16; BK keys a
+// tile; 4 bytes x (2 BQ + 4 BK) x max(hd, 32)):
+//   hd 16, 32: BQ 64, BK 32, 32 KB
+//   hd 64:     BQ 64, BK 32, 64 KB, three blocks an SM (BK 64: 96 KB,
+//              two blocks, 11 % slower)
+//   hd 128:    BQ 128 (8 warps), BK 32, 192 KB
+// At hd 128 the o accumulator alone is 64 registers a thread: BK 32 keeps
+// the score tile and its A fragments small enough that ptxas spills
+// nothing (tools/ptxas_report.py; the variants measured are
+// tools/flash_fwd_variants.py's).
+// Inputs must be 16-byte aligned (the launchers refuse others).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -45,265 +78,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kPitch = 68;        // 64 + 4: rows stay 16-byte aligned
 constexpr float kMaskValue = -1e30f;
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (2 * HD * kPitch + kBlockK * HD + kBlockK * kPitch);
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x; out[1] = t.y;
-  } else {
-    out[0] = p[0];
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int H, int KV, int Sq, int Sk,
-                 float scale, int causal) {
-  constexpr int kDims = HD / 16;              // output columns a thread owns
-  constexpr int kVec = kDims < 4 ? kDims : 4;
-  constexpr int kGroups = kDims / kVec;
-  extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);   // HD x kPitch
-  float* kT = qT + HD * kPitch;                  // HD x kPitch
-  float* vs = kT + HD * kPitch;                  // kBlockK x HD
-  float* pT = vs + kBlockK * HD;                 // kBlockK x kPitch
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int kvh = h / (H / KV);
-  const int q0 = blockIdx.x * kBlockQ;
-  const float* qp = q + static_cast<size_t>(bh) * Sq * HD;
-  const float* kp = k + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
-  const float* vp = v + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
-
-  for (int e = tid; e < kBlockQ * HD; e += kThreads) {
-    const int i = e / HD, d = e % HD, row = q0 + i;
-    qT[d * kPitch + i] =
-        row < Sq ? __fmul_rn(qp[static_cast<size_t>(row) * HD + d], scale)
-                 : 0.0f;
-  }
-
-  float m[4], l[4], acc[4][kDims];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kMaskValue;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kDims; ++c) acc[r][c] = 0.0f;
-  }
-
-  const int k_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();                 // the last tile's v and p are consumed
-    for (int e = tid; e < kBlockK * HD; e += kThreads) {
-      const int j = e / HD, d = e % HD, key = k0 + j;
-      const bool in = key < Sk;
-      const size_t at = static_cast<size_t>(key) * HD + d;
-      kT[d * kPitch + j] = in ? kp[at] : 0.0f;
-      vs[j * HD + d] = in ? vp[at] : 0.0f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
-    }
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[4], bk[4];
-      load_vec<4>(qT + d * kPitch + 4 * ty, a);
-      load_vec<4>(kT + d * kPitch + 4 * tx, bk);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = __fmaf_rn(a[r], bk[c], s[r][c]);
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + 4 * ty + r;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = k0 + 4 * tx + c;
-        if (key >= Sk) {
-          s[r][c] = -CUDART_INF_F;           // past the end: weighs 0
-        } else if (causal && key > row) {
-          s[r][c] = kMaskValue;
-        }
-        mx = fmaxf(mx, s[r][c]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(__fsub_rn(m[r], m_new));
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = expf(__fsub_rn(s[r][c], m_new));
-        sum = __fadd_rn(sum, s[r][c]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-      }
-      l[r] = __fmaf_rn(l[r], alpha, sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < kDims; ++c) acc[r][c] = __fmul_rn(acc[r][c], alpha);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      *reinterpret_cast<float4*>(pT + (4 * tx + c) * kPitch + 4 * ty) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-    }
-    __syncthreads();
-
-    const int n_keys = min(kBlockK, k_end - k0);
-    for (int j = 0; j < n_keys; ++j) {
-      float p[4];
-      load_vec<4>(pT + j * kPitch + 4 * ty, p);
-#pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        float vv[kVec];
-        load_vec<kVec>(vs + j * HD + g * 16 * kVec + tx * kVec, vv);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) {
-            acc[r][g * kVec + e] = __fmaf_rn(p[r], vv[e], acc[r][g * kVec + e]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + 4 * ty + r;
-    if (row >= Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    float* out = o + (static_cast<size_t>(bh) * Sq + row) * HD;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        out[g * 16 * kVec + tx * kVec + e] =
-            __fdiv_rn(acc[r][g * kVec + e], denom);
-      }
-    }
-    if (tx == 0) {
-      lse[static_cast<size_t>(bh) * Sq + row] = __fadd_rn(m[r], logf(denom));
-    }
-  }
-}
-
-template <int HD>
-int launch(const float* q, const float* k, const float* v, float* o,
-           float* lse, int B, int H, int KV, int Sq, int Sk, float scale,
-           int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
-  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, lse, H, KV, Sq, Sk, scale, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// Backward.
-//
-// The function of the TPU kernel's `_bwd_rule` (its blocks not carried
-// over).  delta_i = sum_d dO_id * O_id comes in (one torch op, as the
-// reference computes it in jnp outside its kernels).  Both kernels
-// recompute, from the lse the forward wrote,
-//   s_ij  = scale * (q_i . k_j)
-//   p_ij  = exp(s_ij - lse_i), 0 where masked (causal j > i, keys past Sk,
-//           queries past Sq)
-//   dp_ij = dO_i . v_j
-//   ds_ij = p_ij * (dp_ij - delta_i)
-// flash_bwd_dq_kernel, one block per BQ query rows of one (b, h), over the
-// key tiles up to the diagonal:
-//   dq_i = scale * sum_j ds_ij k_j
-// flash_bwd_dkv_kernel, one block per BK keys of one (b, KV head g), over
-// the G = H / KV query heads g*G .. g*G+G-1 in order and, for each, the
-// query tiles from the causal lower bound:
-//   dv_j = sum_i p_ij dO_i,   dk_j = scale * sum_i ds_ij q_i
-// so GQA's sum over a group runs inside the block in a fixed order: no
-// atomics, and two launches give the same bits.
-//
-// Numerics: every product runs on the tensor cores in 3xTF32.  Each operand
-// x is split as hi = tf32(x), lo = tf32(x - hi) (to nearest, ties away, at
-// mantissa bit 13), and a product is lo*hi + hi*lo + hi*hi, three mma.sync
-// m16n8k8 TF32 issues: the error of a float32 product, not of a TF32 one
-// (tests/test_torch_flash_attention.py emulates both on the CPU: 3xTF32
-// stays within 1e-5 of each gradient's max, one TF32 product misses that
-// bar).  The sums over a whole sequence (dq over keys, dk and dv over
-// queries) join float32 accumulators by rounded adds, a tile at a time
-// (see accumulate).  So s is not the SIMT forward's s bit for bit,
-// and p = exp(s - lse) differs from the forward's probabilities by about
-// 1e-6 relative.
-//
-// Bound: the backward's least work is five products (s, dp, dq, dk, dv),
-// 2.5x the forward's operations; this two-pass design recomputes s and dp
-// in both kernels, so dq does three products and dk/dv four.  At the small
-// tier's layer (B 8, H 16, S 1,024, hd 64, causal) the five are 43 GFLOP:
-// 0.26 ms at the 165 TFLOP/s of float32-accurate products that 3xTF32
-// leaves of the 495 TFLOP/s dense TF32 of NVIDIA's H100 SXM data sheet
-// (700 W), against 0.05 ms of bytes at 3.35 TB/s: operations bound both.
-//
-// Design.  A warp owns 16 rows of the output (query rows in dq, keys in
-// dk/dv) and runs every product of those rows, so the score tile it
-// computes is the A operand of its accumulation product without leaving
-// its registers: the m16n8 accumulator holds columns 2t and 2t+1 of rows g
-// and g+8 (lane 4g + t), the m16n8k8 A fragment wants columns t and t+4,
-// and the kernel reads that product's k index permuted (logical t is 2t,
-// t+4 is 2t+1) in both operands, which leaves the sum as it is.  Every tile
-// lives once in shared memory, row-major, its pitch a multiple of 32
-// floats, column c of row r at c ^ swizzle(r): both fragment patterns,
-// (row g, column t) and (row 2t or 2t+1, column g), hit 32 distinct banks.
-// The block's own operands (q and dO in dq, k and v in dk/dv) are loaded
-// once; the streamed ones (k and v; q, dO, lse and delta) come through a
-// two-stage ring of cp.async copies (16 bytes, zero-filled past the end),
-// the next tile in flight while this one is multiplied.  In dk/dv at hd <=
-// 64 each streamed tile is split once as it lands (PRE: hi in place, lo
-// beside it), 5 % faster there than every warp splitting its fragments;
-// elsewhere fragments split as they load.  At hd 128 the dv accumulator
-// lives in shared memory (VS): with dk and dv both in registers (128 of
-// them a thread) the kernel spills, though it runs 15 % faster
-// (tools/flash_bwd_variants.py).  Blocks with the most tiles start first.
-// Tiles and shared memory a block:
-//   dq   hd 16, 32: BQ 64, BK 32, 32 KB; hd 64: 64 KB, three blocks an
-//        SM; hd 128: BQ 128 (8 warps), BK 32, 192 KB
-//   dkv  hd 16, 32: BK 64, BQ 32, 48.5 KB; hd 64: 96.5 KB, two blocks an
-//        SM; hd 128: BK 128 (8 warps), BQ 16, 224.3 KB
-// Inputs must be 16-byte aligned (the launchers refuse others).
-namespace bwd {
+// The tensor-core building blocks both directions share.
+namespace tc {
 
 template <int HD>
 __host__ __device__ constexpr int pitch() {
@@ -373,7 +151,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 
 // x to TF32, rounded to nearest with ties away from zero at mantissa bit
 // 13: what cvt.rna.tf32.f32 gives, in two integer operations, which take
-// 15 % off the pair's time against the conversion instruction
+// 15 % off the backward pair's time against the conversion instruction
 // (tools/flash_bwd_variants.py, H100 80GB HBM3, 700 W)
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
@@ -491,6 +269,63 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
   }
 }
 
+// c[m] = x[m] . y[m]^T for m < M, the M products interleaved (the forward
+// runs one, s = q k^T; the dq kernel two, s and dp = dO v^T, so both
+// compute s alike; the dk/dv kernel s^T and dp^T): rows r0 .. r0+15 of
+// x[m] against rows 0 .. 8N-1 of y[m], both row-major with KD * 8 columns;
+// c[m][n] is the m16n8 tile of y's rows 8n .. 8n+7.  Product 0 sums in the
+// tensor cores over L0 steps of 8 columns at a time, the others over L1,
+// each chain from 0 and joined to c by a rounded float32 add (L = KD: one
+// chain over the head dim).  The tensor cores' sums truncate: dp chained
+// over hd puts dq and dk at Sq = Sk = 1 (exactly 0 there) over
+// chip_smoke.py phase 11's bar on one draw in four at hd 64 and three in
+// five at hd 128 (tools/tc_truncation.py emulates the truncation on the
+// CPU, 400 draws); chains of 2 steps cut that error 3-7 fold, and no draw
+// missed.  s is chained: that moves the forward's lse by about 1.5e-6 at
+// hd 128 (the same emulation), inside phase 9's 1e-5, and rounded adds on
+// it cost the forward 13 % (tools/flash_fwd_variants.py).
+template <int KD, int L0, int L1 = L0, int M, int N, int P, bool PX,
+          bool PY>
+__device__ __forceinline__ void product_t(float (&c)[M][N][4],
+                                          const Operand<P, PX> (&x)[M],
+                                          const Operand<P, PY> (&y)[M],
+                                          int r0, int g, int t) {
+  float part[M][N][4];
+#pragma unroll
+  for (int m = 0; m < M; ++m) zero(c[m]);
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd) {
+    FragA a[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) load_a(a[m], x[m], r0, 8 * kd, g, t);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      FragB b[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) load_b_t(b[m], y[m], 8 * n, 8 * kd, g, t);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int L = m == 0 ? L0 : L1;
+        if (kd < L) {                       // the first chain: into c
+          mma3(c[m][n], a[m], b[m]);
+          continue;
+        }
+        if (kd % L == 0) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[m][n][e] = 0.0f;
+        }
+        mma3(part[m][n], a[m], b[m]);
+        if (kd % L == L - 1 || kd == KD - 1) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            c[m][n][e] = __fadd_rn(c[m][n][e], part[m][n][e]);
+          }
+        }
+      }
+    }
+  }
+}
+
 // KD output fragments (16 x 8 each) that a lane accumulates over the
 // whole loop: in registers, or where registers run out in a slab of shared
 // memory that only this lane touches (float4 nd * 32 + lane), so it needs
@@ -504,6 +339,16 @@ struct RegAcc {
     for (int nd = 0; nd < KD; ++nd) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) v[nd][e] = 0.0f;
+    }
+  }
+  // row g times a0, row g + 8 times a1
+  __device__ __forceinline__ void scale(float a0, float a1) {
+#pragma unroll
+    for (int nd = 0; nd < KD; ++nd) {
+      v[nd][0] = __fmul_rn(v[nd][0], a0);
+      v[nd][1] = __fmul_rn(v[nd][1], a0);
+      v[nd][2] = __fmul_rn(v[nd][2], a1);
+      v[nd][3] = __fmul_rn(v[nd][3], a1);
     }
   }
   __device__ __forceinline__ void add(int nd, const float (&x)[4]) {
@@ -566,17 +411,240 @@ __device__ __forceinline__ void accumulate(Acc& acc, const float (&c)[K][4],
   }
 }
 
-}  // namespace bwd
+// x over the 4 lanes of a quad (t = 0..3, one row of an m16n8 tile), in a
+// fixed order that leaves every lane of the quad the same bits
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// Forward.
+
+template <int HD, int BQ, int BK, bool PRE>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(float) * (2 * BQ + 2 * 2 * (PRE ? 2 : 1) * BK) *
+         tc::pitch<HD>();
+}
+
+template <int HD, int BQ, int BK, bool PRE>
+__global__ void __launch_bounds__(2 * BQ)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int BH, int H, int KV, int Sq,
+                 int Sk, float scale, int causal) {
+  using namespace tc;
+  constexpr int kWarpThreads = 2 * BQ;        // a warp per 16 query rows
+  constexpr int P = pitch<HD>();
+  constexpr int NT = BK / 8, KD = HD / 8;
+  constexpr int kTile = BK * P, kStage = 2 * (PRE ? 2 : 1) * kTile;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);   // BQ x P: q, then its hi
+  float* qlo = qs + BQ * P;                      // BQ x P: q's lo
+  float* ring = qlo + BQ * P;   // 2 stages: k (and its lo), v (and its lo)
+
+  const int lane = threadIdx.x % 32, r0 = 16 * (threadIdx.x / 32);
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x % BH, qt = blockIdx.x / BH;
+  // under the mask the last query tiles have the most keys: they go first
+  const int q0 = (causal ? (Sq + BQ - 1) / BQ - 1 - qt : qt) * BQ;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const size_t rows0 = static_cast<size_t>(bh) * Sq;
+  const float* kp = k + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
+  const float* vp = v + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
+  auto k_at = [&](int st) { return ring + st * kStage; };
+  auto v_at = [&](int st) { return ring + st * kStage + kStage / 2; };
+
+  load_tile<BQ, HD, P, kWarpThreads>(qs, q + rows0 * HD, q0, Sq);
+  load_tile<BK, HD, P, kWarpThreads>(k_at(0), kp, 0, Sk);
+  load_tile<BK, HD, P, kWarpThreads>(v_at(0), vp, 0, Sk);
+  cp_async_commit();
+
+  int rows[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    rows[e] = q0 + r0 + g + 8 * e;
+    m[e] = kMaskValue;
+    l[e] = 0.0f;
+  }
+  RegAcc<KD> acc;
+  acc.zero();
+  const Operand<P, true> qop{qs, qlo};
+
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int n_kt = (k_end + BK - 1) / BK;
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * BK, st = it & 1;
+    if (it + 1 < n_kt) {
+      load_tile<BK, HD, P, kWarpThreads>(k_at(st ^ 1), kp, k0 + BK, Sk);
+      load_tile<BK, HD, P, kWarpThreads>(v_at(st ^ 1), vp, k0 + BK, Sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (it == 0) split_tile<BQ, HD, P, kWarpThreads>(qs, qlo);
+    if constexpr (PRE) {
+      split_tile<BK, HD, P, kWarpThreads>(k_at(st), k_at(st) + kTile);
+      split_tile<BK, HD, P, kWarpThreads>(v_at(st), v_at(st) + kTile);
+    }
+    __syncthreads();
+    const Operand<P, PRE> kop{k_at(st), k_at(st) + kTile};
+    const Operand<P, PRE> vop{v_at(st), v_at(st) + kTile};
+    // a warp whose rows all precede the tile's first key has nothing here
+    if (!causal || k0 <= q0 + r0 + 15) {
+      float sc[1][NT][4];
+      product_t<KD, KD>(sc, {qop}, {kop}, r0, g, t);
+      float (&s)[NT][4] = sc[0];
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + 8 * n + 2 * t + (e & 1);
+          float x = __fmul_rn(s[n][e], scale);
+          if (j >= Sk) {
+            x = -CUDART_INF_F;                 // past the end: weighs 0
+          } else if (causal && j > rows[e / 2]) {
+            x = kMaskValue;
+          }
+          s[n][e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
+        }
+      }
+      float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float m_new = fmaxf(m[e], quad_max(mx[e]));
+        alpha[e] = expf(__fsub_rn(m[e], m_new));
+        m[e] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = expf(__fsub_rn(s[n][e], m[e / 2]));
+          sum[e / 2] = __fadd_rn(sum[e / 2], s[n][e]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        l[e] = __fmaf_rn(l[e], alpha[e], quad_sum(sum[e]));
+      }
+      acc.scale(alpha[0], alpha[1]);
+      accumulate(acc, s, vop, g, t);              // o += p v
+    }
+    __syncthreads();                 // the stage is consumed before refill
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (rows[e] >= Sq) continue;
+    const float denom = fmaxf(l[e], 1e-30f);
+    float* out = o + (rows0 + rows[e]) * HD;
+#pragma unroll
+    for (int nd = 0; nd < KD; ++nd) {
+      const float2 r = acc.get(nd, e);
+      *reinterpret_cast<float2*>(out + 8 * nd + 2 * t) =
+          make_float2(__fdiv_rn(r.x, denom), __fdiv_rn(r.y, denom));
+    }
+    if (t == 0) lse[rows0 + rows[e]] = __fadd_rn(m[e], logf(denom));
+  }
+}
+
+template <int HD, int BQ, int BK, bool PRE>
+int launch_fwd(const float* q, const float* k, const float* v, float* o,
+               float* lse, int B, int H, int KV, int Sq, int Sk, float scale,
+               int causal, cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem_bytes<HD, BQ, BK, PRE>();
+  static_assert(smem <= 232448, "over the 227 KB a block can use");
+  const long long blocks = static_cast<long long>((Sq + BQ - 1) / BQ) * B * H;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<HD, BQ, BK, PRE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_kernel<HD, BQ, BK, PRE>
+      <<<static_cast<unsigned>(blocks), 2 * BQ, smem, stream>>>(
+          q, k, v, o, lse, B * H, H, KV, Sq, Sk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Backward.
+//
+// The function of the TPU kernel's `_bwd_rule` (its blocks not carried
+// over).  delta_i = sum_d dO_id * O_id comes in (one torch op, as the
+// reference computes it in jnp outside its kernels).  Both kernels
+// recompute, from the lse the forward wrote,
+//   s_ij  = scale * (q_i . k_j)
+//   p_ij  = exp(s_ij - lse_i), 0 where masked (causal j > i, keys past Sk,
+//           queries past Sq)
+//   dp_ij = dO_i . v_j
+//   ds_ij = p_ij * (dp_ij - delta_i)
+// flash_bwd_dq_kernel, one block per BQ query rows of one (b, h), over the
+// key tiles up to the diagonal:
+//   dq_i = scale * sum_j ds_ij k_j
+// flash_bwd_dkv_kernel, one block per BK keys of one (b, KV head g), over
+// the G = H / KV query heads g*G .. g*G+G-1 in order and, for each, the
+// query tiles from the causal lower bound:
+//   dv_j = sum_i p_ij dO_i,   dk_j = scale * sum_i ds_ij q_i
+// so GQA's sum over a group runs inside the block in a fixed order: no
+// atomics, and two launches give the same bits.  The dq kernel computes s
+// as the forward does (product_t, q split once there, as its fragments
+// load here: the same bits), so its p is the forward's probabilities up to
+// the rounding of lse; the dk/dv kernel computes s^T, k . q, whose sums
+// the tensor cores may round otherwise.
+//
+// Bound: the backward's least work is five products (s, dp, dq, dk, dv),
+// 2.5x the forward's operations; this two-pass design recomputes s and dp
+// in both kernels, so dq does three products and dk/dv four.  At the small
+// tier's layer (B 8, H 16, S 1,024, hd 64, causal) the five are 43 GFLOP:
+// 0.26 ms at 165 TFLOP/s, against 0.05 ms of bytes at 3.35 TB/s:
+// operations bound both.
+//
+// Design.  As the forward's: a warp owns 16 rows of the output (query rows
+// in dq, keys in dk/dv) and runs every product of those rows, so the score
+// tile it computes is the A operand of its accumulation product without
+// leaving its registers: the m16n8 accumulator holds columns 2t and 2t+1
+// of rows g and g+8 (lane 4g + t), the m16n8k8 A fragment wants columns t
+// and t+4, and the kernel reads that product's k index permuted (logical t
+// is 2t, t+4 is 2t+1) in both operands, which leaves the sum as it is.
+// Every tile lives once in shared memory, row-major, its pitch a multiple
+// of 32 floats, column c of row r at c ^ swizzle(r): both fragment
+// patterns, (row g, column t) and (row 2t or 2t+1, column g), hit 32
+// distinct banks.  The block's own operands (q and dO in dq, k and v in
+// dk/dv) are loaded once; the streamed ones (k and v; q, dO, lse and
+// delta) come through a two-stage ring of cp.async copies.  In dk/dv at hd
+// <= 64 each streamed tile is split once as it lands (PRE: hi in place, lo
+// beside it), 5 % faster there than every warp splitting its fragments;
+// elsewhere fragments split as they load.  At hd 128 the dv accumulator
+// lives in shared memory (VS): with dk and dv both in registers (128 of
+// them a thread) the kernel spills, though it runs 15 % faster
+// (tools/flash_bwd_variants.py).  Blocks with the most tiles start first.
+// Tiles and shared memory a block:
+//   dq   hd 16, 32: BQ 64, BK 32, 32 KB; hd 64: 64 KB, three blocks an
+//        SM; hd 128: BQ 128 (8 warps), BK 32, 192 KB
+//   dkv  hd 16, 32: BK 64, BQ 32, 48.5 KB; hd 64: 96.5 KB, two blocks an
+//        SM; hd 128: BK 128 (8 warps), BQ 16, 224.3 KB
 
 template <int HD, int BQ, int BK>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (2 * BQ + 2 * 2 * BK) * bwd::pitch<HD>();
+  return sizeof(float) * (2 * BQ + 2 * 2 * BK) * tc::pitch<HD>();
 }
 
 template <int HD, int BK, int BQ, bool PRE, bool VS>
 constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * ((2 * BK + 2 * 2 * (PRE ? 2 : 1) * BQ) *
-                              bwd::pitch<HD>() +
+                              tc::pitch<HD>() +
                           4 * BQ + (VS ? BK * HD : 0));
 }
 
@@ -589,7 +657,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int BH, int H, int KV, int Sq, int Sk, float scale,
                     int causal) {
-  using namespace bwd;
+  using namespace tc;
   constexpr int kWarpThreads = 2 * BQ;        // a warp per 16 query rows
   constexpr int P = pitch<HD>();
   constexpr int NT = BK / 8, KD = HD / 8;
@@ -646,23 +714,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const Operand<P, false> kop{k_at(st), nullptr}, vop{v_at(st), nullptr};
     // a warp whose rows all precede the tile's first key has nothing here
     if (!causal || k0 <= q0 + r0 + 15) {
-      float s[NT][4], dp[NT][4];
-      zero(s);
-      zero(dp);
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        FragA qa, oa;
-        load_a(qa, qop, r0, 8 * kd, g, t);
-        load_a(oa, oop, r0, 8 * kd, g, t);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          FragB kb, vb;
-          load_b_t(kb, kop, 8 * n, 8 * kd, g, t);
-          load_b_t(vb, vop, 8 * n, 8 * kd, g, t);
-          mma3(s[n], qa, kb);
-          mma3(dp[n], oa, vb);
-        }
-      }
+      float sd[2][NT][4];
+      product_t<KD, KD, 2>(sd, {qop, oop}, {kop, vop}, r0, g, t);
+      float (&s)[NT][4] = sd[0];
+      float (&dp)[NT][4] = sd[1];
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
 #pragma unroll
@@ -705,7 +760,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, int BKV,
                      int H, int KV, int Sq, int Sk, float scale, int causal) {
-  using namespace bwd;
+  using namespace tc;
   constexpr int kWarpThreads = 2 * BK;        // a warp per 16 keys
   constexpr int P = pitch<HD>();
   constexpr int NQ = BQ / 8, KD = HD / 8;
@@ -776,23 +831,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
     const float* dt = dls + st * BQ;
     // a warp whose keys all follow the tile's last query has nothing here
     if (!causal || k0 + r0 <= q0 + BQ - 1) {
-      float s[NQ][4], dp[NQ][4];
-      zero(s);
-      zero(dp);
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        FragA ka, va;
-        load_a(ka, kop, r0, 8 * kd, g, t);
-        load_a(va, vop, r0, 8 * kd, g, t);
-#pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          FragB qb, ob;
-          load_b_t(qb, qop, 8 * n, 8 * kd, g, t);
-          load_b_t(ob, oop, 8 * n, 8 * kd, g, t);
-          mma3(s[n], ka, qb);
-          mma3(dp[n], va, ob);
-        }
-      }
+      float sd[2][NQ][4];
+      product_t<KD, KD, 2>(sd, {kop, vop}, {qop, oop}, r0, g, t);
+      float (&s)[NQ][4] = sd[0];
+      float (&dp)[NQ][4] = sd[1];
 #pragma unroll
       for (int n = 0; n < NQ; ++n) {
 #pragma unroll
@@ -874,47 +916,14 @@ int launch_bwd_dkv(const float* q, const float* k, const float* v,
 
 extern "C" {
 
-// Launches on `stream` and returns the first CUDA error (0 on success); the
-// caller checks it, because a refused launch never runs.  q, o (B, H, Sq,
-// hd), k, v (B, KV, Sk, hd) and lse (B, H, Sq), contiguous float32; hd one
-// of 16, 32, 64, 128 and KV a divisor of H (the wrapper checks both).
-int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
-                            float* o, float* lse, int B, int H, int KV,
-                            int Sq, int Sk, int hd, float scale, int causal,
-                            cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
-      B * H > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  switch (hd) {
-    case 16:
-      return launch<16>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal,
-                        stream);
-    case 32:
-      return launch<32>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal,
-                        stream);
-    case 64:
-      return launch<64>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal,
-                        stream);
-    case 128:
-      return launch<128>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal,
-                         stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// The backward's launchers: same layouts as the forward's, plus dout (B, H,
-// Sq, hd), the forward's lse and delta = rowsum(dout * o) (B, H, Sq); dq
-// (B, H, Sq, hd) from the first, dk and dv (B, KV, Sk, hd) from the second.
-// The (B, ., S, hd) tensors must start on 16 bytes (cp.async copies 16).
-#define BWD_DQ_ARGS \
-  q, k, v, dout, lse, delta, dq, B, H, KV, Sq, Sk, scale, causal, stream
-#define BWD_DKV_ARGS \
-  q, k, v, dout, lse, delta, dk, dv, B, H, KV, Sq, Sk, scale, causal, stream
-
-static cudaError_t bwd_args_check(int B, int H, int KV, int Sq, int Sk,
-                                  std::initializer_list<const void*> tiles) {
+// Each launcher launches on `stream` and returns the first CUDA error (0 on
+// success); the caller checks it, because a refused launch never runs.  q,
+// o (B, H, Sq, hd), k, v (B, KV, Sk, hd) and lse (B, H, Sq), contiguous
+// float32; hd one of 16, 32, 64, 128 and KV a divisor of H (the wrappers
+// check both).  The (B, ., S, hd) tensors must start on 16 bytes (cp.async
+// copies 16; the launchers refuse others).
+static cudaError_t args_check(int B, int H, int KV, int Sq, int Sk,
+                              std::initializer_list<const void*> tiles) {
   if (!(B > 0 && H > 0 && KV > 0 && H % KV == 0 && Sq > 0 && Sk > 0 &&
         B * H <= 65535)) {
     return cudaErrorInvalidValue;
@@ -927,13 +936,43 @@ static cudaError_t bwd_args_check(int B, int H, int KV, int Sq, int Sk,
   return cudaSuccess;
 }
 
+#define FWD_ARGS q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, stream
+
+int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
+                            float* o, float* lse, int B, int H, int KV,
+                            int Sq, int Sk, int hd, float scale, int causal,
+                            cudaStream_t stream) {
+  const cudaError_t bad = args_check(B, H, KV, Sq, Sk, {q, k, v, o});
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  switch (hd) {
+    case 16:
+      return launch_fwd<16, 64, 32, false>(FWD_ARGS);
+    case 32:
+      return launch_fwd<32, 64, 32, false>(FWD_ARGS);
+    case 64:
+      return launch_fwd<64, 64, 32, false>(FWD_ARGS);
+    case 128:
+      return launch_fwd<128, 128, 32, false>(FWD_ARGS);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward's launchers: same layouts as the forward's, plus dout (B, H,
+// Sq, hd), the forward's lse and delta = rowsum(dout * o) (B, H, Sq); dq
+// (B, H, Sq, hd) from the first, dk and dv (B, KV, Sk, hd) from the second.
+#define BWD_DQ_ARGS \
+  q, k, v, dout, lse, delta, dq, B, H, KV, Sq, Sk, scale, causal, stream
+#define BWD_DKV_ARGS \
+  q, k, v, dout, lse, delta, dk, dv, B, H, KV, Sq, Sk, scale, causal, stream
+
 int flash_attention_bwd_dq_f32(const float* q, const float* k, const float* v,
                                const float* dout, const float* lse,
                                const float* delta, float* dq, int B, int H,
                                int KV, int Sq, int Sk, int hd, float scale,
                                int causal, cudaStream_t stream) {
   const cudaError_t bad =
-      bwd_args_check(B, H, KV, Sq, Sk, {q, k, v, dout, dq});
+      args_check(B, H, KV, Sq, Sk, {q, k, v, dout, dq});
   if (bad != cudaSuccess) return static_cast<int>(bad);
   switch (hd) {
     case 16:
@@ -956,7 +995,7 @@ int flash_attention_bwd_dkv_f32(const float* q, const float* k,
                                 int Sq, int Sk, int hd, float scale,
                                 int causal, cudaStream_t stream) {
   const cudaError_t bad =
-      bwd_args_check(B, H, KV, Sq, Sk, {q, k, v, dout, dk, dv});
+      args_check(B, H, KV, Sq, Sk, {q, k, v, dout, dk, dv});
   if (bad != cudaSuccess) return static_cast<int>(bad);
   switch (hd) {
     case 16:

@@ -27,10 +27,10 @@ on a CPU tensor it runs its plain PyTorch version (``flash_attention_ref``;
 explicit backward), which is also what the kernel is held against on the
 card.  Each wrapper counts its launches in ``<wrapper>.launches``.
 
-The forward kernel computes in float32 FMA.  The two backward kernels run
-every product on the tensor cores in 3xTF32 (three TF32 products of split
-operands), which keeps float32 accuracy: within 1e-5 of each gradient's
-max of the exact float32 plain versions, not bitwise.
+All three kernels run every product on the tensor cores in 3xTF32 (three
+TF32 products of split operands), which keeps float32 accuracy, not
+bitwise: the forward within 2e-5 of o and 1e-5 of lse, the backward within
+1e-5 of each gradient's max, of the exact float32 plain versions.
 """
 from __future__ import annotations
 

@@ -7,10 +7,11 @@ The Mahalanobis term is the direct ``Σ (z − mu)² / var`` of the refine
 path's reference (``gmm.log_joint``).
 
 ``gmm_posterior`` is the public wrapper.  On a CUDA tensor it launches
-the hand-written kernel ``csrc/gmm_posterior.cu`` or raises; on a CPU
-tensor it runs ``gmm_posterior_ref``, the plain PyTorch version, which
-is also what the kernel is held against on the card.  Neither takes a
-gradient.
+the hand-written kernels of ``csrc/gmm_posterior.cu`` (a Mahalanobis pass
+spread over the card, then a softmax pass: one call, one launch counted)
+or raises; on a CPU tensor it runs ``gmm_posterior_ref``, the plain
+PyTorch version, which is also what the kernel is held against on the
+card.  Neither takes a gradient.
 """
 from __future__ import annotations
 
@@ -73,9 +74,14 @@ def gmm_posterior(z, mu, var, logpi):
     resp = torch.empty(B, C, dtype=torch.float32, device=z.device)
     ent = torch.empty(B, dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
+        # the per-split partials of the Mahalanobis pass (its plan depends
+        # on the shape and the card)
+        scratch = torch.empty(lib.gmm_posterior_scratch_floats(B, C, d),
+                              dtype=torch.float32, device=z.device)
         err = lib.gmm_posterior_f32(z.data_ptr(), mu.data_ptr(),
                                     var.data_ptr(), logpi.data_ptr(),
-                                    resp.data_ptr(), ent.data_ptr(), B, C, d,
+                                    resp.data_ptr(), ent.data_ptr(),
+                                    scratch.data_ptr(), B, C, d,
                                     float(np.float32(d * LOG2PI)),
                                     build.stream_of(z))
     build.raise_on_error(lib, "gmm_posterior", err)

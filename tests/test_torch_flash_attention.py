@@ -19,6 +19,11 @@ The backward: the plain backward (``flash_attention_bwd_dq_ref`` and
 autograd through ``flash_attention_ref`` (1e-5 of the max: the explicit
 formulas against torch's own backward of the same forward).  The backward
 kernels run only on the card (``chip_smoke.py`` phase 11).
+
+All three kernels run their products on the tensor cores in 3xTF32; the
+``tensor_core_numerics`` tests emulate that arithmetic on the CPU (the
+backward's recomputation, and the forward's tile loop at its key tile)
+and hold it to the card's tolerances, which one TF32 product misses.
 """
 import functools
 import math
@@ -401,3 +406,83 @@ def test_tensor_core_numerics(d, passes):
         assert worst <= KERNEL_GRAD_RTOL, worst
     else:
         assert worst > KERNEL_GRAD_RTOL, worst
+
+
+# the forward kernel's key tile at each head dim (csrc/flash_attention.cu)
+FWD_BK = {64: 64, 128: 32}
+
+
+def _tf32_forward(q, k, v, BK, passes):
+    """The forward kernel's tile loop (causal, default scale) with both
+    products through ``_mm_tf32``: per key tile s = scale (q k^T), the
+    online softmax's running max m and sum l, and o rescaled by alpha, then
+    joined by the tile's P V in one float32 add -> (o, lse).  Tiles past a
+    row's diagonal leave it as it is (alpha 1, p 0), so every row takes
+    every tile, as a block's rows take its tiles."""
+    B, H, S, d = q.shape
+    G, sc = H // k.shape[1], 1.0 / math.sqrt(d)
+    kg, vg = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros(B, H, S, 1)
+    o = torch.zeros(B, H, S, d)
+    for k0 in range(0, S, BK):
+        s = _mm_tf32(q, kg[:, :, k0:k0 + BK].transpose(-1, -2), passes) * sc
+        keep = torch.arange(k0, k0 + s.shape[-1])[None, :] \
+            <= torch.arange(S)[:, None]
+        s = torch.where(keep, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _mm_tf32(p, vg[:, :, k0:k0 + BK], passes)
+        m = m_new
+    return o / l, (m + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+@pytest.mark.parametrize("d", [64, 128])
+def test_forward_tensor_core_numerics(d, passes):
+    """The CUDA forward kernel runs both products in 3xTF32: emulated here
+    at its key tile, o and lse stay within phase 9's o atol 2e-5 and lse
+    atol 1e-5 of the oracle (GQA, 4 query heads over 2, causal, S 256),
+    while one TF32 product (``passes`` 1) misses them, so phase 9 would
+    catch a kernel that dropped to plain TF32."""
+    B, H, KV, S = 1, 4, 2, 256
+    q, k, v = _qkv(B, H, KV, S, S, d, seed=29 + d)
+    o, lse = _tf32_forward(*(torch.from_numpy(x) for x in (q, k, v)),
+                           FWD_BK[d], passes)
+    want_o, want_lse = map(np.asarray, _oracle(q, k, v, True))
+    err_o = float(np.abs(o.numpy() - want_o).max())
+    err_lse = float(np.abs(lse.numpy() - want_lse).max())
+    if passes == 3:
+        assert err_o <= O_ATOL and err_lse <= LSE_ATOL, (err_o, err_lse)
+    else:
+        assert err_o > O_ATOL and err_lse > LSE_ATOL, (err_o, err_lse)
+
+
+def _tc_truncation():
+    """``tools/tc_truncation.py``: the kernels' tensor-core sums, with the
+    truncation of each ``mma.sync``, emulated in numpy."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" \
+        / "tc_truncation.py"
+    spec = importlib.util.spec_from_file_location("tc_truncation", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("join", [2, None])
+@pytest.mark.parametrize("d", [64, 128])
+def test_dp_join_keeps_degenerate_gradients_under_the_bar(d, join):
+    """dq and dk at Sq = Sk = 1 are exactly 0, so phase 11 measures their
+    rounding against 0.1 of the largest gradient.  With the tensor cores'
+    truncation emulated, dp summed as the kernels sum it (a rounded add
+    every 16 columns, ``join`` 2) keeps every draw under the bar, while one
+    chain over the head dim (``join`` None) misses it on some draws."""
+    errs = _tc_truncation().degenerate_errors(d, join, draws=100, seed=d)
+    if join:
+        assert errs.max() <= KERNEL_GRAD_RTOL, errs.max()
+    else:
+        assert errs.max() > KERNEL_GRAD_RTOL, errs.max()

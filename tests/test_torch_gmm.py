@@ -63,7 +63,12 @@ def _mixture(B, C, d, seed, floor):
 @pytest.mark.parametrize("B,C,d,floor", [(64, 8, 32, False),
                                          (33, 16, 64, False),
                                          (40, 64, 128, False),
-                                         (48, 8, 16, True)])
+                                         (48, 8, 16, True),
+                                         # the kernel's tiling edges: one
+                                         # row, d split in ragged chunks;
+                                         # the cascade's shape at the floor
+                                         (1, 10, 1000, False),
+                                         (8, 64, 1024, True)])
 def test_gmm_posterior_matches_oracle_and_pallas(B, C, d, floor):
     z, mu, var, logpi = _mixture(B, C, d, B + C + d, floor)
     resp, ent = gmm_posterior(*map(torch.from_numpy, (z, mu, var, logpi)))

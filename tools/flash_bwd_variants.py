@@ -3,7 +3,7 @@
 
     python3 tools/flash_bwd_variants.py      # from the repository root, one CUDA card
 
-``csrc/flash_attention.cu`` makes four choices in its backward kernels
+``csrc/flash_attention.cu`` makes seven choices in its backward kernels
 that this script undoes one at a time, each in a copy of the source
 compiled beside it into ``build/flash_bwd_variants/`` with the build's
 flags and ``-Xptxas -v``:
@@ -16,7 +16,14 @@ flags and ``-Xptxas -v``:
 - ``no_presplit``: dk/dv at hd <= 64 with every warp splitting its
   fragments as they load, instead of each streamed tile split once;
 - ``dv_in_registers``: dk/dv at hd 128 with dv in registers and 32 queries
-  a tile, instead of dv in shared memory and 16.
+  a tile, instead of dv in shared memory and 16;
+- ``dp_join_1``, ``dp_chained``: dp's sums over the head dim joined by a
+  rounded add every 8 columns, or chained over all of it, instead of
+  every 16;
+- ``dq_one_block``: dq launch-bounded for one block an SM, which lifts
+  ptxas's register cap at hd <= 64 (168, three blocks of 128 threads);
+- ``dq_bk16``, ``dkv_bq16``: dq with 16-key tiles at hd 64 and 128, dk/dv
+  with 16-query tiles at hd 64 (fewer registers for the score tiles).
 
 For the source and each variant it prints the backward kernels' registers
 and spills, holds them to ``chip_smoke.py`` phase 11 (failures counted and
@@ -51,6 +58,9 @@ TILE_SUM = """    float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     acc.add(nd, x);
 """
 DKV_128 = "launch_bwd_dkv<128, 128, 16, false, true>("
+DQ_PRODUCTS = "product_t<KD, KD, 2>(sd, {qop, oop}"
+DKV_PRODUCTS = "product_t<KD, KD, 2>(sd, {kop, vop}"
+DQ_BOUNDS = "__launch_bounds__(2 * BQ)\nflash_bwd_dq_kernel("
 VARIANTS = {
     "cvt": {ROUND_INT: '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;" : '
                        '"=r"(r) : "f"(x));\n  return r;\n'},
@@ -63,18 +73,30 @@ VARIANTS = {
                     f"launch_bwd_dkv<{hd}, 64, 32, false, false>("
                     for hd in (16, 32, 64)},
     "dv_in_registers": {DKV_128: "launch_bwd_dkv<128, 128, 32, false, false>("},
+    "dp_join_1": {DQ_PRODUCTS: DQ_PRODUCTS.replace(", 2>", ", 1>"),
+                  DKV_PRODUCTS: DKV_PRODUCTS.replace(", 2>", ", 1>")},
+    "dp_chained": {DQ_PRODUCTS: DQ_PRODUCTS.replace(", 2>", ">"),
+                   DKV_PRODUCTS: DKV_PRODUCTS.replace(", 2>", ">")},
+    "dq_one_block": {DQ_BOUNDS: DQ_BOUNDS.replace("(2 * BQ)", "(2 * BQ, 1)")},
+    "dq_bk16": {"launch_bwd_dq<64, 64, 32>(": "launch_bwd_dq<64, 64, 16>(",
+                "launch_bwd_dq<128, 128, 32>(": "launch_bwd_dq<128, 128, 16>("},
+    "dkv_bq16": {"launch_bwd_dkv<64, 64, 32, true, false>(":
+                 "launch_bwd_dkv<64, 64, 16, true, false>("},
 }
 ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 
 
-def compile_all(build):
-    """{name: (library path, ptxas lines of the backward kernels)} for the
-    source and every variant, compiled at once."""
-    out_dir = os.path.join(ROOT, "build", "flash_bwd_variants")
+def compile_all(build, variants=None, kernels="flash_bwd",
+                out="flash_bwd_variants", source=SOURCE):
+    """{name: (library path, ptxas lines of the kernels whose names hold
+    ``kernels``)} for ``csrc/<source>`` and every variant of it
+    (``VARIANTS`` unless given: {name: {old text: new text}}), compiled at
+    once into ``build/<out>/``."""
+    out_dir = os.path.join(ROOT, "build", out)
     os.makedirs(out_dir, exist_ok=True)
-    text = (build.CSRC / SOURCE).read_text()
+    text = (build.CSRC / source).read_text()
     jobs = {"source": text}
-    for name, subs in VARIANTS.items():
+    for name, subs in (VARIANTS if variants is None else variants).items():
         variant = text
         for old, new in subs.items():
             if old not in variant:
@@ -96,7 +118,7 @@ def compile_all(build):
         lines, entry = [], None
         for line in r.stderr.splitlines():
             if m := ENTRY.search(line):
-                entry = m.group(1) if "flash_bwd" in m.group(1) else None
+                entry = m.group(1) if kernels in m.group(1) else None
             elif entry and ("spill" in line or "registers" in line):
                 lines.append(f"{entry[-60:]}: {line.split(':')[-1].strip()}")
         return name, (lib, lines)
@@ -104,12 +126,13 @@ def compile_all(build):
         return dict(pool.map(one, jobs.items()))
 
 
-def use(build, lib):
+def use(build, lib, source=SOURCE):
+    """Make the wrappers of ``csrc/<source>`` launch from ``lib``."""
     so = ctypes.CDLL(lib)
-    for fn, (argtypes, restype) in build.SIGNATURES[SOURCE].items():
+    for fn, (argtypes, restype) in build.SIGNATURES[source].items():
         getattr(so, fn).argtypes = argtypes
         getattr(so, fn).restype = restype
-    build._loaded[SOURCE] = so
+    build._loaded[source] = so
 
 
 def main():

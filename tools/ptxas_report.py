@@ -12,7 +12,10 @@ there, registers, static shared memory (the dynamic part is set at
 launch: the sources state it), spill stores and loads, stack frame, and
 the count of ``HMMA`` (tensor-core) instructions in its SASS, from
 ``cuobjdump -sass`` of the library just built.  Prints the card's name
-and power limit first when ``nvidia-smi`` is there.
+and power limit first when ``nvidia-smi`` is there.  Exits non-zero if a
+flash-attention kernel (forward or backward, any head dim) has no
+``HMMA`` (all three run on the tensor cores) or the forward spills, and
+names the backward kernels that spill.
 """
 from __future__ import annotations
 
@@ -69,7 +72,7 @@ def report(source, out_dir):
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{r.stderr}")
     hmma = hmma_counts(library)
-    lines, entry, stats = [], None, None
+    lines, bad, notes, entry, stats = [], [], [], None, None
     for line in r.stderr.splitlines():
         if m := ENTRY.search(line):
             entry, stats = m.group(1), None
@@ -79,13 +82,21 @@ def report(source, out_dir):
             frame, stores, loads = stats or ("?", "?", "?")
             smem = SMEM.search(line)
             name = demangle(entry).replace("(anonymous namespace)::", "")
-            lines.append(f"{source}: {name.split('(')[0]}: {m.group(1)} "
+            name = name.split("(")[0]
+            lines.append(f"{source}: {name}: {m.group(1)} "
                          f"registers, static smem "
                          f"{smem.group(1) if smem else 0} B, spill stores "
                          f"{stores} B, spill loads {loads} B, stack frame "
                          f"{frame} B, HMMA {hmma.get(entry, '?')}")
+            spills = stores != "0" or loads != "0"
+            if "flash_" in name and not hmma.get(entry):
+                bad.append(f"{name} (no HMMA)")
+            elif "flash_fwd" in name and spills:
+                bad.append(f"{name} (spills)")
+            elif "flash_" in name and spills:
+                notes.append(name)
             entry = None
-    return lines
+    return lines, bad, notes
 
 
 def main():
@@ -93,10 +104,20 @@ def main():
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip())
+    bad, notes = [], []
     with tempfile.TemporaryDirectory() as out_dir, \
             ThreadPoolExecutor(max_workers=len(build.SOURCES)) as pool:
-        for lines in pool.map(lambda s: report(s, out_dir), build.SOURCES):
+        for lines, worse, spill in pool.map(lambda s: report(s, out_dir),
+                                            build.SOURCES):
             print("\n".join(lines))
+            bad += worse
+            notes += spill
+    if notes:
+        print("backward kernels that spill: " + ", ".join(notes))
+    if bad:
+        sys.exit("flash-attention kernels at fault: " + ", ".join(bad))
+    print("every flash-attention kernel has HMMA; the forward spills at no "
+          "head dim")
 
 
 if __name__ == "__main__":
