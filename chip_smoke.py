@@ -37,7 +37,10 @@ Phase 3 holds each refine kernel (``swd_sessions``, ``laplacian_energy``,
 refine shapes (256 sessions x 100 frames x 128 dims, 50 directions,
 k = 5, 64 components), at W in {16, 100, 128}, k >= T, T = 1, with an
 all-masked row, a zero session and direction counts that are not a
-multiple of the kernel's block, and the GMM also at the variance floor,
+multiple of the kernel's block; ``swd_sessions`` also at the edges of its
+in-register sort, W = 1, 300 (16 values a lane) and 1,200 (d in chunks,
+the directions in groups), at M = 1 and d = 127; the GMM also at the
+variance floor,
 at the cascade's (8, 64, 1,024), at (64, 64, 2,048) and at the edges of
 its tiling, (1, 64, 128), (8, 64, 1,000), (8, 10, 1,024); tolerances SWD
 rtol 1e-4, Laplacian rtol 1e-5, GMM resp atol 1e-4 and entropy atol 5e-4,
@@ -56,9 +59,13 @@ and each refine kernel's time at the refine shape.
 
 Phase 5 holds the training path's kernels against their plain PyTorch
 versions on the card: ``infonce_vneg`` forward and backward at the
-path's (8, 264, 128) and at (1, 1, 128), (3, 100, 64), (5, 77, 128);
-``swd_rank`` forward (loss, projections, ranks) and backward at W in
-{104, 16, 128} and M in {32, 50}, with 96 (or W/2) identical rows;
+path's (8, 264, 128) and at (1, 1, 128), (3, 100, 64), (5, 77, 128),
+(8, 263, 128) (N not a multiple of the kernels' split), (4, 50, 127) and
+a z_neg view one float off 16 bytes (the scalar path); ``swd_rank``
+forward (loss, projections, ranks) and backward at W in {104, 16, 128}
+and M in {32, 50}, at the LM step's W 128, M 50 with d 1,024 and 2,048,
+at W = 1 and at W = 1,000 (32 values a lane), with 96 (or W/2) identical
+rows;
 ``laplacian_energy`` forward and backward at (1, 104, 128) k = 3, k >= T,
 T = 1 and an all-masked row.  Forwards within phase 3's tolerances
 (InfoNCE rtol 1e-5, SWD loss rtol 1e-4, ranks exact against
@@ -75,7 +82,8 @@ launch each training kernel once.  Step 0's loss, every gradient and the
 GMM after ``em_update`` are compared with the port on the CPU (same
 weights, data and draws; rtol 1e-4 of each tensor's max |x|).  It prints
 cold and warm step times, a profiled step, the final loss, probe accuracy
-and collapse, and each training kernel's time at the path's shape.
+and collapse, and each training kernel's time at the path's shape (``swd_rank_fwd``
+and ``_bwd`` also at the LM step's (128, 1,024), M 50).
 
 Phase 7 holds the per-tensor wire kernels ``int8_quantize`` (two
 passes) and ``int8_dequantize`` bitwise against their plain versions on
@@ -592,12 +600,20 @@ def phase3(dev, ops):
     swd = lambda z, dirs, pq: (ops.swd_sessions(z, dirs, pq),)  # noqa: E731
     swd_ref = lambda z, dirs, pq: (  # noqa: E731
         ops.swd_sessions_ref(z, dirs, pq),)
-    for s_, W, M in ((S, WINDOW, N_DIRS), (S, 16, N_DIRS), (S, 128, N_DIRS),
-                     (64, WINDOW, 8), (64, WINDOW, 3), (7, 37, 13)):
-        z, _, dirs, pq = refine_inputs(g, dev, s_, W, d, M)
+    # the edges of the kernel's tiling and sort: W = 1 (one lane's value,
+    # 31 sentinels), W = 300 (P = 512, 16 values a lane), W = 1,200 (P =
+    # 2,048: d in chunks, the directions in groups), M = 1, and d = 127
+    # (4-byte copies, a zero-filled column)
+    for s_, W, M, d_ in ((S, WINDOW, N_DIRS, d), (S, 16, N_DIRS, d),
+                         (S, 128, N_DIRS, d), (64, WINDOW, 8, d),
+                         (64, WINDOW, 3, d), (7, 37, 13, d),
+                         (64, 1, N_DIRS, d), (32, 300, N_DIRS, d),
+                         (4, 1200, N_DIRS, d), (64, WINDOW, 1, d),
+                         (9, WINDOW, N_DIRS, 127)):
+        z, _, dirs, pq = refine_inputs(g, dev, s_, W, d_, M)
         worst["swd_sessions"] = max(worst["swd_sessions"], hold(
             "swd_sessions", swd, swd_ref, (z, dirs, pq), [(SWD_RTOL, 0.0)],
-            f"S={s_} W={W} M={M}"))
+            f"S={s_} W={W} M={M} d={d_}"))
     for s_, T, k in ((S, WINDOW, KNN), (S, 16, KNN), (S, 128, KNN),
                      (64, 16, 20), (16, 1, KNN), (9, 37, 3)):
         z, mask, _, _ = refine_inputs(g, dev, s_, T, d, 1)
@@ -622,7 +638,8 @@ def phase3(dev, ops):
         for B, C, d_ in ((8, N_COMPONENTS, 1024), (64, N_COMPONENTS, 2048),
                          (1, N_COMPONENTS, d), (8, N_COMPONENTS, 1000),
                          (8, 10, 1024)))
-    print("phase 3: swd_sessions (rtol 1e-4), laplacian_energy (rtol 1e-5, "
+    print("phase 3: swd_sessions (rtol 1e-4; also W = 1, 300, 1,200, M = "
+          "1, d = 127), laplacian_energy (rtol 1e-5, "
           "counts exact) and gmm_posterior (resp atol 1e-4, entropy atol "
           "5e-4) == plain version at the refine shapes and edge cases, "
           "bitwise from run to run; max |err| " + ", ".join(
@@ -876,6 +893,10 @@ def refine_kernel_times(dev, ops):
 TRAIN_BATCH, N_SYN, TRAIN_DIRS, TRAIN_KNN, BUFFER = 8, 256, 32, 3, 96
 TRAIN_STEPS, COLD_STEPS, EVAL_N = 60, 50, 240
 INFONCE_RTOL, TRAIN_SWD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-5
+# the LM step's SW term: 128 pooled points (pool 64 over B 8 x 1,024) at
+# d_model 1,024 (qwen1.5-0.5b; 2,048 for qwen3-1.7b), HybridCfg's 50
+# directions
+LM_SW_POINTS, LM_SW_DIRS, LM_D = 128, 50, 1024
 TRAIN_KERNELS = ("infonce_vneg_fwd", "infonce_vneg_bwd", "swd_rank_fwd",
                  "swd_rank_bwd", "laplacian_energy", "laplacian_energy_bwd",
                  "gmm_posterior")
@@ -900,9 +921,16 @@ def same_bits(fn, args, what):
     return a
 
 
-def infonce_inputs(g, dev, B, N, d):
+def infonce_inputs(g, dev, B, N, d, misaligned=False):
+    """z, z_pos (B, d), z_neg (B, N, d) on the sphere and a cotangent (B,);
+    ``misaligned`` puts z_neg in a contiguous view one float past a 16-byte
+    boundary (the kernels' scalar path)."""
     z, zp = unit_rows(g, (B, d), dev), unit_rows(g, (B, d), dev)
     zn = unit_rows(g, (B, N, d), dev)
+    if misaligned:
+        buf = torch.empty(B * N * d + 1, device=dev)
+        buf[1:] = zn.reshape(-1)
+        zn = buf[1:].view(B, N, d)
     return z, zp, zn, torch.randn(B, device=dev, generator=g)
 
 
@@ -927,10 +955,14 @@ def phase5(dev, ops):
     worst = dict.fromkeys(("infonce_vneg_fwd", "infonce_vneg_bwd",
                            "swd_rank_fwd", "swd_rank_bwd",
                            "laplacian_energy_bwd"), 0.0)
-    for B, N, d in ((TRAIN_BATCH, N_SYN + TRAIN_BATCH, 128), (1, 1, 128),
-                    (3, 100, 64), (5, 77, 128)):
-        what = f"B={B} N={N} d={d}"
-        z, zp, zn, cot = infonce_inputs(g, dev, B, N, d)
+    # N = 1, N not a multiple of the kernels' split (263: 16 splits of 17;
+    # 100: 13 of 8), d = 127 and a z_neg view off 16 bytes (the scalar path)
+    for B, N, d, off in ((TRAIN_BATCH, N_SYN + TRAIN_BATCH, 128, False),
+                         (1, 1, 128, False), (3, 100, 64, False),
+                         (5, 77, 128, False), (TRAIN_BATCH, 263, 128, False),
+                         (4, 50, 127, False), (2, 33, 128, True)):
+        what = f"B={B} N={N} d={d}" + (" misaligned" if off else "")
+        z, zp, zn, cot = infonce_inputs(g, dev, B, N, d, off)
         loss, lse = same_bits(lambda *a: ops.infonce_vneg_fwd(*a, 0.1),
                               (z, zp, zn), f"infonce_vneg_fwd at {what}")
         p_loss, p_lse = ops.infonce_vneg_fwd_ref(z, zp, zn, 0.1)
@@ -955,10 +987,16 @@ def phase5(dev, ops):
                                     leaves, cot)
         for x, y, n in zip(a, b, ("dz", "dz_pos", "dz_neg")):
             grad_err(x, y, f"infonce_vneg autograd {n} at {what}")
-    for W, M in ((BUFFER + TRAIN_BATCH, TRAIN_DIRS), (BUFFER + TRAIN_BATCH, 50),
-                 (16, TRAIN_DIRS), (16, 50), (128, TRAIN_DIRS), (128, 50)):
-        what = f"W={W} M={M}"
-        x, dirs, pq = swd_train_inputs(g, dev, W, 128, M)
+    # the LM step's shapes (W 128, M 50 at d 1,024 and 2,048: x streamed
+    # over d), W = 1 and W = 1,000 (P = 1,024, 32 values a lane)
+    for W, M, d in ((BUFFER + TRAIN_BATCH, TRAIN_DIRS, 128),
+                    (BUFFER + TRAIN_BATCH, 50, 128), (16, TRAIN_DIRS, 128),
+                    (16, 50, 128), (128, TRAIN_DIRS, 128), (128, 50, 128),
+                    (LM_SW_POINTS, LM_SW_DIRS, 1024),
+                    (LM_SW_POINTS, LM_SW_DIRS, 2048), (1, TRAIN_DIRS, 128),
+                    (1000, 8, 128)):
+        what = f"W={W} M={M} d={d}"
+        x, dirs, pq = swd_train_inputs(g, dev, W, d, M)
         loss, proj, rank = same_bits(ops.swd_rank_fwd, (x, dirs, pq),
                                      f"swd_rank_fwd at {what}")
         p_loss, p_proj, _ = ops.swd_rank_fwd_ref(x, dirs, pq)
@@ -1013,8 +1051,11 @@ def phase5(dev, ops):
         check(torch.equal(a, dz), f"laplacian_energy_diff autograd != "
               f"laplacian_energy_bwd at {what}")
     torch.cuda.synchronize()
-    print(f"phase 5: infonce_vneg fwd (rtol {INFONCE_RTOL}) and bwd, "
-          f"swd_rank fwd (loss rtol {TRAIN_SWD_RTOL}, ranks exact) and bwd, "
+    print(f"phase 5: infonce_vneg fwd (rtol {INFONCE_RTOL}) and bwd (also "
+          f"N = 263, d = 127, a misaligned z_neg), swd_rank fwd (loss rtol "
+          f"{TRAIN_SWD_RTOL}, ranks exact; also the LM step's W "
+          f"{LM_SW_POINTS}, M {LM_SW_DIRS} at d 1,024 and 2,048, W = 1 and "
+          f"1,000) and bwd, "
           f"laplacian_energy fwd (rtol {LAP_RTOL}) and bwd == plain versions "
           f"(gradients within {GRAD_ATOL} x max |g|), autograd entries == "
           f"their backward kernels, bitwise from run to run; max |err| "
@@ -1131,10 +1172,15 @@ def profile_train_step(tr, p50):
         by_name[name] = by_name.get(name, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # the SW term's and the InfoNCE's kernels (forward and backward, each
+    # with its second pass)
+    own = {k: sum(us for n, us in by_name.items() if k in n.lower()) / 1e3
+           for k in ("swd", "infonce")}
     print(f"profiled warm step: {len(events)} device activities, busy "
-          f"{busy_ms:.3f} ms; idle share of the unprofiled warm p50 step "
-          f"({p50:.3f} ms): {1.0 - busy_ms / p50:.3f}; top: " + "; ".join(
-              f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top))
+          f"{busy_ms:.3f} ms (swd kernels {own['swd']:.4f} ms, infonce "
+          f"kernels {own['infonce']:.4f} ms); idle share of the unprofiled "
+          f"warm p50 step ({p50:.3f} ms): {1.0 - busy_ms / p50:.3f}; top: "
+          + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top))
 
 
 def train_kernel_times(dev, ops):
@@ -1198,19 +1244,40 @@ def train_kernel_times(dev, ops):
             gmm_args, 4 * (BUFFER * d + 2 * C * d + C + BUFFER * C + BUFFER),
             4 * BUFFER * C * d + 11 * BUFFER * C),
     }
+    # the LM step's SW term (qwen1.5-0.5b's d_model), counted as above
+    W, d, M = LM_SW_POINTS, LM_D, LM_SW_DIRS
+    lx, ldirs, lpq = swd_train_inputs(g, dev, W, d, M)
+    _, lproj, lrank = ops.swd_rank_fwd(lx, ldirs, lpq)
+    lm_cases = {
+        "swd_rank_fwd": (
+            lambda a: ops.swd_rank_fwd(*a), lambda a: ops.swd_rank_fwd_ref(*a),
+            (lx, ldirs, lpq), 4 * (W * d + M * d + W * M + 1 + 2 * W * M),
+            2 * W * d * M + 3 * W * M),
+        "swd_rank_bwd": (
+            lambda a: ops.swd_rank_bwd(*a), lambda a: ops.swd_rank_bwd_ref(*a),
+            (one, lproj, lrank, lpq, ldirs),
+            4 * (1 + 3 * W * M + M * d + W * d), 2 * W * M * d + 4 * W * M),
+    }
     out = {}
-    for name, (fn, plain, args, nbytes, nops) in cases.items():
-        ms = device_ms(fn, args)
-        plain_ms = device_ms(plain, args, reps=20)
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        o_ms = nops / FP32_OPS_PER_S * 1e3
-        out[name] = {"ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": max(b_ms, o_ms),
-                     "bound_by": "bytes" if b_ms >= o_ms else "operations"}
-        print(f"{name} at the training shape: device kernel {ms * 1e3:.2f} "
-              f"us, plain {plain_ms * 1e3:.2f} us; bound "
-              f"{max(b_ms, o_ms) * 1e3:.3f} us ({out[name]['bound_by']}: "
-              f"{nbytes} bytes, {nops} operations)")
+    for where, group in (("the training shape", cases),
+                         (f"the LM step's shape ({W}, {d}), M {M}",
+                          lm_cases)):
+        for name, (fn, plain, args, nbytes, nops) in group.items():
+            ms = device_ms(fn, args)
+            plain_ms = device_ms(plain, args, reps=20)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            o_ms = nops / FP32_OPS_PER_S * 1e3
+            rec = {"ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(b_ms, o_ms),
+                   "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+            if group is cases:
+                out[name] = rec
+            else:
+                out[name]["lm_shape"] = rec
+            print(f"{name} at {where}: device kernel {ms * 1e3:.2f} us, "
+                  f"plain {plain_ms * 1e3:.2f} us; bound "
+                  f"{max(b_ms, o_ms) * 1e3:.3f} us ({rec['bound_by']}: "
+                  f"{nbytes} bytes, {nops} operations)")
     return out
 
 

@@ -46,11 +46,10 @@ SIGNATURES = {
         "int8_quant_error_string": ([_I], _S),
     },
     "swd.cu": {
-        "swd_sessions_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "swd_sessions_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "swd_rank_fwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
                              _I),
         "swd_rank_bwd_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-        "swd_dirs_per_block": ([], _I),
         "swd_error_string": ([_I], _S),
     },
     "laplacian_energy.cu": {
@@ -66,10 +65,10 @@ SIGNATURES = {
         "gmm_posterior_error_string": ([_I], _S),
     },
     "infonce_vneg.cu": {
-        "infonce_vneg_fwd_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-                                 _I),
-        "infonce_vneg_bwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+        "infonce_vneg_fwd_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _F, _P], _I),
+        "infonce_vneg_bwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _F, _P], _I),
         "infonce_vneg_error_string": ([_I], _S),
     },
     "flash_attention.cu": {

@@ -18,30 +18,46 @@
 // writes dz_neg of the same size; 2 flops per element of z_neg each.  At
 // the edge trainer's shape (B=8, N=264, d=128) that is 1.1 MB read,
 // 0.3 us at 3.35 TB/s, against 8 ns of arithmetic at 67 TFLOP/s float32:
-// bytes bound them, and at this size the launch itself (a few us) costs
-// more than either.
+// bytes bound them, and at this size the latency of a launch and of a load
+// from device memory costs more than either.
 //
-// Design (simple and right first): one 512-thread block per sample, any B
-// and N (no divisibility, unlike the Pallas grid).  z[b] is staged in
-// shared memory.  The 16 warps take the negatives in a fixed round robin;
-// for each one the 32 lanes read z_neg[n] coalesced, multiply-add in a
-// fixed per-lane order and add in a fixed xor tree, so every lane holds
-// s_n.  Forward: each warp keeps a running (m, l); thread 0 merges the
-// warps' pairs in warp order into (m, l) seeded with (s+, 1), as the Pallas
-// kernel seeds its scratch with the positive.  Backward, in the same one
-// pass over z_neg: each warp, with p_n of its negative in hand, writes
-// dz_neg[n] and adds p_n * z_neg[n] into its own row of partial sums in
-// shared memory (lane j owns column j); then thread j adds the 16 warps'
-// partials in warp order into dz[j].  No atomics, so both are the same bits
-// from run to run.  Shared memory is dynamic: z and z_pos (2*d floats), and
-// in the backward the warps' partial sums (16*d floats).
+// Design: each call is two kernels.  The first runs a grid of (B, NS)
+// blocks of 8 warps, NS splits of each sample's negatives (the wrapper's
+// plan: about 128 blocks, at least 8 negatives a split; 16 splits of 17 at
+// the edge trainer's shape), so the loads spread over the card.  Warp w of
+// split s takes the split's negatives n0 + w, n0 + w + 8, ... in batches
+// of 4, whose loads it issues together (a float4 a lane at d = 128:
+// one coalesced row a load; a scalar path for d % 4 != 0 or a view not on
+// 16 bytes) before their multiply-adds and their fixed xor trees, so every
+// lane of the warp holds each s_n.
+//   Forward: each warp keeps a running (m, l) over its negatives, a batch
+//   at a time as the Pallas kernel takes a tile (the batch's max first,
+//   then its exponentials, independent, added in order); thread 0 merges
+//   the 8 warps in order into the split's (m, l).  The
+//   second kernel, one warp a sample, merges the NS splits in split order
+//   into (m, l) seeded with (s+, 1), as the Pallas kernel seeds its scratch
+//   with the positive, and writes lse and loss.
+//   Backward: p_n = exp(s_n - lse) needs no merge, since lse is given.
+//   Each warp writes dz_neg[n] = c p_n z with float4 stores and adds
+//   p_n z_neg[n] into its own row of sums in shared memory, negatives in
+//   order; the split adds its 8 rows in warp order into its partial (d
+//   floats).  The second kernel, one block a sample, writes dz_pos and dz,
+//   the partials of the splits summed in split order.
+// The second kernel is a programmatic dependent of the first (Hopper): it
+// launches while the first runs, computes s+ (and dz_pos) from the inputs,
+// and waits in griddepcontrol.wait before it reads the partials.  No
+// floating-point atomics and a fixed order everywhere, so both are the same
+// bits from run to run.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 8;               // a split's block
+constexpr int kThreads = 32 * kWarps;   // (and the backward's merge block)
+constexpr int kRows = 4;                // negatives a warp has in flight
+constexpr int kMergeWarps = 8;          // the forward's merge: a warp a sample
 constexpr float kNegBig = -1e30f;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -51,50 +67,155 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// z.row / tau over d, the lanes of one warp; every lane gets the result.
-__device__ __forceinline__ float warp_dot(const float* __restrict__ zs,
-                                          const float* __restrict__ row,
+// s+ = z.z_pos / tau of one sample, the lanes of one warp in a fixed order;
+// every lane gets it
+__device__ __forceinline__ float positive(const float* __restrict__ zb,
+                                          const float* __restrict__ zpb,
                                           int d, int lane, float tau) {
   float acc = 0.0f;
-  for (int j = lane; j < d; j += 32) acc = fmaf(zs[j], row[j], acc);
+  for (int j = lane; j < d; j += 32) acc = fmaf(zb[j], zpb[j], acc);
   return __fdiv_rn(warp_sum(acc), tau);
 }
 
-// s+ of sample b computed by warp 0 into *pos (all threads see it after the
-// barrier that follows).
-__device__ __forceinline__ void positive(const float* zs, const float* zps,
-                                         int d, float tau, float* pos) {
-  if (threadIdx.x < 32) {
-    const float s = warp_dot(zs, zps, d, threadIdx.x, tau);
-    if (threadIdx.x == 0) *pos = s;
+// The partial dot products z.z_neg[n] of negatives n = base + kWarps*r
+// (r < kRows, n < n1) of one lane: float4 columns 4 lane, 4 lane + 128, ...
+// where `vec`, else columns lane, lane + 32, ...; all the batch's loads of
+// a column step issue before its multiply-adds.
+__device__ __forceinline__ void lane_dots(float (&acc)[kRows],
+                                          const float* __restrict__ zb,
+                                          const float* __restrict__ znb,
+                                          int base, int n1, int d, int lane,
+                                          bool vec) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+  if (vec) {
+    const int d4 = d / 4;
+    for (int j = lane; j < d4; j += 32) {
+      const float4 a = reinterpret_cast<const float4*>(zb)[j];
+      float4 x[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int n = base + kWarps * r;
+        x[r] = n < n1 ? reinterpret_cast<const float4*>(
+                            znb + static_cast<size_t>(n) * d)[j]
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        acc[r] = fmaf(a.x, x[r].x, acc[r]);
+        acc[r] = fmaf(a.y, x[r].y, acc[r]);
+        acc[r] = fmaf(a.z, x[r].z, acc[r]);
+        acc[r] = fmaf(a.w, x[r].w, acc[r]);
+      }
+    }
+  } else {
+    for (int j = lane; j < d; j += 32) {
+      const float a = zb[j];
+      float x[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int n = base + kWarps * r;
+        x[r] = n < n1 ? znb[static_cast<size_t>(n) * d + j] : 0.0f;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(a, x[r], acc[r]);
+    }
+  }
+}
+
+// (m, l) <- (m, l) merged with the n pairs (wm[i], wl[i]) in order, as
+// the Pallas kernel's online softmax takes a tile: the new max first (exact
+// in any order), then l * exp(m - max) plus each wl * exp(wm - max) in
+// order, whose exponentials are independent
+template <int N>
+__device__ __forceinline__ void merge(float& m, float& l, const float* wm,
+                                      const float* wl, int n) {
+  float m_new = m;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i < n) m_new = fmaxf(m_new, wm[i]);
+  }
+  float t[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    t[i] = i < n ? __fmul_rn(wl[i], expf(__fsub_rn(wm[i], m_new))) : 0.0f;
+  }
+  l = __fmul_rn(l, expf(__fsub_rn(m, m_new)));
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i < n) l = __fadd_rn(l, t[i]);
+  }
+  m = m_new;
+}
+
+// The negatives [n0, n1) of split `split` of a sample
+__device__ __forceinline__ void split_range(int N, int NS, int split, int* n0,
+                                            int* n1) {
+  const int per = (N + NS - 1) / NS;
+  *n0 = min(N, split * per);
+  *n1 = min(N, *n0 + per);
+}
+
+// The forward's merge of sample b by one warp: the NS splits' (m, l) in
+// split order into (s+, 1), the max over all first (a fixed xor tree of
+// fmaxf, exact), then each split's l * exp(m - max), a split a lane,
+// added in split order to exp(s+ - max); lane 0 writes lse and loss
+__device__ __forceinline__ void fwd_merge(const float* part,
+                                          float* __restrict__ loss,
+                                          float* __restrict__ lse, int b,
+                                          int B, int NS, float pos,
+                                          int lane) {
+  const float* pm = part + static_cast<size_t>(b) * NS;
+  const float* pl = part + static_cast<size_t>(B) * NS +
+                    static_cast<size_t>(b) * NS;
+  float mx = pos;
+  for (int s = lane; s < NS; s += 32) mx = fmaxf(mx, pm[s]);
+  for (int off = 16; off > 0; off >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  }
+  float ll = expf(__fsub_rn(pos, mx));  // the seed (s+, 1)
+  for (int s0 = 0; s0 < NS; s0 += 32) {
+    const int s = s0 + lane;
+    const float t =
+        s < NS ? __fmul_rn(pl[s], expf(__fsub_rn(pm[s], mx))) : 0.0f;
+    const int cnt = min(32, NS - s0);
+    for (int i = 0; i < cnt; ++i) {
+      ll = __fadd_rn(ll, __shfl_sync(0xffffffffu, t, i));
+    }
+  }
+  if (lane == 0) {
+    const float out = __fadd_rn(mx, logf(ll));
+    lse[b] = out;
+    loss[b] = __fsub_rn(out, pos);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-infonce_fwd_kernel(const float* __restrict__ z, const float* __restrict__ zp,
-                   const float* __restrict__ zn, float* __restrict__ loss,
-                   float* __restrict__ lse, int N, int d, float tau) {
-  extern __shared__ float smem[];
-  float* zs = smem;            // d
-  float* zps = zs + d;         // d
-  __shared__ float wm[kWarps], wl[kWarps], pos;
-  const int b = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int j = threadIdx.x; j < d; j += kThreads) {
-    zs[j] = z[static_cast<size_t>(b) * d + j];
-    zps[j] = zp[static_cast<size_t>(b) * d + j];
-  }
-  __syncthreads();
-  positive(zs, zps, d, tau, &pos);
-
+infonce_fwd_split_kernel(const float* __restrict__ z,
+                         const float* __restrict__ zn,
+                         float* __restrict__ part, int B, int N, int d,
+                         int NS, float tau, bool vec) {
+  __shared__ float wm[kWarps], wl[kWarps];
+  const int b = blockIdx.x, split = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the merge may launch now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  int n0, n1;
+  split_range(N, NS, split, &n0, &n1);
+  const float* zb = z + static_cast<size_t>(b) * d;
   const float* znb = zn + static_cast<size_t>(b) * N * d;
   float m = kNegBig, l = 0.0f;
-  for (int n = warp; n < N; n += kWarps) {
-    const float s = warp_dot(zs, znb + static_cast<size_t>(n) * d, d, lane,
-                             tau);
-    const float m_new = fmaxf(m, s);
-    l = __fadd_rn(__fmul_rn(l, expf(__fsub_rn(m, m_new))),
-                  expf(__fsub_rn(s, m_new)));
-    m = m_new;
+  for (int base = n0 + warp; base < n1; base += kWarps * kRows) {
+    // the batch's rows, the same in every lane: the others are skipped
+    const int rows = min(kRows, (n1 - base + kWarps - 1) / kWarps);
+    float acc[kRows], ones[kRows];
+    lane_dots(acc, zb, znb, base, n1, d, lane, vec);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r < rows) acc[r] = __fdiv_rn(warp_sum(acc[r]), tau);
+      ones[r] = 1.0f;
+    }
+    merge<kRows>(m, l, acc, ones, rows);
   }
   if (lane == 0) {
     wm[warp] = m;
@@ -102,69 +223,177 @@ infonce_fwd_kernel(const float* __restrict__ z, const float* __restrict__ zp,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    float mm = pos, ll = 1.0f;             // exp(s+ - s+) = 1
-    for (int w = 0; w < kWarps; ++w) {
-      const float m_new = fmaxf(mm, wm[w]);
-      ll = __fadd_rn(__fmul_rn(ll, expf(__fsub_rn(mm, m_new))),
-                     __fmul_rn(wl[w], expf(__fsub_rn(wm[w], m_new))));
-      mm = m_new;
+    float mm = wm[0], ll = wl[0];
+    merge<kWarps - 1>(mm, ll, wm + 1, wl + 1, kWarps - 1);
+    part[static_cast<size_t>(b) * NS + split] = mm;
+    part[static_cast<size_t>(B) * NS + static_cast<size_t>(b) * NS + split] =
+        ll;
+  }
+}
+
+__global__ void __launch_bounds__(32 * kMergeWarps)
+infonce_fwd_merge_kernel(const float* __restrict__ z,
+                         const float* __restrict__ zp,
+                         const float* __restrict__ part,
+                         float* __restrict__ loss, float* __restrict__ lse,
+                         int B, int d, int NS, float tau) {
+  const int lane = threadIdx.x % 32;
+  const int b = blockIdx.x * kMergeWarps + threadIdx.x / 32;
+  if (b >= B) return;
+  // s+ reads only the inputs: before the wait, beside the first kernel
+  const float pos = positive(z + static_cast<size_t>(b) * d,
+                             zp + static_cast<size_t>(b) * d, d, lane, tau);
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  fwd_merge(part, loss, lse, b, B, NS, pos, lane);
+}
+
+// The backward's merge of sample b by a block of kThreads: dz_pos, then dz
+// with the NS partials summed in split order (pos in every thread)
+__device__ __forceinline__ void bwd_dz(const float* __restrict__ zp,
+                                       const float* part,
+                                       float* __restrict__ dz, int b, int d,
+                                       int NS, float c, float p0m1) {
+  const float* pb = part + static_cast<size_t>(b) * NS * d;
+  for (int j = threadIdx.x; j < d; j += kThreads) {
+    float a = pb[j];
+    for (int s0 = 1; s0 < NS; s0 += 8) {
+      float p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        p[i] = s0 + i < NS ? pb[static_cast<size_t>(s0 + i) * d + j] : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (s0 + i < NS) a = __fadd_rn(a, p[i]);
+      }
     }
-    const float out = __fadd_rn(mm, logf(ll));
-    lse[b] = out;
-    loss[b] = __fsub_rn(out, pos);
+    const size_t o = static_cast<size_t>(b) * d + j;
+    dz[o] = __fmul_rn(c, fmaf(p0m1, zp[o], a));
+  }
+}
+
+__device__ __forceinline__ void bwd_dz_pos(const float* __restrict__ z,
+                                           float* __restrict__ dzp, int b,
+                                           int d, float c, float p0m1) {
+  const float cp0 = __fmul_rn(c, p0m1);
+  for (int j = threadIdx.x; j < d; j += kThreads) {
+    const size_t o = static_cast<size_t>(b) * d + j;
+    dzp[o] = __fmul_rn(cp0, z[o]);
+  }
+}
+
+// s+ of sample b by warp 0, shared with the block
+__device__ __forceinline__ float block_positive(const float* __restrict__ z,
+                                                const float* __restrict__ zp,
+                                                int b, int d, float tau) {
+  __shared__ float pos;
+  if (threadIdx.x < 32) {
+    const float s = positive(z + static_cast<size_t>(b) * d,
+                             zp + static_cast<size_t>(b) * d, d, threadIdx.x,
+                             tau);
+    if (threadIdx.x == 0) pos = s;
+  }
+  __syncthreads();
+  return pos;
+}
+
+__global__ void __launch_bounds__(kThreads)
+infonce_bwd_split_kernel(const float* __restrict__ z,
+                         const float* __restrict__ zn,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ g, float* __restrict__ dzn,
+                         float* __restrict__ part, int N, int d, int NS,
+                         float tau, bool vec) {
+  extern __shared__ __align__(16) float sums[];   // kWarps x d
+  const int b = blockIdx.x, split = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  int n0, n1;
+  split_range(N, NS, split, &n0, &n1);
+  const float lse_b = lse[b];
+  const float c = __fdiv_rn(g[b], tau);
+  const float* zb = z + static_cast<size_t>(b) * d;
+  const float* znb = zn + static_cast<size_t>(b) * N * d;
+  float* dznb = dzn + static_cast<size_t>(b) * N * d;
+  float* mine = sums + warp * d;        // lane j's columns j, j + 32, ...
+  for (int j = lane; j < d; j += 32) mine[j] = 0.0f;
+  for (int base = n0 + warp; base < n1; base += kWarps * kRows) {
+    const int rows = min(kRows, (n1 - base + kWarps - 1) / kWarps);
+    float acc[kRows], p[kRows], cp[kRows];
+    lane_dots(acc, zb, znb, base, n1, d, lane, vec);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      p[r] = r < rows
+                 ? expf(__fsub_rn(__fdiv_rn(warp_sum(acc[r]), tau), lse_b))
+                 : 0.0f;
+      cp[r] = __fmul_rn(c, p[r]);
+    }
+    if (vec) {
+      float4* mine4 = reinterpret_cast<float4*>(mine);
+      for (int j = lane; j < d / 4; j += 32) {
+        const float4 a = reinterpret_cast<const float4*>(zb)[j];
+        float4 s = mine4[j];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const int n = base + kWarps * r;
+          if (n >= n1) continue;
+          const size_t row = static_cast<size_t>(n) * d;
+          const float4 x = reinterpret_cast<const float4*>(znb + row)[j];
+          reinterpret_cast<float4*>(dznb + row)[j] =
+              make_float4(__fmul_rn(cp[r], a.x), __fmul_rn(cp[r], a.y),
+                          __fmul_rn(cp[r], a.z), __fmul_rn(cp[r], a.w));
+          s.x = fmaf(p[r], x.x, s.x);
+          s.y = fmaf(p[r], x.y, s.y);
+          s.z = fmaf(p[r], x.z, s.z);
+          s.w = fmaf(p[r], x.w, s.w);
+        }
+        mine4[j] = s;
+      }
+    } else {
+      for (int j = lane; j < d; j += 32) {
+        const float a = zb[j];
+        float s = mine[j];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const int n = base + kWarps * r;
+          if (n >= n1) continue;
+          const size_t row = static_cast<size_t>(n) * d;
+          dznb[row + j] = __fmul_rn(cp[r], a);
+          s = fmaf(p[r], znb[row + j], s);
+        }
+        mine[j] = s;
+      }
+    }
+  }
+  __syncthreads();
+  float* pb = part + (static_cast<size_t>(b) * NS + split) * d;
+  for (int j = threadIdx.x; j < d; j += kThreads) {
+    float a = sums[j];
+    for (int w = 1; w < kWarps; ++w) a = __fadd_rn(a, sums[w * d + j]);
+    pb[j] = a;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-infonce_bwd_kernel(const float* __restrict__ z, const float* __restrict__ zp,
-                   const float* __restrict__ zn,
-                   const float* __restrict__ lse, const float* __restrict__ g,
-                   float* __restrict__ dz, float* __restrict__ dzp,
-                   float* __restrict__ dzn, int N, int d, float tau) {
-  extern __shared__ float smem[];
-  float* zs = smem;            // d
-  float* zps = zs + d;         // d
-  float* acc = zps + d;        // kWarps x d: each warp's sum of p_n z_neg[n]
-  __shared__ float pos;
-  const int b = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int j = threadIdx.x; j < d; j += kThreads) {
-    zs[j] = z[static_cast<size_t>(b) * d + j];
-    zps[j] = zp[static_cast<size_t>(b) * d + j];
-  }
-  for (int j = threadIdx.x; j < kWarps * d; j += kThreads) acc[j] = 0.0f;
-  __syncthreads();
-  positive(zs, zps, d, tau, &pos);
-  const float lse_b = lse[b];
+infonce_bwd_merge_kernel(const float* __restrict__ z,
+                         const float* __restrict__ zp,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ g,
+                         const float* __restrict__ part,
+                         float* __restrict__ dz, float* __restrict__ dzp,
+                         int d, int NS, float tau) {
+  const int b = blockIdx.x;
+  // s+ and dz_pos read only the inputs: before the wait
   const float c = __fdiv_rn(g[b], tau);
-
-  const float* znb = zn + static_cast<size_t>(b) * N * d;
-  float* dznb = dzn + static_cast<size_t>(b) * N * d;
-  float* accw = acc + warp * d;
-  for (int n = warp; n < N; n += kWarps) {
-    const float* row = znb + static_cast<size_t>(n) * d;
-    const float pn = expf(__fsub_rn(warp_dot(zs, row, d, lane, tau), lse_b));
-    const float cp = __fmul_rn(c, pn);
-    float* drow = dznb + static_cast<size_t>(n) * d;
-    for (int j = lane; j < d; j += 32) {
-      drow[j] = __fmul_rn(cp, zs[j]);
-      accw[j] = fmaf(pn, row[j], accw[j]);
-    }
-  }
-  __syncthreads();
-  const float p0m1 = __fsub_rn(expf(__fsub_rn(pos, lse_b)), 1.0f);
-  for (int j = threadIdx.x; j < d; j += kThreads) {
-    float a = acc[j];
-    for (int w = 1; w < kWarps; ++w) a = __fadd_rn(a, acc[w * d + j]);
-    const size_t o = static_cast<size_t>(b) * d + j;
-    dz[o] = __fmul_rn(c, fmaf(p0m1, zps[j], a));
-    dzp[o] = __fmul_rn(__fmul_rn(c, p0m1), zs[j]);
-  }
+  const float p0m1 = __fsub_rn(
+      expf(__fsub_rn(block_positive(z, zp, b, d, tau), lse[b])), 1.0f);
+  bwd_dz_pos(z, dzp, b, d, c, p0m1);
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  bwd_dz(zp, part, dz, b, d, NS, c, p0m1);
 }
 
-size_t fwd_smem(int d) { return sizeof(float) * 2 * static_cast<size_t>(d); }
-
-size_t bwd_smem(int d) {
-  return sizeof(float) * (2 + kWarps) * static_cast<size_t>(d);
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // Past the 48 KB that a launch gets by default, the kernel must opt in.
@@ -176,40 +405,73 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       static_cast<int>(smem));
 }
 
+// The merge kernel as a programmatic dependent of the split kernel
+template <typename Kernel, typename... Args>
+cudaError_t launch_dependent(Kernel kernel, int blocks, int threads,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+bool bad_shape(int B, int N, int d, int NS, float tau) {
+  return B <= 0 || N <= 0 || d <= 0 || NS <= 0 || NS > N || NS > 65535 ||
+         !(tau > 0.0f);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Both launch on `stream` and return the first CUDA error (0 on success);
-// the caller checks it, because a refused launch never runs.
+// Both launch two kernels on `stream` and return the first CUDA error (0
+// on success); the caller checks it, because a refused launch never runs.
+// NS is the number of splits of each sample's negatives (the wrapper's
+// plan, 1 <= NS <= N); `part` is scratch of 2*B*NS floats (forward) or
+// B*NS*d floats (backward).
 
 int infonce_vneg_fwd_f32(const float* z, const float* zp, const float* zn,
-                         float* loss, float* lse, int B, int N, int d,
-                         float tau, cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || d <= 0 || !(tau > 0.0f)) {
+                         float* loss, float* lse, float* part, int B, int N,
+                         int d, int NS, float tau, cudaStream_t stream) {
+  if (bad_shape(B, N, d, NS, tau)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = fwd_smem(d);
-  cudaError_t err = allow_smem(infonce_fwd_kernel, smem);
+  const bool vec = d % 4 == 0 && aligned16(z) && aligned16(zn);
+  infonce_fwd_split_kernel<<<dim3(B, NS), kThreads, 0, stream>>>(
+      z, zn, part, B, N, d, NS, tau, vec);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  infonce_fwd_kernel<<<B, kThreads, smem, stream>>>(z, zp, zn, loss, lse, N,
-                                                    d, tau);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_dependent(
+      infonce_fwd_merge_kernel, (B + kMergeWarps - 1) / kMergeWarps,
+      32 * kMergeWarps, stream, z, zp, static_cast<const float*>(part), loss,
+      lse, B, d, NS, tau));
 }
 
 int infonce_vneg_bwd_f32(const float* z, const float* zp, const float* zn,
                          const float* lse, const float* g, float* dz,
-                         float* dzp, float* dzn, int B, int N, int d,
-                         float tau, cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || d <= 0 || !(tau > 0.0f)) {
+                         float* dzp, float* dzn, float* part, int B, int N,
+                         int d, int NS, float tau, cudaStream_t stream) {
+  if (bad_shape(B, N, d, NS, tau)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = bwd_smem(d);
-  cudaError_t err = allow_smem(infonce_bwd_kernel, smem);
+  const bool vec = d % 4 == 0 && aligned16(z) && aligned16(zn);
+  const size_t smem = sizeof(float) * kWarps * static_cast<size_t>(d);
+  cudaError_t err = allow_smem(infonce_bwd_split_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  infonce_bwd_kernel<<<B, kThreads, smem, stream>>>(z, zp, zn, lse, g, dz,
-                                                    dzp, dzn, N, d, tau);
-  return static_cast<int>(cudaGetLastError());
+  infonce_bwd_split_kernel<<<dim3(B, NS), kThreads, smem, stream>>>(
+      z, zn, lse, g, dzn, part, N, d, NS, tau, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_dependent(
+      infonce_bwd_merge_kernel, B, kThreads, stream, z, zp, lse, g,
+      static_cast<const float*>(part), dz, dzp, d, NS, tau));
 }
 
 const char* infonce_vneg_error_string(int err) {

@@ -20,6 +20,9 @@ twin); here the backward is a hand-written kernel too.
   each runs its plain version (``infonce_vneg_fwd_ref``,
   ``infonce_vneg_bwd_ref``), which is also what the kernel is held
   against on the card.
+- Each call launches two kernels: the first over (sample, split of the
+  negatives) blocks, the split plan being ``splits`` here; the second
+  merges the splits in split order.
 """
 from __future__ import annotations
 
@@ -57,6 +60,24 @@ def infonce_vneg_bwd_ref(z, z_pos, z_neg, lse, g, tau):
     return dz, dz_pos, dz_neg
 
 
+# The kernels' grid: (B, splits) blocks, each split a run of consecutive
+# negatives of one sample; about TARGET_BLOCKS blocks, at least
+# MIN_PER_SPLIT negatives a split (16 splits of 17 at the edge learner's
+# (8, 264, 128)).
+TARGET_BLOCKS = 128
+MIN_PER_SPLIT = 8
+
+
+def splits(B, N):
+    """How many splits the kernels cut each sample's N negatives into.
+    Split s holds negatives [s·per, min(N, (s+1)·per)) with per =
+    ceil(N / splits); the forward merges the splits' (m, l) in split
+    order, the backward sums their partials of Σ p_n z_neg[n] in split
+    order."""
+    per = max(-(-N // max(1, TARGET_BLOCKS // B)), MIN_PER_SPLIT)
+    return -(-N // per)
+
+
 def _check(name, z, z_pos, z_neg):
     if z.dim() != 2 or tuple(z_pos.shape) != tuple(z.shape) \
             or z_neg.dim() != 3 or z_neg.shape[0] != z.shape[0] \
@@ -80,13 +101,15 @@ def infonce_vneg_fwd(z, z_pos, z_neg, tau):
         return infonce_vneg_fwd_ref(z, z_pos, z_neg, tau)
     B, N, d = z_neg.shape
     lib = build.load("infonce_vneg.cu")
+    ns = splits(B, N)
     loss = torch.empty(B, dtype=torch.float32, device=z.device)
     lse = torch.empty(B, dtype=torch.float32, device=z.device)
+    part = torch.empty(2 * B * ns, dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         err = lib.infonce_vneg_fwd_f32(z.data_ptr(), z_pos.data_ptr(),
                                        z_neg.data_ptr(), loss.data_ptr(),
-                                       lse.data_ptr(), B, N, d, float(tau),
-                                       build.stream_of(z))
+                                       lse.data_ptr(), part.data_ptr(), B, N,
+                                       d, ns, float(tau), build.stream_of(z))
     build.raise_on_error(lib, "infonce_vneg", err)
     infonce_vneg_fwd.launches += 1
     return loss, lse
@@ -110,16 +133,18 @@ def infonce_vneg_bwd(z, z_pos, z_neg, lse, g, tau):
     if z.device.type == "cpu":
         return infonce_vneg_bwd_ref(z, z_pos, z_neg, lse, g, tau)
     lib = build.load("infonce_vneg.cu")
+    ns = splits(B, N)
     dz = torch.empty_like(z)
     dz_pos = torch.empty_like(z_pos)
     dz_neg = torch.empty_like(z_neg)
+    part = torch.empty(B * ns * d, dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         err = lib.infonce_vneg_bwd_f32(z.data_ptr(), z_pos.data_ptr(),
                                        z_neg.data_ptr(), lse.data_ptr(),
                                        g.data_ptr(), dz.data_ptr(),
                                        dz_pos.data_ptr(), dz_neg.data_ptr(),
-                                       B, N, d, float(tau),
-                                       build.stream_of(z))
+                                       part.data_ptr(), B, N, d, ns,
+                                       float(tau), build.stream_of(z))
     build.raise_on_error(lib, "infonce_vneg", err)
     infonce_vneg_bwd.launches += 1
     return dz, dz_pos, dz_neg

@@ -59,15 +59,11 @@ def swd_sessions(z, dirs, prior_q):
     if z.device.type == "cpu":
         return swd_sessions_ref(z, dirs, prior_q)
     lib = build.load("swd.cu")
-    per_block = lib.swd_dirs_per_block()
-    partial = torch.empty(S * (-(-M // per_block)), dtype=torch.float32,
-                          device=z.device)
     out = torch.empty(S, dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         err = lib.swd_sessions_f32(z.data_ptr(), dirs.data_ptr(),
-                                   prior_q.data_ptr(), partial.data_ptr(),
-                                   out.data_ptr(), S, W, d, M,
-                                   build.stream_of(z))
+                                   prior_q.data_ptr(), out.data_ptr(), S, W,
+                                   d, M, build.stream_of(z))
     build.raise_on_error(lib, "swd", err)
     swd_sessions.launches += 1
     return out
@@ -130,9 +126,7 @@ def swd_rank_fwd(x, dirs, prior_q):
     W, d = x.shape
     M = dirs.shape[0]
     lib = build.load("swd.cu")
-    per_block = lib.swd_dirs_per_block()
-    partial = torch.empty(-(-M // per_block), dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty(M, dtype=torch.float32, device=x.device)
     loss = torch.empty((), dtype=torch.float32, device=x.device)
     proj = torch.empty(W, M, dtype=torch.float32, device=x.device)
     rank = torch.empty(W, M, dtype=torch.int32, device=x.device)

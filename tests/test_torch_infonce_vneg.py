@@ -34,7 +34,7 @@ from repro_torch.core import gmm, infonce  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.infonce_vneg import (  # noqa: E402
     infonce_vneg, infonce_vneg_bwd, infonce_vneg_bwd_ref, infonce_vneg_fwd,
-    infonce_vneg_fwd_ref, infonce_vneg_ref)
+    infonce_vneg_fwd_ref, infonce_vneg_ref, splits)
 from repro_torch.weights import gmm_from_jax  # noqa: E402
 
 RTOL = 1e-5
@@ -243,3 +243,111 @@ def test_infonce_wrappers_check_and_count():
         infonce_vneg_bwd(z, z, zn, lse, torch.ones(3), TAU)
     with pytest.raises(ValueError):
         infonce_vneg_fwd(z.t().contiguous().t(), z, zn, TAU)
+
+
+# --- the kernels' split-then-merge order, emulated -------------------------
+
+# csrc/infonce_vneg.cu: warps of a split's block, negatives a warp has in
+# flight
+WARPS, ROWS = 8, 4
+
+
+def _merge(m, l, wms, wls):
+    """(m, l) with the pairs (wms[i], wls[i]) in order: the max first,
+    then l * exp(m - max) plus each wl * exp(wm - max) in order."""
+    m_new = m
+    for wm in wms:
+        m_new = torch.maximum(m_new, wm)
+    l = l * torch.exp(m - m_new)
+    for wm, wl in zip(wms, wls):
+        l = l + wl * torch.exp(wm - m_new)
+    return m_new, l
+
+
+def _split_ranges(N, ns):
+    per = -(-N // ns)
+    return [(min(N, s * per), min(N, s * per + per)) for s in range(ns)]
+
+
+def _emulated_forward(z, zp, zn, tau):
+    """The forward kernels' order in float32 torch: warp w of each split
+    folds its negatives n0 + w, n0 + w + 8, ... into a running (m, l), a
+    batch of 4 at a time; the split merges its warps in order; the second
+    pass merges the splits in split order into (s+, 1) -> (loss, lse)."""
+    B, N, _ = zn.shape
+    s = torch.einsum("bd,bnd->bn", z, zn) / tau
+    pos = (z * zp).sum(-1) / tau
+    parts = []
+    for n0, n1 in _split_ranges(N, splits(B, N)):
+        warps = []
+        for w in range(WARPS):
+            wm, wl = torch.full((B,), -1e30), torch.zeros(B)
+            rows = list(range(n0 + w, n1, WARPS))
+            for i in range(0, len(rows), ROWS):
+                batch = [s[:, n] for n in rows[i:i + ROWS]]
+                wm, wl = _merge(wm, wl, batch, [torch.ones(B)] * len(batch))
+            warps.append((wm, wl))
+        parts.append(_merge(*warps[0], *zip(*warps[1:])))
+    m, l = _merge(pos, torch.ones(B), *zip(*parts))
+    lse = m + torch.log(l)
+    return lse - pos, lse
+
+
+def _emulated_dz(z, zp, zn, lse, g, tau):
+    """The backward's dz in the kernels' order: each warp sums p_n z_neg[n]
+    over its negatives, each split its warps in order, the second pass the
+    splits in split order."""
+    B, N, d = zn.shape
+    s = torch.einsum("bd,bnd->bn", z, zn) / tau
+    p = torch.exp(s - lse[:, None])
+    c = g / tau
+    p0m1 = torch.exp((z * zp).sum(-1) / tau - lse) - 1.0
+    total = None
+    for n0, n1 in _split_ranges(N, splits(B, N)):
+        part = None
+        for w in range(WARPS):
+            acc = torch.zeros(B, d)
+            for n in range(n0 + w, n1, WARPS):
+                acc = acc + p[:, n, None] * zn[:, n]
+            part = acc if part is None else part + acc
+        total = part if total is None else total + part
+    return c[:, None] * (p0m1[:, None] * zp + total)
+
+
+def test_split_plan():
+    """About 128 blocks of at least 8 negatives: 16 splits of 17 at the
+    edge learner's (8, 264); never more splits than negatives."""
+    assert splits(8, 264) == 16 and -(-264 // 16) == 17
+    for B, N in ((1, 1), (8, 1), (3, 100), (8, 263), (300, 50), (1, 5000)):
+        ns = splits(B, N)
+        assert 1 <= ns <= N
+        assert all(n1 > n0 for n0, n1 in _split_ranges(N, ns))
+        assert B * ns <= max(128, B)
+
+
+@pytest.mark.parametrize("B,N,d", [(8, 264, 128), (4, 1, 32), (3, 263, 32),
+                                   (8, 263, 64)])
+def test_split_merge_order_matches_pallas_and_oracle(B, N, d):
+    """The kernels' merge order is a valid logsumexp at rtol 1e-5: N = 264
+    (the path's shape), N = 1, and N not a multiple of the split."""
+    ns = splits(B, N)
+    if N > 1:
+        assert N % -(-N // ns) != 0 or (B, N) == (8, 264)
+    rng = np.random.default_rng(B * N + d)
+    z, zp, zn = _sphere(rng, (B, d)), _sphere(rng, (B, d)), \
+        _sphere(rng, (B, N, d))
+    loss, lse = _emulated_forward(*map(torch.from_numpy, (z, zp, zn)), TAU)
+    oracle = np.asarray(jref.infonce_vneg_ref(z, zp, zn, TAU))
+    pallas = np.asarray(jops.infonce_vneg(z, zp, zn, tau=TAU))
+    np.testing.assert_allclose(loss.numpy(), oracle, rtol=RTOL)
+    np.testing.assert_allclose(loss.numpy(), pallas, rtol=RTOL)
+    want_loss, want_lse = infonce_vneg_fwd_ref(
+        *map(torch.from_numpy, (z, zp, zn)), TAU)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=RTOL)
+    # the backward's split sums against jax.grad of the oracle
+    g = rng.normal(size=B).astype(np.float32)
+    dz = _emulated_dz(*map(torch.from_numpy, (z, zp, zn)), lse,
+                      torch.from_numpy(g), TAU)
+    jdz = jax.grad(lambda a: jnp.sum(jref.infonce_vneg_ref(a, zp, zn, TAU)
+                                     * g))(z)
+    assert _rel(dz.numpy(), np.asarray(jdz)) <= RTOL

@@ -195,8 +195,14 @@ def _single_inputs(seed, W, d, M, dup=0):
     return x, dirs, prior
 
 
-@pytest.mark.parametrize("W,d,M,dup", [(104, 32, 32, 96), (16, 8, 5, 0),
-                                       (37, 12, 9, 10)])
+# the edge learner's buffer (104 rows, 96 tied), small and ragged sets,
+# and the LM step's SW term: 128 pooled points at d_model 1,024, 50
+# directions, with 96 tied rows
+RANK_CASES = [(104, 32, 32, 96), (16, 8, 5, 0), (37, 12, 9, 10),
+              (128, 1024, 50, 96)]
+
+
+@pytest.mark.parametrize("W,d,M,dup", RANK_CASES)
 def test_swd_rank_forward_matches_reference(W, d, M, dup):
     """The loss against ``sliced_w2`` and the ranks against the inverse of
     the reference's stable argsort, ties included (exactly)."""
@@ -216,8 +222,7 @@ def test_swd_rank_forward_matches_reference(W, d, M, dup):
     np.testing.assert_array_equal(rank.numpy(), want)
 
 
-@pytest.mark.parametrize("W,d,M,dup", [(104, 32, 32, 96), (16, 8, 5, 0),
-                                       (37, 12, 9, 10)])
+@pytest.mark.parametrize("W,d,M,dup", RANK_CASES)
 def test_swd_rank_backward_formula_matches_autograd_and_jax_grad(W, d, M,
                                                                  dup):
     """dx = Σ_m 2g(proj − prior_q[rank])/(W·M)·dirs_m against autograd
@@ -264,3 +269,77 @@ def test_swd_single_on_cpu_and_checks():
         swd_rank_bwd(torch.tensor(1.0), proj, rank.long(), pq, td)
     with pytest.raises(ValueError):
         swd_rank_bwd(torch.ones(2), proj, rank, pq, td)
+
+
+# --- the kernels' sort network, emulated ---------------------------------
+
+def _after(a, ra, b, rb):
+    return (a > b) | ((a == b) & (ra > rb))
+
+
+def _warp_sort(v, r, V):
+    """``csrc/swd.cu``'s ``warp_sort`` on one column of P = 32·V (value,
+    row) pairs, lane l holding positions l·V .. l·V + V - 1 (v and r are
+    (32, V)): the bitonic network in its ascending form, each merge of
+    width k first pairing position p with p ^ (k - 1), then p with p ^ j
+    for j = k/4 .. 1, the lower position keeping the smaller pair; pairs
+    inside a lane compare two registers, pairs across lanes exchange
+    register i (or V - 1 - i in a merge's first stage) with lane
+    l ^ (stride / V)."""
+    v, r = v.copy(), r.copy()
+    lane = np.arange(32)[:, None]
+    lv = V.bit_length() - 1
+
+    def cas(i, p):
+        a, ra, b, rb = v[:, i].copy(), r[:, i].copy(), v[:, p].copy(), \
+            r[:, p].copy()
+        swap = _after(a, ra, b, rb)
+        v[:, i], v[:, p] = np.where(swap, b, a), np.where(swap, a, b)
+        r[:, i], r[:, p] = np.where(swap, rb, ra), np.where(swap, ra, rb)
+
+    def strides(top):
+        for lj in range(top, -1, -1):
+            for i in range(V):
+                if not i & (1 << lj):
+                    cas(i, i | (1 << lj))
+
+    def lanes(mask, keep_min, flip):
+        src = [V - 1 - i for i in range(V)] if flip else list(range(V))
+        o, ro = v[lane[:, 0] ^ mask][:, src], r[lane[:, 0] ^ mask][:, src]
+        take = np.where(keep_min, _after(v, r, o, ro), _after(o, ro, v, r))
+        v[:], r[:] = np.where(take, o, v), np.where(take, ro, r)
+
+    for lk in range(1, lv + 1):                     # widths k <= V
+        k = 1 << lk
+        for i in range(V):
+            if not i & (k >> 1):
+                cas(i, i ^ (k - 1))
+        strides(lk - 2)
+    k = 2 * V
+    while k <= 32 * V:
+        lanes(k // V - 1, (lane & (k // (2 * V))) == 0, True)
+        j = k // 4
+        while j >= V:
+            lanes(j // V, (lane & (j // V)) == 0, False)
+            j //= 2
+        strides(lv - 1)
+        k *= 2
+    return v.reshape(-1), r.reshape(-1)
+
+
+@pytest.mark.parametrize("V,W", [(1, 1), (1, 32), (2, 37), (4, 100),
+                                 (4, 104), (16, 300), (32, 1000)])
+def test_warp_sort_network_is_a_stable_sort(V, W):
+    """The network, with the +3.0e38 sentinels past W, puts the W values in
+    ascending order with ties broken by row: the order of
+    ``torch.sort(stable=True)``, so the ranks the kernel writes are the
+    plain version's.  Values drawn from 6 levels, so ties are everywhere."""
+    rng = np.random.default_rng(V * 1000 + W)
+    P = 32 * V
+    vals = np.full(P, 3.0e38, np.float32)
+    vals[:W] = rng.integers(0, 6, size=W).astype(np.float32) / 7
+    v, r = _warp_sort(vals.reshape(32, V), np.arange(P).reshape(32, V), V)
+    srt, perm = torch.sort(torch.from_numpy(vals[:W]), stable=True)
+    np.testing.assert_array_equal(v[:W], srt.numpy())
+    np.testing.assert_array_equal(r[:W], perm.numpy())
+    assert (v[W:] == np.float32(3.0e38)).all()

@@ -86,24 +86,28 @@ VARIANTS = {
 ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 
 
+def patched(text, name, subs):
+    """``text`` with every {old: new} of ``subs`` replaced (each ``old``
+    must occur), ``name`` naming the variant in the error."""
+    for old, new in subs.items():
+        if old not in text:
+            raise RuntimeError(f"{name}: the source no longer has {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
 def compile_all(build, variants=None, kernels="flash_bwd",
-                out="flash_bwd_variants", source=SOURCE):
+                out="flash_bwd_variants", source=SOURCE, suffix=""):
     """{name: (library path, ptxas lines of the kernels whose names hold
     ``kernels``)} for ``csrc/<source>`` and every variant of it
-    (``VARIANTS`` unless given: {name: {old text: new text}}), compiled at
-    once into ``build/<out>/``."""
+    (``VARIANTS`` unless given: {name: {old text: new text}}), each copy
+    ending in ``suffix``, compiled at once into ``build/<out>/``."""
     out_dir = os.path.join(ROOT, "build", out)
     os.makedirs(out_dir, exist_ok=True)
     text = (build.CSRC / source).read_text()
-    jobs = {"source": text}
+    jobs = {"source": text + suffix}
     for name, subs in (VARIANTS if variants is None else variants).items():
-        variant = text
-        for old, new in subs.items():
-            if old not in variant:
-                raise RuntimeError(f"{name}: the source no longer has "
-                                   f"{old!r}")
-            variant = variant.replace(old, new)
-        jobs[name] = variant
+        jobs[name] = patched(text, name, subs) + suffix
 
     def one(item):
         name, src_text = item
