@@ -42,7 +42,10 @@ in-register sort, W = 1, 300 (16 values a lane) and 1,200 (d in chunks,
 the directions in groups), at M = 1 and d = 127; the GMM also at the
 variance floor,
 at the cascade's (8, 64, 1,024), at (64, 64, 2,048) and at the edges of
-its tiling, (1, 64, 128), (8, 64, 1,000), (8, 10, 1,024); tolerances SWD
+its tiling, (1, 64, 128), (8, 64, 1,000), (8, 10, 1,024); the Laplacian
+also at the edges of its plan: whole chunks and a last chunk of one
+frame, K at a chunk's length and past its register ring, d = 127 and
+2,048, B = 1 with T = 1,000, B = 300 and a misaligned z; tolerances SWD
 rtol 1e-4, Laplacian rtol 1e-5, GMM resp atol 1e-4 and entropy atol 5e-4,
 the reference's own for its Pallas kernels.  Two launches on one input must
 be bitwise equal.
@@ -67,7 +70,9 @@ and M in {32, 50}, at the LM step's W 128, M 50 with d 1,024 and 2,048,
 at W = 1 and at W = 1,000 (32 values a lane), with 96 (or W/2) identical
 rows;
 ``laplacian_energy`` forward and backward at (1, 104, 128) k = 3, k >= T,
-T = 1 and an all-masked row.  Forwards within phase 3's tolerances
+T = 1 and an all-masked row, T = 105 (a last chunk of one frame), k = 20
+and the LM step's (8, 16, 1,024) k = 5, aligned and misaligned.  Forwards
+within phase 3's tolerances
 (InfoNCE rtol 1e-5, SWD loss rtol 1e-4, ranks exact against
 ``torch.sort(stable=True)`` of the kernel's projections), gradients
 within 1e-5 of each gradient's max |g|; the autograd entries must give
@@ -83,15 +88,18 @@ GMM after ``em_update`` are compared with the port on the CPU (same
 weights, data and draws; rtol 1e-4 of each tensor's max |x|).  It prints
 cold and warm step times, a profiled step, the final loss, probe accuracy
 and collapse, and each training kernel's time at the path's shape (``swd_rank_fwd``
-and ``_bwd`` also at the LM step's (128, 1,024), M 50).
+and ``_bwd`` also at the LM step's (128, 1,024), M 50, and
+``laplacian_energy`` and ``_bwd`` at its (8, 16, 1,024), k 5).
 
-Phase 7 holds the per-tensor wire kernels ``int8_quantize`` (two
-passes) and ``int8_dequantize`` bitwise against their plain versions on
-the card: every full-width boundary shape of ``SplitEngine.run`` at B=1
-(k = 0..7, 3,200-12,800 elements, 3,328 and 6,656 at k = 6 and 7), B=32
-at k=0, sizes 1, 4095, 4097 and 2^24 + 3, a constant tensor (the scale
-floor), one outlier, a view that is not 16-byte aligned and one NaN,
-+inf or -inf element (NaN equal to NaN); two launches
+Phase 7 holds the per-tensor wire kernels ``int8_quantize`` (one block
+up to 16,384 elements, two passes above) and ``int8_dequantize`` bitwise
+against their plain versions on the card: every full-width boundary
+shape of ``SplitEngine.run`` at B=1 (k = 0..7, 3,200-12,800 elements,
+3,328 and 6,656 at k = 6 and 7), B=32 at k=0, sizes 1, 3, 5, 4095, 4097,
+16,384, 16,385 and 2^24 + 3, a constant tensor (the scale floor), one
+outlier, views that are not 16-byte aligned (12,800 and 16,385 elements)
+and one NaN (at 3,328 and 16,385), +inf or -inf element (NaN equal to
+NaN); two launches
 must give the same bits, and ``run`` at B=1 must equal
 ``run_batch_async`` at B=1 bitwise at every k.  It times both kernels,
 their plain versions and ``torch.aminmax`` (beside pass 1; it is the
@@ -590,6 +598,14 @@ def hold(name, kernel, plain, args, tols, what):
     return worst
 
 
+def off_16_bytes(x):
+    """A contiguous copy of ``x`` one float past a 16-byte boundary (the
+    kernels' scalar path)."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
+
+
 def phase3(dev, ops):
     """Each refine kernel against its plain version on the card ->
     {name: max |err|}."""
@@ -614,14 +630,33 @@ def phase3(dev, ops):
         worst["swd_sessions"] = max(worst["swd_sessions"], hold(
             "swd_sessions", swd, swd_ref, (z, dirs, pq), [(SWD_RTOL, 0.0)],
             f"S={s_} W={W} M={M} d={d_}"))
-    for s_, T, k in ((S, WINDOW, KNN), (S, 16, KNN), (S, 128, KNN),
-                     (64, 16, 20), (16, 1, KNN), (9, 37, 3)):
-        z, mask, _, _ = refine_inputs(g, dev, s_, T, d, 1)
+    lap_cases = [(g, s_, T, d, k, False) for s_, T, k in (
+        (S, WINDOW, KNN), (S, 16, KNN), (S, 128, KNN), (64, 16, 20),
+        (16, 1, KNN), (9, 37, 3))]
+    # the Laplacian kernel's plan at its edges (inputs from their own
+    # generator): whole chunks (T 64: 8 chunks of 8 frames) and a last
+    # chunk of one frame (T 57), K at a chunk's length (13 frames at T 100:
+    # three delta groups of the 5-frame ring) and past it (20: four), d =
+    # 127 (scalar lanes) and 2,048 (16 column slices, a cluster of 8 blocks
+    # a row), B = 1 with T = 1,000 (63 chunks of 16), B = 300, and z one
+    # float off 16 bytes (scalar lanes)
+    g_lap = torch.Generator(device=dev).manual_seed(33)
+    lap_cases += [(g_lap, *c) for c in (
+        (S, 64, d, KNN, False), (S, 57, d, KNN, False),
+        (S, WINDOW, d, 13, False), (S, WINDOW, d, 20, False),
+        (9, 37, 127, 3, False), (4, WINDOW, 2048, KNN, False),
+        (1, 1000, d, KNN, False), (300, WINDOW, d, KNN, False),
+        (8, WINDOW, d, KNN, True))]
+    for gen, s_, T, d_, k, off in lap_cases:
+        z, mask, _, _ = refine_inputs(gen, dev, s_, T, d_, 1)
+        if off:
+            z = off_16_bytes(z)
         lap = lambda z, m: ops.laplacian_energy(z, m, k)  # noqa: E731
         lap_ref = lambda z, m: ops.laplacian_energy_ref(z, m, k)  # noqa
         worst["laplacian_energy"] = max(worst["laplacian_energy"], hold(
             "laplacian_energy", lap, lap_ref, (z, mask),
-            [(LAP_RTOL, 0.0), (0.0, 0.0)], f"B={s_} T={T} k={k}"))
+            [(LAP_RTOL, 0.0), (0.0, 0.0)],
+            f"B={s_} T={T} d={d_} k={k}" + (" misaligned" if off else "")))
     for B, C, floor in ((S * WINDOW, N_COMPONENTS, False),
                         (1007, N_COMPONENTS, True), (333, 10, False)):
         worst["gmm_posterior"] = max(worst["gmm_posterior"], hold(
@@ -639,8 +674,10 @@ def phase3(dev, ops):
                          (1, N_COMPONENTS, d), (8, N_COMPONENTS, 1000),
                          (8, 10, 1024)))
     print("phase 3: swd_sessions (rtol 1e-4; also W = 1, 300, 1,200, M = "
-          "1, d = 127), laplacian_energy (rtol 1e-5, "
-          "counts exact) and gmm_posterior (resp atol 1e-4, entropy atol "
+          "1, d = 127), laplacian_energy (rtol 1e-5, counts exact; also "
+          "whole chunks and a last chunk of one frame, K 13 and 20, d = 127 "
+          "and 2,048, B = 1 with T = 1,000, B = 300, a misaligned z) and "
+          "gmm_posterior (resp atol 1e-4, entropy atol "
           "5e-4) == plain version at the refine shapes and edge cases, "
           "bitwise from run to run; max |err| " + ", ".join(
               f"{k} {v:.3e}" for k, v in worst.items())
@@ -897,6 +934,8 @@ INFONCE_RTOL, TRAIN_SWD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-5
 # d_model 1,024 (qwen1.5-0.5b; 2,048 for qwen3-1.7b), HybridCfg's 50
 # directions
 LM_SW_POINTS, LM_SW_DIRS, LM_D = 128, 50, 1024
+# the LM step's Laplacian term: B 8 rows of S 1,024 / pool 64 = 16 frames
+LM_LAP_B, LM_LAP_T = 8, 16
 TRAIN_KERNELS = ("infonce_vneg_fwd", "infonce_vneg_bwd", "swd_rank_fwd",
                  "swd_rank_bwd", "laplacian_energy", "laplacian_energy_bwd",
                  "gmm_posterior")
@@ -928,9 +967,7 @@ def infonce_inputs(g, dev, B, N, d, misaligned=False):
     z, zp = unit_rows(g, (B, d), dev), unit_rows(g, (B, d), dev)
     zn = unit_rows(g, (B, N, d), dev)
     if misaligned:
-        buf = torch.empty(B * N * d + 1, device=dev)
-        buf[1:] = zn.reshape(-1)
-        zn = buf[1:].view(B, N, d)
+        zn = off_16_bytes(zn)
     return z, zp, zn, torch.randn(B, device=dev, generator=g)
 
 
@@ -1021,15 +1058,29 @@ def phase5(dev, ops):
             a, = torch.autograd.grad(ops.swd_single(xl, dirs, pq), xl, cot)
         check(torch.equal(a, dx), f"swd_single autograd != swd_rank_bwd at "
               f"{what}")
-    for B, T, d, k, masked in ((1, BUFFER + TRAIN_BATCH, 128, TRAIN_KNN, False),
-                               (2, 16, 128, 20, False),
-                               (4, 1, 128, TRAIN_KNN, False),
-                               (3, 37, 64, TRAIN_KNN, True)):
-        what = f"B={B} T={T} d={d} k={k}"
-        z, mask, _, _ = refine_inputs(g, dev, B, T, d, 1)
+    # and, from their own generator, the forward's plan at the edge
+    # learner's and the LM step's shapes: a last chunk of one frame (T 105),
+    # K past the 5-frame register ring over a cluster (k 20: four delta
+    # groups), the LM step's (8, 16, 1,024) k 5 (8 column slices x 8 chunks
+    # a row), and that in a z one float off 16 bytes
+    g_lap = torch.Generator(device=dev).manual_seed(55)
+    lap_cases = [(g, *c, False) for c in (
+        (1, BUFFER + TRAIN_BATCH, 128, TRAIN_KNN, False),
+        (2, 16, 128, 20, False), (4, 1, 128, TRAIN_KNN, False),
+        (3, 37, 64, TRAIN_KNN, True))]
+    lap_cases += [(g_lap, *c) for c in (
+        (1, BUFFER + TRAIN_BATCH + 1, 128, TRAIN_KNN, False, False),
+        (1, BUFFER + TRAIN_BATCH, 128, 20, False, False),
+        (LM_LAP_B, LM_LAP_T, LM_D, KNN, False, False),
+        (LM_LAP_B, LM_LAP_T, LM_D, KNN, False, True))]
+    for gen, B, T, d, k, masked, off in lap_cases:
+        what = f"B={B} T={T} d={d} k={k}" + (" misaligned" if off else "")
+        z, mask, _, _ = refine_inputs(gen, dev, B, T, d, 1)
+        if off:
+            z = off_16_bytes(z)
         if masked:
             mask[1] = 0.0
-        cot = torch.randn(B, device=dev, generator=g)
+        cot = torch.randn(B, device=dev, generator=gen)
         hold("laplacian_energy", lambda z, m: ops.laplacian_energy(z, m, k),
              lambda z, m: ops.laplacian_energy_ref(z, m, k), (z, mask),
              [(LAP_RTOL, 0.0), (0.0, 0.0)], what)
@@ -1056,7 +1107,9 @@ def phase5(dev, ops):
           f"{TRAIN_SWD_RTOL}, ranks exact; also the LM step's W "
           f"{LM_SW_POINTS}, M {LM_SW_DIRS} at d 1,024 and 2,048, W = 1 and "
           f"1,000) and bwd, "
-          f"laplacian_energy fwd (rtol {LAP_RTOL}) and bwd == plain versions "
+          f"laplacian_energy fwd (rtol {LAP_RTOL}; also T 105, k 20, the LM "
+          f"step's ({LM_LAP_B}, {LM_LAP_T}, {LM_D}) k {KNN}, misaligned) and "
+          f"bwd == plain versions "
           f"(gradients within {GRAD_ATOL} x max |g|), autograd entries == "
           f"their backward kernels, bitwise from run to run; max |err| "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
@@ -1248,6 +1301,10 @@ def train_kernel_times(dev, ops):
     W, d, M = LM_SW_POINTS, LM_D, LM_SW_DIRS
     lx, ldirs, lpq = swd_train_inputs(g, dev, W, d, M)
     _, lproj, lrank = ops.swd_rank_fwd(lx, ldirs, lpq)
+    LB, LT = LM_LAP_B, LM_LAP_T
+    lm_z = unit_rows(g, (LB, LT, d), dev)
+    lm_mask, lm_g = torch.ones(LB, LT, device=dev), torch.ones(LB, device=dev)
+    lm_pairs = sum(LT - delta for delta in range(1, min(KNN, LT - 1) + 1))
     lm_cases = {
         "swd_rank_fwd": (
             lambda a: ops.swd_rank_fwd(*a), lambda a: ops.swd_rank_fwd_ref(*a),
@@ -1257,14 +1314,30 @@ def train_kernel_times(dev, ops):
             lambda a: ops.swd_rank_bwd(*a), lambda a: ops.swd_rank_bwd_ref(*a),
             (one, lproj, lrank, lpq, ldirs),
             4 * (1 + 3 * W * M + M * d + W * d), 2 * W * M * d + 4 * W * M),
+        # the hybrid term's Laplacian at (8, 16, 1,024), k 5, counted as at
+        # the training shape
+        "laplacian_energy": (
+            lambda a: ops.laplacian_energy(*a, KNN),
+            lambda a: ops.laplacian_energy_ref(*a, KNN), (lm_z, lm_mask),
+            4 * (LB * LT * d + LB * LT + 2 * LB), LB * lm_pairs * (3 * d + 4)),
+        "laplacian_energy_bwd": (
+            lambda a: ops.laplacian_energy_bwd(*a, KNN),
+            lambda a: ops.laplacian_energy_bwd_ref(*a, KNN),
+            (lm_z, lm_mask, lm_g), 4 * (2 * LB * LT * d + LB * LT + LB),
+            LB * (6 * lm_pairs * d + 2 * LT * d)),
     }
     out = {}
-    for where, group in (("the training shape", cases),
-                         (f"the LM step's shape ({W}, {d}), M {M}",
-                          lm_cases)):
+    for group in (cases, lm_cases):
         for name, (fn, plain, args, nbytes, nops) in group.items():
+            where = ("the training shape" if group is cases else
+                     f"the LM step's shape ({W}, {d}), M {M}"
+                     if name.startswith("swd") else
+                     f"the LM step's shape ({LB}, {LT}, {d}), k {KNN}")
             ms = device_ms(fn, args)
-            plain_ms = device_ms(plain, args, reps=20)
+            # the plain Laplacian at k 5 launches ~47 kernels a call: 10
+            # calls keep the queue behind the spin under its depth
+            plain_ms = device_ms(plain, args,
+                                 reps=20 if group is cases else 10)
             b_ms = nbytes / HBM_BYTES_PER_S * 1e3
             o_ms = nops / FP32_OPS_PER_S * 1e3
             rec = {"ms": ms, "plain_ms": plain_ms,
@@ -1316,6 +1389,16 @@ def quant_cases(cfg, g, dev):
         x = torch.randn(3328, device=dev, generator=g)
         x[5] = v
         cases.append((what, x))
+    # the quantize's launch plan at its edges: n = 3 and 5 (float4 lanes and
+    # their tail), one block's capacity (16,384) and one past it (the two
+    # passes), a view off 16 bytes and a NaN past it
+    for n in (3, 5, 16384, 16385):
+        cases.append((f"n={n}", torch.randn(n, device=dev, generator=g)))
+    cases.append(("unaligned view n=16385", torch.randn(
+        16386, device=dev, generator=g)[1:]))
+    x = torch.randn(16385, device=dev, generator=g)
+    x[16000] = float("nan")
+    cases.append(("nan n=16385", x))
     return cases
 
 
@@ -1349,7 +1432,7 @@ def phase7(cfg, dev, ops):
               f"to run) at {what}")
         if what == "constant":
             check(torch.equal(out, x), "constant tensor not restored")
-        if what == "nan":
+        if what.startswith("nan"):
             check(not qt.q.any() and bool(torch.isnan(out).all()),
                   "a NaN element must give NaN scale, levels 0, NaN out")
     # SplitEngine.run (per-tensor kernels) == run_batch_async (per-row
@@ -1367,8 +1450,10 @@ def phase7(cfg, dev, ops):
               f"run != run_batch_async at B=1, k={k}")
     print(f"phase 7: int8_quantize and int8_dequantize bitwise == plain "
           f"versions at {len(cases)} cases (every per-frame boundary shape, "
-          f"B=32 at k=0, n in 1, 4095, 4097, 2^24+3, constant, outlier, "
-          f"unaligned, NaN, +inf, -inf) and from run to run; run == "
+          f"B=32 at k=0, n in 1, 3, 5, 4095, 4097, 16,384 (one block), "
+          f"16,385 (two passes), 2^24+3, constant, outlier, unaligned at "
+          f"12,800 and 16,385, NaN at 3,328 and 16,385, +inf, -inf) and "
+          f"from run to run; run == "
           f"run_batch_async at B=1 "
           f"for k = 0..{cfg.n_blocks}, bitwise; max |err| " + ", ".join(
               f"{k} {v:.3e}" for k, v in worst.items()))
@@ -1395,7 +1480,8 @@ def quant_kernel_times(cfg, dev, ops):
         for name, fn, plain, arg, nbytes, nops in (
                 # read x once, write q and the 8-byte (scale, zero)
                 # header; min + max, then divide, add, round, 2 clamps,
-                # convert (the kernel's pass 2 reads x again: not counted)
+                # convert (above one block, pass 2 reads x again: not
+                # counted)
                 ("int8_quantize", ops.int8_quantize, ops.int8_quantize_ref,
                  x, 5 * n + 8, 8 * n),
                 # read q and the header, write out: subtract, multiply
@@ -2466,6 +2552,9 @@ def main():
             "library_ms": None, "launches_by_path": by_path(name)})
         if name in train_times:              # also on the training path
             records[-1]["train_shape"] = train_times.pop(name)
+            if "lm_shape" in records[-1]["train_shape"]:
+                records[-1]["lm_shape"] = records[-1]["train_shape"].pop(
+                    "lm_shape")
     no_pallas = ("no Pallas counterpart: the reference differentiates the "
                  "jnp twin ({})")
     for name, source, replaces in (

@@ -17,8 +17,9 @@ Each public wrapper dispatches on its input's device.  On a CUDA tensor
 it launches its hand-written kernel or raises; on a CPU tensor it runs
 its ``*_ref``, the plain PyTorch version, which is also what the kernel
 is held against bitwise on the card.  Each wrapper counts its launches
-in ``<wrapper>.launches`` (one a call: ``int8_quantize``'s call is its
-two passes).
+in ``<wrapper>.launches`` (one a call: ``int8_quantize``'s call is one
+kernel launch up to ``ONE_BLOCK_MAX`` elements, two passes above it;
+``quantize_plan`` says which).
 """
 from __future__ import annotations
 
@@ -91,8 +92,19 @@ int8_quantize_ref = quantize
 int8_dequantize_ref = dequantize
 
 
-# pass 1's scratch: (lo, hi) for at most kMaxBlocks blocks (csrc/int8_quant.cu)
+# csrc/int8_quant.cu: one block of up to 1,024 threads holds n <=
+# ONE_BLOCK_MAX elements, 16 a thread, and quantizes them in one launch;
+# above that, two passes whose scratch is (lo, hi) for at most kMaxBlocks
+# (1,024) blocks
+ONE_BLOCK_MAX = 1024 * 16
 _PARTIALS = 2 * 1024
+
+
+def quantize_plan(n):
+    """-> (kernel launches, scratch floats) of ``int8_quantize``'s call on
+    ``n`` elements: one launch and no scratch up to ``ONE_BLOCK_MAX``, two
+    passes over (lo, hi) partials above it."""
+    return (1, 0) if n <= ONE_BLOCK_MAX else (2, _PARTIALS)
 
 
 def _non_empty(name, x):
@@ -104,10 +116,10 @@ def int8_quantize(x) -> QTensor:
     """Per-tensor INT8 quantize of ``x`` (any shape, taken flat) ->
     ``QTensor(q int8 like x, scale () f32, zero () f32)``.
 
-    A CUDA tensor must be contiguous float32: the two passes run on the
-    current stream with no host round trip between them, and scale and
-    zero stay on the device.  A CPU tensor goes to
-    ``int8_quantize_ref``."""
+    A CUDA tensor must be contiguous float32: the kernel (one block up to
+    ``ONE_BLOCK_MAX`` elements, else two passes with no host round trip
+    between them) runs on the current stream, and scale and zero stay on
+    the device.  A CPU tensor goes to ``int8_quantize_ref``."""
     if x.device.type == "cpu":
         return int8_quantize_ref(x)
     build.check_inputs("int8_quantize", x)
@@ -116,11 +128,14 @@ def int8_quantize(x) -> QTensor:
     n = x.numel()
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     sz = torch.empty(2, dtype=torch.float32, device=x.device)
-    partials = torch.empty(_PARTIALS, dtype=torch.float32, device=x.device)
+    _, scratch = quantize_plan(n)
+    partials = (torch.empty(scratch, dtype=torch.float32, device=x.device)
+                if scratch else None)
     with torch.cuda.device(x.device):
-        err = lib.int8_quantize_f32(x.data_ptr(), q.data_ptr(),
-                                    partials.data_ptr(), sz.data_ptr(), n,
-                                    build.stream_of(x))
+        err = lib.int8_quantize_f32(
+            x.data_ptr(), q.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            sz.data_ptr(), n, build.stream_of(x))
     build.raise_on_error(lib, "int8_quant", err)
     int8_quantize.launches += 1
     return QTensor(q=q, scale=sz[0], zero=sz[1])

@@ -87,7 +87,8 @@ def _tool(name):
         del sys.path[:2]
 
 
-@pytest.mark.parametrize("tool", ["swd_variants", "infonce_variants"])
+@pytest.mark.parametrize("tool", ["swd_variants", "infonce_variants",
+                                  "laplacian_variants", "int8_variants"])
 def test_variant_patches_apply_and_parse(tool, tmp_path):
     """Every copy of the kernel source that the tool compiles (the source
     and each variant's text patches, with the occupancy query appended to

@@ -12,6 +12,8 @@ Eager JAX divides by 255 where XLA multiplies by float32(1/255) under
 still agree on these inputs.  On the card ``chip_smoke.py`` holds the
 CUDA kernels bitwise against the same plain versions.
 """
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -24,9 +26,9 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.models import audio_encoder as jenc  # noqa: E402
 from repro_torch.core.splitter import SplitEngine  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.kernels.int8_quant import (int8_dequantize,  # noqa: E402
-                                            int8_dequantize_ref,
-                                            int8_quantize, int8_quantize_ref)
+from repro_torch.kernels.int8_quant import (  # noqa: E402
+    ONE_BLOCK_MAX, int8_dequantize, int8_dequantize_ref, int8_quantize,
+    int8_quantize_ref, quantize_plan)
 from repro_torch.models import audio_encoder as enc  # noqa: E402
 from repro_torch.quant.int8 import QTensor  # noqa: E402
 from repro_torch.weights import params_from_jax  # noqa: E402
@@ -199,3 +201,32 @@ def test_wrappers_refuse_devices_without_a_kernel():
     except RuntimeError:
         with pytest.raises(RuntimeError, match="nvcc"):
             build.load("int8_quant.cu")
+
+
+def _source_const(name):
+    text = (build.CSRC / "int8_quant.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("n,plan", [
+    (1, (1, 0)), (3, (1, 0)), (5, (1, 0)), (3200, (1, 0)), (12800, (1, 0)),
+    (ONE_BLOCK_MAX, (1, 0)), (ONE_BLOCK_MAX + 1, (2, 2048)),
+    (2 ** 24 + 3, (2, 2048))])
+def test_quantize_plan_one_launch_up_to_one_block(n, plan):
+    """``int8_quantize``'s launch plan: one launch and no scratch up to one
+    block's 1,024 threads x 16 floats (every per-frame boundary shape,
+    3,200-12,800 elements), two passes and their (lo, hi) partials above;
+    the constants are the source's own."""
+    assert quantize_plan(n) == plan
+    assert ONE_BLOCK_MAX == _source_const("kOneBlockThreads") * \
+        _source_const("kOneBlockPerThread") == 16384
+    assert plan[1] in (0, 2 * _source_const("kMaxBlocks"))
+    # the full-width boundaries of SplitEngine.run at k = 0..L-1 ("SAME"
+    # convolutions keep ceil(t / s) frames)
+    full = enc.AudioEncCfg()
+    t, sizes = full.frames, [full.frames * full.n_mels]
+    for w, s in zip(full.widths[:-1], full.strides[:-1]):
+        t = -(-t // s)
+        sizes.append(t * w)
+    assert (min(sizes), max(sizes)) == (3200, 12800)
+    assert all(quantize_plan(n) == (1, 0) for n in sizes)

@@ -8,10 +8,17 @@ mode (through ``repro.kernels.ops.laplacian_energy``), at rtol 1e-5 as
 the reference holds its Pallas kernel: float32 sums in another order.
 The edge counts are sums of 0/1 products and must be equal exactly.
 ``core/laplacian.py`` is held against ``repro.core.laplacian`` at 1e-5
-and its dense numpy utilities exactly.  ``laplacian_energy_bwd_ref``, the
+and its dense numpy utilities exactly.  The forward kernel's partition
+(column lanes, chunks of frames with a halo, clusters of blocks) and its
+fixed order of sums are emulated in float32 from the plan mirrored from
+the source's constants, and held against the plain version (rtol 1e-5,
+counts exact) and the Pallas kernel at the paths' plans and the plan's
+edges.  ``laplacian_energy_bwd_ref``, the
 backward kernel's explicit formula, is held against autograd of the
 plain forward and ``jax.grad`` of the oracle at 1e-5 of max |dz|.
 """
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -22,7 +29,7 @@ from repro.core import laplacian as jlap  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import laplacian as lap  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.laplacian_energy import (  # noqa: E402
     laplacian_energy, laplacian_energy_bwd, laplacian_energy_diff,
     laplacian_energy_ref)
@@ -181,3 +188,161 @@ def test_laplacian_diff_entry_on_cpu_and_checks():
         laplacian_energy_bwd(tz, tm, torch.ones(2).double(), 3)
     with pytest.raises(ValueError):
         laplacian_energy_bwd(tz, tm, torch.ones(2), -1)
+
+
+# --- the forward kernel's partition and merge order, emulated -------------
+#
+# ``csrc/laplacian_energy.cu`` cuts each row into tasks (a column slice of
+# 32 lanes x one chunk of frames, which owns the pairs whose later frame
+# lies in it), deals them to a cluster of blocks, and sums in a fixed
+# order: each lane's pairs in walk order (delta groups, later frames, then
+# deltas), the lanes by an xor tree, the warps in order, the blocks in rank
+# order; a warp's pair count task by task.  The emulation below repeats
+# that partition and order in float32 torch, one rounded operation for each
+# of the kernel's (which are all explicit _rn intrinsics, built without FMA
+# contraction), with the plan mirrored from the source's constants, and is
+# held against the plain version and the Pallas kernel at the paths' plans
+# and the plan's edges.
+
+_LAP_SRC = (build.CSRC / "laplacian_energy.cu").read_text()
+
+
+def _const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _LAP_SRC)
+               .group(1))
+
+
+WARPS, RING = _const("kThreads") // 32, _const("kRing")
+MIN_FRAMES, TARGET_WARPS = _const("kMinFrames"), _const("kTargetWarps")
+MAX_CLUSTER = _const("kMaxCluster")
+
+
+def _plan(B, T, d, vec=True):
+    """``make_plan`` of the source -> (vec, slices, frames, chunks,
+    cluster)."""
+    v = 4 if vec else 1
+    slices = -(-d // (32 * v))
+    per_row = max(TARGET_WARPS // B, WARPS)
+    chunks = max(-(-per_row // slices), 1)
+    frames = max(-(-T // chunks), MIN_FRAMES)
+    cap = MAX_CLUSTER * WARPS
+    if slices * -(-T // frames) > cap:
+        fit = max(cap // slices, 1)
+        frames = max(frames, -(-T // fit))
+    chunks = -(-T // frames)
+    return v, slices, frames, chunks, min(-(-slices * chunks // WARPS),
+                                          MAX_CLUSTER)
+
+
+def _emulate(z, mask, k, plan):
+    """The forward kernel's sums in its order, in float32 -> (tot, cnt)."""
+    B, T, d = z.shape
+    K = min(k, T - 1)
+    v, slices, frames, chunks, cluster = plan
+    lanes = torch.zeros(B, T, slices * 32 * v)
+    lanes[..., :d] = z
+    lanes = lanes.view(B, T, slices, 32, v)
+    warps, tasks = cluster * WARPS, slices * chunks
+    acc, pairs = torch.zeros(B, warps, 32), torch.zeros(B, warps)
+    groups = [(D, min(RING, K - D)) for D in range(0, K, RING)]
+    for w in range(warps):
+        for task in range(w, tasks, warps):
+            s, c = task % slices, task // slices
+            t0 = c * frames
+            t1 = min(t0 + frames, T)
+            count = torch.zeros(B)
+            # each group's pairs (a, b = a + D + j) with b in the chunk:
+            # steps bp = b - D in order, then j = 1..J
+            for D, J in groups:
+                for bp in range(max(t0 - D, 0), t1 - D):
+                    for j in range(1, J + 1):
+                        a, b = bp - j, bp + D
+                        if a < 0:
+                            continue
+                        wgt = mask[:, a] * mask[:, b]
+                        diff = lanes[:, b, s] - lanes[:, a, s]
+                        sq = diff * diff
+                        share = ((sq[..., 0] + sq[..., 1])
+                                 + (sq[..., 2] + sq[..., 3])) if v == 4 \
+                            else sq[..., 0]
+                        acc[:, w] = acc[:, w] + wgt[:, None] * share
+                        count = count + wgt
+            if s == 0:
+                pairs[:, w] = pairs[:, w] + count
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., torch.arange(32) ^ off]
+    acc = acc[..., 0]
+
+    def in_order(x):                      # (B, n) -> (B,), left to right
+        out = x[:, 0]
+        for i in range(1, x.shape[1]):
+            out = out + x[:, i]
+        return out
+    blocks = [(in_order(acc[:, r * WARPS:(r + 1) * WARPS]),
+               in_order(pairs[:, r * WARPS:(r + 1) * WARPS]))
+              for r in range(cluster)]
+    return (in_order(torch.stack([t for t, _ in blocks], 1)),
+            in_order(torch.stack([c for _, c in blocks], 1)))
+
+
+def test_plan_at_the_paths_shapes():
+    """The plans the source's header names: the refine round's rows one
+    block each, the edge learner's row over a cluster of 7, the LM step's
+    rows 8 slices x 8 chunks; and the scalar lanes where z is not
+    float4-aligned."""
+    assert (WARPS, RING, MAX_CLUSTER) == (8, 5, 8)
+    assert _plan(256, 100, 128) == (4, 1, 13, 8, 1)
+    assert _plan(1, 104, 128) == (4, 1, 2, 52, 7)
+    assert _plan(8, 16, 1024) == (4, 8, 2, 8, 8)
+    assert _plan(300, 100, 128) == (4, 1, 13, 8, 1)
+    assert _plan(9, 37, 127, vec=False) == (1, 4, 3, 13, 7)
+    # more tasks than a cluster's warps: longer chunks, one task a warp
+    assert _plan(1, 1000, 128) == (4, 1, 16, 63, 8)
+    assert _plan(4, 100, 2048) == (4, 16, 25, 4, 8)
+    # T = 1: one chunk, one block
+    assert _plan(16, 1, 128) == (4, 1, 2, 1, 1)
+
+
+# (what, B of the plan, B of the input, T, d, k, float4 lanes): the paths'
+# plans at a reduced B, the chunk's edges (T a whole number of chunks, a
+# last chunk of one frame), K at and past a chunk's length and past the
+# ring (three delta groups), k >= T, T = 1, k = 0, d = 127 and 2,048, a
+# misaligned z (scalar lanes at d = 128), B = 1 with T = 1,000, B = 300
+EMULATED = [
+    ("refine", 256, 3, 100, 128, 5, True),
+    ("edge", 1, 1, 104, 128, 3, True),
+    ("lm", 8, 2, 16, 1024, 5, True),
+    ("whole chunks", 256, 2, 64, 128, 5, True),
+    ("last chunk of one frame", 256, 2, 57, 128, 5, True),
+    ("edge, last chunk of one frame", 1, 1, 105, 128, 3, True),
+    ("K = chunk length", 256, 2, 100, 32, 13, True),
+    ("K past the ring", 256, 2, 100, 32, 20, True),
+    ("k >= T", 64, 2, 16, 32, 20, True),
+    ("T = 1", 16, 2, 1, 32, 5, True),
+    ("k = 0", 256, 2, 20, 32, 0, True),
+    ("d = 127", 9, 2, 37, 127, 3, False),
+    ("d = 2,048", 4, 2, 20, 2048, 5, True),
+    ("misaligned", 256, 2, 30, 128, 5, False),
+    ("B = 1, T = 1,000", 1, 1, 1000, 8, 5, True),
+    ("B = 300", 300, 2, 100, 64, 5, True),
+]
+
+
+@pytest.mark.parametrize("what,plan_b,B,T,d,k,vec", EMULATED,
+                         ids=[c[0] for c in EMULATED])
+def test_emulated_forward_kernel_matches_plain_and_pallas(what, plan_b, B,
+                                                          T, d, k, vec):
+    """The kernel's order against the plain version per row (rtol 1e-5,
+    counts exact) and its batch ratio against the Pallas kernel in
+    interpret mode; an all-masked row gives exactly 0."""
+    z, m = _inputs(B, T, d, T + d + k, masked_row=B > 1)
+    tz, tm = torch.from_numpy(z), torch.from_numpy(m)
+    tot, cnt = _emulate(tz, tm, k, _plan(plan_b, T, d, vec))
+    want_tot, want_cnt = laplacian_energy_ref(tz, tm, k)
+    np.testing.assert_allclose(tot.numpy(), want_tot.numpy(), rtol=RTOL)
+    assert torch.equal(cnt, want_cnt)
+    if B > 1:
+        assert tot[-1] == 0.0 and cnt[-1] == 0.0
+    pallas = float(jops.laplacian_energy(z, m, k=k))
+    np.testing.assert_allclose(float(tot.sum() / cnt.sum().clamp_min(1.0)),
+                               pallas, rtol=RTOL)

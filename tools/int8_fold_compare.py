@@ -10,7 +10,8 @@ plain versions.  This script builds two variants of each source beside
 them, into ``build/int8_fold/``:
 
 - ``fminf``: the fold as ``fminf``/``fmaxf``, which drop NaN (and the
-  quantize's clip as ``fminf(fmaxf(q, -128), 127)``);
+  wire's clip as ``fminf(fmaxf(q, -128), 127)``; ``int8_quant.cu``'s
+  level is one saturating convert, which has no clip to patch);
 - ``select``: NaN kept by a select on ``a != a`` around ``fminf``.
 
 It holds the sources' kernels and the ``select`` variant bitwise against
