@@ -11,23 +11,30 @@ always-on ``StreamServer`` with the RL split policy, the LM cascade
 server at the full width and depth of qwen1.5-0.5b and qwen3-1.7b, and
 the LM trainer at the full width and depth of qwen1.5-0.5b.
 
-Phase 1 holds each kernel against its plain PyTorch version on the card,
-bitwise, at every shape the serving path gives it (plus constant,
-outlier, NaN, +inf and -inf rows), and the wire kernel at B=1 against the
-per-tensor quantize∘dequantize.
+Phase 1 holds the wire kernel against its plain PyTorch version on the
+card, bitwise, at every shape the serving path gives it (plus constant,
+outlier, NaN, +inf and -inf rows), and at B=1 against the per-tensor
+quantize∘dequantize; then ``wire_roundtrip_grouped`` (the tick's buckets
+in one launch) bitwise against its plain version, against one
+``wire_roundtrip`` launch a group and from run to run: the tick's eight
+groups ragged (28/29 rows) and padded (32), one group, the most groups a
+launch takes, B = 1 groups and groups of one width, with those rows in
+every group.
 
 Phase 2 runs ``StreamSplitGateway`` (``AudioEncCfg()``, random weights
 from a seed, a host fleet of 256 sessions x 100 frames, refine off)
 with a policy that spreads k = 0..8 over the sessions: 9 buckets a tick,
 each padded to 32 frames.  One warm-up tick and 8 timed ticks, with the
-kernels' launch counts set to 0 just before and read just after.  It
+kernels' launch counts set to 0 just before and read just after; each
+tick must launch ``wire_roundtrip_grouped`` once (all its buckets' edge
+stages, one wire, all server stages).  It
 checks results, counters and launches, compares the first tick with
 ``overlap=False`` on the card (bitwise) and with the same port run on
 the CPU (atol 1e-4), and times each kernel at the shapes of the run.
 Then the per-frame split path: ``SplitEngine.run`` on each of the first
 tick's 256 frames at its k, counted the same way, whose per-tensor wire
-must launch ``int8_quantize`` and ``int8_dequantize`` once for each
-frame with k < L (and ``wire_roundtrip`` never), and each frame's
+must launch ``int8_quantize_roundtrip`` once for each frame with k < L
+(and no other wire kernel), and each frame's
 embedding must equal, bitwise, the same stages run on the plain
 per-tensor wire of that frame's edge activation; it prints the bucketed
 against per-frame bound.
@@ -92,7 +99,10 @@ and ``_bwd`` also at the LM step's (128, 1,024), M 50, and
 ``laplacian_energy`` and ``_bwd`` at its (8, 16, 1,024), k 5).
 
 Phase 7 holds the per-tensor wire kernels ``int8_quantize`` (one block
-up to 16,384 elements, two passes above) and ``int8_dequantize`` bitwise
+up to 16,384 elements, two passes above), ``int8_dequantize`` and
+``int8_quantize_roundtrip`` (the quantize's launch writing the
+dequantized values too; its payload and header bitwise the quantize
+kernel's, its values the dequantize kernel's of them) bitwise
 against their plain versions on the card: every full-width boundary
 shape of ``SplitEngine.run`` at B=1 (k = 0..7, 3,200-12,800 elements,
 3,328 and 6,656 at k = 6 and 7), B=32 at k=0, sizes 1, 3, 5, 4095, 4097,
@@ -101,10 +111,11 @@ outlier, views that are not 16-byte aligned (12,800 and 16,385 elements)
 and one NaN (at 3,328 and 16,385), +inf or -inf element (NaN equal to
 NaN); two launches
 must give the same bits, and ``run`` at B=1 must equal
-``run_batch_async`` at B=1 bitwise at every k.  It times both kernels,
-their plain versions and ``torch.aminmax`` (beside pass 1; it is the
-min/max pass alone, so the record keeps it as ``minmax_pass_ms`` and
-``library_ms`` is null) at the per-frame shapes and at 2^24 + 3.
+``run_batch_async`` at B=1 bitwise at every k.  It times the three
+kernels, their plain versions and ``torch.aminmax`` (beside pass 1; it
+is the min/max pass alone, so the record keeps it as ``minmax_pass_ms``
+and ``library_ms`` is null) at the per-frame shapes and at 2^24 + 3, and
+the round trip against quantize + dequantize.
 
 Phase 8 runs ``StreamServer`` over a full-width gateway (capacity 256,
 window 100, overlapped) with ``make_policy("rl")`` on ``init_policy``
@@ -112,7 +123,8 @@ from a seed: 16 INTERACTIVE, 48 STANDARD and 192 BULK sessions send 8
 frames each with seeded telemetry, ``SchedulerCfg(max_batch=128)``, half
 of what a round offers.  (a) Stepped on a fake clock, counted: every
 served embedding must equal, bitwise, a sequential gateway on the card
-replaying ``schedule()``; every tick 1 sync and 1 D2H; pipelined ticks;
+replaying ``schedule()``; every tick 1 sync and 1 D2H, and one
+grouped wire launch if it has a bucket with k < L; pipelined ticks;
 conservation at every round; preemption of BULK only.  (b) Live: the
 serving thread on the real clock, 4 client threads submitting and then
 closing their sessions, gated on conservation and the sync counts only;
@@ -298,7 +310,70 @@ def phase1(cfg, dev, ops, dequantize, quantize):
           f"outlier and NaN rows at B >= 3, +inf and -inf rows at B >= 5), "
           f"and == "
           f"per-tensor at B=1 (max |err| {worst})")
+    cases = grouped_cases(cfg, g, dev)
+    for what, xs in cases:
+        got, again = (ops.wire_roundtrip_grouped(xs),
+                      ops.wire_roundtrip_grouped(xs))
+        want = ops.wire_roundtrip_grouped_ref(xs)
+        each = [ops.wire_roundtrip(x) for x in xs]
+        torch.cuda.synchronize()
+        check(len(got) == len(xs), f"grouped wire at {what}: {len(got)} "
+              f"outputs for {len(xs)} groups")
+        for i, (a, b, c, w) in enumerate(zip(got, again, each, want)):
+            err = (a - w).nan_to_num().abs().max().item()
+            worst = max(worst, err)
+            check(same_values(a, w), f"wire_roundtrip_grouped != plain "
+                  f"version at {what}, group {i} {tuple(w.shape)} (max "
+                  f"|err| {err})")
+            check(same_values(a, c), f"wire_roundtrip_grouped != its "
+                  f"one-group launch at {what}, group {i}")
+            check(same_values(a, b), f"wire_roundtrip_grouped not bitwise "
+                  f"from run to run at {what}, group {i}")
+    print(f"phase 1: wire_roundtrip_grouped bitwise == plain version, == "
+          f"one wire_roundtrip launch a group and from run to run at "
+          f"{len(cases)} cases (" + "; ".join(w for w, _ in cases)
+          + f"), special rows in every group (max |err| {worst})")
     return worst
+
+
+def special_rows(x):
+    """Constant, outlier, NaN, +inf and -inf rows, as many as ``x`` (B,
+    n) has rows for."""
+    for row, (col, v) in enumerate(((None, 1.25), (17, 1e4),
+                                    (5, float("nan")), (11, float("inf")),
+                                    (7, -float("inf")))):
+        if row >= x.shape[0]:
+            break
+        if col is None:
+            x[row] = v
+        else:
+            x[row, col % x.shape[1]] = v
+    return x
+
+
+def grouped_cases(cfg, g, dev):
+    """(what, [tensors]) for the grouped wire: the tick's eight groups at
+    phase 2's bucket sizes and padded to 32, one group, the most groups
+    a launch takes, B = 1 groups, and groups of one width."""
+    from repro_torch.kernels.int8_quant import MAX_GROUPS as most
+    widths = wire_widths(cfg)
+
+    def groups(rows, ns):
+        return [special_rows(torch.randn(B, n, device=dev, generator=g)
+                             * 3.0 + 1.0) for B, n in zip(rows, ns)]
+    return [
+        ("the tick's 8 groups, 28/29 rows",
+         groups((28, 29, 28, 28, 29, 28, 28, 29), widths)),
+        ("the tick's 8 groups padded to 32", groups((32,) * 8, widths)),
+        ("one group (256, 12,800)", groups((256,), widths[:1])),
+        (f"{most} groups", groups(
+            [1 + i % 6 for i in range(most)],
+            [widths[i % len(widths)] + 4 * (i // len(widths))
+             for i in range(most)])),
+        ("B = 1 groups", groups((1,) * len(widths), widths)),
+        ("3 groups of n = 6,656", groups((5, 1, 7), (6656,) * 3)),
+        ("odd widths (the two-read path)", groups((3, 2), (12801, 16388))),
+    ]
 
 
 def serve(gw, sids, mels_by_tick, *, timed, t0=0, label_mod=0):
@@ -352,11 +427,11 @@ def phase2(cfg, dev, ops):
     per_tick = []
     results, secs = [], []
     for t in range(1 + TIMED_TICKS):
-        before = ops.wire_roundtrip.launches
+        before = ops.wire_roundtrip_grouped.launches
         res, sec = serve(gw, sids, [mels[t]], timed=True, t0=t)
         results += res
         secs += sec
-        per_tick.append(ops.wire_roundtrip.launches - before)
+        per_tick.append(ops.wire_roundtrip_grouped.launches - before)
     launches = {name: w.launches for name, w in ops.KERNELS.items()}
     torch.cuda.synchronize()
 
@@ -375,10 +450,11 @@ def phase2(cfg, dev, ops):
         for r in res:
             want = 0 if r.k == L else wire_widths(cfg)[r.k] + 8
             check(r.wire_bytes == want, f"k={r.k}: wire bytes {r.wire_bytes}")
-    check(per_tick == [L] * (1 + TIMED_TICKS),
-          f"wire kernel launches per tick {per_tick}, want {L} (k=0..{L-1})")
-    check(launches["wire_roundtrip"] == L * (1 + TIMED_TICKS),
-          f"launches {launches}")
+    check(per_tick == [1] * (1 + TIMED_TICKS),
+          f"grouped wire launches per tick {per_tick}, want 1 (k=0..{L-1} "
+          "in one launch)")
+    check(launches["wire_roundtrip_grouped"] == 1 + TIMED_TICKS
+          and launches["wire_roundtrip"] == 0, f"launches {launches}")
     stats = gw.stats()
     want_staged = (1 + TIMED_TICKS) * SESSIONS * cfg.frames * cfg.n_mels * 4
     check(stats.staged_h2d_bytes == want_staged,
@@ -387,7 +463,8 @@ def phase2(cfg, dev, ops):
           and stats.dispatches == (1 + TIMED_TICKS) * (L + 1), "counters")
     tick_ms = np.array(secs[1:]) * 1e3
     print(f"phase 2: {1 + TIMED_TICKS} ticks x {SESSIONS} frames at full "
-          f"width, 1 sync + 1 D2H per tick, {L} wire launches per tick, "
+          f"width, 1 sync + 1 D2H per tick, 1 wire launch per tick ({L} "
+          f"buckets), "
           f"staged {stats.staged_h2d_bytes} bytes")
     print(f"tick ms p50 {np.percentile(tick_ms, 50):.3f} p95 "
           f"{np.percentile(tick_ms, 95):.3f} mean {tick_ms.mean():.3f}; "
@@ -429,18 +506,18 @@ def phase2(cfg, dev, ops):
                                                 - r.z).max()))
     frame_launches = {name: w.launches for name, w in ops.KERNELS.items()}
     n_wire = sum(r.k < L for r in results[0])
-    check(frame_launches["int8_quantize"] == n_wire
-          and frame_launches["int8_dequantize"] == n_wire
-          and frame_launches["wire_roundtrip"] == 0,
-          f"per-frame run launches {frame_launches}, want {n_wire} of each "
-          "per-tensor kernel and no wire_roundtrip")
+    check(frame_launches["int8_quantize_roundtrip"] == n_wire
+          and all(frame_launches[name] == 0 for name in (
+              "int8_quantize", "int8_dequantize", "wire_roundtrip",
+              "wire_roundtrip_grouped")),
+          f"per-frame run launches {frame_launches}, want {n_wire} of "
+          "int8_quantize_roundtrip and no other wire kernel")
     print(f"overlap=False == overlap=True bitwise; card vs CPU port max "
           f"|dz| {cpu_err:.3e} (atol {CPU_ATOL}); bucketed vs per-frame "
           f"SplitEngine.run max |dz| {frame_err:.3e} (per-frame path: "
           f"{SESSIONS} frames, each bitwise == its stages on the plain "
-          f"per-tensor wire, int8_quantize launches "
-          f"{frame_launches['int8_quantize']}, int8_dequantize launches "
-          f"{frame_launches['int8_dequantize']})")
+          f"per-tensor wire, int8_quantize_roundtrip launches "
+          f"{frame_launches['int8_quantize_roundtrip']})")
     profile_tick(gw, sids, mels[0], 1 + TIMED_TICKS, tick_ms)
     return launches, tick_ms, frame_launches
 
@@ -503,39 +580,45 @@ def profile_tick(gw, sids, mels, t, tick_ms):
 
 
 def kernel_times(cfg, dev, ops):
-    """Per-k wire kernel vs plain version at the serving shapes (32 rows,
-    the padded bucket): device time (``device_ms``) and time per call
-    (CUDA events around back-to-back calls, which the host's launch
-    overhead sets when it exceeds the device time) -> per-tick sums and
-    the bound."""
+    """The tick's wire at the serving shapes (32 rows a bucket, the padded
+    bucket, k = 0..L-1): ``wire_roundtrip_grouped`` (one launch), eight
+    ``wire_roundtrip`` launches (one a bucket, as the tick ran before the
+    grouped launch) and the plain version, as device time
+    (``device_ms``) and time per call (CUDA events around back-to-back
+    calls, which the host's launch overhead sets when it exceeds the
+    device time) -> the tick's times and the bound."""
     bucket = 32
     g = torch.Generator(device=dev).manual_seed(1)
-    tot = dict.fromkeys(("ms", "plain_ms", "call_ms", "plain_call_ms",
-                         "bytes_ms", "ops_ms"), 0.0)
-    for k, n in enumerate(wire_widths(cfg)):
-        x = torch.randn(bucket, n, device=dev, generator=g)
-        ms = device_ms(ops.wire_roundtrip, x)
-        plain = device_ms(ops.wire_roundtrip_ref, x)
-        call = time_ms(ops.wire_roundtrip, x)
-        plain_call = time_ms(ops.wire_roundtrip_ref, x)
-        nbytes = 8 * bucket * n               # read x once, write out once
-        # min + max + div + add + round + 2 clamps + sub + mul per element
-        nops = 9 * bucket * n
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        o_ms = nops / FP32_OPS_PER_S * 1e3
-        print(f"wire k={k} ({bucket}, {n}): device kernel {ms * 1e3:.2f} us, "
-              f"plain {plain * 1e3:.2f} us; per call kernel {call * 1e3:.2f}"
-              f" us, plain {plain_call * 1e3:.2f} us; bound "
-              f"{max(b_ms, o_ms) * 1e3:.2f} us "
-              f"({'bytes' if b_ms >= o_ms else 'operations'})")
-        for key, v in (("ms", ms), ("plain_ms", plain), ("call_ms", call),
-                       ("plain_call_ms", plain_call), ("bytes_ms", b_ms),
-                       ("ops_ms", o_ms)):
-            tot[key] += v
-    print(f"wire per tick (8 launches): device kernel {tot['ms'] * 1e3:.2f} "
-          f"us, plain {tot['plain_ms'] * 1e3:.2f} us; per call kernel "
-          f"{tot['call_ms'] * 1e3:.2f} us, plain "
-          f"{tot['plain_call_ms'] * 1e3:.2f} us")
+    xs = [torch.randn(bucket, n, device=dev, generator=g)
+          for n in wire_widths(cfg)]
+
+    def eight(ys):
+        return [ops.wire_roundtrip(y) for y in ys]
+    for k, x in enumerate(xs):
+        print(f"wire k={k} {tuple(x.shape)}: one-group launch "
+              f"{device_ms(ops.wire_roundtrip, x) * 1e3:.2f} us")
+    elems = sum(x.numel() for x in xs)
+    # read x once, write out once; min + max + div + add + round + 2 clamps
+    # + sub + mul per element
+    tot = {"ms": device_ms(ops.wire_roundtrip_grouped, xs),
+           "eight_launches_ms": device_ms(eight, xs),
+           # ~80 PyTorch launches a call: fewer calls, so that their
+           # enqueue stays inside the spin
+           "plain_ms": device_ms(ops.wire_roundtrip_grouped_ref, xs, reps=8),
+           "call_ms": time_ms(ops.wire_roundtrip_grouped, xs),
+           "eight_launches_call_ms": time_ms(eight, xs),
+           "bytes_ms": 8 * elems / HBM_BYTES_PER_S * 1e3,
+           "ops_ms": 9 * elems / FP32_OPS_PER_S * 1e3}
+    tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
+    tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                       else "operations")
+    print(f"wire per tick ({len(xs)} buckets of {bucket} rows): grouped "
+          f"(1 launch) device {tot['ms'] * 1e3:.2f} us, per call "
+          f"{tot['call_ms'] * 1e3:.2f} us; {len(xs)} wire_roundtrip launches "
+          f"device {tot['eight_launches_ms'] * 1e3:.2f} us, per call "
+          f"{tot['eight_launches_call_ms'] * 1e3:.2f} us; plain "
+          f"{tot['plain_ms'] * 1e3:.2f} us; bound "
+          f"{tot['bound_ms'] * 1e3:.2f} us ({tot['bound_by']})")
     return tot
 
 
@@ -785,7 +868,8 @@ def phase4(cfg, dev, ops, serve_tick_ms):
     for name in ("swd_sessions", "laplacian_energy", "gmm_posterior"):
         check(launches[name] == n_rounds,
               f"{name} launched {launches[name]} times in {n_rounds} rounds")
-    check(launches["wire_roundtrip"] == L * n_rounds, f"launches {launches}")
+    check(launches["wire_roundtrip_grouped"] == n_rounds
+          and launches["wire_roundtrip"] == 0, f"launches {launches}")
     snap = (SESSIONS * WINDOW * (cfg.d_embed * 4 + 4 + 8) + SESSIONS)
     check(stats.snapshot_h2d_bytes == n_rounds * snap,
           f"snapshot_h2d_bytes {stats.snapshot_h2d_bytes} != {n_rounds} x "
@@ -1161,7 +1245,8 @@ def phase6(cfg, dev, ops):
     for n in TRAIN_KERNELS:
         check(launches[n] == TRAIN_STEPS, f"{n} launched {launches[n]} "
               f"times in {TRAIN_STEPS} steps")
-    check(launches["wire_roundtrip"] == 0 and launches["swd_sessions"] == 0,
+    check(launches["wire_roundtrip"] == launches["wire_roundtrip_grouped"]
+          == launches["swd_sessions"] == 0,
           f"serving/refine kernels on the training path: {launches}")
     step_ms = np.diff(np.array(ends)) * 1e3          # steps 1 .. 59
     cold_ms, warm_ms = step_ms[:COLD_STEPS - 1], step_ms[COLD_STEPS - 1:]
@@ -1410,18 +1495,38 @@ def phase7(cfg, dev, ops):
     from repro_torch.models.audio_encoder import init_audio_encoder
     from repro_torch.weights import to_device
     g = torch.Generator(device=dev).manual_seed(7)
-    worst = {"int8_quantize": 0.0, "int8_dequantize": 0.0}
+    worst = dict.fromkeys(("int8_quantize", "int8_dequantize",
+                           "int8_quantize_roundtrip"), 0.0)
     cases = quant_cases(cfg, g, dev)
     for what, x in cases:
         qt, again, want = (ops.int8_quantize(x), ops.int8_quantize(x),
                            ops.int8_quantize_ref(x))
         out, out2 = ops.int8_dequantize(qt), ops.int8_dequantize(qt)
+        (rq, rout), (rq2, rout2) = (ops.int8_quantize_roundtrip(x),
+                                    ops.int8_quantize_roundtrip(x))
         want_out = ops.int8_dequantize_ref(want)
         torch.cuda.synchronize()
         worst["int8_quantize"] = max(worst["int8_quantize"], (
             qt.q.int() - want.q.int()).abs().max().item())
         worst["int8_dequantize"] = max(worst["int8_dequantize"], (
             out - want_out).nan_to_num().abs().max().item())
+        worst["int8_quantize_roundtrip"] = max(
+            worst["int8_quantize_roundtrip"],
+            (rq.q.int() - want.q.int()).abs().max().item(),
+            (rout - want_out).nan_to_num().abs().max().item())
+        check(rq.q.dtype == torch.int8 and rq.q.shape == x.shape
+              and rout.dtype == torch.float32 and rout.shape == x.shape,
+              f"int8_quantize_roundtrip shapes at {what}")
+        check(all(same_values(a, b) for a, b in zip(rq, qt)),
+              f"int8_quantize_roundtrip's payload or header != "
+              f"int8_quantize's at {what}")
+        check(same_values(rout, out) and same_values(rout, want_out),
+              f"int8_quantize_roundtrip's values != int8_dequantize of its "
+              f"payload (or the plain version) at {what}")
+        check(all(same_values(a, b) for a, b in zip(rq, rq2))
+              and same_values(rout, rout2),
+              f"int8_quantize_roundtrip not bitwise from run to run at "
+              f"{what}")
         check(qt.q.dtype == torch.int8 and qt.q.shape == x.shape
               and all(same_values(a, b) for a, b in zip(qt, want)),
               f"int8_quantize != plain version at {what}")
@@ -1448,7 +1553,9 @@ def phase7(cfg, dev, ops):
         torch.cuda.synchronize()
         check(wa == wb and torch.equal(a, b),
               f"run != run_batch_async at B=1, k={k}")
-    print(f"phase 7: int8_quantize and int8_dequantize bitwise == plain "
+    print(f"phase 7: int8_quantize, int8_dequantize and "
+          f"int8_quantize_roundtrip (payload and header == int8_quantize's, "
+          f"values == int8_dequantize's) bitwise == plain "
           f"versions at {len(cases)} cases (every per-frame boundary shape, "
           f"B=32 at k=0, n in 1, 3, 5, 4095, 4097, 16,384 (one block), "
           f"16,385 (two passes), 2^24+3, constant, outlier, unaligned at "
@@ -1465,13 +1572,15 @@ def quant_kernel_times(cfg, dev, ops):
     (beside pass 1: it is the min/max pass alone, not the function, so
     it is kept as ``minmax_ms`` and no library call is recorded) at every
     per-frame shape (summed: one frame through each k) and at the largest
-    shape, 2^24 + 3."""
+    shape, 2^24 + 3; then the round trip against quantize + dequantize,
+    the two launches ``SplitEngine.run`` made a frame before it."""
     g = torch.Generator(device=dev).manual_seed(8)
     shapes = [(f"k={k} {s}", s) for k, s in enumerate(boundary_shapes(cfg))]
     shapes.append(("largest", (2 ** 24 + 3,)))
+    names = ("int8_quantize", "int8_dequantize", "int8_quantize_roundtrip")
     rows = {name: {"per_frame": dict.fromkeys(
         ("ms", "plain_ms", "bound_ms", "minmax_ms", "bytes_ms", "ops_ms"),
-        0.0)} for name in ("int8_quantize", "int8_dequantize")}
+        0.0)} for name in names}
     for what, shape in shapes:
         x = torch.randn(*shape, device=dev, generator=g)
         qt = ops.int8_quantize(x)
@@ -1486,7 +1595,11 @@ def quant_kernel_times(cfg, dev, ops):
                  x, 5 * n + 8, 8 * n),
                 # read q and the header, write out: subtract, multiply
                 ("int8_dequantize", ops.int8_dequantize,
-                 ops.int8_dequantize_ref, qt, 5 * n + 8, 2 * n)):
+                 ops.int8_dequantize_ref, qt, 5 * n + 8, 2 * n),
+                # read x, write q, the header and out: the quantize's
+                # operations and the dequantize's
+                ("int8_quantize_roundtrip", ops.int8_quantize_roundtrip,
+                 ops.int8_quantize_roundtrip_ref, x, 9 * n + 8, 10 * n)):
             ms = device_ms(fn, arg)
             plain_ms = device_ms(plain, arg)
             b_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1515,9 +1628,23 @@ def quant_kernel_times(cfg, dev, ops):
         pf = r["per_frame"]
         print(f"{name} per frame through k = 0..{cfg.n_blocks - 1} (summed):"
               f" device kernel {pf['ms'] * 1e3:.2f} us, plain "
-              f"{pf['plain_ms'] * 1e3:.2f} us, torch.aminmax (the min/max "
-              f"pass alone) {pf['minmax_ms'] * 1e3:.2f} us, bound "
-              f"{pf['bound_ms'] * 1e3:.3f} us")
+              f"{pf['plain_ms'] * 1e3:.2f} us, bound "
+              f"{pf['bound_ms'] * 1e3:.3f} us"
+              + (f", torch.aminmax (the min/max pass alone) "
+                 f"{pf['minmax_ms'] * 1e3:.2f} us"
+                 if name == "int8_quantize" else ""))
+    two = {key: rows["int8_quantize"][key]["ms"]
+           + rows["int8_dequantize"][key]["ms"]
+           for key in ("per_frame", "largest")}
+    for key in ("per_frame", "largest"):
+        rows["int8_quantize_roundtrip"][key]["quantize_dequantize_ms"] = \
+            two[key]
+    print(f"int8_quantize_roundtrip (1 launch a frame) "
+          f"{rows['int8_quantize_roundtrip']['per_frame']['ms'] * 1e3:.2f} us"
+          f" a frame against int8_quantize + int8_dequantize (2 launches) "
+          f"{two['per_frame'] * 1e3:.2f} us; at 2^24 + 3 "
+          f"{rows['int8_quantize_roundtrip']['largest']['ms'] * 1e3:.2f} "
+          f"against {two['largest'] * 1e3:.2f} us")
     return rows
 
 
@@ -1654,10 +1781,13 @@ def phase8(cfg, dev, ops):
           and st.preempted["standard"] == 0,
           f"(a) preemption {st.preempted}: want BULK only, and some")
     schedule = srv.schedule()
-    want_wire = sum(len({results[key].k for key in tick} - {L})
+    want_wire = sum(bool({results[key].k for key in tick} - {L})
                     for tick in schedule)
-    check(launches["wire_roundtrip"] == want_wire,
-          f"(a) wire launches {launches['wire_roundtrip']}, want {want_wire}")
+    check(launches["wire_roundtrip_grouped"] == want_wire
+          and launches["wire_roundtrip"] == 0,
+          f"(a) wire launches {launches['wire_roundtrip_grouped']} grouped, "
+          f"{launches['wire_roundtrip']} one-group; want {want_wire} grouped "
+          "(one a tick with a bucket of k < L) and no other")
     ks = np.bincount([r.k for r in results.values()], minlength=L + 1)
     check((ks > 0).sum() >= 3, f"(a) the policy chose k {ks}")
     # the sequential replay on the card: same schedule, same embeddings
@@ -2528,16 +2658,20 @@ def main():
 
     def by_path(name):
         return {p: counts[name] for p, counts in paths.items()}
-    bound_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    # the tick's wire: one grouped launch, and (the one-group call) one
+    # launch a bucket, both timed over the tick's eight padded buckets
     records = [{
-        "name": "wire_roundtrip", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wire_roundtrip.cu",
         "replaces": "src/repro/kernels/int8_quant.py:90",
-        "launches": launches["wire_roundtrip"], "max_abs_err": worst,
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": max(tot["bytes_ms"], tot["ops_ms"]),
-        "bound_by": bound_by, "library_ms": None,
-        "launches_by_path": by_path("wire_roundtrip")}]
+        "launches": launches[name], "max_abs_err": worst,
+        "ms": tot[ms], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
+        "library_ms": None, "call_ms": tot[call],
+        "launches_by_path": by_path(name)}
+        for name, ms, call in (
+            ("wire_roundtrip_grouped", "ms", "call_ms"),
+            ("wire_roundtrip", "eight_launches_ms", "eight_launches_call_ms"))]
     for name, source, replaces in (
             ("swd_sessions", "swd.cu", "swd_kernel.py:67"),
             ("laplacian_energy", "laplacian_energy.cu",
@@ -2573,13 +2707,13 @@ def main():
             "replaces": replaces, "launches": train_launches[name],
             "max_abs_err": train_worst[name], **train_times[name],
             "library_ms": None, "launches_by_path": by_path(name)})
-    for name in ("int8_quantize", "int8_dequantize"):
+    for name, line in (("int8_quantize", "36"), ("int8_dequantize", "129"),
+                       ("int8_quantize_roundtrip", "36 and :129")):
         per_frame = quant_times[name]["per_frame"]
         records.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/int8_quant.cu",
-            "replaces": "src/repro/kernels/int8_quant.py:"
-                        + ("36" if name == "int8_quantize" else "129"),
+            "replaces": f"src/repro/kernels/int8_quant.py:{line}",
             "launches": frame_launches[name],
             "max_abs_err": quant_worst[name], "ms": per_frame["ms"],
             "plain_ms": per_frame["plain_ms"],
@@ -2589,6 +2723,8 @@ def main():
             "library_ms": None, "launches_by_path": by_path(name),
             **({"minmax_pass_ms": per_frame["minmax_ms"]}
                if name == "int8_quantize" else {}),
+            **({"quantize_dequantize_ms": per_frame["quantize_dequantize_ms"]}
+               if name == "int8_quantize_roundtrip" else {}),
             "largest_shape": quant_times[name]["largest"]})
     records.append({
         "name": "flash_attention_fwd", "route": "cuda",

@@ -503,25 +503,37 @@ class StreamSplitGateway:
 
     def _launch_overlapped(self, plan, buckets):
         """Launch half of the overlapped tick: the staged copy, one
-        device-side gather and one edge→wire→server chain per bucket,
-        the reassembly gather, and the host bookkeeping — all issued
-        without a sync, so the host work hides under the chains."""
+        device-side gather per bucket, every bucket's edge stage, ONE
+        wire launch over all the buckets, every server stage
+        (``SplitEngine.run_buckets_async``), the reassembly gather, and
+        the host bookkeeping — all issued without a sync, so the host
+        work hides under the device's.  ``profile=True`` runs one
+        edge→wire→server chain a bucket instead, each timed to its own
+        round trip."""
         pending, profile = plan.pending, plan.profile
         plan.t_d0 = self._clock()
         staged, index = self._stage(pending, buckets)
-        z_bufs = []
+        order = sorted(buckets.items())
+        mels = []
         offset = 0
-        for k, idx in sorted(buckets.items()):
-            t_b = self._clock() if profile else None
+        for _, idx in order:
             padded = pad_pow2(len(idx))
-            mel_b = staged.index_select(0, index[offset:offset + padded])
+            mels.append(staged.index_select(0, index[offset:offset + padded]))
             offset += padded
-            z_dev, wire = self.engine.run_batch_async(self.params, mel_b, k)
-            ms = None
-            if profile:   # diagnostic mode: per-bucket round trips
+        if profile:   # diagnostic mode: per-bucket round trips
+            outs, mss = [], []
+            for (k, idx), mel_b in zip(order, mels):
+                t_b = self._clock()
+                outs.append(self.engine.run_batch_async(self.params, mel_b,
+                                                        k))
                 self._block()
-                ms = (self._clock() - t_b) * 1e3 / len(idx)
-            z_bufs.append(z_dev)
+                mss.append((self._clock() - t_b) * 1e3 / len(idx))
+        else:
+            outs = self.engine.run_buckets_async(
+                self.params, [(k, m) for (k, _), m in zip(order, mels)])
+            mss = [None] * len(order)
+        z_bufs = [z for z, _ in outs]
+        for (k, idx), (_, wire), ms in zip(order, outs, mss):
             plan.launched.append((k, idx, wire, ms, 0))
         # back into submission order on the device, pad rows dropped, and
         # the tick's one copy to the host, queued behind its own chains

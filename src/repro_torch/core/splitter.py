@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.int8_quant import wire_roundtrip_ref
+from repro_torch.kernels.int8_quant import MAX_GROUPS, wire_roundtrip_ref
 from repro_torch.models import audio_encoder as enc
 
 
@@ -28,10 +28,12 @@ class SplitEngine:
     (``repro_torch.weights.to_device``).  Wire formats, as in the
     reference: ``run`` quantises per tensor (one scale/zero for its whole
     batch), ``run_batch`` and ``run_batch_async`` per sample — identical
-    at B=1.  ``run`` goes through the per-tensor quantize and dequantize
-    kernels; ``run_batch`` uses the plain per-row round trip, as the
+    at B=1.  ``run`` goes through the per-tensor quantize∘dequantize
+    kernel (one launch writes the payload, its header and the values
+    read back); ``run_batch`` uses the plain per-row round trip, as the
     reference's ``run_batch`` uses its vmapped ``quantize∘dequantize``;
-    ``run_batch_async`` uses the wire kernel, held bitwise against it.
+    ``run_batch_async`` and ``run_buckets_async`` use the wire kernel,
+    held bitwise against it.
     """
 
     def __init__(self, cfg: enc.AudioEncCfg, *, quantize_wire=True,
@@ -73,9 +75,9 @@ class SplitEngine:
         if self.quantize_wire:
             # the wire as the edge ships it: the int8 payload plus its
             # (scale, zero) header, materialised on the device, and the
-            # activation the server reads back from them
+            # activation the server reads back from them, in one launch
             wire_bytes = act.numel() + 8  # int8 payload + scale/zero header
-            act = kernel_ops.int8_dequantize(kernel_ops.int8_quantize(act))
+            _, act = kernel_ops.int8_quantize_roundtrip(act)
         else:
             wire_bytes = act.numel() * 4
         return self._server_fn(k, params, act), wire_bytes
@@ -118,6 +120,38 @@ class SplitEngine:
         else:
             wire_bytes = per_frame * 4
         return self._server_fn(k, params, act), wire_bytes
+
+    def run_buckets_async(self, params, batches):
+        """``run_batch_async`` over several k-buckets at once: ``batches``
+        is a list of ``(k, device mel batch)`` -> a list of ``(z,
+        wire_bytes per frame)`` in the same order.  Every bucket's edge
+        stage runs first, then ONE ``wire_roundtrip_grouped`` launch over
+        all the wired buckets (k < L; more than ``MAX_GROUPS`` take a
+        launch each ``MAX_GROUPS``), then every bucket's server stage.
+        The buckets are independent, so the order changes no bit against
+        ``run_batch_async`` per bucket."""
+        L = self.cfg.n_blocks
+        ks = [int(k) for k, _ in batches]
+        acts = [self._edge_fn(min(k, L), params, mel)
+                for k, (_, mel) in zip(ks, batches)]
+        wired = [i for i, k in enumerate(ks) if k < L]
+        if self.quantize_wire:
+            for s in range(0, len(wired), MAX_GROUPS):
+                chunk = wired[s:s + MAX_GROUPS]
+                outs = kernel_ops.wire_roundtrip_grouped(
+                    [acts[i] for i in chunk])
+                for i, out in zip(chunk, outs):
+                    acts[i] = out
+        results = []
+        for k, act in zip(ks, acts):
+            if k >= L:
+                results.append((act, 0))
+                continue
+            per_frame = act.numel() // act.shape[0]
+            wire_bytes = per_frame + 8 if self.quantize_wire \
+                else per_frame * 4
+            results.append((self._server_fn(k, params, act), wire_bytes))
+        return results
 
     def full(self, params, mel):
         return self._edge_fn(self.cfg.n_blocks, params, self._to_device(mel))

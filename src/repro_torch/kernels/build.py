@@ -38,10 +38,12 @@ _S = ctypes.c_char_p
 SIGNATURES = {
     "wire_roundtrip.cu": {
         "wire_roundtrip_f32": ([_P, _P, _I, _I, _P], _I),
+        "wire_roundtrip_grouped_f32": ([_P, _P], _I),
         "wire_roundtrip_error_string": ([_I], _S),
     },
     "int8_quant.cu": {
         "int8_quantize_f32": ([_P, _P, _P, _P, _L, _P], _I),
+        "int8_quantize_roundtrip_f32": ([_P, _P, _P, _P, _P, _L, _P], _I),
         "int8_dequantize_f32": ([_P, _P, _P, _P, _L, _P], _I),
         "int8_quant_error_string": ([_I], _S),
     },

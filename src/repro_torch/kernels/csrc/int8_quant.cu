@@ -9,7 +9,10 @@
 //   scale  = max((hi - lo) * float32(1/255), 1e-12)
 //   zero   = -128 - lo / scale
 //   q      = clip(round_half_even(x / scale + zero), -128, 127)   (int8)
-// and the inverse, out = (q - zero) * scale.
+// and the inverse, out = (q - zero) * scale.  The round trip
+// (`int8_quantize_roundtrip_f32`) writes q, the header and out in the one
+// launch: out is dequantized from the level each thread holds, through
+// the same int8 conversion, so it equals the dequantize of the payload.
 //
 // Bitwise contract: equal to the plain PyTorch versions
 // (`int8_quantize_ref` / `int8_dequantize_ref` in int8_quant.py), which
@@ -41,7 +44,9 @@
 //     block reduces (lo, hi), and each thread quantizes from its
 //     registers and writes q; thread 0 writes the (scale, zero) header.
 //     No scratch.  At these sizes launch latency sets the time, so one
-//     launch and one read of x is the design's point.
+//     launch and one read of x is the design's point.  The round trip
+//     writes out beside q from the same registers: the per-frame path's
+//     quantize and dequantize in one launch (SplitEngine.run).
 //   two passes, above kOneBlockMax, where the blocks run in parallel and
 //     the reduction across them is a second launch, with no host round
 //     trip between the two:
@@ -51,8 +56,8 @@
 //       dependent (scheduled while pass 1 drains, it waits in
 //       griddepcontrol.wait for pass 1's writes): each block folds all the
 //       partials itself (at most kMaxBlocks pairs, read from L2), forms
-//       scale and zero, and quantizes its share; block 0 writes the
-//       header.
+//       scale and zero, and quantizes its share (and, for the round
+//       trip, dequantizes it into out); block 0 writes the header.
 // Both paths form scale and zero by the same instructions (`scale_zero`),
 // so which one runs changes no bit.  `dequantize_kernel` reads scale and
 // zero from device memory, so a dequantize needs no host value either.
@@ -64,8 +69,10 @@
 // quantize reads x and writes q and the header, dequantize reads q and
 // the header and writes out, 5 bytes an element (+ 8) either way, against
 // a handful of float operations: both are memory-bound on an H100 (3.35
-// TB/s).  At the per-frame shapes that bound is under 0.02 us and launch
-// latency sets the time; at 2^24 elements it is 25 us each.  The one-block
+// TB/s).  The round trip reads x and writes q, the header and out, 9
+// bytes an element (+ 8).  At the per-frame shapes that bound is under
+// 0.02 us and launch latency sets the time; at 2^24 elements it is 25 us
+// each (45 us for the round trip).  The one-block
 // path moves those 5 bytes an element; the two passes move 9, as pass 2
 // reads x again (from HBM at 2^24).
 #include <cuda_runtime.h>
@@ -161,6 +168,11 @@ __device__ __forceinline__ float unlevel(int8_t q, float scale, float zero) {
   return __fmul_rn(__fsub_rn(static_cast<float>(q), zero), scale);
 }
 
+__device__ __forceinline__ float4 unlevel4(char4 c, float scale, float zero) {
+  return make_float4(unlevel(c.x, scale, zero), unlevel(c.y, scale, zero),
+                     unlevel(c.z, scale, zero), unlevel(c.w, scale, zero));
+}
+
 __global__ void __launch_bounds__(kThreads)
 minmax_partials_kernel(const float* __restrict__ x, long long n,
                        float* __restrict__ partials) {
@@ -195,7 +207,7 @@ minmax_partials_kernel(const float* __restrict__ x, long long n,
 __global__ void __launch_bounds__(kThreads)
 quantize_kernel(const float* __restrict__ x, long long n,
                 const float* __restrict__ partials, int8_t* __restrict__ q,
-                float* __restrict__ sz) {
+                float* __restrict__ out, float* __restrict__ sz) {
   // launched early (programmatic dependent launch): wait for pass 1 to
   // finish and its partials to be visible
   asm volatile("griddepcontrol.wait;" ::: "memory");
@@ -217,32 +229,42 @@ quantize_kernel(const float* __restrict__ x, long long n,
                           threadIdx.x;
   long long tail = 0;
   if (reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(q) % 4 == 0) {
+      reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0) {
     const float4* x4 = reinterpret_cast<const float4*>(x);
     char4* q4 = reinterpret_cast<char4*>(q);
     const long long nq = n / 4;
     for (long long i = start; i < nq; i += stride) {
       const float4 v = x4[i];
-      q4[i] = make_char4(level(v.x, scale, zero), level(v.y, scale, zero),
-                         level(v.z, scale, zero), level(v.w, scale, zero));
+      const char4 c = make_char4(
+          level(v.x, scale, zero), level(v.y, scale, zero),
+          level(v.z, scale, zero), level(v.w, scale, zero));
+      q4[i] = c;
+      if (out != nullptr) {
+        reinterpret_cast<float4*>(out)[i] = unlevel4(c, scale, zero);
+      }
     }
     tail = 4 * nq;
   }
   for (long long i = tail + start; i < n; i += stride) {
-    q[i] = level(x[i], scale, zero);
+    const int8_t c = level(x[i], scale, zero);
+    q[i] = c;
+    if (out != nullptr) out[i] = unlevel(c, scale, zero);
   }
 }
 
 // The whole quantize in one block (n <= kOneBlockMax, blockDim.x a
 // multiple of 32 with n <= kOneBlockPerThread * blockDim.x): x read once
 // into registers, element i of the float4 (VEC) or float view held by
-// thread i % blockDim.x; (lo, hi) reduced over the block; q written from
-// the registers.  VEC needs x 16-byte and q 4-byte aligned; its n % 4
-// tail elements are held by threads 0..2.
-template <bool VEC>
+// thread i % blockDim.x; (lo, hi) reduced over the block; q (and, with
+// OUT, its dequantized value) written from the registers.  VEC needs x
+// 16-byte, q 4-byte and out 16-byte aligned; its n % 4 tail elements are
+// held by threads 0..2.
+template <bool VEC, bool OUT>
 __global__ void __launch_bounds__(kOneBlockThreads)
 quantize_one_block_kernel(const float* __restrict__ x, int n,
-                          int8_t* __restrict__ q, float* __restrict__ sz) {
+                          int8_t* __restrict__ q, float* __restrict__ out,
+                          float* __restrict__ sz) {
   constexpr int kUnits = VEC ? kOneBlockPerThread / 4 : kOneBlockPerThread;
   const int tid = threadIdx.x, threads = blockDim.x;
   const int units = VEC ? n / 4 : n;
@@ -286,14 +308,24 @@ quantize_one_block_kernel(const float* __restrict__ x, int n,
     const int i = tid + j * threads;
     if (i >= units) break;
     if constexpr (VEC) {
-      reinterpret_cast<char4*>(q)[i] = make_char4(
+      const char4 c = make_char4(
           level(v[4 * j], scale, zero), level(v[4 * j + 1], scale, zero),
           level(v[4 * j + 2], scale, zero), level(v[4 * j + 3], scale, zero));
+      reinterpret_cast<char4*>(q)[i] = c;
+      if constexpr (OUT) {
+        reinterpret_cast<float4*>(out)[i] = unlevel4(c, scale, zero);
+      }
     } else {
-      q[i] = level(v[j], scale, zero);
+      const int8_t c = level(v[j], scale, zero);
+      q[i] = c;
+      if constexpr (OUT) out[i] = unlevel(c, scale, zero);
     }
   }
-  if (has_tail) q[tail] = level(t, scale, zero);
+  if (has_tail) {
+    const int8_t c = level(t, scale, zero);
+    q[tail] = c;
+    if constexpr (OUT) out[tail] = unlevel(c, scale, zero);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -311,10 +343,7 @@ dequantize_kernel(const int8_t* __restrict__ q, long long n,
     float4* o4 = reinterpret_cast<float4*>(out);
     const long long nq = n / 4;
     for (long long i = start; i < nq; i += stride) {
-      const char4 v = q4[i];
-      o4[i] = make_float4(
-          unlevel(v.x, scale, zero), unlevel(v.y, scale, zero),
-          unlevel(v.z, scale, zero), unlevel(v.w, scale, zero));
+      o4[i] = unlevel4(q4[i], scale, zero);
     }
     tail = 4 * nq;
   }
@@ -323,36 +352,42 @@ dequantize_kernel(const int8_t* __restrict__ q, long long n,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
 // One launch (n <= kOneBlockMax) or two (above it) on `stream`, no host
 // round trip between them; returns cudaGetLastError() (0 on success)
 // after each, because a refused launch never runs.  `partials` is scratch
 // of 2 * kMaxBlocks floats, read only by the two passes (it may be null
-// for n <= kOneBlockMax); `sz` receives (scale, zero).
-int int8_quantize_f32(const float* x, int8_t* q, float* partials, float* sz,
-                      long long n, cudaStream_t stream) {
+// for n <= kOneBlockMax); `sz` receives (scale, zero); `out`, if not
+// null, receives the dequantized levels.
+template <bool OUT>
+int launch_one_block(const float* x, int8_t* q, float* out, float* sz,
+                     long long n, cudaStream_t stream) {
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  // a thread for each float4 (or float) up to 1,024, then up to
+  // kOneBlockPerThread floats each
+  const long long units = vec ? n / 4 : n;
+  const long long warps = (units + 31) / 32;
+  const int threads = static_cast<int>(
+      warps < 1 ? 32 : (warps > kOneBlockThreads / 32 ? kOneBlockThreads
+                                                       : 32 * warps));
+  if (vec) {
+    quantize_one_block_kernel<true, OUT><<<1, threads, 0, stream>>>(
+        x, static_cast<int>(n), q, out, sz);
+  } else {
+    quantize_one_block_kernel<false, OUT><<<1, threads, 0, stream>>>(
+        x, static_cast<int>(n), q, out, sz);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_quantize(const float* x, int8_t* q, float* out, float* partials,
+                    float* sz, long long n, cudaStream_t stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= kOneBlockMax) {
-    const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(q) % 4 == 0;
-    // a thread for each float4 (or float) up to 1,024, then up to
-    // kOneBlockPerThread floats each
-    const long long units = vec ? n / 4 : n;
-    const long long warps = (units + 31) / 32;
-    const int threads = static_cast<int>(
-        warps < 1 ? 32 : (warps > kOneBlockThreads / 32 ? kOneBlockThreads
-                                                         : 32 * warps));
-    if (vec) {
-      quantize_one_block_kernel<true><<<1, threads, 0, stream>>>(
-          x, static_cast<int>(n), q, sz);
-    } else {
-      quantize_one_block_kernel<false><<<1, threads, 0, stream>>>(
-          x, static_cast<int>(n), q, sz);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return out == nullptr
+               ? launch_one_block<false>(x, q, out, sz, n, stream)
+               : launch_one_block<true>(x, q, out, sz, n, stream);
   }
   if (partials == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int g = static_cast<int>(blocks_for(n, kMaxBlocks));
@@ -371,7 +406,26 @@ int int8_quantize_f32(const float* x, int8_t* q, float* partials, float* sz,
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(
       &cfg, quantize_kernel, x, n,
-      static_cast<const float*>(partials), q, sz));
+      static_cast<const float*>(partials), q, out, sz));
+}
+
+}  // namespace
+
+extern "C" {
+
+// The quantize: q and the (scale, zero) header.
+int int8_quantize_f32(const float* x, int8_t* q, float* partials, float* sz,
+                      long long n, cudaStream_t stream) {
+  return launch_quantize(x, q, nullptr, partials, sz, n, stream);
+}
+
+// The round trip in the quantize's launch(es): q, the header, and
+// out = (q - zero) * scale.
+int int8_quantize_roundtrip_f32(const float* x, int8_t* q, float* out,
+                                float* partials, float* sz, long long n,
+                                cudaStream_t stream) {
+  if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_quantize(x, q, out, partials, sz, n, stream);
 }
 
 int int8_dequantize_f32(const int8_t* q, const float* scale,

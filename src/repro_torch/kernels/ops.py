@@ -27,10 +27,10 @@ from repro_torch.kernels.infonce_vneg import (infonce_vneg, infonce_vneg_bwd,
                                               infonce_vneg_fwd,
                                               infonce_vneg_fwd_ref,
                                               infonce_vneg_ref)
-from repro_torch.kernels.int8_quant import (int8_dequantize,
-                                            int8_dequantize_ref,
-                                            int8_quantize, int8_quantize_ref,
-                                            wire_roundtrip, wire_roundtrip_ref)
+from repro_torch.kernels.int8_quant import (
+    int8_dequantize, int8_dequantize_ref, int8_quantize, int8_quantize_ref,
+    int8_quantize_roundtrip, int8_quantize_roundtrip_ref, wire_roundtrip,
+    wire_roundtrip_grouped, wire_roundtrip_grouped_ref, wire_roundtrip_ref)
 from repro_torch.kernels.laplacian_energy import (laplacian_energy,
                                                   laplacian_energy_bwd,
                                                   laplacian_energy_bwd_ref,
@@ -42,8 +42,11 @@ from repro_torch.kernels.swd import (swd_rank_bwd, swd_rank_bwd_ref,
                                      swd_single)
 
 __all__ = ["KERNELS", "resolve_device", "set_precision",
-           "wire_roundtrip", "wire_roundtrip_ref", "int8_quantize",
-           "int8_quantize_ref", "int8_dequantize", "int8_dequantize_ref",
+           "wire_roundtrip", "wire_roundtrip_ref", "wire_roundtrip_grouped",
+           "wire_roundtrip_grouped_ref",
+           "int8_quantize", "int8_quantize_ref", "int8_quantize_roundtrip",
+           "int8_quantize_roundtrip_ref", "int8_dequantize",
+           "int8_dequantize_ref",
            "swd_sessions",
            "swd_sessions_ref", "laplacian_energy", "laplacian_energy_ref",
            "gmm_posterior", "gmm_posterior_ref", "infonce_vneg",
@@ -61,7 +64,9 @@ __all__ = ["KERNELS", "resolve_device", "set_precision",
 # ``swd_single``, ``laplacian_energy_diff``, ``flash_attention``) launch
 # through these
 KERNELS = {"wire_roundtrip": wire_roundtrip,
+           "wire_roundtrip_grouped": wire_roundtrip_grouped,
            "int8_quantize": int8_quantize,
+           "int8_quantize_roundtrip": int8_quantize_roundtrip,
            "int8_dequantize": int8_dequantize,
            "swd_sessions": swd_sessions,
            "laplacian_energy": laplacian_energy,

@@ -239,6 +239,49 @@ def test_profile_tick_syncs_per_bucket(params):
     assert sorted(gw.last_profile["per_bucket_ms"]) == list(range(L + 1))
 
 
+def _record_stages(gw, monkeypatch):
+    """Record the tick's stage calls in order: ("edge", k), ("server",
+    k), ("wire", rows of each group) for a grouped wire launch and
+    ("wire1", rows) for a one-batch wire."""
+    from repro_torch.kernels import ops
+    calls, eng = [], gw.engine
+    edge, server = eng._edge_fn, eng._server_fn
+    grouped, single = ops.wire_roundtrip_grouped, ops.wire_roundtrip
+    monkeypatch.setattr(eng, "_edge_fn", lambda k, p, m: calls.append(
+        ("edge", k)) or edge(k, p, m))
+    monkeypatch.setattr(eng, "_server_fn", lambda k, p, x: calls.append(
+        ("server", k)) or server(k, p, x))
+    monkeypatch.setattr(ops, "wire_roundtrip_grouped", lambda xs: calls.append(
+        ("wire", [x.shape[0] for x in xs])) or grouped(xs))
+    monkeypatch.setattr(ops, "wire_roundtrip", lambda x: calls.append(
+        ("wire1", x.shape[0])) or single(x))
+    return calls
+
+
+def test_tick_order_all_edges_one_wire_all_servers(params, monkeypatch):
+    """The overlapped tick runs every k-bucket's edge stage, then ONE
+    grouped wire over the L wired buckets (padded rows), then every
+    server stage, each in k order; the profiled tick keeps a chain a
+    bucket, edge -> one-batch wire -> server."""
+    _, tp = params
+    gw = _gw(tp)
+    calls = _record_stages(gw, monkeypatch)
+    rng = np.random.default_rng(14)
+    sids = [gw.open_session().sid for _ in range(N)]
+    _serve(gw, sids, [_mels(rng, N)])
+    rows = pad_pow2(N // (L + 1))
+    assert calls == ([("edge", k) for k in range(L + 1)]
+                     + [("wire", [rows] * L)]
+                     + [("server", k) for k in range(L)])
+    calls.clear()
+    for i, sid in enumerate(sids):
+        gw.submit(sid, _frame(1, _mels(rng, 1)[0], i))
+    gw.tick(profile=True)
+    assert calls == [c for k in range(L + 1) for c in
+                     [("edge", k)] + ([("wire1", rows), ("server", k)]
+                                      if k < L else [])]
+
+
 def test_gateway_defaults_to_cuda_and_refuses_without_it(params):
     _, tp = params
     if torch.cuda.is_available():

@@ -15,6 +15,7 @@ CUDA kernels bitwise against the same plain versions.
 import re
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -24,13 +25,16 @@ from repro.core.splitter import SplitEngine as JaxEngine  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import audio_encoder as jenc  # noqa: E402
+from repro.quant import int8 as jint8  # noqa: E402
 from repro_torch.core.splitter import SplitEngine  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.int8_quant import (  # noqa: E402
     ONE_BLOCK_MAX, int8_dequantize, int8_dequantize_ref, int8_quantize,
-    int8_quantize_ref, quantize_plan)
+    int8_quantize_ref, int8_quantize_roundtrip, int8_quantize_roundtrip_ref,
+    quantize_plan)
 from repro_torch.models import audio_encoder as enc  # noqa: E402
-from repro_torch.quant.int8 import QTensor  # noqa: E402
+from repro_torch.quant.int8 import (QTensor, dequantize,  # noqa: E402
+                                    fake_quant, quant_error, quantize)
 from repro_torch.weights import params_from_jax  # noqa: E402
 
 
@@ -115,6 +119,121 @@ def test_plain_versions_bitwise_match_reference(case):
         assert (qt.q == 0).all() and torch.isnan(out).all()
 
 
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_quantize_roundtrip_plain_version_bitwise_matches_reference(case):
+    """``int8_quantize_roundtrip``'s plain version: its payload and header
+    are the reference's jitted ``quantize``, its output the reference's
+    ``SplitEngine._qdq_tensor`` (the per-frame wire, one executable), and
+    both equal the port's own quantize and the dequantize of it."""
+    x = _case(case)
+    qt, out = int8_quantize_roundtrip(torch.from_numpy(x))
+    q, scale, zero = _jit_quantize[8](x)
+    np.testing.assert_array_equal(qt.q.numpy(), np.asarray(q))
+    assert _same(qt.scale.item(), float(scale))
+    assert _same(qt.zero.item(), float(zero))
+    assert out.dtype == torch.float32 and tuple(out.shape) == x.shape
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.asarray(JaxEngine(JCFG)._qdq_tensor(x)))
+    want = quantize(torch.from_numpy(x))
+    assert all(torch.equal(a.nan_to_num(), b.nan_to_num())
+               for a, b in zip(qt, want))
+    np.testing.assert_array_equal(out.numpy(), dequantize(want).numpy())
+
+
+# the reference's quantize as it runs, under jit, at each width
+_jit_quantize = {b: jax.jit(lambda a, b=b: tuple(jint8.quantize(a, bits=b)))
+                 for b in (1, 2, 4, 6, 8)}
+
+
+@pytest.mark.parametrize("bits", sorted(_jit_quantize))
+@pytest.mark.parametrize("case", [(257,), (37, 91), "constant", "outlier",
+                                  "nan", "inf"], ids=str)
+def test_quantize_bits_bitwise_matches_reference(bits, case):
+    """``quantize(x, bits=b)`` against the reference's jitted quantize at
+    b in {1, 2, 4, 6, 8}: XLA multiplies by float32(1 / (qmax - qmin))
+    at every width, and so does the port; levels, scale, zero and the
+    dequantized values bitwise."""
+    x = _case(case)
+    q, scale, zero = _jit_quantize[bits](x)
+    qt = quantize(torch.from_numpy(x), bits=bits)
+    np.testing.assert_array_equal(qt.q.numpy(), np.asarray(q))
+    assert _same(qt.scale.item(), float(scale))
+    assert _same(qt.zero.item(), float(zero))
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    assert lo <= int(qt.q.min()) and int(qt.q.max()) <= hi
+    np.testing.assert_array_equal(
+        dequantize(qt).numpy(), np.asarray(jint8.dequantize(
+            jint8.QTensor(q, scale, zero))))
+
+
+@pytest.mark.parametrize("bits", [0, 9, 16])
+def test_quantize_refuses_widths_outside_one_to_eight(bits):
+    """Above 8 bits the levels do not fit the int8 payload (the reference
+    hands them to an out-of-range conversion, no contract), and below 1
+    there is no level: both raise."""
+    with pytest.raises(ValueError, match="bits"):
+        quantize(torch.zeros(4), bits=bits)
+
+
+_jit_qdq = jax.jit(lambda a: jint8.dequantize(jint8.quantize(a)))
+
+
+@pytest.mark.parametrize("case", [(64,), (8, 33), (257,), "constant",
+                                  "outlier"], ids=str)
+def test_fake_quant_and_quant_error_match_reference(case):
+    """``fake_quant`` and ``quant_error`` bitwise against the reference's
+    own operations (``x + stop_gradient(y - x)``, ``max |x - y|``), each
+    rounded, on its jitted quantize∘dequantize ``y``: the form the port
+    follows.  The reference evaluated otherwise differs by its compiler:
+    eagerly it divides by 255 (another scale), and jitted on the CPU XLA
+    contracts the dequantize's multiply and the subtraction into one FMA
+    (one rounding less), so the port is held to the jitted
+    ``fake_quant`` within 2 ulps, and to its ``quant_error`` within 1 ulp,
+    of the largest |y|: the product's rounding and the roundings after
+    it."""
+    x = _case(case)
+    y = _jit_qdq(x)
+    want = np.asarray(jnp.add(x, jax.lax.stop_gradient(jnp.subtract(y, x))))
+    got = fake_quant(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and tuple(got.shape) == x.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the FMA skips the product's rounding (half an ulp of |y|), which may
+    # be several ulps of a smaller result: held in ulps of the largest |y|
+    ulp = np.spacing(np.abs(np.asarray(y)).max())
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jax.jit(jint8.fake_quant)(x)),
+                               rtol=0, atol=2 * ulp)
+    err = quant_error(torch.from_numpy(x))
+    assert err.dim() == 0
+    assert err.item() == float(jnp.max(jnp.abs(jnp.subtract(x, y))))
+    assert abs(err.item() - float(jax.jit(jint8.quant_error)(x))) <= ulp
+
+
+def test_fake_quant_gradient_is_straight_through_as_in_reference():
+    """The gradient of sum(w * fake_quant(x)) is w, bitwise, as
+    ``jax.grad`` gives it (eagerly and jitted); and that of
+    sum(fake_quant(x)^2) is 2 * fake_quant(x): the identity's Jacobian."""
+    x = _case((8, 33))
+    w = np.random.default_rng(3).normal(size=x.shape).astype(np.float32)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    (torch.from_numpy(w) * fake_quant(tx)).sum().backward()
+    jgrad = jax.grad(lambda a: jnp.sum(w * jint8.fake_quant(a)))
+    for g in (jgrad, jax.jit(jgrad)):
+        np.testing.assert_array_equal(tx.grad.numpy(), np.asarray(g(x)))
+    np.testing.assert_array_equal(tx.grad.numpy(), w)
+    tx.grad = None
+    y = fake_quant(tx)
+    (y ** 2).sum().backward()
+    np.testing.assert_array_equal(tx.grad.numpy(), 2 * y.detach().numpy())
+
+
+def test_fake_quant_keeps_the_input_dtype():
+    x = torch.from_numpy(_x((32,), 4)).to(torch.bfloat16)
+    y = fake_quant(x)
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, x + (dequantize(quantize(x), x.dtype) - x))
+
+
 def test_dequantize_casts_to_the_asked_dtype():
     qt = int8_quantize(torch.from_numpy(_x((64,), 3)))
     out = int8_dequantize(qt, dtype=torch.bfloat16)
@@ -174,14 +293,19 @@ def test_run_b1_equals_run_batch_async_b1(setup, k):
 def test_wrappers_on_cpu_run_plain_versions_without_launching(setup):
     _, tp, mel, _ = setup
     x = torch.from_numpy(_x((3, 50), 1))
-    before = (int8_quantize.launches, int8_dequantize.launches)
+    counts = (int8_quantize, int8_quantize_roundtrip, int8_dequantize)
+    before = [w.launches for w in counts]
     qt, want = int8_quantize(x), int8_quantize_ref(x)
     assert all(torch.equal(a, b) for a, b in zip(qt, want))
     assert torch.equal(int8_dequantize(qt), int8_dequantize_ref(want))
+    (rq, rout), (wq, wout) = (int8_quantize_roundtrip(x),
+                              int8_quantize_roundtrip_ref(x))
+    assert all(torch.equal(a, b) for a, b in zip(rq, wq))
+    assert torch.equal(rout, wout)
     SplitEngine(CFG, device="cpu").run(tp, mel[:2], 1)
-    assert (int8_quantize.launches, int8_dequantize.launches) == before
-    assert ops.KERNELS["int8_quantize"] is int8_quantize
-    assert ops.KERNELS["int8_dequantize"] is int8_dequantize
+    assert [w.launches for w in counts] == before
+    for w in counts:
+        assert ops.KERNELS[w.__name__] is w
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -191,6 +315,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
     meta = torch.empty(4, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         int8_quantize(meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        int8_quantize_roundtrip(meta)
     with pytest.raises(ValueError, match="no kernel"):
         int8_dequantize(QTensor(q=meta.to(torch.int8), scale=meta[0, 0],
                                 zero=meta[0, 0]))

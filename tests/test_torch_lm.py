@@ -83,7 +83,10 @@ def test_smoke_configs_equal_reference(name):
 
 
 def test_registry_and_dtypes():
-    assert base.list_configs() == sorted(TIERS)
+    # the two dense tiers and the audio encoder's marker, as in the
+    # reference's registry (which holds the LM families not ported yet too)
+    assert base.list_configs() == sorted(TIERS + ("streamsplit-audio",))
+    assert set(base.list_configs()) <= set(jbase.list_configs())
     cfg = base.get_config("qwen3-1.7b")
     assert cfg.xdtype == torch.float32 and cfg.pdtype == torch.float32
     assert replace(cfg, dtype="bfloat16").xdtype == torch.bfloat16
@@ -93,6 +96,17 @@ def test_registry_and_dtypes():
     assert wins == [1 << 30] * 28
     slid = replace(cfg, window=16, attn_pattern=("sliding", "global"))
     assert slid.layer_windows()[:4] == [16, 1 << 30, 16, 1 << 30]
+
+
+def test_audio_marker_is_registered_as_in_reference():
+    """``get_config("streamsplit-audio")`` is the audio encoder's registry
+    marker, field by field the reference's; LM walks skip its family."""
+    got, want = base.get_config("streamsplit-audio"), \
+        jbase.get_config("streamsplit-audio")
+    assert got.family == "audio_enc"
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert [n for n in base.list_configs()
+            if base.get_config(n).family != "audio_enc"] == sorted(TIERS)
 
 
 # ---------------------------------------------------------------------------

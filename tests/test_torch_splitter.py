@@ -99,6 +99,37 @@ def test_run_batch_async_equals_run_batch_bitwise(setup):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+@pytest.mark.parametrize("quantize", [True, False])
+def test_run_buckets_async_equals_run_batch_async_per_bucket(setup, quantize,
+                                                            monkeypatch):
+    """Every k-bucket's edge stage, one grouped wire, every server stage:
+    bitwise the per-bucket ``run_batch_async`` chains, wire bytes too, in
+    the buckets' order; with more wired buckets than a launch's groups
+    the wire takes a launch each ``MAX_GROUPS``."""
+    _, tp, mel, _ = setup
+    eng = SplitEngine(CFG, quantize_wire=quantize, device="cpu")
+    rng = np.random.default_rng(5)
+    batches = [(k, torch.from_numpy(rng.normal(size=(B, CFG.frames,
+                                                     CFG.n_mels))
+                                    .astype(np.float32)))
+               for k, B in zip((3, 0, L, 1, 2), (2, 1, 3, 4, 1))]
+    calls = []
+    grouped = ops.wire_roundtrip_grouped
+    monkeypatch.setattr(ops, "wire_roundtrip_grouped",
+                        lambda xs: calls.append(len(xs)) or grouped(xs))
+    for max_groups, launches in ((16, [L]), (3, [3, 1])):
+        monkeypatch.setattr("repro_torch.core.splitter.MAX_GROUPS",
+                            max_groups)
+        calls.clear()
+        got = eng.run_buckets_async(tp, batches)
+        assert calls == (launches if quantize else [])
+        assert len(got) == len(batches)
+        for (k, m), (z, wire) in zip(batches, got):
+            want_z, want_wire = eng.run_batch_async(tp, m, k)
+            assert wire == want_wire
+            assert torch.equal(z, want_z), k
+
+
 def test_run_b1_equals_run_batch_b1(setup):
     """Per-tensor and per-sample wire formats agree at B=1."""
     _, tp, mel, _ = setup
