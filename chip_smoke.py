@@ -78,8 +78,15 @@ at W = 1 and at W = 1,000 (32 values a lane), with 96 (or W/2) identical
 rows;
 ``laplacian_energy`` forward and backward at (1, 104, 128) k = 3, k >= T,
 T = 1 and an all-masked row, T = 105 (a last chunk of one frame), k = 20
-and the LM step's (8, 16, 1,024) k = 5, aligned and misaligned.  Forwards
-within phase 3's tolerances
+and the LM step's (8, 16, 1,024) k = 5, aligned and misaligned;
+``hybrid_reg_bwd`` (both regularisers' gradients in one launch) at the
+edge learner's (1, 104, 128) M 32 k 3, the LM steps' (8, 16, 1,024) and
+(4, 16, 2,048) M 50 k 5 with an expanded (stride-0) g_tot, and the edges
+of its tiling (W and d not multiples of the tile, d = 127, T = 1, k >= T,
+M past one staged chunk, W = 1,000), where it must also equal, bitwise,
+``swd_rank_bwd`` + ``laplacian_energy_bwd`` added by torch (its two
+one-half launches, the composition it replaced), each half alone the
+one-half launch.  Forwards within phase 3's tolerances
 (InfoNCE rtol 1e-5, SWD loss rtol 1e-4, ranks exact against
 ``torch.sort(stable=True)`` of the kernel's projections), gradients
 within 1e-5 of each gradient's max |g|; the autograd entries must give
@@ -90,13 +97,16 @@ Phase 6 runs ``train_representation("streamsplit")`` at full width
 (``AudioEncCfg()``, batch 8, 256 virtual negatives, 98 mel frames) for 60
 steps, so steps 50-59 are past cold start, then evaluates on 240 frames.
 The counts are set to 0 just before and read just after; every step must
-launch each training kernel once.  Step 0's loss, every gradient and the
+launch each training kernel once: the SW and Laplacian terms' forwards,
+and one ``hybrid_reg_bwd`` for both gradients (no ``swd_rank_bwd`` or
+``laplacian_energy_bwd``).  Step 0's loss, every gradient and the
 GMM after ``em_update`` are compared with the port on the CPU (same
 weights, data and draws; rtol 1e-4 of each tensor's max |x|).  It prints
 cold and warm step times, a profiled step, the final loss, probe accuracy
 and collapse, and each training kernel's time at the path's shape (``swd_rank_fwd``
 and ``_bwd`` also at the LM step's (128, 1,024), M 50, and
-``laplacian_energy`` and ``_bwd`` at its (8, 16, 1,024), k 5).
+``laplacian_energy``, ``_bwd`` and ``hybrid_reg_bwd`` at its (8, 16,
+1,024), k 5), ``hybrid_reg_bwd`` beside the composition it replaced.
 
 Phase 7 holds the per-tensor wire kernels ``int8_quantize`` (one block
 up to 16,384 elements, two passes above), ``int8_dequantize`` and
@@ -186,7 +196,7 @@ steps, 5 counted), and at qwen3-1.7b's full width with 4 layers, B 4 x S
 1,024 (its GQA, hd-128 backward; 2 and 3), random tokens from seeded
 generators on the card.  In each counted run every step must launch the
 flash forward twice a layer (remat replays it), dq and dk/dv once a
-layer, and ``swd_rank_fwd``/``_bwd`` and ``laplacian_energy``/``_bwd``
+layer, and ``swd_rank_fwd``, ``laplacian_energy`` and ``hybrid_reg_bwd``
 once, and no other kernel; the loss must be finite and lower at the end
 than at step 0.  It prints step p50/p95, tokens/s, peak memory and a
 profiled step's device time by kind of kernel and idle share.
@@ -1020,9 +1030,27 @@ INFONCE_RTOL, TRAIN_SWD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-5
 LM_SW_POINTS, LM_SW_DIRS, LM_D = 128, 50, 1024
 # the LM step's Laplacian term: B 8 rows of S 1,024 / pool 64 = 16 frames
 LM_LAP_B, LM_LAP_T = 8, 16
+# each launched once a training step; the one-half calls of the
+# regularisers' backward kernel never on the path (one hybrid_reg_bwd)
 TRAIN_KERNELS = ("infonce_vneg_fwd", "infonce_vneg_bwd", "swd_rank_fwd",
-                 "swd_rank_bwd", "laplacian_energy", "laplacian_energy_bwd",
-                 "gmm_posterior")
+                 "laplacian_energy", "hybrid_reg_bwd", "gmm_posterior")
+ONE_HALF = ("swd_rank_bwd", "laplacian_energy_bwd")
+# hybrid_reg_bwd's cases in phase 5 (what, B, T, d, M, k, g_tot expanded):
+# the edge learner's (1, 104, 128) with 96 tied rows, the LM steps'
+# (8, 16, 1,024) and (4, 16, 2,048) whose g_tot arrives expanded, and the
+# edges of its tiling (8 rows x 32 columns, 64 directions staged at a
+# time): W and d not multiples of the tile, d = 127, T = 1, k >= T, M past
+# one chunk, W = 1,000 with k 20
+HYBRID_CASES = (("edge", 1, BUFFER + TRAIN_BATCH, 128, TRAIN_DIRS, TRAIN_KNN,
+                 False),
+                ("LM", LM_LAP_B, LM_LAP_T, LM_D, LM_SW_DIRS, KNN, True),
+                ("LM d 2,048", 4, LM_LAP_T, 2 * LM_D, LM_SW_DIRS, KNN, True),
+                ("ragged tile", 3, 7, 45, 3, 2, True),
+                ("d = 127", 2, 9, 127, 8, 3, False),
+                ("T = 1", 5, 1, 64, 4, KNN, True),
+                ("k >= T", 2, 6, 40, 5, 9, False),
+                ("M past a chunk", 1, 20, 33, 131, 3, False),
+                ("W = 1,000", 1, 1000, 128, 8, 20, False))
 
 
 def grad_err(got, want, what):
@@ -1068,6 +1096,59 @@ def swd_train_inputs(g, dev, W, d, M):
     return x.contiguous(), dirs, prior_q
 
 
+def hybrid_inputs(g, dev, ops, B, T, d, M, k, expanded):
+    """The arguments of ``hybrid_reg_bwd``: z (B, T, d) on the sphere whose
+    first rows repeat one row (96, or half of the W = B*T), a mask with ~10%
+    gaps, M directions, the sorted prior quantiles, the forward kernel's
+    proj and rank, cotangents g_sw () and g_tot (B,), the latter a stride-0
+    view where ``expanded`` (as the cotangent of ``tot.sum()`` arrives)."""
+    W = B * T
+    z = unit_rows(g, (W, d), dev)
+    z[:min(BUFFER, W // 2)] = z[0]
+    z = z.view(B, T, d).contiguous()
+    mask = (torch.rand(B, T, device=dev, generator=g) >= 0.1).float()
+    dirs = unit_rows(g, (M, d), dev)
+    pq = torch.sort(unit_rows(g, (W, d), dev) @ dirs.T,
+                    dim=0).values.contiguous()
+    _, proj, rank = ops.swd_rank_fwd(z.view(W, d), dirs, pq)
+    g_sw = torch.rand((), device=dev, generator=g) + 0.5
+    g_tot = torch.randn((), device=dev, generator=g).expand(B) if expanded \
+        else torch.randn(B, device=dev, generator=g)
+    return z, mask, k, g_sw, proj, rank, pq, dirs, g_tot
+
+
+def hold_hybrid(g, dev, ops, what, B, T, d, M, k, expanded):
+    """``hybrid_reg_bwd`` at one case: against its plain version (within
+    GRAD_ATOL of max |dz|), bitwise from run to run, bitwise the
+    composition it replaced (the two one-half launches added by torch, in
+    either order), each half alone bitwise the one-half launch, and the
+    autograd entry ``hybrid_regularisers`` bitwise the kernel -> max
+    |err|."""
+    args = hybrid_inputs(g, dev, ops, B, T, d, M, k, expanded)
+    z, mask, _, g_sw, proj, rank, pq, dirs, g_tot = args
+    what = f"{what} ({B}, {T}, {d}) M {M} k {k}" + \
+        (", g_tot expanded" if expanded else "")
+    dz, = same_bits(lambda *a: (ops.hybrid_reg_bwd(*a),), args,
+                    f"hybrid_reg_bwd at {what}")
+    err = grad_err(dz, ops.hybrid_reg_bwd_ref(*args),
+                   f"hybrid_reg_bwd at {what}")
+    sw = ops.swd_rank_bwd(g_sw, proj, rank, pq, dirs).view(B, T, d)
+    lap = ops.laplacian_energy_bwd(z, mask, g_tot.contiguous(), k)
+    check(torch.equal(dz, sw + lap) and torch.equal(dz, lap + sw),
+          f"hybrid_reg_bwd != swd_rank_bwd + laplacian_energy_bwd at {what}")
+    check(torch.equal(ops.hybrid_reg_bwd(*args[:-1], None), sw)
+          and torch.equal(ops.hybrid_reg_bwd(*args[:3], None, *args[4:]),
+                          lap), f"hybrid_reg_bwd's halves != the one-half "
+          f"launches at {what}")
+    zl = z.clone().requires_grad_()
+    with torch.enable_grad():
+        sw_l, tot, _ = ops.hybrid_regularisers(zl, mask, k, dirs, pq)
+        a, = torch.autograd.grad((sw_l, tot), zl, (g_sw, g_tot))
+    check(torch.equal(a, dz), f"hybrid_regularisers autograd != "
+          f"hybrid_reg_bwd at {what}")
+    return err
+
+
 def phase5(dev, ops):
     """The training path's kernels against their plain versions on the
     card, forward values and gradients -> {name: max |err|}."""
@@ -1075,7 +1156,7 @@ def phase5(dev, ops):
     g = torch.Generator(device=dev).manual_seed(5)
     worst = dict.fromkeys(("infonce_vneg_fwd", "infonce_vneg_bwd",
                            "swd_rank_fwd", "swd_rank_bwd",
-                           "laplacian_energy_bwd"), 0.0)
+                           "laplacian_energy_bwd", "hybrid_reg_bwd"), 0.0)
     # N = 1, N not a multiple of the kernels' split (263: 16 splits of 17;
     # 100: 13 of 8), d = 127 and a z_neg view off 16 bytes (the scalar path)
     for B, N, d, off in ((TRAIN_BATCH, N_SYN + TRAIN_BATCH, 128, False),
@@ -1185,6 +1266,10 @@ def phase5(dev, ops):
                 ops.laplacian_energy_diff(zl, mask, k)[0], zl, cot)
         check(torch.equal(a, dz), f"laplacian_energy_diff autograd != "
               f"laplacian_energy_bwd at {what}")
+    g_hyb = torch.Generator(device=dev).manual_seed(22)
+    for case in HYBRID_CASES:
+        worst["hybrid_reg_bwd"] = max(worst["hybrid_reg_bwd"],
+                                      hold_hybrid(g_hyb, dev, ops, *case))
     torch.cuda.synchronize()
     print(f"phase 5: infonce_vneg fwd (rtol {INFONCE_RTOL}) and bwd (also "
           f"N = 263, d = 127, a misaligned z_neg), swd_rank fwd (loss rtol "
@@ -1193,7 +1278,8 @@ def phase5(dev, ops):
           f"1,000) and bwd, "
           f"laplacian_energy fwd (rtol {LAP_RTOL}; also T 105, k 20, the LM "
           f"step's ({LM_LAP_B}, {LM_LAP_T}, {LM_D}) k {KNN}, misaligned) and "
-          f"bwd == plain versions "
+          f"bwd, hybrid_reg_bwd (both paths' shapes, its tiling's edges; "
+          f"bitwise == swd_rank_bwd + laplacian_energy_bwd) == plain versions "
           f"(gradients within {GRAD_ATOL} x max |g|), autograd entries == "
           f"their backward kernels, bitwise from run to run; max |err| "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
@@ -1215,8 +1301,9 @@ def phase6(cfg, dev, ops):
     def on_step(i, loss, grads, tr):
         torch.cuda.synchronize()
         ends.append(time.perf_counter())
-        now = {n: ops.KERNELS[n].launches for n in TRAIN_KERNELS}
-        per_step.append({n: now[n] - prev.get(n, 0) for n in TRAIN_KERNELS})
+        now = {n: ops.KERNELS[n].launches for n in TRAIN_KERNELS + ONE_HALF}
+        per_step.append({n: now[n] - prev.get(n, 0)
+                         for n in TRAIN_KERNELS + ONE_HALF})
         prev.update(now)
         if i == 0:
             first.update(loss=loss.item(), grads=[g.cpu() for g in grads],
@@ -1239,12 +1326,12 @@ def phase6(cfg, dev, ops):
           and np.isfinite(res.eval_z).all(), "eval embeddings")
     norm_err = float(np.abs(np.linalg.norm(res.eval_z, axis=1) - 1).max())
     check(norm_err <= 1e-5, f"eval | ||z|| - 1 | = {norm_err}")
-    want = {n: 1 for n in TRAIN_KERNELS}
+    want = {**dict.fromkeys(TRAIN_KERNELS, 1), **dict.fromkeys(ONE_HALF, 0)}
     for i, c in enumerate(per_step):
         check(c == want, f"step {i}: launches {c}, want {want}")
-    for n in TRAIN_KERNELS:
-        check(launches[n] == TRAIN_STEPS, f"{n} launched {launches[n]} "
-              f"times in {TRAIN_STEPS} steps")
+    for n in TRAIN_KERNELS + ONE_HALF:
+        check(launches[n] == want[n] * TRAIN_STEPS, f"{n} launched "
+              f"{launches[n]} times in {TRAIN_STEPS} steps")
     check(launches["wire_roundtrip"] == launches["wire_roundtrip_grouped"]
           == launches["swd_sessions"] == 0,
           f"serving/refine kernels on the training path: {launches}")
@@ -1310,12 +1397,13 @@ def profile_train_step(tr, p50):
         by_name[name] = by_name.get(name, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    # the SW term's and the InfoNCE's kernels (forward and backward, each
-    # with its second pass)
+    # the SW term's forward, the regularisers' backward and the InfoNCE's
+    # kernels (forward and backward, each with its second pass)
     own = {k: sum(us for n, us in by_name.items() if k in n.lower()) / 1e3
-           for k in ("swd", "infonce")}
+           for k in ("swd", "hybrid_reg", "infonce")}
     print(f"profiled warm step: {len(events)} device activities, busy "
-          f"{busy_ms:.3f} ms (swd kernels {own['swd']:.4f} ms, infonce "
+          f"{busy_ms:.3f} ms (swd kernels {own['swd']:.4f} ms, hybrid_reg "
+          f"{own['hybrid_reg']:.4f} ms, infonce "
           f"kernels {own['infonce']:.4f} ms); idle share of the unprofiled "
           f"warm p50 step ({p50:.3f} ms): {1.0 - busy_ms / p50:.3f}; top: "
           + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top))
@@ -1338,6 +1426,8 @@ def train_kernel_times(dev, ops):
     C = 16                                    # the edge learner's GMM
     gmm_args = gmm_inputs(g, dev, BUFFER, C, d)
     pairs = sum(T - delta for delta in range(1, K + 1))
+    # the step's regularisers' backward: the SW term's x as z (1, T, d)
+    hyb = (x.view(1, T, d), lmask, K, one, proj, rank, pq, dirs, lg)
     cases = {
         # read z, z_pos, z_neg once, write loss and lse; a dot product per
         # logit, then max, subtract, exp and add per logit
@@ -1371,6 +1461,12 @@ def train_kernel_times(dev, ops):
             lambda a: ops.laplacian_energy_bwd(*a, K),
             lambda a: ops.laplacian_energy_bwd_ref(*a, K), (lz, lmask, lg),
             4 * (2 * T * d + T + 1), 6 * pairs * d + 2 * T * d),
+        # both: the SW half's bytes and operations, the Laplacian half's,
+        # z read once for both, and the join
+        "hybrid_reg_bwd": (
+            lambda a: ops.hybrid_reg_bwd(*a),
+            lambda a: ops.hybrid_reg_bwd_ref(*a), hyb,
+            hybrid_bytes(1, T, d, M), hybrid_ops(1, T, d, M, K)),
         # the two forward kernels the refine path shares, at this path's
         # shapes (counted as in refine_kernel_times)
         "laplacian_energy": (
@@ -1390,6 +1486,10 @@ def train_kernel_times(dev, ops):
     lm_z = unit_rows(g, (LB, LT, d), dev)
     lm_mask, lm_g = torch.ones(LB, LT, device=dev), torch.ones(LB, device=dev)
     lm_pairs = sum(LT - delta for delta in range(1, min(KNN, LT - 1) + 1))
+    # the step's regularisers' backward: z (8, 16, 1,024) the pooled
+    # frames, g_tot the expanded cotangent of tot.sum()
+    lm_hyb = (lx.view(LB, LT, d), lm_mask, KNN, one, lproj, lrank, lpq,
+              ldirs, torch.ones((), device=dev).expand(LB))
     lm_cases = {
         "swd_rank_fwd": (
             lambda a: ops.swd_rank_fwd(*a), lambda a: ops.swd_rank_fwd_ref(*a),
@@ -1410,6 +1510,10 @@ def train_kernel_times(dev, ops):
             lambda a: ops.laplacian_energy_bwd_ref(*a, KNN),
             (lm_z, lm_mask, lm_g), 4 * (2 * LB * LT * d + LB * LT + LB),
             LB * (6 * lm_pairs * d + 2 * LT * d)),
+        "hybrid_reg_bwd": (
+            lambda a: ops.hybrid_reg_bwd(*a),
+            lambda a: ops.hybrid_reg_bwd_ref(*a), lm_hyb,
+            hybrid_bytes(LB, LT, d, M), hybrid_ops(LB, LT, d, M, KNN)),
     }
     out = {}
     for group in (cases, lm_cases):
@@ -1428,6 +1532,10 @@ def train_kernel_times(dev, ops):
             rec = {"ms": ms, "plain_ms": plain_ms,
                    "bound_ms": max(b_ms, o_ms),
                    "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+            if name == "hybrid_reg_bwd":
+                # what it replaced: the two one-half launches and an add
+                # (and at B > 1 the copy of the expanded g_tot)
+                rec["composition_ms"] = device_ms(composition(ops), args)
             if group is cases:
                 out[name] = rec
             else:
@@ -1435,8 +1543,38 @@ def train_kernel_times(dev, ops):
             print(f"{name} at {where}: device kernel {ms * 1e3:.2f} us, "
                   f"plain {plain_ms * 1e3:.2f} us; bound "
                   f"{max(b_ms, o_ms) * 1e3:.3f} us ({rec['bound_by']}: "
-                  f"{nbytes} bytes, {nops} operations)")
+                  f"{nbytes} bytes, {nops} operations)" + (
+                      f"; swd_rank_bwd + laplacian_energy_bwd + add "
+                      f"{rec['composition_ms'] * 1e3:.2f} us"
+                      if "composition_ms" in rec else ""))
     return out
+
+
+def hybrid_bytes(B, T, d, M):
+    """``hybrid_reg_bwd``'s least bytes: z, mask, g_tot, g_sw, proj, rank,
+    the gathered prior_q, dirs read once, dz written once."""
+    W = B * T
+    return 4 * (2 * W * d + W + B + 1 + 3 * W * M + M * d)
+
+
+def hybrid_ops(B, T, d, M, k):
+    """``hybrid_reg_bwd``'s operations: the SW half's weights and product,
+    the Laplacian half's (counted as ``laplacian_energy_bwd``'s), the
+    join."""
+    pairs = sum(T - delta for delta in range(1, min(k, T - 1) + 1))
+    return 2 * B * T * M * d + 4 * B * T * M \
+        + B * (6 * pairs * d + 2 * T * d) + B * T * d
+
+
+def composition(ops):
+    """The regularisers' backward as the step launched it before the
+    kernel joined them: ``swd_rank_bwd`` and ``laplacian_energy_bwd`` (on
+    a contiguous g_tot) added by torch."""
+    def run(a):
+        z, mask, k, g_sw, proj, rank, pq, dirs, g_tot = a
+        return ops.swd_rank_bwd(g_sw, proj, rank, pq, dirs).view(z.shape) \
+            + ops.laplacian_energy_bwd(z, mask, g_tot.contiguous(), k)
+    return run
 
 
 # --- the per-frame split path's per-tensor wire kernels ----------------------
@@ -2420,8 +2558,8 @@ def bwd_kernel_times(dev, ops):
 LM_TRAIN = (("qwen1.5-0.5b", None, 8, 1024, 3, 5),
             ("qwen3-1.7b", 4, 4, 1024, 2, 3))
 LM_PATH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
-                   "flash_attention_bwd_dkv", "swd_rank_fwd", "swd_rank_bwd",
-                   "laplacian_energy", "laplacian_energy_bwd")
+                   "flash_attention_bwd_dkv", "swd_rank_fwd",
+                   "laplacian_energy", "hybrid_reg_bwd")
 LM_RTOL = 1e-4           # card vs CPU, of each tensor's max |x|
 
 
@@ -2464,12 +2602,12 @@ def lm_train_run(dev, ops, name, n_layers, B, S, warm, timed):
     want = {"flash_attention_fwd": 2 * L * timed,
             "flash_attention_bwd_dq": L * timed,
             "flash_attention_bwd_dkv": L * timed, "swd_rank_fwd": timed,
-            "swd_rank_bwd": timed, "laplacian_energy": timed,
-            "laplacian_energy_bwd": timed}
+            "laplacian_energy": timed, "hybrid_reg_bwd": timed}
     check(launches == {n: want.get(n, 0) for n in launches},
           f"{name}: launches {launches} in {timed} steps, want {want} (2 "
           f"flash forwards a layer under remat, 1 dq and 1 dk/dv a layer, "
-          f"1 of each hybrid kernel a step) and no other")
+          f"the SW and Laplacian forwards and one backward for both a step) "
+          f"and no other")
     hist = tr.history
     losses = [h["loss"] for h in hist]
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -2513,7 +2651,8 @@ def profile_train_lm_step(tr, p50):
                 "dq" if "flash_bwd_dq" in n else
                 "dk/dv" if "flash_bwd_dkv" in n else
                 "GEMMs" if "gemm" in n else
-                "SWD and Laplacian" if ("swd" in n or "laplacian" in n) else
+                "SWD and Laplacian" if ("swd" in n or "laplacian" in n
+                                        or "hybrid_reg" in n) else
                 "copies" if "memcpy" in n or "memset" in n else
                 "elementwise and other")
         by_kind[kind] = by_kind.get(kind, 0.0) + e.time_range.elapsed_us()
@@ -2697,9 +2836,12 @@ def main():
             ("infonce_vneg_bwd", "infonce_vneg.cu", no_pallas.format(
                 "src/repro/core/infonce.py:19")),
             ("swd_rank_fwd", "swd.cu", "src/repro/kernels/swd_kernel.py:67"),
-            ("swd_rank_bwd", "swd.cu", no_pallas.format(
+            ("swd_rank_bwd", "hybrid_reg_bwd.cu", no_pallas.format(
                 "src/repro/core/swd.py:108")),
-            ("laplacian_energy_bwd", "laplacian_energy.cu", no_pallas.format(
+            ("laplacian_energy_bwd", "hybrid_reg_bwd.cu", no_pallas.format(
+                "src/repro/core/laplacian.py:29")),
+            ("hybrid_reg_bwd", "hybrid_reg_bwd.cu", no_pallas.format(
+                "src/repro/core/swd.py:108 and "
                 "src/repro/core/laplacian.py:29"))):
         records.append({
             "name": name, "route": "cuda",

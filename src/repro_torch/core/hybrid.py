@@ -6,7 +6,8 @@ Port of ``repro.core.hybrid``.  L_task is InfoNCE over the buffer in the
 self-supervised setting, or CE when sparse labels are available.  Also
 the ablation variants of Table 5 (MSE-only, KL, task+SW, task+Lap).
 ``key`` is a ``torch.Generator`` or a ``(dirs, prior)`` pair
-(``core.swd.draw``).
+(``core.swd.draw``).  ``regularisers`` gives L_SW and L_Lap together: on
+the card their gradients come from one backward launch.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import torch
 
 from repro_torch.core.infonce import batch_infonce
 from repro_torch.core.laplacian import laplacian_loss
-from repro_torch.core.swd import swd_loss
+from repro_torch.core.swd import draw, prior_quantiles, swd_loss
+from repro_torch.kernels.hybrid_reg import hybrid_regularisers
 
 
 @dataclass(frozen=True)
@@ -37,6 +39,28 @@ def task_loss(z, *, labels=None, logits=None, z_pos=None, tau=0.1):
     return torch.zeros((), device=z.device)
 
 
+def regularisers(key, z_seq, *, n_dirs=50, k=5, mask=None):
+    """L_SW of the rows of ``z_seq`` (T, d) or (B, T, d) (``swd_loss`` of
+    ``z_seq.reshape(-1, d)``) and L_Lap of its frames (``laplacian_loss``)
+    -> (sw, lap).  On a CUDA tensor both come from
+    ``kernels.hybrid_reg.hybrid_regularisers``: the two terms' forward
+    kernels, then one backward launch for both gradients.  On a CPU tensor
+    ``swd_loss`` and ``laplacian_loss`` under ordinary autograd."""
+    d = z_seq.shape[-1]
+    if z_seq.device.type != "cuda":
+        return (swd_loss(key, z_seq.reshape(-1, d), n_dirs=n_dirs),
+                laplacian_loss(z_seq, k=k, mask=mask))
+    z = z_seq.float() if z_seq.dim() == 3 else z_seq.float()[None]
+    B, T, _ = z.shape
+    dirs, prior = draw(key, n_dirs, B * T, d)
+    dirs, prior_q = prior_quantiles(prior.to(z.device), dirs.to(z.device))
+    mask = torch.ones(B, T, device=z.device) if mask is None \
+        else mask.float().reshape(B, T)
+    sw, tot, cnt = hybrid_regularisers(
+        z.contiguous(), mask.detach().contiguous(), k, dirs, prior_q)
+    return sw, tot.sum() / cnt.sum().clamp_min(1.0)
+
+
 def hybrid_loss(key, z_seq, cfg: HybridCfg = HybridCfg(), *, mask=None,
                 labels=None, logits=None, z_pos=None, variant="hybrid"):
     """z_seq: (T, d) or (B, T, d) temporally ordered embeddings.
@@ -46,9 +70,12 @@ def hybrid_loss(key, z_seq, cfg: HybridCfg = HybridCfg(), *, mask=None,
     z_flat = z_seq.reshape(-1, z_seq.shape[-1])
     parts = {"task": task_loss(z_flat, labels=labels, logits=logits,
                                z_pos=z_pos, tau=cfg.tau)}
-    if variant in ("hybrid", "task_sw"):
+    if variant == "hybrid":
+        parts["sw"], parts["lap"] = regularisers(
+            key, z_seq, n_dirs=cfg.n_dirs, k=cfg.knn, mask=mask)
+    if variant == "task_sw":
         parts["sw"] = swd_loss(key, z_flat, n_dirs=cfg.n_dirs)
-    if variant in ("hybrid", "task_lap"):
+    if variant == "task_lap":
         parts["lap"] = laplacian_loss(z_seq, k=cfg.knn, mask=mask)
     if variant == "mse":
         # naive consistency: pull adjacent frames together with plain MSE

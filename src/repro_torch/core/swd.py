@@ -21,7 +21,9 @@ projections ``prior_q`` are ``torch.sort(y @ dirs.T, dim=0)`` without a
 gradient, as the refine round and the reference's ``ops.swd`` sort them,
 and ``kernels.swd.swd_single`` gives the loss and its gradient to x
 through the sort.  The gradient reaches x only: ``y`` and ``dirs`` must
-not require one there.
+not require one there.  ``core.hybrid.regularisers`` takes the same
+``prior_q`` (``prior_quantiles``) into one backward launch for the SW and
+Laplacian terms together.
 """
 from __future__ import annotations
 
@@ -90,17 +92,25 @@ def bitonic_diff_sort(x):
     return diff_sort(x, axis=0)
 
 
+def prior_quantiles(y, dirs):
+    """What the SW kernels take of the prior ``y`` (N, d) and ``dirs`` (M,
+    d): ``dirs`` as contiguous float32, and ``prior_q`` (N, M), the prior's
+    projections sorted along N, without a gradient."""
+    if y.requires_grad:
+        raise ValueError("the SW term on the card differentiates x only: "
+                         "pass a y that does not require a gradient")
+    dirs = dirs.float().contiguous()
+    with torch.no_grad():
+        prior_q = torch.sort(y.float() @ dirs.T, dim=0).values
+    return dirs, prior_q.contiguous()
+
+
 def sliced_w2(x, y, dirs):
     """Empirical SW₂² between point sets x (N, d), y (N, d) over ``dirs``
     (M, d)."""
     if x.device.type == "cuda":
-        if y.requires_grad:
-            raise ValueError("sliced_w2 on the card differentiates x only: "
-                             "pass a y that does not require a gradient")
-        dirs = dirs.float().contiguous()
-        with torch.no_grad():
-            prior_q = torch.sort(y.float() @ dirs.T, dim=0).values
-        return swd_single(x.float().contiguous(), dirs, prior_q.contiguous())
+        dirs, prior_q = prior_quantiles(y, dirs)
+        return swd_single(x.float().contiguous(), dirs, prior_q)
     px = diff_sort(x.float() @ dirs.T, axis=0)
     py = diff_sort(y.float() @ dirs.T, axis=0)
     return (px - py).square().mean()

@@ -51,14 +51,16 @@ SIGNATURES = {
         "swd_sessions_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "swd_rank_fwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
                              _I),
-        "swd_rank_bwd_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
         "swd_error_string": ([_I], _S),
     },
     "laplacian_energy.cu": {
         "laplacian_energy_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-        "laplacian_energy_bwd_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _P],
-                                     _I),
         "laplacian_energy_error_string": ([_I], _S),
+    },
+    "hybrid_reg_bwd.cu": {
+        "hybrid_reg_bwd_f32": ([_P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _P], _I),
+        "hybrid_reg_bwd_error_string": ([_I], _S),
     },
     "gmm_posterior.cu": {
         "gmm_posterior_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,

@@ -49,15 +49,8 @@
 // SM, chunk and cluster sizes, checks on every pair, fused multiply-adds)
 // are text patches in tools/laplacian_variants.py.
 //
-// The edge trainer differentiates tot (`laplacian_energy_bwd_f32`; no Pallas
-// counterpart, the reference differentiates the jnp twin
-// `core/laplacian.py::dirichlet_energy`).  Given the cotangent g (B,):
-//   dz[b, t] = 2 * g[b] * sum over delta = 1..K of
-//              ( m[t] * m[t-delta] * (z[t] - z[t-delta])      if t >= delta
-//              - m[t] * m[t+delta] * (z[t+delta] - z[t]) )    if t+delta < T
-// cnt has no gradient.  One thread per element of z, the deltas in order,
-// so it too is the same bits from run to run; it reads z about 2K+1 times
-// (from L1/L2) and writes dz once: bytes bound it, 2*B*T*d*4 of them.
+// The edge trainer differentiates tot: its gradient is `hybrid_reg_bwd.cu`
+// with the Laplacian half alone (cnt has no gradient).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -331,32 +324,6 @@ laplacian_energy_kernel(const float* __restrict__ z,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-laplacian_energy_bwd_kernel(const float* __restrict__ z,
-                            const float* __restrict__ mask,
-                            const float* __restrict__ g,
-                            float* __restrict__ dz, int T, int d, int K) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= T * d) return;
-  const int t = e / d;
-  const size_t row = static_cast<size_t>(blockIdx.y) * T;
-  const float* zr = z + row * d;
-  const float* mr = mask + row;
-  const float zt = zr[e], mt = mr[t];
-  float acc = 0.0f;
-  for (int delta = 1; delta <= K; ++delta) {
-    if (t >= delta) {
-      const float pair = __fmul_rn(mr[t - delta], mt);
-      acc = __fadd_rn(acc, __fmul_rn(pair, __fsub_rn(zt, zr[e - delta * d])));
-    }
-    if (t + delta < T) {
-      const float pair = __fmul_rn(mt, mr[t + delta]);
-      acc = __fsub_rn(acc, __fmul_rn(pair, __fsub_rn(zr[e + delta * d], zt)));
-    }
-  }
-  dz[row * d + e] = __fmul_rn(__fmul_rn(2.0f, g[blockIdx.y]), acc);
-}
-
 }  // namespace
 
 extern "C" {
@@ -394,22 +361,6 @@ int laplacian_energy_f32(const float* z, const float* mask, float* tot,
                                cnt, T, d, K, p.slices, p.frames, p.chunks,
                                p.cluster);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
-}
-
-// The gradient of tot: dz (B, T, d) from the cotangent g (B,); launches on
-// `stream` and returns cudaGetLastError().
-int laplacian_energy_bwd_f32(const float* z, const float* mask,
-                             const float* g, float* dz, int B, int T, int d,
-                             int k, cudaStream_t stream) {
-  if (B <= 0 || T <= 0 || d <= 0 || k < 0 || B > 65535 ||
-      static_cast<long long>(T) * d >= (1LL << 31)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int K = k < T - 1 ? k : T - 1;
-  const dim3 grid((T * d + kThreads - 1) / kThreads, B);
-  laplacian_energy_bwd_kernel<<<grid, kThreads, 0, stream>>>(z, mask, g, dz,
-                                                             T, d, K);
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* laplacian_energy_error_string(int err) {

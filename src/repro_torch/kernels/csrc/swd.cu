@@ -43,15 +43,15 @@
 // to 2,048 (W <= 2,048).
 //
 // The edge trainer and the LM trainer differentiate the SW term of one
-// point set, so two more entry points serve them (`swd_rank_fwd_f32`,
-// `swd_rank_bwd_f32`).  The forward projects x (W, d) on dirs (M, d),
-// sorts each column as (value, row) pairs, so that ties break by row index
-// as torch.sort(stable=True) and the reference's jnp.argsort break them,
-// and writes the loss sum (sorted - prior_q)^2 / (W*M), the projections
-// proj (W, M) and each row's rank in its column (W, M) int32.  Ties are the
-// normal case there: the edge trainer's buffer starts as 96 identical rows,
-// whose projections are bitwise equal because every row's sum runs in the
-// same order.  Design: one block of 128 threads per direction (32 blocks
+// point set, so one more entry point serves them (`swd_rank_fwd_f32`; the
+// backward is `hybrid_reg_bwd.cu` with its SW half alone).  It projects x
+// (W, d) on dirs (M, d), sorts each column as (value, row) pairs, so that
+// ties break by row index as torch.sort(stable=True) and the reference's
+// jnp.argsort break them, and writes the loss sum (sorted - prior_q)^2 /
+// (W*M), the projections proj (W, M) and each row's rank in its column
+// (W, M) int32.  Ties are the normal case there: the edge trainer's buffer
+// starts as 96 identical rows, whose projections are bitwise equal because
+// every row's sum runs in the same order.  Design: one block of 128 threads per direction (32 blocks
 // on the edge learner, 50 on the LM step), each streaming x over d in
 // chunks through a two-stage cp.async ring (the LM step's x is 512 KB at
 // d = 1,024 and does not fit in shared memory); thread t sums rows t,
@@ -59,12 +59,7 @@
 // network on (value, row) pairs, writes the ranks and the column's partial
 // loss.  A second one-block kernel, launched as a programmatic dependent
 // (Hopper), sums the M partials in direction order into the loss.  V runs
-// to 32 (W <= 1,024).  The backward (no Pallas counterpart: the reference
-// differentiates the jnp twin) writes
-//   dx[i] = sum over m of 2*g*(proj[i, m] - prior_q[rank[i, m], m])/(W*M)
-//           * dirs[m]
-// one block per row, the row's M weights staged in shared memory, each
-// thread one column of dx summing over m in order.
+// to 32 (W <= 1,024).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,7 +82,6 @@ constexpr int kRankLanes = 32;          // swd_rank_fwd: lanes a column
 constexpr int kRankMaxV = 32;           // swd_rank_fwd: P <= 1,024
 constexpr int kSmemCap = 227 * 1024;
 constexpr float kBig = 3.0e38f;
-constexpr int kBwdThreads = 128;
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -548,33 +542,6 @@ __global__ void swd_rank_loss_kernel(const float* partial, float* loss,
   if (threadIdx.x == 0) sum_partials(partial, loss, M, count);
 }
 
-// dx for one row per block; g is the loss's cotangent (one float).
-__global__ void __launch_bounds__(kBwdThreads)
-swd_rank_bwd_kernel(const float* __restrict__ g,
-                    const float* __restrict__ proj,
-                    const int* __restrict__ rank,
-                    const float* __restrict__ prior_q,
-                    const float* __restrict__ dirs, float* __restrict__ dx,
-                    int W, int d, int M) {
-  extern __shared__ float gp[];         // M weights of this row
-  const int i = blockIdx.x;
-  const float g2 = __fmul_rn(2.0f, g[0]);
-  const float count = static_cast<float>(W) * static_cast<float>(M);
-  for (int m = threadIdx.x; m < M; m += kBwdThreads) {
-    const size_t o = static_cast<size_t>(i) * M + m;
-    const float q = prior_q[static_cast<size_t>(rank[o]) * M + m];
-    gp[m] = __fdiv_rn(__fmul_rn(g2, __fsub_rn(proj[o], q)), count);
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < d; j += kBwdThreads) {
-    float acc = 0.0f;
-    for (int m = 0; m < M; ++m) {
-      acc = fmaf(gp[m], dirs[static_cast<size_t>(m) * d + j], acc);
-    }
-    dx[static_cast<size_t>(i) * d + j] = acc;
-  }
-}
-
 int pow2_at_least(int n, int lo) {
   int p = lo;
   while (p < n) p <<= 1;
@@ -763,23 +730,6 @@ int swd_rank_fwd_f32(const float* x, const float* dirs, const float* prior_q,
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
-}
-
-// The edge trainer's backward: `dx` (W, d) from the cotangent `g` (1 float)
-// and the forward's `proj` and `rank`.
-int swd_rank_bwd_f32(const float* g, const float* proj, const int* rank,
-                     const float* prior_q, const float* dirs, float* dx,
-                     int W, int d, int M, cudaStream_t stream) {
-  if (W <= 0 || d <= 0 || M <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = sizeof(float) * static_cast<size_t>(M);
-  const cudaError_t err = allow_smem(swd_rank_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  swd_rank_bwd_kernel<<<W, kBwdThreads, smem, stream>>>(g, proj, rank,
-                                                        prior_q, dirs, dx, W,
-                                                        d, M);
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* swd_error_string(int err) {

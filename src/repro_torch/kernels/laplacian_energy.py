@@ -12,10 +12,12 @@ on a CPU tensor it runs ``laplacian_energy_ref``, the plain PyTorch
 version, which is also what the kernel is held against on the card.
 Neither takes a gradient.
 
-The edge trainer differentiates ``tot``.  ``laplacian_energy_diff`` is
-its differentiable entry: on a CUDA tensor a ``torch.autograd.Function``
-whose forward is ``laplacian_energy`` and whose backward is
-``laplacian_energy_bwd``, the kernel of the explicit gradient
+The trainers differentiate ``tot``.  ``laplacian_energy_diff`` is the
+differentiable entry of this term alone: on a CUDA tensor a
+``torch.autograd.Function`` whose forward is ``laplacian_energy`` and whose
+backward is ``laplacian_energy_bwd``, ``csrc/hybrid_reg_bwd.cu`` with its
+Laplacian half alone (the kernel that also joins the SW term's gradient,
+``kernels.hybrid_reg``), of the explicit gradient
 dz_t = 2·g_b·Σ_{δ≤K} [m_t m_{t−δ}(z_t − z_{t−δ}) − m_t m_{t+δ}(z_{t+δ} − z_t)]
 (K = min(k, T−1); ``cnt`` has no gradient); on a CPU tensor the plain
 per-δ loop under ordinary autograd.  ``laplacian_energy_bwd_ref`` is the
@@ -87,31 +89,41 @@ def laplacian_energy_bwd_ref(z, mask, g, k):
     return 2 * g[:, None, None] * dz
 
 
+def check_bwd(name, z, mask, g, k):
+    """The backward's checks: z (B, T, d) and mask (B, T) float32,
+    contiguous, on one device; the cotangent g (B,) float32 of any stride
+    there, or None; k >= 0."""
+    build.check_inputs(name, z, mask)
+    if z.dim() != 3 or tuple(mask.shape) != tuple(z.shape[:2]) \
+            or (g is not None and tuple(g.shape) != (z.shape[0],)):
+        raise ValueError(f"{name} takes z (B, T, d), mask (B, T) and g "
+                         f"(B,), got {tuple(z.shape)}, {tuple(mask.shape)} "
+                         f"and {None if g is None else tuple(g.shape)}")
+    if g is not None:
+        if g.dtype != torch.float32:
+            raise TypeError(f"{name} takes a float32 g, got {g.dtype}")
+        if g.device != z.device or g.requires_grad:
+            raise ValueError(f"{name}: g on {g.device} (z on {z.device}) or "
+                             "requiring a gradient")
+    if min(z.shape) == 0 or k < 0:
+        raise ValueError(f"{name} needs non-empty inputs, k >= 0")
+
+
 def laplacian_energy_bwd(z, mask, g, k):
     """The gradient of ``laplacian_energy``'s ``tot`` with respect to z for
-    the cotangent ``g`` (B,) -> dz (B, T, d) float32.
+    the cotangent ``g`` (B,) -> dz (B, T, d) float32:
+    ``csrc/hybrid_reg_bwd.cu`` with its Laplacian half alone.
 
-    Float32, contiguous inputs on one device.  A CUDA launch adds one to
-    ``laplacian_energy_bwd.launches``."""
-    build.check_inputs("laplacian_energy_bwd", z, mask, g)
-    if z.dim() != 3 or tuple(mask.shape) != tuple(z.shape[:2]) \
-            or tuple(g.shape) != (z.shape[0],):
-        raise ValueError(f"laplacian_energy_bwd takes z (B, T, d), mask "
-                         f"(B, T) and g (B,), got {tuple(z.shape)}, "
-                         f"{tuple(mask.shape)} and {tuple(g.shape)}")
-    B, T, d = z.shape
-    if min(B, T, d) == 0 or k < 0:
-        raise ValueError("laplacian_energy_bwd needs non-empty inputs, "
-                         "k >= 0")
+    Float32, contiguous z and mask on one device, g of any stride.  A CUDA
+    launch adds one to ``laplacian_energy_bwd.launches``."""
+    check_bwd("laplacian_energy_bwd", z, mask, g, k)
     if z.device.type == "cpu":
         return laplacian_energy_bwd_ref(z, mask, g, k)
-    lib = build.load("laplacian_energy.cu")
+    # imported here: kernels.hybrid_reg imports this module
+    from repro_torch.kernels.hybrid_reg import launch_bwd
+    B, T, d = z.shape
     dz = torch.empty_like(z)
-    with torch.cuda.device(z.device):
-        err = lib.laplacian_energy_bwd_f32(z.data_ptr(), mask.data_ptr(),
-                                           g.data_ptr(), dz.data_ptr(), B, T,
-                                           d, int(k), build.stream_of(z))
-    build.raise_on_error(lib, "laplacian_energy", err)
+    launch_bwd(dz, z=z, mask=mask, k=k, g_tot=g, B=B, T=T, d=d)
     laplacian_energy_bwd.launches += 1
     return dz
 
@@ -135,8 +147,7 @@ class _LaplacianEnergy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_tot, g_cnt):
         z, mask = ctx.saved_tensors
-        return laplacian_energy_bwd(z, mask, g_tot.contiguous(), ctx.k), \
-            None, None
+        return laplacian_energy_bwd(z, mask, g_tot, ctx.k), None, None
 
 
 def laplacian_energy_diff(z, mask, k):

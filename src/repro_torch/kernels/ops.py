@@ -22,6 +22,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_dq, flash_attention_bwd_dq_ref, flash_attention_fwd,
     flash_attention_ref)
 from repro_torch.kernels.gmm_posterior import gmm_posterior, gmm_posterior_ref
+from repro_torch.kernels.hybrid_reg import (hybrid_reg_bwd, hybrid_reg_bwd_ref,
+                                            hybrid_regularisers)
 from repro_torch.kernels.infonce_vneg import (infonce_vneg, infonce_vneg_bwd,
                                               infonce_vneg_bwd_ref,
                                               infonce_vneg_fwd,
@@ -55,14 +57,17 @@ __all__ = ["KERNELS", "resolve_device", "set_precision",
            "swd_rank_fwd", "swd_rank_fwd_ref",
            "swd_rank_bwd", "swd_rank_bwd_ref", "laplacian_energy_diff",
            "laplacian_energy_bwd", "laplacian_energy_bwd_ref",
+           "hybrid_reg_bwd", "hybrid_reg_bwd_ref", "hybrid_regularisers",
            "flash_attention_fwd", "flash_attention_ref", "flash_attention",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_ref",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_ref"]
 
 # every hand-written kernel's wrapper (each carries ``launches``), the
 # backward kernels too; the differentiable entries (``infonce_vneg``,
-# ``swd_single``, ``laplacian_energy_diff``, ``flash_attention``) launch
-# through these
+# ``swd_single``, ``laplacian_energy_diff``, ``hybrid_regularisers``,
+# ``flash_attention``) launch through these.  ``swd_rank_bwd`` and
+# ``laplacian_energy_bwd`` launch ``hybrid_reg_bwd``'s kernel with one half,
+# counted on their own wrappers
 KERNELS = {"wire_roundtrip": wire_roundtrip,
            "wire_roundtrip_grouped": wire_roundtrip_grouped,
            "int8_quantize": int8_quantize,
@@ -76,6 +81,7 @@ KERNELS = {"wire_roundtrip": wire_roundtrip,
            "swd_rank_fwd": swd_rank_fwd,
            "swd_rank_bwd": swd_rank_bwd,
            "laplacian_energy_bwd": laplacian_energy_bwd,
+           "hybrid_reg_bwd": hybrid_reg_bwd,
            "flash_attention_fwd": flash_attention_fwd,
            "flash_attention_bwd_dq": flash_attention_bwd_dq,
            "flash_attention_bwd_dkv": flash_attention_bwd_dkv}

@@ -18,9 +18,11 @@ sort.  ``swd_single(x, dirs, prior_q)`` is its differentiable entry: on
 a CUDA tensor a ``torch.autograd.Function`` whose forward is
 ``swd_rank_fwd`` (the loss, the projections and each row's rank in its
 sorted column, ties broken by row index as ``torch.sort(stable=True)``
-breaks them) and whose backward is ``swd_rank_bwd``
-(dx_i = Σ_m 2g(proj_im − prior_q[rank_im, m])/(W·M) · dirs_m), both
-kernels of ``csrc/swd.cu``; on a CPU tensor the plain
+breaks them; a kernel of ``csrc/swd.cu``) and whose backward is
+``swd_rank_bwd`` (dx_i = Σ_m 2g(proj_im − prior_q[rank_im, m])/(W·M) ·
+dirs_m; ``csrc/hybrid_reg_bwd.cu`` with its SW half alone, the kernel that
+also joins the Laplacian term's gradient, ``kernels.hybrid_reg``); on a
+CPU tensor the plain
 ``swd_rank_fwd_ref`` under ordinary autograd.  ``swd_rank_fwd_ref`` and ``swd_rank_bwd_ref`` are
 the kernels' plain versions.
 """
@@ -144,35 +146,40 @@ def swd_rank_fwd(x, dirs, prior_q):
 swd_rank_fwd.launches = 0
 
 
-def swd_rank_bwd(g, proj, rank, prior_q, dirs):
-    """The gradient of ``swd_rank_fwd``'s loss with respect to x for the
-    cotangent ``g`` () -> dx (W, d) float32.
-
-    Float32 (``rank`` int32), contiguous inputs on one device.  A CUDA
-    launch adds one to ``swd_rank_bwd.launches``."""
-    build.check_inputs("swd_rank_bwd", g, proj, prior_q, dirs)
+def check_rank_bwd(name, g, proj, rank, prior_q, dirs):
+    """The backward's checks: float32 (``rank`` int32), contiguous inputs
+    on one device that agree in shape, ``g`` one float."""
+    build.check_inputs(name, g, proj, prior_q, dirs)
     W, M = prior_q.shape
-    d = dirs.shape[1]
     if g.numel() != 1 or tuple(proj.shape) != (W, M) \
-            or tuple(rank.shape) != (W, M) or dirs.shape[0] != M:
-        raise ValueError(f"swd_rank_bwd: g {tuple(g.shape)}, proj "
+            or tuple(rank.shape) != (W, M) or dirs.dim() != 2 \
+            or dirs.shape[0] != M:
+        raise ValueError(f"{name}: g {tuple(g.shape)}, proj "
                          f"{tuple(proj.shape)}, rank {tuple(rank.shape)}, "
                          f"prior_q {tuple(prior_q.shape)}, dirs "
                          f"{tuple(dirs.shape)} do not agree")
     if rank.dtype != torch.int32 or rank.device != g.device \
             or not rank.is_contiguous():
-        raise TypeError("swd_rank_bwd takes a contiguous int32 rank on the "
+        raise TypeError(f"{name} takes a contiguous int32 rank on the "
                         "inputs' device")
+
+
+def swd_rank_bwd(g, proj, rank, prior_q, dirs):
+    """The gradient of ``swd_rank_fwd``'s loss with respect to x for the
+    cotangent ``g`` () -> dx (W, d) float32: ``csrc/hybrid_reg_bwd.cu``
+    with its SW half alone.
+
+    Float32 (``rank`` int32), contiguous inputs on one device.  A CUDA
+    launch adds one to ``swd_rank_bwd.launches``."""
+    check_rank_bwd("swd_rank_bwd", g, proj, rank, prior_q, dirs)
     if g.device.type == "cpu":
         return swd_rank_bwd_ref(g, proj, rank, prior_q, dirs)
-    lib = build.load("swd.cu")
+    # imported here: kernels.hybrid_reg imports this module
+    from repro_torch.kernels.hybrid_reg import launch_bwd
+    (W, M), d = prior_q.shape, dirs.shape[1]
     dx = torch.empty(W, d, dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        err = lib.swd_rank_bwd_f32(g.data_ptr(), proj.data_ptr(),
-                                   rank.data_ptr(), prior_q.data_ptr(),
-                                   dirs.data_ptr(), dx.data_ptr(), W, d, M,
-                                   build.stream_of(g))
-    build.raise_on_error(lib, "swd", err)
+    launch_bwd(dx, g_sw=g, proj=proj, rank=rank, prior_q=prior_q, dirs=dirs,
+               B=1, T=W, d=d, M=M)
     swd_rank_bwd.launches += 1
     return dx
 

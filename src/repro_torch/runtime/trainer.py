@@ -5,9 +5,9 @@ checkpoints, restore on failure, straggler monitoring).
 Port of ``repro.runtime.trainer``.  On a CUDA device a step runs every
 attention layer on the hand-written flash-attention kernels (the forward
 kernel twice a layer under remat, the dq and dk/dv kernels once each) and
-the hybrid term on the SWD (``swd_rank_fwd``/``swd_rank_bwd``) and
-temporal-Laplacian (``laplacian_energy``/``laplacian_energy_bwd``)
-kernels, once each a microbatch.
+the hybrid term on the SWD (``swd_rank_fwd``) and temporal-Laplacian
+(``laplacian_energy``) forward kernels and one backward kernel for both
+(``hybrid_reg_bwd``), once each a microbatch.
 
 Differences from the reference, each for a reason:
 
@@ -39,8 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.core.laplacian import laplacian_loss
-from repro_torch.core.swd import seeded_generator, swd_loss
+from repro_torch.core.hybrid import regularisers
+from repro_torch.core.swd import seeded_generator
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import lm
 from repro_torch.optim import get_optimizer
@@ -88,8 +88,7 @@ def make_loss_fn(cfg, tcfg: TrainCfg):
             z = hidden[:, : T * P].reshape(B, T, P, d).mean(2)
             z = z / torch.linalg.vector_norm(z, dim=-1,
                                              keepdim=True).clamp_min(1e-6)
-            sw = swd_loss(key, z.reshape(-1, d).float())
-            lap = laplacian_loss(z.float())
+            sw, lap = regularisers(key, z.float())
             loss = loss + tcfg.hybrid_lam_sw * sw + tcfg.hybrid_lam_lap * lap
             metrics = {**metrics, "swd": sw, "lap": lap}
         return loss, {k: v.detach() for k, v in metrics.items()}

@@ -89,7 +89,7 @@ def _tool(name):
 
 @pytest.mark.parametrize("tool", ["swd_variants", "infonce_variants",
                                   "laplacian_variants", "int8_variants",
-                                  "wire_variants"])
+                                  "wire_variants", "hybrid_reg_variants"])
 def test_variant_patches_apply_and_parse(tool, tmp_path):
     """Every copy of the kernel source that the tool compiles (the source
     and each variant's text patches, with the occupancy query appended to
@@ -108,3 +108,17 @@ def test_variant_patches_apply_and_parse(tool, tmp_path):
         src = tmp_path / f"{name}.cu"
         src.write_text(patched(text, name, subs) + suffix)
         assert check.check(src, tmp_path), f"{tool}: {name}"
+
+
+def test_regularisers_backward_has_one_body():
+    """The SW and Laplacian gradients live in one kernel,
+    ``hybrid_reg_bwd.cu``, which ``swd_rank_bwd`` and
+    ``laplacian_energy_bwd`` launch with one half: no other source defines
+    a backward kernel or entry point of either term."""
+    assert "hybrid_reg_bwd.cu" in build.SOURCES
+    for source in build.SOURCES:
+        text = (build.CSRC / source).read_text()
+        for name in ("swd_rank_bwd", "laplacian_energy_bwd"):
+            assert f"{name}_kernel" not in text and f"{name}_f32" not in text
+        assert text.count("hybrid_reg_bwd_kernel(") == \
+            (1 if source == "hybrid_reg_bwd.cu" else 0)

@@ -1,42 +1,34 @@
 #!/usr/bin/env python3
-"""This tree's INT8 wire and Laplacian kernels against another
+"""The hybrid regularisers' backward of this tree against another
 checkout's, timed in turns in one call.
 
     python3 tools/kernel_ab.py OTHER     # from the repository root, one CUDA card
 
-OTHER is a checkout of the repository (for instance the parent commit,
-unpacked with ``git archive`` into a git-ignored directory).  The script
-builds OTHER's ``csrc/int8_quant.cu``, ``csrc/wire_roundtrip.cu`` and
-``csrc/laplacian_energy.cu`` with this tree's flags into
-``build/kernel_ab/`` beside this tree's own, and, loading one set of
-libraries at a time into the wrappers (an entry point OTHER lacks is left
-out; OTHER runs the wire as its code did: ``int8_quantize`` then
-``int8_dequantize`` a frame, one ``wire_roundtrip`` launch a bucket):
+OTHER is a checkout of the repository whose ``csrc/swd.cu`` and
+``csrc/laplacian_energy.cu`` still carry their own backward kernels
+(``swd_rank_bwd_f32``, ``laplacian_energy_bwd_f32``), for instance the
+commit before ``csrc/hybrid_reg_bwd.cu``, unpacked with ``git archive``
+into a git-ignored directory.  The script builds those two sources with
+this tree's flags into ``build/kernel_ab/`` and, at the edge learner's
+(1, 104, 128), M 32, k 3 and the LM step's (8, 16, 1,024), M 50, k 5
+(g_tot the expanded cotangent of ``tot.sum()``, as the step hands it on):
 
-- holds both against the plain versions at the timed shapes (the INT8
-  kernels bitwise, the Laplacian forward within ``chip_smoke.LAP_RTOL``
-  with counts exact) and checks that both libraries give the same bits:
-  the quantize, the dequantize and the wire (this tree's round trip
-  against OTHER's quantize + dequantize, its grouped wire against OTHER's
-  launch a bucket), and ``laplacian_energy_bwd``;
-- times, with ``chip_smoke.device_ms``, in the order OTHER, this, this,
-  OTHER: ``int8_quantize`` and ``int8_dequantize`` at the eight per-frame
-  boundary shapes (summed; ``torch.aminmax`` beside them) and at 2^24 +
-  3, and a frame's wire as ``SplitEngine.run`` launches it; the tick's
-  wire over its eight buckets padded to 32 rows as the tick launches it
-  (this tree also one launch a bucket); ``laplacian_energy`` at the
-  refine round's (256, 100, 128) k 5, the edge learner's (1, 104, 128) k
-  3 and the LM step's (8, 16, 1,024) k 5; ``laplacian_energy_bwd`` at the
-  last two;
-- times the per-frame split path end to end in the same order:
-  ``SplitEngine.run`` at full width on 256 frames, frame i at k = i mod 9
-  (as phase 2 spreads them), its host time a frame (the run ends in a
-  synchronize) and, from one more run under ``torch.profiler``, its device
-  time a frame and the wire's part of it; and the serving tick
-  (``chip_smoke.py`` phase 2's gateway, 256 sessions, k = i mod 9), this
-  tree's code launching the wire as each tree does: its host p50 over 8
-  ticks and, from one more tick under ``torch.profiler``, its device busy
-  time and the wire's part of it.
+- checks that this tree's ``hybrid_reg_bwd`` gives, bitwise, OTHER's
+  composition (its ``swd_rank_bwd`` and ``laplacian_energy_bwd`` added by
+  torch), and each of this tree's one-half calls OTHER's kernel;
+- times, with ``chip_smoke.device_ms`` (CUDA events behind a spin
+  kernel), in the order OTHER, this, this, OTHER: the regularisers'
+  backward as each tree launches it (OTHER: its two kernels, the add and,
+  at B > 1, the copy of the expanded g_tot; this tree: one
+  ``hybrid_reg_bwd``), and each half alone (OTHER's kernel, this tree's
+  one-half call);
+- profiles one step of the edge learner (``EdgeTrainer`` at full width,
+  batch 8, 256 virtual negatives) and of the LM trainer (qwen1.5-0.5b at
+  full width and depth, B 8 x S 1,024, the hybrid term on) in the same
+  order, the regularisers' backward launched as each tree launches it
+  (OTHER: the two terms' own autograd Functions on OTHER's kernels), and
+  prints each step's device activities and their device time, the
+  regularisers' backward kernels' part of it.
 
 Prints the card's name and power limit first and each reading in µs,
 then the mean of each pair.  Exits 1 if a check fails.
@@ -56,13 +48,17 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-SOURCES = ("int8_quant.cu", "wire_roundtrip.cu", "laplacian_energy.cu")
+SOURCES = ("swd.cu", "laplacian_energy.cu")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# OTHER's two backward entry points, as its build.py declared them
+OTHER_ENTRIES = {"swd.cu": ("swd_rank_bwd_f32", [_P] * 6 + [_I] * 3 + [_P]),
+                 "laplacian_energy.cu": ("laplacian_energy_bwd_f32",
+                                         [_P] * 4 + [_I] * 4 + [_P])}
 
 
-def libraries(build, other):
-    """{"other": {source: path}, "this": {source: path}}: OTHER's sources
-    compiled with this tree's flags, all at once, and this tree's built as
-    the wrappers build them."""
+def other_kernels(build, other):
+    """OTHER's ``swd_rank_bwd`` and ``laplacian_energy_bwd`` as wrappers
+    (its two sources compiled with this tree's flags, all at once)."""
     out_dir = os.path.join(ROOT, "build", "kernel_ab")
     os.makedirs(out_dir, exist_ok=True)
 
@@ -71,218 +67,140 @@ def libraries(build, other):
         cu = os.path.join(other, "src", "repro_torch", "kernels", "csrc", src)
         subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
                        check=True, capture_output=True, text=True)
-        return so
+        lib = ctypes.CDLL(so)
+        name, argtypes = OTHER_ENTRIES[src]
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _I
+        return fn
 
     with ThreadPoolExecutor(len(SOURCES)) as pool:
-        theirs = dict(zip(SOURCES, pool.map(nvcc, SOURCES)))
-    return {"other": theirs,
-            "this": {src: str(build.build(src)) for src in SOURCES}}
+        swd_bwd, lap_bwd = pool.map(nvcc, SOURCES)
+
+    def launched(err, what):
+        if err:
+            raise RuntimeError(f"OTHER's {what} launch failed: error {err}")
+
+    def swd_rank_bwd(g, proj, rank, prior_q, dirs):
+        (W, M), d = prior_q.shape, dirs.shape[1]
+        dx = torch.empty(W, d, device=g.device)
+        launched(swd_bwd(g.data_ptr(), proj.data_ptr(), rank.data_ptr(),
+                         prior_q.data_ptr(), dirs.data_ptr(), dx.data_ptr(),
+                         W, d, M, cs_stream(g)), "swd_rank_bwd")
+        return dx
+
+    def laplacian_energy_bwd(z, mask, g, k):
+        B, T, d = z.shape
+        g = g.contiguous()              # as OTHER's autograd entry did
+        dz = torch.empty_like(z)
+        launched(lap_bwd(z.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                         dz.data_ptr(), B, T, d, int(k), cs_stream(z)),
+                 "laplacian_energy_bwd")
+        return dz
+    return swd_rank_bwd, laplacian_energy_bwd
 
 
-def use(build, paths, plan):
-    """Make the wrappers launch the libraries at ``paths``, the quantize
-    wrapper with the launch plan ``plan`` (OTHER's ``int8_quantize_f32``
-    gets the partials at every size, as a checkout whose quantize runs two
-    passes at every size needs them; this tree's reads them only above one
-    block).  Entry points a library lacks are left undeclared."""
-    from repro_torch.kernels import int8_quant
-    int8_quant.quantize_plan = plan
-    for src, so in paths.items():
-        lib = ctypes.CDLL(so)
-        for fn, (argtypes, restype) in build.SIGNATURES[src].items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
-        build._loaded[src] = lib
+def cs_stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def frame_wire(ops, name):
-    """A frame's wire as ``SplitEngine.run`` launches it in tree ``name``:
-    OTHER's quantize then dequantize, this tree's round trip."""
-    from repro_torch.kernels import int8_quant
-    if name == "this":
-        return int8_quant.int8_quantize_roundtrip
-    return lambda x: (lambda qt: (qt, ops.int8_dequantize(qt)))(
-        ops.int8_quantize(x))
+def inputs(dev, ops):
+    """{label: hybrid_reg_bwd's arguments and g_tot laid out} at the two
+    paths' shapes."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    out = {
+        "edge": cs.hybrid_inputs(g, dev, ops, 1, cs.BUFFER + cs.TRAIN_BATCH,
+                                 128, cs.TRAIN_DIRS, cs.TRAIN_KNN, False),
+        "lm": cs.hybrid_inputs(g, dev, ops, cs.LM_LAP_B, cs.LM_LAP_T,
+                               cs.LM_D, cs.LM_SW_DIRS, cs.KNN, True)}
+    return {label: (*a, a[8].contiguous()) for label, a in out.items()}
 
 
-def tick_wire(ops, name):
-    """The tick's wire as tree ``name`` launches it: one launch a bucket
-    (OTHER), one grouped launch (this tree)."""
-    if name == "this":
-        return ops.wire_roundtrip_grouped
-    return lambda xs: [ops.wire_roundtrip(x) for x in xs]
+def calls(ops, other):
+    """{tree: {what: fn(args)}}: the regularisers' backward as each tree
+    launches it (g_tot as the step hands it on), and each half alone (the
+    Laplacian's on g_tot laid out, so that both time the kernel alone)."""
+    o_swd, o_lap = other
+
+    def both(swd_bwd, lap_bwd):
+        return lambda a: swd_bwd(*a[3:8]).view(a[0].shape) \
+            + lap_bwd(a[0], a[1], a[8], a[2])
+    return {
+        "other": {"backward": both(o_swd, o_lap),
+                  "swd half": lambda a: o_swd(*a[3:8]),
+                  "laplacian half": lambda a: o_lap(a[0], a[1], a[9], a[2])},
+        "this": {"backward": lambda a: ops.hybrid_reg_bwd(*a[:9]),
+                 "swd half": lambda a: ops.swd_rank_bwd(*a[3:8]),
+                 "laplacian half": lambda a: ops.laplacian_energy_bwd(
+                     a[0], a[1], a[9], a[2])}}
 
 
-def inputs(cfg, dev):
-    """{label: (wrapper name, args, k)} at the timed shapes."""
-    g = torch.Generator(device=dev).manual_seed(20)
-    out = {}
-    for k, shape in enumerate(cs.boundary_shapes(cfg)):
-        out[f"quant k={k}"] = torch.randn(*shape, device=dev, generator=g)
-    out["quant 2^24+3"] = torch.randn(2 ** 24 + 3, device=dev, generator=g)
-    out["wire tick"] = [torch.randn(32, n, device=dev, generator=g)
-                        for n in cs.wire_widths(cfg)]
-    for what, (B, T, d, k) in (("refine", (cs.SESSIONS, cs.WINDOW, 128,
-                                           cs.KNN)),
-                               ("edge", (1, cs.BUFFER + cs.TRAIN_BATCH, 128,
-                                         cs.TRAIN_KNN)),
-                               ("lm", (cs.LM_LAP_B, cs.LM_LAP_T, cs.LM_D,
-                                       cs.KNN))):
-        z, mask, _, _ = cs.refine_inputs(g, dev, B, T, d, 1)
-        out[f"lap {what}"] = (z, mask, torch.randn(B, device=dev,
-                                                   generator=g), k)
-    return out
+def as_tree(name, other):
+    """Make the hybrid term's backward launch as tree ``name`` does: OTHER
+    with each term's own autograd Function (``swd_loss`` and
+    ``laplacian_loss``) on OTHER's kernels, this tree with
+    ``hybrid_regularisers``."""
+    from repro_torch.core import hybrid
+    from repro_torch.core.laplacian import laplacian_loss
+    from repro_torch.core.swd import swd_loss
+    from repro_torch.kernels import laplacian_energy, swd
+    from repro_torch.runtime import trainer
+    if not hasattr(as_tree, "this"):
+        as_tree.this = (hybrid.regularisers, swd.swd_rank_bwd,
+                        laplacian_energy.laplacian_energy_bwd)
+
+    def separate(key, z_seq, *, n_dirs=50, k=5, mask=None):
+        return (swd_loss(key, z_seq.reshape(-1, z_seq.shape[-1]),
+                         n_dirs=n_dirs),
+                laplacian_loss(z_seq, k=k, mask=mask))
+    reg, swd_bwd, lap_bwd = as_tree.this if name == "this" \
+        else (separate, *other)
+    hybrid.regularisers = trainer.regularisers = reg
+    swd.swd_rank_bwd, laplacian_energy.laplacian_energy_bwd = swd_bwd, lap_bwd
 
 
-def outputs(ops, xs, name):
-    """Every kernel's outputs at the timed shapes, for the bit checks:
-    the quantize's and the dequantize's, the wire's as tree ``name``
-    launches it."""
-    res = {}
-    for label, x in xs.items():
-        if label.startswith("quant"):
-            qt = ops.int8_quantize(x)
-            wq, wout = frame_wire(ops, name)(x)
-            res[label] = (qt.q, qt.scale, qt.zero, ops.int8_dequantize(qt),
-                          wq.q, wq.scale, wq.zero, wout)
-        elif label.startswith("wire"):
-            res[label] = tuple(tick_wire(ops, name)(x))
-        else:
-            z, mask, g, k = x
-            res[label] = (*ops.laplacian_energy(z, mask, k),
-                          ops.laplacian_energy_bwd(z, mask, g, k))
-    torch.cuda.synchronize()
-    return res
-
-
-def hold(ops, xs, res, failures, name):
-    """Each library against the plain versions."""
-    for label, x in xs.items():
-        if label.startswith("quant"):
-            want = ops.int8_quantize_ref(x)
-            want = (*want, ops.int8_dequantize_ref(want))
-            got = res[label]
-            ok = all(cs.same_values(a, b)
-                     for a, b in zip(got, want + want))
-        elif label.startswith("wire"):
-            ok = all(cs.same_values(a, b) for a, b in zip(
-                res[label], ops.wire_roundtrip_grouped_ref(x)))
-        else:
-            z, mask, g, k = x
-            tot, cnt, dz = res[label]
-            w_tot, w_cnt = ops.laplacian_energy_ref(z, mask, k)
-            ok = torch.allclose(tot, w_tot, rtol=cs.LAP_RTOL, atol=0.0) \
-                and torch.equal(cnt, w_cnt)
-        if not ok:
-            failures.append(f"{name}: {label} != plain version")
-
-
-def times(ops, xs, name):
-    """{label: device µs} of one set of libraries, the wire as tree
-    ``name`` launches it."""
-    out = {}
-    for label, x in xs.items():
-        if label.startswith("quant"):
-            out[label] = cs.device_ms(ops.int8_quantize, x) * 1e3
-            out["de" + label] = cs.device_ms(
-                ops.int8_dequantize, ops.int8_quantize(x)) * 1e3
-            out["frame wire " + label] = cs.device_ms(
-                frame_wire(ops, name), x) * 1e3
-        elif label.startswith("wire"):
-            out[label] = cs.device_ms(tick_wire(ops, name), x) * 1e3
-            if name == "this":
-                out[label + ", a launch a bucket"] = cs.device_ms(
-                    tick_wire(ops, "other"), x) * 1e3
-        else:
-            z, mask, g, k = x
-            out[label] = cs.device_ms(
-                lambda a: ops.laplacian_energy(*a, k), (z, mask)) * 1e3
-            if not label.endswith("refine"):
-                out[label + " bwd"] = cs.device_ms(
-                    lambda a: ops.laplacian_energy_bwd(*a, k),
-                    (z, mask, g)) * 1e3
-    for pre in ("quant", "dequant", "frame wire quant"):
-        out[f"{pre} per frame"] = sum(
-            v for key, v in out.items() if key.startswith(f"{pre} k="))
-    return out
-
-
-def as_tree(ops, eng, name):
-    """Make ``SplitEngine`` launch the wire as tree ``name`` does: OTHER's
-    frame as quantize then dequantize, its tick as one chain a bucket
-    (``run_batch_async`` each, one wire launch a bucket)."""
-    from repro_torch.kernels import int8_quant
-    ops.int8_quantize_roundtrip = (int8_quant.int8_quantize_roundtrip
-                                   if name == "this"
-                                   else frame_wire(ops, "other"))
-    if name == "this":
-        eng.__dict__.pop("run_buckets_async", None)
-    else:
-        eng.run_buckets_async = lambda params, batches: [
-            eng.run_batch_async(params, m, k) for k, m in batches]
-
-
-def device_busy_ms(fn):
-    """Device time of one ``fn()`` under ``torch.profiler`` -> (all
-    kernels and copies, the wire kernels' part), ms."""
+def profiled(fn):
+    """One ``fn()`` under ``torch.profiler`` -> (device activities, their
+    µs, the regularisers' backward kernels' µs)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
+        torch.cuda.synchronize()
     events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
               if e.device_type == DeviceType.CUDA]
-    wire = sum(us for n, us in events
-               if "wire_roundtrip" in n or "quantize" in n)
-    return sum(us for _, us in events) / 1e3, wire / 1e3
+    reg = sum(us for n, us in events
+              if any(k in n for k in ("hybrid_reg_bwd", "swd_rank_bwd",
+                                      "laplacian_energy_bwd")))
+    return len(events), sum(us for _, us in events), reg
 
 
-def paths(cfg, dev, ops):
-    """-> a function of the tree's name that runs the per-frame split
-    path (``SplitEngine.run`` on 256 frames) and the serving tick (phase
-    2's gateway) as that tree launches the wire, and returns their host
-    and device times."""
-    import time
+def steps(cfg, dev):
+    """-> a function of nothing that profiles one edge learner step and one
+    LM step -> {label: reading}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import random_batch
+    from repro_torch.runtime.edge_train import EdgeTrainer
+    from repro_torch.runtime.trainer import Trainer
+    edge = EdgeTrainer("streamsplit", enc_cfg=cfg, batch=cs.TRAIN_BATCH,
+                       n_syn=cs.N_SYN, seed=0, device=dev)
+    B, S = 8, 1024
+    lm_cfg = get_config("qwen1.5-0.5b")
+    lm = Trainer(lm_cfg, cs.lm_train_cfg(100, S), lambda step: random_batch(
+        torch.Generator(device=dev).manual_seed(100 + step), lm_cfg.vocab, B,
+        S), device=dev)
 
-    import numpy as np
-
-    from repro_torch.core.splitter import SplitEngine
-    from repro_torch.models.audio_encoder import init_audio_encoder
-    from repro_torch.weights import to_device
-    host_params = init_audio_encoder(cfg, torch.Generator().manual_seed(2))
-    params = to_device(host_params, dev)
-    eng = SplitEngine(cfg, device=dev)
-    mels = np.random.default_rng(2).standard_normal(
-        (cs.SESSIONS, 1, cfg.frames, cfg.n_mels), np.float32)
-    ks = [i % (cfg.n_blocks + 1) for i in range(cs.SESSIONS)]
-    gw, sids = cs.gateway(cfg, host_params, "cuda")
-
-    def run():
-        for mel, k in zip(mels, ks):
-            eng.run(params, mel, k)
-        torch.cuda.synchronize()
-
-    def ticks(n):
-        return cs.serve(gw, sids, [mels[:, 0]] * n, timed=False)[1]
-
-    def measure(name):
-        as_tree(ops, eng, name)
-        as_tree(ops, gw.engine, name)
-        run()                                   # warm-up
-        t0 = time.perf_counter()
-        run()
-        host = (time.perf_counter() - t0) * 1e3 / len(ks)
-        busy, wire = device_busy_ms(run)
-        ticks(1)
-        secs = ticks(cs.TIMED_TICKS)
-        t_busy, t_wire = device_busy_ms(lambda: ticks(1))
-        return {"per-frame path, host a frame": host * 1e3,
-                "per-frame path, device a frame": busy * 1e3 / len(ks),
-                "per-frame path, wire device a frame": wire * 1e3 / len(ks),
-                "tick p50 (ms)": float(np.percentile(secs, 50)) * 1e3,
-                "tick device busy": t_busy * 1e3,
-                "tick wire device": t_wire * 1e3}
+    def measure():
+        out = {}
+        for label, fn in (("edge step", edge.step),
+                          ("LM step", lambda: lm.run(1, log_every=0))):
+            fn()                                     # warm-up
+            n, busy, reg = profiled(fn)
+            out[f"{label} device activities"] = n
+            out[f"{label} device busy"] = busy
+            out[f"{label} regularisers' backward kernels"] = reg
+        return out
     return measure
 
 
@@ -294,45 +212,34 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip())
-    from repro_torch.kernels import int8_quant
-    plans = {"this": int8_quant.quantize_plan,
-             "other": lambda n: (2, int8_quant._PARTIALS)}
     dev = ops.resolve_device("cuda")
-    libs = libraries(build, os.path.abspath(sys.argv[1]))
-    xs = inputs(CFG, dev)
-    failures, res = [], {}
-    for name in ("other", "this"):
-        use(build, libs[name], plans[name])
-        res[name] = outputs(ops, xs, name)
-        hold(ops, xs, res[name], failures, name)
-    for label in xs:
-        lap = not label.startswith(("quant", "wire"))
-        same, mine = (res[n][label][2:] if lap else res[n][label]
-                      for n in ("other", "this"))
-        if not all(cs.same_values(a, b) for a, b in zip(same, mine)):
-            failures.append(f"{label}: the two libraries' "
-                            + ("laplacian_energy_bwd" if lap else "wire")
-                            + " differ")
-    aminmax = sum(cs.device_ms(torch.aminmax, x) for label, x in xs.items()
-                  if label.startswith("quant k=")) * 1e3
-    print(f"torch.aminmax per frame (8 boundary shapes, summed): "
-          f"{aminmax:.2f} us")
-    measure = paths(CFG, dev, ops)
+    other = other_kernels(build, os.path.abspath(sys.argv[1]))
+    xs = inputs(dev, ops)
+    fns = calls(ops, other)
+    failures = []
+    for label, args in xs.items():
+        got = {name: {w: f(args) for w, f in fns[name].items()}
+               for name in fns}
+        torch.cuda.synchronize()
+        for what in fns["this"]:
+            if not torch.equal(got["this"][what], got["other"][what]):
+                failures.append(f"{label}: {what} differs from OTHER's")
+    measure = steps(CFG, dev)
     readings = {"other": [], "this": []}
     for name in ("other", "this", "this", "other"):
-        use(build, libs[name], plans[name])
-        t = times(ops, xs, name)
-        t.update(measure(name))
+        as_tree(name, other)
+        t = {f"{label} {what}": cs.device_ms(f, args) * 1e3
+             for label, args in xs.items()
+             for what, f in fns[name].items()}
+        t.update(measure())
         readings[name].append(t)
         print(f"{name}: " + ", ".join(f"{k} {v:.2f}" for k, v in t.items()))
+    as_tree("this", other)
     for label in readings["this"][0]:
         m = [r[label] for r in readings["this"]]
-        o = [r.get(label) for r in readings["other"]]
-        if None in o:
-            print(f"{label}: this {m[0]:.2f} / {m[1]:.2f}")
-            continue
+        o = [r[label] for r in readings["other"]]
         print(f"{label}: other {o[0]:.2f} / {o[1]:.2f}, this {m[0]:.2f} / "
-              f"{m[1]:.2f}; this / other {sum(m) / sum(o):.3f}")
+              f"{m[1]:.2f}; this / other {sum(m) / max(sum(o), 1e-9):.3f}")
     for f in failures:
         print(f"kernel_ab: FAIL: {f}")
     sys.exit(1 if failures else 0)
