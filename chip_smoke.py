@@ -8,8 +8,10 @@ then drives the port's paths at the paper's full encoder width: the
 serving tick, the per-frame split path (``SplitEngine.run``), the tick
 with a fleet refine round after it, the edge learner's training step, the
 always-on ``StreamServer`` with the RL split policy, the LM cascade
-server at the full width and depth of qwen1.5-0.5b and qwen3-1.7b, and
-the LM trainer at the full width and depth of qwen1.5-0.5b.
+server at the full width and depth of qwen1.5-0.5b and qwen3-1.7b, the
+LM trainer at the full width and depth of qwen1.5-0.5b, and the control
+plane: PPO training of the RL splitter, the paper's system tables and
+the edge loop serving the trained encoder under the trained policy.
 
 Phase 1 holds the wire kernel against its plain PyTorch version on the
 card, bitwise, at every shape the serving path gives it (plus constant,
@@ -201,11 +203,38 @@ once, and no other kernel; the loss must be finite and lower at the end
 than at step 0.  It prints step p50/p95, tokens/s, peak memory and a
 profiled step's device time by kind of kernel and idle share.
 
+Phase 13 runs the control plane.  (a) One ``train_ppo`` iteration at
+``PPOCfg()`` (2,048 steps, 32 updates of 256) on the pi4 profiles of
+``get_policy``, on the card and on the CPU from the same params and
+Gumbel draws: the rollouts bitwise, the params within 1e-4 of each
+leaf's max; then two iterations each way, the second rollout (acting
+on each device's own updated params) equal up to the first near-tie;
+the card's update loop runs under ``set_sync_debug_mode("error")``, and
+the card's iteration again under the profiler (bitwise the first) shows
+one H2D of the pinned buffer, one D2H of the params, and no sync call in
+the update loop (a profile without runtime calls fails).  (b)
+``get_policy("pi4")`` and ``get_policy("m2")`` retrained on the card
+(40 iterations each): every history entry finite; the rollout (host
+clock) and update (CUDA events) ms of each iteration, and the card's
+busy share during the updates.  (c) ``system_tables.run_all()`` under
+those policies: 57 finite rows, printed as the simulator's outputs.
+(d) ``wire_roundtrip_grouped`` bitwise against its plain version at
+every width the loop serves, then the edge loop: ``serve_stream`` on the
+``variable`` network with
+phase 6's trained encoder (``AudioEncCfg()``'s widths at the stream's
+98 frames) over 300 frames of ``AudioStream(StreamCfg(seed=1))``, under
+``"rl"`` (the trained pi4 policy) and ``"server"``, the counts set to 0
+just before and read just after (the ``control`` path): every tick one
+sync, one D2H and ``wire_roundtrip_grouped`` launched once if k < L,
+else no kernel; under each policy the k sequence and env summary equal
+to a CPU run's, the first 32 embeddings within atol 1e-4 of it, every
+embedding finite and of unit norm.  It prints the tick p50/p95 and part 3's lines of the example.
+
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
 result.  The line before the last is the kernels' JSON record (after a
-line with phase 12's summaries); the last line is ``{"ok": true,
-"device": {...}}``.
+line with phase 13's summary and one with phase 12's); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1290,7 +1319,8 @@ def phase6(cfg, dev, ops):
     """The edge learner's training path at full width: TRAIN_STEPS steps of
     ``train_representation("streamsplit")`` with the counts set to 0 just
     before and read just after, step 0 against the port on the CPU, and
-    one profiled step -> (launch counts of the run, step ms)."""
+    one profiled step -> (launch counts of the run, step ms, the trained
+    encoder params)."""
     from repro_torch.optim.sgd import tree_leaves
     from repro_torch.runtime.edge_train import (EdgeTrainer,
                                                 train_representation)
@@ -1373,7 +1403,7 @@ def phase6(cfg, dev, ops):
     for k, v in errs.items():
         check(v <= REFINE_RTOL, f"step 0 card vs CPU: {k} {v} > {REFINE_RTOL}")
     profile_train_step(trainer[0], float(np.percentile(warm_ms, 50)))
-    return launches, step_ms
+    return launches, step_ms, res.params
 
 
 def profile_train_step(tr, p50):
@@ -2746,6 +2776,406 @@ def phase12(dev, ops):
     runs = [lm_train_run(dev, ops, *spec) for spec in LM_TRAIN]
     return runs[0][0], [s for _, s in runs], errs
 
+# phase 13: the control plane
+PPO_RTOL = 1e-4          # card vs CPU params after an iteration, of each max
+PPO_MARGIN = 1e-5        # a step whose top two Gumbel scores lie closer is a
+                         # near-tie: ~1e-7 of a param may flip its action
+CONTROL_FRAMES = 300     # frames the edge loop serves a policy
+CONTROL_CPU_FRAMES = 32  # of them compared card vs CPU at CPU_ATOL
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
+
+
+def ppo_profile_counts(prof):
+    """A profiled ``train_ppo`` iteration on the card -> its device copies
+    and kernels (their device time, the longest), and the CUDA runtime's
+    copy, sync and launch calls inside its update loop and inside its
+    copy of the params to the host.  Fails where the profiler recorded no
+    runtime call in the update loop: the counts would prove nothing."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    # the ranges also show on the device's timeline, as annotations
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("train_ppo.")]
+
+    def calls(range_name):
+        rng = [e for e in events if e.name == range_name
+               and e.device_type == DeviceType.CPU]
+        check(len(rng) == 1, f"{len(rng)} {range_name} ranges")
+        lo, hi = rng[0].time_range.start, rng[0].time_range.end
+        inside = [e.name for e in events if e.device_type == DeviceType.CPU
+                  and lo <= e.time_range.start and e.time_range.end <= hi]
+        return {"copies": sum(n == "cudaMemcpyAsync" for n in inside),
+                "syncs": sum(n in SYNC_CALLS for n in inside),
+                "launches": sum(n in LAUNCH_CALLS for n in inside)}
+
+    upd, back = calls("train_ppo.update"), calls("train_ppo.params_to_host")
+    check(upd["launches"] > 0 and back["copies"] > 0,
+          f"the profile recorded no CUDA runtime call in the update loop "
+          f"({upd}) or the params' return ({back})")
+    kernels = [e for e in dev if "Memcpy" not in e.name]
+    longest = max(kernels, key=lambda e: e.time_range.elapsed_us(),
+                  default=None)
+    return {
+        "h2d": sorted(e.name for e in dev if "HtoD" in e.name),
+        "d2h": sorted(e.name for e in dev if "DtoH" in e.name),
+        "d2d": sum("DtoD" in e.name for e in dev),
+        "kernels": len(kernels),
+        "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+        "longest": longest and [longest.name[:60],
+                                longest.time_range.elapsed_us()],
+        "update_copies": upd["copies"], "update_syncs": upd["syncs"],
+        "update_launches": upd["launches"],
+        "to_host_copies": back["copies"]}
+
+
+def ppo_second_rollout(card, cpu, card_params, draws):
+    """Iteration 1 of a two-iteration ``train_ppo`` card vs CPU: each
+    side's rollout acted on its host copy of the params its own updates
+    gave (``card_params``: the card's after iteration 0).  Steps are
+    compared up to the first near-tie (top two Gumbel scores within
+    ``PPO_MARGIN`` under the card's params), after which the trajectories
+    may rightly part -> steps compared."""
+    from repro_torch.core import ppo
+    T = len(card["act"])
+    with torch.inference_mode():
+        logits, _ = ppo.policy_apply(card_params,
+                                     torch.from_numpy(card["obs"]))
+    top2 = (logits + draws[T:2 * T]).topk(2, dim=1).values
+    margin = (top2[:, 0] - top2[:, 1]).numpy()
+    near = np.flatnonzero(margin <= PPO_MARGIN)
+    n = int(near[0]) if len(near) else T
+    for k in ("obs", "act", "rewards", "dones"):
+        check(np.array_equal(card[k][:n], cpu[k][:n]),
+              f"PPO iteration 1 rollout {k}: card != CPU in its first {n} "
+              "steps (before any near-tie)")
+    for k in ("logp", "values"):
+        err = rel_err(card[k][:n], cpu[k][:n]) if n else 0.0
+        check(err <= PPO_RTOL, f"PPO iteration 1 rollout {k}: card vs CPU "
+              f"rel err {err} in its first {n} steps")
+    return n, float(margin.min())
+
+
+def ppo_card_vs_cpu(enc_cfg):
+    """(a) ``train_ppo`` at ``PPOCfg()`` on the pi4 factory of
+    ``get_policy``, on the card (the update loop under
+    ``set_sync_debug_mode("error")``) and on the CPU, from the same params
+    and Gumbel draws: one iteration, and two, so that the second rollout
+    is driven by the params each device's updates gave; then the card's
+    one iteration again under the profiler -> the profile's counts."""
+    from dataclasses import replace
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import ppo
+    from repro_torch.runtime import control_plane as cp
+    cfg = ppo.PPOCfg(iters=2)
+    one = replace(cfg, iters=1)
+    n_act = enc_cfg.n_blocks + 1
+    params = ppo.init_policy(torch.Generator().manual_seed(0), 3, n_act)
+    g = torch.Generator().manual_seed(1)
+    draws = ppo.gumbel_noise(g, (cfg.iters * cfg.steps_per_iter, n_act))
+    epochs = ppo.ppo_epochs
+
+    def no_sync_epochs(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return epochs(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def run(device, c):
+        infos = []
+        params_out, hist = ppo.train_ppo(
+            cp.policy_factory("pi4"), n_act, c, device=device,
+            params=params, noise=draws.__getitem__,
+            on_iter=lambda it, i: infos.append(i))
+        return params_out, hist, infos
+
+    ppo.ppo_epochs = no_sync_epochs
+    try:
+        pc, hc, ic = run("cuda", one)
+        pc2, hc2, ic2 = run("cuda", cfg)
+    except RuntimeError as e:
+        fail(f"train_ppo on the card: {e}")
+    finally:
+        ppo.ppo_epochs = epochs
+    pp, hp, ip = run("cpu", one)
+    pp2, hp2, ip2 = run("cpu", cfg)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pr, hr, ir = run("cuda", one)
+    rollout = ("obs", "act", "logp", "values", "rewards", "dones", "adv",
+               "ret")
+    for k in rollout:
+        for what, other in (("CPU", ip), ("card run to run", ir),
+                            ("card, two iterations", ic2),
+                            ("CPU, two iterations", ip2)):
+            check(np.array_equal(ic[0][k], other[0][k]),
+                  f"PPO rollout {k}: card != {what}")
+    check(hc == hp == hr == hc2[:1] == hp2[:1],
+          f"PPO history card {hc} != CPU {hp} or {hr}, {hc2}, {hp2}")
+    errs = {k: rel_err(pc[k], pp[k]) for k in pp}
+    check(max(errs.values()) <= PPO_RTOL,
+          f"PPO params after one iteration card vs CPU {errs}")
+    check(all(torch.equal(pc[k], pr[k]) for k in pc),
+          "PPO params after one iteration: card run to run")
+    check(all(v.device.type == "cpu" for v in pc.values()), "params device")
+    T = cfg.steps_per_iter
+    n, least = ppo_second_rollout(ic2[1], ip2[1], pc, draws)
+    errs2 = {k: rel_err(pc2[k], pp2[k]) for k in pp2}
+    if n == T:
+        check(hc2[1] == hp2[1], f"PPO history, iteration 1: card {hc2} != "
+              f"CPU {hp2}")
+        check(max(errs2.values()) <= PPO_RTOL,
+              f"PPO params after two iterations card vs CPU {errs2}")
+    counts = ppo_profile_counts(prof)
+    check(sum("Pinned" in c for c in counts["h2d"]) == 1
+          and len(counts["d2h"]) == 1,
+          f"profiled iteration's device copies {counts}: want one H2D of "
+          "the pinned buffer and one D2H of the params")
+    check(counts["update_syncs"] == 0
+          and counts["update_copies"] == 1 + counts["d2d"]
+          and counts["to_host_copies"] == 1,
+          f"profiled iteration's runtime calls {counts}: want in the "
+          "update loop no sync and one copy besides the device-to-device "
+          "ones, in the params' return one copy")
+    print(f"phase 13 (a): one train_ppo iteration at PPOCfg() (2,048 steps, "
+          f"{cfg.epochs} x {cfg.steps_per_iter // cfg.minibatch} updates of "
+          f"{cfg.minibatch}) on the pi4 profiles, card vs CPU from the same "
+          f"params and draws: rollouts (obs, actions, log-probs, values, "
+          f"rewards, dones, advantages) bitwise "
+          f"({len(set(ic[0]['act'].tolist()))} distinct actions), mean "
+          f"episode reward {hc[0]:.6f} both, params rel err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (<= {PPO_RTOL}); the card's iteration again: bitwise")
+    print(f"phase 13 (a): two iterations card vs CPU: iteration 1's rollout "
+          f"acted on each device's updated params: {n} of {T} steps "
+          f"compared (least top-two Gumbel gap {least:.3e}, near-tie guard "
+          f"{PPO_MARGIN}): obs, actions, rewards, dones bitwise, log-probs "
+          f"and values within {PPO_RTOL} of their max; "
+          + (f"mean episode reward {hc2[1]:.6f} both, params after 64 "
+             f"updates rel err " + ", ".join(
+                 f"{k} {v:.3e}" for k, v in errs2.items())
+             if n == T else "a near-tie: the rest, the history and the "
+             "params not compared"))
+    cpu_ms = [i["update_ms"] for i in ip + ip2]
+    print(f"profiled card iteration: device copies {counts['h2d']} "
+          f"(the buffer pinned; the set-up's initial params pageable, where "
+          f"recorded), {counts['d2h']}, {counts['d2d']} device-to-device; "
+          f"runtime calls in the update loop: {counts['update_copies']} "
+          f"copies ({counts['d2d']} of them device to device), "
+          f"{counts['update_syncs']} syncs, "
+          f"{counts['update_launches']} kernel launches; in the params' "
+          f"return {counts['to_host_copies']} copy; "
+          f"set_sync_debug_mode('error') over the update loop "
+          f"raised nothing; {counts['kernels']} kernels, their device time "
+          f"{counts['kernel_ms']:.3f} ms (longest {counts['longest']}); "
+          f"update {ir[0]['update_ms']:.3f} ms profiled, "
+          + ", ".join(f"{i['update_ms']:.3f}" for i in ic + ic2)
+          + " unprofiled (CUDA events), the CPU's "
+          + ", ".join(f"{x:.3f}" for x in cpu_ms)
+          + f" (host clock); rollout {ic[0]['rollout_ms']:.1f} ms (host)")
+    counts["cpu_update_ms"] = cpu_ms
+    counts["second_rollout_steps_compared"] = n
+    return counts
+
+
+def train_policies():
+    """(b) ``get_policy(platform, force=True)`` at ``PPOCfg()`` on the
+    card for pi4 and m2 -> ({platform: params}, {platform: per-iteration
+    record})."""
+    from repro_torch.runtime import control_plane as cp
+    policies, record = {}, {}
+    for plat in ("pi4", "m2"):
+        its = []
+        start = time.perf_counter()
+        policies[plat] = cp.get_policy(plat, force=True, device="cuda",
+                                       on_iter=lambda it, i: its.append(i))
+        total = time.perf_counter() - start
+        hist = [i["mean_reward"] for i in its]
+        check(len(hist) == 40 and np.isfinite(hist).all(),
+              f"{plat} history not finite: {hist}")
+        check(os.path.exists(cp.policy_path(plat)), f"{plat} not cached")
+        roll = np.array([i["rollout_ms"] for i in its])
+        upd = np.array([i["update_ms"] for i in its])
+        record[plat] = {"history": hist, "rollout_ms": roll.tolist(),
+                        "update_ms": upd.tolist(), "total_s": total}
+        print(f"phase 13 (b): get_policy({plat!r}, force=True) on the card: "
+              f"40 iterations in {total:.2f} s; mean episode reward "
+              f"{hist[0]:.3f} -> {hist[-1]:.3f} (final); rollout p50 "
+              f"{np.percentile(roll, 50):.3f} ms (host), update p50 "
+              f"{np.percentile(upd, 50):.3f} ms (CUDA events)")
+        print(f"{plat} rollout ms per iteration: "
+              + " ".join(f"{x:.3f}" for x in roll))
+        print(f"{plat} update ms per iteration: "
+              + " ".join(f"{x:.3f}" for x in upd))
+    return policies, record
+
+
+def hold_wire_at(cfg, ops):
+    """``wire_roundtrip_grouped`` against its plain version on the card,
+    bitwise, at every width that ``cfg`` puts on the wire: a (1, n) group
+    as a tick of one frame gives it, the special rows at (5, n), and every
+    width at B = 1 in one launch -> max |err|."""
+    dev = ops.resolve_device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    widths = wire_widths(cfg)
+
+    def rand(B, n):
+        return torch.randn(B, n, device=dev, generator=g) * 3.0 + 1.0
+    cases = ([(f"(1, {n})", [rand(1, n)]) for n in widths]
+             + [(f"(5, {n}), special rows", [special_rows(rand(5, n))])
+                for n in widths]
+             + [("every width at B = 1", [rand(1, n) for n in widths])])
+    worst = 0.0
+    for what, xs in cases:
+        got = ops.wire_roundtrip_grouped(xs)
+        want = ops.wire_roundtrip_grouped_ref(xs)
+        torch.cuda.synchronize()
+        for i, (a, w) in enumerate(zip(got, want)):
+            err = (a - w).nan_to_num().abs().max().item()
+            worst = max(worst, err)
+            check(same_values(a, w), f"wire_roundtrip_grouped != plain "
+                  f"version at {what}, group {i} (max |err| {err})")
+    print(f"phase 13 (d): wire_roundtrip_grouped bitwise == plain version "
+          f"at the served widths {widths}: B = 1, the special rows at B = "
+          f"5, all in one launch (max |err| {worst})")
+    return worst
+
+
+def edge_loop_on_card(enc_cfg, ops, enc_params, rl):
+    """(d) ``serve_stream`` on the ``variable`` network with phase 6's
+    trained encoder under ``"rl"`` (the trained pi4 policy) and
+    ``"server"``, counted per tick, and each again on the CPU -> (the
+    kernels' launch counts of the two card runs, summary)."""
+    from dataclasses import replace
+    from repro_torch.data.audio_stream import AudioStream, StreamCfg
+    from repro_torch.runtime.edge_loop import part3_line, serve_stream
+    mels, ys, _ = AudioStream(StreamCfg(seed=1)).batch(CONTROL_FRAMES)
+    # the stream gives 98 frames a second: AudioEncCfg() at that length
+    # (its widths and phase 6's weights; the gateway takes cfg.frames)
+    cfg = replace(enc_cfg, frames=min(enc_cfg.frames, mels.shape[1]))
+    mels = np.asarray(mels[:, :cfg.frames], np.float32)
+    L = cfg.n_blocks
+    wire_err = hold_wire_at(cfg, ops)
+
+    def run(kind, device, counted):
+        ticks, prev = [], {n: w.launches for n, w in ops.KERNELS.items()}
+
+        def on_tick(t, r, gw):
+            if counted:
+                now = {n: w.launches for n, w in ops.KERNELS.items()}
+                st = gw.stats()
+                ticks.append((r, {n: now[n] - prev[n] for n in now},
+                              st.device_syncs_per_tick,
+                              st.d2h_copies_per_tick, st.last_tick_ms))
+                prev.update(now)
+            else:
+                ticks.append((r,))
+        out = serve_stream(kind, enc_params, mels, ys, net="variable",
+                           device=device, rl_params=rl, enc_cfg=cfg,
+                           on_tick=on_tick)
+        return out, ticks
+
+    kinds = ("rl", "server")
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    card = {kind: run(kind, "cuda", True) for kind in kinds}
+    launches = {name: w.launches for name, w in ops.KERNELS.items()}
+    torch.cuda.synchronize()
+    cpu = {kind: run(kind, "cpu", False) for kind in kinds}
+
+    summary = {}
+    for kind, ((s, st, info, drops), ticks) in card.items():
+        check(len(ticks) == CONTROL_FRAMES, f"{kind}: {len(ticks)} ticks")
+        for t, (r, delta, syncs, d2h, _) in enumerate(ticks):
+            want = {n: 0 for n in delta}
+            want["wire_roundtrip_grouped"] = int(r.k < L)
+            check(delta == want, f"{kind} tick {t} (k={r.k}): launches "
+                  f"{ {n: c for n, c in delta.items() if c} }")
+            check(syncs == 1 and d2h == 1, f"{kind} tick {t}: {syncs} "
+                  f"syncs, {d2h} D2H (want 1 and 1)")
+        z = np.stack([tk[0].z for tk in ticks])
+        check(z.shape == (CONTROL_FRAMES, cfg.d_embed)
+              and np.isfinite(z).all(), f"{kind}: embeddings {z.shape}")
+        norm_err = float(np.abs(np.linalg.norm(z, axis=1) - 1).max())
+        check(norm_err <= 1e-5, f"{kind}: | ||z|| - 1 | = {norm_err}")
+        (cs, _, _, cdrops), cpu_ticks = cpu[kind]
+        check([tk[0].k for tk in ticks] == [tk[0].k for tk in cpu_ticks],
+              f"{kind} k sequence: card != CPU")
+        check(cs == s and cdrops == drops, f"{kind} env summary: card != "
+              "CPU")
+        cpu_err = float(max(np.abs(a[0].z - b[0].z).max() for a, b in zip(
+            ticks[:CONTROL_CPU_FRAMES], cpu_ticks[:CONTROL_CPU_FRAMES])))
+        check(cpu_err <= CPU_ATOL, f"{kind} edge loop card vs CPU max |dz| "
+              f"{cpu_err}")
+        tick_ms = np.array([tk[4] for tk in ticks])
+        ks = [tk[0].k for tk in ticks]
+        summary[kind] = {
+            "env": s, "drops": drops, "frames": st.frames,
+            "wire_bytes": st.wire_bytes, "transitions": info.transitions,
+            "k_hist": np.bincount(ks, minlength=L + 1).tolist(),
+            "tick_ms_p50": float(np.percentile(tick_ms, 50)),
+            "tick_ms_p95": float(np.percentile(tick_ms, 95)),
+            "cpu_max_abs_dz": cpu_err}
+        print(f"phase 13 (d) {kind}: {CONTROL_FRAMES} ticks of one frame "
+              f"(AudioEncCfg() widths at the stream's {cfg.frames} frames, "
+              f"phase 6's weights), every tick 1 sync + 1 D2H and "
+              f"wire_roundtrip_grouped launched iff k < {L} "
+              f"({sum(k < L for k in ks)} ticks), no other kernel; k "
+              f"histogram {summary[kind]['k_hist']}, {info.transitions} "
+              f"transitions; tick ms p50 {summary[kind]['tick_ms_p50']:.3f} "
+              f"p95 {summary[kind]['tick_ms_p95']:.3f} (host clock); k "
+              f"sequence and env summary card == CPU, first "
+              f"{CONTROL_CPU_FRAMES} frames card vs CPU max |dz| "
+              f"{cpu_err:.3e} (atol {CPU_ATOL})")
+        print(f"      simulated Pi 4 costs: {s['lat_ms']*8:.1f} ms/batch, "
+              f"{s['kb_per_batch']:.1f} KB/batch, {s['energy_mj']:.1f} "
+              f"mJ/frame, drops {drops / max(st.frames, 1):.2%}; gateway: "
+              f"{st.frames} frames, routed={st.routed}, split-link "
+              f"{st.wire_bytes / 1024:.0f} KB")
+    line = part3_line(summary["rl"]["env"], summary["server"]["env"])
+    summary["part3"] = line
+    summary["wire_max_abs_err"] = wire_err
+    print(f"edge loop part 3 (rl vs server-only, simulated): {line}")
+    return launches, summary
+
+
+def phase13(cfg, ops, enc_params):
+    """The control plane on the card -> (launch counts of the edge loop's
+    card runs, summary)."""
+    from repro_torch.runtime import system_tables
+    marks = [time.perf_counter()]
+    counts = ppo_card_vs_cpu(cfg)
+    marks.append(time.perf_counter())
+    policies, record = train_policies()
+    marks.append(time.perf_counter())
+    upd_p50 = float(np.percentile(record["pi4"]["update_ms"], 50))
+    counts["busy_share"] = counts["kernel_ms"] / upd_p50
+    print(f"the card's busy share during the updates: the profiled "
+          f"iteration's kernels, {counts['kernel_ms']:.3f} ms, over pi4's "
+          f"unprofiled update p50, {upd_p50:.3f} ms: "
+          f"{counts['busy_share']:.3f}")
+    rows = system_tables.run_all()
+    check(len(rows) == 57 and all(np.isfinite(v) for _, v, _ in rows),
+          f"system tables: {len(rows)} rows, non-finite "
+          f"{[r for r in rows if not np.isfinite(r[1])]}")
+    print("phase 13 (c): the paper's system tables under the two policies "
+          "(outputs of the calibrated Pi 4 / M2 simulator, core/env.py; "
+          "not card times): name,value,derived")
+    for name, value, derived in rows:
+        print(f"  {name},{value:.4f},{derived}")
+    marks.append(time.perf_counter())
+    launches, summary = edge_loop_on_card(cfg, ops, enc_params,
+                                          policies["pi4"])
+    marks.append(time.perf_counter())
+    parts = dict(zip("abcd", np.diff(marks).tolist()))
+    print(f"phase 13: {marks[-1] - marks[0]:.1f} s (" + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in parts.items()) + ")")
+    summary.update(ppo=record, ppo_profile=counts, phase_s=parts,
+                   tables={name: value for name, value, _ in rows})
+    return launches, summary
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2776,7 +3206,7 @@ def main():
     refine_launches, _ = phase4(CFG, dev, ops, serve_tick_ms)
     refine_times = refine_kernel_times(dev, ops)
     train_worst = phase5(dev, ops)
-    train_launches, _ = phase6(CFG, dev, ops)
+    train_launches, _, enc_params = phase6(CFG, dev, ops)
     train_times = train_kernel_times(dev, ops)
     quant_worst = phase7(CFG, dev, ops)
     quant_times = quant_kernel_times(CFG, dev, ops)
@@ -2787,10 +3217,11 @@ def main():
     bwd_worst = phase11(dev, ops)
     bwd_times = bwd_kernel_times(dev, ops)
     lm_launches, lm_runs, _ = phase12(dev, ops)
+    control_launches, control = phase13(CFG, ops, enc_params)
     paths = {"serve": launches, "refine": refine_launches,
              "train": train_launches, "per_frame": frame_launches,
              "stream": stream_launches, "cascade": cascade_launches,
-             "lm_train": lm_launches}
+             "lm_train": lm_launches, "control": control_launches}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -2803,7 +3234,10 @@ def main():
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wire_roundtrip.cu",
         "replaces": "src/repro/kernels/int8_quant.py:90",
-        "launches": launches[name], "max_abs_err": worst,
+        "launches": launches[name],
+        # the grouped wire is also held at the control path's widths
+        "max_abs_err": (max(worst, control["wire_max_abs_err"])
+                        if name == "wire_roundtrip_grouped" else worst),
         "ms": tot[ms], "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
         "library_ms": None, "call_ms": tot[call],
@@ -2886,6 +3320,7 @@ def main():
             "large_tier_shape": bwd_times["large"][name]})
     next(r for r in records if r["name"] == "gmm_posterior")[
         "cascade_shape"] = cascade_times["gmm"]
+    print(json.dumps({"control": control}))
     print(json.dumps({"lm_train": lm_runs}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -47,10 +47,11 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.api.policies import BW_NORM, SplitPolicy
+from repro_torch.api.policies import SplitPolicy
 from repro_torch.api.types import (AdmissionError, FrameRequest, FrameResult,
                                    GatewayStats, QoSClass, SessionInfo,
                                    SessionSnapshot)
+from repro_torch.core.env import EdgeCloudEnv
 from repro_torch.core.fleet_backend import HostFleetBackend
 from repro_torch.core.fleet_buffer import FleetFullError, pad_pow2
 from repro_torch.core.splitter import SplitEngine
@@ -402,9 +403,10 @@ class StreamSplitGateway:
 
     def _decide(self, pending):
         """Policy decision for one tick's pending frames -> {k: [frame
-        indices]}.  Bandwidth is normalized as in the control-plane
-        observation."""
-        obs = np.array([[f.u, f.cpu, min(f.bandwidth_mbps / BW_NORM, 1.0)]
+        indices]}.  Bandwidth is normalized exactly like the control-plane
+        env, so RL policies see the feature scale they were trained on."""
+        bw_norm = EdgeCloudEnv.BW_NORM
+        obs = np.array([[f.u, f.cpu, min(f.bandwidth_mbps / bw_norm, 1.0)]
                         for _, f, _ in pending], np.float32)
         ks = np.clip(np.asarray(self.policy.decide(obs), np.int64),
                      0, self.cfg.n_blocks)

@@ -17,11 +17,7 @@ from typing import Protocol, runtime_checkable
 import numpy as np
 import torch
 
-from repro_torch.core.ppo import policy_apply
-
-# bandwidth normalization of the control-plane observation, in Mbps (the
-# reference's ``EdgeCloudEnv.BW_NORM``)
-BW_NORM = 50.0
+from repro_torch.core.ppo import host_params, policy_apply
 
 
 @runtime_checkable
@@ -72,9 +68,7 @@ class RLPolicy:
 
     def __init__(self, L, params):
         self.L = L
-        self.params = {k: torch.as_tensor(v).detach().to("cpu",
-                                                          torch.float32)
-                       for k, v in params.items()}
+        self.params = host_params(params)
 
     def decide(self, obs_batch):
         obs = torch.from_numpy(np.asarray(obs_batch, np.float32))

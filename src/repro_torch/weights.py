@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.gmm import GMMState
+from repro_torch.core.ppo import PPO_KEYS
 
 _CONVS = ("conv1", "conv2", "proj")
 
@@ -145,7 +146,6 @@ def adamw_to_jax(state, params_to=params_to_jax) -> dict:
             "step": _step_to(state["step"])}
 
 
-PPO_KEYS = ("w1", "b1", "wp", "bp", "wv", "bv")
 
 
 def ppo_from_jax(tree) -> dict:
