@@ -9,9 +9,10 @@ serving tick, the per-frame split path (``SplitEngine.run``), the tick
 with a fleet refine round after it, the edge learner's training step, the
 always-on ``StreamServer`` with the RL split policy, the LM cascade
 server at the full width and depth of qwen1.5-0.5b and qwen3-1.7b, the
-LM trainer at the full width and depth of qwen1.5-0.5b, and the control
-plane: PPO training of the RL splitter, the paper's system tables and
-the edge loop serving the trained encoder under the trained policy.
+LM trainer at the full width and depth of qwen1.5-0.5b, the control
+plane (PPO training of the RL splitter, the paper's system tables and
+the edge loop serving the trained encoder under the trained policy), and
+LM prefill and decode for every family (dense, MoE, SSM, hybrid).
 
 Phase 1 holds the wire kernel against its plain PyTorch version on the
 card, bitwise, at every shape the serving path gives it (plus constant,
@@ -151,7 +152,9 @@ Phase 9 holds ``flash_attention_fwd`` against its plain version on the
 card (o atol 2e-5, lse atol 1e-5, two launches bitwise equal) at both
 tiers' layers (B 8, H 16, S 1,024, hd 64; B 4, H 16 over KV 8, hd 128),
 S = 4,096 at hd 64 and (GQA) at hd 128, ragged and single-row lengths,
-Sq != Sk without the mask, and head dims 16 and 32; it times the kernel,
+Sq != Sk without the mask, head dims 16 and 32, and phase 14's prefill
+shapes of zamba2-1.2b (B 8, H 32, S 1,024, hd 64) and of the arctic-480b
+cut (B 2, H 56 over KV 8, S 256, hd 128); it times the kernel,
 its plain version and ``scaled_dot_product_attention`` (timed only) at
 the two layer shapes beside the bound, and prints the kernel's ratio to
 SDPA at each.  The three attention rows share one bound: their
@@ -230,14 +233,49 @@ else no kernel; under each policy the k sequence and env summary equal
 to a CPU run's, the first 32 embeddings within atol 1e-4 of it, every
 embedding finite and of unit norm.  It prints the tick p50/p95 and part 3's lines of the example.
 
+Phase 14 runs ``lm.prefill`` and ``lm.decode_step``, float32, weights
+from seeded generators: qwen1.5-0.5b (B 8), qwen3-1.7b (B 4), gemma2-2b
+(B 4), mamba2-780m (B 8) and zamba2-1.2b (B 8) at full width and depth
+with a prompt of 1,024 random tokens and 32 greedy steps, and arctic-480b
+cut to 2 layers and 8 experts (every other width as published; B 2 x
+256, 8 steps); the state holds the prompt + 64 positions.  For each, a
+warm-up prefill of the whole prompt and one step, ``flash_attention_fwd``
+held against its plain version at the inputs that prefill gave each of
+its calls (phase 9's tolerances), then three timed prefills (the median
+printed) and the steps after the last, the counts set to 0 just before
+each prefill and read after it and after the steps: a prefill launches
+``flash_attention_fwd`` once for each attention layer ``uses_kernel``
+admits (24, 28, 0, 0, 6, 2) and no other kernel, the steps launch none;
+each step runs under
+``set_sync_debug_mode("error")``, leaves every state tensor at its
+``data_ptr`` and grows ``max_memory_allocated`` by less than one layer's
+cache; ``index`` is read once, at the end (S + steps); one more step under
+the profiler shows no sync, no copy call and no H2D or D2H.  Then the
+prefill's logits against one teacher-forced forward over the prompt and
+the decoded tokens at the prompt's last position (1e-5 of the max
+|logit|), each step's logits against it at its position (1e-4; for the
+families with mamba layers, whose float32 rounding the layers amplify
+past 1e-4 at 48 layers (``tools/decode_bar.py --full``), 1.5e-2, and the
+same steps and forward run again in float64 as the truth: decode vs
+forward there within 1e-8, the float32 decode within 4e-3 of it), and
+the configuration cut to 2 layers (the
+hybrid to one group and its tail) at full width, the same weights on
+the card and on the CPU: a prefill of 64 and 4 steps fed the same
+tokens, logits and every state tensor within 1e-4 of each one's max.
+It prints prefill ms, decode step p50 / p95 and tokens/s beside each
+step's bytes bound (weights plus the whole ``max_len`` cache at 3.35
+TB/s) and the profiled step's idle share (the ``prefill`` and ``decode``
+paths of the kernels' record).
+
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
 result.  The line before the last is the kernels' JSON record (after a
-line with phase 13's summary and one with phase 12's); the last line is
-``{"ok": true, "device": {...}}``.
+line with phase 12's summary, one with phase 13's and one with phase
+14's records); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2158,6 +2196,11 @@ FLASH_CASES = ((8, 16, 16, 1024, 1024, 64, True),
                (2, 2, 2, 128, 256, 64, False),
                (2, 4, 2, 200, 200, 16, True),
                (2, 4, 4, 300, 300, 32, False))
+# phase 14's prefill shapes that FLASH_CASES lacks: zamba2-1.2b's shared
+# block (8 x 1,024, 32 heads of 64) and the arctic-480b cut's layers (2 x
+# 256, 56 heads over 8 (a group of 7), hd 128)
+PREFILL_FLASH_CASES = ((8, 32, 32, 1024, 1024, 64, True),
+                       (2, 56, 8, 256, 256, 128, True))
 FLASH_O_ATOL, FLASH_LSE_ATOL = 2e-5, 1e-5
 # the tiers' layer shapes at phase 10's batch of 8 x 1,024 tokens (the
 # large tier's padded sub-batch of 4)
@@ -2176,7 +2219,7 @@ def phase9(dev, ops):
     max |err| of o and lse."""
     g = torch.Generator(device=dev).manual_seed(9)
     worst = 0.0
-    for B, H, KV, Sq, Sk, hd, causal in FLASH_CASES:
+    for B, H, KV, Sq, Sk, hd, causal in FLASH_CASES + PREFILL_FLASH_CASES:
         fa = lambda q, k, v: ops.flash_attention_fwd(  # noqa: E731
             q, k, v, causal=causal)
         ref = lambda q, k, v: ops.flash_attention_ref(  # noqa: E731
@@ -2188,7 +2231,8 @@ def phase9(dev, ops):
             f"B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} hd={hd} causal={causal}"))
     print(f"phase 9: flash_attention_fwd == plain version (o atol "
           f"{FLASH_O_ATOL}, lse atol {FLASH_LSE_ATOL}), bitwise from run to "
-          f"run, at (B, H, KV, Sq, Sk, hd, causal) in {FLASH_CASES}; max "
+          f"run, at (B, H, KV, Sq, Sk, hd, causal) in "
+          f"{FLASH_CASES + PREFILL_FLASH_CASES}; max "
           f"|err| {worst:.3e}")
     return worst
 
@@ -2260,8 +2304,6 @@ CASCADE_ATOL = 1e-4      # kernel vs plain attention; card vs CPU (of max)
 def plain_attention(attn_mod):
     """A context in which ``attention`` takes the reference's plain path on
     the card too (the comparisons only; the served path never does)."""
-    import contextlib
-
     @contextlib.contextmanager
     def ctx():
         rule = attn_mod.uses_kernel
@@ -3177,6 +3219,427 @@ def phase13(cfg, ops, enc_params):
     return launches, summary
 
 
+# --- prefill and decode ------------------------------------------------------
+
+# phase 14's runs: (config, layers kept (None: all), experts kept (None:
+# all), B, prompt, decode steps); the decode state holds the prompt plus
+# PD_SLACK positions
+PD_RUNS = (("qwen1.5-0.5b", None, None, 8, 1024, 32),
+           ("qwen3-1.7b", None, None, 4, 1024, 32),
+           ("gemma2-2b", None, None, 4, 1024, 32),
+           ("mamba2-780m", None, None, 8, 1024, 32),
+           ("zamba2-1.2b", None, None, 8, 1024, 32),
+           ("arctic-480b", 2, 8, 2, 256, 8))
+PD_SLACK = 64
+# flash_attention_fwd launches in a prefill: one for each attention layer
+# that uses_kernel admits (gemma2's soft-cap keeps the plain path, mamba2
+# has no attention, zamba2's shared block runs 38 // 6 = 6 times)
+PD_FLASH = {"qwen1.5-0.5b": 24, "qwen3-1.7b": 28, "gemma2-2b": 0,
+            "mamba2-780m": 0, "zamba2-1.2b": 6, "arctic-480b": 2}
+PD_PREFILL_RTOL = 1e-5   # prefill vs forward at the prompt's last position
+PD_PREFILLS = 3          # timed prefills (the median is reported)
+# decode vs teacher-forced forward (the families without mamba layers);
+# card vs CPU
+PD_RTOL = 1e-4
+# the families with mamba layers (see pd_float64), set from the readings
+# at these seeds (mamba2-780m 5.627e-3, 1.377e-3 and 2.501e-11; zamba2-1.2b
+# 5.411e-4, 7.801e-4 and 3.508e-12): decode vs teacher-forced forward in
+# float32, the float32 decode vs the float64 run, decode vs forward in
+# float64
+PD_SSM_RTOL, PD_SSM_TRUTH_RTOL, PD_F64_RTOL = 1.5e-2, 4e-3, 1e-8
+PD_CPU = (2, 64, 4)      # card vs CPU at the 2-layer cut: B, prompt, steps
+
+
+def pd_config(name, layers, experts):
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_config
+    cfg = get_config(name)
+    if layers:
+        cfg = replace(cfg, n_layers=layers)
+    if experts:
+        cfg = replace(cfg, moe=replace(cfg.moe, n_experts=experts))
+    return cfg
+
+
+def pd_rel(a, b):
+    """max |a - b| over max |b|."""
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def pd_cache_bytes(st):
+    """The smallest one-layer slice of the state's caches (a layer's k, or
+    a layer's SSM state): the bound on a decode step's memory growth."""
+    return min(st[k][0].numel() * st[k].element_size()
+               for k in ("k", "ssm") if k in st)
+
+
+def pd_step_bytes(cfg, params, st):
+    """What a decode step must move at least: every weight it reads (all
+    experts: ``moe_reference`` runs them all; not an untied embedding
+    table, of which it gathers B rows), the whole ``max_len`` KV cache
+    read, the SSM and conv states read and written."""
+    from repro_torch.models import lm
+    w = lm.param_count(params)
+    if not cfg.tie_embeddings:
+        w -= params["embed"]["table"].numel()
+    kv = sum(st[k].numel() for k in ("k", "v") if k in st)
+    ssm = 2 * sum(st[k].numel() for k in ("ssm", "conv") if k in st)
+    return 4 * (w + kv + ssm)
+
+
+def profile_decode_step(cfg, params, st, tok, step_ms):
+    """One more decode step under torch.profiler -> its CUDA runtime copy,
+    sync and launch calls, its device copies, its kernels' device time and
+    the idle share of the unprofiled step's p50.  Fails where the profile
+    recorded no launch: the counts would prove nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import lm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("decode_step"):
+            lm.decode_step(cfg, params, st, tok)
+        torch.cuda.synchronize()
+    events = prof.events()
+    rng = [e for e in events if e.name == "decode_step"
+           and e.device_type == DeviceType.CPU]
+    check(len(rng) == 1, f"{len(rng)} decode_step ranges")
+    lo, hi = rng[0].time_range.start, rng[0].time_range.end
+    inside = [e.name for e in events if e.device_type == DeviceType.CPU
+              and lo <= e.time_range.start and e.time_range.end <= hi]
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.name != "decode_step"]
+    kernels = [e for e in dev if "Memcpy" not in e.name
+               and "Memset" not in e.name]
+    out = {"launches": sum(n in LAUNCH_CALLS for n in inside),
+           "syncs": sum(n in SYNC_CALLS for n in inside),
+           "copy_calls": sum(n.startswith("cudaMemcpy") for n in inside),
+           "h2d": sum("HtoD" in e.name for e in dev),
+           "d2h": sum("DtoH" in e.name for e in dev),
+           "d2d": sum("DtoD" in e.name for e in dev),
+           "kernels": len(kernels),
+           "busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3}
+    check(out["launches"] > 0, f"the profile recorded no launch in the "
+          f"decode step: {out}")
+    out["idle_share"] = 1.0 - out["busy_ms"] / step_ms
+    return out
+
+
+@contextlib.contextmanager
+def record_flash(calls):
+    """A context in which every call of the attention layers' flash
+    kernel appends its arguments (q, k, v, causal, scale) to ``calls``."""
+    from repro_torch.kernels import flash_attention as fa
+    real = fa.flash_attention
+
+    def recorded(q, k, v, causal=True, scale=None):
+        calls.append((q, k, v, causal, scale))
+        return real(q, k, v, causal, scale)
+    fa.flash_attention = recorded
+    try:
+        yield
+    finally:
+        fa.flash_attention = real
+
+
+def hold_prefill_flash(ops, calls, name):
+    """``flash_attention_fwd`` against its plain version at every recorded
+    call's inputs (phase 9's tolerances, bitwise run to run) -> (calls
+    held, the largest |err| of o and lse)."""
+    check(len(calls) == PD_FLASH[name], f"{name}: {len(calls)} flash calls "
+          f"recorded in a prefill, want {PD_FLASH[name]}")
+    worst = 0.0
+    for i, (q, k, v, causal, scale) in enumerate(calls):
+        worst = max(worst, hold(
+            "flash_attention_fwd",
+            lambda q, k, v: ops.flash_attention_fwd(
+                q, k, v, causal=causal, scale=scale),
+            lambda q, k, v: ops.flash_attention_ref(
+                q, k, v, causal, scale),
+            (q, k, v), [(0.0, FLASH_O_ATOL), (0.0, FLASH_LSE_ATOL)],
+            f"{name} prefill layer {i}: q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}"))
+    return len(calls), worst
+
+
+def pd_main_path(dev, ops, cfg, params, B, S, steps, seed):
+    """A warm-up prefill of a random prompt of S tokens and one step (the
+    kernel held against its plain version at the inputs the prefill gave
+    it), PD_PREFILLS timed prefills, then ``steps`` greedy decode steps
+    after the last, the counts set to 0 just before and read after each
+    prefill and after the steps ->
+    (record, launches of the prefill, launches of the decode steps,
+    prompt, fed tokens, prefill logits, decode logits (steps, B, V))."""
+    from repro_torch.models import lm
+    g = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+    max_len = S + PD_SLACK
+    # warm-up at the served shapes: the whole prompt and one step; the
+    # kernel's inputs in its prefill are held against the plain version
+    calls = []
+    with record_flash(calls):
+        st, logits = lm.prefill(cfg, params, tokens=toks, max_len=max_len)
+    lm.decode_step(cfg, params, st, logits.argmax(-1))
+    del st, logits
+    flash_err = hold_prefill_flash(ops, calls, cfg.name)
+    del calls
+    prefill_ms, st, first = [], None, None
+    for _ in range(PD_PREFILLS):
+        st = first = None
+        for wrapper in ops.KERNELS.values():
+            wrapper.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st, first = lm.prefill(cfg, params, tokens=toks, max_len=max_len)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - start) * 1e3)
+        pre = {n: w.launches for n, w in ops.KERNELS.items()}
+        check(pre["flash_attention_fwd"] == PD_FLASH[cfg.name]
+              and sum(pre.values()) == pre["flash_attention_fwd"],
+              f"{cfg.name} prefill launched {pre}, want flash_attention_fwd "
+              f"{PD_FLASH[cfg.name]} and no other kernel")
+    ptrs = {k: v.data_ptr() for k, v in st.items()}
+    out = torch.empty((steps, B, cfg.vocab), device=dev)
+    fed = torch.empty((B, steps), dtype=toks.dtype, device=dev)
+    logits = first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step_ms = []
+    for t in range(steps):
+        fed[:, t] = logits.argmax(-1)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, st2 = lm.decode_step(cfg, params, st, fed[:, t])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        check(st2 is st and {k: v.data_ptr() for k, v in st.items()} == ptrs,
+              f"{cfg.name} decode step {t}: the state was not updated in "
+              "place")
+        out[t].copy_(logits)
+    growth = torch.cuda.max_memory_allocated() - base
+    dec = {n: w.launches - pre[n] for n, w in ops.KERNELS.items()}
+    index = int(st["index"])
+    check(index == S + steps, f"{cfg.name}: index {index} after the steps, "
+          f"want {S + steps}")
+    check(not any(dec.values()), f"{cfg.name} decode steps launched {dec}")
+    bound = pd_cache_bytes(st)
+    check(growth < bound, f"{cfg.name}: max_memory_allocated grew by "
+          f"{growth} B over {steps} decode steps, not less than one "
+          f"layer's cache ({bound} B)")
+    p50 = float(np.percentile(step_ms, 50))
+    prof = profile_decode_step(cfg, params, st, fed[:, -1], p50)
+    check(prof["syncs"] == 0 and prof["h2d"] == 0 and prof["d2h"] == 0,
+          f"{cfg.name}: the profiled decode step synced or copied to or "
+          f"from the host: {prof}")
+    nbytes = pd_step_bytes(cfg, params, st)
+    prefill_p50 = float(np.percentile(prefill_ms, 50))
+    rec = {"name": cfg.name, "n_layers": cfg.n_layers, "B": B, "prompt": S,
+           "steps": steps, "max_len": max_len, "prefill_ms": prefill_p50,
+           "prefill_ms_each": prefill_ms,
+           "prefill_tokens_per_s": B * S / prefill_p50 * 1e3,
+           "decode_p50_ms": p50,
+           "decode_p95_ms": float(np.percentile(step_ms, 95)),
+           "decode_tokens_per_s": B / p50 * 1e3, "step_bytes": nbytes,
+           "step_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "mem_growth_bytes": growth, "mem_bound_bytes": bound,
+           "flash_launches": pre["flash_attention_fwd"],
+           "flash_calls_held": flash_err[0], "flash_err": flash_err[1],
+           "profile": prof}
+    del st
+    return rec, pre, dec, toks, fed, first, out
+
+
+@contextlib.contextmanager
+def float64_port():
+    """The port's explicit float32 casts made float64, so that a float64
+    configuration computes every operation in double precision."""
+    real = torch.Tensor.float
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        yield
+    finally:
+        torch.Tensor.float = real
+
+
+def pd_float64(cfg, params, toks, fed, dec32, tf32):
+    """The main path's prefill and decode steps (fed the same tokens) and
+    the teacher-forced forward again, the port run in float64 on the same
+    weights -> decode vs forward in float64, and the float32 decode's and
+    forward's distances from that truth.  A mamba layer amplifies the
+    rounding of its input, so in float32 the two paths part by more than
+    phase 10's 1e-4 at 48 layers (``tools/decode_bar.py --full``); in
+    float64 they agree to ~1e-11."""
+    from dataclasses import replace
+
+    from repro_torch.models import lm
+    S, steps = toks.shape[1], fed.shape[1]
+    c64 = replace(cfg, dtype="float64", param_dtype="float64")
+    p64 = map_tree(params, torch.Tensor.double)
+    with float64_port():
+        st, logits = lm.prefill(c64, p64, tokens=toks, max_len=S + steps)
+        dec = torch.empty((steps,) + tuple(logits.shape), dtype=torch.float64,
+                          device=logits.device)
+        for t in range(steps):
+            logits, st = lm.decode_step(c64, p64, st, fed[:, t])
+            dec[t] = logits
+        del st
+        h, _ = lm.forward(c64, p64, tokens=torch.cat([toks, fed], 1))
+        tf = lm.logits_from_hidden(c64, p64, h[:, S - 1:S + steps])
+        del h, p64
+    return {"decode_vs_forward": max(pd_rel(dec[t], tf[:, t + 1])
+                                     for t in range(steps)),
+            "decode32_vs_float64": max(pd_rel(dec32[t], dec[t])
+                                       for t in range(steps)),
+            "forward32_vs_float64": pd_rel(tf32, tf)}
+
+
+def map_tree(tree, fn):
+    """``fn`` applied to every leaf of a tree of dicts."""
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def pd_card_vs_cpu(dev, cfg, params, seed):
+    """The configuration cut to 2 layers (a hybrid: one group and its
+    tail) at full width, the same weights on the card and on the CPU: a
+    prefill of PD_CPU's prompt and its steps, fed the same tokens ->
+    relative errors of the logits and of each state tensor."""
+    from dataclasses import replace
+
+    from repro_torch.models import lm
+    from repro_torch.weights import to_device
+    n = cfg.hybrid_period + 1 if cfg.family == "hybrid" else 2
+    cut = replace(cfg, n_layers=n)
+    blocks = dict(params["blocks"], layers=map_tree(
+        params["blocks"]["layers"], lambda t: t[:n]))
+    p_card = dict(params, blocks=blocks)
+    p_cpu = to_device(p_card, "cpu")
+    B, S, steps = PD_CPU
+    toks = torch.randint(0, cut.vocab, (B, S + steps),
+                         generator=torch.Generator().manual_seed(seed))
+    runs = {}
+    for d, p in ((dev, p_card), ("cpu", p_cpu)):
+        st, logits = lm.prefill(cut, p, tokens=toks[:, :S].to(d),
+                                max_len=S + steps)
+        outs = [logits.cpu()]
+        for t in range(steps):
+            logits, st = lm.decode_step(cut, p, st, toks[:, S + t].to(d))
+            outs.append(logits.cpu())
+        runs[d] = (torch.stack(outs), {k: v.cpu() for k, v in st.items()})
+    (l_card, st_card), (l_cpu, st_cpu) = runs[dev], runs["cpu"]
+    check(torch.equal(st_card["index"], st_cpu["index"]),
+          f"{cfg.name} cut: index {st_card['index']} != {st_cpu['index']}")
+    errs = {"logits": pd_rel(l_card, l_cpu)}
+    errs.update({k: pd_rel(st_card[k], st_cpu[k]) for k in st_cpu
+                 if k != "index"})
+    return n, errs
+
+
+def phase14(dev, ops):
+    """``lm.prefill`` and ``lm.decode_step`` on the card for every LM
+    family at full width (and depth, but for the arctic cut) -> (launches
+    of the prefill path, of the decode path, the records)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    marks = time.perf_counter()
+    paths = {"prefill": {n: 0 for n in ops.KERNELS},
+             "decode": {n: 0 for n in ops.KERNELS}}
+    records = []
+    for i, (name, layers, experts, B, S, steps) in enumerate(PD_RUNS):
+        t0 = time.perf_counter()
+        cfg = pd_config(name, layers, experts)
+        with torch.inference_mode():
+            params = lm.init_lm(cfg, torch.Generator(device=dev)
+                                .manual_seed(14 + i))
+            rec, pre, dec, toks, fed, first, out = pd_main_path(
+                dev, ops, cfg, params, B, S, steps, 140 + i)
+            for n in ops.KERNELS:
+                paths["prefill"][n] += pre[n]
+                paths["decode"][n] += dec[n]
+            # teacher-forced: one forward over the prompt and the decoded
+            # tokens, logits at the compared positions only
+            h, _ = lm.forward(cfg, params, tokens=torch.cat([toks, fed], 1))
+            tf = lm.logits_from_hidden(cfg, params, h[:, S - 1:S + steps])
+            del h
+            rec["prefill_err"] = pd_rel(first, tf[:, 0])
+            errs = [pd_rel(out[t], tf[:, t + 1]) for t in range(steps)]
+            rec["decode_err"] = max(errs)
+            rec["decode_err_step"] = int(np.argmax(errs))
+            if cfg.ssm is not None:
+                rec["float64"] = pd_float64(cfg, params, toks, fed, out, tf)
+            del tf, out, first
+            n_cut, rec["card_vs_cpu"] = pd_card_vs_cpu(dev, cfg, params,
+                                                       240 + i)
+        rec["params"] = lm.param_count(params)
+        del params
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t0
+        records.append(rec)
+        prof = rec["profile"]
+        full = get_config(name)
+        cut = (f" (cut: {layers} of {full.n_layers} layers, {experts} of "
+               f"{full.moe.n_experts} experts; every other width as "
+               "published)" if layers else "")
+        print(f"phase 14 ({'abcdef'[i]}) {name}{cut}: {rec['params']:,} "
+              f"parameters, B {B} x prompt {S}, max_len {S + PD_SLACK}, "
+              f"{steps} greedy steps; prefill p50 {rec['prefill_ms']:.3f} ms "
+              f"of {PD_PREFILLS} ("
+              + ", ".join(f"{t:.3f}" for t in rec["prefill_ms_each"])
+              + f"; {rec['prefill_tokens_per_s']:.1f} tokens/s, "
+              f"flash_attention_fwd {rec['flash_launches']}); decode step "
+              f"p50 {rec['decode_p50_ms']:.3f} ms (p95 "
+              f"{rec['decode_p95_ms']:.3f}), {rec['decode_tokens_per_s']:.1f}"
+              f" tokens/s, bytes bound {rec['step_bound_ms']:.3f} ms "
+              f"({rec['step_bytes'] / 1e9:.3f} GB: weights + the whole "
+              f"max_len cache); profiled step: {prof['launches']} launches, "
+              f"{prof['syncs']} syncs, {prof['h2d']} H2D, {prof['d2h']} "
+              f"D2H, {prof['d2d']} device-to-device copies, kernels "
+              f"{prof['busy_ms']:.3f} ms, idle share "
+              f"{prof['idle_share']:.3f}; memory growth "
+              f"{rec['mem_growth_bytes']:,} B (< {rec['mem_bound_bytes']:,})")
+        if "float64" in rec:
+            f64 = rec["float64"]
+            bars = (("decode vs teacher-forced forward", rec["decode_err"],
+                     PD_SSM_RTOL),
+                    ("the float32 decode vs the float64 run",
+                     f64["decode32_vs_float64"], PD_SSM_TRUTH_RTOL),
+                    ("decode vs forward in float64",
+                     f64["decode_vs_forward"], PD_F64_RTOL))
+            more = (f"; the float32 forward {f64['forward32_vs_float64']:.3e}"
+                    " from the float64 run")
+        else:
+            bars = (("decode vs teacher-forced forward", rec["decode_err"],
+                     PD_RTOL),)
+            more = ""
+        print(f"phase 14 ({'abcdef'[i]}) {name} checks: flash_attention_fwd "
+              f"== plain version at its {rec['flash_calls_held']} calls' "
+              f"inputs in the prefill, max |err| {rec['flash_err']:.3e} (o "
+              f"atol {FLASH_O_ATOL}, lse atol {FLASH_LSE_ATOL}); prefill vs "
+              f"forward {rec['prefill_err']:.3e} (bar {PD_PREFILL_RTOL}); "
+              + "; ".join(f"{what} {got:.3e} (bar {bar})"
+                          for what, got, bar in bars)
+              + f" (worst decode step {rec['decode_err_step']}){more}; "
+              f"{n_cut}-layer cut card vs CPU: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in rec["card_vs_cpu"].items())
+              + f" (bar {PD_RTOL}); {rec['seconds']:.1f} s")
+        check(rec["prefill_err"] <= PD_PREFILL_RTOL,
+              f"{name}: prefill vs forward {rec['prefill_err']}")
+        for what, got, bar in bars:
+            check(got <= bar, f"{name}: {what} {got} (bar {bar})")
+        for k, v in rec["card_vs_cpu"].items():
+            check(v <= PD_RTOL, f"{name} cut card vs CPU {k}: {v}")
+    print(f"phase 14: {time.perf_counter() - marks:.1f} s")
+    return paths["prefill"], paths["decode"], records
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -3218,10 +3681,12 @@ def main():
     bwd_times = bwd_kernel_times(dev, ops)
     lm_launches, lm_runs, _ = phase12(dev, ops)
     control_launches, control = phase13(CFG, ops, enc_params)
+    prefill_launches, decode_launches, lm_decode = phase14(dev, ops)
     paths = {"serve": launches, "refine": refine_launches,
              "train": train_launches, "per_frame": frame_launches,
              "stream": stream_launches, "cascade": cascade_launches,
-             "lm_train": lm_launches, "control": control_launches}
+             "lm_train": lm_launches, "control": control_launches,
+             "prefill": prefill_launches, "decode": decode_launches}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -3320,6 +3785,7 @@ def main():
             "large_tier_shape": bwd_times["large"][name]})
     next(r for r in records if r["name"] == "gmm_posterior")[
         "cascade_shape"] = cascade_times["gmm"]
+    print(json.dumps({"lm_decode": lm_decode}))
     print(json.dumps({"control": control}))
     print(json.dumps({"lm_train": lm_runs}))
     print(json.dumps({"kernels": records}))

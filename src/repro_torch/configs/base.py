@@ -4,7 +4,7 @@ Port of ``repro.configs.base`` without JAX: ``ModelCfg.xdtype`` and
 ``pdtype`` are torch dtypes and ``layer_windows()`` is a list of ints.
 ``ShapeCfg`` and ``SHAPES`` are the launchers' named shapes; ``cells``
 and ``input_specs`` serve the reference's dry run only and come with
-``launch/dryrun.py`` (ROADMAP §1 item 8).
+``launch/dryrun.py`` (ROADMAP §1 item 7).
 """
 from __future__ import annotations
 

@@ -1,11 +1,11 @@
 """Grouped-query attention with qk-norm, biases, soft-capping and sliding
-windows, full-sequence: the reference's dense and chunked online-softmax
-paths, and the hand-written flash-attention kernel on the card.
+windows: full-sequence (the reference's dense and chunked online-softmax
+paths, and the hand-written flash-attention kernel on the card), prefill
+into a KV cache, and one-token decode over it.
 
-Port of ``repro.models.attention`` (``KVCache``, ``attention_decode`` and
-``attention_prefill`` wait: ROADMAP).  Shapes follow (batch, seq, heads,
+Port of ``repro.models.attention``.  Shapes follow (batch, seq, heads,
 head_dim); KV heads may be fewer than Q heads (GQA), Q heads grouped as
-(kv_heads, q_per_kv).
+(kv_heads, q_per_kv).  The cache is (batch, kv_heads, max_len, head_dim).
 
 On a CUDA tensor, ``attention`` sends a layer to the hand-written
 flash-attention kernels through their differentiable entry
@@ -21,11 +21,21 @@ position, so any other positions (packed sequences that restart, say)
 take the plain path, and the flag is taken on trust rather than read
 from the tensor, which would sync the host.  Otherwise, and on the CPU,
 ``attention`` takes ``_attend_dense`` / ``_attend_chunked`` exactly as the
-reference does.
+reference does.  ``attention_prefill`` takes the same route; it builds
+the positions ``arange(S)`` itself, so its prompt may take the kernel.
+
+``attention_decode`` is the reference's masked einsum over the whole
+``max_len`` cache in plain torch ops, on every device: the kernel's
+causal mask is top-left aligned (row i sees keys j <= i), so one query
+row over the cache would see key 0 alone.  It writes the new k and v into
+the cache in place (``index_copy_`` at the index, clamped to ``max_len -
+1`` as ``dynamic_update_slice`` clamps its start) and reads the index on
+the device only: a step copies no cache and waits for nothing.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -153,17 +163,82 @@ def _attend_kernel(cfg, q, k, v):
     return o.transpose(1, 2)
 
 
+def _attend(cfg, q, k, v, positions, window, index_positions):
+    """The route of a full-sequence layer: the kernels on the card where
+    ``uses_kernel`` and ``index_positions`` allow, else the reference's
+    chunked (S > ``attn_chunk``) or dense path."""
+    S = q.shape[1]
+    pos1 = positions[0] if positions.ndim > 1 else positions
+    if index_positions and q.is_cuda and uses_kernel(cfg, window, S):
+        return _attend_kernel(cfg, q, k, v)
+    if cfg.attn_chunk and S > cfg.attn_chunk:
+        return _attend_chunked(cfg, q, k, v, pos1, pos1, window,
+                               cfg.attn_chunk)
+    return _attend_dense(cfg, q, k, v, pos1, pos1, window)
+
+
 def attention(p, cfg, x, positions, *, window=None, index_positions=False):
     """Full-sequence (training / prefill) attention.  ``index_positions``:
     the caller vouches that ``positions`` is ``arange(S)`` on every row,
     which lets the card take the flash kernels."""
     q, k, v = _project_qkv(p, cfg, x, positions)
-    S = x.shape[1]
-    pos1 = positions[0] if positions.ndim > 1 else positions
-    if index_positions and x.is_cuda and uses_kernel(cfg, window, S):
-        out = _attend_kernel(cfg, q, k, v)
-    elif cfg.attn_chunk and S > cfg.attn_chunk:
-        out = _attend_chunked(cfg, q, k, v, pos1, pos1, window, cfg.attn_chunk)
-    else:
-        out = _attend_dense(cfg, q, k, v, pos1, pos1, window)
+    out = _attend(cfg, q, k, v, positions, window, index_positions)
     return apply_dense(p["wo"], out, contract=2)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, KV, max_len, hd)
+    v: torch.Tensor
+    # the index is carried at the stack level (the same for every layer)
+
+
+def init_kv_cache(cfg, batch, max_len, dtype, device=None):
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def attention_prefill(p, cfg, x, cache: KVCache, *, window=None):
+    """Prefill: full attention over the prompt x (B, S, d) at positions
+    ``arange(S)``, its k and v written into the first S positions of
+    ``cache`` (in place) -> (y (B, S, d), cache).  The reference takes the
+    positions and ``max_len`` and returns a new cache; here the cache (a
+    layer of the decode state) is given and its length is ``max_len``."""
+    B, S = x.shape[:2]
+    if S > cache.k.shape[2]:
+        raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
+                         f"{cache.k.shape[2]}")
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    out = _attend(cfg, q, k, v, positions, window, True)
+    cache.k[:, :, :S].copy_(k.transpose(1, 2))
+    cache.v[:, :, :S].copy_(v.transpose(1, 2))
+    return apply_dense(p["wo"], out, contract=2), cache
+
+
+def attention_decode(p, cfg, x, cache: KVCache, index, *, window=None):
+    """Single-token decode.  x: (B, 1, d); ``cache`` holds ``max_len``
+    positions; ``index`` (a 0-d int32 tensor on x's device) is the write
+    position (== the number of tokens already cached).  The new k and v
+    are written into ``cache`` in place -> (y (B, 1, d), cache)."""
+    B = x.shape[0]
+    index = torch.as_tensor(index, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, cfg, x, index.reshape(1, 1).expand(B, 1))
+    max_len = cache.k.shape[2]
+    at = index.long().clamp(0, max_len - 1).reshape(1)
+    cache.k.index_copy_(2, at, k.transpose(1, 2).to(cache.k.dtype))
+    cache.v.index_copy_(2, at, v.transpose(1, 2).to(cache.v.dtype))
+    KV, hd, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    qg = q.reshape(B, 1, KV, H // KV, hd).float() * _scale(cfg)
+    scores = torch.einsum("bqkgd,bksd->bkgqs", qg, cache.k.float())
+    scores = softcap(scores, cfg.attn_softcap)
+    k_pos = torch.arange(max_len, device=x.device)
+    valid = k_pos <= index
+    if window is not None:
+        valid &= (index - k_pos) < window
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bqkgd", probs, cache.v.float())
+    out = out.reshape(B, 1, H, hd).to(x.dtype)
+    return apply_dense(p["wo"], out, contract=2), cache

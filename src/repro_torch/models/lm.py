@@ -1,10 +1,25 @@
-"""LM assembly, the dense family: [norm -> attn, norm -> ffn] x L over
-layers stacked on a leading axis, and the chunked cross-entropy loss.
+"""LM assembly: decoder stacks for every family, over layers stacked on a
+leading axis; the chunked cross-entropy loss; prefill and decode.
 
-Port of ``repro.models.lm`` for ``family`` in ("dense", "vlm", "audio"):
-``init_lm``, ``param_count``, ``forward`` (a Python loop over the stacked
-layers), ``logits_from_hidden``, ``chunked_ce`` and ``lm_loss``.  The MoE,
-SSM and hybrid families and prefill/decode wait (ROADMAP §1).
+Port of ``repro.models.lm`` (a Python loop over the stacked layers where
+the reference scans them):
+  dense / vlm / audio : [norm -> attn, norm -> ffn] x L (pattern-cycled
+                        windows)
+  moe                 : the same with the MoE ffn (+ shared experts, a dense
+                        residual; ``first_k_dense`` leading dense layers)
+  ssm                 : [norm -> mamba] x L
+  hybrid (zamba2)     : the mamba stack with one *shared* attn+mlp block
+                        after every ``hybrid_period`` mamba layers
+``decode_state_specs`` (logical axes for shardings) waits for ROADMAP §1
+item 6; the reference's ``shard`` annotations are no-ops on one device
+and are left out.
+
+Prefill and decode: ``init_decode_state`` allocates the state (the KV
+cache of every attention layer, the hybrid's one cache per use of its
+shared block, the SSM and conv states, and ``index``, a 0-d int32 tensor
+on the device); ``prefill`` fills it from a prompt and ``decode_step``
+advances it by one token.  Both write into the state in place, and a
+decode step reads no value on the host.
 
 Remat: the reference wraps each layer in ``jax.checkpoint`` with the
 ``nothing_saveable`` policy when ``cfg.remat`` is set.  Here, when
@@ -29,20 +44,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_dense, apply_norm, dense_init,
                                        device_of, embed_logits, embed_lookup,
                                        init_embedding, init_norm, softcap)
 
-DENSE_FAMILIES = ("dense", "vlm", "audio")
-
-
-def _check_family(cfg):
-    if cfg.family in ("moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the port has the dense LM family only; {cfg.family!r} is still "
-            "to port (ROADMAP §1)")
-    if cfg.family not in DENSE_FAMILIES:
-        raise ValueError(cfg.family)
+ATTN_FAMILIES = ("dense", "vlm", "audio", "moe")
+GLOBAL_WINDOW = 1 << 30
 
 
 def _stack(trees):
@@ -68,6 +77,25 @@ def _layers(tree, n):
     return tree.unbind(0)
 
 
+def _attn_layers(cfg, blocks):
+    """The per-layer params of an attention stack in order: a MoE stack's
+    ``first_k_dense`` dense layers, then its (or a dense stack's)
+    'layers'."""
+    kd = cfg.moe.first_k_dense if cfg.family == "moe" else 0
+    dense = _layers(blocks["dense_layers"], kd) if kd else []
+    return list(dense) + list(_layers(blocks["layers"], cfg.n_layers - kd))
+
+
+def _hybrid_layout(cfg):
+    """(#full groups, tail) for the hybrid mamba/shared-attn pattern."""
+    p = cfg.hybrid_period
+    return cfg.n_layers // p, cfg.n_layers % p
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
 def _init_dense_block(cfg, generator):
     dev, dt = device_of(generator), cfg.pdtype
     return {
@@ -79,12 +107,74 @@ def _init_dense_block(cfg, generator):
     }
 
 
-def _dense_block(cfg, p, x, positions, window, index_positions=False):
-    h = apply_norm(cfg.norm, p["ln1"], x)
-    x = x + attn_mod.attention(p["attn"], cfg, h, positions, window=window,
-                               index_positions=index_positions)
+def _init_moe_block(cfg, generator):
+    dev, dt = device_of(generator), cfg.pdtype
+    p = {
+        "ln1": init_norm(cfg.norm, cfg.d_model, dtype=dt, device=dev),
+        "attn": attn_mod.init_attention(generator, cfg, dtype=dt),
+        "ln2": init_norm(cfg.norm, cfg.d_model, dtype=dt, device=dev),
+        "moe": moe_mod.init_moe(generator, cfg.moe, cfg.d_model, dtype=dt),
+    }
+    if cfg.moe.n_shared_experts:
+        ff = cfg.moe.d_ff_expert * cfg.moe.n_shared_experts
+        p["shared_mlp"] = mlp_mod.init_mlp(generator, cfg.d_model, ff,
+                                           gated=cfg.gated_mlp, dtype=dt)
+    if cfg.moe.dense_residual:
+        p["dense_mlp"] = mlp_mod.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                          gated=cfg.gated_mlp, dtype=dt)
+    return p
+
+
+def _init_mamba_block(cfg, generator):
+    return {"ln": init_norm(cfg.norm, cfg.d_model, dtype=cfg.pdtype,
+                            device=device_of(generator)),
+            "mamba": ssm_mod.init_mamba(generator, cfg.ssm, cfg.d_model,
+                                        dtype=cfg.pdtype)}
+
+
+def _block(cfg, p, x, attend):
+    """One attention layer, dense or MoE, with ``attend(p_attn, h)`` as its
+    attention (full-sequence, prefill or decode) -> (x, the MoE auxiliary
+    loss or None)."""
+    x = x + attend(p["attn"], apply_norm(cfg.norm, p["ln1"], x))
     h = apply_norm(cfg.norm, p["ln2"], x)
-    return x + mlp_mod.apply_mlp(p["mlp"], h, act=cfg.act)
+    if "moe" not in p:
+        return x + mlp_mod.apply_mlp(p["mlp"], h, act=cfg.act), None
+    y, aux = moe_mod.apply_moe(p["moe"], cfg.moe, h)
+    for name in ("shared_mlp", "dense_mlp"):
+        if name in p:
+            y = y + mlp_mod.apply_mlp(p[name], h, act=cfg.act)
+    return x + y, aux
+
+
+def _mamba_block(cfg, p, x):
+    return x + ssm_mod.mamba_forward(p["mamba"], cfg.ssm,
+                                     apply_norm(cfg.norm, p["ln"], x))
+
+
+def _mamba_stack(cfg, blocks, x, mamba, shared):
+    """An ssm or hybrid stack: ``x = mamba(i, p_i, x)`` for each layer i
+    and, in a hybrid, ``x = shared(g, x)`` after each of its G full groups
+    of ``hybrid_period`` layers (the tail has no shared block)."""
+    per = cfg.hybrid_period if cfg.family == "hybrid" else 0
+    for i, p_l in enumerate(_layers(blocks["layers"], cfg.n_layers)):
+        x = mamba(i, p_l, x)
+        if per and (i + 1) % per == 0:
+            x = shared((i + 1) // per - 1, x)
+    return x
+
+
+def _cached_stack(cfg, blocks, x, attend, mamba):
+    """One pass of prefill or decode over the stack: ``attend(c, window)``
+    gives the attention of the layer (or shared-block use) whose cache is
+    ``c``, ``mamba(i, p_i, x)`` runs mamba layer i."""
+    if cfg.family in ATTN_FAMILIES:
+        for c, (p_l, w) in enumerate(zip(_attn_layers(cfg, blocks),
+                                         cfg.layer_windows())):
+            x, _ = _block(cfg, p_l, x, attend(c, w))
+        return x
+    return _mamba_stack(cfg, blocks, x, mamba, lambda g, x: _block(
+        cfg, blocks["shared"], x, attend(g, GLOBAL_WINDOW))[0])
 
 
 def _maybe_remat(cfg, fn):
@@ -101,16 +191,35 @@ def _maybe_remat(cfg, fn):
     return remat
 
 
+# ---------------------------------------------------------------------------
+# Model init
+# ---------------------------------------------------------------------------
+
 def init_lm(cfg, generator):
     """Random weights drawn from ``generator`` on its device (``None``:
     shapes only, on the ``meta`` device).  Same shapes and scales as the
     reference's ``init_lm``; the draws differ."""
-    _check_family(cfg)
     dev, dt = device_of(generator), cfg.pdtype
     params = {"embed": init_embedding(generator, cfg.vocab, cfg.d_model,
                                       dtype=dt)}
-    params["blocks"] = {"layers": _stack_init(
-        lambda g: _init_dense_block(cfg, g), generator, cfg.n_layers)}
+    dense = lambda g: _init_dense_block(cfg, g)  # noqa: E731
+    mamba = lambda g: _init_mamba_block(cfg, g)  # noqa: E731
+    if cfg.family in ("dense", "vlm", "audio"):
+        blocks = {"layers": _stack_init(dense, generator, cfg.n_layers)}
+    elif cfg.family == "moe":
+        kd = cfg.moe.first_k_dense
+        blocks = {"dense_layers": _stack_init(dense, generator, kd)} \
+            if kd else {}
+        blocks["layers"] = _stack_init(lambda g: _init_moe_block(cfg, g),
+                                       generator, cfg.n_layers - kd)
+    elif cfg.family == "ssm":
+        blocks = {"layers": _stack_init(mamba, generator, cfg.n_layers)}
+    elif cfg.family == "hybrid":
+        blocks = {"layers": _stack_init(mamba, generator, cfg.n_layers),
+                  "shared": dense(generator)}
+    else:
+        raise ValueError(cfg.family)
+    params["blocks"] = blocks
     params["final_norm"] = init_norm(cfg.norm, cfg.d_model, dtype=dt,
                                      device=dev)
     if not cfg.tie_embeddings:
@@ -125,27 +234,48 @@ def param_count(params) -> int:
     return params.numel()
 
 
-def forward(cfg, params, tokens=None, embeds=None, positions=None):
-    """-> (hidden (B, S, d) after the final norm, aux 0.0)."""
-    _check_family(cfg)
+# ---------------------------------------------------------------------------
+# Forward (training / full-sequence)
+# ---------------------------------------------------------------------------
+
+def _embed(cfg, params, tokens, embeds):
     if embeds is not None:
         x = embeds.to(cfg.xdtype)
     else:
         x = embed_lookup(params["embed"], tokens).to(cfg.xdtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.xdtype)
+    return x
+
+
+def forward(cfg, params, tokens=None, embeds=None, positions=None):
+    """-> (hidden (B, S, d) after the final norm, aux: the MoE layers'
+    summed load-balance loss, a 0-d tensor, 0 for the other families)."""
+    x = _embed(cfg, params, tokens, embeds)
     B, S = x.shape[:2]
     index_positions = positions is None
     if index_positions:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-    windows = cfg.layer_windows()
-    layers = _layers(params["blocks"]["layers"], len(windows))
-    body = _maybe_remat(cfg, lambda x, p_l, w: _dense_block(
-        cfg, p_l, x, positions, w, index_positions))
-    for p_l, window in zip(layers, windows):
-        x = body(x, p_l, window)
-    return apply_norm(cfg.norm, params["final_norm"], x), 0.0
+    aux = torch.zeros((), device=x.device)
+    blocks = params["blocks"]
+    block = _maybe_remat(cfg, lambda x, p_l, w: _block(
+        cfg, p_l, x, lambda pa, h: attn_mod.attention(
+            pa, cfg, h, positions, window=w,
+            index_positions=index_positions)))
+    if cfg.family in ATTN_FAMILIES:
+        for p_l, w in zip(_attn_layers(cfg, blocks), cfg.layer_windows()):
+            x, a = block(x, p_l, w)
+            if a is not None:
+                aux = aux + a
+    elif cfg.family in ("ssm", "hybrid"):
+        mamba = _maybe_remat(cfg, lambda x, p_l: _mamba_block(cfg, p_l, x))
+        x = _mamba_stack(cfg, blocks, x, lambda i, p_l, x: mamba(x, p_l),
+                         lambda g, x: block(x, blocks["shared"],
+                                            GLOBAL_WINDOW)[0])
+    else:
+        raise ValueError(cfg.family)
+    return apply_norm(cfg.norm, params["final_norm"], x), aux
 
 
 def logits_from_hidden(cfg, params, h):
@@ -183,10 +313,97 @@ def chunked_ce(cfg, params, hidden, labels):
 
 
 def lm_loss(cfg, params, batch):
-    """batch: {tokens|embeds, labels} -> (loss, metrics); the metrics hold
-    the CE, the (zero) MoE auxiliary term and the final hidden states."""
+    """batch: {tokens|embeds, labels} -> (loss, metrics): the CE, plus
+    ``aux_coef`` times the MoE auxiliary term for a MoE config; the
+    metrics hold the CE, the auxiliary term and the final hidden
+    states."""
     h, aux = forward(cfg, params, tokens=batch.get("tokens"),
                      embeds=batch.get("embeds"))
     ce = chunked_ce(cfg, params, h, batch["labels"])
-    return ce, {"ce": ce, "moe_aux": torch.zeros((), device=h.device),
-                "hidden": h}
+    loss = ce
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_coef * aux
+    return loss, {"ce": ce, "moe_aux": aux, "hidden": h}
+
+
+# ---------------------------------------------------------------------------
+# Decode state / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_decode_state(cfg, batch, max_len, dtype=None, device=None):
+    """Zeros: ``index`` (0-d int32), and by family the KV caches ``k``,
+    ``v`` (layers, B, KV, max_len, hd) (a hybrid: one per use of its shared
+    block) and the SSM states ``ssm`` (layers, B, H, P, N) and ``conv``
+    (layers, B, W-1, H, P).  ``dtype`` defaults to ``cfg.xdtype``."""
+    dt = dtype or cfg.xdtype
+    z = lambda *shape: torch.zeros(shape, dtype=dt, device=device)  # noqa
+    st = {"index": torch.zeros((), dtype=torch.int32, device=device)}
+    L, B = cfg.n_layers, batch
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        st["ssm"] = z(L, B, s.n_heads, s.head_dim, s.d_state)
+        st["conv"] = z(L, B, s.conv_width - 1, s.n_heads, s.head_dim)
+    if cfg.family in ATTN_FAMILIES or cfg.family == "hybrid":
+        n = _hybrid_layout(cfg)[0] if cfg.family == "hybrid" else L
+        st["k"] = z(n, B, cfg.n_kv_heads, max_len, cfg.head_dim)
+        st["v"] = torch.zeros_like(st["k"])
+    return st
+
+
+def prefill(cfg, params, tokens=None, embeds=None, max_len=None):
+    """Full-sequence prefill of a prompt (tokens (B, S) or embeds (B, S,
+    d)) -> (decode_state for up to ``max_len`` (default S) positions with
+    ``index`` = S, the last token's logits (B, vocab) float32).  A prompt
+    longer than ``max_len`` raises ``ValueError``.  On the card every
+    attention layer that ``attention.uses_kernel`` admits takes the flash
+    kernel."""
+    x = _embed(cfg, params, tokens, embeds)
+    B, S = x.shape[:2]
+    max_len = max_len or S
+    if S > max_len:
+        raise ValueError(f"a prompt of {S} tokens exceeds max_len {max_len}")
+    st = init_decode_state(cfg, B, max_len, device=x.device)
+    st["index"].fill_(S)
+
+    def attend(c, window):
+        cache = attn_mod.KVCache(st["k"][c], st["v"][c])
+        return lambda pa, h: attn_mod.attention_prefill(
+            pa, cfg, h, cache, window=window)[0]
+
+    def mamba(i, p_l, x):
+        h, s = ssm_mod.mamba_forward(
+            p_l["mamba"], cfg.ssm, apply_norm(cfg.norm, p_l["ln"], x),
+            return_state=True)
+        st["ssm"][i].copy_(s.ssm)
+        st["conv"][i].copy_(s.conv)
+        return x + h
+
+    x = _cached_stack(cfg, params["blocks"], x, attend, mamba)
+    x_last = apply_norm(cfg.norm, params["final_norm"], x[:, -1:])
+    return st, logits_from_hidden(cfg, params, x_last)[:, 0]
+
+
+def decode_step(cfg, params, state, tokens):
+    """One decode step.  tokens: (B,) on the state's device -> (logits
+    (B, vocab) float32, state).  The state passed in is updated in place:
+    the new k and v (at ``index``, clamped to ``max_len - 1``), SSM and
+    conv states, and ``index`` + 1.  No value is read on the host."""
+    x = _embed(cfg, params, tokens[:, None], None)
+    idx = state["index"]
+
+    def attend(c, window):
+        cache = attn_mod.KVCache(state["k"][c], state["v"][c])
+        return lambda pa, h: attn_mod.attention_decode(
+            pa, cfg, h, cache, idx, window=window)[0]
+
+    def mamba(i, p_l, x):
+        h, _ = ssm_mod.mamba_decode(
+            p_l["mamba"], cfg.ssm, apply_norm(cfg.norm, p_l["ln"], x),
+            ssm_mod.SSMState(state["ssm"][i], state["conv"][i]))
+        return x + h
+
+    x = _cached_stack(cfg, params["blocks"], x, attend, mamba)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    logits = logits_from_hidden(cfg, params, x)[:, 0]
+    idx.add_(1)
+    return logits, state

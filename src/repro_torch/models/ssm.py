@@ -1,0 +1,201 @@
+"""Mamba-2 (SSD, state-space duality) blocks.
+
+Port of ``repro.models.ssm``: the chunked SSD for training and prefill
+(block-diagonal intra-chunk "attention" plus a low-rank inter-chunk
+recurrence, arXiv:2405.21060) and the O(1) recurrent step for decode.
+
+The reference's three- and four-operand einsums are written here as
+two-operand products in a fixed order, so the card and the CPU evaluate
+the same contractions and every intermediate has a known size: the
+intra-chunk scores C·B (batch, chunk, heads, Q, Q), masked by the decay,
+then their product with x·dt.  The inter-chunk ``jax.lax.scan`` is a
+Python loop over the chunks.  ``_segsum`` keeps the reference's -inf above
+the diagonal, which ``exp`` turns into exact zeros.
+
+``mamba_decode`` writes the new SSM and conv states into the state it is
+given, in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import apply_dense, dense_init, device_of
+
+
+def _draw(generator, shape, fill):
+    """A float32 tensor of ``shape`` on the generator's device, filled by
+    ``fill(tensor)`` (left empty on the ``meta`` device)."""
+    t = torch.empty(shape, dtype=torch.float32, device=device_of(generator))
+    if generator is not None:
+        fill(t)
+    return t
+
+
+def init_mamba(generator, ssm_cfg, d_model, *, dtype=torch.float32):
+    """Same shapes and scales as the reference's ``init_mamba``; the draws
+    differ (``generator=None``: shapes only, on the ``meta`` device)."""
+    H, P, N, G = (ssm_cfg.n_heads, ssm_cfg.head_dim, ssm_cfg.d_state,
+                  ssm_cfg.n_groups)
+    W = ssm_cfg.conv_width
+    dev = device_of(generator)
+    params = {
+        "wz": dense_init(generator, (d_model, H, P), dtype=dtype),
+        "wx": dense_init(generator, (d_model, H, P), dtype=dtype),
+        "wB": dense_init(generator, (d_model, G, N), dtype=dtype),
+        "wC": dense_init(generator, (d_model, G, N), dtype=dtype),
+        "wdt": dense_init(generator, (d_model, H), dtype=dtype),
+    }
+    # depthwise causal conv over the x-path channels (H*P)
+    params["conv_x"] = (0.1 * _draw(generator, (W, H, P), lambda t: t.normal_(
+        generator=generator))).to(dtype)
+    dt0 = torch.exp(_draw(generator, (H,), lambda t: t.uniform_(
+        math.log(1e-3), math.log(1e-1), generator=generator)))
+    params["dt_bias"] = dt0 + torch.log(-torch.expm1(-dt0))  # inv softplus
+    params["A_log"] = torch.log(torch.arange(1, H + 1, dtype=torch.float32,
+                                             device=dev))
+    params["D"] = torch.ones(H, dtype=torch.float32, device=dev)
+    params["norm_scale"] = torch.zeros((H, P), dtype=dtype, device=dev)
+    params["wo"] = dense_init(generator, (H, P, d_model), dtype=dtype,
+                              scale=1.0 / math.sqrt(H * P))
+    return params
+
+
+def _causal_depthwise_conv(x, w):
+    """x: (B, S, H, P), w: (W, H, P) — causal depthwise conv along S."""
+    W = w.shape[0]
+    xp = F.pad(x, (0, 0, 0, 0, W - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(W):
+        out = out + xp[:, i:i + x.shape[1]] * w[i].to(x.dtype)
+    return out
+
+
+def _segsum(x):
+    """x: (..., Q) -> (..., Q, Q) lower-triangular segment sums
+    L[i, j] = sum_{j < t <= i} x[t]  (-inf at j > i)."""
+    Q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    return diff.masked_fill(~mask, -math.inf)
+
+
+def _gated_rmsnorm(y, z, scale, eps=1e-6):
+    """y, z: (..., H, P).  y <- RMSNorm(y * silu(z)) per (H, P) channel."""
+    h = y * F.silu(z.float())
+    var = h.square().mean(-1, keepdim=True)
+    h = h * torch.rsqrt(var + eps)
+    return h * (1.0 + scale.float())
+
+
+class SSMState(NamedTuple):
+    ssm: torch.Tensor    # (B, H, P, N)
+    conv: torch.Tensor   # (B, W-1, H, P): the last W-1 pre-conv x inputs
+
+
+def init_ssm_state(ssm_cfg, batch, dtype=torch.float32, device=None):
+    H, P, N, W = (ssm_cfg.n_heads, ssm_cfg.head_dim, ssm_cfg.d_state,
+                  ssm_cfg.conv_width)
+    return SSMState(
+        ssm=torch.zeros((batch, H, P, N), dtype=dtype, device=device),
+        conv=torch.zeros((batch, W - 1, H, P), dtype=dtype, device=device))
+
+
+def _project(p, ssm_cfg, u):
+    z = apply_dense(p["wz"], u)                       # (B,S,H,P)
+    x = apply_dense(p["wx"], u)                       # (B,S,H,P)
+    Bv = apply_dense(p["wB"], u).float()              # (B,S,G,N)
+    Cv = apply_dense(p["wC"], u).float()              # (B,S,G,N)
+    dt = apply_dense(p["wdt"], u).float()             # (B,S,H)
+    dt = F.softplus(dt + p["dt_bias"])
+    return z, x, Bv, Cv, dt
+
+
+def mamba_forward(p, ssm_cfg, u, *, return_state=False):
+    """u: (B, S, d_model) -> (B, S, d_model) via chunked SSD; with
+    ``return_state``, also the ``SSMState`` after the last token (the
+    final inter-chunk state and the last W-1 pre-conv inputs, zero-padded
+    on the left when S < W-1)."""
+    H, P, G = ssm_cfg.n_heads, ssm_cfg.head_dim, ssm_cfg.n_groups
+    Q = ssm_cfg.chunk
+    B_, S, _ = u.shape
+    z, x_raw, Bv, Cv, dt = _project(p, ssm_cfg, u)
+    x = F.silu(_causal_depthwise_conv(x_raw, p["conv_x"]).float()).to(
+        u.dtype)
+    A = -torch.exp(p["A_log"])                        # (H,)
+
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def chunks(t):                                    # (B, nc, Q, ...)
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
+        return t.reshape((B_, nc, Q) + t.shape[2:])
+
+    xc = chunks(x).float()                            # (B,nc,Q,H,P)
+    dtc = chunks(dt)                                  # (B,nc,Q,H)
+    Bh = chunks(Bv).repeat_interleave(H // G, dim=3)  # (B,nc,Q,H,N)
+    Ch = chunks(Cv).repeat_interleave(H // G, dim=3)
+
+    dA = dtc * A                                      # (B,nc,Q,H)
+    dA_cs = torch.cumsum(dA, dim=2)
+    # intra-chunk (block-diagonal) term: (C B^T) masked by the decay, @ x dt
+    L = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))    # (B,nc,H,Q,Q)
+    xdt = xc * dtc[..., None]                         # (B,nc,Q,H,P)
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Ch, Bh) * L
+    Ydiag = torch.einsum("bchqk,bckhp->bcqhp", scores, xdt)
+    # chunk-final states
+    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)   # (B,nc,Q,H)
+    states = torch.einsum("bckhn,bckhp->bchpn", Bh * decay_states[..., None],
+                          xdt)                        # (B,nc,H,P,N)
+    # inter-chunk recurrence
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])       # (B,nc,H)
+    s = torch.zeros_like(states[:, 0])
+    prev = []
+    for c in range(nc):
+        prev.append(s)
+        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, 1)                # (B,nc,H,P,N)
+    Yoff = torch.einsum("bcqhn,bchpn->bcqhp", Ch, prev_states) \
+        * torch.exp(dA_cs)[..., None]
+
+    y = (Ydiag + Yoff).reshape(B_, nc * Q, H, P)[:, :S]
+    y = y + x.float() * p["D"][:, None]
+    y = _gated_rmsnorm(y, z, p["norm_scale"]).to(u.dtype)
+    out = apply_dense(p["wo"], y, contract=2)
+    if not return_state:
+        return out
+    W = ssm_cfg.conv_width
+    conv = (x_raw[:, -(W - 1):] if S >= W - 1
+            else F.pad(x_raw, (0, 0, 0, 0, W - 1 - S, 0)))
+    return out, SSMState(ssm=s.to(u.dtype), conv=conv.to(u.dtype))
+
+
+def mamba_decode(p, ssm_cfg, u, state: SSMState):
+    """Single-step recurrence.  u: (B, 1, d_model) -> (out (B, 1, d_model),
+    state), the new SSM and conv states written into ``state`` in
+    place."""
+    H, G = ssm_cfg.n_heads, ssm_cfg.n_groups
+    z, x_raw, Bv, Cv, dt = _project(p, ssm_cfg, u)
+    # conv with buffered history
+    hist = torch.cat([state.conv, x_raw.to(state.conv.dtype)], dim=1)
+    x = F.silu((hist.float() * p["conv_x"].float()).sum(1))   # (B,H,P)
+    state.conv.copy_(hist[:, 1:])
+
+    A = -torch.exp(p["A_log"])                        # (H,)
+    dt1 = dt[:, 0]                                    # (B,H)
+    dA = torch.exp(dt1 * A)
+    Bh = Bv[:, 0].repeat_interleave(H // G, dim=1)    # (B,H,N)
+    Chh = Cv[:, 0].repeat_interleave(H // G, dim=1)
+    xdt = x * dt1[..., None]                          # (B,H,P)
+    # s <- s * dA + xdt (x) B, in the state's storage: no (B,H,P,N)
+    # temporary
+    s = state.ssm.mul_(dA[..., None, None]).addcmul_(
+        xdt[..., None], Bh[:, :, None, :])
+    y = torch.matmul(s.float(), Chh[..., None])[..., 0]   # (B,H,P)
+    y = y + x * p["D"][:, None]
+    y = _gated_rmsnorm(y[:, None], z, p["norm_scale"]).to(u.dtype)
+    return apply_dense(p["wo"], y, contract=2), state

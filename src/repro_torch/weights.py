@@ -16,6 +16,8 @@ across as it is: ``w1 (3, H)``, ``b1 (H,)``, ``wp (H, L+1)``, ``bp``,
 the reference's ``init_lm`` pytree as it is, layers stacked on a leading
 axis, and an LM's whole train state (``train_state_from_jax``: its
 parameters, the AdamW, Adafactor or SGD state and the step) with it.
+An LM's decode state (``decode_state_from_jax``: ``index``, and the
+``k``, ``v``, ``ssm`` and ``conv`` its family has) crosses bitwise too.
 """
 from __future__ import annotations
 
@@ -163,6 +165,27 @@ def ppo_to_jax(params) -> dict:
 # an LM's params (the reference's ``init_lm`` pytree, float32) cross as a
 # task head's do: the same nested dicts, every leaf bitwise
 lm_from_jax, lm_to_jax = head_from_jax, head_to_jax
+
+
+_DECODE_KEYS = ("k", "v", "ssm", "conv")
+
+
+def decode_state_from_jax(state) -> dict:
+    """The reference's LM decode state (``lm.init_decode_state``'s dict:
+    ``index`` and the caches of its family) -> the port's on the CPU,
+    bitwise: ``index`` a 0-d int32 tensor, the caches in their dtype."""
+    out = {"index": _step_from(state["index"])}
+    out.update({k: torch.from_numpy(np.array(state[k]))
+                for k in _DECODE_KEYS if k in state})
+    return out
+
+
+def decode_state_to_jax(state) -> dict:
+    """Inverse of ``decode_state_from_jax``: numpy arrays."""
+    out = {"index": _step_to(state["index"])}
+    out.update({k: state[k].detach().cpu().numpy().copy()
+                for k in _DECODE_KEYS if k in state})
+    return out
 
 
 def adafactor_from_jax(state) -> dict:
