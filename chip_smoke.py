@@ -267,11 +267,40 @@ step's bytes bound (weights plus the whole ``max_len`` cache at 3.35
 TB/s) and the profiled step's idle share (the ``prefill`` and ``decode``
 paths of the kernels' record).
 
+Phase 15 runs the gateway federation (``repro_torch.cluster``) of
+full-width members: each a ``StreamServer`` over a ``StreamSplitGateway``
+on the card with ``AudioEncCfg()`` and phase 2's seeded weights, a
+mixed-k policy spreading the sessions' constant uncertainties over all 9
+k-buckets, refine off, and room for every session (the survivor absorbs
+the fleet).  (a) ``runtime/cluster_serve.cluster_drain`` at N = 2 and 4
+members of 64 sessions (256 at N = 4), 8 rounds a phase: frames/s
+before, during and after a live drain, the warm migration pause
+p50/p95/max, the cold first-contact pause, the migrated sessions,
+frames and bytes, the cluster step p50; the lane asserts conservation at
+every snapshot, zero shed, zero lost and exactly the victim's sessions
+moved with queued frames; every migrated session's stream is then held
+against an unmigrated replay on one fresh card gateway (``(t, k, route,
+wire_bytes)`` equal, ``z`` atol 1e-4, the bitwise share printed).  (b)
+``cluster_chaos`` at N = 2 with replication off and on: a seeded kill
+mid-stream, loss above 0 off and 0 on, every frame served, journal
+frames replayed, the recovered streams held as in (a).  (c) the chaos
+lane with replication at 2 x 8 sessions on the card and on the CPU:
+every ``(sid, t, k, route, wire_bytes)`` equal, ``z`` within 1e-4 (the
+largest printed), every ``ClusterStats`` book equal but the pause
+times.  (d) Over (a), the counts set to 0 just before and read just
+after: each member tick with a frame at k < L launches
+``wire_roundtrip_grouped`` exactly once (none otherwise), no other wire
+kernel runs, and every member tick makes one sync and one D2H (the
+``cluster`` path of the kernels' record).  (e) ``runtime/cluster_demo``
+and ``runtime/streaming_demo`` on the card, each to its end with its own
+assertions.
+
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
 result.  The line before the last is the kernels' JSON record (after a
-line with phase 12's summary, one with phase 13's and one with phase
-14's records); the last line is ``{"ok": true, "device": {...}}``.
+line with phase 12's summary, one with phase 13's, one with phase 14's
+and one with phase 15's records); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3640,6 +3669,173 @@ def phase14(dev, ops):
     return paths["prefill"], paths["decode"], records
 
 
+# --- the gateway federation at full width ------------------------------------
+
+CLUSTER_SPM = 64           # sessions a member in the drain and chaos lanes
+CLUSTER_ROUNDS = 8         # rounds a timed phase of the drain lane
+CLUSTER_CPU_SPM = 8        # sessions a member, card against CPU
+WIRE_KERNELS = ("wire_roundtrip_grouped", "wire_roundtrip", "int8_quantize",
+                "int8_quantize_roundtrip", "int8_dequantize")
+
+
+def count_member_ticks(ops, records, lane):
+    """An ``on_member`` hook: wrap each member gateway's ``tick_launch``
+    and ``tick_collect`` so that each collected member tick records
+    (lane, member, the wire kernels' launches in its launch, its syncs,
+    its D2H copies, the smallest k it served)."""
+    def hook(name, srv):
+        gw = srv.gateway
+        launch, collect = gw.tick_launch, gw.tick_collect
+        launched = {}
+
+        def counted_launch(*args, **kw):
+            before = [ops.KERNELS[k].launches for k in WIRE_KERNELS]
+            plan = launch(*args, **kw)
+            launched[id(plan)] = tuple(
+                ops.KERNELS[k].launches - b
+                for k, b in zip(WIRE_KERNELS, before))
+            return plan
+
+        def counted_collect(plan):
+            out = collect(plan)
+            records.append((
+                lane, name, launched.pop(id(plan)),
+                gw.registry.value("gateway_device_syncs_per_tick"),
+                gw.registry.value("gateway_d2h_copies_per_tick"),
+                min(r.k for r in out)))
+            return out
+        gw.tick_launch, gw.tick_collect = counted_launch, counted_collect
+    return hook
+
+
+def phase15(cfg, ops):
+    """The gateway federation on the card: (a) the drain lane at N = 2
+    and 4, counted (d); (b) the chaos lane, replication off and on; (c)
+    card against CPU; (e) the two demos -> (the kernels' launch counts
+    from (a), the phase's record)."""
+    from repro_torch.models.audio_encoder import init_audio_encoder
+    from repro_torch.runtime import cluster_demo, streaming_demo
+    from repro_torch.runtime import cluster_serve as cs
+    L = cfg.n_blocks
+    start = time.perf_counter()
+    params = init_audio_encoder(cfg, torch.Generator().manual_seed(0))
+
+    # --- (a) the drain lane, counted (d) ----------------------------------
+    ticks = []
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    lanes = {n: cs.cluster_drain(
+        n, device="cuda", enc_cfg=cfg, params=params, rounds=CLUSTER_ROUNDS,
+        spm=CLUSTER_SPM, oracle=False,
+        on_member=count_member_ticks(ops, ticks, n)) for n in (2, 4)}
+    launches = {name: w.launches for name, w in ops.KERNELS.items()}
+    torch.cuda.synchronize()
+    bad = [t for t in ticks
+           if t[2] != ((1 if t[5] < L else 0),) + (0,) * 4]
+    check(not bad, f"phase 15 (d): member ticks whose wire launches "
+          f"(grouped, one-group, quantize, round trip, dequantize) are not "
+          f"(1 if a frame has k < {L}, else 0; then none): {bad[:3]} of "
+          f"{len(ticks)}")
+    want = sum(t[5] < L for t in ticks)
+    check(launches["wire_roundtrip_grouped"] == want and all(
+        launches[k] == 0 for k in WIRE_KERNELS[1:]),
+        f"phase 15 (d): launches {launches}, want {want} grouped wire "
+        "launches and no other wire kernel")
+    check(all(t[3:5] == (1, 1) for t in ticks),
+          f"phase 15 (d): syncs/D2H per member tick "
+          f"{sorted({t[3:5] for t in ticks})}, want 1 and 1")
+    record = {"drain": {}, "ticks": len(ticks),
+              "wire_launches": launches["wire_roundtrip_grouped"]}
+    for n, lane in lanes.items():
+        check(lane["migrations"] == len(lane["homed"]) > 0
+              and lane["migrated_frames"] > 0
+              and lane["shed_expired"] == 0 and lane["lost_in_flight"] == 0,
+              f"phase 15 (a) N={n}: {cs.summary(lane)}")
+        lane["parity"] = cs.replay_parity(lane, cfg, params, device="cuda")
+        rec = cs.summary(lane)
+        record["drain"][n] = rec
+        fps, warm, cold = (rec["frames_per_s"], rec["migration_pause_ms"],
+                           rec["migration_pause_cold_ms"])
+        par = rec["parity"]
+        print(f"phase 15 (a): drain lane N={n}, {rec['sessions']} sessions, "
+              f"{CLUSTER_ROUNDS} rounds a phase: frames/s before "
+              f"{fps['before']:.1f}, during drain {fps['during_drain']:.1f}, "
+              f"after {fps['after']:.1f}; a round's host ms p50: build "
+              f"{rec['build_ms']['p50']:.3f}, submit "
+              f"{rec['submit_ms']['p50']:.3f}, cluster step "
+              f"{rec['step_ms']['p50']:.3f} (p95 {rec['step_ms']['p95']:.3f});"
+              " "
+              f"warm migration pause ms p50 {warm['p50']:.3f} p95 "
+              f"{warm['p95']:.3f} max {warm['max']:.3f}; cold p50 "
+              f"{cold['p50']:.3f} max {cold['max']:.3f}; "
+              f"{rec['migrations']} sessions, {rec['migrated_frames']} "
+              f"queued frames, {rec['migrated_bytes']} bytes migrated; 0 "
+              f"shed, 0 lost; replay oracle {par['frames']} frames of "
+              f"{par['sessions']} migrated sessions, max |dz| "
+              f"{par['max_abs_dz']:.3e}, {par['bitwise_frames']} bitwise")
+    print(f"phase 15 (d): {len(ticks)} member ticks, "
+          f"{launches['wire_roundtrip_grouped']} wire_roundtrip_grouped "
+          f"launches (1 a tick with k < {L}), no other wire kernel, 1 sync "
+          "+ 1 D2H on every member tick")
+
+    # --- (b) chaos: a member killed mid-stream, replication off and on ----
+    record["chaos"] = {}
+    for replicate in (False, True):
+        lane = cs.cluster_chaos(2, replicate=replicate, device="cuda",
+                                enc_cfg=cfg, params=params, spm=CLUSTER_SPM)
+        st = lane["stats"]
+        if replicate:
+            check(lane["lost_in_flight"] == 0 and st.served == st.submitted
+                  and lane["replayed_frames"] > 0 and lane["failures"] == 1,
+                  f"phase 15 (b) replication on: {cs.summary(lane)}")
+        else:
+            check(lane["lost_in_flight"] > 0 and lane["failures"] == 1,
+                  f"phase 15 (b) replication off: {cs.summary(lane)}")
+        rec = cs.summary(lane)
+        record["chaos"]["on" if replicate else "off"] = rec
+        par = rec["parity"]
+        print(f"phase 15 (b): chaos N=2, {rec['sessions']} sessions, "
+              f"replication {'on' if replicate else 'off'}: victim "
+              f"{rec['victim']}, lost_in_flight {rec['lost_in_flight']}, "
+              f"{rec['failovers']} failovers, {rec['replayed_frames']} "
+              f"journal frames replayed, {rec['journal_bytes']} journal "
+              f"bytes, {rec['frames_per_s']:.1f} frames/s; served "
+              f"{sum(st.served.values())} of {sum(st.submitted.values())}; "
+              f"replay oracle {par['frames']} frames, max |dz| "
+              f"{par['max_abs_dz']:.3e}, {par['bitwise_frames']} bitwise")
+
+    # --- (c) card against CPU ------------------------------------------------
+    runs = {dev: cs.cluster_chaos(2, replicate=True, device=dev, enc_cfg=cfg,
+                                  params=params, spm=CLUSTER_CPU_SPM,
+                                  oracle=False) for dev in ("cuda", "cpu")}
+    card = {(r.sid, r.t): r for r in runs["cuda"]["results"]}
+    cpu = {(r.sid, r.t): r for r in runs["cpu"]["results"]}
+    check(card.keys() == cpu.keys()
+          and len(card) == len(runs["cuda"]["results"]),
+          "phase 15 (c): the card and the CPU served other frames")
+    check(all((card[k].k, card[k].route, card[k].wire_bytes)
+              == (cpu[k].k, cpu[k].route, cpu[k].wire_bytes) for k in card),
+          "phase 15 (c): k, route or wire bytes differ card vs CPU")
+    dz = max(float(np.abs(card[k].z - cpu[k].z).max()) for k in card)
+    check(dz <= cs.Z_ATOL, f"phase 15 (c): card vs CPU max |dz| {dz}")
+    books = {dev: cs.books(run["stats"]) for dev, run in runs.items()}
+    diff = [k for k in books["cuda"] if books["cuda"][k] != books["cpu"][k]]
+    check(not diff, f"phase 15 (c): ClusterStats books differ card vs "
+          f"CPU in {diff}")
+    record["card_vs_cpu"] = {"frames": len(card), "max_abs_dz": dz}
+    print(f"phase 15 (c): chaos with replication at 2 x {CLUSTER_CPU_SPM} "
+          f"sessions, card vs CPU: {len(card)} frames with equal (sid, t, k, "
+          f"route, wire_bytes), max |dz| {dz:.3e} (atol {cs.Z_ATOL}), every "
+          "ClusterStats book equal but the pause times")
+
+    # --- (e) the two demos on the card ---------------------------------------
+    record["cluster_demo"] = cluster_demo.main(device="cuda")
+    record["streaming_demo"] = streaming_demo.main(device="cuda")
+    record["seconds"] = time.perf_counter() - start
+    print(f"phase 15: {record['seconds']:.1f} s")
+    return launches, record
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -3682,11 +3878,13 @@ def main():
     lm_launches, lm_runs, _ = phase12(dev, ops)
     control_launches, control = phase13(CFG, ops, enc_params)
     prefill_launches, decode_launches, lm_decode = phase14(dev, ops)
+    cluster_launches, cluster = phase15(CFG, ops)
     paths = {"serve": launches, "refine": refine_launches,
              "train": train_launches, "per_frame": frame_launches,
              "stream": stream_launches, "cascade": cascade_launches,
              "lm_train": lm_launches, "control": control_launches,
-             "prefill": prefill_launches, "decode": decode_launches}
+             "prefill": prefill_launches, "decode": decode_launches,
+             "cluster": cluster_launches}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -3788,6 +3986,7 @@ def main():
     print(json.dumps({"lm_decode": lm_decode}))
     print(json.dumps({"control": control}))
     print(json.dumps({"lm_train": lm_runs}))
+    print(json.dumps({"cluster": cluster}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

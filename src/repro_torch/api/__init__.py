@@ -7,8 +7,10 @@ from repro_torch.api.gateway import StreamSplitGateway, TickPlan
 from repro_torch.api.policies import (EntropyThresholdPolicy, FixedKPolicy,
                                       RLPolicy, RulePolicy, SplitPolicy,
                                       make_policy)
-from repro_torch.api.types import (AdmissionError, FrameRequest, FrameResult,
-                                   GatewayStats, QoSClass, QueuedFrameSnapshot,
+from repro_torch.api.types import (AdmissionError, ClusterDegradedError,
+                                   ClusterDrainTimeout, ClusterStats,
+                                   FrameRequest, FrameResult, GatewayStats,
+                                   QoSClass, QueuedFrameSnapshot,
                                    ResourceSignals, ServerSessionSnapshot,
                                    SessionInfo, SessionSnapshot, StreamStats)
 from repro_torch.core.fleet_backend import FleetBackend, HostFleetBackend
@@ -21,4 +23,5 @@ __all__ = [
     "FrameRequest", "FrameResult", "SessionInfo", "GatewayStats",
     "QoSClass", "AdmissionError", "SessionSnapshot", "StreamStats",
     "ResourceSignals", "ServerSessionSnapshot", "QueuedFrameSnapshot",
+    "ClusterStats", "ClusterDegradedError", "ClusterDrainTimeout",
 ]

@@ -5,14 +5,15 @@ Port of ``repro.api.types``, serving half: a client session
 ``FrameResult``s, and ``GatewayStats`` is the serving plane's
 scoreboard; ``StreamStats``, ``ResourceSignals`` and the server half of
 a ``SessionSnapshot`` belong to the streaming runtime
-(``repro_torch.serving``).  Everything here is a frozen dataclass of
-host values (numpy arrays, Python scalars), never a tensor.  The cluster
-types come with that layer.
+(``repro_torch.serving``); ``ClusterStats`` and the two typed cluster
+refusals belong to the federation (``repro_torch.cluster``).  Everything
+here is a frozen dataclass of host values (numpy arrays, Python
+scalars), never a tensor.
 """
 from __future__ import annotations
 
 import pickle
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from enum import Enum
 
 import numpy as np
@@ -45,6 +46,42 @@ class AdmissionError(FleetFullError):
         super().__init__(
             f"admission refused for {qos.value} session: "
             f"{n_active}/{capacity} fleet rows in use")
+
+
+class ClusterDegradedError(RuntimeError):
+    """Typed degraded-mode refusal of a ``GatewayCluster``
+    (``repro_torch.cluster``): live capacity fell below the configured
+    watermark, so new sessions are refused and BULK frames are shed at
+    the door — the surviving members' headroom is reserved for the
+    streams they already hold.  Counted
+    (``ClusterStats.rejected_degraded``), never silent; the refused
+    work never enters ``submitted``, so conservation is untouched."""
+
+    def __init__(self, live: int, expected: int, watermark: float,
+                 what: str = "admission"):
+        self.live = live
+        self.expected = expected
+        self.watermark = watermark
+        super().__init__(
+            f"cluster degraded: {live}/{expected} members live "
+            f"(watermark {watermark:.2f}) — {what} refused until "
+            "capacity recovers")
+
+
+class ClusterDrainTimeout(RuntimeError):
+    """Typed drain-stall summary of ``GatewayCluster.stop(drain=True)``:
+    the step budget ran out with frames still outstanding.  ``stragglers``
+    maps each stuck session's global sid to its outstanding frame count
+    (submitted but neither served, shed, nor counted lost)."""
+
+    def __init__(self, stragglers: dict, steps: int):
+        self.stragglers = dict(stragglers)
+        self.steps = steps
+        super().__init__(
+            f"cluster drain stalled after {steps} steps: "
+            f"{len(self.stragglers)} session(s) still hold "
+            f"{sum(self.stragglers.values())} outstanding frame(s) "
+            f"(gsids {sorted(self.stragglers)})")
 
 
 @dataclass(frozen=True)
@@ -265,6 +302,67 @@ class StreamStats:
     #                            between submit and tick admission (shed
     #                            frames sample their terminal wait too)
     gateway: GatewayStats      # the dispatch-plane scoreboard underneath
+
+
+@dataclass(frozen=True)
+class ClusterStats:
+    """Cluster-wide scoreboard of a ``GatewayCluster``
+    (``repro_torch.cluster``).
+
+    Per-class dicts are keyed by ``QoSClass.value`` strings, like
+    ``StreamStats``.  The cluster keeps its OWN conservation books at
+    the federation boundary — ``submitted`` counts accepted
+    ``GatewayCluster.submit`` calls, ``served``/``shed_expired`` count
+    delivery/shed callbacks — so the invariant survives member death
+    (a dead member's counters are unreadable; the frames it held are
+    never silently forgotten, they land in ``lost_in_flight``):
+
+        submitted == served + queue_depth + in_flight
+                     + shed_expired + lost_in_flight      (per class)
+
+    at every snapshot, where ``queue_depth``/``in_flight`` sum over the
+    LIVE members.  ``conserved`` checks it.
+    """
+
+    members: tuple             # live member names, routing order
+    sessions_open: int
+    submitted: dict            # class -> frames accepted by the cluster
+    served: dict               # class -> FrameResults delivered
+    queue_depth: dict          # class -> waiting frames over live members
+    in_flight: dict            # class -> launched-not-collected frames
+    shed_expired: dict         # class -> visible sheds (cluster-tracked)
+    lost_in_flight: dict       # class -> frames lost to member failure —
+    #                            explicitly counted, never silent
+    rejected_full: dict        # class -> bounded-queue refusals
+    rejected_rate_limited: dict  # class -> token-bucket refusals
+    migrations: int            # sessions moved between members
+    migrated_frames: int       # queued frames replayed on a new owner
+    migrated_bytes: int        # serialized SessionSnapshot payload bytes
+    migration_pause_ms: dict   # {"p50","p95","max"} per-session pause
+    drains: int                # completed drain() calls
+    failures: int              # members lost and recovered from
+    ring_share: dict           # member -> owned fraction of hash space
+    member_stats: dict         # member -> StreamStats (live members)
+    # self-healing federation (cluster/{replication,health}.py):
+    degraded: bool = False     # live capacity below the watermark NOW
+    failovers: int = 0         # sessions restored onto a survivor
+    retries: int = 0           # transient member faults retried away
+    replayed_frames: int = 0   # journal entries re-queued by failovers
+    journal_bytes: int = 0     # bytes shipped over the owner->buddy seam
+    rejected_degraded: dict = field(default_factory=dict)
+    #                            class -> degraded-mode door refusals
+    #                            (not in ``submitted``, like other rejects)
+    drain_stragglers: int = 0  # sessions stuck at a stop(drain=True)
+    #                            timeout (see ClusterDrainTimeout)
+
+    @property
+    def conserved(self) -> bool:
+        """The cluster-wide per-class conservation identity."""
+        return all(
+            self.submitted[c] == self.served[c] + self.queue_depth[c]
+            + self.in_flight[c] + self.shed_expired[c]
+            + self.lost_in_flight[c]
+            for c in (q.value for q in QoSClass))
 
 
 @dataclass(frozen=True)

@@ -18,6 +18,9 @@ axis, and an LM's whole train state (``train_state_from_jax``: its
 parameters, the AdamW, Adafactor or SGD state and the step) with it.
 An LM's decode state (``decode_state_from_jax``: ``index``, and the
 ``k``, ``v``, ``ssm`` and ``conv`` its family has) crosses bitwise too.
+A serving session (``session_snapshot_from_jax``) crosses field by
+field: neither package can unpickle the other's ``SessionSnapshot``
+bytes, since a pickle names each class's module.
 """
 from __future__ import annotations
 
@@ -231,3 +234,86 @@ def train_state_to_jax(state, optimizer="adamw") -> dict:
         raise ValueError(f"unknown optimizer {optimizer!r}")
     return {"params": lm_to_jax(state["params"]), "opt": opt,
             "step": _step_to(state["step"])}
+
+
+# -- a serving session across the two packages --------------------------------
+
+_SNAP_SCALARS = ("platform", "frames", "wire_bytes", "transitions", "last_k",
+                 "sync_last_gmm", "sync_last_weights", "sync_total_bytes",
+                 "sync_total_energy_j", "ring_newest", "version")
+_SNAP_ARRAYS = ("ring_z", "ring_t", "ring_label")
+_FRAME_FIELDS = ("t", "label", "u", "cpu", "bandwidth_mbps", "charging")
+_QUEUED_FIELDS = ("enq_s", "deadline_s", "preemptions", "promoted", "weight")
+
+
+def _fields_of(obj, names) -> dict:
+    return {n: getattr(obj, n) for n in names}
+
+
+def _dataclass_dict(obj) -> dict:
+    return _fields_of(obj, obj.__dataclass_fields__)
+
+
+def session_snapshot_from_jax(snap):
+    """The reference's ``SessionSnapshot`` -> the port's.  Fields are
+    read by name; numpy arrays are copied, ``QoSClass`` is mapped by
+    value, and the lazy-sync config and events are rebuilt as the
+    port's.  A queued frame's trace does not cross (the port's frame
+    starts without a span)."""
+    from repro_torch.api.types import (FrameRequest, QoSClass,
+                                       QueuedFrameSnapshot,
+                                       ServerSessionSnapshot,
+                                       SessionSnapshot)
+    from repro_torch.core.sync import SyncCfg, SyncEvent
+    get = _fields_of(snap, _SNAP_SCALARS + _SNAP_ARRAYS
+                     + ("qos", "sync_cfg", "sync_events", "server"))
+    server = get.pop("server")
+    if server is not None:
+        sv = _fields_of(server, ("submitted", "served", "shed", "weight",
+                                 "bucket", "queued"))
+        queued = []
+        for q in sv["queued"]:
+            qd = _fields_of(q, ("frame",) + _QUEUED_FIELDS)
+            fd = _fields_of(qd.pop("frame"), _FRAME_FIELDS + ("mel",))
+            fd["mel"] = np.array(fd["mel"], np.float32)
+            queued.append(QueuedFrameSnapshot(frame=FrameRequest(**fd),
+                                              **qd))
+        server = ServerSessionSnapshot(
+            submitted=int(sv["submitted"]), served=int(sv["served"]),
+            shed=int(sv["shed"]), weight=float(sv["weight"]),
+            bucket=None if sv["bucket"] is None else tuple(sv["bucket"]),
+            queued=tuple(queued))
+    get["qos"] = QoSClass(get["qos"].value)
+    get["sync_cfg"] = SyncCfg(**_dataclass_dict(get["sync_cfg"]))
+    get["sync_events"] = tuple(SyncEvent(**_dataclass_dict(e))
+                               for e in get["sync_events"])
+    for n in _SNAP_ARRAYS:
+        get[n] = np.array(get[n])
+    return SessionSnapshot(server=server, **get)
+
+
+def session_snapshot_to_jax(snap) -> dict:
+    """The port's ``SessionSnapshot`` -> a nested dict of numpy arrays and
+    Python scalars with the reference's field names (``qos`` its value
+    string, the lazy-sync config and events as dicts, ``server`` a dict or
+    None, each queued frame's ``frame`` a dict), from which the
+    reference's dataclasses are built."""
+    out = {n: getattr(snap, n) for n in _SNAP_SCALARS}
+    out.update({n: np.array(getattr(snap, n)) for n in _SNAP_ARRAYS})
+    out["qos"] = snap.qos.value
+    out["sync_cfg"] = _dataclass_dict(snap.sync_cfg)
+    out["sync_events"] = [_dataclass_dict(e) for e in snap.sync_events]
+    sv = snap.server
+    if sv is None:
+        out["server"] = None
+    else:
+        out["server"] = {
+            "submitted": sv.submitted, "served": sv.served, "shed": sv.shed,
+            "weight": sv.weight,
+            "bucket": None if sv.bucket is None else tuple(sv.bucket),
+            "queued": [{"frame": {**{n: getattr(q.frame, n)
+                                     for n in _FRAME_FIELDS},
+                                  "mel": np.array(q.frame.mel, np.float32)},
+                        **{n: getattr(q, n) for n in _QUEUED_FIELDS}}
+                       for q in sv.queued]}
+    return out

@@ -50,6 +50,15 @@ def test_forbidden_prefix_check():
     assert not _forbidden("torch") and not _forbidden("numpy")
 
 
+def test_guard_covers_the_federation():
+    files = _port_files()
+    for rel in ("cluster/__init__.py", "cluster/cluster.py",
+                "cluster/hashing.py", "cluster/health.py",
+                "cluster/replication.py", "runtime/cluster_serve.py",
+                "runtime/cluster_demo.py", "runtime/streaming_demo.py"):
+        assert os.path.join("src", "repro_torch", rel) in files
+
+
 @pytest.mark.parametrize("rel", _port_files())
 def test_no_jax_or_reference_import(rel):
     with open(os.path.join(REPO, rel)) as fh:
