@@ -295,12 +295,40 @@ kernel runs, and every member tick makes one sync and one D2H (the
 and ``runtime/streaming_demo`` on the card, each to its end with its own
 assertions.
 
+Phase 16 runs the representation-quality tables
+(``runtime/quality_tables.py``) and the three gateway examples
+(``runtime/quickstart.py``, ``adaptive_serving.py``, ``fleet_demo.py``)
+on the card.  (a) Each kernel at the shapes they give it, against its
+plain version at phase 5's and phase 3's tolerances: ``infonce_vneg`` at
+(8, 24, 32); ``swd_rank`` forward and one-half backward at (104, 32) M
+32 and at §3.3's (512, 32) M 64; ``laplacian_energy`` and
+its one-half backward at (1, 104, 32) k 3 and the forward at §3.3's (1,
+80, 3) k 5; ``hybrid_reg_bwd`` at (1, 104, 32); ``gmm_posterior`` at
+(96 and 8, 16, 32); the demos' refine kernels at (8, 32, 32) and (32,
+50, 32), M 50, k 5, and their wire bitwise (grouped and one-group, B
+1-32, every width).  (b) Every table at the reference's sizes (14
+training runs of 220 steps, Fig 9's of 150), with the counts set to 0
+just before and read just after (the ``quality`` path), each step's
+launches checked against those the code implies for its (mode, variant):
+``task_sw`` and ``task_lap`` launch ``swd_rank_bwd`` and
+``laplacian_energy_bwd`` (their first counted path), ``hybrid`` one
+``hybrid_reg_bwd``, ``mse`` and ``kl`` neither regulariser, ``edge_only``
+and ``server`` no kernel; every row finite, printed beside the paper's
+number.  (c) Each distinct run's step 0 against ``EdgeTrainer`` on the
+CPU from the same state and draws (loss, every gradient, the GMM; 1e-4
+of each one's max).  (d) The three demos, counted by tick (the
+``examples`` path): a quickstart or fleet tick one sync, one D2H and one
+``wire_roundtrip_grouped`` launch iff a frame has k < L; adaptive
+serving's profiled ticks a sync a bucket and one for the copy, and one
+``wire_roundtrip`` a bucket with k < L; a refine round's
+``swd_sessions`` and ``laplacian_energy`` in its tick.
+
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
 result.  The line before the last is the kernels' JSON record (after a
 line with phase 12's summary, one with phase 13's, one with phase 14's
-and one with phase 15's records); the last line is ``{"ok": true,
-"device": {...}}``.
+one with phase 15's and one with phase 16's records); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1245,80 +1273,135 @@ def hold_hybrid(g, dev, ops, what, B, T, d, M, k, expanded):
     return err
 
 
+def note(worst, name, err):
+    """Keep the largest |err| of ``name`` in ``worst``, where it is one of
+    the names the phase reports."""
+    if name in worst:
+        worst[name] = max(worst[name], err)
+
+
+def hold_infonce(g, dev, ops, worst, B, N, d, off=False):
+    """``infonce_vneg`` forward and backward against their plain versions
+    at (B, N, d) (``off``: z_neg one float off 16 bytes), bitwise from run
+    to run, and the autograd entry against the plain version's autograd."""
+    what = f"B={B} N={N} d={d}" + (" misaligned" if off else "")
+    z, zp, zn, cot = infonce_inputs(g, dev, B, N, d, off)
+    loss, lse = same_bits(lambda *a: ops.infonce_vneg_fwd(*a, 0.1),
+                          (z, zp, zn), f"infonce_vneg_fwd at {what}")
+    p_loss, p_lse = ops.infonce_vneg_fwd_ref(z, zp, zn, 0.1)
+    for a, b in ((loss, p_loss), (lse, p_lse)):
+        err = (a - b).abs().max().item()
+        note(worst, "infonce_vneg_fwd", err)
+        check(torch.allclose(a, b, rtol=INFONCE_RTOL, atol=0.0),
+              f"infonce_vneg_fwd != plain at {what}: max |err| {err}")
+    got = same_bits(lambda *a: ops.infonce_vneg_bwd(*a, 0.1),
+                    (z, zp, zn, lse, cot), f"infonce_vneg_bwd at {what}")
+    want = ops.infonce_vneg_bwd_ref(z, zp, zn, p_lse, cot, 0.1)
+    for a, b, n in zip(got, want, ("dz", "dz_pos", "dz_neg")):
+        note(worst, "infonce_vneg_bwd",
+             grad_err(a, b, f"infonce_vneg_bwd {n} at {what}"))
+    # the autograd entry on the card: the kernels, wired as the plain
+    # version's autograd
+    leaves = [x.clone().requires_grad_() for x in (z, zp, zn)]
+    with torch.enable_grad():
+        a = torch.autograd.grad(ops.infonce_vneg(*leaves, 0.1), leaves, cot)
+        b = torch.autograd.grad(ops.infonce_vneg_ref(*leaves, 0.1), leaves,
+                                cot)
+    for x, y, n in zip(a, b, ("dz", "dz_pos", "dz_neg")):
+        grad_err(x, y, f"infonce_vneg autograd {n} at {what}")
+
+
+def hold_swd_rank(g, dev, ops, worst, W, M, d):
+    """``swd_rank_fwd`` (loss, projections, ranks) and ``swd_rank_bwd``
+    against their plain versions at (W, d) and M directions, bitwise from
+    run to run, and ``swd_single``'s autograd bitwise the backward."""
+    from repro_torch.kernels.swd import rank_of
+    what = f"W={W} M={M} d={d}"
+    x, dirs, pq = swd_train_inputs(g, dev, W, d, M)
+    loss, proj, rank = same_bits(ops.swd_rank_fwd, (x, dirs, pq),
+                                 f"swd_rank_fwd at {what}")
+    p_loss, p_proj, _ = ops.swd_rank_fwd_ref(x, dirs, pq)
+    err = max((loss - p_loss).abs().item(),
+              (proj - p_proj).abs().max().item())
+    note(worst, "swd_rank_fwd", err)
+    check(torch.allclose(loss, p_loss, rtol=TRAIN_SWD_RTOL, atol=0.0)
+          and torch.allclose(proj, p_proj, rtol=0.0,
+                             atol=GRAD_ATOL * p_proj.abs().max().item()),
+          f"swd_rank_fwd != plain at {what}: max |err| {err}")
+    check(torch.equal(rank, rank_of(torch.sort(
+        proj, dim=0, stable=True).indices)),
+          f"swd_rank_fwd ranks != torch.sort(stable=True) at {what}")
+    cot = torch.rand((), device=dev, generator=g) + 0.5
+    dx, = same_bits(lambda *a: (ops.swd_rank_bwd(*a),),
+                    (cot, proj, rank, pq, dirs), f"swd_rank_bwd at {what}")
+    note(worst, "swd_rank_bwd", grad_err(
+        dx, ops.swd_rank_bwd_ref(cot, proj, rank, pq, dirs),
+        f"swd_rank_bwd at {what}"))
+    xl = x.clone().requires_grad_()
+    with torch.enable_grad():
+        a, = torch.autograd.grad(ops.swd_single(xl, dirs, pq), xl, cot)
+    check(torch.equal(a, dx), f"swd_single autograd != swd_rank_bwd at "
+          f"{what}")
+
+
+def hold_laplacian_train(gen, dev, ops, worst, B, T, d, k, masked=False,
+                         off=False):
+    """``laplacian_energy`` and ``laplacian_energy_bwd`` against their
+    plain versions at (B, T, d) and k (``masked``: row 1 all gaps;
+    ``off``: z one float off 16 bytes), bitwise from run to run, and
+    ``laplacian_energy_diff``'s autograd bitwise the backward."""
+    what = f"B={B} T={T} d={d} k={k}" + (" misaligned" if off else "")
+    z, mask, _, _ = refine_inputs(gen, dev, B, T, d, 1)
+    if off:
+        z = off_16_bytes(z)
+    if masked:
+        mask[1] = 0.0
+    cot = torch.randn(B, device=dev, generator=gen)
+    note(worst, "laplacian_energy", hold(
+        "laplacian_energy", lambda z, m: ops.laplacian_energy(z, m, k),
+        lambda z, m: ops.laplacian_energy_ref(z, m, k), (z, mask),
+        [(LAP_RTOL, 0.0), (0.0, 0.0)], what))
+    dz, = same_bits(lambda *a: (ops.laplacian_energy_bwd(*a, k),),
+                    (z, mask, cot), f"laplacian_energy_bwd at {what}")
+    want = ops.laplacian_energy_bwd_ref(z, mask, cot, k)
+    err = (dz - want).abs().max().item()
+    check(err <= GRAD_ATOL * max(want.abs().max().item(), 1e-30)
+          or err == 0.0, f"laplacian_energy_bwd at {what}: max |err| {err}")
+    note(worst, "laplacian_energy_bwd", err)
+    if masked:
+        check(bool((dz[1] == 0).all()), "laplacian_energy_bwd: masked row "
+              "has a gradient")
+    zl = z.clone().requires_grad_()
+    with torch.enable_grad():
+        a, = torch.autograd.grad(
+            ops.laplacian_energy_diff(zl, mask, k)[0], zl, cot)
+    check(torch.equal(a, dz), f"laplacian_energy_diff autograd != "
+          f"laplacian_energy_bwd at {what}")
+
+
 def phase5(dev, ops):
     """The training path's kernels against their plain versions on the
     card, forward values and gradients -> {name: max |err|}."""
-    from repro_torch.kernels.swd import rank_of
     g = torch.Generator(device=dev).manual_seed(5)
     worst = dict.fromkeys(("infonce_vneg_fwd", "infonce_vneg_bwd",
                            "swd_rank_fwd", "swd_rank_bwd",
                            "laplacian_energy_bwd", "hybrid_reg_bwd"), 0.0)
     # N = 1, N not a multiple of the kernels' split (263: 16 splits of 17;
     # 100: 13 of 8), d = 127 and a z_neg view off 16 bytes (the scalar path)
-    for B, N, d, off in ((TRAIN_BATCH, N_SYN + TRAIN_BATCH, 128, False),
-                         (1, 1, 128, False), (3, 100, 64, False),
-                         (5, 77, 128, False), (TRAIN_BATCH, 263, 128, False),
-                         (4, 50, 127, False), (2, 33, 128, True)):
-        what = f"B={B} N={N} d={d}" + (" misaligned" if off else "")
-        z, zp, zn, cot = infonce_inputs(g, dev, B, N, d, off)
-        loss, lse = same_bits(lambda *a: ops.infonce_vneg_fwd(*a, 0.1),
-                              (z, zp, zn), f"infonce_vneg_fwd at {what}")
-        p_loss, p_lse = ops.infonce_vneg_fwd_ref(z, zp, zn, 0.1)
-        for a, b in ((loss, p_loss), (lse, p_lse)):
-            err = (a - b).abs().max().item()
-            worst["infonce_vneg_fwd"] = max(worst["infonce_vneg_fwd"], err)
-            check(torch.allclose(a, b, rtol=INFONCE_RTOL, atol=0.0),
-                  f"infonce_vneg_fwd != plain at {what}: max |err| {err}")
-        got = same_bits(lambda *a: ops.infonce_vneg_bwd(*a, 0.1),
-                        (z, zp, zn, lse, cot), f"infonce_vneg_bwd at {what}")
-        want = ops.infonce_vneg_bwd_ref(z, zp, zn, p_lse, cot, 0.1)
-        for a, b, n in zip(got, want, ("dz", "dz_pos", "dz_neg")):
-            worst["infonce_vneg_bwd"] = max(worst["infonce_vneg_bwd"], grad_err(
-                a, b, f"infonce_vneg_bwd {n} at {what}"))
-        # the autograd entry on the card: the kernels, wired as the plain
-        # version's autograd
-        leaves = [x.clone().requires_grad_() for x in (z, zp, zn)]
-        with torch.enable_grad():
-            a = torch.autograd.grad(ops.infonce_vneg(*leaves, 0.1), leaves,
-                                    cot)
-            b = torch.autograd.grad(ops.infonce_vneg_ref(*leaves, 0.1),
-                                    leaves, cot)
-        for x, y, n in zip(a, b, ("dz", "dz_pos", "dz_neg")):
-            grad_err(x, y, f"infonce_vneg autograd {n} at {what}")
+    for case in ((TRAIN_BATCH, N_SYN + TRAIN_BATCH, 128, False),
+                 (1, 1, 128, False), (3, 100, 64, False), (5, 77, 128, False),
+                 (TRAIN_BATCH, 263, 128, False), (4, 50, 127, False),
+                 (2, 33, 128, True)):
+        hold_infonce(g, dev, ops, worst, *case)
     # the LM step's shapes (W 128, M 50 at d 1,024 and 2,048: x streamed
     # over d), W = 1 and W = 1,000 (P = 1,024, 32 values a lane)
-    for W, M, d in ((BUFFER + TRAIN_BATCH, TRAIN_DIRS, 128),
-                    (BUFFER + TRAIN_BATCH, 50, 128), (16, TRAIN_DIRS, 128),
-                    (16, 50, 128), (128, TRAIN_DIRS, 128), (128, 50, 128),
-                    (LM_SW_POINTS, LM_SW_DIRS, 1024),
-                    (LM_SW_POINTS, LM_SW_DIRS, 2048), (1, TRAIN_DIRS, 128),
-                    (1000, 8, 128)):
-        what = f"W={W} M={M} d={d}"
-        x, dirs, pq = swd_train_inputs(g, dev, W, d, M)
-        loss, proj, rank = same_bits(ops.swd_rank_fwd, (x, dirs, pq),
-                                     f"swd_rank_fwd at {what}")
-        p_loss, p_proj, _ = ops.swd_rank_fwd_ref(x, dirs, pq)
-        err = max((loss - p_loss).abs().item(),
-                  (proj - p_proj).abs().max().item())
-        worst["swd_rank_fwd"] = max(worst["swd_rank_fwd"], err)
-        check(torch.allclose(loss, p_loss, rtol=TRAIN_SWD_RTOL, atol=0.0)
-              and torch.allclose(proj, p_proj, rtol=0.0,
-                                 atol=GRAD_ATOL * p_proj.abs().max().item()),
-              f"swd_rank_fwd != plain at {what}: max |err| {err}")
-        check(torch.equal(rank, rank_of(torch.sort(
-            proj, dim=0, stable=True).indices)),
-              f"swd_rank_fwd ranks != torch.sort(stable=True) at {what}")
-        cot = torch.rand((), device=dev, generator=g) + 0.5
-        dx, = same_bits(lambda *a: (ops.swd_rank_bwd(*a),),
-                        (cot, proj, rank, pq, dirs), f"swd_rank_bwd at {what}")
-        worst["swd_rank_bwd"] = max(worst["swd_rank_bwd"], grad_err(
-            dx, ops.swd_rank_bwd_ref(cot, proj, rank, pq, dirs),
-            f"swd_rank_bwd at {what}"))
-        xl = x.clone().requires_grad_()
-        with torch.enable_grad():
-            a, = torch.autograd.grad(ops.swd_single(xl, dirs, pq), xl, cot)
-        check(torch.equal(a, dx), f"swd_single autograd != swd_rank_bwd at "
-              f"{what}")
+    for case in ((BUFFER + TRAIN_BATCH, TRAIN_DIRS, 128),
+                 (BUFFER + TRAIN_BATCH, 50, 128), (16, TRAIN_DIRS, 128),
+                 (16, 50, 128), (128, TRAIN_DIRS, 128), (128, 50, 128),
+                 (LM_SW_POINTS, LM_SW_DIRS, 1024),
+                 (LM_SW_POINTS, LM_SW_DIRS, 2048), (1, TRAIN_DIRS, 128),
+                 (1000, 8, 128)):
+        hold_swd_rank(g, dev, ops, worst, *case)
     # and, from their own generator, the forward's plan at the edge
     # learner's and the LM step's shapes: a last chunk of one frame (T 105),
     # K past the 5-frame register ring over a cluster (k 20: four delta
@@ -1334,34 +1417,8 @@ def phase5(dev, ops):
         (1, BUFFER + TRAIN_BATCH, 128, 20, False, False),
         (LM_LAP_B, LM_LAP_T, LM_D, KNN, False, False),
         (LM_LAP_B, LM_LAP_T, LM_D, KNN, False, True))]
-    for gen, B, T, d, k, masked, off in lap_cases:
-        what = f"B={B} T={T} d={d} k={k}" + (" misaligned" if off else "")
-        z, mask, _, _ = refine_inputs(gen, dev, B, T, d, 1)
-        if off:
-            z = off_16_bytes(z)
-        if masked:
-            mask[1] = 0.0
-        cot = torch.randn(B, device=dev, generator=gen)
-        hold("laplacian_energy", lambda z, m: ops.laplacian_energy(z, m, k),
-             lambda z, m: ops.laplacian_energy_ref(z, m, k), (z, mask),
-             [(LAP_RTOL, 0.0), (0.0, 0.0)], what)
-        dz, = same_bits(lambda *a: (ops.laplacian_energy_bwd(*a, k),),
-                        (z, mask, cot), f"laplacian_energy_bwd at {what}")
-        want = ops.laplacian_energy_bwd_ref(z, mask, cot, k)
-        err = (dz - want).abs().max().item()
-        check(err <= GRAD_ATOL * max(want.abs().max().item(), 1e-30)
-              or err == 0.0, f"laplacian_energy_bwd at {what}: max |err| "
-              f"{err}")
-        worst["laplacian_energy_bwd"] = max(worst["laplacian_energy_bwd"], err)
-        if masked:
-            check(bool((dz[1] == 0).all()), "laplacian_energy_bwd: masked "
-                  "row has a gradient")
-        zl = z.clone().requires_grad_()
-        with torch.enable_grad():
-            a, = torch.autograd.grad(
-                ops.laplacian_energy_diff(zl, mask, k)[0], zl, cot)
-        check(torch.equal(a, dz), f"laplacian_energy_diff autograd != "
-              f"laplacian_energy_bwd at {what}")
+    for gen, *case in lap_cases:
+        hold_laplacian_train(gen, dev, ops, worst, *case)
     g_hyb = torch.Generator(device=dev).manual_seed(22)
     for case in HYBRID_CASES:
         worst["hybrid_reg_bwd"] = max(worst["hybrid_reg_bwd"],
@@ -3836,6 +3893,398 @@ def phase15(cfg, ops):
     return launches, record
 
 
+# --- the representation-quality tables and the gateway examples ----------
+
+# phase 16: the reference's training steps a Fig 8 / Table 5 run and Fig
+# 9's (runtime/quality_tables.py); the edge learner's shapes at ENC: d 32,
+# 16 virtual negatives, the 96-frame buffer and a batch of 8
+QUALITY_STEPS, QUALITY_CALIB_STEPS = 220, 150
+Q_D, Q_SYN, Q_DIRS, Q_KNN, Q_C = 32, 16, 32, 3, 16
+# the demos' refine shapes (sessions, window): quickstart, fleet demo
+DEMO_REFINE = ((8, 32), (32, 50))
+WIRE_ONE_GROUP = "wire_roundtrip"
+# a ReLU pre-activation the card and the CPU may round to either sign:
+# within this of its call's max |x| (their forwards agree to ~1e-6)
+RELU_TIE = 1e-5
+
+
+def quality_step_launches(ops, mode, variant):
+    """Every kernel's launches in one training step of (mode, variant),
+    read from the code: ``streamsplit`` runs the virtual-negative InfoNCE
+    forward and backward and the GMM's ``em_update`` every step, and the
+    regularisers of its variant (``core/hybrid.py::hybrid_loss``): both
+    forwards and one ``hybrid_reg_bwd`` for ``hybrid``, the SW term's
+    forward and one-half backward for ``task_sw``, the Laplacian's for
+    ``task_lap``, none for ``mse`` and ``kl``; ``edge_only`` and
+    ``server`` launch no kernel (plain batch InfoNCE)."""
+    want = dict.fromkeys(ops.KERNELS, 0)
+    if mode != "streamsplit":
+        return want
+    on = ["infonce_vneg_fwd", "infonce_vneg_bwd", "gmm_posterior"]
+    on += {"hybrid": ["swd_rank_fwd", "laplacian_energy", "hybrid_reg_bwd"],
+           "task_sw": ["swd_rank_fwd", "swd_rank_bwd"],
+           "task_lap": ["laplacian_energy", "laplacian_energy_bwd"]}.get(
+               variant, [])
+    want.update(dict.fromkeys(on, 1))
+    return want
+
+
+def hold_quality_kernels(dev, ops):
+    """Each kernel of the quality path and the demos against its plain
+    version on the card at the shapes they give it, at phase 5's and
+    phase 3's tolerances -> {name: max |err|}."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    W = BUFFER + TRAIN_BATCH
+    worst = dict.fromkeys(("infonce_vneg_fwd", "infonce_vneg_bwd",
+                           "swd_rank_fwd", "swd_rank_bwd", "laplacian_energy",
+                           "laplacian_energy_bwd", "hybrid_reg_bwd",
+                           "gmm_posterior", "swd_sessions"), 0.0)
+    # a streamsplit step: 16 virtual + 8 batch negatives at d 32, the SW
+    # and Laplacian terms over the buffer and the batch (drop 0.4 masks
+    # batch frames), both regularisers' backward; §3.3's SW term
+    hold_infonce(g, dev, ops, worst, TRAIN_BATCH, Q_SYN + TRAIN_BATCH, Q_D)
+    for case in ((W, Q_DIRS, Q_D), (512, 64, Q_D)):
+        hold_swd_rank(g, dev, ops, worst, *case)
+    hold_laplacian_train(g, dev, ops, worst, 1, W, Q_D, Q_KNN)
+    note(worst, "hybrid_reg_bwd", hold_hybrid(g, dev, ops, "quality", 1, W,
+                                              Q_D, Q_DIRS, Q_KNN, False))
+    # §3.3's jittered curve (1, 80, 3) k 5: the forward alone
+    z, mask, _, _ = refine_inputs(g, dev, 1, 80, 3, 1)
+    note(worst, "laplacian_energy", hold(
+        "laplacian_energy", lambda z, m: ops.laplacian_energy(z, m, 5),
+        lambda z, m: ops.laplacian_energy_ref(z, m, 5), (z, mask),
+        [(LAP_RTOL, 0.0), (0.0, 0.0)], "B=1 T=80 d=3 k=5"))
+    # the GMM: em_update on the buffer (96, 16, 32), Fig 9's batch of 8
+    for B in (BUFFER, TRAIN_BATCH):
+        note(worst, "gmm_posterior", hold(
+            "gmm_posterior", ops.gmm_posterior, ops.gmm_posterior_ref,
+            gmm_inputs(g, dev, B, Q_C, Q_D), [(0.0, RESP_ATOL),
+                                               (0.0, ENT_ATOL)],
+            f"B={B} C={Q_C} d={Q_D}"))
+    # the demos' refine rounds: HybridCfg's 50 directions and k 5
+    for S, Wd in DEMO_REFINE:
+        z, mask, dirs, pq = refine_inputs(g, dev, S, Wd, Q_D, N_DIRS)
+        note(worst, "swd_sessions", hold(
+            "swd_sessions", lambda *a: (ops.swd_sessions(*a),),
+            lambda *a: (ops.swd_sessions_ref(*a),), (z, dirs, pq),
+            [(SWD_RTOL, 0.0)], f"S={S} W={Wd} M={N_DIRS} d={Q_D}"))
+        note(worst, "laplacian_energy", hold(
+            "laplacian_energy", lambda z, m: ops.laplacian_energy(z, m, KNN),
+            lambda z, m: ops.laplacian_energy_ref(z, m, KNN), (z, mask),
+            [(LAP_RTOL, 0.0), (0.0, 0.0)], f"B={S} T={Wd} d={Q_D} k={KNN}"))
+    torch.cuda.synchronize()
+    return worst
+
+
+def hold_demo_wire(cfg, ops):
+    """The demos' wire bitwise against its plain version: the grouped
+    launch over every width ``cfg`` puts on the wire at the padded bucket
+    sizes a tick of up to 32 frames gives (the special rows in each), and
+    the one-group ``wire_roundtrip`` at each width and size -> max |err|."""
+    dev = ops.resolve_device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    widths = sorted(set(wire_widths(cfg)))
+    worst = 0.0
+    for B in (1, 2, 4, 8, 16, 32):
+        xs = [special_rows(torch.randn(B, n, device=dev, generator=g) * 3.0
+                           + 1.0) for n in widths]
+        for got, want, what in (
+                (ops.wire_roundtrip_grouped(xs),
+                 ops.wire_roundtrip_grouped_ref(xs), "wire_roundtrip_grouped"),
+                ([ops.wire_roundtrip(x) for x in xs],
+                 [ops.wire_roundtrip_ref(x) for x in xs], WIRE_ONE_GROUP)):
+            torch.cuda.synchronize()
+            for n, a, w in zip(widths, got, want):
+                worst = max(worst, (a - w).nan_to_num().abs().max().item())
+                check(same_values(a, w), f"{what} != plain version at "
+                      f"({B}, {n})")
+    return worst
+
+
+def count_demo_ticks(ops, records, demo, L):
+    """An ``on_tick`` hook: each tick's (demo, wire launches (grouped,
+    one-group, per-tensor quantize, round trip, dequantize), refine
+    kernels' launches (swd_sessions, laplacian_energy), syncs, D2H, the
+    k-buckets, the buckets with k < L, refine rounds so far)."""
+    prev = {n: w.launches for n, w in ops.KERNELS.items()}
+
+    def on_tick(gw, out):
+        now = {n: w.launches for n, w in ops.KERNELS.items()}
+        delta = {n: now[n] - prev[n] for n in now}
+        prev.update(now)
+        ks = {r.k for r in out}
+        records.append((
+            demo, tuple(delta[k] for k in WIRE_KERNELS),
+            (delta["swd_sessions"], delta["laplacian_energy"]),
+            gw.registry.value("gateway_device_syncs_per_tick"),
+            gw.registry.value("gateway_d2h_copies_per_tick"),
+            len(ks), sum(k < L for k in ks),
+            gw.registry.value("gateway_refine_rounds")))
+    return on_tick
+
+
+class ReluPattern:
+    """Installed as ``torch.relu`` (the encoder's nonlinearity): records
+    each call's pre-activation on the host, or, given a recorded
+    ``replay``, applies that sign pattern, ``x * (pre > 0)`` (its
+    gradient is the pattern), counting the elements whose own sign
+    differs and the largest of them relative to the call's max |x|.  A
+    pre-activation within rounding of 0 may take either sign on the card
+    and on the CPU, which moves a whole gradient path; step 0 card vs CPU
+    runs the CPU on the card's pattern and reports such flips."""
+
+    relu = torch.relu
+
+    def __init__(self, replay=None):
+        self.pre, self.replay = [], replay
+        self.calls, self.flips, self.flip_max_rel = 0, 0, 0.0
+
+    def __call__(self, x):
+        i, self.calls = self.calls, self.calls + 1
+        if self.replay is None:
+            self.pre.append(x.detach().cpu())
+            return ReluPattern.relu(x)
+        mask = self.replay[i] > 0
+        flip = mask != (x.detach() > 0)
+        if flip.any():
+            self.flips += int(flip.sum())
+            self.flip_max_rel = max(self.flip_max_rel, float(
+                x.detach().abs()[flip].max() / x.detach().abs().max()))
+        return x * mask.to(x.dtype)
+
+    def install(self):
+        torch.relu = self
+        return self
+
+    @staticmethod
+    def remove():
+        torch.relu = ReluPattern.relu
+
+
+def quality_card_vs_cpu(first):
+    """Step 0 of each distinct (mode, variant, drop) run on the card
+    against ``EdgeTrainer`` on the CPU from the same seeded state and
+    draws, on the card's ReLU sign pattern: the loss and every gradient
+    within QUALITY_RTOL of each one's max, and the GMM after the step; a
+    sign the CPU rounds the other way must be a near-tie (within
+    RELU_TIE of its call's max |x|) -> {run: (worst relative error, sign
+    flips, the largest flipped |x| relative to its call's max)}."""
+    from repro_torch.runtime.edge_train import EdgeTrainer
+    out = {}
+    for (mode, variant, drop), card in first.items():
+        cpu = EdgeTrainer(mode, variant=variant, drop_rate=drop,
+                          device="cpu")
+        pattern = ReluPattern(replay=card["relu"]).install()
+        try:
+            c_loss, c_grads = cpu.step()
+        finally:
+            ReluPattern.remove()
+        name = f"{mode},{variant},drop={drop}"
+        check(pattern.calls == len(card["relu"])
+              and len(card["grads"]) == len(c_grads),
+              f"phase 16 (c) {name}: ReLU calls or gradients card vs CPU")
+        errs = [abs(card["loss"] - float(c_loss)) / abs(float(c_loss))]
+        errs += [rel_err(a, b) for a, b in zip(card["grads"], c_grads)]
+        if mode == "streamsplit":
+            errs += [rel_err(getattr(card["gmm"], k), getattr(cpu.gmm, k))
+                     for k in ("s0", "s1", "s2")]
+        out[name] = (max(errs), pattern.flips, pattern.flip_max_rel)
+        check(max(errs) <= REFINE_RTOL and pattern.flip_max_rel <= RELU_TIE,
+              f"phase 16 step 0 card vs CPU ({name}): {max(errs)} > "
+              f"{REFINE_RTOL}, or a ReLU sign flip at {pattern.flip_max_rel}"
+              f" of its max > {RELU_TIE}")
+    return out
+
+
+def phase16(ops):
+    """The representation-quality tables and the three gateway examples
+    on the card: (a) the kernels at the quality path's and the demos'
+    shapes; (b) every table at the reference's sizes, launches counted
+    each step by (mode, variant) (the ``quality`` path); (c) each run's
+    step 0 card vs CPU; (d) the three demos, counted each tick (the
+    ``examples`` path) -> (quality launches, examples launches, the
+    phase's record, max |err| by kernel)."""
+    from repro_torch.runtime import (adaptive_serving, fleet_demo,
+                                     quality_tables, quickstart)
+    dev = ops.resolve_device("cuda")
+    start = time.perf_counter()
+
+    # --- (a) the kernels at the new shapes -----------------------------------
+    worst = hold_quality_kernels(dev, ops)
+    worst["wire"] = hold_demo_wire(quickstart.CFG, ops)
+    print("phase 16 (a): the quality path's kernels == plain versions at its "
+          f"shapes (infonce_vneg ({TRAIN_BATCH}, {Q_SYN + TRAIN_BATCH}, "
+          f"{Q_D}); swd_rank ({BUFFER + TRAIN_BATCH}, {Q_D}) M {Q_DIRS} and "
+          f"(512, {Q_D}) M 64, fwd + one-half bwd; laplacian_energy (1, "
+          f"{BUFFER + TRAIN_BATCH}, {Q_D}) k {Q_KNN} fwd + one-half bwd, (1, "
+          "80, 3) k 5 fwd; hybrid_reg_bwd; gmm_posterior at "
+          f"({BUFFER}|{TRAIN_BATCH}, {Q_C}, {Q_D})), the demos' refine "
+          f"kernels at {DEMO_REFINE} and their wire bitwise (grouped and "
+          "one-group, B 1-32); max |err| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # --- (b) the tables, counted by step -------------------------------------
+    runs, first = [], {}
+
+    def run_kw(mode, variant, drop):
+        want = quality_step_launches(ops, mode, variant)
+        rec = {"mode": mode, "variant": variant, "drop": drop,
+               "ends": [time.perf_counter()]}
+        runs.append(rec)
+        prev = {n: w.launches for n, w in ops.KERNELS.items()}
+        key = (mode, variant, drop)
+        # step 0's ReLU pre-activations, for (c), once a distinct run
+        pattern = ReluPattern().install() if key not in first else None
+
+        def on_step(i, loss, grads, tr):
+            torch.cuda.synchronize()
+            rec["ends"].append(time.perf_counter())
+            now = {n: w.launches for n, w in ops.KERNELS.items()}
+            got = {n: now[n] - prev[n] for n in now}
+            prev.update(now)
+            check(got == want, f"phase 16 (b) {mode} {variant} drop {drop} "
+                  f"step {i}: launches {got}, want {want}")
+            if i == 0 and pattern is not None:
+                ReluPattern.remove()
+                first[key] = {"loss": loss.item(), "relu": pattern.pre,
+                              "grads": [x.cpu() for x in grads],
+                              "gmm": tr.gmm.to("cpu")}
+        return {"on_step": on_step}
+
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    t_tables = time.perf_counter()
+    rows = quality_tables.run_all(steps=QUALITY_STEPS,
+                                  calib_steps=QUALITY_CALIB_STEPS,
+                                  device="cuda", run_kw=run_kw)
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t_tables
+    q_launches = {n: w.launches for n, w in ops.KERNELS.items()}
+    check(all(np.isfinite(v) for _, v, _ in rows), f"phase 16 (b): a row "
+          f"is not finite: {[r for r in rows if not np.isfinite(r[1])]}")
+    # the run totals, and §3.3 (9 cones, 9 jitter levels) and Fig 9 (60
+    # batches: normalized_entropy and em_update) outside the runs
+    want = dict.fromkeys(ops.KERNELS, 0)
+    for r in runs:
+        for n, c in quality_step_launches(ops, r["mode"],
+                                               r["variant"]).items():
+            want[n] += c * (len(r["ends"]) - 1)
+    want["swd_rank_fwd"] += len(quality_tables.ANGLES)
+    want["laplacian_energy"] += 9              # jitter 0, 0.1, ..., 0.8
+    want["gmm_posterior"] += 2 * quality_tables.CALIB_BATCHES
+    check(q_launches == want, f"phase 16 (b): launches {q_launches}, want "
+          f"{want}")
+    run_recs = []
+    for r in runs:
+        ms = np.diff(np.array(r["ends"])) * 1e3
+        run_recs.append({"mode": r["mode"], "variant": r["variant"],
+                         "drop": r["drop"], "steps": len(ms),
+                         "step_ms_p50": float(np.percentile(ms[1:], 50))
+                         if len(ms) > 1 else None,
+                         "step_ms_p95": float(np.percentile(ms[1:], 95))
+                         if len(ms) > 1 else None})
+    for name, value, derived in rows:
+        print(f"phase 16 (b) row: {name} = {value:.4f} ({derived})")
+    for r in run_recs:
+        print(f"phase 16 (b) run: {r['mode']} {r['variant']} drop "
+              f"{r['drop']}: {r['steps']} steps, step ms p50 "
+              f"{r['step_ms_p50']:.3f} p95 {r['step_ms_p95']:.3f}")
+    print(f"phase 16 (b): {len(runs)} training runs, "
+          f"{sum(r['steps'] for r in run_recs)} steps, launches per step by "
+          f"(mode, variant) as the code implies on every step; the tables "
+          f"in {tables_s:.1f} s; launches {q_launches}")
+
+    # --- (c) card vs CPU at step 0 -------------------------------------------
+    cvc = quality_card_vs_cpu(first)
+    print(f"phase 16 (c): step 0 card vs the port on the CPU on the card's "
+          f"ReLU pattern, {len(cvc)} runs (loss, every gradient, the GMM; "
+          f"relative to each tensor's max), worst "
+          f"{max(v[0] for v in cvc.values()):.3e}; (error, ReLU signs the "
+          f"CPU rounds the other way, the largest of them / its max): "
+          + ", ".join(f"{k} ({e:.2e}, {n}, {r:.1e})"
+                      for k, (e, n, r) in cvc.items()))
+
+    # --- (d) the three demos, counted by tick --------------------------------
+    L = quickstart.CFG.n_blocks
+    ticks = []
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    demos = {"quickstart": quickstart.main(
+                 device="cuda", on_tick=count_demo_ticks(ops, ticks,
+                                                         "quickstart", L)),
+             "adaptive_serving": adaptive_serving.main(
+                 device="cuda", on_tick=count_demo_ticks(
+                     ops, ticks, "adaptive_serving", L)),
+             "fleet_demo": fleet_demo.main(
+                 device="cuda", on_tick=count_demo_ticks(ops, ticks,
+                                                         "fleet_demo", L))}
+    e_launches = {n: w.launches for n, w in ops.KERNELS.items()}
+    torch.cuda.synchronize()
+    rounds = {}
+    for demo, wire, refine, syncs, d2h, buckets, wire_buckets, rnd in ticks:
+        refined = rnd - rounds.get(demo, 0)
+        rounds[demo] = rnd
+        check(refine == (refined, refined), f"phase 16 (d) {demo}: refine "
+              f"launches {refine} in a tick of {refined} rounds")
+        if demo == "adaptive_serving":      # profile=True: a chain a bucket
+            ok = (wire == (0, wire_buckets, 0, 0, 0)
+                  and (syncs, d2h) == (buckets + 1, 1))
+        else:
+            ok = (wire == (int(wire_buckets > 0), 0, 0, 0, 0)
+                  and (syncs, d2h) == (1, 1))
+        check(ok, f"phase 16 (d) {demo}: a tick of {buckets} buckets "
+              f"({wire_buckets} with k < {L}): wire launches {wire}, "
+              f"{syncs} syncs, {d2h} D2H")
+    n_ticks = {d: sum(t[0] == d for t in ticks) for d in demos}
+    check(n_ticks == {"quickstart": quickstart.N_FRAMES,
+                      "adaptive_serving": adaptive_serving.N_TICKS,
+                      "fleet_demo": fleet_demo.ROUNDS
+                      * fleet_demo.FRAMES_PER_ROUND},
+          f"phase 16 (d): ticks {n_ticks}")
+    q, a, f = (demos[d] for d in demos)
+    check(q["stats"].frames == quickstart.N_FRAMES
+          and q["stats"].refine_rounds == quickstart.N_FRAMES // 4
+          and a["stats"].frames == adaptive_serving.N_SESSIONS
+          * adaptive_serving.N_TICKS
+          and f["stats"].frames == f["simulated"] - f["dropped"]
+          and f["stats"].refine_rounds == fleet_demo.ROUNDS
+          and all(np.isfinite(r.z).all() for d in demos.values()
+                  for r in d["results"]),
+          "phase 16 (d): served frames, refine rounds or embeddings")
+    examples = {
+        "quickstart": {"frames": q["stats"].frames,
+                       "routed": q["stats"].routed,
+                       "refine_rounds": q["stats"].refine_rounds,
+                       "last_refine_loss": q["stats"].last_refine_loss},
+        "adaptive_serving": {
+            "frames": a["stats"].frames,
+            "escalation_rate": a["escalation_rate"],
+            "edge_ms_per_frame": a["edge_ms_per_frame"],
+            "split_ms_per_frame": a["split_ms_per_frame"]},
+        "fleet_demo": {"frames": f["stats"].frames,
+                       "dropped": f["dropped"],
+                       "round_losses": f["round_losses"],
+                       "frames_per_dispatch":
+                           f["stats"].frames_per_dispatch},
+        "ticks": n_ticks, "wire_roundtrip_grouped":
+            e_launches["wire_roundtrip_grouped"],
+        "wire_roundtrip": e_launches[WIRE_ONE_GROUP],
+        "swd_sessions": e_launches["swd_sessions"]}
+    print(f"phase 16 (d): the three demos on the card, {len(ticks)} ticks "
+          f"counted: one wire_roundtrip_grouped launch, one sync and one D2H "
+          f"a quickstart / fleet tick (none of the wire with every frame at "
+          f"k = {L}); adaptive serving's profiled ticks one wire_roundtrip "
+          f"a bucket with k < {L} and a sync a bucket + 1; a refine round's "
+          f"swd_sessions + laplacian_energy in its tick; launches "
+          f"{e_launches}")
+    record = {"rows": [list(r) for r in rows], "runs": run_recs,
+              "tables_s": tables_s, "card_vs_cpu": cvc,
+              "examples": examples,
+              "seconds": time.perf_counter() - start}
+    print(f"phase 16: {record['seconds']:.1f} s")
+    return q_launches, e_launches, record, worst
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -3879,12 +4328,15 @@ def main():
     control_launches, control = phase13(CFG, ops, enc_params)
     prefill_launches, decode_launches, lm_decode = phase14(dev, ops)
     cluster_launches, cluster = phase15(CFG, ops)
+    quality_launches, example_launches, quality, quality_worst = \
+        phase16(ops)
     paths = {"serve": launches, "refine": refine_launches,
              "train": train_launches, "per_frame": frame_launches,
              "stream": stream_launches, "cascade": cascade_launches,
              "lm_train": lm_launches, "control": control_launches,
              "prefill": prefill_launches, "decode": decode_launches,
-             "cluster": cluster_launches}
+             "cluster": cluster_launches, "quality": quality_launches,
+             "examples": example_launches}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -3987,6 +4439,11 @@ def main():
     print(json.dumps({"control": control}))
     print(json.dumps({"lm_train": lm_runs}))
     print(json.dumps({"cluster": cluster}))
+    # phase 16's holds at the quality path's and the demos' shapes
+    for r in records:
+        r["quality_max_abs_err"] = quality_worst.get(
+            "wire" if r["name"].startswith("wire_") else r["name"])
+    print(json.dumps({"quality": quality}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

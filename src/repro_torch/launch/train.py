@@ -8,7 +8,7 @@ Port of ``repro.launch.train``, with its flags.  ``--smoke`` runs the
 reduced config (``smoke_config``) at ``--batch`` x ``--seq``; without it
 the named ``--shape`` sets the global batch and sequence length.  The
 reference's XLA/TPU flag set has no counterpart.  Sharding waits (ROADMAP
-§1 item 7): with more than one CUDA device and no ``--smoke``, or with
+§1 item 6): with more than one CUDA device and no ``--smoke``, or with
 ``--multi-pod``, the launcher raises rather than train unsharded.
 ``train_4k`` (256 x 4,096 tokens) does not fit one card in float32, so it
 needs that item too.
@@ -56,7 +56,7 @@ def main(argv=None):
     if args.multi_pod or (n_dev > 1 and not args.smoke):
         raise NotImplementedError(
             f"{n_dev} devices{' across pods' if args.multi_pod else ''}: "
-            "sharded training is not ported yet (ROADMAP §1 item 7); run "
+            "sharded training is not ported yet (ROADMAP §1 item 6); run "
             "with --smoke, or on one device")
 
     tcfg = TrainCfg(optimizer=args.optimizer, lr=args.lr,

@@ -1,5 +1,5 @@
 """Optimizers and schedules, updating in place (port of ``repro.optim``;
-its gradient compression waits for the sharded slice, ROADMAP §1 item 7).
+its gradient compression waits for the sharded slice, ROADMAP §1 item 6).
 """
 from repro_torch.optim.adafactor import adafactor_init, adafactor_update
 from repro_torch.optim.adamw import adamw_init, adamw_update

@@ -21,7 +21,7 @@ Differences from the reference, each for a reason:
 - In place.  The optimizers update the parameters and their state in
   place (``optim/``); ``train_step`` returns the same objects.
 - ``init_train_state`` returns the state only: the reference's logical
-  axes serve its sharding, which waits (ROADMAP §1 item 7).
+  axes serve its sharding, which waits (ROADMAP §1 item 6).
 - One readback.  ``Trainer`` reads a step's metrics with one
   device->host copy of them stacked, not one per metric.
 - Failures.  ``Trainer.run`` restores from the last checkpoint after a

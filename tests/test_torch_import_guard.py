@@ -1,5 +1,6 @@
 """The PyTorch port stands on its own: no file of ``src/repro_torch/`` and
-not ``chip_smoke.py`` imports JAX or the reference package ``repro``.
+not ``chip_smoke.py`` imports JAX, the reference package ``repro`` or the
+reference's ``benchmarks``.
 A static AST scan, so a guarded or lazy import is caught too."""
 import ast
 import os
@@ -20,7 +21,7 @@ def _port_files():
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imports(tree):
@@ -46,6 +47,7 @@ def test_port_has_files():
 def test_forbidden_prefix_check():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("repro") and _forbidden("repro.core.sync")
+    assert _forbidden("benchmarks.quality_tables")
     assert not _forbidden("repro_torch") and not _forbidden("repro_torch.api")
     assert not _forbidden("torch") and not _forbidden("numpy")
 
@@ -56,6 +58,13 @@ def test_guard_covers_the_federation():
                 "cluster/hashing.py", "cluster/health.py",
                 "cluster/replication.py", "runtime/cluster_serve.py",
                 "runtime/cluster_demo.py", "runtime/streaming_demo.py"):
+        assert os.path.join("src", "repro_torch", rel) in files
+
+
+def test_guard_covers_the_last_counterparts():
+    files = _port_files()
+    for rel in ("runtime/quality_tables.py", "runtime/quickstart.py",
+                "runtime/adaptive_serving.py", "runtime/fleet_demo.py"):
         assert os.path.join("src", "repro_torch", rel) in files
 
 
