@@ -323,12 +323,40 @@ serving's profiled ticks a sync a bucket and one for the copy, and one
 ``wire_roundtrip`` a bucket with k < L; a refine round's
 ``swd_sessions`` and ``laplacian_energy`` in its tick.
 
+Phase 17 runs the sharded fleet on the card, several shards as logical
+shards of the one card (a sessions mesh naming it S times).  The three
+refine kernels are held against their plain versions at a shard's
+blocks of 2 and 4 shards, and the grouped wire at each shard's groups.
+(a) ``ShardedFleetBackend`` with one shard against ``HostFleetBackend``
+at phase 4's fleet (256 x 100 x 128 rings, ``HybridCfg()``, the 128->10
+head, a 64-component GMM): 9 refine rounds on the same draws, bitwise
+(loss, parts, per-session losses, head, memory), no snapshot copied,
+round p50 / p95 of both.  (b) 2 and 4 shards: S launches of each
+refine kernel a round (gated), every round and the final head and
+memory against one shard at rtol 1e-4 (the bound printed), round 0
+card vs CPU at rtol 1e-4.  (c) The gateway's ``shard_dispatch`` at
+phase 2's serving shape, refine off: one shard bitwise against the
+one-device plane, four shards at z atol 1e-4 with every (t, k, route,
+wire_bytes) equal; one sync and one D2H a tick, S
+``wire_roundtrip_grouped`` launches a tick and no other wire kernel, a
+profiled tick's one H2D, one D2H and one wait; tick p50 / p95.  (d)
+``make_compressed_dp_step`` on a quadratic over 4 shards (exact below
+1e-4, int8 + error feedback below 1e-3) and ``int8_psum`` of 4 copies
+of one edge training step's gradients at ``AudioEncCfg()`` (relative
+error below 0.05; int8 and fp32 wire bytes).  (e) The podwise split
+pipeline at the demo's shapes (``runtime/multipod_demo.py``): fp32 wire
+within 1e-5 of the sequential stack, INT8 within 0.05.  (f) The drain
+lane at N = 2 over members on one-shard ``ShardedFleetBackend``s under
+phase 15's asserts (zero shed, zero lost, the replay oracle), and one
+migration host -> sharded.  Counted as the ``sharded`` path: (a)'s
+sharded rounds, (b)'s rounds and (c)'s sharded ticks.
+
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
 result.  The line before the last is the kernels' JSON record (after a
 line with phase 12's summary, one with phase 13's, one with phase 14's
-one with phase 15's and one with phase 16's records); the last line is
-``{"ok": true, "device": {...}}``.
+one with phase 15's, one with phase 16's and one with phase 17's
+records); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -4285,6 +4313,480 @@ def phase16(ops):
     return q_launches, e_launches, record, worst
 
 
+# --- phase 17: the sharded fleet ------------------------------------------------
+
+SHARDS = (2, 4)            # logical shards of the one card in (b)
+SHARD_ROUNDS = 9           # refine rounds a backend (round 0 the warm-up)
+DISPATCH_SHARDS = 4        # the sharded dispatch plane's shards in (c)
+SHARD_RTOL = 1e-4          # several shards against one, of each max |x|
+DP_STEPS = 200             # the compressed data-parallel quadratic's steps
+SYNC_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+CARD = "cuda"              # phase 17's device (a CPU rehearsal sets "cpu")
+
+
+def shard_mesh(shards, device):
+    from repro_torch.launch.mesh import make_sessions_mesh
+    return make_sessions_mesh(devices=[device] * shards)
+
+
+def sharded_refine_backend(cfg, shards, device, head_init):
+    """``refine_backend``'s fleet as a ``ShardedFleetBackend`` of
+    ``shards`` logical shards on ``device``."""
+    from repro_torch.core.fleet_backend import ShardedFleetBackend
+    from repro_torch.core.hybrid import HybridCfg
+    return ShardedFleetBackend(
+        capacity=SESSIONS, window=WINDOW, dim=cfg.d_embed,
+        head_init=head_init, head_apply=linear_head, cfg=HybridCfg(),
+        lr=1e-2, seed=0, n_components=N_COMPONENTS, memory_decay=0.05,
+        mesh=shard_mesh(shards, device))
+
+
+def zero_counts(ops):
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_counts(ops):
+    torch.cuda.synchronize()
+    return {name: w.launches for name, w in ops.KERNELS.items()}
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def refine_rounds(be, rounds):
+    """``rounds`` refine rounds -> [(loss, parts, per-session losses)],
+    host ms of each."""
+    outs, ms = [], []
+    for r in range(rounds):
+        start = time.perf_counter()
+        outs.append(be.refine(r))
+        ms.append((time.perf_counter() - start) * 1e3)
+    return outs, np.array(ms)
+
+
+def pct(ms):
+    return {"p50": float(np.percentile(ms, 50)),
+            "p95": float(np.percentile(ms, 95))}
+
+
+def state_of(be):
+    """The head and the GMM memory, on the host."""
+    return ({k: v.detach().cpu() for k, v in be.refiner.state.params.items()},
+            be.memory.to("cpu"))
+
+
+def round_rel(a, b):
+    """Largest relative difference between two rounds' (loss, parts,
+    per-session losses), each relative to its own max |x|."""
+    (la, pa, qa), (lb, pb, qb) = a, b
+    return max([abs(la - lb) / abs(lb)]
+               + [abs(pa[k] - pb[k]) / abs(pb[k]) for k in pb]
+               + [rel_err(qa, qb)])
+
+
+def state_rel(a, b):
+    (ha, ma), (hb, mb) = a, b
+    return max([rel_err(ha[k], hb[k]) for k in hb]
+               + [rel_err(getattr(ma, k), getattr(mb, k))
+                  for k in ("s0", "s1", "s2")])
+
+
+def hold_sharded_kernels(dev, ops):
+    """The three refine kernels at the per-shard shapes of (b) against
+    their plain versions (phase 3's tolerances) -> {name: max |err|}."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    worst = dict.fromkeys(("swd_sessions", "laplacian_energy",
+                           "gmm_posterior"), 0.0)
+    for S in SHARDS:
+        n = SESSIONS // S
+        z, mask, dirs, pq = refine_inputs(g, dev, n, WINDOW, 128, N_DIRS)
+        worst["swd_sessions"] = max(worst["swd_sessions"], hold(
+            "swd_sessions", lambda *a: (ops.swd_sessions(*a),),
+            lambda *a: (ops.swd_sessions_ref(*a),), (z, dirs, pq),
+            [(SWD_RTOL, 0.0)], f"a shard's ({n}, {WINDOW}, 128) of {S}"))
+        worst["laplacian_energy"] = max(worst["laplacian_energy"], hold(
+            "laplacian_energy",
+            lambda z_, m_: ops.laplacian_energy(z_, m_, KNN),
+            lambda z_, m_: ops.laplacian_energy_ref(z_, m_, KNN), (z, mask),
+            [(LAP_RTOL, 0.0), (0.0, 0.0)], f"a shard's ({n}, {WINDOW}) of "
+            f"{S}"))
+        worst["gmm_posterior"] = max(worst["gmm_posterior"], hold(
+            "gmm_posterior", ops.gmm_posterior, ops.gmm_posterior_ref,
+            gmm_inputs(g, dev, n * WINDOW, N_COMPONENTS, 128),
+            [(0.0, RESP_ATOL), (0.0, ENT_ATOL)],
+            f"a shard's {n * WINDOW} rows of {S}"))
+    return worst
+
+
+def hold_shard_wire(cfg, dev, ops, results):
+    """``wire_roundtrip_grouped`` bitwise against its plain version on the
+    groups each shard's tick hands it in (c), read off a tick's
+    ``results``: the shard's buckets with k < L at their padded sizes ->
+    max |err|."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    widths = wire_widths(cfg)
+    buckets = {(r.shard, r.k): r.bucket_size for r in results
+               if r.k < cfg.n_blocks}
+    per_shard = {}
+    for (s, k), n in sorted(buckets.items()):
+        per_shard.setdefault(s, []).append(
+            (1 << (n - 1).bit_length(), widths[k]))
+    worst = 0.0
+    for s, shapes in per_shard.items():
+        xs = [special_rows(torch.randn(B, n, device=dev, generator=g) * 3.0
+                           + 1.0) for B, n in shapes]
+        got, want = (ops.wire_roundtrip_grouped(xs),
+                     ops.wire_roundtrip_grouped_ref(xs))
+        for a, w in zip(got, want):
+            worst = max(worst, (a - w).nan_to_num().abs().max().item())
+            check(same_values(a, w), f"wire_roundtrip_grouped != plain "
+                  f"version at shard {s}'s groups {shapes}")
+    return worst
+
+
+def profile_sharded_tick(gw, sids, mels, t):
+    """One more sharded tick under torch.profiler -> its device copy
+    records (host->device, device->host, device->device; the encoder's
+    stages make device-to-device copies of their own), and inside the
+    tick its CUDA runtime copy calls and waits; ``None`` where the
+    profiler recorded no device activity.  In runs of the whole script
+    the staged host->device copy had no device record (twice, after the
+    earlier phases' profiles; a run of phase 17 alone recorded it), so
+    the one H2D is read off the runtime's copy calls: those that are not
+    a device-to-device or device-to-host record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("sharded_tick"):
+            serve(gw, sids, [mels], timed=True, t0=t)
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.name != "sharded_tick"]
+    rng = [e for e in events if e.name == "sharded_tick"
+           and e.device_type == DeviceType.CPU]
+    if not dev or len(rng) != 1:
+        return None
+    lo, hi = rng[0].time_range.start, rng[0].time_range.end
+    inside = [e.name for e in events if e.device_type == DeviceType.CPU
+              and lo <= e.time_range.start and e.time_range.end <= hi]
+    out = {"h2d": sum("HtoD" in e.name for e in dev),
+           "d2h": sum("DtoH" in e.name for e in dev),
+           "d2d": sum("DtoD" in e.name for e in dev),
+           "copy_calls": sum(n.startswith("cudaMemcpy") for n in inside),
+           "waits": sum(n in SYNC_WAITS for n in inside),
+           "copy_records": sorted({e.name for e in dev
+                                   if e.name.startswith("Memcpy")})}
+    out["h2d_calls"] = out["copy_calls"] - out["d2d"] - out["d2h"]
+    return out
+
+
+def sharded_gateway(cfg, params, shards, shard_dispatch):
+    from repro_torch.api import QoSClass, StreamSplitGateway
+    from repro_torch.core.fleet_backend import ShardedFleetBackend
+    be = ShardedFleetBackend(capacity=SESSIONS, window=WINDOW,
+                             dim=cfg.d_embed, mesh=shard_mesh(shards, CARD))
+    gw = StreamSplitGateway(cfg, params, policy=SpreadPolicy(cfg.n_blocks),
+                            backend=be, qos_reserve=0,
+                            shard_dispatch=shard_dispatch, device=CARD)
+    sids = [gw.open_session(qos=QoSClass.INTERACTIVE).sid
+            for _ in range(SESSIONS)]
+    return gw, sids
+
+
+def phase17_refine(cfg, dev, ops, counted):
+    """(a) one shard against the host backend, bitwise; (b) 2 and 4
+    logical shards: round 0 card vs CPU, every round against one shard,
+    launches gated -> the readings."""
+    out = {}
+    host = refine_backend(cfg, CARD, init_linear_head)
+    one = sharded_refine_backend(cfg, 1, CARD, init_linear_head)
+    rows = np.arange(SESSIONS)
+    for be in (host, one):
+        check([be.admit() for _ in range(SESSIONS)] == rows.tolist(),
+              f"{be.kind} backend admitted rows out of order")
+        prefill(be, rows, np.random.default_rng(1))
+    for a, b in zip(host.snapshot(), one.snapshot()):
+        check(np.array_equal(a, b) and a.dtype == b.dtype,
+              "1-shard snapshot != host snapshot")
+    h_out, h_ms = refine_rounds(host, SHARD_ROUNDS)
+    zero_counts(ops)
+    s_out, s_ms = refine_rounds(one, SHARD_ROUNDS)
+    launches = read_counts(ops)
+    add_counts(counted, launches)
+    for r, (a, b) in enumerate(zip(h_out, s_out)):
+        check(a[0] == b[0] and a[1] == b[1] and np.array_equal(a[2], b[2]),
+              f"round {r}: 1-shard sharded != host backend: {a[:2]} vs "
+              f"{b[:2]}")
+    ref_state = state_of(one)
+    (hh, hm) = state_of(host)
+    check(all(torch.equal(hh[k], ref_state[0][k]) for k in hh)
+          and all(torch.equal(x, y) for x, y in zip(hm, ref_state[1])),
+          "1-shard head or memory != host backend's")
+    check(one.snapshot_h2d_bytes == 0, "sharded backend copied a snapshot")
+    for name in ("swd_sessions", "laplacian_energy", "gmm_posterior"):
+        check(launches[name] == SHARD_ROUNDS, f"1 shard: {name} launched "
+              f"{launches[name]} times in {SHARD_ROUNDS} rounds")
+    out["one_shard"] = {"host_round_ms": pct(h_ms[1:]),
+                        "sharded_round_ms": pct(s_ms[1:]),
+                        "launches": {k: launches[k] for k in (
+                            "swd_sessions", "laplacian_energy",
+                            "gmm_posterior")}}
+    print(f"phase 17 (a): ShardedFleetBackend(S=1) == HostFleetBackend "
+          f"bitwise over {SHARD_ROUNDS} rounds (loss, parts, per-session "
+          f"losses, head, GMM memory), snapshot_h2d_bytes 0 (host "
+          f"{host.snapshot_h2d_bytes}); round ms host p50 "
+          f"{out['one_shard']['host_round_ms']['p50']:.3f} p95 "
+          f"{out['one_shard']['host_round_ms']['p95']:.3f}, sharded p50 "
+          f"{out['one_shard']['sharded_round_ms']['p50']:.3f} p95 "
+          f"{out['one_shard']['sharded_round_ms']['p95']:.3f}")
+    for S in SHARDS:
+        be = sharded_refine_backend(cfg, S, CARD, init_linear_head)
+        sids = [be.admit() for _ in range(SESSIONS)]
+        check(sorted(sids) == rows.tolist()
+              and np.bincount(be.shards_of(sids)).tolist()
+              == [SESSIONS // S] * S, f"S={S}: placement {sids[:8]}...")
+        prefill(be, rows, np.random.default_rng(1))
+        exported = [be.export_row(sid) for sid in rows]
+        zero_counts(ops)
+        outs, ms = refine_rounds(be, SHARD_ROUNDS)
+        launches = read_counts(ops)
+        add_counts(counted, launches)
+        for name in ("swd_sessions", "laplacian_energy", "gmm_posterior"):
+            check(launches[name] == S * SHARD_ROUNDS,
+                  f"S={S}: {name} launched {launches[name]} times in "
+                  f"{SHARD_ROUNDS} rounds, want {S} a round")
+        for r, (loss, parts, per) in enumerate(outs):
+            check(np.isfinite(loss) and np.isfinite(per).all()
+                  and per.shape == (SESSIONS,), f"S={S} round {r} not "
+                  "finite")
+        vs_one = max(round_rel(a, b) for a, b in zip(outs, s_out))
+        vs_one_state = state_rel(state_of(be), ref_state)
+        check(vs_one <= SHARD_RTOL and vs_one_state <= SHARD_RTOL,
+              f"S={S} against one shard: rounds {vs_one}, head/memory "
+              f"{vs_one_state} > {SHARD_RTOL}")
+        cpu = sharded_refine_backend(cfg, S, "cpu", init_linear_head)
+        check([cpu.admit() for _ in range(SESSIONS)] == sids,
+              f"S={S}: CPU placement differs")
+        for sid, row in zip(rows, exported):
+            cpu.import_row(sid, *row)
+        c0 = cpu.refine(0)
+        vs_cpu = round_rel(outs[0], c0)
+        check(vs_cpu <= REFINE_RTOL, f"S={S} round 0 card vs CPU {vs_cpu}")
+        check(be.snapshot_h2d_bytes == 0, f"S={S} copied a snapshot")
+        out[f"S{S}"] = {"round_ms": pct(ms[1:]), "vs_one_shard": vs_one,
+                        "vs_one_shard_state": vs_one_state,
+                        "card_vs_cpu": vs_cpu}
+        print(f"phase 17 (b): S={S} logical shards: round ms p50 "
+              f"{out[f'S{S}']['round_ms']['p50']:.3f} p95 "
+              f"{out[f'S{S}']['round_ms']['p95']:.3f}; {S} launches of "
+              f"each refine kernel a round; against one shard (rel) rounds "
+              f"{vs_one:.3e}, head and memory after {SHARD_ROUNDS} rounds "
+              f"{vs_one_state:.3e}; round 0 card vs CPU {vs_cpu:.3e}")
+    return out
+
+
+def phase17_dispatch(cfg, ops, counted):
+    """(c) the gateway's shard_dispatch at phase 2's serving shape ->
+    the readings and the plane's wire record."""
+    from repro_torch.models.audio_encoder import init_audio_encoder
+    L = cfg.n_blocks
+    params = init_audio_encoder(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    mels = [rng.standard_normal((SESSIONS, cfg.frames, cfg.n_mels),
+                                np.float32) for _ in range(2 + TIMED_TICKS)]
+    ticks = mels[:1 + TIMED_TICKS]
+    plain, sp = sharded_gateway(cfg, params, 1, False)
+    p_res, p_secs = serve(plain, sp, ticks, timed=True)
+    out = {"plain_tick_ms": pct(np.array(p_secs[1:]) * 1e3)}
+    for S in (1, DISPATCH_SHARDS):
+        gw, sids = sharded_gateway(cfg, params, S, True)
+        check(gw.shard_dispatch and gw.stats().dispatch_shards == S,
+              f"S={S}: shard_dispatch off")
+        zero_counts(ops)
+        res, secs = serve(gw, sids, ticks, timed=True)
+        launches = read_counts(ops)
+        add_counts(counted, launches)
+        check(launches["wire_roundtrip_grouped"] == S * len(ticks)
+              and all(launches[k] == 0 for k in WIRE_KERNELS[1:]),
+              f"S={S}: wire launches {launches}, want {S} grouped a tick")
+        worst = 0.0
+        check(S > 1 or sids == sp, "S=1: other rows than the plain plane's")
+        for t, (a_, b_) in enumerate(zip(p_res, res)):
+            for a, b in zip(a_, b_):
+                check((a.t, a.k, a.route, a.wire_bytes)
+                      == (b.t, b.k, b.route, b.wire_bytes),
+                      f"S={S} tick {t}: {a.t, a.k, a.wire_bytes} != "
+                      f"{b.t, b.k, b.wire_bytes}")
+                worst = max(worst, float(np.abs(a.z - b.z).max()))
+        check(worst == 0.0 if S == 1 else worst <= CPU_ATOL,
+              f"S={S}: max |dz| {worst} against the one-device plane")
+        st = gw.stats()
+        want_staged = len(ticks) * SESSIONS * cfg.frames * cfg.n_mels * 4
+        check(st.staged_h2d_bytes == want_staged and st.ingest_h2d_bytes
+              == 0 and sum(st.dispatch_shard_frames) == st.frames
+              == len(ticks) * SESSIONS, f"S={S}: stats {st}")
+        for a, b in zip(plain.backend.snapshot(), gw.backend.snapshot()):
+            d = float(np.abs(a[np.array(sp)] - b[np.array(sids)]).max())
+            check(d <= (0.0 if S == 1 else CPU_ATOL), f"S={S}: rings "
+                  f"differ by {d}")
+        prof = profile_sharded_tick(gw, sids, mels[-1], len(ticks))
+        if prof is not None:
+            check(prof["h2d_calls"] == 1 and prof["h2d"] <= 1
+                  and prof["d2h"] == 1 and prof["waits"] == 1,
+                  f"S={S}: profiled sharded tick {prof}, want one H2D, "
+                  "one D2H, one wait")
+        wire_err = hold_shard_wire(cfg, torch.device(CARD), ops, res[-1])
+        key = f"S{S}"
+        out[key] = {"tick_ms": pct(np.array(secs[1:]) * 1e3),
+                    "max_abs_dz": worst, "profiled_tick": prof,
+                    "wire_launches_per_tick": S, "wire_max_abs_err": wire_err}
+        print(f"phase 17 (c): shard_dispatch S={S}: {len(ticks)} ticks x "
+              f"{SESSIONS} frames, 1 sync + 1 D2H a tick, {S} "
+              f"wire_roundtrip_grouped launches a tick (no other wire "
+              f"kernel), max |dz| against the one-device plane {worst:.3e}"
+              f"{' (bitwise)' if worst == 0 else ''}; tick ms p50 "
+              f"{out[key]['tick_ms']['p50']:.3f} p95 "
+              f"{out[key]['tick_ms']['p95']:.3f} (one-device plane p50 "
+              f"{out['plain_tick_ms']['p50']:.3f}); profiled tick "
+              f"{prof if prof is not None else 'not measured'}")
+    return out
+
+
+def phase17_sync(cfg):
+    """(d) compressed gradient sync on the card -> the readings."""
+    from repro_torch.distributed.grad_sync import (ef_init,
+                                                   make_compressed_dp_step)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import sgd_init, sgd_update
+    from repro_torch.optim.compression import (int8_psum, wire_bytes_fp32,
+                                               wire_bytes_int8)
+    from repro_torch.runtime.edge_train import EdgeTrainer
+    g = torch.Generator().manual_seed(0)
+    w_true = torch.randn(8, 4, generator=g)
+    X = torch.randn(64, 8, generator=g).to(CARD)
+    Y = X @ w_true.to(CARD)
+
+    def loss_fn(params, batch):
+        r = batch["x"] @ params["w"] - batch["y"]
+        return (r * r).mean()
+    mesh = make_test_mesh((4,), ("data",), devices=[CARD] * 4)
+    finals = {}
+    for compress in (False, True):
+        p = {"w": torch.zeros(8, 4, device=CARD)}
+        st, ef = sgd_init(p), ef_init(p)
+        step = make_compressed_dp_step(mesh, loss_fn, sgd_update,
+                                       axis="data", lr=0.1,
+                                       compress=compress)
+        for _ in range(DP_STEPS):
+            p, st, ef = step(p, st, ef, {"x": X, "y": Y})
+        finals[compress] = float(loss_fn(p, {"x": X, "y": Y}))
+    check(finals[False] < 1e-4 and finals[True] < 1e-3,
+          f"compressed DP on the quadratic: exact {finals[False]}, "
+          f"compressed {finals[True]}")
+    _, grads = EdgeTrainer("streamsplit", enc_cfg=cfg, device=CARD).step()
+    rel = 0.0
+    for gr in grads:
+        got = int8_psum([gr] * 4, "data")[0]
+        want = 4.0 * gr
+        rel = max(rel, float((got - want).abs().max()
+                             / want.abs().max().clamp_min(1e-30)))
+    check(rel < 0.05, f"int8_psum of the edge step's gradients: rel {rel}")
+    b8, b32 = wire_bytes_int8(grads), wire_bytes_fp32(grads)
+    out = {"dp_exact_loss": finals[False], "dp_compressed_loss":
+           finals[True], "int8_psum_rel_err": rel, "grad_leaves": len(grads),
+           "wire_bytes_int8": b8, "wire_bytes_fp32": b32}
+    print(f"phase 17 (d): compressed DP over 4 shards, {DP_STEPS} steps: "
+          f"exact loss {finals[False]:.3e} (< 1e-4), int8+EF "
+          f"{finals[True]:.3e} (< 1e-3); int8_psum of 4 copies of one edge "
+          f"step's {len(grads)} gradients at AudioEncCfg(): rel err "
+          f"{rel:.3e}, wire {b8} bytes int8 against {b32} fp32 "
+          f"({b8 / b32:.4f})")
+    return out
+
+
+def phase17_federation(cfg):
+    """(e) the podwise split pipeline, (f) the federation over sharded
+    members and a host -> sharded migration -> the readings."""
+    from repro_torch.runtime import cluster_serve, multipod_demo
+    lines = []
+    demo = multipod_demo.main(CARD, out=lines.append)
+    check(demo["fp32"]["max_err"] < 1e-5 and demo["INT8"]["max_err"] < 0.05,
+          f"podwise pipeline: {demo}")
+    print("phase 17 (e): " + " | ".join(lines[:2]))
+    try:
+        lane = cluster_serve.cluster_drain(
+            2, device=CARD, enc_cfg=cfg, spm=CLUSTER_SPM,
+            rounds=CLUSTER_ROUNDS, fleet="sharded")
+    except AssertionError as e:
+        fail(f"drain lane over sharded members: {e!r}")
+    check(lane["shed_expired"] == 0 and lane["lost_in_flight"] == 0,
+          "drain lane over sharded members shed or lost frames")
+    fps = lane["frames_per_s"]
+    # one migration host -> sharded, the row and the next frame held
+    from repro_torch.api import FrameRequest
+    from repro_torch.models.audio_encoder import init_audio_encoder
+    params = init_audio_encoder(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    host = cluster_serve.gateway(cfg, params, 4, CARD)
+    shrd = cluster_serve.gateway(cfg, params, 4, CARD, fleet="sharded")
+    twin = cluster_serve.gateway(cfg, params, 4, CARD)
+    sid, tsid = host.open_session().sid, twin.open_session().sid
+    for t in range(3):
+        mel = rng.standard_normal((cfg.frames, cfg.n_mels), np.float32)
+        for gw, s in ((host, sid), (twin, tsid)):
+            gw.submit(s, FrameRequest(t=t, mel=mel, u=0.5))
+            gw.tick()
+    snap = host.export_session(sid)
+    info = shrd.import_session(snap)
+    row = shrd.backend.export_row(info.sid)
+    check(all(np.array_equal(a, b) for a, b in zip(
+        row[:3], (snap.ring_z, snap.ring_t, snap.ring_label)))
+        and row[3] == snap.ring_newest, "host -> sharded row changed")
+    mel = rng.standard_normal((cfg.frames, cfg.n_mels), np.float32)
+    outs = []
+    for gw, s in ((shrd, info.sid), (twin, tsid)):
+        gw.submit(s, FrameRequest(t=3, mel=mel, u=0.5))
+        outs.append(gw.tick()[0])
+    check(np.array_equal(outs[0].z, outs[1].z) and outs[0].k == outs[1].k,
+          "the migrated stream's next frame != the unmigrated twin's")
+    out = {"pipeline": demo, "drain": {
+        "frames_per_s": fps, "migrations": lane["migrations"],
+        "migration_pause_ms": lane["migration_pause_ms"],
+        "parity": lane["parity"]}}
+    print(f"phase 17 (f): drain lane at N = 2 x {CLUSTER_SPM} sessions on "
+          f"ShardedFleetBackend members: frames/s before "
+          f"{fps['before']:.1f}, during {fps['during_drain']:.1f}, after "
+          f"{fps['after']:.1f}; {lane['migrations']} migrations, 0 shed, 0 "
+          f"lost, replay oracle {lane['parity']}; a host -> sharded "
+          "migration keeps the row and the next frame bitwise")
+    return out
+
+
+def phase17(cfg, ops):
+    """The sharded fleet on the card -> (the sharded path's launch
+    counts, the readings, max |err| by kernel at the per-shard shapes)."""
+    dev = torch.device(CARD)
+    start = time.perf_counter()
+    counted = {}
+    worst = hold_sharded_kernels(dev, ops)
+    readings = {"refine": phase17_refine(cfg, dev, ops, counted)}
+    readings["dispatch"] = phase17_dispatch(cfg, ops, counted)
+    worst["wire"] = max(readings["dispatch"][f"S{s}"]["wire_max_abs_err"]
+                        for s in (1, DISPATCH_SHARDS))
+    readings["sync"] = phase17_sync(cfg)
+    readings.update(phase17_federation(cfg))
+    readings["seconds"] = time.perf_counter() - start
+    print(f"phase 17: {readings['seconds']:.1f} s; per-shard kernels "
+          "against their plain versions, max |err| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()))
+    return counted, readings, worst
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -4330,13 +4832,14 @@ def main():
     cluster_launches, cluster = phase15(CFG, ops)
     quality_launches, example_launches, quality, quality_worst = \
         phase16(ops)
+    sharded_launches, sharded, sharded_worst = phase17(CFG, ops)
     paths = {"serve": launches, "refine": refine_launches,
              "train": train_launches, "per_frame": frame_launches,
              "stream": stream_launches, "cascade": cascade_launches,
              "lm_train": lm_launches, "control": control_launches,
              "prefill": prefill_launches, "decode": decode_launches,
              "cluster": cluster_launches, "quality": quality_launches,
-             "examples": example_launches}
+             "examples": example_launches, "sharded": sharded_launches}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -4444,6 +4947,11 @@ def main():
         r["quality_max_abs_err"] = quality_worst.get(
             "wire" if r["name"].startswith("wire_") else r["name"])
     print(json.dumps({"quality": quality}))
+    # phase 17's holds at the per-shard shapes
+    for r in records:
+        r["sharded_max_abs_err"] = sharded_worst.get(
+            "wire" if r["name"] == "wire_roundtrip_grouped" else r["name"])
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

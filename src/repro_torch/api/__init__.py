@@ -13,11 +13,13 @@ from repro_torch.api.types import (AdmissionError, ClusterDegradedError,
                                    QoSClass, QueuedFrameSnapshot,
                                    ResourceSignals, ServerSessionSnapshot,
                                    SessionInfo, SessionSnapshot, StreamStats)
-from repro_torch.core.fleet_backend import FleetBackend, HostFleetBackend
+from repro_torch.core.fleet_backend import (FleetBackend, HostFleetBackend,
+                                            ShardedFleetBackend, make_backend)
 
 __all__ = [
     "StreamSplitGateway", "TickPlan",
-    "FleetBackend", "HostFleetBackend",
+    "FleetBackend", "HostFleetBackend", "ShardedFleetBackend",
+    "make_backend",
     "SplitPolicy", "make_policy", "FixedKPolicy", "RulePolicy",
     "RLPolicy", "EntropyThresholdPolicy",
     "FrameRequest", "FrameResult", "SessionInfo", "GatewayStats",

@@ -1,7 +1,6 @@
 """``StreamSplitGateway`` — the way to run the StreamSplit pipeline.
 
-Port of ``repro.api.gateway`` (the sharded dispatch plane is a later
-slice):
+Port of ``repro.api.gateway``:
 
     gw = StreamSplitGateway(enc_cfg, params, policy=make_policy("rule", L))
     info = gw.open_session(platform="pi4", qos=QoSClass.STANDARD)
@@ -27,6 +26,15 @@ The tick is an **overlapped, single-sync data plane**.  One tick:
 6. every ``refine_every`` ticks, one fleet refine round
    (``HostFleetBackend.refine``) takes an SGD step on the shared head and
    an EM step of the optional GMM memory.
+
+On a ``ShardedFleetBackend`` the overlapped plane may shard the
+dispatch itself (``shard_dispatch``, on by default when the backend has
+more than one shard): each session's frames ride the row block of its
+fleet shard, every shard's k-buckets run against that shard's encoder
+replica with one ``wire_roundtrip_grouped`` launch a shard, the
+embeddings come back in one D2H a device and the ring scatter
+(``insert_batch_placed``'s plan) stays shard-local.  See
+``_launch_sharded``.
 
 ``_block`` and ``_d2h`` count every wait and every embedding copy, so
 ``GatewayStats.device_syncs_per_tick == 1`` and ``d2h_copies_per_tick
@@ -67,7 +75,7 @@ class TickPlan:
     needed to deliver their results."""
 
     __slots__ = ("pending", "t0", "profile", "launched", "z_all", "z_host",
-                 "done", "t_d0", "syncs", "d2h", "seq")
+                 "done", "t_d0", "syncs", "d2h", "seq", "rowmap", "parts")
 
     def __init__(self, pending, t0, profile=False, seq=0):
         self.pending = pending     # [(sid, FrameRequest, mel f32)] served
@@ -81,6 +89,9 @@ class TickPlan:
         self.syncs = 0             # launch-phase waits (profile mode only)
         self.d2h = 0
         self.seq = seq             # launch order — collect must match
+        self.rowmap = None         # sharded plane: submission idx -> row
+        self.parts = None          # sharded plane: (rows, host, event) a
+        #                            device
 
     def __len__(self):
         return len(self.pending)
@@ -116,7 +127,8 @@ class StreamSplitGateway:
     backend : a ``FleetBackend``; defaults to a ``HostFleetBackend`` of
         ``capacity`` x ``window`` rows of ``enc_cfg.d_embed`` built from
         ``head_init`` / ``head_apply`` / ``refine_lr`` / ``seed`` on
-        ``device``.  A backend that refines on another device raises.
+        ``device``; a ``ShardedFleetBackend`` keeps the rings on its
+        mesh's devices.  A backend that refines on another device raises.
     head_init, head_apply : optional task head for fleet refinement
         (``head_init(generator) -> params``, ``head_apply(params, z) ->
         logits``); without them the gateway serves but never refines.
@@ -126,8 +138,14 @@ class StreamSplitGateway:
         admissions; defaults to ``capacity // 8``.
     overlap : serve ticks through the overlapped single-sync plane
         (default); ``False`` syncs and copies once per bucket.
-    shard_dispatch : the sharded dispatch plane is not ported; ``True``
-        raises.
+    shard_dispatch : run the overlapped plane sharded over the backend's
+        sessions mesh (chains on each session's shard, shard-local ring
+        scatter, one sync and one D2H a device).  ``None`` (default) turns
+        it on for a ``ShardedFleetBackend`` with more than one shard;
+        ``True`` forces it (one shard too: the bitwise configuration);
+        ``False`` keeps the one-device plane.  It needs ``overlap=True``
+        and a device-resident backend whose devices are of the gateway's
+        device type.
     clock : zero-arg callable returning seconds.
     device : where the model runs; ``"cuda"`` by default, which raises
         without a GPU — pass ``"cpu"`` for the plain PyTorch path.
@@ -143,10 +161,6 @@ class StreamSplitGateway:
             raise ValueError(
                 f"policy action space L={policy.L} != encoder "
                 f"n_blocks={enc_cfg.n_blocks}")
-        if shard_dispatch:
-            raise NotImplementedError(
-                "shard_dispatch (per-device chains over a sharded fleet) is "
-                "not ported yet: it is the sharded slice of the port")
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self.cfg = enc_cfg
@@ -172,7 +186,35 @@ class StreamSplitGateway:
                             else qos_reserve)
         self.refine_every = refine_every
         self.overlap = overlap
-        self._dispatch_shard_frames = np.zeros(1, np.int64)
+        if shard_dispatch is None:
+            shard_dispatch = bool(overlap and backend.device_ingest
+                                  and getattr(backend, "mesh", None)
+                                  is not None and backend.shards > 1)
+        if shard_dispatch:
+            if not overlap:
+                raise ValueError("shard_dispatch shards the overlapped "
+                                 "data plane; it needs overlap=True")
+            if not (backend.device_ingest
+                    and getattr(backend, "mesh", None) is not None):
+                raise ValueError(
+                    "shard_dispatch co-locates dispatch with fleet shards; "
+                    "it needs a device-resident sharded backend "
+                    "(ShardedFleetBackend)")
+            if any(d.type != self.device.type for d in backend.devices):
+                raise ValueError(f"the backend's mesh {backend.devices} "
+                                 f"is not on the gateway's {self.device.type}")
+            # one encoder replica a device, committed now: a shard's chain
+            # never pulls a weight byte from another device at dispatch;
+            # the shards of one device share it
+            self._params_by_dev = {d: (self.params if d == self.device
+                                       else to_device(params, d))
+                                   for d in backend.shards_by_device}
+            # an idle shard still owes its (block, d) slice of the
+            # reassembly: one zeros block a (shard, size), reused
+            self._zeros_blocks = {}
+        self.shard_dispatch = bool(shard_dispatch)
+        self._dispatch_shard_frames = np.zeros(
+            backend.shards if shard_dispatch else 1, np.int64)
         self._last_profile = None
         self._clock = clock
         self._t_start = clock()
@@ -351,10 +393,18 @@ class StreamSplitGateway:
         results: list[FrameResult | None] = [None] * len(pending)
         self._tick_syncs = 0
         self._tick_d2h = 0
+        self._tick_dev = []           # (bucket idx, device z) a dispatch
         if pending:
             for k, idx in sorted(self._decide(pending).items()):
                 self._dispatch(k, idx, pending, results)
-            self._ingest_fleet(pending, np.stack([r.z for r in results]))
+            if self.backend.device_ingest:   # the rings take device z
+                order = np.concatenate([idx for idx, _ in self._tick_dev])
+                zs = torch.cat([z for _, z in self._tick_dev])
+                zs = zs.index_select(0, torch.from_numpy(
+                    np.argsort(order)).to(zs.device))
+            else:
+                zs = np.stack([r.z for r in results])
+            self._ingest_fleet(pending, zs)
             self._sync_accounting(pending, now=t0)
         self._finish_tick(t0)
         return results  # type: ignore[return-value]
@@ -440,16 +490,18 @@ class StreamSplitGateway:
 
     # instrumented sync points: every wait for the device and every
     # embedding copy to the host in the dispatch plane goes through these
-    def _block(self, done=None):
+    def _block(self, done=None, device=None):
         """Wait for the device: for the event ``done`` when given (a
         tick's own copy), else for everything queued on the current
-        stream.  A no-op on the CPU."""
+        stream of ``device`` (default the gateway's).  A no-op on the
+        CPU."""
         self._tick_syncs += 1
         if self._cuda:
             if done is not None:
                 done.synchronize()
             else:
-                torch.cuda.current_stream(self.device).synchronize()
+                torch.cuda.current_stream(device or self.device) \
+                    .synchronize()
 
     def _d2h(self, x):
         """Start the copy of ``x`` into pinned host memory without
@@ -512,6 +564,8 @@ class StreamSplitGateway:
         work hides under the device's.  ``profile=True`` runs one
         edge→wire→server chain a bucket instead, each timed to its own
         round trip."""
+        if self.shard_dispatch:
+            return self._launch_sharded(plan, buckets)
         pending, profile = plan.pending, plan.profile
         plan.t_d0 = self._clock()
         staged, index = self._stage(pending, buckets)
@@ -522,18 +576,9 @@ class StreamSplitGateway:
             padded = pad_pow2(len(idx))
             mels.append(staged.index_select(0, index[offset:offset + padded]))
             offset += padded
-        if profile:   # diagnostic mode: per-bucket round trips
-            outs, mss = [], []
-            for (k, idx), mel_b in zip(order, mels):
-                t_b = self._clock()
-                outs.append(self.engine.run_batch_async(self.params, mel_b,
-                                                        k))
-                self._block()
-                mss.append((self._clock() - t_b) * 1e3 / len(idx))
-        else:
-            outs = self.engine.run_buckets_async(
-                self.params, [(k, m) for (k, _), m in zip(order, mels)])
-            mss = [None] * len(order)
+        outs, mss = self._run_chains(
+            self.params, [(k, idx, m) for (k, idx), m in zip(order, mels)],
+            profile)
         z_bufs = [z for z, _ in outs]
         for (k, idx), (_, wire), ms in zip(order, outs, mss):
             plan.launched.append((k, idx, wire, ms, 0))
@@ -545,18 +590,193 @@ class StreamSplitGateway:
         if self._cuda:
             plan.done = torch.cuda.Event()
             plan.done.record(torch.cuda.current_stream(self.device))
+        if self.backend.device_ingest:   # async device scatter
+            self._ingest_fleet(pending, plan.z_all)
         for k, idx, wire, _, s in plan.launched:
             self._account_bucket(k, idx, pending, wire, shard=s)
         self._sync_accounting(pending, now=plan.t_d0)
+
+    def _launch_sharded(self, plan, buckets):
+        """The sharded launch half (``shard_dispatch``): the contract of
+        the one-device plane — one staged H2D, async chains, no wait —
+        laid out over the backend's sessions mesh, so each frame runs on
+        the device of its session's fleet shard:
+
+        1. the tick's frames are grouped by shard into EQUAL blocks of
+           ``pad_pow2(largest shard's frames)`` rows (pad rows copy the
+           tick's first mel and are never gathered nor scattered), and
+           each device's blocks, with every int32 index its shards need
+           (bucket gathers, reassembly, the ring scatter's plan), go to
+           it in ONE pinned copy (``plan.rowmap``: frame -> row);
+        2. each shard's k-buckets gather from its block and run against
+           the device's encoder replica (``run_buckets_async``: one
+           ``wire_roundtrip_grouped`` launch a shard with a frame at
+           k < L); an idle shard contributes a cached zeros block;
+        3. each shard's outputs are put back in block order, each
+           device's blocks go to pinned host memory in ONE copy with an
+           event behind it (``tick_collect`` waits once a device);
+        4. the ring scatter is ``scatter_placed``: every shard writes its
+           own rows from its own block."""
+        pending, profile = plan.pending, plan.profile
+        plan.t_d0 = self._clock()
+        be = self.backend
+        S, n = be.shards, len(pending)
+        sids = np.fromiter((sid for sid, _, _ in pending), np.int64, n)
+        shard = be.shards_of(sids)
+        by_shard = [np.flatnonzero(shard == s) for s in range(S)]
+        block = pad_pow2(max(len(b) for b in by_shard))
+        rowmap = np.empty(n, np.int64)
+        for s, idx_s in enumerate(by_shard):
+            rowmap[idx_s] = s * block + np.arange(len(idx_s))
+        scatter = be.place_batch(
+            sids, np.fromiter((f.t for _, f, _ in pending), np.int64, n),
+            np.fromiter((f.label for _, f, _ in pending), np.int64, n),
+            rowmap, block)
+        # each shard's chains: (k, frame indices, gather rows in the block)
+        chains = [[] for _ in range(S)]
+        pos = [None] * S
+        for s in range(S):
+            if not len(by_shard[s]):
+                continue
+            pos[s] = np.zeros(block, np.int32)
+            offset = 0
+            for k in sorted(buckets):
+                in_shard = [i for i in buckets[k] if shard[i] == s]
+                if not in_shard:
+                    continue
+                loc = (rowmap[in_shard] - s * block).astype(np.int32)
+                padded = pad_pow2(len(loc))
+                chains[s].append((k, in_shard, np.concatenate(
+                    [loc, np.full(padded - len(loc), loc[0], np.int32)])))
+                pos[s][loc] = offset + np.arange(len(loc), dtype=np.int32)
+                offset += padded
+        staged = self._stage_sharded(pending, by_shard, block, chains, pos,
+                                     scatter)
+        z_blocks = [None] * S
+        for s, dev in enumerate(be.devices):
+            mel, gathers, pos_s, _ = staged[s]
+            if not chains[s]:
+                key = (s, block)
+                if key not in self._zeros_blocks:
+                    self._zeros_blocks[key] = torch.zeros(
+                        block, self.cfg.d_embed, device=dev)
+                z_blocks[s] = self._zeros_blocks[key]
+                continue
+            outs, mss = self._run_chains(
+                self._params_by_dev[dev],
+                [(k, idx, mel.index_select(0, g))
+                 for (k, idx, _), g in zip(chains[s], gathers)],
+                profile, dev)
+            for (k, idx, _), (_, wire), ms in zip(chains[s], outs, mss):
+                plan.launched.append((k, idx, wire, ms, s))
+            z_blocks[s] = torch.cat([z for z, _ in outs]).index_select(
+                0, pos_s)
+        # one copy to the host a device, with an event behind it
+        plan.parts = []
+        for dev, owned in self.backend.shards_by_device.items():
+            z_dev = z_blocks[owned[0]] if len(owned) == 1 else torch.cat(
+                [z_blocks[s] for s in owned])
+            host = self._d2h(z_dev)
+            done = None
+            if self._cuda:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+            rows = np.concatenate([np.arange(s * block, (s + 1) * block)
+                                   for s in owned])
+            plan.parts.append((rows, host, done, dev))
+        plan.rowmap = rowmap
+        be.scatter_placed(z_blocks, scatter,
+                          [st[3] for st in staged], n)
+        for k, idx, wire, _, s in plan.launched:
+            self._account_bucket(k, idx, pending, wire, shard=s)
+        self._shard_frames += np.bincount(shard, minlength=S)
+        self._sync_accounting(pending, now=plan.t_d0)
+
+    def _run_chains(self, params, chains, profile, device=None):
+        """Each ``(k, frame indices, device mels)`` chain's edge, wire and
+        server stages -> ([(z, wire bytes)], per-frame ms or ``None``s):
+        all at once (``run_buckets_async``, one grouped wire launch), or
+        with ``profile`` one chain at a time, each timed to its own wait
+        on ``device``."""
+        if not profile:
+            outs = self.engine.run_buckets_async(
+                params, [(k, m) for k, _, m in chains])
+            return outs, [None] * len(outs)
+        outs, mss = [], []
+        for k, idx, mel in chains:   # diagnostic mode: per-chain round trips
+            t_b = self._clock()
+            outs.append(self.engine.run_batch_async(params, mel, k))
+            self._block(device=device)
+            mss.append((self._clock() - t_b) * 1e3 / len(idx))
+        return outs, mss
+
+    def _stage_sharded(self, pending, by_shard, block, chains, pos, scatter):
+        """ONE host->device copy a device for the sharded tick.
+
+        Each device's pinned buffer holds its shards' mel blocks, then
+        int32 indices: per shard its chains' gather rows, its reassembly
+        positions and its ring scatter's plan.  -> per shard (mel block
+        (block, T, M), gather index views, positions view, scatter plan
+        view), all on the shard's device (an idle shard has no gathers
+        and ``None`` positions)."""
+        T, M = self.cfg.frames, self.cfg.n_mels
+        out = [None] * len(by_shard)
+        for dev, owned in self.backend.shards_by_device.items():
+            ints = []
+            for s in owned:
+                ints += [g for _, _, g in chains[s]]
+                ints += [pos[s]] if pos[s] is not None else []
+                ints.append(scatter[s][0])
+            index = np.concatenate(ints).astype(np.int32)
+            n_mel = len(owned) * block * T * M
+            host = torch.empty(n_mel + index.size, dtype=torch.float32,
+                               pin_memory=self._cuda)
+            buf = host.numpy()
+            mel = buf[:n_mel].reshape(len(owned) * block, T, M)
+            for j, s in enumerate(owned):
+                blk = mel[j * block:(j + 1) * block]
+                idx_s = by_shard[s]
+                if len(idx_s):
+                    np.stack([pending[i][2] for i in idx_s],
+                             out=blk[:len(idx_s)])
+                blk[len(idx_s):] = pending[0][2]
+            buf[n_mel:].view(np.int32)[:] = index
+            staged = host.to(dev, non_blocking=True)
+            self._staged_h2d.inc(mel.nbytes)
+            mel_dev = staged[:n_mel].view(len(owned) * block, T, M)
+            ints_dev = staged[n_mel:].view(torch.int32)
+            off = 0
+
+            def take(m):
+                nonlocal off
+                off += m
+                return ints_dev[off - m:off]
+            for j, s in enumerate(owned):
+                gathers = [take(len(g)) for _, _, g in chains[s]]
+                pos_s = take(block) if pos[s] is not None else None
+                out[s] = (mel_dev[j * block:(j + 1) * block], gathers,
+                          pos_s, take(len(scatter[s][0])))
+        return out
 
     def _collect_overlapped(self, plan, results):
         """Collect half: the tick's one sync, on the event behind its
         copy, then ``FrameResult`` delivery and the host ring insert."""
         pending = plan.pending
-        self._block(plan.done)
-        z_host = plan.z_host.numpy()
+        if plan.parts is not None:      # sharded: one wait a device
+            blocked = np.empty((sum(len(r) for r, *_ in plan.parts),
+                                self.cfg.d_embed), np.float32)
+            for rows, host, done, dev in plan.parts:
+                self._block(done, dev)
+                blocked[rows] = host.numpy()
+            # un-block the per-shard layout into submission order (a
+            # host permutation of the tick's copies)
+            z_host = blocked[plan.rowmap]
+        else:
+            self._block(plan.done)
+            z_host = plan.z_host.numpy()
         tick_ms = (self._clock() - plan.t_d0) * 1e3 / len(pending)
-        self._ingest_fleet(pending, z_host)
+        if not self.backend.device_ingest:
+            self._ingest_fleet(pending, z_host)
         for k, idx, wire, ms, _s in plan.launched:
             route = self._route(k)
             for i in idx:
@@ -628,6 +848,8 @@ class StreamSplitGateway:
                 [mel, np.broadcast_to(mel[:1], (pad - len(idx),)
                                       + mel.shape[1:])])
         z_dev, wire = self.engine.run_batch(self.params, mel, k)
+        if self.backend.device_ingest:   # fleet ingest skips the host hop
+            self._tick_dev.append((np.asarray(idx), z_dev[:len(idx)]))
         z = self._fetch(z_dev)[:len(idx)]
         ms = (self._clock() - t0) * 1e3 / len(idx)
         self._account_bucket(k, idx, pending, wire)
@@ -692,7 +914,8 @@ class StreamSplitGateway:
             routed={r: c.value for r, c in self._routed.items()},
             backend=self.backend.kind, shards=self.backend.shards,
             shard_frames=tuple(int(v) for v in self._shard_frames),
-            dispatch_shards=1,
+            dispatch_shards=(self.backend.shards if self.shard_dispatch
+                             else 1),
             dispatch_shard_frames=tuple(
                 int(v) for v in self._dispatch_shard_frames),
             snapshot_h2d_bytes=self.backend.snapshot_h2d_bytes,

@@ -1,7 +1,7 @@
 """Fleet refinement: one hybrid-loss step over N sessions at once.
 
-Port of ``repro.core.fleet_refiner`` (single device: the reference's
-``axis_name`` sharding comes with the sharded backend).  The
+Port of ``repro.core.fleet_refiner``; ``make_fleet_loss(axis_name=)``
+is also the per-shard loss of ``ShardedFleetBackend``.  The
 reference's ``vmap`` over sessions is a batch dimension here, and its
 SW and Laplacian terms, which it computes in jnp, go through the
 hand-written kernels ``swd_sessions`` and ``laplacian_energy``.  That is
@@ -25,18 +25,31 @@ from repro_torch.optim.sgd import (sgd_init, sgd_update, tree_map,
                                    value_and_grad)
 
 
-def make_fleet_loss(head_apply, cfg: HybridCfg):
-    """-> fleet_loss(params, dirs, prior, z, mask, labels, active)
-    -> (loss, (losses (N,), parts)).
+def make_fleet_loss(head_apply, cfg: HybridCfg, *, axis_name=None,
+                    axis_size=1):
+    """-> fleet_loss(params, dirs, prior, z, mask, labels, active,
+    a_total=None) -> (loss, (losses (N,), parts)).
 
     Per session: the masked CE of ``head_apply(params, z)`` over labelled
     present frames, plus λ₁·SW against the prior's sorted slice quantiles
     plus λ₂·Laplacian over the gap-masked window.  ``dirs`` (M, d) and
     ``prior`` (W, d) are ONE draw shared by every session (common random
     numbers); session losses are averaged over active rows only.  ``z``
-    must not require a gradient (the kernels have no backward)."""
+    must not require a gradient (the kernels have no backward).
 
-    def fleet_loss(params, dirs, prior, z, mask, labels, active):
+    With ``axis_name`` the session axis is sharded and ``z``, ``mask``,
+    ``labels``, ``active`` are one shard's rows: ``a_total`` must then be
+    the active count ``psum``'d over the axis (each shard's
+    ``active.sum()``), so every shard weights its sessions by the GLOBAL
+    count, and the loss and parts are pre-scaled by ``axis_size`` so that
+    a ``pmean`` over the axis (gradients included, see
+    ``distributed.grad_sync.pmean_grads``) is the global sum.  At
+    ``axis_size == 1`` the psum'd count is the local one and the scaling
+    is skipped, so a 1-shard mesh is bit-identical to the unsharded
+    loss."""
+
+    def fleet_loss(params, dirs, prior, z, mask, labels, active,
+                   a_total=None):
         N, W, d = z.shape
         logits = head_apply(params, z.reshape(N * W, d)).reshape(N, W, -1)
         task = masked_ce(logits, labels, mask)
@@ -45,10 +58,21 @@ def make_fleet_loss(head_apply, cfg: HybridCfg):
         tot, cnt = laplacian_energy(z, mask, cfg.knn)
         lap = tot / cnt.clamp_min(1.0)
         losses = task + cfg.lam_sw * sw + cfg.lam_lap * lap
-        w = active / active.sum().clamp_min(1.0)
+        if axis_name is None:
+            a_total = active.sum()
+        elif a_total is None:
+            raise ValueError("the sharded fleet loss needs a_total, the "
+                             "active count psum'd over the axis")
+        w = active / a_total.clamp_min(1.0)
         parts = {"task": (task * w).sum(), "sw": (sw * w).sum(),
                  "lap": (lap * w).sum()}
-        return (losses * w).sum(), (losses, parts)
+        loss = (losses * w).sum()
+        if axis_name is not None and axis_size > 1:
+            # pre-scale so pmean(loss) == psum(local weighted sums): the
+            # cross-shard mean-over-active-sessions estimator
+            loss = loss * float(axis_size)
+            parts = {k: v * float(axis_size) for k, v in parts.items()}
+        return loss, (losses, parts)
 
     return fleet_loss
 

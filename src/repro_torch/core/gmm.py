@@ -1,7 +1,7 @@
 """Distributional Memory: streaming Gaussian Mixture Model (paper §4.1).
 
-Port of ``repro.core.gmm`` (single device; the reference's ``axis_name``
-psum of the sufficient statistics comes with the sharded backend).  A
+Port of ``repro.core.gmm``, with the reference's ``axis_name`` psum of
+the sufficient statistics over the shards of a sessions mesh.  A
 C-component diagonal GMM replaces the contrastive memory bank and is
 updated by stepwise online EM.  ``responsibilities`` and ``entropy`` go
 through the hand-written ``gmm_posterior`` kernel; the sufficient
@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.sharding import PerShard, psum
 from repro_torch.kernels import gmm_posterior
 
 
@@ -97,7 +98,7 @@ def normalized_entropy(state: GMMState, z):
 
 
 def em_update(state: GMMState, z, *, decay=0.05, reseed_frac=0.2,
-              weights=None) -> GMMState:
+              weights=None, axis_name=None):
     """One streaming-EM step on a batch of embeddings z: (B, d) -> the new
     state (the old one is left as it was).
 
@@ -108,19 +109,44 @@ def em_update(state: GMMState, z, *, decay=0.05, reseed_frac=0.2,
 
     Components whose mixing weight falls below ``reseed_frac / C`` are
     re-seeded at the batch's least-explained frames (lowest max
-    responsibility; zero-weight frames sort strictly last)."""
-    z = z.float()
+    responsibility; zero-weight frames sort strictly last).
+
+    With ``axis_name`` the batch is sharded: ``z`` (and ``weights``) are
+    the shards' blocks, a sequence in shard order, each shard's
+    statistics b0, b1, b2 and n are ``psum``'d — distributed streaming
+    EM with the global fixed point — and every shard updates ``state``
+    (replicated) from the sums -> a ``PerShard`` list of states.  A
+    shard reseeds from its own block, as in the reference."""
+    if axis_name is None:
+        z = z.float()
+        r, stats = _batch_stats(state, z, weights)
+        return _em_finish(state, z, r, weights, stats, decay, reseed_frac)
+    zs = [x.float() for x in z]
+    ws = [None] * len(zs) if weights is None else list(weights)
+    states = [state.to(x.device) for x in zs]
+    local = [_batch_stats(st, x, w) for st, x, w in zip(states, zs, ws)]
+    totals = psum([stats for _, stats in local], axis_name)
+    return PerShard(
+        _em_finish(st, x, r, w, tot, decay, reseed_frac)
+        for st, x, (r, _), w, tot in zip(states, zs, local, ws, totals))
+
+
+def _batch_stats(state, z, weights):
+    """Responsibilities of float32 ``z`` and its weighted sufficient
+    statistics -> (r (B, C), (b0 (C,), b1 (C, d), b2 (C, d), n))."""
     r = responsibilities(state, z)                        # (B, C)
     if weights is None:
         rw = r
         n = torch.tensor(float(z.shape[0]), device=z.device)
     else:
-        w = weights.float()
-        rw = r * w[:, None]
-        n = w.sum()
-    b0 = rw.sum(0)
-    b1 = rw.T @ z
-    b2 = rw.T @ z.square()
+        rw = r * weights.float()[:, None]
+        n = weights.float().sum()
+    return r, (rw.sum(0), rw.T @ z, rw.T @ z.square(), n)
+
+
+def _em_finish(state, z, r, weights, stats, decay, reseed_frac):
+    """The stepwise update from (summed) statistics, then the reseed."""
+    b0, b1, b2, n = stats
     scale = state.s0.sum() / n.clamp_min(1.0)
     lam = decay
     s0 = (1 - lam) * state.s0 + lam * b0 * scale
@@ -133,7 +159,7 @@ def em_update(state: GMMState, z, *, decay=0.05, reseed_frac=0.2,
         dead = pi < (reseed_frac / C)
         novelty = r.amax(-1)
         if weights is not None:
-            novelty = novelty + 2.0 * (1.0 - w.clamp(max=1.0))
+            novelty = novelty + 2.0 * (1.0 - weights.float().clamp(max=1.0))
         order = torch.argsort(novelty, stable=True)
         rank = torch.cumsum(dead.to(torch.int32), 0) - 1
         seed_z = z[order[rank.clamp(0, z.shape[0] - 1)]]  # (C, d)

@@ -18,6 +18,7 @@ import torch
 from repro_torch.core.infonce import batch_infonce
 from repro_torch.core.laplacian import laplacian_loss
 from repro_torch.core.swd import draw, prior_quantiles, swd_loss
+from repro_torch.distributed.sharding import PerShard, pmean
 from repro_torch.kernels.hybrid_reg import hybrid_regularisers
 
 
@@ -62,11 +63,41 @@ def regularisers(key, z_seq, *, n_dirs=50, k=5, mask=None):
 
 
 def hybrid_loss(key, z_seq, cfg: HybridCfg = HybridCfg(), *, mask=None,
-                labels=None, logits=None, z_pos=None, variant="hybrid"):
+                labels=None, logits=None, z_pos=None, variant="hybrid",
+                axis_name=None):
     """z_seq: (T, d) or (B, T, d) temporally ordered embeddings.
 
     variant ∈ {hybrid, task_sw, task_lap, mse, kl} (Table 5 ablation).
-    -> (loss, parts)."""
+    -> (loss, parts).
+
+    With ``axis_name`` the batch is sharded, as under the reference's
+    ``shard_map``: ``z_seq`` and each of ``mask``, ``labels``, ``logits``,
+    ``z_pos`` that is given are the shards' values (sequences in shard
+    order, of equal row counts).  Every shard draws from the same key
+    (one draw, replicated), its L_SW is the ``pmean`` over the shards
+    (``swd_loss(axis_name=...)``) and its other terms are its own ->
+    a ``PerShard`` list of (loss, parts)."""
+    if axis_name is None:
+        parts = _parts(key, z_seq, cfg, mask, labels, logits, z_pos, variant)
+        return _total(parts, cfg), parts
+    shards = list(z_seq)
+    per = [[None] * len(shards) if a is None else list(a)
+           for a in (mask, labels, logits, z_pos)]
+    d = shards[0].shape[-1]
+    rows = {z.reshape(-1, d).shape[0] for z in shards}
+    if len(rows) != 1:
+        raise ValueError(f"sharded hybrid loss needs equal blocks, got "
+                         f"{sorted(rows)} rows")
+    drawn = draw(key, cfg.n_dirs, rows.pop(), d)
+    parts = [_parts(drawn, z, cfg, *args, variant)
+             for z, *args in zip(shards, *per)]
+    if "sw" in parts[0]:
+        for p, sw in zip(parts, pmean([p["sw"] for p in parts], axis_name)):
+            p["sw"] = sw
+    return PerShard((_total(p, cfg), p) for p in parts)
+
+
+def _parts(key, z_seq, cfg, mask, labels, logits, z_pos, variant):
     z_flat = z_seq.reshape(-1, z_seq.shape[-1])
     parts = {"task": task_loss(z_flat, labels=labels, logits=logits,
                                z_pos=z_pos, tau=cfg.tau)}
@@ -86,7 +117,10 @@ def hybrid_loss(key, z_seq, cfg: HybridCfg = HybridCfg(), *, mask=None,
         mu = z_flat.mean(0)
         var = z_flat.var(0, unbiased=False) + 1e-6
         parts["kl"] = 0.5 * (mu ** 2 + var - torch.log(var) - 1.0).mean()
+    return parts
 
+
+def _total(parts, cfg):
     loss = parts["task"]
     if "sw" in parts:
         loss = loss + cfg.lam_sw * parts["sw"]
@@ -95,4 +129,4 @@ def hybrid_loss(key, z_seq, cfg: HybridCfg = HybridCfg(), *, mask=None,
     for extra in ("mse", "kl"):
         if extra in parts:
             loss = loss + parts[extra]
-    return loss, parts
+    return loss

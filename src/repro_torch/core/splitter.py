@@ -3,9 +3,9 @@
 ``SplitEngine`` runs the paper's mechanism on the paper's model: blocks
 [0, k) as the *edge stage*, the INT8 round trip of the boundary
 activation (the wire payload), blocks [k, L) plus the head as the
-*server stage*.  Port of ``repro.core.splitter.SplitEngine``; the
-reference's pod-axis pipeline ``split_pipeline_podwise`` belongs to the
-LM scaffold and is not part of this module yet.
+*server stage*.  ``split_pipeline_podwise`` is the two-stage pipeline
+over a mesh's ``pod`` axis, the boundary on the wire between the pods.
+Port of ``repro.core.splitter``.
 
 PyTorch runs eagerly, so the reference's lazily built per-k executables
 are plain calls here; switching k still happens only between whole
@@ -16,9 +16,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import ppermute, psum
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.int8_quant import MAX_GROUPS, wire_roundtrip_ref
 from repro_torch.models import audio_encoder as enc
+from repro_torch.optim.sgd import tree_map
+from repro_torch.quant.int8 import fake_quant
 
 
 class SplitEngine:
@@ -155,3 +158,68 @@ class SplitEngine:
 
     def full(self, params, mel):
         return self._edge_fn(self.cfg.n_blocks, params, self._to_device(mel))
+
+
+# ---------------------------------------------------------------------------
+# The 2-stage pipeline over a mesh's 'pod' axis
+# ---------------------------------------------------------------------------
+
+def split_pipeline_podwise(mesh, stage_fn, params_stacked, x_microbatches,
+                           *, quantize_wire=True, batch_axes=("data",)):
+    """2-stage pipeline across the mesh's 'pod' axis.
+
+    ``stage_fn(stage_params, h) -> h'`` applies half the layer stack;
+    ``params_stacked`` has a leading dim of 2 (a tensor or a tree of
+    them): pod 0 holds stage 0, pod 1 stage 1.  Microbatches stream
+    through: at step t pod 0 runs stage 0 on microbatch t while pod 1
+    runs stage 1 on microbatch t - 1, whose boundary activation pod 0
+    sent it (``ppermute``) after ``fake_quant`` when ``quantize_wire``
+    (each pod's output goes through it, as in the reference); one drain
+    step feeds pod 0 zeros.  Pod 1's outputs of steps 1..M are the
+    finished microbatches, broadcast to both pods by a ``psum`` in which
+    pod 0 adds zeros.
+
+    ``x_microbatches``: (M, mb, ...).  Dim 1 is split over
+    ``batch_axes`` in equal blocks, one pod pair a block; the mesh's
+    other axes hold replicas and are not run twice.  The pods may be one
+    device: their stages then run one after the other on it.
+    -> (M, mb, ...) on the mesh's first device."""
+    if mesh.shape.get("pod") != 2:
+        raise ValueError(f"2-stage pipeline over a pod axis of 2, mesh "
+                         f"{mesh.shape}")
+    if isinstance(batch_axes, str):
+        batch_axes = (batch_axes,)
+    names = mesh.axis_names
+    n_blocks = 1
+    for a in batch_axes:
+        n_blocks *= mesh.shape[a]
+    M, mb = x_microbatches.shape[:2]
+    if mb % n_blocks:
+        raise ValueError(f"microbatch of {mb} does not split over "
+                         f"{n_blocks} data blocks")
+    size = mb // n_blocks
+    outs = []
+    for j in range(n_blocks):
+        at = np.unravel_index(j, [mesh.shape[a] for a in batch_axes])
+        where = dict(zip(batch_axes, at))
+        pods = [mesh.devices[tuple(
+            p if a == "pod" else where.get(a, 0) for a in names)]
+            for p in (0, 1)]
+        xs = x_microbatches[:, j * size:(j + 1) * size].to(pods[0])
+        stages = [tree_map(lambda t, p=p: t[p].to(pods[p]), params_stacked)
+                  for p in (0, 1)]
+        zeros = torch.zeros_like(xs[0])
+        h_prev = [zeros, zeros.to(pods[1])]
+        done = []
+        for t in range(M + 1):                   # one drain step
+            h_in = [xs[t] if t < M else zeros, h_prev[1]]
+            h_out = [stage_fn(stages[p], h_in[p]) for p in (0, 1)]
+            if quantize_wire:
+                h_out = [fake_quant(h) for h in h_out]
+            h_prev = ppermute(h_out, [(0, 1)], "pod")
+            done.append(h_out[1])
+        finished = torch.stack(done[1:])
+        outs.append(psum([torch.zeros_like(finished).to(pods[0]),
+                          finished], "pod")[0])
+    first = mesh.devices.flat[0]
+    return torch.cat([o.to(first) for o in outs], dim=1)

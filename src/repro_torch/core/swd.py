@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import pmean
 from repro_torch.kernels.swd import swd_single
 
 
@@ -122,10 +123,26 @@ def swd_to_uniform(key, z, *, n_dirs=50):
     return sliced_w2(z, prior.to(z.device), dirs.to(z.device))
 
 
-def swd_loss(key, z, *, n_dirs=50):
-    """Differentiable-through-sort SWD loss (the reference's unsharded
-    estimator; its ``axis_name`` has no counterpart here)."""
-    return swd_to_uniform(key, z, n_dirs=n_dirs)
+def swd_loss(key, z, *, n_dirs=50, axis_name=None):
+    """Differentiable-through-sort SWD loss.
+
+    With ``axis_name`` this is the *sharded* estimator: ``z`` is the
+    shards' row blocks (a sequence of equal (n, d) tensors, in shard
+    order), each shard computes its local SWD against the same draw —
+    ONE directions/prior draw of n rows, replicated, as the reference's
+    replicated key gives every shard — and the values are ``pmean``'d
+    -> a ``PerShard`` list (each shard's value reaches every shard's
+    rows through autograd)."""
+    if axis_name is None:
+        return swd_to_uniform(key, z, n_dirs=n_dirs)
+    zs = list(z)
+    n, d = zs[0].shape
+    if any(tuple(x.shape) != (n, d) for x in zs):
+        raise ValueError(f"sharded SWD needs equal row blocks, got "
+                         f"{[tuple(x.shape) for x in zs]}")
+    dirs, prior = draw(key, n_dirs, n, d)
+    return pmean([sliced_w2(x, prior.to(x.device), dirs.to(x.device))
+                  for x in zs], axis_name)
 
 
 def wasserstein1_1d(x, y):

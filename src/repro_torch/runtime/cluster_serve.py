@@ -52,7 +52,8 @@ from dataclasses import fields
 import numpy as np
 import torch
 
-from repro_torch.api import FrameRequest, StreamSplitGateway
+from repro_torch.api import (FrameRequest, ShardedFleetBackend,
+                             StreamSplitGateway)
 from repro_torch.cluster import FailureInjector, GatewayCluster, HashRing
 from repro_torch.models.audio_encoder import AudioEncCfg, init_audio_encoder
 from repro_torch.serving import SchedulerCfg, StreamServer
@@ -92,17 +93,28 @@ def spread_u(n):
             np.random.default_rng(3).permutation(np.linspace(0.02, 0.98, n))]
 
 
-def gateway(cfg, params, capacity, device):
+def gateway(cfg, params, capacity, device, *, fleet="host", clock=None):
+    """A lane gateway on ``device``: its rings in a ``HostFleetBackend``
+    (``fleet="host"``) or a one-shard ``ShardedFleetBackend`` on the
+    device (``"sharded"``); ``clock`` (default the wall clock) drives its
+    and its server's timing."""
+    kw = {} if clock is None else {"clock": clock}
+    if fleet == "sharded":
+        kw["backend"] = ShardedFleetBackend(capacity=capacity, window=16,
+                                            dim=cfg.d_embed, device=device)
+    elif fleet != "host":
+        raise ValueError(f"unknown fleet {fleet!r}")
     return StreamSplitGateway(cfg, params, policy=MixedKPolicy(cfg.n_blocks),
                               capacity=capacity, window=16, qos_reserve=0,
-                              overlap=True, device=device)
+                              overlap=True, device=device, **kw)
 
 
-def member(cfg, params, n, device):
+def member(cfg, params, n, device, *, fleet="host", clock=None):
     """One federation member: a gateway that can hold every one of the
     ``n`` sessions, behind a server constructed UNSTARTED (the cluster
     owns stepping)."""
-    return StreamServer(gateway(cfg, params, n, device),
+    return StreamServer(gateway(cfg, params, n, device, fleet=fleet,
+                                clock=clock),
                         cfg=SchedulerCfg(max_batch=n), queue_maxlen=16 * n)
 
 
@@ -130,13 +142,14 @@ def _assert_conserved(cl):
 
 def cluster_drain(members=2, *, device="cuda", enc_cfg=None, params=None,
                   rounds=8, spm=SESSIONS_PER_MEMBER, oracle=True,
-                  on_member=None) -> dict:
+                  on_member=None, fleet="host", clock=None) -> dict:
     """One drain lane over ``members`` members of ``spm`` sessions each
     (``enc_cfg`` defaults to the paper's ``AudioEncCfg()``, ``params`` to
     its weights from ``torch.Generator().manual_seed(0)``).
     ``on_member(name, server)`` sees each member as it is built
     (instrumentation).  With ``oracle`` the migrated sessions are held
-    against ``replay_parity``.
+    against ``replay_parity``.  ``fleet`` is each member's backend kind
+    and ``clock`` its servers' timing source (``gateway``).
 
     -> frames/s per phase, the warm and cold migration pauses, the
     migrated sessions, frames and bytes, per timed round the host ms
@@ -149,7 +162,8 @@ def cluster_drain(members=2, *, device="cuda", enc_cfg=None, params=None,
     n = members * spm
     us = spread_u(n)
     results = []
-    servers = {f"g{i}": member(cfg, params, n, device)
+    servers = {f"g{i}": member(cfg, params, n, device, fleet=fleet,
+                               clock=clock)
                for i in range(members)}
     if on_member is not None:
         for name, srv in servers.items():
@@ -262,7 +276,8 @@ def cluster_drain(members=2, *, device="cuda", enc_cfg=None, params=None,
 
 def cluster_chaos(members=2, *, replicate, device="cuda", enc_cfg=None,
                   params=None, rounds=8, spm=SESSIONS_PER_MEMBER,
-                  oracle=True, on_member=None) -> dict:
+                  oracle=True, on_member=None, fleet="host",
+                  clock=None) -> dict:
     """One seeded kill-mid-stream run: the ring owner of gsid 0 dies at
     cluster step ``WARMUP_ROUNDS + max(1, rounds // 2)``; checkpoints
     every 2 steps; with ``replicate`` every accepted frame is journaled
@@ -282,7 +297,8 @@ def cluster_chaos(members=2, *, replicate, device="cuda", enc_cfg=None,
     victim = HashRing(names, seed=RING_SEED).owner(0)
     kill_step = WARMUP_ROUNDS + max(1, rounds // 2)
     results = []
-    servers = {nm: member(cfg, params, n, device) for nm in names}
+    servers = {nm: member(cfg, params, n, device, fleet=fleet, clock=clock)
+               for nm in names}
     if on_member is not None:
         for name, srv in servers.items():
             on_member(name, srv)

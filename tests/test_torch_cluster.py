@@ -21,8 +21,11 @@ frames matched bitwise.  ``migrated_bytes`` is the port's own pickle
 length: the pickle names each class's module, so it differs from the
 reference's by that length.
 
-The reference's two tests over ``ShardedFleetBackend`` have no
-counterpart: the sharded backend is not ported yet.
+The reference's two tests over ``ShardedFleetBackend`` have their
+counterparts here (host -> sharded and back, the int32 timestamp
+check), with one more: the drain lane on members whose gateways run a
+1-shard ``ShardedFleetBackend``, held against the same lane on host
+members.
 """
 import sys
 
@@ -33,13 +36,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro.cluster as jax_cluster  # noqa: E402
+from repro.api import StreamSplitGateway as JaxGateway  # noqa: E402
 from repro.cluster import HashRing as JaxHashRing  # noqa: E402
 from repro.models.audio_encoder import AudioEncCfg as JaxAudioEncCfg  # noqa: E402,E501
 from repro.models.audio_encoder import \
     init_audio_encoder as jax_init_audio_encoder  # noqa: E402
 from repro_torch.api import (AdmissionError, ClusterStats,  # noqa: E402
                              FrameRequest, QoSClass, SessionSnapshot,
-                             StreamSplitGateway)
+                             ShardedFleetBackend, StreamSplitGateway)
 from repro_torch.cluster import (FailureInjector, GatewayCluster,  # noqa: E402
                                  HashRing)
 from repro_torch.models.audio_encoder import (AudioEncCfg,  # noqa: E402
@@ -392,6 +396,86 @@ def test_export_import_refine_row_transfer_bit_parity(params):
                                   np.asarray(loss_dst))
     np.testing.assert_array_equal(np.asarray(per_stay),
                                   np.asarray(per_dst))
+
+
+def _sharded(capacity=4, **kw):
+    return ShardedFleetBackend(capacity=capacity, window=8, dim=CFG.d_embed,
+                               device="cpu", **kw)
+
+
+def test_export_import_across_backends_host_to_sharded(params):
+    """Snapshots are backend-portable: a host-ring session implants
+    into a device-resident sharded fleet (sentinel remap included) and
+    refines to the same loss, bitwise, as a sharded twin that served the
+    stream itself."""
+    head_init, head_apply = _head()
+    clock = FakeClock()
+    host = _gw(params, clock, capacity=4, head_init=head_init,
+               head_apply=head_apply, refine_every=0)
+    sharded = _gw(params, clock, refine_every=0, backend=_sharded(
+        head_init=head_init, head_apply=head_apply, lr=1e-2, seed=0))
+    twin = _gw(params, clock, refine_every=0, backend=_sharded(
+        head_init=head_init, head_apply=head_apply, lr=1e-2, seed=0))
+    sid_h = host.open_session().sid
+    sid_t = twin.open_session().sid
+    for t in range(5):
+        host.submit(sid_h, _req(0, t, label=t % N_CLASSES))
+        twin.submit(sid_t, _req(0, t, label=t % N_CLASSES))
+        host.tick()
+        twin.tick()
+    snap = host.export_session(sid_h)
+    info = sharded.import_session(snap)
+    # gap slots round-trip: sentinel-remapped, not fake timestamps
+    z, t_row, label, newest = sharded.backend.export_row(info.sid)
+    np.testing.assert_array_equal(t_row, snap.ring_t)
+    np.testing.assert_array_equal(z, snap.ring_z)
+    np.testing.assert_array_equal(label, snap.ring_label)
+    assert newest == snap.ring_newest
+    loss_m, _, per_m = sharded.backend.refine(3)
+    loss_t, _, per_t = twin.backend.refine(3)
+    assert loss_m == loss_t
+    np.testing.assert_array_equal(per_m, per_t)
+    # and back: the sharded row implants into a host fleet unchanged
+    back = _gw(params, clock, capacity=4)
+    info_b = back.import_session(sharded.export_session(info.sid))
+    for x, y in zip(back.backend.export_row(info_b.sid), (z, t_row, label,
+                                                          newest)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_sharded_import_rejects_out_of_range_timestamps():
+    b = ShardedFleetBackend(capacity=2, window=4, dim=3, device="cpu")
+    sid = b.admit()
+    t = np.full((4,), np.iinfo(np.int64).max // 2, np.int64)
+    with pytest.raises(ValueError, match="int32"):
+        b.import_row(sid, np.zeros((4, 3), np.float32), t,
+                     np.full((4,), -1, np.int64), 1)
+
+
+def test_drain_lane_on_sharded_members_matches_host_members():
+    """The drain lane with every member's gateway on a 1-shard
+    ``ShardedFleetBackend``: zero shed and zero lost, the replay oracle,
+    and every served frame and ``ClusterStats`` book equal to the same
+    lane on host-backend members (the embeddings bitwise: a 1-shard
+    sharded gateway serves the host gateway's bits)."""
+    kw = dict(device="cpu", enc_cfg=CFG, params=init_audio_encoder(
+        CFG, torch.Generator().manual_seed(0)), rounds=4,
+        clock=frozen_clock)
+    lanes = {fleet: cluster_serve.cluster_drain(2, fleet=fleet, **kw)
+             for fleet in ("host", "sharded")}
+    host, shrd = lanes["host"], lanes["sharded"]
+    assert shrd["shed_expired"] == shrd["lost_in_flight"] == 0
+    assert shrd["migrations"] == host["migrations"] > 0
+    assert cluster_serve.books(shrd["stats"]) == \
+        cluster_serve.books(host["stats"])
+    ours = {(r.sid, r.t): r for r in shrd["results"]}
+    theirs = {(r.sid, r.t): r for r in host["results"]}
+    assert ours.keys() == theirs.keys()
+    for key, r in ours.items():
+        h = theirs[key]
+        assert (r.k, r.route, r.wire_bytes) == (h.k, h.route, h.wire_bytes)
+        np.testing.assert_array_equal(r.z, h.z)
+    assert shrd["parity"]["max_abs_dz"] <= Z_ATOL
 
 
 # ---------------------------------------------------------------------------
@@ -798,6 +882,11 @@ def _jax_params():
     return p, params_from_jax(jax.tree_util.tree_map(np.asarray, p))
 
 
+def frozen_clock():
+    """A member clock that never moves (see the drain lane's test)."""
+    return 0.0
+
+
 def test_drain_lane_matches_reference(monkeypatch):
     """One seeded drain lane (2 members x 4 sessions, 4 rounds a phase)
     through ``benchmarks/cluster_serve.py`` on the reference and
@@ -805,10 +894,15 @@ def test_drain_lane_matches_reference(monkeypatch):
     encoder weights: every served ``(sid, t, k, route, wire_bytes)``
     equal, ``z`` within ``Z_ATOL``, every ``ClusterStats`` book equal
     but the pause times and ``migrated_bytes`` (the port's pickle
-    length), which equals the port's own snapshots' bytes."""
+    length), which equals the port's own snapshots' bytes.  Both lanes'
+    members run on ``frozen_clock``, so no frame reaches an aging
+    threshold however slow the machine and the member books do not
+    depend on the load (``test_chaos_lane_matches_reference``)."""
     sys.path.insert(0, str(__import__("pathlib").Path(__file__).parents[1]))
     from benchmarks import cluster_serve as ref_lane
     monkeypatch.setattr(ref_lane, "DEEP_KW", KW)
+    monkeypatch.setitem(JaxGateway.__init__.__kwdefaults__, "clock",
+                        frozen_clock)
     made, ref_results, ref_snaps, port_snaps = [], [], [], []
     base = jax_cluster.GatewayCluster
 
@@ -838,7 +932,8 @@ def test_drain_lane_matches_reference(monkeypatch):
     _, tparams = _jax_params()
     port = cluster_serve.cluster_drain(
         2, device="cpu", enc_cfg=CFG, params=tparams, rounds=4,
-        on_member=lambda name, srv: record_exports(srv, port_snaps))
+        on_member=lambda name, srv: record_exports(srv, port_snaps),
+        clock=frozen_clock)
     skip = ("migration_pause_ms", "migrated_bytes")
     assert cluster_serve.books(port["stats"], skip=skip) == \
         cluster_serve.books(made[0].stats(), skip=skip)

@@ -293,10 +293,12 @@ def test_gateway_defaults_to_cuda_and_refuses_without_it(params):
 
 
 def test_unported_options_raise(params):
-    """The sharded dispatch plane is not ported; the rl policy is, and
-    without its params it raises as the reference does."""
+    """Options the gateway cannot honour raise as the reference's do:
+    the sharded dispatch plane over a host backend (it needs a
+    device-resident ``ShardedFleetBackend``), and the rl policy without
+    its params."""
     _, tp = params
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="device-resident"):
         _gw(tp, shard_dispatch=True)
     with pytest.raises(ValueError, match="rl_params"):
         make_policy("rl", L)

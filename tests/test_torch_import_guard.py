@@ -68,6 +68,15 @@ def test_guard_covers_the_last_counterparts():
         assert os.path.join("src", "repro_torch", rel) in files
 
 
+def test_guard_covers_the_sharded_slice():
+    files = _port_files()
+    for rel in ("distributed/__init__.py", "distributed/sharding.py",
+                "distributed/grad_sync.py", "launch/mesh.py",
+                "optim/compression.py", "core/fleet.py",
+                "runtime/multipod_demo.py"):
+        assert os.path.join("src", "repro_torch", rel) in files
+
+
 @pytest.mark.parametrize("rel", _port_files())
 def test_no_jax_or_reference_import(rel):
     with open(os.path.join(REPO, rel)) as fh:

@@ -534,24 +534,42 @@ def test_drain_rehomes_journals_off_the_leaving_member(params):
 # The chaos lane, port against reference
 # ---------------------------------------------------------------------------
 
-def test_chaos_lane_matches_reference():
+def frozen_clock():
+    """A clock that never moves: the lanes' members read it instead of
+    the wall clock (see ``test_chaos_lane_matches_reference``)."""
+    return 0.0
+
+
+def test_chaos_lane_matches_reference(monkeypatch):
     """One seeded kill-mid-stream run with replication (2 members x 4
     sessions, 4 rounds) through the reference lane's ``_chaos_once`` and
     the port's ``cluster_chaos``, on the reference's encoder weights:
     the same victim and kill, every served ``(sid, t, k, route,
     wire_bytes)`` equal, ``z`` within ``Z_ATOL``, and every
     ``ClusterStats`` book equal but the pause times — journal bytes
-    included (``entry_nbytes`` has no pickle in it)."""
+    included (``entry_nbytes`` has no pickle in it).
+
+    Both lanes' members run on ``frozen_clock``.  On the wall clock a
+    slow run (a loaded machine) lets frames wait past STANDARD's 2 s
+    aging threshold after the failover, the aging lane then composes the
+    member's ticks differently, and its gateway's ``dispatches`` book
+    moves (11 against 12 with a clock that advances 0.5 s a read).  On
+    a clock that never moves no frame ages, so every book — the member
+    books included — is compared, and none depends on the load."""
     sys.path.insert(0, str(Path(__file__).parents[1]))
     from benchmarks import cluster_serve as ref_lane
+    monkeypatch.setitem(JaxGateway.__init__.__kwdefaults__, "clock",
+                        frozen_clock)
     jparams, tparams = _jax_params()
     us = cluster_serve.spread_u(8)
     cl, infos, ref_results, t_next, victim = ref_lane._chaos_once(
         replicate=True, members=2, rounds=4, spm=4,
         cfg=JaxAudioEncCfg(**KW), params=jparams, us=us)
+    assert all(srv.gateway.clock is frozen_clock
+               for srv in cl._members.values())
     port = cluster_serve.cluster_chaos(2, replicate=True, device="cpu",
                                        enc_cfg=CFG, params=tparams,
-                                       rounds=4)
+                                       rounds=4, clock=frozen_clock)
     assert (port["victim"], port["t_next"], port["us"]) == \
         (victim, t_next, us)
     assert cluster_serve.books(port["stats"]) == \
