@@ -351,12 +351,38 @@ phase 15's asserts (zero shed, zero lost, the replay oracle), and one
 migration host -> sharded.  Counted as the ``sharded`` path: (a)'s
 sharded rounds, (b)'s rounds and (c)'s sharded ticks.
 
+Phase 18 runs the LM half of sharding on the card, float32, seeded
+random weights, meshes of logical shards of the one card. The flash
+kernels are held at each shard's block of heads against their plain
+versions (phase 9's and phase 11's tolerances), and timed at (a)'s. (a)
+qwen1.5-0.5b at full width and depth on (data 2, model 2), B 8 x 1,024,
+AdamW, the hybrid term, remat: step 0's loss and gradients on the mesh
+against the unsharded port (loss rtol 1e-5, each gathered gradient 1e-4
+of its max), bitwise from run to run; ``Trainer`` under ``rules_for``
+for 3 + 5 steps (the ``sharded_lm`` path: counts set to 0 before the 5),
+its step 0 loss against phase 12's at rtol 1e-5, per step 2 flash
+forwards, 1 dq and 1 dk/dv a layer a shard and one ``swd_rank_fwd``,
+``laplacian_energy`` and ``hybrid_reg_bwd``, replicas bitwise equal, the
+loss finite and falling; step p50 / p95 beside phase 12's, tokens/s,
+peak memory, one profiled step. (b) qwen3-1.7b cut to 4 layers on (data
+1, model 16), B 4 x 1,024: k and v row-parallel (8 kv heads over 16),
+one step's loss and gradients against the unsharded port. (c)
+arctic-480b cut as in phase 14 on (data 1, model 4), B 2 x 256: a
+forward and one ``Trainer`` step with ``moe_ep``; a layer's ``moe_ep``
+at cap 8.0 against ``moe_reference`` (2e-4), at the default 1.25 against
+``moe_ep`` on the CPU (1e-4 of the max; the dropped copies printed), and
+an S = 1 call (the replicated path) against ``moe_reference``. (d) (a)'s
+state saved through ``CheckpointManager``, laid by ``reshard_state``
+onto ``largest_feasible_mesh`` over two shards (bitwise equal to what
+was saved), and one more step there.
+
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
 result.  The line before the last is the kernels' JSON record (after a
 line with phase 12's summary, one with phase 13's, one with phase 14's
-one with phase 15's, one with phase 16's and one with phase 17's
-records); the last line is ``{"ok": true, "device": {...}}``.
+one with phase 15's, one with phase 16's, one with phase 17's and one
+with phase 18's records); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -4787,6 +4813,442 @@ def phase17(cfg, ops):
     return counted, readings, worst
 
 
+# phase 18: the LM half of sharding on logical shards of the card
+# (name, layers or None, B, S, warm-up steps, counted steps, mesh)
+LM18_TRAIN = ("qwen1.5-0.5b", None, 8, 1024, 3, 5, (2, 2))
+LM18_ROW = ("qwen3-1.7b", 4, 4, 1024, (1, 16))
+# (name, layers, experts, B, S, mesh)
+LM18_MOE = ("arctic-480b", 2, 8, 2, 256, (1, 4))
+LM18_LOSS_RTOL = 1e-5    # sharded vs unsharded loss
+LM18_RTOL = 1e-4         # each gathered gradient, of its leaf's max |g|
+MOE_EP_ATOL = 2e-4       # moe_ep vs moe_reference (the reference's bar)
+LM18_CPU = "cpu"         # the MoE layer's moe_ep, card vs this device
+
+
+def lm18_mesh(shape):
+    from repro_torch.launch.mesh import make_test_mesh
+    return make_test_mesh(shape, devices=[CARD] * int(np.prod(shape)))
+
+
+def lm18_rules(cfg, shape, B):
+    from repro_torch.distributed import sharding as shd
+    return shd.rules_for(lm18_mesh(shape), cfg, batch=B, kind="train")
+
+
+def lm18_grads(cfg, tcfg, rules, params, batch, draws, times=1):
+    """Step 0's loss, metrics and gradients on the mesh of ``rules`` (the
+    params laid out, each block's gradient psum'd over its replicas),
+    ``times`` times, bitwise the same each time -> (loss, metrics, one
+    gathered gradient a leaf)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.optim.sgd import tree_leaves
+    from repro_torch.runtime import trainer as tr
+    lay = shd.ShardLayout(rules)
+    placed = shd.place_tree(params, lm.param_shardings(cfg, lay))
+    blocks = {k: lay.batch_blocks(v) for k, v in batch.items()}
+    loss_fn = tr.make_sharded_loss_fn(cfg, tcfg, lay)
+    runs = []
+    for _ in range(times):
+        (loss, m), g = tr.sharded_value_and_grad(loss_fn, placed, lay.n,
+                                                 blocks, draws)
+        runs.append((loss, m, tr.reduce_replicas(placed, g)))
+    torch.cuda.synchronize()
+    loss, m, g = runs[0]
+    for l2, _, g2 in runs[1:]:
+        check(torch.equal(loss, l2) and all(
+            torch.equal(a, b) for ga, gb in zip(g, g2)
+            for a, b in zip(ga, gb)),
+            f"{cfg.name}: the sharded step 0 is not bitwise from run to run")
+    gathered = [shd.Placed(gs, t.sharding, t.shape).gather()
+                for t, gs in zip(tree_leaves(placed), g)]
+    return loss, m, gathered
+
+
+def lm18_against_unsharded(cfg, tcfg, shape, params, batch, draws, times):
+    """Step 0 unsharded and on the mesh from the same params, batch and
+    draws -> {"loss": rel err, "gradients": worst rel err, ...}."""
+    from repro_torch.optim.sgd import value_and_grad
+    from repro_torch.runtime import trainer as tr
+    B = batch["labels"].shape[0]
+    (lu, mu), gu = value_and_grad(tr.make_loss_fn(cfg, tcfg), params, batch,
+                                  draws)
+    ls, ms, gs = lm18_grads(cfg, tcfg, lm18_rules(cfg, shape, B), params,
+                            batch, draws, times)
+    errs = {"loss": abs(ls.item() - lu.item()) / abs(lu.item())}
+    for k in mu:
+        errs[k] = abs(ms[k].item() - mu[k].item()) / max(abs(mu[k].item()),
+                                                         1e-30)
+    errs["gradients"] = max(pd_rel(a, b) for a, b in zip(gs, gu))
+    check(errs["loss"] <= LM18_LOSS_RTOL,
+          f"{cfg.name} on {shape}: loss {ls.item()} vs unsharded "
+          f"{lu.item()}: {errs['loss']} > {LM18_LOSS_RTOL}")
+    check(errs["gradients"] <= LM18_RTOL,
+          f"{cfg.name} on {shape}: gradients {errs['gradients']} of a "
+          f"leaf's max > {LM18_RTOL}")
+    return errs, lu.item()
+
+
+def replicas_equal(state):
+    """Every block of every ``Placed`` leaf of ``state`` bitwise equal to
+    the other replicas of its block."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.optim.sgd import tree_leaves
+    for t in tree_leaves(state):
+        if not isinstance(t, shd.Placed):
+            continue
+        first = {}
+        for b, sl in zip(t.blocks, t.sharding.slices(t.shape)):
+            key = tuple((x.start, x.stop) for x in sl)
+            if key in first and not torch.equal(first[key], b):
+                return False
+            first.setdefault(key, b)
+    return True
+
+
+def lm18_train(dev, ops, p12_first_loss, p12_p50):
+    """(a) and (d) -> (launches of the counted run, readings)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.swd import draw, seeded_generator
+    from repro_torch.data.tokens import random_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.runtime.trainer import Trainer
+    name, n_layers, B, S, warm, timed, shape = LM18_TRAIN
+    cfg = get_config(name)
+    if n_layers:
+        from dataclasses import replace
+        cfg = replace(cfg, n_layers=n_layers)
+    L, n = cfg.n_layers, int(np.prod(shape))
+    tcfg = lm_train_cfg(warm + timed, S)
+    data_fn = lambda step: random_batch(  # noqa: E731
+        torch.Generator(device=dev).manual_seed(100 + step), cfg.vocab, B, S)
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0))
+    draws = draw(seeded_generator(tcfg.seed, 0, dev), 50,
+                 B * (S // tcfg.hybrid_pool), cfg.d_model)
+    errs, loss0 = lm18_against_unsharded(cfg, tcfg, shape, params,
+                                         data_fn(0), draws, times=2)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rules = lm18_rules(cfg, shape, B)
+    with shd.axis_rules(rules):
+        trainer = Trainer(cfg, tcfg, data_fn, device=dev)
+    trainer.run(warm, log_every=0)
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    trainer.run(timed, log_every=0)
+    launches = {k: w.launches for k, w in ops.KERNELS.items()}
+    want = {"flash_attention_fwd": 2 * L * n * timed,
+            "flash_attention_bwd_dq": L * n * timed,
+            "flash_attention_bwd_dkv": L * n * timed,
+            "swd_rank_fwd": timed, "laplacian_energy": timed,
+            "hybrid_reg_bwd": timed}
+    check(launches == {k: want.get(k, 0) for k in launches},
+          f"sharded {name}: launches {launches} in {timed} steps, want "
+          f"{want} (per shard 2 flash forwards a layer under remat, 1 dq and"
+          " 1 dk/dv a layer; the hybrid term once a step) and no other")
+    check(replicas_equal(trainer.state),
+          f"sharded {name}: replicas of a block differ after the steps")
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"sharded {name}: losses {losses} not finite and falling")
+    p12_err = abs(losses[0] - p12_first_loss) / abs(p12_first_loss)
+    check(p12_err <= LM18_LOSS_RTOL,
+          f"sharded {name}: step 0 loss {losses[0]} vs phase 12's "
+          f"{p12_first_loss}: {p12_err} > {LM18_LOSS_RTOL}")
+    times = [h["time_s"] * 1e3 for h in hist[warm:]]
+    p50, p95 = np.percentile(times, 50), np.percentile(times, 95)
+    peak = torch.cuda.max_memory_allocated()
+    out = {"name": name, "mesh": list(shape), "B": B, "S": S,
+           "step0_vs_unsharded": errs, "step0_loss_vs_phase12": p12_err,
+           "step_ms_p50": p50, "step_ms_p95": p95,
+           "phase12_step_ms_p50": p12_p50,
+           "tokens_per_s": B * S / (p50 / 1e3), "peak_bytes": peak,
+           "loss_first": losses[0], "loss_last": losses[-1]}
+    print(f"phase 18 (a): {name} at full width ({L} layers) on (data, "
+          f"model) = {shape} logical shards of the card, B {B} x S {S}, "
+          f"AdamW, hybrid, remat; step 0 vs the unsharded port: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()) + f" (bitwise from "
+          f"run to run); Trainer {warm} + {timed} steps: step ms p50 "
+          f"{p50:.3f} (p95 {p95:.3f}) beside phase 12's p50 {p12_p50:.3f}, "
+          f"{out['tokens_per_s']:.1f} tokens/s, peak {peak / 1e9:.3f} GB; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (step 0 vs phase 12 "
+          f"{p12_err:.3e}); replicas bitwise equal; launches " + ", ".join(
+              f"{k} {launches[k]}" for k in LM_PATH_KERNELS))
+    out["profile"] = profile_train_lm_step(trainer, p50)
+    out["elastic"] = lm18_elastic(cfg, tcfg, trainer, data_fn, B)
+    return launches, out
+
+
+def lm18_elastic(cfg, tcfg, trainer, data_fn, B):
+    """(d): ``trainer``'s state saved, resharded onto two shards, bitwise,
+    and one more step there -> readings."""
+    import tempfile
+
+    from repro_torch.checkpoint.elastic import (largest_feasible_mesh,
+                                                reshard_state)
+    from repro_torch.checkpoint.manager import CheckpointManager, snapshot
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.runtime.trainer import Trainer
+    t0 = time.perf_counter()
+    step = trainer.step
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        saved = snapshot(trainer.state)
+        del trainer
+        torch.cuda.empty_cache()
+        mgr.save(step, saved)
+        restored, at = mgr.restore_latest(saved)
+    check(at == step, f"elastic: restored step {at}, saved {step}")
+    mesh2 = largest_feasible_mesh([torch.device(CARD)] * 2,
+                                  model_divisors={1, 2})
+    check(mesh2 is not None and mesh2.shape == {"data": 1, "model": 2},
+          f"elastic: largest_feasible_mesh gave {mesh2}")
+    axes = lm.param_axes(cfg)
+    state = {"params": reshard_state(restored["params"], axes, mesh2),
+             "opt": {"m": reshard_state(restored["opt"]["m"], axes, mesh2),
+                     "v": reshard_state(restored["opt"]["v"], axes, mesh2),
+                     "step": reshard_state(restored["opt"]["step"], (),
+                                           mesh2)},
+             "step": torch.as_tensor(restored["step"]).to(CARD)}
+    got = shd.gather_tree(state)
+    from repro_torch.checkpoint.serial import _paths
+    for (k, a), (_, b) in zip(_paths(got), _paths(saved)):
+        check(torch.equal(a.cpu(), torch.from_numpy(b)),
+              f"elastic: {k} not bitwise what was saved")
+    reshard_s = time.perf_counter() - t0
+    with shd.axis_rules(shd.rules_for(mesh2, cfg, batch=B, kind="train")):
+        t2 = Trainer(cfg, tcfg, data_fn, device=CARD)
+    for (k, a), (_, b) in zip(_paths(t2.state["params"]),
+                              _paths(state["params"])):
+        check(tuple(a.sharding.spec) == tuple(b.sharding.spec),
+              f"elastic: {k} laid out as {b.sharding.spec}, the trainer's "
+              f"rules say {a.sharding.spec}")
+    t2.state = state
+    t2._step = step
+    m = t2.run(1, log_every=0)[-1]
+    check(np.isfinite(m["loss"]), f"elastic: step {step} loss {m['loss']}")
+    out = {"mesh": mesh2.shape, "step": step, "loss": m["loss"],
+           "save_restore_reshard_s": reshard_s}
+    print(f"phase 18 (d): state at step {step} saved, restored and "
+          f"resharded onto {mesh2.shape} (largest_feasible_mesh over 2 "
+          f"shards, model_divisors {{1, 2}}) in {reshard_s:.2f} s, bitwise "
+          f"what was saved; one more step there: loss {m['loss']:.4f}")
+    del t2, state, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm18_row_parallel(dev, ops):
+    """(b) -> readings."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.swd import draw, seeded_generator
+    from repro_torch.data.tokens import random_batch
+    from repro_torch.models import lm
+    name, layers, B, S, shape = LM18_ROW
+    cfg = replace(get_config(name), n_layers=layers)
+    tcfg = lm_train_cfg(1, S)
+    rules = lm18_rules(cfg, shape, B)
+    check(rules.param_rules["kv_in"] == "model"
+          and rules.param_rules["heads"] == "model",
+          f"{name} on {shape}: not the row-parallel kv fallback "
+          f"({rules.param_rules})")
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(1))
+    batch = random_batch(torch.Generator(device=dev).manual_seed(2),
+                         cfg.vocab, B, S)
+    draws = draw(seeded_generator(0, 1, dev), 50,
+                 B * (S // tcfg.hybrid_pool), cfg.d_model)
+    for w in ops.KERNELS.values():
+        w.launches = 0
+    errs, _ = lm18_against_unsharded(cfg, tcfg, shape, params, batch, draws,
+                                     times=1)
+    n, L = int(np.prod(shape)), cfg.n_layers
+    got = ops.KERNELS["flash_attention_bwd_dq"].launches
+    check(got == L + L * n, f"{name} on {shape}: {got} dq launches, want "
+          f"{L} unsharded + {L * n} sharded")
+    print(f"phase 18 (b): {name} cut to {L} layers on (data, model) = "
+          f"{shape}, B {B} x S {S}: q column-parallel, k and v row-parallel "
+          f"(kv heads {cfg.n_kv_heads} over {shape[1]}), each shard's q head "
+          "meeting its kv head; step 0 vs the unsharded port: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()))
+    del params
+    torch.cuda.empty_cache()
+    return {"name": name, "layers": L, "mesh": list(shape),
+            "step0_vs_unsharded": errs}
+
+
+def lm18_moe(dev, ops):
+    """(c) -> readings."""
+    from repro_torch.data.tokens import random_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.runtime.trainer import TrainCfg, Trainer
+    name, layers, experts, B, S, shape = LM18_MOE
+    cfg = pd_config(name, layers, experts)
+    rules = lm18_rules(cfg, shape, B)
+    data_fn = lambda step: random_batch(  # noqa: E731
+        torch.Generator(device=dev).manual_seed(300 + step), cfg.vocab, B, S)
+    torch.cuda.empty_cache()
+    with shd.axis_rules(rules):
+        trainer = Trainer(cfg, TrainCfg(total_steps=1, warmup=1), data_fn,
+                          device=dev)
+        lay = trainer.layout
+        ps = shd.local_trees(trainer.state["params"], lay.n)
+        batch = {k: lay.batch_blocks(v.to(dev))
+                 for k, v in data_fn(0).items()}
+        with torch.no_grad():
+            hs, aux = lm.forward_sharded(lay, cfg, ps, tokens=batch["tokens"])
+        fwd_ok = all(torch.isfinite(h).all().item() for h in hs)
+        m = trainer.run(1, log_every=0)[-1]
+    check(fwd_ok and np.isfinite(m["loss"]),
+          f"{name} on {shape}: forward finite {fwd_ok}, step loss "
+          f"{m['loss']}")
+    # one layer's MoE at its params, on random unit-scale inputs
+    moe_p = shd.gather_tree({k: shd.map_placed(
+        lambda t: shd.Placed([b[0] for b in t.blocks], shd.NamedSharding(
+            t.sharding.mesh, t.sharding.spec[1:]), t.shape[1:]), v)
+        for k, v in trainer.state["params"]["blocks"]["layers"]["moe"].items()})
+    del trainer, ps, hs
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn(B, S, cfg.d_model, device=dev, generator=g)
+    mc = cfg.moe
+    with torch.no_grad():
+        ref, aux_ref = moe_mod.moe_reference(moe_p, mc, x)
+        lay = shd.ShardLayout(rules)
+        with shd.axis_rules(rules):
+            y8, aux8 = moe_mod.moe_ep(moe_p, mc, x, cap_factor=8.0)
+            ys = moe_mod.moe_ep_sharded(
+                lay, shd.local_trees(shd.place_tree(
+                    moe_p, shd.param_sharding(moe_mod._moe_axes(mc))),
+                    lay.n), mc, lay.batch_blocks(x), with_drops=True)
+            y_dev = lay.gather_batch(ys[0])
+            dropped = int(sum(d.item() for d in ys[2]))
+            x1 = x[:, :1]
+            y1, _ = moe_mod.moe_ep(moe_p, mc, x1)
+            r1, _ = moe_mod.moe_reference(moe_p, mc, x1)
+        cpu_mesh = make_test_mesh(shape, devices=[LM18_CPU]
+                                  * int(np.prod(shape)))
+        cpu_rules = shd.rules_for(cpu_mesh, cfg, batch=B, kind="train")
+        with shd.axis_rules(cpu_rules):
+            y_cpu, _ = moe_mod.moe_ep(_to_cpu(moe_p), mc, x.to(LM18_CPU))
+    err8 = (y8 - ref).abs().max().item()
+    aux_err = abs(aux8.item() - aux_ref.item()) / abs(aux_ref.item())
+    err_cpu = rel_err(y_dev.cpu(), y_cpu)
+    err1 = (y1 - r1).abs().max().item()
+    check(err8 <= MOE_EP_ATOL and aux_err <= 1e-4,
+          f"moe_ep (cap 8.0) vs moe_reference: y {err8} > {MOE_EP_ATOL} or "
+          f"aux {aux_err} > 1e-4")
+    check(err_cpu <= LM18_RTOL, f"moe_ep (cap 1.25) card vs CPU: {err_cpu} "
+          f"of the max > {LM18_RTOL}")
+    check(err1 <= MOE_EP_ATOL, f"moe_ep at S = 1 (replicated) vs "
+          f"moe_reference: {err1} > {MOE_EP_ATOL}")
+    copies = B * S * mc.top_k
+    print(f"phase 18 (c): {name} cut to {layers} layers and {experts} "
+          f"experts on (data, model) = {shape}, B {B} x S {S}: forward "
+          f"finite, one Trainer step loss {m['loss']:.4f}; a layer's moe_ep "
+          f"at cap 8.0 vs moe_reference: y {err8:.3e}, aux {aux_err:.3e}; "
+          f"at cap 1.25 card vs CPU {err_cpu:.3e} of the max, dropped "
+          f"{dropped} of {copies} copies; S = 1 (replicated path) vs "
+          f"moe_reference {err1:.3e}")
+    return {"name": name, "layers": layers, "experts": experts,
+            "mesh": list(shape), "step_loss": m["loss"],
+            "ep_cap8_vs_reference": err8, "aux_rel": aux_err,
+            "ep_card_vs_cpu": err_cpu, "dropped": dropped,
+            "copies": copies, "replicated_vs_reference": err1}
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.to(LM18_CPU)
+            for k, v in tree.items()}
+
+
+LM18_FLASH = ((8 // 2, 16 // 2, 16 // 2, 1024, 1024, 64, True),
+              (4, 16 // 16, 1, 1024, 1024, 128, True),
+              (2, 56 // 4, 8 // 4, 256, 256, 128, True))
+
+
+def hold_sharded_flash(dev, ops):
+    """The flash kernels at each shard's block in (a), (b), (c) against
+    their plain versions (phase 9's atols; phase 11's 1e-5 of each
+    gradient's max), bitwise from run to run, and timed at (a)'s ->
+    ({name: max |err|}, times)."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    worst = dict.fromkeys(("flash_attention_fwd",) + BWD_KERNELS, 0.0)
+    for B, H, KV, Sq, Sk, hd, causal in LM18_FLASH:
+        what = f"B={B} H={H} KV={KV} S={Sq} hd={hd}"
+        q, k, v = flash_inputs(g, dev, B, H, KV, Sq, Sk, hd)
+        worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"], hold(
+            "flash_attention_fwd",
+            lambda q, k, v: ops.flash_attention_fwd(q, k, v, causal=causal),
+            lambda q, k, v: ops.flash_attention_ref(q, k, v, causal),
+            (q, k, v), [(0.0, FLASH_O_ATOL), (0.0, FLASH_LSE_ATOL)], what))
+        do = torch.randn(B, H, Sq, hd, device=dev, generator=g)
+        o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+        args = (q, k, v, do, lse, (do * o).sum(-1))
+        (dq,) = same_bits(lambda *a: (ops.flash_attention_bwd_dq(
+            *a, causal=causal),), args, f"dq at {what}")
+        dk, dv = same_bits(lambda *a: ops.flash_attention_bwd_dkv(
+            *a, causal=causal), args, f"dk/dv at {what}")
+        plain = (ops.flash_attention_bwd_dq_ref(*args, causal),
+                 *ops.flash_attention_bwd_dkv_ref(*args, causal))
+        err = rel_grads((dq, dk, dv), plain)
+        check(err <= FLASH_BWD_RTOL, f"flash backward != plain at {what}: "
+              f"{err} > {FLASH_BWD_RTOL}")
+        worst["flash_attention_bwd_dq"] = max(
+            worst["flash_attention_bwd_dq"],
+            (dq - plain[0]).abs().max().item())
+        worst["flash_attention_bwd_dkv"] = max(
+            worst["flash_attention_bwd_dkv"],
+            (dk - plain[1]).abs().max().item(),
+            (dv - plain[2]).abs().max().item())
+    B, H, KV, Sq, Sk, hd, causal = LM18_FLASH[0]
+    q, k, v = flash_inputs(g, dev, B, H, KV, Sq, Sk, hd)
+    do = torch.randn(B, H, Sq, hd, device=dev, generator=g)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+    args = (q, k, v, do, lse, (do * o).sum(-1))
+    times = {"shape": [B, H, KV, Sq, Sk, hd],
+             "flash_attention_fwd": device_ms(
+                 lambda a: ops.flash_attention_fwd(*a, causal=True),
+                 (q, k, v)),
+             "flash_attention_bwd_dq": device_ms(
+                 lambda a: ops.flash_attention_bwd_dq(*a, causal=True), args),
+             "flash_attention_bwd_dkv": device_ms(
+                 lambda a: ops.flash_attention_bwd_dkv(*a, causal=True),
+                 args)}
+    for w in ops.KERNELS.values():
+        w.launches = 0
+    print("phase 18: flash kernels at the per-shard shapes (B, H, KV, Sq, "
+          f"Sk, hd, causal) {LM18_FLASH} == plain (o atol {FLASH_O_ATOL}, "
+          f"lse atol {FLASH_LSE_ATOL}; backward {FLASH_BWD_RTOL} of each "
+          "gradient's max), bitwise from run to run; max |err| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()) + "; device ms at "
+          f"{times['shape']}: " + ", ".join(
+              f"{k} {times[k]:.3f}" for k in worst))
+    return worst, times
+
+
+def phase18(dev, ops, p12_first_loss, p12_p50):
+    """The LM half of sharding on the card -> (the ``sharded_lm`` path's
+    launch counts, the readings, max |err| by flash kernel at the
+    per-shard shapes)."""
+    start = time.perf_counter()
+    worst, times = hold_sharded_flash(dev, ops)
+    launches, train = lm18_train(dev, ops, p12_first_loss, p12_p50)
+    readings = {"train": train, "row_parallel": lm18_row_parallel(dev, ops),
+                "moe": lm18_moe(dev, ops), "flash_ms": times}
+    readings["seconds"] = time.perf_counter() - start
+    print(f"phase 18: {readings['seconds']:.1f} s")
+    return launches, readings, worst
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -4833,13 +5295,16 @@ def main():
     quality_launches, example_launches, quality, quality_worst = \
         phase16(ops)
     sharded_launches, sharded, sharded_worst = phase17(CFG, ops)
+    sharded_lm_launches, sharded_lm, sharded_lm_worst = phase18(
+        dev, ops, lm_runs[0]["loss_first"], lm_runs[0]["step_ms_p50"])
     paths = {"serve": launches, "refine": refine_launches,
              "train": train_launches, "per_frame": frame_launches,
              "stream": stream_launches, "cascade": cascade_launches,
              "lm_train": lm_launches, "control": control_launches,
              "prefill": prefill_launches, "decode": decode_launches,
              "cluster": cluster_launches, "quality": quality_launches,
-             "examples": example_launches, "sharded": sharded_launches}
+             "examples": example_launches, "sharded": sharded_launches,
+             "sharded_lm": sharded_lm_launches}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -4952,6 +5417,12 @@ def main():
         r["sharded_max_abs_err"] = sharded_worst.get(
             "wire" if r["name"] == "wire_roundtrip_grouped" else r["name"])
     print(json.dumps({"sharded": sharded}))
+    # phase 18's holds at the LM's per-shard shapes, and its flash times
+    for r in records:
+        r["sharded_lm_max_abs_err"] = sharded_lm_worst.get(r["name"])
+        if r["name"] in sharded_lm["flash_ms"]:
+            r["sharded_lm_shape_ms"] = sharded_lm["flash_ms"][r["name"]]
+    print(json.dumps({"sharded_lm": sharded_lm}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,11 @@ Port of ``repro.checkpoint.manager``:
 - ``restore_latest`` scans for the newest committed step — the restart
   path after a node failure.
 
+A state laid out on a mesh (``Placed`` leaves, ``distributed.sharding``)
+is saved as full arrays and restored onto the template's layout, so
+checkpoints are mesh-agnostic as the reference's are
+(``checkpoint/elastic.py`` lays them onto another mesh).
+
 The snapshot: the reference's state is immutable arrays, so it saves
 ``np.asarray`` views from its thread.  The port's optimizers update the
 parameters and moments in place, and on the CPU ``Tensor.numpy()``
@@ -24,7 +29,11 @@ import re
 import shutil
 import threading
 
+import numpy as np
+import torch
+
 from repro_torch.checkpoint.serial import load_tree, save_tree
+from repro_torch.distributed.sharding import gather_tree
 from repro_torch.optim.sgd import tree_map
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -32,8 +41,14 @@ _STEP_RE = re.compile(r"^step_(\d+)$")
 
 def snapshot(state):
     """A host copy of every tensor of ``state`` (numpy arrays that share
-    nothing with the state)."""
-    return tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(), state)
+    nothing with the state; a ``Placed`` leaf gathered whole).  Numpy
+    leaves are taken as they are: a snapshot saves without a copy."""
+    def leaf(t):
+        if isinstance(t, np.ndarray):
+            return t
+        return t.detach().to("cpu", copy=True).numpy()
+    with torch.no_grad():
+        return tree_map(leaf, gather_tree(state))
 
 
 class CheckpointManager:

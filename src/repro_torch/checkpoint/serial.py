@@ -27,6 +27,9 @@ def _paths(tree, prefix=()):
 
 
 def _to_numpy(x):
+    from repro_torch.distributed.sharding import Placed
+    if isinstance(x, Placed):
+        x = x.gather()
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
@@ -45,7 +48,8 @@ def save_tree(path, tree):
 def load_tree(path, template):
     """Restore into the structure of ``template``: each leaf from the
     entry of its path, as a tensor of the template leaf's dtype on its
-    device."""
+    device (a ``Placed`` leaf: laid out as it is, each block a copy)."""
+    from repro_torch.distributed.sharding import Placed
     with np.load(path) as data:
         def rec(t, prefix):
             if isinstance(t, dict):
@@ -54,6 +58,8 @@ def load_tree(path, template):
                 return type(t)(rec(v, prefix + (str(i),))
                                for i, v in enumerate(t))
             arr = torch.from_numpy(np.array(data["/".join(prefix)]))
+            if isinstance(t, Placed):
+                return Placed.put(arr.to(t.dtype), t.sharding)
             if isinstance(t, torch.Tensor):
                 arr = arr.to(dtype=t.dtype, device=t.device)
             return arr

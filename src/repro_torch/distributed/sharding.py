@@ -1,14 +1,25 @@
-"""The sessions half of the reference's sharding module: the mesh the
-fleet data plane shards its session rows over, the row block each shard
-owns, and the collectives the reference's ``shard_map`` code calls.
+"""Sharding over a mesh of devices in one process: the reference's
+logical-axis rules for the LM, the sessions mesh of the fleet data plane,
+where a global value's blocks live, and the collectives the reference's
+``shard_map`` code calls.
 
-Port of the fleet part of ``repro.distributed.sharding`` (the logical
-axis rules of the LM modules are not here).  The reference runs one
-program per device under ``shard_map``; the port runs in one process
-and holds one value per shard, in shard order.  A mesh is an ordered
-array of ``torch.device``s with named axes, and a device may appear
-more than once: S logical shards on one card are the counterpart of the
-reference's forced host devices on one CPU.
+Port of ``repro.distributed.sharding``.  The reference runs one program
+per device (GSPMD, or ``shard_map``); the port runs in one process and
+holds one value per shard, in shard order.  A mesh is an ordered array of
+``torch.device``s with named axes, and a device may appear more than
+once: S logical shards on one card are the counterpart of the reference's
+forced host devices on one CPU.
+
+Logical axes: model code names each dim of a parameter or activation
+("batch", "heads", "mlp", ...); a rule set (``AxisRules``, installed with
+``axis_rules``) maps each name to a mesh axis, a tuple of them, or None.
+``make_rules`` and ``rules_for`` build the reference's standard sets,
+entry for entry.  A ``PartitionSpec`` is a tuple of those entries, one a
+dim.  ``shard_slices`` gives the block of a global tensor each shard holds
+under a spec, ``Placed`` is a global tensor held as those blocks, and
+``shard`` re-lays a value to the spec its logical axes give (the
+counterpart of ``with_sharding_constraint``); outside any rules every
+annotation is a no-op.
 
 Collectives take the shards' values as a sequence, in shard order (a
 tensor, or a dict/list/tuple tree of tensors, per shard), and return a
@@ -16,10 +27,18 @@ tensor, or a dict/list/tuple tree of tensors, per shard), and return a
 device.  Each reduction runs once, on the first shard's device, in
 fixed shard order (``x0 + x1 + ...``), with no atomics, so it gives the
 same bits on every run; at one shard each collective returns its input
-unchanged.  The reductions carry autograd like any other tensor
+unchanged.  The collectives carry autograd like any other tensor
 arithmetic: a result's gradient reaches every shard's input.
+``psum_over`` and the other ``*_over`` forms run a collective within each
+group of shards that differ only along the named mesh axes (a flat list
+of every shard's value, in the mesh's row-major order).
 """
 from __future__ import annotations
+
+import itertools
+import math
+import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -154,5 +173,552 @@ def ppermute(xs, perm, axis_name=None):
     return out
 
 
+def all_gather(xs, axis=0, *, tiled=False, axis_name=None):
+    """Every shard's value on every shard (``jax.lax.all_gather``): stacked
+    along a new dim ``axis`` in shard order, or concatenated along
+    ``axis`` with ``tiled``."""
+    xs = list(xs)
+    if len(xs) == 1 and tiled:
+        return PerShard(xs)
+    join = torch.cat if tiled else torch.stack
+
+    def leaf(*vals):
+        dev = vals[0].device
+        return join([v.to(dev) for v in vals], axis)
+    total = _tree_map(leaf, *xs)
+    return PerShard(_tree_map(lambda a, x: a.to(x.device), total, x)
+                    for x in xs)
+
+
+def all_to_all(xs, split_axis, concat_axis, axis_name=None):
+    """``jax.lax.all_to_all`` over R shards (a tensor a shard): shard i's
+    value splits into R equal chunks along ``split_axis``; chunk j goes to
+    shard j, which concatenates what it receives along ``concat_axis`` in
+    source order."""
+    xs = list(xs)
+    R = len(xs)
+    if R == 1:
+        return PerShard(xs)
+    for x in xs:
+        if x.shape[split_axis] % R:
+            raise ValueError(f"all_to_all: dim {split_axis} of "
+                             f"{tuple(x.shape)} does not split {R} ways")
+    parts = [x.chunk(R, split_axis) for x in xs]
+    return PerShard(torch.cat([parts[i][j].to(xs[j].device)
+                               for i in range(R)], concat_axis)
+                    for j in range(R))
+
+
+def axis_index(xs, axis_name=None):
+    """Each shard's index along the axis (``jax.lax.axis_index``)."""
+    return PerShard(range(len(list(xs))))
+
+
+# -- groups of a mesh ---------------------------------------------------------
+
+def axis_groups(mesh, axes) -> list:
+    """The shards (flat indices in the mesh's row-major order) grouped by
+    their coordinates off ``axes``: each group lists the shards that
+    differ only along ``axes``, ordered row-major over ``axes``."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    for a in axes:
+        if a not in mesh.axis_names:
+            raise ValueError(f"axis {a!r} is not in the mesh's "
+                             f"{mesh.axis_names}")
+    shape = mesh.devices.shape
+    flat = np.arange(mesh.devices.size).reshape(shape)
+    inner = [mesh.axis_names.index(a) for a in axes]
+    outer = [i for i in range(len(shape)) if i not in inner]
+    arr = flat.transpose(outer + inner).reshape(
+        math.prod(shape[i] for i in outer) if outer else 1, -1)
+    return [list(map(int, row)) for row in arr]
+
+
+def _over(fn, vals, mesh, axes):
+    vals = list(vals)
+    out = [None] * len(vals)
+    for group in axis_groups(mesh, axes):
+        for i, v in zip(group, fn([vals[i] for i in group])):
+            out[i] = v
+    return PerShard(out)
+
+
+def psum_over(vals, mesh, axes):
+    """``psum`` within each group of ``axis_groups(mesh, axes)``."""
+    return _over(psum, vals, mesh, axes)
+
+
+def pmax_over(vals, mesh, axes):
+    return _over(pmax, vals, mesh, axes)
+
+
+def pmean_over(vals, mesh, axes):
+    return _over(pmean, vals, mesh, axes)
+
+
+def all_gather_over(vals, mesh, axes, axis=0, *, tiled=False):
+    return _over(lambda xs: all_gather(xs, axis, tiled=tiled), vals, mesh,
+                 axes)
+
+
+def all_to_all_over(vals, mesh, axes, split_axis, concat_axis):
+    return _over(lambda xs: all_to_all(xs, split_axis, concat_axis), vals,
+                 mesh, axes)
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis rules
+# ---------------------------------------------------------------------------
+
+class PartitionSpec(tuple):
+    """One entry a dim: a mesh axis name, a tuple of them (the dim split
+    over their product, first axis major) or None (whole on every shard)
+    -- ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return "PartitionSpec" + tuple.__repr__(tuple(self))
+
+
+P = PartitionSpec
+_CTX = threading.local()
+
+
+class AxisRules:
+    """A mapping logical-axis-name -> mesh axis (str | tuple | None), one
+    for parameters and one for activations, and the mesh they map to."""
+
+    def __init__(self, param_rules: dict, act_rules: dict, mesh):
+        self.param_rules = dict(param_rules)
+        self.act_rules = dict(act_rules)
+        self.mesh = mesh
+
+    def spec(self, axes: tuple, *, kind: str = "act") -> PartitionSpec:
+        rules = self.param_rules if kind == "param" else self.act_rules
+        return P(*[rules.get(a) for a in axes])
+
+
+def current_rules():
+    return getattr(_CTX, "rules", None)
+
+
+@contextmanager
+def axis_rules(rules: AxisRules):
+    """Install ``rules`` on this thread for the ``with`` block."""
+    prev = getattr(_CTX, "rules", None)
+    _CTX.rules = rules
+    try:
+        yield rules
+    finally:
+        _CTX.rules = prev
+
+
+def logical_spec(axes: tuple, *, kind: str = "act") -> PartitionSpec:
+    rules = current_rules()
+    if rules is None:
+        return P()
+    return rules.spec(axes, kind=kind)
+
+
+def is_axes_leaf(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None)))
+                                        for a in x)
+
+
+def map_axes(fn, tree):
+    """``fn`` over the leaves (tuples of logical names) of an axes tree."""
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v) for k, v in tree.items()}
+    if is_axes_leaf(tree):
+        return fn(tree)
+    raise TypeError(f"not an axes tree: {tree!r}")
+
+
+def param_pspecs(axes_tree):
+    """Tree of PartitionSpecs for a params tree of logical-axes tuples
+    (``P()`` everywhere outside any rules)."""
+    rules = current_rules()
+    if rules is None:
+        return map_axes(lambda axes: P(), axes_tree)
+    return map_axes(lambda axes: rules.spec(axes, kind="param"), axes_tree)
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec) -> tuple:
+    """Every mesh axis a spec splits a dim over."""
+    return tuple(a for e in spec for a in _entry_axes(e))
+
+
+def shard_slices(shape, spec, mesh) -> list:
+    """The block of a global tensor of ``shape`` that each shard of
+    ``mesh`` holds under ``spec`` -> one tuple of slices a shard, in the
+    mesh's row-major order.  A split dim must divide evenly; a spec
+    shorter than the shape leaves the trailing dims whole."""
+    spec = tuple(spec)
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} for a {len(shape)}-d shape")
+    sizes = mesh.shape
+    used = spec_axes(spec)
+    if len(set(used)) != len(used):
+        raise ValueError(f"spec {spec} names a mesh axis twice")
+    for dim, entry in enumerate(spec):
+        k = math.prod(sizes[a] for a in _entry_axes(entry)) if entry else 1
+        for a in _entry_axes(entry):
+            if a not in sizes:
+                raise ValueError(f"spec {spec}: no mesh axis {a!r}")
+        if shape[dim] % k:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"{k} ways over {entry}")
+    out = []
+    for coords in itertools.product(*(range(n)
+                                       for n in mesh.devices.shape)):
+        at = dict(zip(mesh.axis_names, coords))
+        sl = []
+        for dim in range(len(shape)):
+            entry = spec[dim] if dim < len(spec) else None
+            idx, k = 0, 1
+            for a in _entry_axes(entry):
+                idx, k = idx * sizes[a] + at[a], k * sizes[a]
+            n = shape[dim] // k
+            sl.append(slice(idx * n, (idx + 1) * n))
+        out.append(tuple(sl))
+    return out
+
+
+def param_sharding(axes_tree, mesh=None):
+    """Where each parameter lives under the installed rules: a tree of
+    ``(spec, mesh)`` pairs (the counterpart of a tree of
+    ``NamedSharding``s), or None outside any rules."""
+    rules = current_rules()
+    if rules is None:
+        return None
+    mesh = mesh or rules.mesh
+    return map_axes(lambda axes: NamedSharding(
+        mesh, rules.spec(axes, kind="param")), axes_tree)
+
+
+class NamedSharding:
+    """A spec on a mesh: ``slices(shape)`` gives each shard's block and
+    ``devices`` its device, both in the mesh's row-major order."""
+
+    def __init__(self, mesh, spec):
+        self.mesh, self.spec = mesh, PartitionSpec(*spec)
+
+    @property
+    def devices(self) -> list:
+        return list(self.mesh.devices.flat)
+
+    def slices(self, shape) -> list:
+        return shard_slices(tuple(shape), self.spec, self.mesh)
+
+    def __repr__(self):
+        return f"NamedSharding({self.spec}, {self.mesh})"
+
+
+class Placed:
+    """A global tensor held on a mesh as one block a shard (in the mesh's
+    row-major order), each the slice ``sharding.slices(shape)`` names."""
+
+    def __init__(self, blocks, sharding: NamedSharding, shape):
+        self.blocks = list(blocks)
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+
+    @classmethod
+    def put(cls, x, sharding: NamedSharding, *, copy=True):
+        """``x`` (a tensor anywhere) laid out by ``sharding``: each block
+        its own contiguous copy on its shard's device with ``copy`` (what
+        a state that is updated in place needs), else views where the
+        device allows (differentiable)."""
+        blocks = []
+        for dev, sl in zip(sharding.devices, sharding.slices(x.shape)):
+            b = x[sl].to(dev)
+            blocks.append(b.clone(memory_format=torch.contiguous_format)
+                          if copy else b)
+        return cls(blocks, sharding, x.shape)
+
+    @property
+    def dtype(self):
+        return self.blocks[0].dtype
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The full tensor on ``device`` (default the first shard's),
+        assembled from one replica of each block (differentiable)."""
+        device = device or self.blocks[0].device
+        out = torch.zeros(self.shape, dtype=self.dtype, device=device)
+        seen = set()
+        for b, sl in zip(self.blocks, self.sharding.slices(self.shape)):
+            key = tuple((s.start, s.stop) for s in sl)
+            if key not in seen:
+                seen.add(key)
+                out[sl] = b.to(device)
+        return out
+
+    def relayout(self, sharding: NamedSharding, *, copy=False):
+        """The same global value under another sharding (by gather and
+        slice; differentiable)."""
+        if (sharding.mesh is self.sharding.mesh
+                and tuple(sharding.spec) == tuple(self.sharding.spec)):
+            return self
+        return Placed.put(self.gather(), sharding, copy=copy)
+
+    def __repr__(self):
+        return (f"Placed({tuple(self.shape)}, {self.sharding.spec}, "
+                f"{len(self.blocks)} blocks)")
+
+
+def shard(x, *axes):
+    """Constrain ``x`` to the layout its logical ``axes`` give under the
+    installed rules: a no-op without rules; else a ``Placed`` (a tensor is
+    laid out by slicing, a ``Placed`` re-laid by gather and slice)."""
+    rules = current_rules()
+    if rules is None:
+        return x
+    sharding = NamedSharding(rules.mesh, rules.spec(axes, kind="act"))
+    if isinstance(x, Placed):
+        return x.relayout(sharding)
+    return Placed.put(x, sharding, copy=False)
+
+
+def place_tree(tree, shardings, *, copy=True):
+    """A tree of tensors laid out by a matching tree of
+    ``NamedSharding``s -> a tree of ``Placed``."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, shardings[k], copy=copy)
+                for k, v in tree.items()}
+    return Placed.put(tree, shardings, copy=copy)
+
+
+def map_placed(fn, tree):
+    """``fn`` over the ``Placed`` leaves of a tree (dicts, lists, tuples;
+    other leaves kept)."""
+    if isinstance(tree, dict):
+        return {k: map_placed(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_placed(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, Placed) else tree
+
+
+def local_trees(tree, n) -> list:
+    """A tree of ``Placed`` leaves -> n trees of blocks, shard s's
+    holding each leaf's block s."""
+    return [map_placed(lambda t, s=s: t.blocks[s], tree) for s in range(n)]
+
+
+def gather_tree(tree, device=None):
+    """A tree whose ``Placed`` leaves are gathered to full tensors."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_tree(v, device) for v in tree)
+    return tree.gather(device) if isinstance(tree, Placed) else tree
+
+
+# ---------------------------------------------------------------------------
+# Standard rule sets.
+# ---------------------------------------------------------------------------
+
+def make_rules(mesh, *, fsdp: bool = False,
+               seq_sharded: bool = False) -> AxisRules:
+    """Build the standard DP/TP(/EP/SP) rules for a ('pod'?,'data','model')
+    mesh.
+
+    - batch      -> ('pod','data')  (DP; 'pod' folded in when present)
+    - heads/mlp/vocab/experts -> 'model'  (TP / EP)
+    - embed      -> 'data' on *params* when fsdp=True (FSDP weight shard)
+    - seq        -> 'data' on activations when seq_sharded (SP, used by the
+                    500k-context cells where batch==1)
+    """
+    axis_names = mesh.axis_names
+    batch_axes = tuple(a for a in ("pod", "data") if a in axis_names)
+    batch = batch_axes if len(batch_axes) > 1 else (
+        batch_axes[0] if batch_axes else None)
+
+    common = {
+        "heads": "model", "kv_heads": "model", "head_dim": None,
+        "mlp": "model", "vocab": "model", "experts": "model",
+        "expert_mlp": None, "ssm_heads": "model", "ssm_state": None,
+        "ssm_group": None, "conv": None, "layers": None, "stack": None,
+        "proj": None, "classes": None,
+    }
+    param_rules = dict(common)
+    param_rules["embed"] = "data" if fsdp else None
+    param_rules["batch"] = None
+    param_rules["seq"] = None
+
+    act_rules = dict(common)
+    act_rules["embed"] = None
+    act_rules["batch"] = batch
+    act_rules["seq"] = "data" if seq_sharded else None
+    act_rules["experts"] = "model"
+    return AxisRules(param_rules, act_rules, mesh)
+
+
+def rules_for(mesh, cfg, *, batch=None, kind="train",
+              fsdp=False) -> AxisRules:
+    """Arch- and shape-aware rules for the production mesh.
+
+    - q/kv heads shard over 'model' when the head count divides it
+      (column-parallel); otherwise the projection falls back to
+      *row-parallel* (contract dim over 'model', psum'd output).
+    - mlp/vocab/experts always shard over 'model'.
+    - fsdp=True additionally shards the weights' embed dim over 'data'.
+    - decode KV caches shard kv_heads over 'model' when divisible, else
+      the *sequence* dim ("kv_seq").
+    - batch shards over ('pod','data') when divisible; batch=1 leaves
+      batch unsharded and shards cache seq over 'data'.
+    """
+    ms = mesh.shape["model"]
+    ds = mesh.shape.get("data", 1)
+    axis_names = mesh.axis_names
+    batch_axes = tuple(a for a in ("pod", "data") if a in axis_names)
+    dp = 1
+    for a in batch_axes:
+        dp *= mesh.shape[a]
+    batch_spec = (batch_axes if len(batch_axes) > 1 else batch_axes[0]) \
+        if (batch is None or batch % dp == 0) and batch != 1 else None
+
+    heads_ok = bool(getattr(cfg, "n_heads", 0)) and cfg.n_heads % ms == 0
+    kv_ok = bool(getattr(cfg, "n_kv_heads", 0)) and cfg.n_kv_heads % ms == 0
+    hd = getattr(cfg, "head_dim", 0) or 0
+    hd_ok = hd % ds == 0 if hd else False
+    small_batch = batch == 1
+
+    param_rules = {
+        "heads": "model" if heads_ok else None,
+        "kv_heads": "model" if kv_ok else None,
+        "q_in": (("data" if fsdp else None) if heads_ok else "model"),
+        "kv_in": (("data" if fsdp else None) if kv_ok else "model"),
+        "q_hd": ("data" if (fsdp and not heads_ok and hd_ok) else None),
+        "kv_hd": ("data" if (fsdp and not kv_ok and hd_ok) else None),
+        "o_hd": None if heads_ok else "model",
+        "embed": "data" if fsdp else None,
+        "mlp": "model", "vocab": "model", "experts": "model",
+        "expert_mlp": None, "router": None, "ssm_heads": "model",
+        "ssm_state": None, "ssm_group": None, "conv": None,
+        "head_dim": None, "layers": None, "batch": None, "seq": None,
+        "kv_seq": None, "classes": None,
+        "stack": "pod" if "pod" in axis_names else None,
+    }
+    act_rules = {
+        "batch": batch_spec,
+        "seq": ("data" if small_batch and kind != "train" else None),
+        "embed": None,
+        "heads": "model" if heads_ok else None,
+        "kv_heads": "model" if kv_ok else None,
+        "head_dim": None, "mlp": "model", "vocab": "model",
+        "experts": "model", "ssm_heads": "model", "ssm_state": None,
+        "layers": None, "conv": None,
+        "kv_seq": ("model" if not kv_ok else
+                   ("data" if small_batch else None)),
+        "classes": None,
+    }
+    return AxisRules(param_rules, act_rules, mesh)
+
+
+class ShardLayout:
+    """The shards of the installed rules' mesh as a sharded LM step sees
+    them: each shard has a rank along 'model' (0 without that axis) and
+    a batch group (its coordinates on the other axes), in the mesh's
+    row-major order.  The ``*_model`` collectives run within each batch
+    group, the ``*_batch`` ones across the batch groups of each rank."""
+
+    def __init__(self, rules: AxisRules):
+        mesh = rules.mesh
+        if mesh is None:
+            raise ValueError("sharded rules need a mesh")
+        self.rules, self.mesh = rules, mesh
+        self.devices = list(mesh.devices.flat)
+        self.n = len(self.devices)
+        self.M = mesh.shape.get("model", 1)
+        self.batch_axes = tuple(a for a in mesh.axis_names if a != "model")
+        names = mesh.axis_names
+        self.rank = []
+        for coords in itertools.product(*(range(k)
+                                          for k in mesh.devices.shape)):
+            at = dict(zip(names, coords))
+            self.rank.append(at.get("model", 0))
+        batch = rules.act_rules.get("batch")
+        self.batch_spec = P(batch)
+        self.batch_split = batch is not None
+
+    def split(self, name) -> bool:
+        """Whether the param rules put logical axis ``name`` on 'model'."""
+        return self.M > 1 and self.rules.param_rules.get(name) == "model"
+
+    def batch_blocks(self, x, *, copy=False):
+        """A batch-leading global tensor -> each shard's rows (the
+        act rules' 'batch' entry; whole on every shard when it is
+        None)."""
+        sharding = NamedSharding(self.mesh, self.batch_spec)
+        return Placed.put(x, sharding, copy=copy).blocks
+
+    def gather_batch(self, xs):
+        """Each shard's rows (whole over 'model') -> the global tensor on
+        the first shard's device (one replica a block)."""
+        sharding = NamedSharding(self.mesh, self.batch_spec)
+        groups = self.n // self.M if self.batch_split else 1
+        shape = (xs[0].shape[0] * groups,) + tuple(xs[0].shape[1:])
+        return Placed(xs, sharding, shape).gather()
+
+    def _over(self, fn, vals, axes):
+        axes = tuple(a for a in axes if a in self.mesh.axis_names)
+        return PerShard(vals) if not axes else fn(vals, self.mesh, axes)
+
+    def psum_model(self, vals):
+        return self._over(psum_over, vals, ("model",))
+
+    def pmax_model(self, vals):
+        return self._over(pmax_over, vals, ("model",))
+
+    def all_gather_model(self, vals, axis):
+        return self._over(lambda v, m, a: all_gather_over(
+            v, m, a, axis, tiled=True), vals, ("model",))
+
+    def all_to_all_model(self, vals, split_axis, concat_axis):
+        return self._over(lambda v, m, a: all_to_all_over(
+            v, m, a, split_axis, concat_axis), vals, ("model",))
+
+    def psum_batch(self, vals):
+        """Sum over the batch groups where the batch is split (else each
+        group already holds the whole batch)."""
+        if not self.batch_split:
+            return PerShard(vals)
+        return self._over(psum_over, vals, self.batch_axes)
+
+    def pmean_all(self, vals):
+        """Mean over every shard (the reference's ``pmean`` over all mesh
+        axes)."""
+        return self._over(pmean_over, vals, self.mesh.axis_names)
+
+
+def mesh_axis_size(name: str) -> int:
+    rules = current_rules()
+    if rules is None or rules.mesh is None or \
+            name not in rules.mesh.axis_names:
+        return 1
+    return rules.mesh.shape[name]
+
+
+def get_mesh():
+    rules = current_rules()
+    return None if rules is None else rules.mesh
+
+
 __all__ = ["SESSIONS_AXIS", "Mesh", "PerShard", "row_blocks",
-           "sessions_sharding", "psum", "pmax", "pmean", "ppermute"]
+           "sessions_sharding", "psum", "pmax", "pmean", "ppermute",
+           "all_gather", "all_to_all", "axis_index", "axis_groups",
+           "psum_over", "pmax_over", "pmean_over", "all_gather_over",
+           "all_to_all_over", "PartitionSpec", "P", "AxisRules",
+           "current_rules", "axis_rules", "logical_spec", "is_axes_leaf",
+           "map_axes", "param_pspecs", "spec_axes", "shard_slices",
+           "param_sharding", "NamedSharding", "Placed", "shard",
+           "place_tree", "gather_tree", "map_placed", "local_trees", "make_rules", "rules_for",
+           "ShardLayout", "mesh_axis_size", "get_mesh"]

@@ -7,22 +7,35 @@
 Port of ``repro.launch.train``, with its flags.  ``--smoke`` runs the
 reduced config (``smoke_config``) at ``--batch`` x ``--seq``; without it
 the named ``--shape`` sets the global batch and sequence length.  The
-reference's XLA/TPU flag set has no counterpart.  Sharding waits (ROADMAP
-§1 item 6): with more than one CUDA device and no ``--smoke``, or with
-``--multi-pod``, the launcher raises rather than train unsharded.
-``train_4k`` (256 x 4,096 tokens) does not fit one card in float32, so it
-needs that item too.
+reference's XLA/TPU flag set has no counterpart.  As in the reference,
+with more than one device and no ``--smoke`` the launcher builds the
+production mesh (``make_production_mesh(multi_pod=)``: 16 x 16, or 2 x
+16 x 16 with ``--multi-pod``) and trains under ``rules_for(mesh, cfg,
+batch=, kind="train")``; devices that cannot form that mesh raise, and
+so does ``--multi-pod`` wherever the 512 devices are not there.
+``train_4k`` (256 x 4,096 tokens) does not fit one card in float32.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import torch
+
+
+def device_count(device) -> int:
+    """The devices a run on ``device``'s type can use (the CPU counts
+    one)."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return 1
 
 
 def main(argv=None):
     from repro_torch.configs.base import SHAPES, get_config, smoke_config
     from repro_torch.data.tokens import random_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.runtime.trainer import TrainCfg, Trainer
 
     ap = argparse.ArgumentParser()
@@ -51,14 +64,6 @@ def main(argv=None):
         shape = SHAPES[args.shape]
         batch, seq = shape.global_batch, shape.seq_len
 
-    n_dev = torch.cuda.device_count() \
-        if torch.device(args.device).type == "cuda" else 1
-    if args.multi_pod or (n_dev > 1 and not args.smoke):
-        raise NotImplementedError(
-            f"{n_dev} devices{' across pods' if args.multi_pod else ''}: "
-            "sharded training is not ported yet (ROADMAP §1 item 6); run "
-            "with --smoke, or on one device")
-
     tcfg = TrainCfg(optimizer=args.optimizer, lr=args.lr,
                     total_steps=args.steps, warmup=max(args.steps // 20, 5),
                     microbatches=args.microbatches, hybrid=args.hybrid,
@@ -68,9 +73,17 @@ def main(argv=None):
         return random_batch(torch.Generator().manual_seed(step), cfg.vocab,
                             batch, seq)
 
-    trainer = Trainer(cfg, tcfg, data_fn, ckpt_dir=args.ckpt_dir,
-                      device=args.device)
-    hist = trainer.run(args.steps, log_every=10)
+    if args.multi_pod or (device_count(args.device) > 1 and not args.smoke):
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
+        rules = shd.rules_for(mesh, cfg, batch=batch, kind="train")
+        ctx = shd.axis_rules(rules)
+    else:
+        ctx = contextlib.nullcontext()
+
+    with ctx:
+        trainer = Trainer(cfg, tcfg, data_fn, ckpt_dir=args.ckpt_dir,
+                          device=args.device)
+        hist = trainer.run(args.steps, log_every=10)
     print(f"final loss {hist[-1]['loss']:.4f} over {len(hist)} steps")
     return hist
 

@@ -46,25 +46,32 @@ from repro_torch.models.common import (apply_dense, apply_rmsnorm, apply_rope,
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def init_attention(generator, cfg, *, dtype=torch.float32):
+def init_attention(generator, cfg, *, dtype=torch.float32, with_axes=False):
     """cfg needs: d_model, n_heads, n_kv_heads, head_dim, qk_norm,
-    qkv_bias."""
+    qkv_bias.  The logical axes are the reference's: ``q_in``/``kv_in``
+    (the contraction, split over 'model' by the row-parallel fallback),
+    ``heads``/``kv_heads`` (column-parallel), ``o_hd``."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    params = {
-        "wq": dense_init(generator, (d, h, hd), dtype=dtype,
-                         bias=cfg.qkv_bias),
-        "wk": dense_init(generator, (d, kv, hd), dtype=dtype,
-                         bias=cfg.qkv_bias),
-        "wv": dense_init(generator, (d, kv, hd), dtype=dtype,
-                         bias=cfg.qkv_bias),
-        "wo": dense_init(generator, (h, hd, d), dtype=dtype,
-                         scale=1.0 / math.sqrt(h * hd)),
-    }
+    params, axes = {}, {}
+    params["wq"], axes["wq"] = dense_init(
+        generator, (d, h, hd), ("q_in", "heads", "q_hd"), dtype=dtype,
+        bias=cfg.qkv_bias, bias_axes=("heads", "q_hd"))
+    params["wk"], axes["wk"] = dense_init(
+        generator, (d, kv, hd), ("kv_in", "kv_heads", "kv_hd"), dtype=dtype,
+        bias=cfg.qkv_bias, bias_axes=("kv_heads", "kv_hd"))
+    params["wv"], axes["wv"] = dense_init(
+        generator, (d, kv, hd), ("kv_in", "kv_heads", "kv_hd"), dtype=dtype,
+        bias=cfg.qkv_bias, bias_axes=("kv_heads", "kv_hd"))
+    params["wo"], axes["wo"] = dense_init(
+        generator, (h, hd, d), ("heads", "o_hd", "embed"), dtype=dtype,
+        scale=1.0 / math.sqrt(h * hd))
     if cfg.qk_norm:
         dev = device_of(generator)
         params["q_norm"] = {"scale": torch.zeros(hd, dtype=dtype, device=dev)}
+        axes["q_norm"] = {"scale": (None,)}
         params["k_norm"] = {"scale": torch.zeros(hd, dtype=dtype, device=dev)}
-    return params
+        axes["k_norm"] = {"scale": (None,)}
+    return (params, axes) if with_axes else params
 
 
 def _project_qkv(p, cfg, x, positions):
@@ -184,6 +191,82 @@ def attention(p, cfg, x, positions, *, window=None, index_positions=False):
     q, k, v = _project_qkv(p, cfg, x, positions)
     out = _attend(cfg, q, k, v, positions, window, index_positions)
     return apply_dense(p["wo"], out, contract=2)
+
+
+def _kv_for_local_heads(k, v, first, n_local, G):
+    """Whole k, v (B, S, KV, hd) -> the kv heads the q heads ``first ..
+    first + n_local - 1`` meet (q head h meets kv head h // G), as
+    (k, v) with n_local divisible by their head count."""
+    idx = [(first + j) // G for j in range(n_local)]
+    uniq = sorted(set(idx))
+    if n_local % len(uniq) == 0 and all(
+            idx.count(u) == n_local // len(uniq) for u in uniq):
+        sel = uniq                      # whole groups: GQA on the block
+    else:
+        sel = idx                       # a kv head for every q head
+    sel = torch.tensor(sel, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
+def attention_sharded(lay, ps, cfg, xs, positions, *, window=None,
+                      index_positions=False):
+    """``attention`` on a mesh: ``ps[s]`` is shard s's block of the layer's
+    params (``param_pspecs`` of the axes tree), ``xs[s]`` its rows (B_l, S,
+    d), whole over 'model' -> each shard's output, whole over 'model'.
+
+    Per ``rules_for``: q (k, v) is column-parallel when the head (kv head)
+    count divides 'model' -- the shard's own heads -- else row-parallel:
+    the shard contracts its block of d and the partial products are
+    psum'd over 'model' (the bias added once, after).  Each shard's q
+    heads then meet their own kv heads (replicated kv: the ones they
+    index, ``h // (H / KV)``); where the heads do not divide 'model' the
+    attention runs whole on every shard and ``wo`` contracts the shard's
+    block of head_dim (``o_hd``).  ``wo``'s partial products are psum'd
+    over 'model'.  The attention of a shard is ``_attend`` on its block,
+    so on the card its heads take the flash kernels as one device's do."""
+    M = lay.M
+    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    heads_col, kv_col = lay.split("heads"), lay.split("kv_heads")
+    if M > 1 and (lay.split("q_in") == heads_col
+                  or lay.split("kv_in") == kv_col):
+        raise NotImplementedError(f"attention rules {lay.rules.param_rules}:"
+                                  " a projection neither column- nor "
+                                  "row-parallel over 'model'")
+
+    def project(name, column):
+        if column or M == 1:
+            return [apply_dense(p[name], x) for p, x in zip(ps, xs)]
+        blk = d // M
+        part = [apply_dense({"w": p[name]["w"]},
+                            x[..., r * blk:(r + 1) * blk])
+                for p, x, r in zip(ps, xs, lay.rank)]
+        out = lay.psum_model(part)
+        if "b" in ps[0][name]:
+            out = [y + p[name]["b"].to(y.dtype) for p, y in zip(ps, out)]
+        return out
+
+    qs, ks, vs = (project("wq", heads_col), project("wk", kv_col),
+                  project("wv", kv_col))
+    ys = []
+    for s, (p, x) in enumerate(zip(ps, xs)):
+        q, k, v = qs[s], ks[s], vs[s]
+        B, S = x.shape[:2]
+        pos = positions[s] if isinstance(positions, list) else positions
+        if cfg.qk_norm:
+            q = apply_rmsnorm(p["q_norm"], q)
+            k = apply_rmsnorm(p["k_norm"], k)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        if heads_col and not kv_col and M > 1:
+            Hl = H // M
+            k, v = _kv_for_local_heads(k, v, lay.rank[s] * Hl, Hl, H // KV)
+        out = _attend(cfg, q, k, v, pos, window, index_positions)
+        if not heads_col and M > 1:             # o_hd: the head_dim block
+            blk = hd // M
+            r = lay.rank[s]
+            out = out[..., r * blk:(r + 1) * blk]
+        ys.append(apply_dense(p["wo"], out, contract=2))
+    return lay.psum_model(ys)
 
 
 class KVCache(NamedTuple):

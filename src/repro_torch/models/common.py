@@ -2,9 +2,11 @@
 embeddings.
 
 Port of ``repro.models.common``.  Everything is functional: an ``init_*``
-returns a nested dict of tensors mirroring the reference's pytree (the
-reference's logical-axes tree drives its sharding; the port is single
-device and has none).  Random draws come from a ``torch.Generator`` and
+returns a nested dict of tensors mirroring the reference's pytree, and
+with ``with_axes=True`` (``dense_init``: given ``axes``) also the
+matching tree of logical-axis tuples, the reference's ``(params, axes)``,
+which drives the sharding (``distributed/sharding.py``) and is never
+needed at apply time.  Random draws come from a ``torch.Generator`` and
 land on its device; ``generator=None`` gives tensors on the ``meta``
 device, which have shapes and no data (``lm.param_count`` at full width
 without allocating).  The draws differ from ``jax.random``'s, so parity
@@ -34,17 +36,25 @@ def truncated_normal(generator, shape, scale, dtype):
     return (scale * w).to(dtype)
 
 
-def dense_init(generator, shape, *, dtype=torch.float32, scale=None,
-               bias=False):
+def dense_init(generator, shape, axes=None, *, dtype=torch.float32,
+               scale=None, bias=False, bias_axes=None):
     """A (possibly fused) linear weight; fan-in is the first dim unless
-    ``scale`` is given.  The bias, when asked for, spans ``shape[1:]``."""
+    ``scale`` is given.  The bias, when asked for, spans the trailing
+    ``len(bias_axes)`` dims (default ``shape[1:]``).  With ``axes`` (one
+    logical name a dim) -> (params, axes tree), else params."""
     if scale is None:
         scale = 1.0 / math.sqrt(shape[0])
     params = {"w": truncated_normal(generator, shape, scale, dtype)}
     if bias:
-        params["b"] = torch.zeros(shape[1:], dtype=dtype,
+        nb = shape[len(shape) - len(bias_axes):] if bias_axes else shape[1:]
+        params["b"] = torch.zeros(nb, dtype=dtype,
                                   device=device_of(generator))
-    return params
+    if axes is None:
+        return params
+    ax = {"w": tuple(axes)}
+    if bias:
+        ax["b"] = tuple(bias_axes) if bias_axes else tuple(axes[1:])
+    return params, ax
 
 
 def apply_dense(p, x, contract=1):
@@ -62,8 +72,13 @@ def apply_dense(p, x, contract=1):
 # Norms
 # ---------------------------------------------------------------------------
 
-def init_rmsnorm(dim, *, dtype=torch.float32, device=None):
-    return {"scale": torch.zeros(dim, dtype=dtype, device=device)}
+def _with(params, axes, with_axes):
+    return (params, axes) if with_axes else params
+
+
+def init_rmsnorm(dim, *, dtype=torch.float32, device=None, with_axes=False):
+    return _with({"scale": torch.zeros(dim, dtype=dtype, device=device)},
+                 {"scale": ("embed",)}, with_axes)
 
 
 def apply_rmsnorm(p, x, *, eps=1e-6):
@@ -75,9 +90,11 @@ def apply_rmsnorm(p, x, *, eps=1e-6):
     return (y * (1.0 + p["scale"].float())).to(dt)
 
 
-def init_layernorm(dim, *, dtype=torch.float32, device=None):
-    return {"scale": torch.ones(dim, dtype=dtype, device=device),
-            "bias": torch.zeros(dim, dtype=dtype, device=device)}
+def init_layernorm(dim, *, dtype=torch.float32, device=None,
+                   with_axes=False):
+    return _with({"scale": torch.ones(dim, dtype=dtype, device=device),
+                  "bias": torch.zeros(dim, dtype=dtype, device=device)},
+                 {"scale": ("embed",), "bias": ("embed",)}, with_axes)
 
 
 def apply_layernorm(p, x, *, eps=1e-5):
@@ -89,10 +106,12 @@ def apply_layernorm(p, x, *, eps=1e-5):
     return (y * p["scale"].float() + p["bias"].float()).to(dt)
 
 
-def init_norm(kind, dim, *, dtype=torch.float32, device=None):
+def init_norm(kind, dim, *, dtype=torch.float32, device=None,
+              with_axes=False):
     if kind == "layernorm":
-        return init_layernorm(dim, dtype=dtype, device=device)
-    return init_rmsnorm(dim, dtype=dtype, device=device)
+        return init_layernorm(dim, dtype=dtype, device=device,
+                              with_axes=with_axes)
+    return init_rmsnorm(dim, dtype=dtype, device=device, with_axes=with_axes)
 
 
 def apply_norm(kind, p, x):
@@ -132,9 +151,11 @@ def apply_rope(x, positions, theta):
 # ---------------------------------------------------------------------------
 
 def init_embedding(generator, vocab, dim, *, dtype=torch.float32,
-                   scale=None):
+                   scale=None, with_axes=False):
     scale = scale if scale is not None else 1.0
-    return {"table": truncated_normal(generator, (vocab, dim), scale, dtype)}
+    return _with(
+        {"table": truncated_normal(generator, (vocab, dim), scale, dtype)},
+        {"table": ("vocab", "embed")}, with_axes)
 
 
 def embed_lookup(p, tokens):

@@ -10,9 +10,25 @@ the reference scans them):
   ssm                 : [norm -> mamba] x L
   hybrid (zamba2)     : the mamba stack with one *shared* attn+mlp block
                         after every ``hybrid_period`` mamba layers
-``decode_state_specs`` (logical axes for shardings) waits for ROADMAP §1
-item 6; the reference's ``shard`` annotations are no-ops on one device
-and are left out.
+``decode_state_specs`` gives the decode state's logical axes, as the
+reference's.
+
+Under logical-axis rules whose mesh is installed (``distributed.sharding
+.axis_rules``), ``forward``, ``chunked_ce`` and ``lm_loss`` run the
+attention families on the mesh, as the reference runs them under GSPMD:
+the batch over the data axes, heads, mlp and vocab over 'model' by the
+param rules (``attention.attention_sharded``, ``mlp.apply_mlp_sharded``,
+``moe.apply_moe_sharded``), the embedding lookup and the logits
+vocab-parallel (a shard's block of the table, psum'd; the CE's
+logsumexp and target logit reduced over 'model' with a pmax and psums),
+the CE's sums psum'd over the data axes.  Each shard runs its block in
+lockstep with the others in one process; the reference's ``shard``
+annotations are where the port's collectives sit.  The global entry
+points lay the params out by ``param_axes`` (views, so gradients reach
+the global tree) and gather the hidden states back; ``runtime/trainer``
+calls ``lm_loss_sharded`` on params it keeps laid out.  The SSM and
+hybrid families, FSDP (params split over a data axis) and sharded
+prefill and decode raise under such rules.
 
 Prefill and decode: ``init_decode_state`` allocates the state (the KV
 cache of every attention layer, the hybrid's one cache per use of its
@@ -42,6 +58,10 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from functools import lru_cache
+
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import map_axes
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
@@ -63,8 +83,11 @@ def _stack(trees):
 
 
 def _stack_init(fn, generator, n):
-    """n layers drawn one after the other from ``generator``, stacked."""
-    return _stack([fn(generator) for _ in range(n)])
+    """n layers drawn one after the other from ``generator``, stacked ->
+    (params, axes with a leading 'layers' name)."""
+    drawn = [fn(generator) for _ in range(n)]
+    return (_stack([p for p, _ in drawn]),
+            map_axes(lambda a: ("layers",) + a, drawn[0][1]))
 
 
 def _layers(tree, n):
@@ -98,38 +121,49 @@ def _hybrid_layout(cfg):
 
 def _init_dense_block(cfg, generator):
     dev, dt = device_of(generator), cfg.pdtype
-    return {
-        "ln1": init_norm(cfg.norm, cfg.d_model, dtype=dt, device=dev),
-        "attn": attn_mod.init_attention(generator, cfg, dtype=dt),
-        "ln2": init_norm(cfg.norm, cfg.d_model, dtype=dt, device=dev),
-        "mlp": mlp_mod.init_mlp(generator, cfg.d_model, cfg.d_ff,
-                                gated=cfg.gated_mlp, dtype=dt),
-    }
+    p, a = {}, {}
+    p["ln1"], a["ln1"] = init_norm(cfg.norm, cfg.d_model, dtype=dt,
+                                   device=dev, with_axes=True)
+    p["attn"], a["attn"] = attn_mod.init_attention(generator, cfg, dtype=dt,
+                                                   with_axes=True)
+    p["ln2"], a["ln2"] = init_norm(cfg.norm, cfg.d_model, dtype=dt,
+                                   device=dev, with_axes=True)
+    p["mlp"], a["mlp"] = mlp_mod.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                          gated=cfg.gated_mlp, dtype=dt,
+                                          with_axes=True)
+    return p, a
 
 
 def _init_moe_block(cfg, generator):
     dev, dt = device_of(generator), cfg.pdtype
-    p = {
-        "ln1": init_norm(cfg.norm, cfg.d_model, dtype=dt, device=dev),
-        "attn": attn_mod.init_attention(generator, cfg, dtype=dt),
-        "ln2": init_norm(cfg.norm, cfg.d_model, dtype=dt, device=dev),
-        "moe": moe_mod.init_moe(generator, cfg.moe, cfg.d_model, dtype=dt),
-    }
+    p, a = {}, {}
+    p["ln1"], a["ln1"] = init_norm(cfg.norm, cfg.d_model, dtype=dt,
+                                   device=dev, with_axes=True)
+    p["attn"], a["attn"] = attn_mod.init_attention(generator, cfg, dtype=dt,
+                                                   with_axes=True)
+    p["ln2"], a["ln2"] = init_norm(cfg.norm, cfg.d_model, dtype=dt,
+                                   device=dev, with_axes=True)
+    p["moe"], a["moe"] = moe_mod.init_moe(generator, cfg.moe, cfg.d_model,
+                                          dtype=dt, with_axes=True)
     if cfg.moe.n_shared_experts:
         ff = cfg.moe.d_ff_expert * cfg.moe.n_shared_experts
-        p["shared_mlp"] = mlp_mod.init_mlp(generator, cfg.d_model, ff,
-                                           gated=cfg.gated_mlp, dtype=dt)
+        p["shared_mlp"], a["shared_mlp"] = mlp_mod.init_mlp(
+            generator, cfg.d_model, ff, gated=cfg.gated_mlp, dtype=dt,
+            with_axes=True)
     if cfg.moe.dense_residual:
-        p["dense_mlp"] = mlp_mod.init_mlp(generator, cfg.d_model, cfg.d_ff,
-                                          gated=cfg.gated_mlp, dtype=dt)
-    return p
+        p["dense_mlp"], a["dense_mlp"] = mlp_mod.init_mlp(
+            generator, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp, dtype=dt,
+            with_axes=True)
+    return p, a
 
 
 def _init_mamba_block(cfg, generator):
-    return {"ln": init_norm(cfg.norm, cfg.d_model, dtype=cfg.pdtype,
-                            device=device_of(generator)),
-            "mamba": ssm_mod.init_mamba(generator, cfg.ssm, cfg.d_model,
-                                        dtype=cfg.pdtype)}
+    p, a = {}, {}
+    p["ln"], a["ln"] = init_norm(cfg.norm, cfg.d_model, dtype=cfg.pdtype,
+                                 device=device_of(generator), with_axes=True)
+    p["mamba"], a["mamba"] = ssm_mod.init_mamba(
+        generator, cfg.ssm, cfg.d_model, dtype=cfg.pdtype, with_axes=True)
+    return p, a
 
 
 def _block(cfg, p, x, attend):
@@ -195,37 +229,51 @@ def _maybe_remat(cfg, fn):
 # Model init
 # ---------------------------------------------------------------------------
 
-def init_lm(cfg, generator):
+def init_lm(cfg, generator, *, with_axes=False):
     """Random weights drawn from ``generator`` on its device (``None``:
     shapes only, on the ``meta`` device).  Same shapes and scales as the
-    reference's ``init_lm``; the draws differ."""
+    reference's ``init_lm``; the draws differ.  With ``with_axes`` ->
+    (params, the reference's logical-axes tree), else params."""
     dev, dt = device_of(generator), cfg.pdtype
-    params = {"embed": init_embedding(generator, cfg.vocab, cfg.d_model,
-                                      dtype=dt)}
+    params, axes = {}, {}
+    params["embed"], axes["embed"] = init_embedding(
+        generator, cfg.vocab, cfg.d_model, dtype=dt, with_axes=True)
     dense = lambda g: _init_dense_block(cfg, g)  # noqa: E731
     mamba = lambda g: _init_mamba_block(cfg, g)  # noqa: E731
+    bp, ba = {}, {}
     if cfg.family in ("dense", "vlm", "audio"):
-        blocks = {"layers": _stack_init(dense, generator, cfg.n_layers)}
+        bp["layers"], ba["layers"] = _stack_init(dense, generator,
+                                                 cfg.n_layers)
     elif cfg.family == "moe":
         kd = cfg.moe.first_k_dense
-        blocks = {"dense_layers": _stack_init(dense, generator, kd)} \
-            if kd else {}
-        blocks["layers"] = _stack_init(lambda g: _init_moe_block(cfg, g),
-                                       generator, cfg.n_layers - kd)
+        if kd:
+            bp["dense_layers"], ba["dense_layers"] = _stack_init(
+                dense, generator, kd)
+        bp["layers"], ba["layers"] = _stack_init(
+            lambda g: _init_moe_block(cfg, g), generator, cfg.n_layers - kd)
     elif cfg.family == "ssm":
-        blocks = {"layers": _stack_init(mamba, generator, cfg.n_layers)}
+        bp["layers"], ba["layers"] = _stack_init(mamba, generator,
+                                                 cfg.n_layers)
     elif cfg.family == "hybrid":
-        blocks = {"layers": _stack_init(mamba, generator, cfg.n_layers),
-                  "shared": dense(generator)}
+        bp["layers"], ba["layers"] = _stack_init(mamba, generator,
+                                                 cfg.n_layers)
+        bp["shared"], ba["shared"] = dense(generator)
     else:
         raise ValueError(cfg.family)
-    params["blocks"] = blocks
-    params["final_norm"] = init_norm(cfg.norm, cfg.d_model, dtype=dt,
-                                     device=dev)
+    params["blocks"], axes["blocks"] = bp, ba
+    params["final_norm"], axes["final_norm"] = init_norm(
+        cfg.norm, cfg.d_model, dtype=dt, device=dev, with_axes=True)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab),
-                                       dtype=dt)
-    return params
+        params["lm_head"], axes["lm_head"] = dense_init(
+            generator, (cfg.d_model, cfg.vocab), ("embed", "vocab"),
+            dtype=dt)
+    return (params, axes) if with_axes else params
+
+
+def param_axes(cfg):
+    """The reference's logical-axes tree of ``init_lm`` (no weights
+    allocated)."""
+    return init_lm(cfg, None, with_axes=True)[1]
 
 
 def param_count(params) -> int:
@@ -250,7 +298,17 @@ def _embed(cfg, params, tokens, embeds):
 
 def forward(cfg, params, tokens=None, embeds=None, positions=None):
     """-> (hidden (B, S, d) after the final norm, aux: the MoE layers'
-    summed load-balance loss, a 0-d tensor, 0 for the other families)."""
+    summed load-balance loss, a 0-d tensor, 0 for the other families).
+    Under rules with a mesh: run on the mesh (see the module's doc)."""
+    lay = _layout()
+    if lay is not None:
+        ps = _laid_out(cfg, params, lay)
+        hs, aux = forward_sharded(
+            lay, cfg, ps, *_inputs(lay, tokens, embeds),
+            positions=None if positions is None
+            else lay.batch_blocks(positions))
+        dev = (tokens if tokens is not None else embeds).device
+        return lay.gather_batch(hs).to(dev), aux[0].to(dev)
     x = _embed(cfg, params, tokens, embeds)
     B, S = x.shape[:2]
     index_positions = positions is None
@@ -291,7 +349,14 @@ def chunked_ce(cfg, params, hidden, labels):
     ``cfg.loss_chunk`` so (B, S, vocab) logits are never materialized at
     once.  hidden: (B, S, d); labels: (B, S) (already shifted by the
     caller), negative labels ignored.  The reference's scan order: the
-    chunks' sums added in order, then divided by max(count, 1)."""
+    chunks' sums added in order, then divided by max(count, 1).  Under
+    rules with a mesh: vocab-parallel on the mesh."""
+    lay = _layout()
+    if lay is not None:
+        ps = _laid_out(cfg, params, lay)
+        ce = ce_sharded(lay, cfg, ps, lay.batch_blocks(hidden),
+                        lay.batch_blocks(labels))
+        return ce[0].to(hidden.device)
     B, S, d = hidden.shape
     c = min(cfg.loss_chunk, S)
     nc = -(-S // c)
@@ -316,13 +381,213 @@ def lm_loss(cfg, params, batch):
     """batch: {tokens|embeds, labels} -> (loss, metrics): the CE, plus
     ``aux_coef`` times the MoE auxiliary term for a MoE config; the
     metrics hold the CE, the auxiliary term and the final hidden
-    states."""
+    states.  Under rules with a mesh: ``lm_loss_sharded`` on the params
+    laid out, the hidden states gathered."""
+    lay = _layout()
+    if lay is not None:
+        ps = _laid_out(cfg, params, lay)
+        losses, m = lm_loss_sharded(
+            lay, cfg, ps, {k: lay.batch_blocks(v) for k, v in batch.items()})
+        dev = batch["labels"].device
+        return losses[0].to(dev), {"ce": m["ce"][0].to(dev),
+                                   "moe_aux": m["moe_aux"][0].to(dev),
+                                   "hidden": lay.gather_batch(
+                                       m["hidden"]).to(dev)}
     h, aux = forward(cfg, params, tokens=batch.get("tokens"),
                      embeds=batch.get("embeds"))
     ce = chunked_ce(cfg, params, h, batch["labels"])
     loss = ce
     if cfg.moe is not None:
         loss = loss + cfg.moe.aux_coef * aux
+    return loss, {"ce": ce, "moe_aux": aux, "hidden": h}
+
+
+# ---------------------------------------------------------------------------
+# On a mesh
+# ---------------------------------------------------------------------------
+
+def _layout():
+    """The installed rules' ``ShardLayout``, or None without rules or
+    mesh."""
+    rules = shd.current_rules()
+    if rules is None or rules.mesh is None:
+        return None
+    return shd.ShardLayout(rules)
+
+
+@lru_cache(maxsize=None)
+def _cached_axes(cfg):
+    return param_axes(cfg)
+
+
+def param_shardings(cfg, lay):
+    """Where each parameter's blocks live under ``lay``'s rules: a tree of
+    ``NamedSharding``s (``param_sharding`` of ``param_axes(cfg)``).  The
+    sharded step splits params over 'model' only."""
+    if cfg.family not in ATTN_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family on a mesh ('ssm_heads' over 'model') "
+            "is not ported yet (ROADMAP §1 item 6)")
+    with shd.axis_rules(lay.rules):
+        shardings = shd.param_sharding(_cached_axes(cfg), lay.mesh)
+
+    def check(tree):
+        if isinstance(tree, dict):
+            return {k: check(v) for k, v in tree.items()}
+        extra = set(shd.spec_axes(tree.spec)) - {"model"}
+        if extra:
+            raise NotImplementedError(
+                f"params split over {sorted(extra)} (FSDP) are not ported "
+                f"yet (ROADMAP §1 item 6); spec {tree.spec}")
+        return tree
+    return check(shardings)
+
+
+def _laid_out(cfg, params, lay):
+    """Global params -> one tree of blocks a shard (views: gradients reach
+    the global tree)."""
+    placed = shd.place_tree(params, param_shardings(cfg, lay), copy=False)
+    return shd.local_trees(placed, lay.n)
+
+
+def _inputs(lay, tokens, embeds):
+    return (None if tokens is None else lay.batch_blocks(tokens),
+            None if embeds is None else lay.batch_blocks(embeds))
+
+
+def _embed_sharded(lay, cfg, ps, tokens, embeds):
+    """Each shard's rows of the embedded input: with 'vocab' over 'model'
+    the shard looks up the tokens of its block of the table, zeros
+    elsewhere, psum'd over 'model'."""
+    if embeds is not None:
+        xs = [e.to(cfg.xdtype) for e in embeds]
+    elif lay.split("vocab"):
+        parts = []
+        for p, tok, r in zip(ps, tokens, lay.rank):
+            tbl = p["embed"]["table"]
+            n = tbl.shape[0]
+            local = tok.long() - r * n
+            mine = (local >= 0) & (local < n)
+            parts.append(tbl[local.clamp(0, n - 1)]
+                         * mine[..., None].to(tbl.dtype))
+        xs = [x.to(cfg.xdtype) for x in lay.psum_model(parts)]
+    else:
+        xs = [embed_lookup(p["embed"], tok).to(cfg.xdtype)
+              for p, tok in zip(ps, tokens)]
+    if cfg.embed_scale:
+        xs = [x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.xdtype)
+              for x in xs]
+    return xs
+
+
+def _block_sharded(lay, cfg, ps, xs, positions, window, index_positions):
+    """``_block`` on a mesh (per-shard params and rows) -> (rows, aux a
+    shard or None)."""
+    hs = [apply_norm(cfg.norm, p["ln1"], x) for p, x in zip(ps, xs)]
+    att = attn_mod.attention_sharded(
+        lay, [p["attn"] for p in ps], cfg, hs, positions, window=window,
+        index_positions=index_positions)
+    xs = [x + a for x, a in zip(xs, att)]
+    hs = [apply_norm(cfg.norm, p["ln2"], x) for p, x in zip(ps, xs)]
+    if "moe" not in ps[0]:
+        ys = mlp_mod.apply_mlp_sharded(lay, [p["mlp"] for p in ps], hs,
+                                       act=cfg.act)
+        return [x + y for x, y in zip(xs, ys)], None
+    ys, aux = moe_mod.apply_moe_sharded(lay, [p["moe"] for p in ps],
+                                        cfg.moe, hs)
+    for name in ("shared_mlp", "dense_mlp"):
+        if name in ps[0]:
+            zs = mlp_mod.apply_mlp_sharded(lay, [p[name] for p in ps], hs,
+                                           act=cfg.act)
+            ys = [y + z for y, z in zip(ys, zs)]
+    return [x + y for x, y in zip(xs, ys)], aux
+
+
+def forward_sharded(lay, cfg, ps, tokens=None, embeds=None, positions=None):
+    """``forward`` on a mesh: ``ps[s]`` shard s's param blocks,
+    ``tokens``/``embeds``/``positions`` its rows -> (hidden rows, whole
+    over 'model'; aux), a list each."""
+    if cfg.family not in ATTN_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family on a mesh is not ported yet (ROADMAP "
+            "§1 item 6)")
+    xs = _embed_sharded(lay, cfg, ps, tokens, embeds)
+    index_positions = positions is None
+    if index_positions:
+        positions = [torch.arange(x.shape[1], dtype=torch.int32,
+                                  device=x.device).expand(x.shape[:2])
+                     for x in xs]
+    aux = [torch.zeros((), device=x.device) for x in xs]
+    block = _maybe_remat(cfg, lambda xs, p_ls, w: _block_sharded(
+        lay, cfg, p_ls, xs, positions, w, index_positions))
+    per_shard = [_attn_layers(cfg, p["blocks"]) for p in ps]
+    for i, w in enumerate(cfg.layer_windows()):
+        xs, a = block(xs, [layers[i] for layers in per_shard], w)
+        if a is not None:
+            aux = [x + y for x, y in zip(aux, a)]
+    return [apply_norm(cfg.norm, p["final_norm"], x)
+            for p, x in zip(ps, xs)], aux
+
+
+def ce_sharded(lay, cfg, ps, hidden, labels):
+    """``chunked_ce`` on a mesh: ``hidden[s]``, ``labels[s]`` shard s's
+    rows -> the global mean CE, one per shard.  With 'vocab' over 'model'
+    each shard takes its block of the logits; the logsumexp is pmax'd
+    (its max, a constant of the gradient) and psum'd over 'model', the
+    target logit psum'd from the shard that holds it.  The chunks' sums
+    and counts are psum'd over the data axes before the division."""
+    split = lay.split("vocab")
+    tots, cnts = [], []
+    c = min(cfg.loss_chunk, hidden[0].shape[1])
+    for h0, l0 in zip(hidden, labels):
+        S = h0.shape[1]
+        nc = -(-S // c)
+        pad = nc * c - S
+        if pad:
+            h0 = torch.nn.functional.pad(h0, (0, 0, 0, pad))
+            l0 = torch.nn.functional.pad(l0, (0, pad), value=-1)
+        tots.append((h0, l0, nc))
+    out_tot = [torch.zeros((), device=h.device) for h, _, _ in tots]
+    out_cnt = [torch.zeros((), device=h.device) for h, _, _ in tots]
+    for i in range(tots[0][2]):
+        hs = [h[:, i * c:(i + 1) * c] for h, _, _ in tots]
+        labs = [lab[:, i * c:(i + 1) * c] for _, lab, _ in tots]
+        logits = [logits_from_hidden(cfg, p, h) for p, h in zip(ps, hs)]
+        if split:
+            m = lay.pmax_model([x.amax(-1).detach() for x in logits])
+            se = lay.psum_model([torch.exp(x - mx[..., None]).sum(-1)
+                                 for x, mx in zip(logits, m)])
+            lse = [torch.log(a) + mx for a, mx in zip(se, m)]
+            parts = []
+            for x, lab, r in zip(logits, labs, lay.rank):
+                n = x.shape[-1]
+                local = lab.long() - r * n
+                mine = (local >= 0) & (local < n)
+                parts.append(x.gather(-1, local.clamp(0, n - 1)[..., None])
+                             [..., 0] * mine.float())
+            tgt = lay.psum_model(parts)
+        else:
+            lse = [torch.logsumexp(x, dim=-1) for x in logits]
+            tgt = [x.gather(-1, lab.clamp_min(0).long()[..., None])[..., 0]
+                   for x, lab in zip(logits, labs)]
+        for s, lab in enumerate(labs):
+            valid = (lab >= 0).float()
+            out_tot[s] = out_tot[s] + ((lse[s] - tgt[s]) * valid).sum()
+            out_cnt[s] = out_cnt[s] + valid.sum()
+    tot, cnt = lay.psum_batch(out_tot), lay.psum_batch(out_cnt)
+    return [t / n.clamp_min(1.0) for t, n in zip(tot, cnt)]
+
+
+def lm_loss_sharded(lay, cfg, ps, batch):
+    """``lm_loss`` on a mesh: ``batch`` maps each key to its rows a
+    shard -> (the loss a shard, metrics: ``ce`` and ``moe_aux`` a shard,
+    ``hidden`` each shard's rows)."""
+    h, aux = forward_sharded(lay, cfg, ps, tokens=batch.get("tokens"),
+                             embeds=batch.get("embeds"))
+    ce = ce_sharded(lay, cfg, ps, h, batch["labels"])
+    loss = ce
+    if cfg.moe is not None:
+        loss = [c + cfg.moe.aux_coef * a for c, a in zip(ce, aux)]
     return loss, {"ce": ce, "moe_aux": aux, "hidden": h}
 
 
@@ -350,13 +615,36 @@ def init_decode_state(cfg, batch, max_len, dtype=None, device=None):
     return st
 
 
+def decode_state_specs(cfg, batch, max_len, *, kind="act"):
+    """Logical axes of the decode state (for shardings), as the
+    reference's."""
+    ax = {"index": ()}
+    if cfg.family in ATTN_FAMILIES:
+        ax["k"] = ("layers", "batch", "kv_heads", "kv_seq", "head_dim")
+        ax["v"] = ax["k"]
+    elif cfg.family in ("ssm", "hybrid"):
+        ax["ssm"] = ("layers", "batch", "ssm_heads", "head_dim", "ssm_state")
+        ax["conv"] = ("layers", "batch", "conv", "ssm_heads", "head_dim")
+        if cfg.family == "hybrid":
+            ax["k"] = ("layers", "batch", "kv_heads", "kv_seq", "head_dim")
+            ax["v"] = ax["k"]
+    return ax
+
+
+def _one_device(what):
+    if _layout() is not None:
+        raise NotImplementedError(f"sharded {what} is not ported yet "
+                                  "(ROADMAP §1 item 6)")
+
+
 def prefill(cfg, params, tokens=None, embeds=None, max_len=None):
     """Full-sequence prefill of a prompt (tokens (B, S) or embeds (B, S,
     d)) -> (decode_state for up to ``max_len`` (default S) positions with
     ``index`` = S, the last token's logits (B, vocab) float32).  A prompt
     longer than ``max_len`` raises ``ValueError``.  On the card every
     attention layer that ``attention.uses_kernel`` admits takes the flash
-    kernel."""
+    kernel.  One device: under rules with a mesh it raises."""
+    _one_device("prefill")
     x = _embed(cfg, params, tokens, embeds)
     B, S = x.shape[:2]
     max_len = max_len or S
@@ -387,7 +675,9 @@ def decode_step(cfg, params, state, tokens):
     """One decode step.  tokens: (B,) on the state's device -> (logits
     (B, vocab) float32, state).  The state passed in is updated in place:
     the new k and v (at ``index``, clamped to ``max_len - 1``), SSM and
-    conv states, and ``index`` + 1.  No value is read on the host."""
+    conv states, and ``index`` + 1.  No value is read on the host.  One
+    device: under rules with a mesh it raises."""
+    _one_device("decode")
     x = _embed(cfg, params, tokens[:, None], None)
     idx = state["index"]
 

@@ -35,33 +35,42 @@ def _draw(generator, shape, fill):
     return t
 
 
-def init_mamba(generator, ssm_cfg, d_model, *, dtype=torch.float32):
+def init_mamba(generator, ssm_cfg, d_model, *, dtype=torch.float32,
+               with_axes=False):
     """Same shapes and scales as the reference's ``init_mamba``; the draws
     differ (``generator=None``: shapes only, on the ``meta`` device)."""
     H, P, N, G = (ssm_cfg.n_heads, ssm_cfg.head_dim, ssm_cfg.d_state,
                   ssm_cfg.n_groups)
     W = ssm_cfg.conv_width
     dev = device_of(generator)
-    params = {
-        "wz": dense_init(generator, (d_model, H, P), dtype=dtype),
-        "wx": dense_init(generator, (d_model, H, P), dtype=dtype),
-        "wB": dense_init(generator, (d_model, G, N), dtype=dtype),
-        "wC": dense_init(generator, (d_model, G, N), dtype=dtype),
-        "wdt": dense_init(generator, (d_model, H), dtype=dtype),
-    }
+    params, axes = {}, {}
+    for name, shape, ax in (
+            ("wz", (d_model, H, P), ("embed", "ssm_heads", "head_dim")),
+            ("wx", (d_model, H, P), ("embed", "ssm_heads", "head_dim")),
+            ("wB", (d_model, G, N), ("embed", "ssm_group", "ssm_state")),
+            ("wC", (d_model, G, N), ("embed", "ssm_group", "ssm_state")),
+            ("wdt", (d_model, H), ("embed", "ssm_heads"))):
+        params[name], axes[name] = dense_init(generator, shape, ax,
+                                              dtype=dtype)
     # depthwise causal conv over the x-path channels (H*P)
     params["conv_x"] = (0.1 * _draw(generator, (W, H, P), lambda t: t.normal_(
         generator=generator))).to(dtype)
+    axes["conv_x"] = ("conv", "ssm_heads", "head_dim")
     dt0 = torch.exp(_draw(generator, (H,), lambda t: t.uniform_(
         math.log(1e-3), math.log(1e-1), generator=generator)))
     params["dt_bias"] = dt0 + torch.log(-torch.expm1(-dt0))  # inv softplus
+    axes["dt_bias"] = ("ssm_heads",)
     params["A_log"] = torch.log(torch.arange(1, H + 1, dtype=torch.float32,
                                              device=dev))
+    axes["A_log"] = ("ssm_heads",)
     params["D"] = torch.ones(H, dtype=torch.float32, device=dev)
+    axes["D"] = ("ssm_heads",)
     params["norm_scale"] = torch.zeros((H, P), dtype=dtype, device=dev)
-    params["wo"] = dense_init(generator, (H, P, d_model), dtype=dtype,
-                              scale=1.0 / math.sqrt(H * P))
-    return params
+    axes["norm_scale"] = ("ssm_heads", "head_dim")
+    params["wo"], axes["wo"] = dense_init(
+        generator, (H, P, d_model), ("ssm_heads", "head_dim", "embed"),
+        dtype=dtype, scale=1.0 / math.sqrt(H * P))
+    return (params, axes) if with_axes else params
 
 
 def _causal_depthwise_conv(x, w):

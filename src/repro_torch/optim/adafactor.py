@@ -10,7 +10,8 @@ mean of g² + eps over the last axis, and over the second to last) or
 parameters and the statistics IN PLACE (under ``torch.no_grad``) and
 returns the same objects.  The arithmetic is the reference's: decay
 ``beta = 1 - t^-0.8``, the update clipped to RMS <= 1, optional decoupled
-weight decay.
+weight decay.  ``adafactor_update_placed`` is the same step on a mesh's
+blocks (``runtime/trainer``'s sharded step).
 """
 from __future__ import annotations
 
@@ -78,3 +79,75 @@ def adafactor_update(params, grads, state, *, lr, decay=0.8, eps=1e-30,
             u = u + weight_decay * p.float()
         p.copy_((p.float() - lr * u).to(p.dtype))
     return params, state
+
+
+@torch.no_grad()
+def adafactor_update_placed(params, grads, state, *, lr, decay=0.8,
+                            eps=1e-30, clip_threshold=1.0, weight_decay=0.0):
+    """``adafactor_update`` on a mesh, in place: ``params`` a tree of
+    ``Placed`` leaves, ``grads`` one list of per-shard blocks a leaf (in
+    ``tree_leaves`` order), ``state`` as ``adafactor_init``'s with
+    ``Placed`` leaves laid out by ``placed_stats_sharding``.  Every mean
+    of the factored statistics and the update's RMS is taken over the
+    whole leaf: each shard's partial sums psum'd over the mesh axes that
+    split the reduced dims.  Replicas of a block compute the same bits."""
+    from repro_torch.distributed.sharding import psum_over, spec_axes
+
+    steps = state["step"].blocks
+    for t in steps:
+        t += 1
+    for leaf, gs, st in zip(tree_leaves(params), grads,
+                            _stat_dicts(params, state["stats"]),
+                            strict=True):
+        mesh = leaf.sharding.mesh
+        spec = tuple(leaf.sharding.spec) + (None,) * (
+            len(leaf.shape) - len(leaf.sharding.spec))
+
+        def total(vals, dims):
+            """Sum over ``dims`` of the whole leaf, from each block's."""
+            axes = spec_axes(tuple(spec[d] for d in dims))
+            return psum_over(vals, mesh, axes) if axes else vals
+
+        n = len(leaf.blocks)
+        g = [x.float() for x in gs]
+        g2 = [x.square() + eps for x in g]
+        betas = [1.0 - t.float() ** (-decay) for t in steps]
+        if _factored(leaf.shape):
+            nd = len(leaf.shape)
+            rows = total([x.sum(-1) for x in g2], (nd - 1,))
+            cols = total([x.sum(-2) for x in g2], (nd - 2,))
+            vr, vc = st["vr"].blocks, st["vc"].blocks
+            for s in range(n):
+                b = betas[s]
+                vr[s].copy_(b * vr[s] + (1 - b) * (rows[s] / leaf.shape[-1]))
+                vc[s].copy_(b * vc[s] + (1 - b) * (cols[s] / leaf.shape[-2]))
+            denom = total([x.sum(-1, keepdim=True) for x in vr], (nd - 2,))
+            u = [g[s] * torch.rsqrt(vr[s] / (denom[s] / leaf.shape[-2])
+                                    .clamp_min(eps))[..., None]
+                 * torch.rsqrt(vc[s])[..., None, :] for s in range(n)]
+        else:
+            v = st["v"].blocks
+            for s in range(n):
+                v[s].copy_(betas[s] * v[s] + (1 - betas[s]) * g2[s])
+            u = [g[s] * torch.rsqrt(v[s]) for s in range(n)]
+        sq = total([x.square().sum() for x in u], range(len(leaf.shape)))
+        numel = leaf.shape.numel()
+        for s, p in enumerate(leaf.blocks):
+            rms = torch.sqrt(sq[s] / numel)
+            us = u[s] / torch.clamp_min(rms / clip_threshold, 1.0)
+            if weight_decay:
+                us = us + weight_decay * p.float()
+            p.copy_((p.float() - lr * us).to(p.dtype))
+    return params, state
+
+
+def placed_stats_sharding(sharding, shape):
+    """Where a leaf's statistics live when the leaf is laid out by
+    ``sharding``: ``{"vr", "vc"}`` (the leaf's spec without its last, or
+    its second to last, dim) or ``{"v"}`` (the leaf's)."""
+    from repro_torch.distributed.sharding import NamedSharding
+    spec = tuple(sharding.spec) + (None,) * (len(shape) - len(sharding.spec))
+    if _factored(shape):
+        return {"vr": NamedSharding(sharding.mesh, spec[:-1]),
+                "vc": NamedSharding(sharding.mesh, spec[:-2] + spec[-1:])}
+    return {"v": sharding}

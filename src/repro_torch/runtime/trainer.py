@@ -20,8 +20,23 @@ Differences from the reference, each for a reason:
   copies nothing to the card mid-step; the card's numbers are its own.
 - In place.  The optimizers update the parameters and their state in
   place (``optim/``); ``train_step`` returns the same objects.
-- ``init_train_state`` returns the state only: the reference's logical
-  axes serve its sharding, which waits (ROADMAP §1 item 6).
+- ``init_train_state`` returns the state only; ``lm.param_axes(cfg)``
+  gives the reference's logical axes.
+- On a mesh.  Under rules with a mesh (``distributed.sharding
+  .axis_rules(rules_for(mesh, cfg, batch=B, kind="train"))``), ``Trainer``
+  keeps every parameter and optimizer leaf as a ``Placed`` (a block a
+  shard: ``lm.param_shardings``, replicated blocks copied to each of
+  their shards) and steps with ``make_sharded_train_step``: each shard
+  its rows of the batch (``lm.lm_loss_sharded``), the hybrid term once a
+  step on the pooled frames gathered over the data axes (as the
+  reference's sees the whole batch under GSPMD), each block's gradient
+  psum'd over its replicas (the data axes, and 'model' for blocks whole
+  over it) in fixed shard order, so every replica of a block holds the
+  same bits after the step; the global norm (clipping, ``grad_norm``) is
+  taken once over the blocks, and the optimizer runs on the blocks
+  (Adafactor's factored means psum'd, ``adafactor_update_placed``).
+  Checkpoints hold full arrays (``checkpoint/manager.py`` gathers and
+  re-lays ``Placed`` leaves), so they are mesh-agnostic.
 - One readback.  ``Trainer`` reads a step's metrics with one
   device->host copy of them stacked, not one per metric.
 - Failures.  ``Trainer.run`` restores from the last checkpoint after a
@@ -40,12 +55,15 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.hybrid import regularisers
+from repro_torch.distributed import sharding as shd
 from repro_torch.core.swd import seeded_generator
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import lm
 from repro_torch.optim import get_optimizer
+from repro_torch.optim.adafactor import (adafactor_update_placed,
+                                         placed_stats_sharding)
 from repro_torch.optim.schedules import SCHEDULES
-from repro_torch.optim.sgd import tree_leaves, value_and_grad
+from repro_torch.optim.sgd import tree_leaves, tree_unflatten, value_and_grad
 from repro_torch.runtime.fault import StragglerMonitor
 
 
@@ -74,6 +92,16 @@ class NodeFailure(RuntimeError):
     raised); ``Trainer.run`` restores from the last checkpoint."""
 
 
+def _pooled(hidden, P):
+    """The hybrid term's frames: means of P consecutive hidden states,
+    l2-normalised -> (B, S // P, d)."""
+    B, S, d = hidden.shape
+    T = S // P
+    z = hidden[:, : T * P].reshape(B, T, P, d).mean(2)
+    return z / torch.linalg.vector_norm(z, dim=-1,
+                                        keepdim=True).clamp_min(1e-6)
+
+
 def make_loss_fn(cfg, tcfg: TrainCfg):
     """-> ``loss_fn(params, batch, key) -> (loss, metrics)``; ``key`` feeds
     the hybrid term's SW draws (a generator or a ``(dirs, prior)`` pair;
@@ -82,12 +110,7 @@ def make_loss_fn(cfg, tcfg: TrainCfg):
         loss, metrics = lm.lm_loss(cfg, params, batch)
         hidden = metrics.pop("hidden")
         if tcfg.hybrid:
-            B, S, d = hidden.shape
-            P = tcfg.hybrid_pool
-            T = S // P
-            z = hidden[:, : T * P].reshape(B, T, P, d).mean(2)
-            z = z / torch.linalg.vector_norm(z, dim=-1,
-                                             keepdim=True).clamp_min(1e-6)
+            z = _pooled(hidden, tcfg.hybrid_pool)
             sw, lap = regularisers(key, z.float())
             loss = loss + tcfg.hybrid_lam_sw * sw + tcfg.hybrid_lam_lap * lap
             metrics = {**metrics, "swd": sw, "lap": lap}
@@ -155,6 +178,208 @@ def make_train_step(cfg, tcfg: TrainCfg):
     return train_step
 
 
+# ---------------------------------------------------------------------------
+# On a mesh
+# ---------------------------------------------------------------------------
+
+def make_sharded_loss_fn(cfg, tcfg: TrainCfg, lay):
+    """-> ``loss_fn(ps, batch, key) -> (loss, metrics)`` on a mesh: ``ps``
+    one tree of param blocks a shard, ``batch`` each key's rows a shard;
+    the loss (a 0-d tensor on the first shard's device) counts the CE and
+    MoE terms once, and the hybrid term once, on the pooled frames of
+    every shard gathered over the data axes."""
+    def loss_fn(ps, batch, key):
+        losses, m = lm.lm_loss_sharded(lay, cfg, ps, batch)
+        loss = losses[0]
+        metrics = {"ce": m["ce"][0], "moe_aux": m["moe_aux"][0]}
+        if tcfg.hybrid:
+            z = lay.gather_batch([_pooled(h, tcfg.hybrid_pool)
+                                  for h in m["hidden"]])
+            sw, lap = regularisers(key, z.float())
+            loss = loss + tcfg.hybrid_lam_sw * sw + tcfg.hybrid_lam_lap * lap
+            metrics.update(swd=sw, lap=lap)
+        return loss, {k: v.detach() for k, v in metrics.items()}
+    return loss_fn
+
+
+def sharded_value_and_grad(fn, params, n, *args):
+    """``fn(ps, *args) -> (loss, aux)`` over the blocks of a tree of
+    ``Placed`` leaves -> ((loss detached, aux), grads: one list of n
+    per-shard blocks a leaf, in ``tree_leaves`` order; a block the loss
+    does not reach gets zeros)."""
+    placed = tree_leaves(params)
+    leaves = [[b.detach().requires_grad_() for b in t.blocks] for t in placed]
+    flat = [b for bs in leaves for b in bs]
+    ps = [tree_unflatten(params, [bs[s] for bs in leaves]) for s in range(n)]
+    with torch.enable_grad():
+        loss, aux = fn(ps, *args)
+        gs = torch.autograd.grad(loss, flat, allow_unused=True)
+    gs = [torch.zeros_like(b) if g is None else g for b, g in zip(flat, gs)]
+    return (loss.detach(), aux), [gs[i * n:(i + 1) * n]
+                                  for i in range(len(placed))]
+
+
+def reduce_replicas(params, grads):
+    """Each block's gradient psum'd over its replicas (the mesh axes its
+    leaf's spec does not split), in fixed shard order: every replica gets
+    the same bits."""
+    out = []
+    for t, gs in zip(tree_leaves(params), grads):
+        mesh = t.sharding.mesh
+        rep = tuple(a for a in mesh.axis_names
+                    if a not in shd.spec_axes(t.sharding.spec))
+        out.append(list(shd.psum_over(gs, mesh, rep)) if rep else gs)
+    return out
+
+
+def global_norm(params, grads):
+    """The gradient's global norm over the blocks, each block counted once
+    (its first replica), summed in fixed order on the first shard's
+    device."""
+    dev = grads[0][0].device
+    total = torch.zeros((), device=dev)
+    for t, gs in zip(tree_leaves(params), grads):
+        seen = set()
+        for g, sl in zip(gs, t.sharding.slices(t.shape)):
+            key = tuple((x.start, x.stop) for x in sl)
+            if key not in seen:
+                seen.add(key)
+                total = total + g.float().square().sum().to(dev)
+    return torch.sqrt(total)
+
+
+def opt_shardings(optimizer, shardings, params):
+    """Where the optimizer state's leaves live: laid out like the params
+    (Adafactor's statistics by ``placed_stats_sharding``), its step whole
+    on every shard."""
+    mesh = tree_leaves(shardings)[0].mesh
+    rep = shd.NamedSharding(mesh, shd.P())
+    if optimizer == "adamw":
+        return {"m": shardings, "v": shardings, "step": rep}
+    if optimizer == "sgd":
+        return (shardings,)
+    if optimizer == "adafactor":
+        def stats(sh, p):
+            if isinstance(sh, dict):
+                return {k: stats(sh[k], p[k]) for k in sh}
+            return placed_stats_sharding(sh, p.shape)
+        return {"stats": stats(shardings, params), "step": rep}
+    raise ValueError(optimizer)
+
+
+def _assemble(locals_, shardings, meta):
+    """Per-shard trees of blocks (``locals_``), a tree of shardings and a
+    tree of global-shaped (meta) tensors -> a tree of ``Placed``."""
+    if isinstance(shardings, shd.NamedSharding):
+        return shd.Placed(locals_, shardings, meta.shape)
+    if isinstance(shardings, dict):
+        return {k: _assemble([t[k] for t in locals_], shardings[k], meta[k])
+                for k in shardings}
+    return type(shardings)(
+        _assemble([t[i] for t in locals_], sh, m)
+        for i, (sh, m) in enumerate(zip(shardings, meta)))
+
+
+def _place_state(state, shardings):
+    if isinstance(shardings, shd.NamedSharding):
+        return shd.Placed.put(state, shardings)
+    if isinstance(shardings, dict):
+        return {k: _place_state(state[k], shardings[k]) for k in shardings}
+    return type(shardings)(_place_state(s, sh)
+                           for s, sh in zip(state, shardings))
+
+
+def place_train_state(state, cfg, optimizer, lay):
+    """A whole train state (``init_train_state``'s, or one converted or
+    restored) laid out on ``lay``'s mesh, as ``init_sharded_train_state``
+    lays out its own."""
+    shardings = lm.param_shardings(cfg, lay)
+    return {"params": shd.place_tree(state["params"], shardings),
+            "opt": _place_state(state["opt"], opt_shardings(
+                optimizer, shardings, state["params"])),
+            "step": torch.as_tensor(state["step"], dtype=torch.int32).to(
+                lay.devices[0])}
+
+
+def init_sharded_train_state(cfg, tcfg: TrainCfg, generator, lay):
+    """``init_train_state``'s parameters (drawn on the generator's device,
+    then laid out, one copied block a shard) and an optimizer state made
+    on each shard's blocks (no whole copy), every leaf a ``Placed``."""
+    shardings = lm.param_shardings(cfg, lay)
+    params = shd.place_tree(lm.init_lm(cfg, generator), shardings)
+    opt_init, _ = get_optimizer(tcfg.optimizer)
+    meta = lm.init_lm(cfg, None)
+    opt = _assemble([opt_init(p) for p in shd.local_trees(params, lay.n)],
+                    opt_shardings(tcfg.optimizer, shardings, meta),
+                    opt_init(meta))
+    return {"params": params, "opt": opt,
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=lay.devices[0])}
+
+
+def make_sharded_train_step(cfg, tcfg: TrainCfg, lay):
+    """``make_train_step`` on ``lay``'s mesh: ``train_step(params,
+    opt_state, batch, step, keys)`` with the params and optimizer state
+    of ``init_sharded_train_state`` and a global batch (split into each
+    shard's rows here) -> (params, opt_state, metrics), in place.  The
+    metrics are 0-d tensors on the first shard's device (``lr`` a float32
+    CPU tensor)."""
+    _, opt_update = get_optimizer(tcfg.optimizer)
+    loss_fn = make_sharded_loss_fn(cfg, tcfg, lay)
+    schedule = SCHEDULES[tcfg.schedule]
+    n = lay.n
+
+    def blocks(batch):
+        return {k: lay.batch_blocks(v) for k, v in batch.items()}
+
+    def train_step(params, opt_state, batch, step, keys=None):
+        nm = tcfg.microbatches
+        keys = _per_microbatch(keys, nm)
+        if nm > 1:
+            grads, loss, ms = None, None, []
+            for i in range(nm):
+                mb = {k: v.reshape((nm, v.shape[0] // nm) + v.shape[1:])[i]
+                      for k, v in batch.items()}
+                (l, m), g = sharded_value_and_grad(loss_fn, params, n,
+                                                   blocks(mb), keys[i])
+                grads = g if grads is None else [
+                    [a.add_(b) for a, b in zip(ga, gb)]
+                    for ga, gb in zip(grads, g)]
+                loss = l if loss is None else loss + l
+                ms.append(m)
+            grads = [[g / nm for g in gs] for gs in grads]
+            loss = loss / nm
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        else:
+            (loss, metrics), grads = sharded_value_and_grad(
+                loss_fn, params, n, blocks(batch), keys[0])
+        grads = reduce_replicas(params, grads)
+        lr = schedule(step, peak=tcfg.lr, warmup=tcfg.warmup,
+                      total=tcfg.total_steps)
+        gnorm = global_norm(params, grads)
+        if tcfg.optimizer == "adafactor":
+            adafactor_update_placed(params, grads, opt_state, lr=lr,
+                                    weight_decay=tcfg.weight_decay)
+        else:
+            kw = dict(momentum=0.9) if tcfg.optimizer == "sgd" else dict(
+                weight_decay=tcfg.weight_decay, grad_clip=0.0)
+            if tcfg.optimizer == "adamw" and tcfg.grad_clip:
+                scale = torch.clamp(tcfg.grad_clip / gnorm.clamp_min(1e-9),
+                                    max=1.0)
+                grads = [[g * scale.to(g.device, g.dtype) for g in gs]
+                         for gs in grads]
+            local_p = shd.local_trees(params, n)
+            local_o = shd.local_trees(opt_state, n)
+            for s in range(n):
+                opt_update(local_p[s], [gs[s] for gs in grads], local_o[s],
+                           lr=lr, **kw)
+        return params, opt_state, {**metrics, "loss": loss, "lr": lr,
+                                   "grad_norm": gnorm}
+
+    return train_step
+
+
 def init_train_state(cfg, tcfg: TrainCfg, generator):
     """Parameters drawn from ``generator`` on its device, the optimizer's
     initial state, step 0 -> ``{"params", "opt", "step"}``."""
@@ -179,16 +404,25 @@ class Trainer:
 
     ``data_fn(step)`` gives a batch (tensors or numpy arrays).  The hybrid
     term's SW draws come from a generator on ``device`` seeded from
-    ``(seed, step)``, drawn from by each microbatch in turn."""
+    ``(seed, step)``, drawn from by each microbatch in turn.
+
+    Built under rules with a mesh (``axis_rules``), it trains on that
+    mesh (``make_sharded_train_step``); ``device`` is then the mesh's
+    first device, and ``layout`` the mesh's ``ShardLayout``."""
 
     def __init__(self, cfg, tcfg: TrainCfg, data_fn, *, ckpt_dir=None,
                  ckpt_every=50, keep=3, async_ckpt=True,
                  straggler_factor=3.0, failure_injector=None, device="cuda"):
-        self.device = resolve_device(device)
+        rules = shd.current_rules()
+        self.layout = None if rules is None or rules.mesh is None \
+            else shd.ShardLayout(rules)
+        self.device = resolve_device(device if self.layout is None
+                                     else self.layout.devices[0])
         self.cfg, self.tcfg = cfg, tcfg
         self.data_fn = data_fn
         self.state = self._fresh_state()
-        self.train_step = make_train_step(cfg, tcfg)
+        self.train_step = make_train_step(cfg, tcfg) if self.layout is None \
+            else make_sharded_train_step(cfg, tcfg, self.layout)
         self.ckpt = (CheckpointManager(ckpt_dir, keep=keep,
                                        async_save=async_ckpt)
                      if ckpt_dir else None)
@@ -205,8 +439,11 @@ class Trainer:
         self._step = int(self.state["step"])
 
     def _fresh_state(self):
-        return init_train_state(self.cfg, self.tcfg, torch.Generator(
-            device=self.device).manual_seed(self.tcfg.seed))
+        gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+        if self.layout is not None:
+            return init_sharded_train_state(self.cfg, self.tcfg, gen,
+                                            self.layout)
+        return init_train_state(self.cfg, self.tcfg, gen)
 
     @property
     def step(self):

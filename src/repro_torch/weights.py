@@ -18,6 +18,10 @@ axis, and an LM's whole train state (``train_state_from_jax``: its
 parameters, the AdamW, Adafactor or SGD state and the step) with it.
 An LM's decode state (``decode_state_from_jax``: ``index``, and the
 ``k``, ``v``, ``ssm`` and ``conv`` its family has) crosses bitwise too.
+An LM's parameters (or any tree laid out like them) go onto a mesh with
+``lm_to_mesh`` (each leaf laid out by ``lm.param_shardings`` under the
+rules, one copied block a shard) and come back whole with
+``lm_from_mesh``, so parity tests and checkpoints compare full trees.
 A serving session (``session_snapshot_from_jax``) crosses field by
 field: neither package can unpickle the other's ``SessionSnapshot``
 bytes, since a pickle names each class's module.
@@ -91,6 +95,21 @@ def to_device(params, device) -> dict:
     if isinstance(params, list):
         return [to_device(v, device) for v in params]
     return params.to(device)
+
+
+def lm_to_mesh(params, cfg, rules) -> dict:
+    """An LM's full params (``lm_from_jax``'s, say) laid out on
+    ``rules.mesh`` by ``rules``'s param rules -> a tree of ``Placed``."""
+    from repro_torch.distributed.sharding import ShardLayout, place_tree
+    from repro_torch.models.lm import param_shardings
+    return place_tree(params, param_shardings(cfg, ShardLayout(rules)))
+
+
+def lm_from_mesh(placed, device="cpu") -> dict:
+    """A tree of ``Placed`` (or plain tensors) -> full tensors on
+    ``device``."""
+    from repro_torch.distributed.sharding import gather_tree
+    return to_device(gather_tree(placed), device)
 
 
 def head_from_jax(tree):

@@ -77,6 +77,16 @@ def test_guard_covers_the_sharded_slice():
         assert os.path.join("src", "repro_torch", rel) in files
 
 
+def test_guard_covers_the_lm_sharding_slice():
+    files = _port_files()
+    for rel in ("checkpoint/elastic.py", "distributed/sharding.py",
+                "launch/mesh.py", "launch/train.py", "models/moe.py",
+                "models/lm.py", "models/attention.py", "models/mlp.py",
+                "models/common.py", "runtime/trainer.py",
+                "optim/adafactor.py", "weights.py"):
+        assert os.path.join("src", "repro_torch", rel) in files
+
+
 @pytest.mark.parametrize("rel", _port_files())
 def test_no_jax_or_reference_import(rel):
     with open(os.path.join(REPO, rel)) as fh:

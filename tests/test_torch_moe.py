@@ -134,6 +134,31 @@ def test_apply_moe_takes_the_reference_path(monkeypatch):
 
 @pytest.mark.parametrize("fn", ["moe_ep", "_local_moe"])
 def test_expert_parallel_path_waits(fn):
+    """Expert parallelism waits for a mesh: outside any rules ``moe_ep``
+    raises; under rules whose mesh splits the experts over 'model' it runs
+    (``_local_moe``: the dispatch path, the sequence split over 'model')
+    and, at a capacity that drops nothing, gives ``moe_reference``'s
+    output (``test_torch_moe_ep.py`` holds it to the reference's
+    ``moe_ep``)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
     _, p, c, _ = _params("gated")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        getattr(moe, fn)(p, c, torch.zeros(1, 4, D))
+    x = torch.randn(2, 4, D, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="mesh"):
+        moe.moe_ep(p, c, x)
+    mesh = make_test_mesh((1, 2), devices=["cpu"] * 2)
+    stub = type("C", (), {"n_heads": 0, "n_kv_heads": 0, "head_dim": 0})()
+    rules = shd.rules_for(mesh, stub, batch=2, kind="train")
+    with shd.axis_rules(rules):
+        if fn == "moe_ep":
+            y, aux = moe.moe_ep(p, c, x, cap_factor=8.0)
+        else:
+            lay = shd.ShardLayout(rules)
+            ps = shd.local_trees(shd.place_tree(p, shd.param_sharding(
+                moe._moe_axes(c))), lay.n)
+            blk = [x[:, :2], x[:, 2:]]              # seq over 'model'
+            ys, aux, _ = moe._local_moe(lay, ps, c, blk, 8.0)
+            y, aux = torch.cat(ys, 1), aux[0]
+    want = moe.moe_reference(p, c, x)
+    _close(y, want[0])
+    _close(aux, want[1])
