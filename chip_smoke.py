@@ -376,13 +376,44 @@ state saved through ``CheckpointManager``, laid by ``reshard_state``
 onto ``largest_feasible_mesh`` over two shards (bitwise equal to what
 was saved), and one more step there.
 
+Phase 19 runs the rest of the LM on a mesh, float32, seeded random
+weights, logical shards of the card. The flash kernels are held at the
+phase's per-shard shapes (forward, dq, dk/dv at (b)'s and (c)'s, the
+forward at the prefills') against their plain versions and timed. (a)
+mamba2-780m at full width and depth on (data 2, model 2), B 8 x 1,024,
+AdamW, the hybrid term, remat: step 0's loss and gradients against the
+unsharded port (rtol 1e-5, 1e-4 of each gradient's max), bitwise from
+run to run, then ``Trainer`` for 1 + 3 steps, replicas bitwise after
+every step, one ``swd_rank_fwd``, ``laplacian_energy`` and
+``hybrid_reg_bwd`` a step; (b) zamba2-1.2b cut to 13 of its 38 mamba
+layers (two uses of the shared block and a tail), B 4 x 1,024, the same
+gates plus, per shard and use of the shared block, 2 flash forwards
+(remat) and 1 dq and 1 dk/dv; (c) qwen3-1.7b at full width and depth
+under ``rules_for(..., fsdp=True)``, B 4 x 1,024, the same gates, each
+param block the shape its spec gives, then a 2-layer cut's FSDP
+checkpoint restored onto (1, 2) by ``reshard_state(..., fsdp=True)``
+(bitwise) and trained one step there. (d) Prefill and greedy decode
+against the unsharded port in the same call (logits 1e-4 of the max
+for the attention families, ``LM19_SSM_RTOL`` with mamba layers;
+greedy tokens equal but for near-ties): qwen3-1.7b, B 4, prompt 1,024,
+32 steps on (2, 2) (kv heads over 'model') and (1, 16) (positions over
+'model'); zamba2-1.2b at batch 1, prompt 4,096, ``max_len`` 131,072
+(``long_500k``'s 524,288 cut by 4), on (2, 2) under ``kind="decode"``
+(positions over 'data', SSM heads over 'model'); mamba2-780m at batch 1,
+``max_len`` 524,288; phase 14's arctic cut on (1, 4). Each mesh step
+under ``set_sync_debug_mode("error")`` with the state's ``data_ptr``s
+fixed, one profiled step with no sync, H2D or D2H; the flash calls of
+each sharded prefill held at their own inputs. Counted as the
+``lm_mesh`` path: (a)-(c)'s counted steps and (d)'s mesh prefills and
+steps.
+
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
 result.  The line before the last is the kernels' JSON record (after a
 line with phase 12's summary, one with phase 13's, one with phase 14's
 one with phase 15's, one with phase 16's, one with phase 17's and one
-with phase 18's records); the last line is ``{"ok": true, "device":
-{...}}``.
+with phase 18's and one with phase 19's records); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -4830,9 +4861,10 @@ def lm18_mesh(shape):
     return make_test_mesh(shape, devices=[CARD] * int(np.prod(shape)))
 
 
-def lm18_rules(cfg, shape, B):
+def lm18_rules(cfg, shape, B, fsdp=False):
     from repro_torch.distributed import sharding as shd
-    return shd.rules_for(lm18_mesh(shape), cfg, batch=B, kind="train")
+    return shd.rules_for(lm18_mesh(shape), cfg, batch=B, kind="train",
+                         fsdp=fsdp)
 
 
 def lm18_grads(cfg, tcfg, rules, params, batch, draws, times=1):
@@ -4865,16 +4897,19 @@ def lm18_grads(cfg, tcfg, rules, params, batch, draws, times=1):
     return loss, m, gathered
 
 
-def lm18_against_unsharded(cfg, tcfg, shape, params, batch, draws, times):
-    """Step 0 unsharded and on the mesh from the same params, batch and
-    draws -> {"loss": rel err, "gradients": worst rel err, ...}."""
+def lm18_against_unsharded(cfg, tcfg, shape, params, batch, draws, times,
+                           fsdp=False, gate_gradients=True):
+    """Step 0 unsharded and on the mesh (FSDP rules with ``fsdp``) from
+    the same params, batch and draws -> {"loss": rel err, "gradients":
+    worst rel err, ...}; the gradients gated at LM18_RTOL where
+    ``gate_gradients``."""
     from repro_torch.optim.sgd import value_and_grad
     from repro_torch.runtime import trainer as tr
     B = batch["labels"].shape[0]
     (lu, mu), gu = value_and_grad(tr.make_loss_fn(cfg, tcfg), params, batch,
                                   draws)
-    ls, ms, gs = lm18_grads(cfg, tcfg, lm18_rules(cfg, shape, B), params,
-                            batch, draws, times)
+    ls, ms, gs = lm18_grads(cfg, tcfg, lm18_rules(cfg, shape, B, fsdp),
+                            params, batch, draws, times)
     errs = {"loss": abs(ls.item() - lu.item()) / abs(lu.item())}
     for k in mu:
         errs[k] = abs(ms[k].item() - mu[k].item()) / max(abs(mu[k].item()),
@@ -4883,7 +4918,7 @@ def lm18_against_unsharded(cfg, tcfg, shape, params, batch, draws, times):
     check(errs["loss"] <= LM18_LOSS_RTOL,
           f"{cfg.name} on {shape}: loss {ls.item()} vs unsharded "
           f"{lu.item()}: {errs['loss']} > {LM18_LOSS_RTOL}")
-    check(errs["gradients"] <= LM18_RTOL,
+    check(errs["gradients"] <= LM18_RTOL or not gate_gradients,
           f"{cfg.name} on {shape}: gradients {errs['gradients']} of a "
           f"leaf's max > {LM18_RTOL}")
     return errs, lu.item()
@@ -5249,6 +5284,493 @@ def phase18(dev, ops, p12_first_loss, p12_p50):
     return launches, readings, worst
 
 
+# phase 19: the rest of the LM on a mesh, logical shards of the card
+# training runs: (name, layers or None, B, S, warm-up, counted steps, mesh,
+# fsdp); each step 0 also runs unsharded in the same call
+LM19_TRAIN = (("mamba2-780m", None, 8, 1024, 1, 3, (2, 2), False),
+              ("zamba2-1.2b", 13, 4, 1024, 1, 3, (2, 2), False),
+              ("qwen3-1.7b", None, 4, 1024, 1, 3, (2, 2), True))
+# (c)'s checkpoint: the same FSDP run cut to 2 layers (its full state,
+# 20.6 GB with AdamW's moments, would take ~100 s to save and restore at
+# phase 18's measured rate), one step on (2, 2), restored onto (1, 2)
+LM19_RESTORE = ("qwen3-1.7b", 2, 4, 1024, (2, 2), (1, 2))
+# prefill and decode: (name, layers, experts, B, prompt, max_len, decode
+# steps, mesh); every run under rules_for(kind="decode")
+LM19_DECODE = (("qwen3-1.7b", None, None, 4, 1024, 1024 + 64, 32, (2, 2)),
+               # 8 steps: a step on 16 shards is 16x the launches (~1 s)
+               ("qwen3-1.7b", None, None, 4, 1024, 1024 + 64, 8, (1, 16)),
+               ("zamba2-1.2b", None, None, 1, 4096, 131072, 32, (2, 2)),
+               ("mamba2-780m", None, None, 1, 4096, 524288, 32, (2, 2)),
+               ("arctic-480b", 2, 8, 2, 256, 256 + 64, 8, (1, 4)))
+# sharded vs unsharded decode logits, of the max |logit|: the attention
+# families' bar, and the families with mamba layers', set from the first
+# chip reading (mamba2-780m 9.358e-04, zamba2-1.2b 3.688e-05 in decode;
+# 2.701e-04, 4.030e-05 in prefill) below phase 14's PD_SSM_RTOL
+LM19_RTOL = 1e-4
+LM19_SSM_RTOL = 3e-3
+# the flash kernels at this phase's per-shard shapes (B, H, KV, Sq, Sk,
+# hd): (b)'s shared block and (c)'s layers in training (forward, dq,
+# dk/dv), then the prefills' (forward): qwen3-1.7b on (2, 2) is (c)'s, on
+# (1, 16) one q head meeting its kv head, zamba2's batch-1 prompt, the
+# arctic cut on (1, 4)
+LM19_FLASH_TRAIN = ((2, 16, 16, 1024, 1024, 64), (2, 8, 4, 1024, 1024, 128))
+LM19_FLASH_PREFILL = ((4, 1, 1, 1024, 1024, 128),
+                      (1, 16, 16, 4096, 4096, 64),
+                      (2, 14, 2, 256, 256, 128))
+
+
+def lm19_train(dev, ops, spec, launches):
+    """One of (a)-(c): step 0 on the mesh against the unsharded port
+    (bitwise run to run), then ``Trainer`` under the rules for warm-up +
+    counted steps (the counts set to 0 before the counted ones and added
+    to ``launches``), replicas bitwise after every step -> readings."""
+    from repro_torch.checkpoint.serial import _paths
+    from repro_torch.core.swd import draw, seeded_generator
+    from repro_torch.data.tokens import random_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.runtime.trainer import Trainer
+    name, layers, B, S, warm, timed, shape, fsdp = spec
+    cfg = pd_config(name, layers, None)
+    tcfg = lm_train_cfg(warm + timed, S)
+    n = int(np.prod(shape))
+    data_fn = lambda step: random_batch(  # noqa: E731
+        torch.Generator(device=dev).manual_seed(190 + step), cfg.vocab, B, S)
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(19))
+    draws = draw(seeded_generator(tcfg.seed, 0, dev), 50,
+                 B * (S // tcfg.hybrid_pool), cfg.d_model)
+    mamba = cfg.family in ("ssm", "hybrid")
+    errs, _ = lm18_against_unsharded(cfg, tcfg, shape, params, data_fn(0),
+                                     draws, times=2, fsdp=fsdp,
+                                     gate_gradients=not mamba)
+    if mamba:
+        errs["float64 gradients"] = lm19_float64_grads(
+            cfg, shape, params, data_fn(0), fsdp)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rules = lm18_rules(cfg, shape, B, fsdp=fsdp)
+    with shd.axis_rules(rules):
+        trainer = Trainer(cfg, tcfg, data_fn, device=dev)
+    for k, t in _paths(trainer.state["params"]):
+        want = [tuple(s.stop - s.start for s in sl)
+                for sl in t.sharding.slices(t.shape)]
+        check([tuple(b.shape) for b in t.blocks] == want,
+              f"{name}: {k} blocks {[tuple(b.shape) for b in t.blocks]} "
+              f"under spec {t.sharding.spec}, want {want}")
+    if fsdp:
+        split = [k for k, t in _paths(trainer.state["params"])
+                 if "data" in shd.spec_axes(t.sharding.spec)]
+        check(split, f"{name}: FSDP rules split no param over 'data'")
+    for _ in range(warm):
+        trainer.run(1, log_every=0)
+        check(replicas_equal(trainer.state), f"{name}: replicas differ")
+    zero_counts(ops)
+    for _ in range(timed):
+        trainer.run(1, log_every=0)
+        check(replicas_equal(trainer.state), f"{name}: replicas of a block "
+              "differ after a step")
+    got = read_counts(ops)
+    add_counts(launches, got)
+    G = (cfg.n_layers // cfg.hybrid_period if cfg.family == "hybrid"
+         else 0 if cfg.family == "ssm" else cfg.n_layers)
+    want = {"swd_rank_fwd": timed, "laplacian_energy": timed,
+            "hybrid_reg_bwd": timed}
+    if G:
+        want.update(flash_attention_fwd=2 * G * n * timed,
+                    flash_attention_bwd_dq=G * n * timed,
+                    flash_attention_bwd_dkv=G * n * timed)
+    check(got == {k: want.get(k, 0) for k in got},
+          f"{name} on {shape}: launches {got} in {timed} steps, want {want}"
+          " (per shard 2 flash forwards an attention layer or shared-block "
+          "use under remat, 1 dq and 1 dk/dv; the hybrid term once a step)")
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)), f"{name}: losses {losses}")
+    times = [h["time_s"] * 1e3 for h in hist[warm:]]
+    p50, p95 = float(np.percentile(times, 50)), float(np.percentile(times, 95))
+    peak = torch.cuda.max_memory_allocated()
+    out = {"name": name, "layers": cfg.n_layers, "mesh": list(shape),
+           "fsdp": fsdp, "B": B, "S": S, "step0_vs_unsharded": errs,
+           "step_ms_p50": p50, "step_ms_p95": p95,
+           "tokens_per_s": B * S / (p50 / 1e3), "peak_bytes": peak,
+           "losses": losses, "launches": got}
+    print(f"phase 19: {name} ({cfg.n_layers} layers, full width) on (data, "
+          f"model) = {shape}{' under FSDP' if fsdp else ''}, B {B} x S {S}, "
+          "AdamW, hybrid, remat; step 0 vs the unsharded port: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()) + " (bitwise run to "
+          f"run); Trainer {warm} + {timed} steps: step ms p50 {p50:.3f} (p95 "
+          f"{p95:.3f}), {out['tokens_per_s']:.1f} tokens/s, peak "
+          f"{peak / 1e9:.3f} GB; losses {[round(x, 4) for x in losses]}; "
+          f"replicas bitwise after every step; launches {got}")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm19_float64_grads(cfg, shape, params, batch, fsdp):
+    """Step 0's gradients (the hybrid term off: its kernels take float32)
+    unsharded and on the mesh with the port in float64, on the first two
+    rows -> the worst gathered gradient's distance, of its leaf's max,
+    gated at LM18_RTOL.  In float32 a mamba layer amplifies the rounding
+    of its input: at full depth the float32 gradient itself is not
+    determined to that bar (the unsharded float32 gradient is up to
+    3.9e-3 of a leaf's max from a float64 run at 12 of mamba2's layers,
+    the mesh's 2.9e-3; ``tools/mamba_grad_precision.py``),
+    so float64 is where the mesh's arithmetic is held to the unsharded
+    step's."""
+    from dataclasses import replace
+
+    from repro_torch.optim.sgd import value_and_grad
+    from repro_torch.runtime import trainer as tr
+    c64 = replace(cfg, dtype="float64", param_dtype="float64")
+    tcfg = replace(lm_train_cfg(1, batch["tokens"].shape[1]), hybrid=False)
+    rows = {k: v[:2] for k, v in batch.items()}
+    p64 = map_tree(params, torch.Tensor.double)
+    with float64_port():
+        (lu, _), gu = value_and_grad(tr.make_loss_fn(c64, tcfg), p64, rows,
+                                     None)
+        _, _, gs = lm18_grads(c64, tcfg, lm18_rules(c64, shape, 2, fsdp),
+                              p64, rows, None)
+    del p64
+    err = max(pd_rel(a, b) for a, b in zip(gs, gu))
+    check(err <= LM18_RTOL, f"{cfg.name} on {shape} in float64: gradients "
+          f"{err} of a leaf's max > {LM18_RTOL}")
+    del gu, gs
+    torch.cuda.empty_cache()
+    return err
+
+
+def lm19_restore(dev):
+    """(c)'s checkpoint: an FSDP trainer's state saved through
+    ``CheckpointManager``, restored, laid onto another mesh by
+    ``reshard_state(..., fsdp=True)`` (bitwise what was saved), taken by
+    a trainer under FSDP rules there, which trains one step -> readings."""
+    import tempfile
+
+    from repro_torch.checkpoint.elastic import reshard_state
+    from repro_torch.checkpoint.manager import CheckpointManager, snapshot
+    from repro_torch.checkpoint.serial import _paths
+    from repro_torch.data.tokens import random_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.runtime.trainer import Trainer
+    name, layers, B, S, shape, shape2 = LM19_RESTORE
+    cfg = pd_config(name, layers, None)
+    tcfg = lm_train_cfg(2, S)
+    data_fn = lambda step: random_batch(  # noqa: E731
+        torch.Generator(device=dev).manual_seed(290 + step), cfg.vocab, B, S)
+    with shd.axis_rules(lm18_rules(cfg, shape, B, fsdp=True)):
+        trainer = Trainer(cfg, tcfg, data_fn, device=dev)
+    trainer.run(1, log_every=0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        saved = snapshot(trainer.state)
+        del trainer
+        torch.cuda.empty_cache()
+        mgr.save(1, saved)
+        restored, at = mgr.restore_latest(saved)
+    check(at == 1, f"FSDP restore: step {at}")
+    mesh2 = lm18_mesh(shape2)
+    axes = lm.param_axes(cfg)
+    state = {"params": reshard_state(restored["params"], axes, mesh2,
+                                     fsdp=True),
+             "opt": {k: reshard_state(restored["opt"][k], axes, mesh2,
+                                      fsdp=True) for k in ("m", "v")},
+             "step": torch.as_tensor(restored["step"])}
+    state["opt"]["step"] = torch.as_tensor(restored["opt"]["step"])
+    for (k, a), (_, b) in zip(_paths(shd.gather_tree(state)), _paths(saved)):
+        check(torch.equal(torch.as_tensor(a).cpu(), torch.from_numpy(
+            np.asarray(b))), f"FSDP restore: {k} not bitwise what was saved")
+    emb = state["params"]["embed"]["table"]
+    check("data" in shd.spec_axes(emb.sharding.spec),
+          f"reshard_state(fsdp=True) laid the table out as "
+          f"{emb.sharding.spec}")
+    seconds = time.perf_counter() - t0
+    with shd.axis_rules(lm18_rules(cfg, shape2, B, fsdp=True)):
+        t2 = Trainer(cfg, tcfg, data_fn, device=dev)
+    t2.load_state(state)
+    del state
+    m = t2.run(1, log_every=0)[-1]
+    check(np.isfinite(m["loss"]) and replicas_equal(t2.state),
+          f"FSDP restore: step loss {m['loss']}, replicas equal "
+          f"{replicas_equal(t2.state)}")
+    out = {"name": name, "layers": layers, "from": list(shape),
+           "to": list(shape2), "save_restore_reshard_s": seconds,
+           "loss": m["loss"]}
+    print(f"phase 19 (c): {name} cut to {layers} layers, one FSDP step on "
+          f"{shape}, saved, restored and resharded onto {shape2} with "
+          f"fsdp=True in {seconds:.2f} s, bitwise what was saved; one step "
+          f"there under FSDP rules: loss {m['loss']:.4f}")
+    del t2
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm19_decode_steps(cfg, params, st, fed, rules):
+    """The steps of (d) on the mesh, ``fed[:, t]`` the token of step t,
+    each under ``set_sync_debug_mode("error")``, the state's blocks at
+    fixed ``data_ptr``s -> (logits (steps, B, V), step ms)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+    ptrs = lm19_ptrs(st)
+    B, steps = fed.shape
+    out = torch.empty((steps, B, cfg.vocab), device=fed.device)
+    ms = []
+    with shd.axis_rules(rules):
+        for t in range(steps):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits, st2 = lm.decode_step(cfg, params, st, fed[:, t])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - start) * 1e3)
+            check(st2 is st and lm19_ptrs(st) == ptrs,
+                  f"{cfg.name} decode step {t}: the state moved")
+            out[t].copy_(logits)
+    return out, ms
+
+
+def lm19_ptrs(st):
+    return [b.data_ptr() for v in st.values() for b in v.blocks]
+
+
+def lm19_greedy_misses(ref, got, err):
+    """Steps and rows whose greedy token differs, where the unsharded top
+    two logits lie further apart than twice the step's max |err| (a
+    nearer pair is a tie at this precision) -> (misses, near ties)."""
+    top = ref.topk(2, dim=-1).values
+    gap = top[..., 0] - top[..., 1]
+    differ = ref.argmax(-1) != got.argmax(-1)
+    tie = gap <= 2 * err
+    return int((differ & ~tie).sum()), int((differ & tie).sum())
+
+
+def lm19_decode(dev, ops, spec, launches):
+    """One prefill-and-decode run of (d): the unsharded port's prefill and
+    greedy steps, then the same on the mesh fed the same tokens (the
+    counts set to 0 before the mesh's prefill and steps and added to
+    ``launches``) -> readings."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.weights import lm_to_mesh
+    name, layers, experts, B, S, max_len, steps, shape = spec
+    cfg = pd_config(name, layers, experts)
+    n = int(np.prod(shape))
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(29))
+    g = torch.Generator(device=dev).manual_seed(39)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+    with torch.inference_mode():
+        st, first = lm.prefill(cfg, params, tokens=toks, max_len=max_len)
+        fed = torch.empty((B, steps), dtype=toks.dtype, device=dev)
+        ref = torch.empty((steps, B, cfg.vocab), device=dev)
+        logits = first
+        for t in range(steps):
+            fed[:, t] = logits.argmax(-1)
+            logits, _ = lm.decode_step(cfg, params, st, fed[:, t])
+            ref[t].copy_(logits)
+        del st
+    rules = shd.rules_for(lm18_mesh(shape), cfg, batch=B, kind="decode")
+    pm = lm_to_mesh(params, cfg, rules, copy=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    calls = []
+    with torch.inference_mode(), shd.axis_rules(rules):
+        # warm-up at the served shapes, the flash calls recorded
+        with record_flash(calls):
+            st, first_s = lm.prefill(cfg, pm, tokens=toks, max_len=max_len)
+        lm.decode_step(cfg, pm, st, fed[:, 0])
+        del st
+        flash_worst = 0.0
+        for q, k, v, causal, scale in calls:
+            flash_worst = max(flash_worst, hold(
+                "flash_attention_fwd",
+                lambda q, k, v: ops.flash_attention_fwd(
+                    q, k, v, causal=causal, scale=scale),
+                lambda q, k, v: ops.flash_attention_ref(q, k, v, causal,
+                                                        scale),
+                (q, k, v), [(0.0, FLASH_O_ATOL), (0.0, FLASH_LSE_ATOL)],
+                f"{name} on {shape} prefill: q {tuple(q.shape)}, k "
+                f"{tuple(k.shape)}"))
+        shapes = sorted({(tuple(q.shape), tuple(k.shape))
+                         for q, k, _, _, _ in calls})
+        del calls
+        zero_counts(ops)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        st, first_s = lm.prefill(cfg, pm, tokens=toks, max_len=max_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - start) * 1e3
+        pre = read_counts(ops)
+        attn = (cfg.n_layers // cfg.hybrid_period if cfg.family == "hybrid"
+                else 0 if cfg.family == "ssm" else cfg.n_layers)
+        check(pre == {k: (attn * n if k == "flash_attention_fwd" else 0)
+                      for k in pre},
+              f"{name} on {shape}: the prefill launched {pre}, want "
+              f"{attn * n} flash forwards (one an attention layer a shard) "
+              "and no other kernel")
+    zero_counts(ops)
+    with torch.inference_mode():
+        got, step_ms = lm19_decode_steps(cfg, pm, st, fed, rules)
+    dec = read_counts(ops)
+    check(not any(dec.values()), f"{name} on {shape}: decode launched {dec}")
+    add_counts(launches, pre)
+    index = [int(i) for i in st["index"].blocks]
+    check(index == [S + steps] * n, f"{name}: index {index}")
+    p50 = float(np.percentile(step_ms, 50))
+    with torch.inference_mode(), shd.axis_rules(rules):
+        prof = profile_decode_step(cfg, pm, st, fed[:, -1], p50)
+    check(prof["syncs"] == 0 and prof["h2d"] == 0 and prof["d2h"] == 0,
+          f"{name} on {shape}: the profiled sharded decode step synced or "
+          f"copied to or from the host: {prof}")
+    peak = torch.cuda.max_memory_allocated()
+    bar = LM19_SSM_RTOL if cfg.family in ("ssm", "hybrid") else LM19_RTOL
+    prefill_err = pd_rel(first_s, first)
+    step_err = [pd_rel(a, b) for a, b in zip(got, ref)]
+    errs = {"prefill": prefill_err, "decode": max(step_err)}
+    abs_err = [(a - b).abs().max().item() for a, b in zip(got, ref)]
+    misses, ties = lm19_greedy_misses(
+        ref, got, torch.tensor(abs_err, device=dev)[:, None])
+    first_miss = lm19_greedy_misses(first[None], first_s[None], torch.full(
+        (1, 1), (first_s - first).abs().max().item(), device=dev))
+    check(max(errs.values()) <= bar, f"{name} on {shape}: sharded vs "
+          f"unsharded logits {errs} of the max > {bar}")
+    check(misses == 0 and first_miss[0] == 0,
+          f"{name} on {shape}: {misses} decode and {first_miss[0]} prefill "
+          "greedy tokens differ from the unsharded port's beyond a near-tie")
+    kv_seq = rules.act_rules["kv_seq"] if "k" in st else None
+    rec = {"name": name, "layers": cfg.n_layers, "mesh": list(shape), "B": B,
+           "prompt": S, "max_len": max_len, "steps": steps,
+           "kv_heads_split": rules.act_rules["kv_heads"],
+           "kv_seq_split": kv_seq, "vs_unsharded": errs, "bar": bar,
+           "greedy_near_ties": ties + first_miss[1],
+           "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": B * S / prefill_ms * 1e3,
+           "decode_p50_ms": p50,
+           "decode_p95_ms": float(np.percentile(step_ms, 95)),
+           "decode_tokens_per_s": B / p50 * 1e3, "peak_bytes": peak,
+           "cache_bytes": sum(b.numel() * b.element_size()
+                              for k in ("k", "v") if k in st
+                              for b in st[k].blocks),
+           "flash_launches": pre["flash_attention_fwd"],
+           "flash_shapes": [list(q) + list(k) for q, k in shapes],
+           "flash_err": flash_worst, "profile": prof}
+    print(f"phase 19 (d): {name} ({cfg.n_layers} layers) on {shape}, B {B}, "
+          f"prompt {S}, max_len {max_len}: kv heads over "
+          f"{rec['kv_heads_split']}, kv positions over {kv_seq}; vs the "
+          f"unsharded port prefill {prefill_err:.3e}, decode "
+          f"{errs['decode']:.3e} of the max (bar {bar}), greedy tokens equal "
+          f"({rec['greedy_near_ties']} near-ties); prefill {prefill_ms:.3f} "
+          f"ms ({rec['prefill_tokens_per_s']:.1f} tokens/s), decode p50 "
+          f"{p50:.3f} ms (p95 {rec['decode_p95_ms']:.3f}), peak "
+          f"{peak / 1e9:.3f} GB; {pre['flash_attention_fwd']} flash launches "
+          f"a prefill (held, max |err| {flash_worst:.3e}), none a step; steps "
+          "under set_sync_debug_mode('error'), data_ptrs fixed; profiled "
+          f"step: {prof['launches']} launches, no sync or copy, idle share "
+          f"{prof['idle_share']:.3f}")
+    del st, pm, params, ref, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def hold_lm19_flash(dev, ops):
+    """The flash kernels at this phase's per-shard shapes against their
+    plain versions (phase 9's atols; phase 11's 1e-5 of each gradient's
+    max), bitwise run to run, each timed -> ({name: max |err|}, [{shape,
+    name: device ms}])."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    worst = dict.fromkeys(("flash_attention_fwd",) + BWD_KERNELS, 0.0)
+    times = []
+    for shape in LM19_FLASH_TRAIN + LM19_FLASH_PREFILL:
+        B, H, KV, Sq, Sk, hd = shape
+        what = f"B={B} H={H} KV={KV} S={Sq} hd={hd}"
+        q, k, v = flash_inputs(g, dev, B, H, KV, Sq, Sk, hd)
+        worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"], hold(
+            "flash_attention_fwd",
+            lambda q, k, v: ops.flash_attention_fwd(q, k, v, causal=True),
+            lambda q, k, v: ops.flash_attention_ref(q, k, v, True),
+            (q, k, v), [(0.0, FLASH_O_ATOL), (0.0, FLASH_LSE_ATOL)], what))
+        row = {"shape": list(shape), "flash_attention_fwd": device_ms(
+            lambda a: ops.flash_attention_fwd(*a, causal=True), (q, k, v)),
+            "bound_ms": {n: lm19_flash_bound_ms(shape, n)
+                         for n in ("flash_attention_fwd",) + (
+                             BWD_KERNELS if shape in LM19_FLASH_TRAIN
+                             else ())}}
+        if shape in LM19_FLASH_TRAIN:
+            do = torch.randn(B, H, Sq, hd, device=dev, generator=g)
+            o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+            args = (q, k, v, do, lse, (do * o).sum(-1))
+            (dq,) = same_bits(lambda *a: (ops.flash_attention_bwd_dq(
+                *a, causal=True),), args, f"dq at {what}")
+            dk, dv = same_bits(lambda *a: ops.flash_attention_bwd_dkv(
+                *a, causal=True), args, f"dk/dv at {what}")
+            plain = (ops.flash_attention_bwd_dq_ref(*args, True),
+                     *ops.flash_attention_bwd_dkv_ref(*args, True))
+            err = rel_grads((dq, dk, dv), plain)
+            check(err <= FLASH_BWD_RTOL, f"flash backward != plain at "
+                  f"{what}: {err} > {FLASH_BWD_RTOL}")
+            worst["flash_attention_bwd_dq"] = max(
+                worst["flash_attention_bwd_dq"],
+                (dq - plain[0]).abs().max().item())
+            worst["flash_attention_bwd_dkv"] = max(
+                worst["flash_attention_bwd_dkv"],
+                (dk - plain[1]).abs().max().item(),
+                (dv - plain[2]).abs().max().item())
+            row["flash_attention_bwd_dq"] = device_ms(
+                lambda a: ops.flash_attention_bwd_dq(*a, causal=True), args)
+            row["flash_attention_bwd_dkv"] = device_ms(
+                lambda a: ops.flash_attention_bwd_dkv(*a, causal=True), args)
+        times.append(row)
+    print("phase 19: flash kernels at the per-shard shapes (B, H, KV, Sq, "
+          f"Sk, hd) {LM19_FLASH_TRAIN + LM19_FLASH_PREFILL} == plain (o atol "
+          f"{FLASH_O_ATOL}, lse atol {FLASH_LSE_ATOL}; backward at the "
+          f"training shapes {FLASH_BWD_RTOL} of each gradient's max), "
+          "bitwise run to run; max |err| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items()) + "; device ms " +
+          "; ".join(f"{r['shape']}: " + ", ".join(
+              f"{k} {v:.3f} (bound {r['bound_ms'][k]:.3f})"
+              for k, v in r.items() if k not in ("shape", "bound_ms"))
+              for r in times))
+    return worst, times
+
+
+def lm19_flash_bound_ms(shape, name):
+    """The least time of a causal flash kernel at ``shape`` (B, H, KV, Sq,
+    Sk, hd): its products (forward 2, dq 3, dk/dv 4) at 3xTF32's rate or
+    its inputs and outputs once at the HBM rate, the larger."""
+    B, H, KV, Sq, Sk, hd = shape
+    pairs = sum(min(i + 1, Sk) for i in range(Sq))
+    products = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 3,
+                "flash_attention_bwd_dkv": 4}[name]
+    q, kv, row = B * H * Sq * hd, B * KV * Sk * hd, B * H * Sq
+    nbytes = 4 * {"flash_attention_fwd": 2 * q + 2 * kv + row,
+                  "flash_attention_bwd_dq": 3 * q + 2 * kv + 2 * row,
+                  "flash_attention_bwd_dkv": 2 * q + 4 * kv + 2 * row}[name]
+    return max(nbytes / HBM_BYTES_PER_S,
+               2 * products * B * H * pairs * hd / TF32X3_OPS_PER_S) * 1e3
+
+
+def phase19(dev, ops):
+    """SSM and hybrid training on a mesh, FSDP, sharded prefill and decode
+    on the card -> (the ``lm_mesh`` path's launch counts, the readings,
+    max |err| by flash kernel at the per-shard shapes)."""
+    start = time.perf_counter()
+    worst, flash_ms = hold_lm19_flash(dev, ops)
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    train = [lm19_train(dev, ops, spec, launches) for spec in LM19_TRAIN]
+    restore = lm19_restore(dev)
+    decode = [lm19_decode(dev, ops, spec, launches) for spec in LM19_DECODE]
+    readings = {"train": train, "restore": restore, "decode": decode,
+                "flash_ms": flash_ms,
+                "seconds": time.perf_counter() - start}
+    print(f"phase 19: {readings['seconds']:.1f} s")
+    return launches, readings, worst
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -5297,6 +5819,7 @@ def main():
     sharded_launches, sharded, sharded_worst = phase17(CFG, ops)
     sharded_lm_launches, sharded_lm, sharded_lm_worst = phase18(
         dev, ops, lm_runs[0]["loss_first"], lm_runs[0]["step_ms_p50"])
+    lm_mesh_launches, lm_mesh, lm_mesh_worst = phase19(dev, ops)
     paths = {"serve": launches, "refine": refine_launches,
              "train": train_launches, "per_frame": frame_launches,
              "stream": stream_launches, "cascade": cascade_launches,
@@ -5304,7 +5827,7 @@ def main():
              "prefill": prefill_launches, "decode": decode_launches,
              "cluster": cluster_launches, "quality": quality_launches,
              "examples": example_launches, "sharded": sharded_launches,
-             "sharded_lm": sharded_lm_launches}
+             "sharded_lm": sharded_lm_launches, "lm_mesh": lm_mesh_launches}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -5423,6 +5946,16 @@ def main():
         if r["name"] in sharded_lm["flash_ms"]:
             r["sharded_lm_shape_ms"] = sharded_lm["flash_ms"][r["name"]]
     print(json.dumps({"sharded_lm": sharded_lm}))
+    # phase 19's holds at the per-shard shapes of the SSM, hybrid and FSDP
+    # steps and the sharded prefills, and its flash times there
+    for r in records:
+        r["lm_mesh_max_abs_err"] = lm_mesh_worst.get(r["name"])
+        if r["name"] in lm_mesh_worst:
+            r["lm_mesh_shapes_ms"] = [
+                {"shape": row["shape"], "ms": row[r["name"]],
+                 "bound_ms": row["bound_ms"][r["name"]]}
+                for row in lm_mesh["flash_ms"] if r["name"] in row]
+    print(json.dumps({"lm_mesh": lm_mesh}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,11 @@ Port of ``repro.checkpoint.elastic``.  Checkpoints are mesh-agnostic
 laying each leaf out by the new mesh's rules: a job can restart on a
 degraded fleet as long as the new mesh divides the split dims.
 ``largest_feasible_mesh`` picks the biggest (data, model) grid for the
-devices that survive.  The port's mesh may name one device more than once
+devices that survive.  With ``fsdp=True`` the weights' ``embed`` dims
+split over 'data' as well; a trainer under ``rules_for(...,
+fsdp=True)`` takes such a state with ``Trainer.load_state``, which
+re-lays the leaves its own rules lay out otherwise (the attention
+projections' ``q_in``/``kv_in``, which ``make_rules`` leaves whole).  The port's mesh may name one device more than once
 (logical shards of one card).
 """
 from __future__ import annotations

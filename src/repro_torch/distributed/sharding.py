@@ -32,6 +32,10 @@ arithmetic: a result's gradient reaches every shard's input.
 ``psum_over`` and the other ``*_over`` forms run a collective within each
 group of shards that differ only along the named mesh axes (a flat list
 of every shard's value, in the mesh's row-major order).
+``fsdp_gather_over`` is the all-gather FSDP rules need: its backward is
+the reduce-scatter (the group's gradients summed in shard order, each
+shard taking its block's slice), so each block's gradient comes back to
+the shard that holds it.
 """
 from __future__ import annotations
 
@@ -266,6 +270,46 @@ def all_to_all_over(vals, mesh, axes, split_axis, concat_axis):
                  mesh, axes)
 
 
+class _GatherScatter(torch.autograd.Function):
+    """All-gather of one group's blocks along ``dim``, a whole copy on
+    each shard's device; its backward is the reduce-scatter: the copies'
+    gradients summed in shard order on the first shard's device, then
+    each shard takes its block's slice."""
+
+    @staticmethod
+    def forward(ctx, dim, *blocks):
+        ctx.dim = dim
+        ctx.sizes = [b.shape[dim] for b in blocks]
+        ctx.devices = [b.device for b in blocks]
+        return tuple(torch.cat([b.to(x.device) for b in blocks], dim)
+                     for x in blocks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        dev = ctx.devices[0]
+        total = None
+        for g in grads:
+            if g is not None:
+                total = g.to(dev) if total is None else total + g.to(dev)
+        if total is None:
+            return (None,) * (1 + len(grads))
+        parts = total.split(ctx.sizes, ctx.dim)
+        return (None,) + tuple(p.to(d) for p, d in zip(parts, ctx.devices))
+
+
+def fsdp_gather_over(vals, mesh, axes, dim):
+    """Each shard's block of a parameter split along ``dim`` over the mesh
+    ``axes`` (FSDP) -> the whole of that dim on every shard, concatenated
+    in group order; the gradient of a shard's block is the sum over its
+    group of the copies' gradients, in shard order, at the block's slice
+    (``psum_over`` then a slice: a reduce-scatter)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if math.prod(mesh.shape[a] for a in axes) == 1:
+        return PerShard(vals)
+    return _over(lambda xs: _GatherScatter.apply(dim, *xs), vals, mesh,
+                 axes)
+
+
 # ---------------------------------------------------------------------------
 # Logical-axis rules
 # ---------------------------------------------------------------------------
@@ -345,15 +389,17 @@ def param_pspecs(axes_tree):
     return map_axes(lambda axes: rules.spec(axes, kind="param"), axes_tree)
 
 
-def _entry_axes(entry) -> tuple:
+def entry_axes(entry) -> tuple:
+    """The mesh axes one entry of a spec splits its dim over."""
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+
 def spec_axes(spec) -> tuple:
     """Every mesh axis a spec splits a dim over."""
-    return tuple(a for e in spec for a in _entry_axes(e))
+    return tuple(a for e in spec for a in entry_axes(e))
 
 
 def shard_slices(shape, spec, mesh) -> list:
@@ -369,8 +415,8 @@ def shard_slices(shape, spec, mesh) -> list:
     if len(set(used)) != len(used):
         raise ValueError(f"spec {spec} names a mesh axis twice")
     for dim, entry in enumerate(spec):
-        k = math.prod(sizes[a] for a in _entry_axes(entry)) if entry else 1
-        for a in _entry_axes(entry):
+        k = math.prod(sizes[a] for a in entry_axes(entry)) if entry else 1
+        for a in entry_axes(entry):
             if a not in sizes:
                 raise ValueError(f"spec {spec}: no mesh axis {a!r}")
         if shape[dim] % k:
@@ -384,7 +430,7 @@ def shard_slices(shape, spec, mesh) -> list:
         for dim in range(len(shape)):
             entry = spec[dim] if dim < len(spec) else None
             idx, k = 0, 1
-            for a in _entry_axes(entry):
+            for a in entry_axes(entry):
                 idx, k = idx * sizes[a] + at[a], k * sizes[a]
             n = shape[dim] // k
             sl.append(slice(idx * n, (idx + 1) * n))
@@ -653,6 +699,12 @@ class ShardLayout:
         """Whether the param rules put logical axis ``name`` on 'model'."""
         return self.M > 1 and self.rules.param_rules.get(name) == "model"
 
+    def act_axes(self, name) -> tuple:
+        """The mesh axes of more than one shard that the act rules split
+        logical axis ``name`` over."""
+        return tuple(a for a in entry_axes(self.rules.act_rules.get(name))
+                     if self.mesh.shape.get(a, 1) > 1)
+
     def batch_blocks(self, x, *, copy=False):
         """A batch-leading global tensor -> each shard's rows (the
         act rules' 'batch' entry; whole on every shard when it is
@@ -686,6 +738,12 @@ class ShardLayout:
         return self._over(lambda v, m, a: all_to_all_over(
             v, m, a, split_axis, concat_axis), vals, ("model",))
 
+    def psum_axes(self, vals, axes):
+        return self._over(psum_over, vals, axes)
+
+    def pmax_axes(self, vals, axes):
+        return self._over(pmax_over, vals, axes)
+
     def psum_batch(self, vals):
         """Sum over the batch groups where the batch is split (else each
         group already holds the whole batch)."""
@@ -716,9 +774,10 @@ __all__ = ["SESSIONS_AXIS", "Mesh", "PerShard", "row_blocks",
            "sessions_sharding", "psum", "pmax", "pmean", "ppermute",
            "all_gather", "all_to_all", "axis_index", "axis_groups",
            "psum_over", "pmax_over", "pmean_over", "all_gather_over",
-           "all_to_all_over", "PartitionSpec", "P", "AxisRules",
-           "current_rules", "axis_rules", "logical_spec", "is_axes_leaf",
-           "map_axes", "param_pspecs", "spec_axes", "shard_slices",
-           "param_sharding", "NamedSharding", "Placed", "shard",
-           "place_tree", "gather_tree", "map_placed", "local_trees", "make_rules", "rules_for",
-           "ShardLayout", "mesh_axis_size", "get_mesh"]
+           "all_to_all_over", "fsdp_gather_over", "PartitionSpec", "P",
+           "AxisRules", "current_rules", "axis_rules", "logical_spec",
+           "is_axes_leaf", "map_axes", "param_pspecs", "entry_axes",
+           "spec_axes", "shard_slices", "param_sharding", "NamedSharding",
+           "Placed", "shard", "place_tree", "gather_tree", "map_placed",
+           "local_trees", "make_rules", "rules_for", "ShardLayout",
+           "mesh_axis_size", "get_mesh"]

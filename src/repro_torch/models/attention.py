@@ -31,6 +31,14 @@ row over the cache would see key 0 alone.  It writes the new k and v into
 the cache in place (``index_copy_`` at the index, clamped to ``max_len -
 1`` as ``dynamic_update_slice`` clamps its start) and reads the index on
 the device only: a step copies no cache and waits for nothing.
+
+On a mesh (``attention_sharded``, ``attention_prefill_sharded``,
+``attention_decode_sharded``) each shard holds its block of the layer's
+params and of the cache, laid out by ``rules_for``: kv heads over 'model'
+where they divide it, else the cache's positions (``kv_seq``) over
+'model', or over 'data' at batch 1.  Decode over split positions combines
+the shards' blocks as flash-decoding does (see
+``attention_decode_sharded``).
 """
 from __future__ import annotations
 
@@ -208,24 +216,16 @@ def _kv_for_local_heads(k, v, first, n_local, G):
     return k.index_select(2, sel), v.index_select(2, sel)
 
 
-def attention_sharded(lay, ps, cfg, xs, positions, *, window=None,
-                      index_positions=False):
-    """``attention`` on a mesh: ``ps[s]`` is shard s's block of the layer's
-    params (``param_pspecs`` of the axes tree), ``xs[s]`` its rows (B_l, S,
-    d), whole over 'model' -> each shard's output, whole over 'model'.
-
-    Per ``rules_for``: q (k, v) is column-parallel when the head (kv head)
+def _qkv_sharded(lay, ps, cfg, xs, positions):
+    """Each shard's q, k, v (qk-normed and rotated) from its rows ``xs[s]``
+    (B_l, S, d), whole over 'model', at ``positions[s]``.  Per
+    ``rules_for``: q (k, v) is column-parallel when the head (kv head)
     count divides 'model' -- the shard's own heads -- else row-parallel:
-    the shard contracts its block of d and the partial products are
-    psum'd over 'model' (the bias added once, after).  Each shard's q
-    heads then meet their own kv heads (replicated kv: the ones they
-    index, ``h // (H / KV)``); where the heads do not divide 'model' the
-    attention runs whole on every shard and ``wo`` contracts the shard's
-    block of head_dim (``o_hd``).  ``wo``'s partial products are psum'd
-    over 'model'.  The attention of a shard is ``_attend`` on its block,
-    so on the card its heads take the flash kernels as one device's do."""
+    the shard contracts its block of d, the partial products are psum'd
+    over 'model' (the bias added once, after) and every head is on every
+    shard."""
     M = lay.M
-    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    d = cfg.d_model
     heads_col, kv_col = lay.split("heads"), lay.split("kv_heads")
     if M > 1 and (lay.split("q_in") == heads_col
                   or lay.split("kv_in") == kv_col):
@@ -247,26 +247,62 @@ def attention_sharded(lay, ps, cfg, xs, positions, *, window=None,
 
     qs, ks, vs = (project("wq", heads_col), project("wk", kv_col),
                   project("wv", kv_col))
-    ys = []
-    for s, (p, x) in enumerate(zip(ps, xs)):
-        q, k, v = qs[s], ks[s], vs[s]
-        B, S = x.shape[:2]
-        pos = positions[s] if isinstance(positions, list) else positions
+    for s, p in enumerate(ps):
         if cfg.qk_norm:
-            q = apply_rmsnorm(p["q_norm"], q)
-            k = apply_rmsnorm(p["k_norm"], k)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
-        if heads_col and not kv_col and M > 1:
-            Hl = H // M
-            k, v = _kv_for_local_heads(k, v, lay.rank[s] * Hl, Hl, H // KV)
-        out = _attend(cfg, q, k, v, pos, window, index_positions)
-        if not heads_col and M > 1:             # o_hd: the head_dim block
-            blk = hd // M
-            r = lay.rank[s]
+            qs[s] = apply_rmsnorm(p["q_norm"], qs[s])
+            ks[s] = apply_rmsnorm(p["k_norm"], ks[s])
+        qs[s] = apply_rope(qs[s], positions[s], cfg.rope_theta)
+        ks[s] = apply_rope(ks[s], positions[s], cfg.rope_theta)
+    return qs, ks, vs
+
+
+def _wo_sharded(lay, ps, cfg, outs):
+    """``wo`` on each shard's attention output (B_l, S, Hq, hd): its own
+    heads where they are column-parallel, else every head, of which it
+    contracts its block of head_dim (``o_hd``); the partial products
+    psum'd over 'model'."""
+    ys = []
+    for p, out, r in zip(ps, outs, lay.rank):
+        if not lay.split("heads") and lay.M > 1:
+            blk = cfg.head_dim // lay.M
             out = out[..., r * blk:(r + 1) * blk]
         ys.append(apply_dense(p["wo"], out, contract=2))
     return lay.psum_model(ys)
+
+
+def _attend_sharded(lay, cfg, qs, ks, vs, positions, window,
+                    index_positions):
+    """Each shard's ``_attend`` on its q heads: where q is column-parallel
+    and k, v are not, each q head meets the kv head it indexes."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    outs = []
+    for s, (q, k, v) in enumerate(zip(qs, ks, vs)):
+        if lay.split("heads") and not lay.split("kv_heads"):
+            Hl = H // lay.M
+            k, v = _kv_for_local_heads(k, v, lay.rank[s] * Hl, Hl, H // KV)
+        outs.append(_attend(cfg, q, k, v, positions[s], window,
+                            index_positions))
+    return outs
+
+
+def attention_sharded(lay, ps, cfg, xs, positions, *, window=None,
+                      index_positions=False):
+    """``attention`` on a mesh: ``ps[s]`` is shard s's block of the layer's
+    params (``param_pspecs`` of the axes tree), ``xs[s]`` its rows (B_l, S,
+    d), whole over 'model' -> each shard's output, whole over 'model'.
+
+    q, k, v as ``_qkv_sharded`` makes them; each shard's q heads then meet
+    their own kv heads (replicated kv: the ones they index, ``h // (H /
+    KV)``); where the heads do not divide 'model' the attention runs whole
+    on every shard and ``wo`` contracts the shard's block of head_dim
+    (``o_hd``).  The attention of a shard is ``_attend`` on its block, so
+    on the card its heads take the flash kernels as one device's do."""
+    positions = positions if isinstance(positions, list) else \
+        [positions] * len(xs)
+    qs, ks, vs = _qkv_sharded(lay, ps, cfg, xs, positions)
+    outs = _attend_sharded(lay, cfg, qs, ks, vs, positions, window,
+                           index_positions)
+    return _wo_sharded(lay, ps, cfg, outs)
 
 
 class KVCache(NamedTuple):
@@ -300,6 +336,47 @@ def attention_prefill(p, cfg, x, cache: KVCache, *, window=None):
     return apply_dense(p["wo"], out, contract=2), cache
 
 
+def _write_at(cache, k, v, index, off=0, max_len=None):
+    """The new k, v (B, 1, KV, hd) written into ``cache`` in place at the
+    index clamped to ``max_len - 1``, which falls in this block of
+    positions ``[off, off + T)`` or nowhere (the block keeps its bits).
+    The index is read on the device only."""
+    T = cache.k.shape[2]
+    at = index.long().clamp(0, (max_len or T) - 1)
+    if off:
+        at = at - off
+    new_k = k.transpose(1, 2).to(cache.k.dtype)
+    new_v = v.transpose(1, 2).to(cache.v.dtype)
+    if max_len is not None and T != max_len:
+        inside = (at >= 0) & (at < T)
+        at = at.clamp(0, T - 1)
+        new_k = torch.where(inside, new_k, cache.k.index_select(
+            2, at.reshape(1)))
+        new_v = torch.where(inside, new_v, cache.v.index_select(
+            2, at.reshape(1)))
+    cache.k.index_copy_(2, at.reshape(1), new_k)
+    cache.v.index_copy_(2, at.reshape(1), new_v)
+
+
+def _decode_scores(cfg, q, ck, index, window, off=0):
+    """q (B, 1, Hq, hd) against a cache block ck (B, KV_l, T, hd) whose
+    first position is ``off`` -> the masked scores (B, KV_l, Hq / KV_l, 1,
+    T): causal and windowed by the global positions ``off + arange(T)``,
+    NEG_INF where masked."""
+    B, _, Hq, hd = q.shape
+    KV = ck.shape[1]
+    qg = q.reshape(B, 1, KV, Hq // KV, hd).float() * _scale(cfg)
+    scores = torch.einsum("bqkgd,bksd->bkgqs", qg, ck.float())
+    scores = softcap(scores, cfg.attn_softcap)
+    k_pos = torch.arange(ck.shape[2], device=q.device)
+    if off:
+        k_pos = k_pos + off
+    valid = k_pos <= index
+    if window is not None:
+        valid &= (index - k_pos) < window
+    return torch.where(valid, scores, NEG_INF)
+
+
 def attention_decode(p, cfg, x, cache: KVCache, index, *, window=None):
     """Single-token decode.  x: (B, 1, d); ``cache`` holds ``max_len``
     positions; ``index`` (a 0-d int32 tensor on x's device) is the write
@@ -308,20 +385,89 @@ def attention_decode(p, cfg, x, cache: KVCache, index, *, window=None):
     B = x.shape[0]
     index = torch.as_tensor(index, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, index.reshape(1, 1).expand(B, 1))
-    max_len = cache.k.shape[2]
-    at = index.long().clamp(0, max_len - 1).reshape(1)
-    cache.k.index_copy_(2, at, k.transpose(1, 2).to(cache.k.dtype))
-    cache.v.index_copy_(2, at, v.transpose(1, 2).to(cache.v.dtype))
-    KV, hd, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
-    qg = q.reshape(B, 1, KV, H // KV, hd).float() * _scale(cfg)
-    scores = torch.einsum("bqkgd,bksd->bkgqs", qg, cache.k.float())
-    scores = softcap(scores, cfg.attn_softcap)
-    k_pos = torch.arange(max_len, device=x.device)
-    valid = k_pos <= index
-    if window is not None:
-        valid &= (index - k_pos) < window
-    scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    _write_at(cache, k, v, index)
+    probs = torch.softmax(_decode_scores(cfg, q, cache.k, index, window),
+                          dim=-1)
     out = torch.einsum("bkgqs,bksd->bqkgd", probs, cache.v.float())
-    out = out.reshape(B, 1, H, hd).to(x.dtype)
+    out = out.reshape(B, 1, cfg.n_heads, cfg.head_dim).to(x.dtype)
     return apply_dense(p["wo"], out, contract=2), cache
+
+
+def attention_prefill_sharded(lay, ps, cfg, xs, caches, offs, *,
+                              window=None):
+    """``attention_prefill`` on a mesh: ``xs[s]`` shard s's rows of the
+    prompt at positions ``arange(S)``, ``caches[s]`` its block of the
+    layer's cache (its kv heads where they split over 'model', else every
+    kv head; the positions ``[offs[s], offs[s] + T)`` where ``kv_seq``
+    splits) -> each shard's output, whole over 'model'.  Each shard
+    writes the k, v of the prompt's positions that fall in its block, in
+    place."""
+    B, S = xs[0].shape[:2]
+    positions = [torch.arange(S, dtype=torch.int32,
+                              device=x.device).expand(x.shape[0], S)
+                 for x in xs]
+    qs, ks, vs = _qkv_sharded(lay, ps, cfg, xs, positions)
+    for cache, k, v, off in zip(caches, ks, vs, offs):
+        n = max(0, min(S - off, cache.k.shape[2]))
+        if n:
+            cache.k[:, :, :n].copy_(k[:, off:off + n].transpose(1, 2))
+            cache.v[:, :, :n].copy_(v[:, off:off + n].transpose(1, 2))
+    outs = _attend_sharded(lay, cfg, qs, ks, vs, positions, window, True)
+    return _wo_sharded(lay, ps, cfg, outs)
+
+
+def attention_decode_sharded(lay, ps, cfg, xs, caches, offs, indices,
+                             max_len, *, window=None):
+    """``attention_decode`` on a mesh: ``xs[s]`` shard s's rows (B_l, 1,
+    d), ``caches[s]`` its block of the layer's cache (as
+    ``attention_prefill_sharded``'s, ``max_len`` positions in all),
+    ``indices[s]`` its copy of the index -> each shard's output, whole over
+    'model'.  Three layouts of the cache:
+
+    - kv heads over 'model': each shard attends its own heads over the
+      whole cache, as one device does;
+    - positions (``kv_seq``) over 'model', where the kv heads do not
+      divide it: every shard holds every kv head on its block of
+      positions, so it takes every q head (gathered over 'model' where q
+      is column-parallel);
+    - positions over 'data' (batch 1), kv heads over 'model'.
+
+    Where positions split, each shard scores its block under the global
+    positions' causal mask, window and soft-cap; the row max is pmax'd
+    over the split axes and each shard's ``exp`` of its scores less that
+    max (0 for a wholly masked block: ``exp(NEG_INF - max)``), their sums
+    and the weighted values psum'd (flash-decoding's combine).  The new
+    k, v land in the one block that holds the index, read on the
+    device only."""
+    H, hd = cfg.n_heads, cfg.head_dim
+    positions = [i.reshape(1, 1).expand(x.shape[0], 1)
+                 for i, x in zip(indices, xs)]
+    qs, ks, vs = _qkv_sharded(lay, ps, cfg, xs, positions)
+    for cache, k, v, i, off in zip(caches, ks, vs, indices, offs):
+        _write_at(cache, k, v, i, off, max_len)
+    gathered = lay.split("heads") and not lay.split("kv_heads")
+    if gathered:
+        qs = lay.all_gather_model(qs, 2)
+    scores = [_decode_scores(cfg, q, c.k, i, window, off)
+              for q, c, i, off in zip(qs, caches, indices, offs)]
+    seq = lay.act_axes("kv_seq")
+    if seq:
+        m = lay.pmax_axes([sc.amax(-1, keepdim=True) for sc in scores],
+                          seq)
+        e = [torch.exp(sc - mx) for sc, mx in zip(scores, m)]
+        tot = lay.psum_axes([x.sum(-1, keepdim=True) for x in e], seq)
+        outs = lay.psum_axes([torch.einsum("bkgqs,bksd->bqkgd", x,
+                                           c.v.float())
+                              for x, c in zip(e, caches)], seq)
+        outs = [o / t.permute(0, 3, 1, 2, 4) for o, t in zip(outs, tot)]
+    else:
+        outs = [torch.einsum("bkgqs,bksd->bqkgd", torch.softmax(sc, dim=-1),
+                             c.v.float()) for sc, c in zip(scores, caches)]
+    ys = []
+    for o, x, r in zip(outs, xs, lay.rank):
+        o = o.reshape(x.shape[0], 1, -1, hd).to(x.dtype)
+        if gathered:
+            Hl = H // lay.M
+            o = o[:, :, r * Hl:(r + 1) * Hl]
+        ys.append(o)
+    return _wo_sharded(lay, ps, cfg, ys)

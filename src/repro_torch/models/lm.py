@@ -14,21 +14,28 @@ the reference scans them):
 reference's.
 
 Under logical-axis rules whose mesh is installed (``distributed.sharding
-.axis_rules``), ``forward``, ``chunked_ce`` and ``lm_loss`` run the
-attention families on the mesh, as the reference runs them under GSPMD:
-the batch over the data axes, heads, mlp and vocab over 'model' by the
-param rules (``attention.attention_sharded``, ``mlp.apply_mlp_sharded``,
-``moe.apply_moe_sharded``), the embedding lookup and the logits
-vocab-parallel (a shard's block of the table, psum'd; the CE's
-logsumexp and target logit reduced over 'model' with a pmax and psums),
-the CE's sums psum'd over the data axes.  Each shard runs its block in
-lockstep with the others in one process; the reference's ``shard``
-annotations are where the port's collectives sit.  The global entry
-points lay the params out by ``param_axes`` (views, so gradients reach
-the global tree) and gather the hidden states back; ``runtime/trainer``
-calls ``lm_loss_sharded`` on params it keeps laid out.  The SSM and
-hybrid families, FSDP (params split over a data axis) and sharded
-prefill and decode raise under such rules.
+.axis_rules``), ``forward``, ``chunked_ce``, ``lm_loss``, ``prefill`` and
+``decode_step`` run every family on the mesh, as the reference runs them
+under GSPMD: the batch over the data axes, heads, mlp, vocab, experts and
+SSM heads over 'model' by the param rules (``attention.attention_sharded``,
+``mlp.apply_mlp_sharded``, ``moe.apply_moe_sharded``,
+``ssm.mamba_forward_sharded``), the embedding lookup and the logits
+vocab-parallel (a shard's block of the table, psum'd; the CE's logsumexp
+and target logit reduced over 'model' with a pmax and psums), the CE's
+sums psum'd over the data axes.  Under FSDP rules (``rules_for(...,
+fsdp=True)``) params are split over 'data' too and each layer's blocks
+are gathered whole over it where the layer runs (inside its remat; the
+gradient reduce-scattered back, ``fsdp_gather_over``).  Each shard runs
+its block in lockstep with the others in one process; the reference's
+``shard`` annotations are where the port's collectives sit.  The global
+entry points lay the params out by ``param_axes`` (views, so gradients
+reach the global tree; or take them laid out already, ``Placed``) and
+gather the hidden states and logits back; ``runtime/trainer`` calls
+``lm_loss_sharded`` on params it keeps laid out.  On a mesh the decode
+state is a dict of ``Placed`` laid out by ``decode_state_specs`` under
+the act rules (``decode_state_sharding``): kv heads over 'model', else
+the cache's positions over 'model', or over 'data' at batch 1
+(``attention.attention_decode_sharded``); SSM states by heads.
 
 Prefill and decode: ``init_decode_state`` allocates the state (the KV
 cache of every attention layer, the hybrid's one cache per use of its
@@ -54,6 +61,8 @@ passed in take the plain path, which masks by position as the reference
 does.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -422,30 +431,90 @@ def _cached_axes(cfg):
 
 def param_shardings(cfg, lay):
     """Where each parameter's blocks live under ``lay``'s rules: a tree of
-    ``NamedSharding``s (``param_sharding`` of ``param_axes(cfg)``).  The
-    sharded step splits params over 'model' only."""
-    if cfg.family not in ATTN_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family on a mesh ('ssm_heads' over 'model') "
-            "is not ported yet (ROADMAP §1 item 6)")
+    ``NamedSharding``s (``param_sharding`` of ``param_axes(cfg)``), for
+    every family; FSDP rules split params over 'data' too."""
     with shd.axis_rules(lay.rules):
-        shardings = shd.param_sharding(_cached_axes(cfg), lay.mesh)
+        return shd.param_sharding(_cached_axes(cfg), lay.mesh)
 
-    def check(tree):
+
+_STACKS = ("layers", "dense_layers")
+
+
+def _fsdp_plan(cfg, lay):
+    """Where FSDP splits each parameter under ``lay``'s rules: for each
+    leaf the ``(dim, axes)`` of its one dim split over mesh axes other
+    than 'model' (the dim as the leaf is used: a stacked layer's without
+    its leading 'layers'), else None -> a tree like the params, or None
+    when no leaf is split so."""
+    found = []
+
+    def leaf(sh, stacked):
+        spec = tuple(sh.spec)[1:] if stacked else tuple(sh.spec)
+        for d, entry in enumerate(spec):
+            axes = shd.entry_axes(entry)
+            off = tuple(a for a in axes if a != "model")
+            if off and math.prod(lay.mesh.shape[a] for a in off) > 1:
+                if len(off) != len(axes):
+                    raise NotImplementedError(f"a dim split over 'model' "
+                                              f"and {off}: {sh.spec}")
+                found.append(off)
+                return (d, off)
+        return None
+
+    def walk(tree, stacked):
         if isinstance(tree, dict):
-            return {k: check(v) for k, v in tree.items()}
-        extra = set(shd.spec_axes(tree.spec)) - {"model"}
-        if extra:
-            raise NotImplementedError(
-                f"params split over {sorted(extra)} (FSDP) are not ported "
-                f"yet (ROADMAP §1 item 6); spec {tree.spec}")
-        return tree
-    return check(shardings)
+            return {k: walk(v, stacked or k in _STACKS)
+                    for k, v in tree.items()}
+        return leaf(tree, stacked)
+    plan = {k: walk(v, False) for k, v in param_shardings(cfg, lay).items()}
+    return plan if found else None
+
+
+def _sub(plan, *keys):
+    for k in keys:
+        if plan is None:
+            return None
+        plan = plan.get(k)
+    return plan
+
+
+def _gather_fsdp(lay, plan, trees):
+    """``trees`` one param subtree a shard, ``plan`` the matching subtree
+    of ``_fsdp_plan`` -> the trees with every FSDP-split leaf gathered
+    whole over its axes (``fsdp_gather_over``: the backward
+    reduce-scatters)."""
+    if plan is None:
+        return trees
+    if isinstance(plan, dict):
+        sub = {k: _gather_fsdp(lay, plan[k], [t[k] for t in trees])
+               for k in trees[0]}
+        return [{k: sub[k][s] for k in sub} for s in range(len(trees))]
+    dim, axes = plan
+    return list(shd.fsdp_gather_over(trees, lay.mesh, axes, dim))
+
+
+def _top(lay, plan, ps, names):
+    """The top-level params ``names`` (those the model has) of each shard,
+    gathered whole over the FSDP axes -> one dict a shard."""
+    names = [n for n in names if n in ps[0]]
+    got = {n: _gather_fsdp(lay, _sub(plan, n), [p[n] for p in ps])
+           for n in names}
+    return [{n: got[n][s] for n in names} for s in range(len(ps))]
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
 
 
 def _laid_out(cfg, params, lay):
     """Global params -> one tree of blocks a shard (views: gradients reach
-    the global tree)."""
+    the global tree); params already laid out (``Placed`` leaves, as
+    ``weights.lm_to_mesh`` lays them out under the same rules) -> their
+    blocks."""
+    if isinstance(_first_leaf(params), shd.Placed):
+        return shd.local_trees(params, lay.n)
     placed = shd.place_tree(params, param_shardings(cfg, lay), copy=False)
     return shd.local_trees(placed, lay.n)
 
@@ -458,7 +527,8 @@ def _inputs(lay, tokens, embeds):
 def _embed_sharded(lay, cfg, ps, tokens, embeds):
     """Each shard's rows of the embedded input: with 'vocab' over 'model'
     the shard looks up the tokens of its block of the table, zeros
-    elsewhere, psum'd over 'model'."""
+    elsewhere, psum'd over 'model'.  ``ps[s]`` holds shard s's
+    ``embed``, whole over the FSDP axes."""
     if embeds is not None:
         xs = [e.to(cfg.xdtype) for e in embeds]
     elif lay.split("vocab"):
@@ -480,13 +550,12 @@ def _embed_sharded(lay, cfg, ps, tokens, embeds):
     return xs
 
 
-def _block_sharded(lay, cfg, ps, xs, positions, window, index_positions):
-    """``_block`` on a mesh (per-shard params and rows) -> (rows, aux a
+def _block_sharded(lay, cfg, ps, xs, attend):
+    """``_block`` on a mesh (per-shard params, whole over the FSDP axes,
+    and rows) with ``attend(p_attns, hs)`` its attention -> (rows, aux a
     shard or None)."""
     hs = [apply_norm(cfg.norm, p["ln1"], x) for p, x in zip(ps, xs)]
-    att = attn_mod.attention_sharded(
-        lay, [p["attn"] for p in ps], cfg, hs, positions, window=window,
-        index_positions=index_positions)
+    att = attend([p["attn"] for p in ps], hs)
     xs = [x + a for x, a in zip(xs, att)]
     hs = [apply_norm(cfg.norm, p["ln2"], x) for p, x in zip(ps, xs)]
     if "moe" not in ps[0]:
@@ -503,30 +572,72 @@ def _block_sharded(lay, cfg, ps, xs, positions, window, index_positions):
     return [x + y for x, y in zip(xs, ys)], aux
 
 
+def _mamba_block_sharded(lay, cfg, ps, xs, mamba):
+    """``_mamba_block`` on a mesh, ``mamba(p_mambas, hs)`` its SSM."""
+    hs = [apply_norm(cfg.norm, p["ln"], x) for p, x in zip(ps, xs)]
+    return [x + y for x, y in zip(xs, mamba([p["mamba"] for p in ps], hs))]
+
+
+def _stack_sharded(cfg, ps, plan, xs, attend, mamba):
+    """The decoder stack on a mesh: ``attend(c, window, p_ls, plan_l,
+    xs) -> (xs, aux or None)`` runs attention layer (or shared-block use)
+    c, ``mamba(i, p_ls, plan_l, xs) -> xs`` mamba layer i, ``p_ls`` one
+    tree of the layer's blocks a shard and ``plan_l`` its FSDP plan ->
+    (xs, the MoE layers' aux summed, a list, or None)."""
+    pb = _sub(plan, "blocks")
+    aux = None
+    if cfg.family in ATTN_FAMILIES:
+        kd = cfg.moe.first_k_dense if cfg.family == "moe" else 0
+        per_shard = [_attn_layers(cfg, p["blocks"]) for p in ps]
+        for c, w in enumerate(cfg.layer_windows()):
+            xs, a = attend(c, w, [layers[c] for layers in per_shard],
+                           _sub(pb, "dense_layers" if c < kd else "layers"),
+                           xs)
+            if a is not None:
+                aux = a if aux is None else [x + y for x, y in zip(aux, a)]
+        return xs, aux
+    per = cfg.hybrid_period if cfg.family == "hybrid" else 0
+    per_shard = [_layers(p["blocks"]["layers"], cfg.n_layers) for p in ps]
+    for i in range(cfg.n_layers):
+        xs = mamba(i, [layers[i] for layers in per_shard],
+                   _sub(pb, "layers"), xs)
+        if per and (i + 1) % per == 0:
+            xs, _ = attend((i + 1) // per - 1, GLOBAL_WINDOW,
+                           [p["blocks"]["shared"] for p in ps],
+                           _sub(pb, "shared"), xs)
+    return xs, aux
+
+
 def forward_sharded(lay, cfg, ps, tokens=None, embeds=None, positions=None):
     """``forward`` on a mesh: ``ps[s]`` shard s's param blocks,
     ``tokens``/``embeds``/``positions`` its rows -> (hidden rows, whole
-    over 'model'; aux), a list each."""
-    if cfg.family not in ATTN_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family on a mesh is not ported yet (ROADMAP "
-            "§1 item 6)")
-    xs = _embed_sharded(lay, cfg, ps, tokens, embeds)
+    over 'model'; aux), a list each.  FSDP blocks are gathered per layer,
+    inside the layer's remat."""
+    plan = _fsdp_plan(cfg, lay)
+    xs = _embed_sharded(lay, cfg, _top(lay, plan, ps, ("embed",)), tokens,
+                        embeds)
     index_positions = positions is None
     if index_positions:
         positions = [torch.arange(x.shape[1], dtype=torch.int32,
                                   device=x.device).expand(x.shape[:2])
                      for x in xs]
-    aux = [torch.zeros((), device=x.device) for x in xs]
-    block = _maybe_remat(cfg, lambda xs, p_ls, w: _block_sharded(
-        lay, cfg, p_ls, xs, positions, w, index_positions))
-    per_shard = [_attn_layers(cfg, p["blocks"]) for p in ps]
-    for i, w in enumerate(cfg.layer_windows()):
-        xs, a = block(xs, [layers[i] for layers in per_shard], w)
-        if a is not None:
-            aux = [x + y for x, y in zip(aux, a)]
-    return [apply_norm(cfg.norm, p["final_norm"], x)
-            for p, x in zip(ps, xs)], aux
+    block = _maybe_remat(cfg, lambda xs, p_ls, w, pl: _block_sharded(
+        lay, cfg, _gather_fsdp(lay, pl, p_ls), xs,
+        lambda pa, hs: attn_mod.attention_sharded(
+            lay, pa, cfg, hs, positions, window=w,
+            index_positions=index_positions)))
+    mamba = _maybe_remat(cfg, lambda xs, p_ls, pl: _mamba_block_sharded(
+        lay, cfg, _gather_fsdp(lay, pl, p_ls), xs,
+        lambda pm, hs: ssm_mod.mamba_forward_sharded(lay, pm, cfg.ssm, hs)))
+    xs, aux = _stack_sharded(
+        cfg, ps, plan, xs,
+        lambda c, w, p_ls, pl, xs: block(xs, p_ls, w, pl),
+        lambda i, p_ls, pl, xs: mamba(xs, p_ls, pl))
+    if aux is None:
+        aux = [torch.zeros((), device=x.device) for x in xs]
+    final = _top(lay, plan, ps, ("final_norm",))
+    return [apply_norm(cfg.norm, f["final_norm"], x)
+            for f, x in zip(final, xs)], aux
 
 
 def ce_sharded(lay, cfg, ps, hidden, labels):
@@ -537,7 +648,8 @@ def ce_sharded(lay, cfg, ps, hidden, labels):
     target logit psum'd from the shard that holds it.  The chunks' sums
     and counts are psum'd over the data axes before the division."""
     split = lay.split("vocab")
-    tots, cnts = [], []
+    ps = _top(lay, _fsdp_plan(cfg, lay), ps, ("embed", "lm_head"))
+    tots = []
     c = min(cfg.loss_chunk, hidden[0].shape[1])
     for h0, l0 in zip(hidden, labels):
         S = h0.shape[1]
@@ -631,10 +743,126 @@ def decode_state_specs(cfg, batch, max_len, *, kind="act"):
     return ax
 
 
-def _one_device(what):
-    if _layout() is not None:
-        raise NotImplementedError(f"sharded {what} is not ported yet "
-                                  "(ROADMAP §1 item 6)")
+def decode_state_sharding(cfg, rules):
+    """Where a decode state's blocks live under ``rules`` (with a mesh):
+    ``decode_state_specs`` by the act rules, as the reference lays its
+    state out -> a dict of ``NamedSharding``s."""
+    return {k: shd.NamedSharding(rules.mesh, rules.spec(a, kind="act"))
+            for k, a in decode_state_specs(cfg, None, None).items()}
+
+
+def init_decode_state_sharded(lay, cfg, batch, max_len, dtype=None):
+    """``init_decode_state`` on ``lay``'s mesh: zeros allocated a block a
+    shard (no whole copy), laid out by ``decode_state_sharding`` -> a dict
+    of ``Placed``; ``index`` one 0-d int32 copy a shard."""
+    whole = init_decode_state(cfg, batch, max_len, dtype, device="meta")
+    out = {}
+    for k, sh in decode_state_sharding(cfg, lay.rules).items():
+        t = whole[k]
+        out[k] = shd.Placed(
+            [torch.zeros(t[sl].shape, dtype=t.dtype, device=dev)
+             for dev, sl in zip(sh.devices, sh.slices(t.shape))],
+            sh, t.shape)
+    return out
+
+
+def _kv_offsets(state):
+    """Each shard's first cache position (its ``kv_seq`` block's start),
+    or zeros for a state without a cache."""
+    if "k" not in state:
+        return None
+    k = state["k"]
+    return [sl[3].start for sl in k.sharding.slices(k.shape)]
+
+
+def _gather_logits(lay, cfg, blocks):
+    """Each shard's (B_l, vocab block) logits -> the global (B, vocab) on
+    the first shard's device."""
+    B = blocks[0].shape[0] * (lay.n // lay.M if lay.batch_split else 1)
+    spec = shd.P(lay.rules.act_rules.get("batch"),
+                 "model" if lay.split("vocab") else None)
+    return shd.Placed(blocks, shd.NamedSharding(lay.mesh, spec),
+                      (B, cfg.vocab)).gather()
+
+
+def _last_logits(lay, cfg, ps, plan, xs):
+    final = _top(lay, plan, ps, ("final_norm", "embed", "lm_head"))
+    return [logits_from_hidden(cfg, f, apply_norm(
+        cfg.norm, f["final_norm"], x[:, -1:]))[:, 0]
+        for f, x in zip(final, xs)]
+
+
+def prefill_sharded(lay, cfg, ps, state, tokens=None, embeds=None):
+    """``prefill`` on a mesh into ``state`` (``init_decode_state_sharded``'s
+    or one carried by ``weights.decode_state_to_mesh``), in place:
+    ``ps[s]`` shard s's param blocks, ``tokens``/``embeds`` its rows
+    -> each shard's last-token logits (B_l, its vocab block).  At batch
+    1 every data shard runs the whole prompt (the reference's ``seq``
+    over 'data') and keeps its block of the cache's positions."""
+    plan = _fsdp_plan(cfg, lay)
+    xs = _embed_sharded(lay, cfg, _top(lay, plan, ps, ("embed",)), tokens,
+                        embeds)
+    S = xs[0].shape[1]
+    sts = shd.local_trees(state, lay.n)
+    offs = _kv_offsets(state)
+    for st in sts:
+        st["index"].fill_(S)
+
+    def attend(c, w, p_ls, pl, xs):
+        caches = [attn_mod.KVCache(st["k"][c], st["v"][c]) for st in sts]
+        return _block_sharded(
+            lay, cfg, _gather_fsdp(lay, pl, p_ls), xs,
+            lambda pa, hs: attn_mod.attention_prefill_sharded(
+                lay, pa, cfg, hs, caches, offs, window=w))
+
+    def mamba(i, p_ls, pl, xs):
+        def ssm(pm, hs):
+            ys, states = ssm_mod.mamba_forward_sharded(
+                lay, pm, cfg.ssm, hs, return_state=True)
+            for st, new in zip(sts, states):
+                st["ssm"][i].copy_(new.ssm)
+                st["conv"][i].copy_(new.conv)
+            return ys
+        return _mamba_block_sharded(lay, cfg, _gather_fsdp(lay, pl, p_ls),
+                                    xs, ssm)
+
+    xs, _ = _stack_sharded(cfg, ps, plan, xs, attend, mamba)
+    return _last_logits(lay, cfg, ps, plan, xs)
+
+
+def decode_step_sharded(lay, cfg, ps, state, tokens):
+    """``decode_step`` on a mesh: ``state`` a dict of ``Placed`` (as
+    ``prefill_sharded`` fills it), updated in place, ``tokens[s]`` shard
+    s's rows (B_l,) -> each shard's logits (B_l, its vocab block).  Each
+    shard reads and advances its own copy of ``index``, on the device."""
+    plan = _fsdp_plan(cfg, lay)
+    xs = _embed_sharded(lay, cfg, _top(lay, plan, ps, ("embed",)),
+                        [t[:, None] for t in tokens], None)
+    sts = shd.local_trees(state, lay.n)
+    offs = _kv_offsets(state)
+    idxs = [st["index"] for st in sts]
+    max_len = state["k"].shape[3] if "k" in state else None
+
+    def attend(c, w, p_ls, pl, xs):
+        caches = [attn_mod.KVCache(st["k"][c], st["v"][c]) for st in sts]
+        return _block_sharded(
+            lay, cfg, _gather_fsdp(lay, pl, p_ls), xs,
+            lambda pa, hs: attn_mod.attention_decode_sharded(
+                lay, pa, cfg, hs, caches, offs, idxs, max_len, window=w))
+
+    def mamba(i, p_ls, pl, xs):
+        return _mamba_block_sharded(
+            lay, cfg, _gather_fsdp(lay, pl, p_ls), xs,
+            lambda pm, hs: ssm_mod.mamba_decode_sharded(
+                lay, pm, cfg.ssm, hs,
+                [ssm_mod.SSMState(st["ssm"][i], st["conv"][i])
+                 for st in sts]))
+
+    xs, _ = _stack_sharded(cfg, ps, plan, xs, attend, mamba)
+    logits = _last_logits(lay, cfg, ps, plan, xs)
+    for i in idxs:
+        i.add_(1)
+    return logits
 
 
 def prefill(cfg, params, tokens=None, embeds=None, max_len=None):
@@ -643,13 +871,20 @@ def prefill(cfg, params, tokens=None, embeds=None, max_len=None):
     ``index`` = S, the last token's logits (B, vocab) float32).  A prompt
     longer than ``max_len`` raises ``ValueError``.  On the card every
     attention layer that ``attention.uses_kernel`` admits takes the flash
-    kernel.  One device: under rules with a mesh it raises."""
-    _one_device("prefill")
-    x = _embed(cfg, params, tokens, embeds)
-    B, S = x.shape[:2]
+    kernel.  Under rules with a mesh: ``prefill_sharded``, the state a
+    dict of ``Placed`` (``decode_state_sharding``), the logits gathered."""
+    x0 = tokens if tokens is not None else embeds
+    B, S = x0.shape[:2]
     max_len = max_len or S
     if S > max_len:
         raise ValueError(f"a prompt of {S} tokens exceeds max_len {max_len}")
+    lay = _layout()
+    if lay is not None:
+        st = init_decode_state_sharded(lay, cfg, B, max_len)
+        logits = prefill_sharded(lay, cfg, _laid_out(cfg, params, lay), st,
+                                 *_inputs(lay, tokens, embeds))
+        return st, _gather_logits(lay, cfg, logits).to(x0.device)
+    x = _embed(cfg, params, tokens, embeds)
     st = init_decode_state(cfg, B, max_len, device=x.device)
     st["index"].fill_(S)
 
@@ -675,9 +910,18 @@ def decode_step(cfg, params, state, tokens):
     """One decode step.  tokens: (B,) on the state's device -> (logits
     (B, vocab) float32, state).  The state passed in is updated in place:
     the new k and v (at ``index``, clamped to ``max_len - 1``), SSM and
-    conv states, and ``index`` + 1.  No value is read on the host.  One
-    device: under rules with a mesh it raises."""
-    _one_device("decode")
+    conv states, and ``index`` + 1.  No value is read on the host.  Under
+    rules with a mesh the state is a dict of ``Placed`` (``prefill``'s, or
+    ``weights.decode_state_to_mesh``'s): ``decode_step_sharded``, the
+    logits gathered."""
+    lay = _layout()
+    if lay is not None:
+        if not isinstance(state["index"], shd.Placed):
+            raise TypeError("under rules with a mesh the decode state is "
+                            "laid out on it (weights.decode_state_to_mesh)")
+        logits = decode_step_sharded(lay, cfg, _laid_out(cfg, params, lay),
+                                     state, lay.batch_blocks(tokens))
+        return _gather_logits(lay, cfg, logits).to(tokens.device), state
     x = _embed(cfg, params, tokens[:, None], None)
     idx = state["index"]
 

@@ -19,6 +19,9 @@ Port of ``repro.models.moe``.  Two paths, as in the reference:
   in order (a gather, no scatter-add), so it has no atomics.  The
   auxiliary loss takes the expert fractions and mean probabilities
   ``pmean``'d over every shard before their product, as the reference's.
+  Prefill and decode on a mesh take the same path (``lm``'s sharded
+  blocks call ``apply_moe_sharded``): a decode step's one position does
+  not divide 'model', so it takes ``_local_moe_replicated``.
 
 ``jax.lax.top_k`` breaks ties by the lower index; ``_top_k`` does the same
 with a stable descending sort.  The expert products are batched over the

@@ -14,10 +14,21 @@ the diagonal, which ``exp`` turns into exact zeros.
 
 ``mamba_decode`` writes the new SSM and conv states into the state it is
 given, in place.
+
+On a mesh (``mamba_forward_sharded``, ``mamba_decode_sharded``), the
+reference's axes split the heads over 'model': ``wz``, ``wx`` and ``wdt``
+are column-parallel over ``ssm_heads``, ``conv_x``, ``dt_bias``, ``A_log``,
+``D`` and ``norm_scale`` are blocks of heads, ``wB`` and ``wC``
+(``ssm_group``, one group) are whole on every shard and ``wo`` is
+row-parallel.  The gated RMSNorm normalises each head over its P channels
+and the SSD scan runs per head, so a shard runs the one-device block on
+its heads and only ``wo``'s partial products cross shards (psum'd over
+'model').  The states are blocks of heads too.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 from typing import NamedTuple
 
 import torch
@@ -208,3 +219,34 @@ def mamba_decode(p, ssm_cfg, u, state: SSMState):
     y = y + x * p["D"][:, None]
     y = _gated_rmsnorm(y[:, None], z, p["norm_scale"]).to(u.dtype)
     return apply_dense(p["wo"], y, contract=2), state
+
+
+def _local(ssm_cfg, ps):
+    """``ssm_cfg`` with the heads of a shard's block (``A_log``'s)."""
+    H = ps[0]["A_log"].shape[0]
+    if H != ssm_cfg.n_heads and ssm_cfg.n_groups != 1:
+        raise NotImplementedError(f"{ssm_cfg.n_groups} B/C groups over "
+                                  "split heads")
+    return replace(ssm_cfg, n_heads=H)
+
+
+def mamba_forward_sharded(lay, ps, ssm_cfg, us, *, return_state=False):
+    """``mamba_forward`` on a mesh: ``ps[s]`` shard s's blocks (heads over
+    'model'), ``us[s]`` its rows, whole over 'model' -> each shard's
+    output, whole over 'model' (with ``return_state``, also each shard's
+    ``SSMState`` of its heads)."""
+    local = _local(ssm_cfg, ps)
+    outs = [mamba_forward(p, local, u, return_state=return_state)
+            for p, u in zip(ps, us)]
+    if not return_state:
+        return lay.psum_model(outs)
+    return lay.psum_model([o for o, _ in outs]), [st for _, st in outs]
+
+
+def mamba_decode_sharded(lay, ps, ssm_cfg, us, states):
+    """``mamba_decode`` on a mesh: ``states[s]`` shard s's ``SSMState``
+    block (its heads), updated in place -> each shard's output, whole
+    over 'model'."""
+    local = _local(ssm_cfg, ps)
+    return lay.psum_model([mamba_decode(p, local, u, st)[0]
+                           for p, u, st in zip(ps, us, states)])

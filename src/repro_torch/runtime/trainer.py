@@ -35,8 +35,16 @@ Differences from the reference, each for a reason:
   same bits after the step; the global norm (clipping, ``grad_norm``) is
   taken once over the blocks, and the optimizer runs on the blocks
   (Adafactor's factored means psum'd, ``adafactor_update_placed``).
+  Every family trains so, the ``ssm`` and ``hybrid`` ones with their SSM
+  heads over 'model'.  Under FSDP rules (``rules_for(..., fsdp=True)``)
+  the blocks are split over 'data' too: each layer gathers its blocks
+  whole where it runs, the gradient comes back reduce-scattered to each
+  block, and the optimizer steps the blocks as they lie.
   Checkpoints hold full arrays (``checkpoint/manager.py`` gathers and
-  re-lays ``Placed`` leaves), so they are mesh-agnostic.
+  re-lays ``Placed`` leaves), so they are mesh-agnostic;
+  ``Trainer.load_state`` takes a state laid out on another mesh or by
+  other rules (``checkpoint.elastic.reshard_state``'s) into the trainer's
+  own layout.
 - One readback.  ``Trainer`` reads a step's metrics with one
   device->host copy of them stacked, not one per metric.
 - Failures.  ``Trainer.run`` restores from the last checkpoint after a
@@ -448,6 +456,34 @@ class Trainer:
     @property
     def step(self):
         return self._step
+
+    def load_state(self, state):
+        """Take ``state`` (``{"params", "opt", "step"}``: whole tensors, or
+        ``Placed`` leaves laid out on any mesh by any rules, such as
+        ``checkpoint.elastic.reshard_state`` gives) as this trainer's,
+        each leaf laid out as the trainer lays out its own (a ``Placed``
+        leaf already so kept, any other re-laid by gather and slice, a
+        copy) -> self."""
+        def take(mine, new):
+            if isinstance(mine, dict):
+                return {k: take(mine[k], new[k]) for k in mine}
+            if isinstance(mine, (list, tuple)):
+                return type(mine)(take(a, b) for a, b in zip(mine, new))
+            if isinstance(mine, shd.Placed):
+                if (isinstance(new, shd.Placed)
+                        and new.sharding.mesh is mine.sharding.mesh
+                        and tuple(new.sharding.spec)
+                        == tuple(mine.sharding.spec)):
+                    return new
+                whole = new.gather() if isinstance(new, shd.Placed) else \
+                    torch.as_tensor(new)
+                return shd.Placed.put(whole.to(mine.dtype), mine.sharding)
+            whole = new.gather() if isinstance(new, shd.Placed) else \
+                torch.as_tensor(new)
+            return whole.to(mine.device, mine.dtype).clone()
+        self.state = take(self.state, state)
+        self._step = int(self.state["step"])
+        return self
 
     def _one_step(self):
         step = self._step

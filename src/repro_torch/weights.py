@@ -21,7 +21,9 @@ An LM's decode state (``decode_state_from_jax``: ``index``, and the
 An LM's parameters (or any tree laid out like them) go onto a mesh with
 ``lm_to_mesh`` (each leaf laid out by ``lm.param_shardings`` under the
 rules, one copied block a shard) and come back whole with
-``lm_from_mesh``, so parity tests and checkpoints compare full trees.
+``lm_from_mesh``, so parity tests and checkpoints compare full trees;
+a decode state likewise with ``decode_state_to_mesh`` and
+``decode_state_from_mesh``.
 A serving session (``session_snapshot_from_jax``) crosses field by
 field: neither package can unpickle the other's ``SessionSnapshot``
 bytes, since a pickle names each class's module.
@@ -97,12 +99,16 @@ def to_device(params, device) -> dict:
     return params.to(device)
 
 
-def lm_to_mesh(params, cfg, rules) -> dict:
+def lm_to_mesh(params, cfg, rules, *, copy=True) -> dict:
     """An LM's full params (``lm_from_jax``'s, say) laid out on
-    ``rules.mesh`` by ``rules``'s param rules -> a tree of ``Placed``."""
+    ``rules.mesh`` by ``rules``'s param rules (any family; FSDP rules
+    split them over 'data' too) -> a tree of ``Placed``, each block a copy
+    on its shard's device, or with ``copy=False`` a view where the device
+    allows."""
     from repro_torch.distributed.sharding import ShardLayout, place_tree
     from repro_torch.models.lm import param_shardings
-    return place_tree(params, param_shardings(cfg, ShardLayout(rules)))
+    return place_tree(params, param_shardings(cfg, ShardLayout(rules)),
+                      copy=copy)
 
 
 def lm_from_mesh(placed, device="cpu") -> dict:
@@ -200,6 +206,23 @@ def decode_state_from_jax(state) -> dict:
     out.update({k: torch.from_numpy(np.array(state[k]))
                 for k in _DECODE_KEYS if k in state})
     return out
+
+
+def decode_state_to_mesh(state, cfg, rules) -> dict:
+    """An LM's whole decode state (``decode_state_from_jax``'s, or
+    ``lm.prefill``'s on one device) laid out on ``rules.mesh`` as
+    ``lm.prefill`` lays its own out there (``lm.decode_state_sharding``)
+    -> a dict of ``Placed``, one copied block a shard, which
+    ``lm.decode_step`` under ``rules`` advances in place."""
+    from repro_torch.distributed.sharding import Placed
+    from repro_torch.models.lm import decode_state_sharding
+    return {name: Placed.put(state[name], sh)
+            for name, sh in decode_state_sharding(cfg, rules).items()}
+
+
+def decode_state_from_mesh(placed, device="cpu") -> dict:
+    """A decode state on a mesh -> whole tensors on ``device``."""
+    return lm_from_mesh(placed, device)
 
 
 def decode_state_to_jax(state) -> dict:

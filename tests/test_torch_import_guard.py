@@ -87,6 +87,17 @@ def test_guard_covers_the_lm_sharding_slice():
         assert os.path.join("src", "repro_torch", rel) in files
 
 
+def test_guard_covers_the_lm_mesh_slice():
+    """The modules that run the SSM and hybrid families, FSDP and sharded
+    prefill and decode on a mesh."""
+    files = _port_files()
+    for rel in ("models/ssm.py", "models/attention.py", "models/lm.py",
+                "models/moe.py", "distributed/sharding.py",
+                "runtime/trainer.py", "checkpoint/elastic.py",
+                "weights.py"):
+        assert os.path.join("src", "repro_torch", rel) in files
+
+
 @pytest.mark.parametrize("rel", _port_files())
 def test_no_jax_or_reference_import(rel):
     with open(os.path.join(REPO, rel)) as fh:

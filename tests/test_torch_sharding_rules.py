@@ -210,3 +210,45 @@ def test_shard_slices_blocks_and_gather():
         shd.shard_slices((3, 4), shd.P("data"), m)
     with pytest.raises(ValueError, match="twice"):
         shd.shard_slices((4, 4), shd.P("data", "data"), m)
+
+
+@pytest.mark.parametrize("name", ("mamba2-780m", "zamba2-1.2b"))
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+@pytest.mark.parametrize("batch,kind,fsdp", [(1, "decode", False),
+                                              (4, "train", True)])
+def test_smoke_ssm_rules_and_state_layout_match_reference(name, shape, batch,
+                                                           kind, fsdp):
+    """The SSM and hybrid smoke configs on small meshes, at the batch-1
+    decode case and FSDP training: ``rules_for``, every param spec,
+    ``decode_state_specs`` under the act rules, and the shape of each
+    shard's block of ``lm.init_decode_state_sharded``'s state, against
+    the reference's specs and ``NamedSharding``'s shard shapes."""
+    jcfg = jbase.smoke_config(jbase.get_config(name))
+    cfg = base.smoke_config(base.get_config(name))
+    dev = jax.devices()[0]
+    jm = jax.sharding.Mesh(np.array([dev] * int(np.prod(shape))).reshape(
+        shape), ("data", "model"))
+    m = make_test_mesh(shape, devices=["cpu"] * int(np.prod(shape)))
+    want = jshd.rules_for(jm, jcfg, batch=batch, kind=kind, fsdp=fsdp)
+    got = shd.rules_for(m, cfg, batch=batch, kind=kind, fsdp=fsdp)
+    assert got.param_rules == want.param_rules
+    assert got.act_rules == want.act_rules
+    with jshd.axis_rules(want):
+        jspecs = _tuples(jshd.param_pspecs(_jaxes(name, smoke=True)))
+    with shd.axis_rules(got):
+        assert _tuples(shd.param_pspecs(lm.param_axes(cfg))) == jspecs
+    max_len = 32
+    jaxes = jlm.decode_state_specs(jcfg, batch, max_len)
+    assert lm.decode_state_specs(cfg, batch, max_len) == jaxes
+    shardings = lm.decode_state_sharding(cfg, got)
+    st = lm.init_decode_state_sharded(shd.ShardLayout(got), cfg, batch,
+                                      max_len)
+    whole = jlm.init_decode_state(jcfg, batch, max_len)
+    for k, ax in jaxes.items():
+        jspec = want.spec(ax, kind="act")
+        assert tuple(shardings[k].spec) == tuple(jspec), k
+        shape_k = jax.sharding.NamedSharding(jm, jspec).shard_shape(
+            whole[k].shape)
+        assert all(tuple(b.shape) == tuple(shape_k)
+                   for b in st[k].blocks), k
+    assert tuple(shardings["ssm"].spec)[2] == "model"
