@@ -306,8 +306,9 @@ its one-half backward at (1, 104, 32) k 3 and the forward at §3.3's (1,
 80, 3) k 5; ``hybrid_reg_bwd`` at (1, 104, 32); ``gmm_posterior`` at
 (96 and 8, 16, 32); the demos' refine kernels at (8, 32, 32) and (32,
 50, 32), M 50, k 5, and their wire bitwise (grouped and one-group, B
-1-32, every width).  (b) Every table at the reference's sizes (14
-training runs of 220 steps, Fig 9's of 150), with the counts set to 0
+1-32, every width).  (b) Every table at the reference's widths (14
+training runs of 110 steps, Fig 9's of 75: half the reference's 220 and
+150, for the script's time limit on a slow host), with the counts set to 0
 just before and read just after (the ``quality`` path), each step's
 launches checked against those the code implies for its (mode, variant):
 ``task_sw`` and ``task_lap`` launch ``swd_rank_bwd`` and
@@ -407,12 +408,55 @@ each sharded prefill held at their own inputs. Counted as the
 ``lm_mesh`` path: (a)-(c)'s counted steps and (d)'s mesh prefills and
 steps.
 
+Phase 20 runs the dry-run's dtype, bf16, on the card, and the head dim
+of kimi-k2, 112. (a) The flash forward, dq and dk/dv kernels in bf16, and
+in float32 and bf16 at hd 112, against their plain versions at the small
+tier's layer (8, 16, 1,024, hd 64), the large tier's (4, 16 over 8, hd
+128) and kimi-k2's (2, 64 over 8, hd 112), causal and full, and at the
+edges (Sq != Sk, Sq = Sk = 1, S no multiple of a tile, GQA): bf16 o
+within the reference's 3e-2 and, element by element, within one bf16 ulp
+of o (2^-7 |o|) plus 2^-8 of sum_j p_j |v_j| (p rounded to bf16 for P V,
+2^-9 of each term, doubled), lse 1e-5, gradients 2e-2 of each gradient's
+max (p and ds are rounded to bf16 before their products); float32 at
+phase 9's and 11's bars; each bitwise run to run. (b) Each kernel timed
+at those shapes with CUDA events behind a spin kernel, beside its plain
+version, its bound (bf16 products at 989 TFLOP/s or bytes at 3.35 TB/s)
+and scaled_dot_product_attention's forward and backward (timed only).
+(c) The bf16 LM (dtype and param_dtype bf16, as the dry-run sets them):
+qwen3-1.7b at full width and depth, 1 + 3 ``Trainer`` steps at B 4 x
+1,024 (AdamW, remat, hybrid off), a prefill of 4 x 1,024 and 32 greedy
+decode steps; kimi-k2-1t-a32b cut to 2 layers (its leading dense layer
+and one MoE layer) and 16 of 384 experts, top-8, at full width (d 7,168,
+64 over 8 heads, hd 112), 1 + 1 steps at B 2 x 1,024 (Adafactor, 2
+microbatches, the dry-run's policy), a prefill of 2 x 1,024 and 8 decode
+steps. Gates: 2 flash forwards, 1 dq and 1 dk/dv a layer and microbatch
+a step, of the model's variant; one forward an attention layer a
+prefill; finite, falling losses; decode steps free of syncs and copies
+with the state in place; prefill vs forward and decode vs a
+teacher-forced forward (3e-2, 5e-2 of the max |logit|); the 2-layer cuts
+of both card vs CPU in bf16 (loss 1e-2, gradients 5e-2 of every leaf's
+max; the CPU's MoE router takes the experts the card's chose, so a
+near-tie that rounds the other way does not reroute a token) and float32
+(1e-4). Counted as the ``lm_bf16`` path, by variant.
+(d) The dry-run (``repro_torch.launch.dryrun.build_and_compile``) of six
+of the reference test's seven cells (not kimi-k2's) on
+``make_production_mesh(devices=["meta"] * 256)`` and its 2 x 16 x 16 form
+on 512: host work in ``LM20_DRYRUN_WORKERS`` worker processes, started
+after (b) and (c)'s timed runs, so that nothing timed runs beside them,
+and traced while (a) and (c)'s card-vs-CPU comparisons run (awaited at
+most 300 s), each cell cut to its least depth (see ``LM20_DRYRUN``),
+gated as
+the reference's test gates them; their summary lines and the report's
+two tables. A ``{"lm_bf16": ...}`` line comes before the kernels' line,
+which gains a record for each bf16 and hd-112 variant.
+
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
 result.  The line before the last is the kernels' JSON record (after a
 line with phase 12's summary, one with phase 13's, one with phase 14's
 one with phase 15's, one with phase 16's, one with phase 17's and one
-with phase 18's and one with phase 19's records); the last line is
+with phase 18's, one with phase 19's and one with phase 20's records);
+the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3980,10 +4024,12 @@ def phase15(cfg, ops):
 
 # --- the representation-quality tables and the gateway examples ----------
 
-# phase 16: the reference's training steps a Fig 8 / Table 5 run and Fig
-# 9's (runtime/quality_tables.py); the edge learner's shapes at ENC: d 32,
+# phase 16: the training steps a Fig 8 / Table 5 run and Fig 9's
+# (runtime/quality_tables.py), half the reference's 220 and 150: at those
+# the whole script took 1,261 s of a 1,200 s limit on a slow host (phase
+# 16 334 s of it; see PERF.md); the edge learner's shapes at ENC: d 32,
 # 16 virtual negatives, the 96-frame buffer and a batch of 8
-QUALITY_STEPS, QUALITY_CALIB_STEPS = 220, 150
+QUALITY_STEPS, QUALITY_CALIB_STEPS = 110, 75
 Q_D, Q_SYN, Q_DIRS, Q_KNN, Q_C = 32, 16, 32, 3, 16
 # the demos' refine shapes (sessions, window): quickstart, fleet demo
 DEMO_REFINE = ((8, 32), (32, 50))
@@ -4184,7 +4230,7 @@ def quality_card_vs_cpu(first):
 def phase16(ops):
     """The representation-quality tables and the three gateway examples
     on the card: (a) the kernels at the quality path's and the demos'
-    shapes; (b) every table at the reference's sizes, launches counted
+    shapes; (b) every table at the reference's widths, launches counted
     each step by (mode, variant) (the ``quality`` path); (c) each run's
     step 0 card vs CPU; (d) the three demos, counted each tick (the
     ``examples`` path) -> (quality launches, examples launches, the
@@ -5771,6 +5817,705 @@ def phase19(dev, ops):
     return launches, readings, worst
 
 
+# --- phase 20: the dry-run's dtype on the card -------------------------------
+
+# the flash kernels in bf16 and at hd 112: the layer shapes of the small
+# tier, the large tier (qwen3-1.7b) and kimi-k2's full width, causal and
+# full, then the edges: Sq != Sk, Sq = Sk = 1, S no multiple of a tile,
+# GQA (B, H, KV, Sq, Sk, hd)
+LM20_SHAPES = {"small": (8, 16, 16, 1024, 1024, 64),
+               "large": (4, 16, 8, 1024, 1024, 128),
+               "kimi": (2, 64, 8, 1024, 1024, 112)}
+LM20_EDGES = ((2, 8, 2, 200, 333, 64, False), (1, 2, 2, 1, 1, 112, True),
+              (2, 4, 1, 1000, 1000, 128, True), (1, 8, 2, 77, 300, 112, False),
+              (2, 4, 4, 130, 130, 32, True), (1, 8, 8, 100, 37, 16, True))
+BF16_OPS_PER_S = 989e12  # dense bf16 tensor cores (H100 SXM data sheet, 700 W)
+# bf16 o against the plain version (upcast, float32, o rounded once): the
+# reference's own bar on unit-normal inputs (tests/test_flash_attention.py);
+# lse is float32 from exact bf16 products, summed in another order: phase
+# 9's bar
+BF16_O_ATOL, BF16_LSE_ATOL = 3e-2, 1e-5
+# and element by element: |o - plain| <= BF16_O_ULP |plain| +
+# BF16_P_RTOL sum_j p_j |v_j|.  Both round o once, so they may differ by
+# one bf16 ulp (at most 2^-7 of |o|); the kernel rounds each p to bf16
+# for P V (2^-9 of each term p_j |v_j|), a bound doubled here.  A P V
+# fault in any key tile shows, where the 3e-2 bar is about |o|'s own size
+# for full attention at Sk 1,024
+BF16_O_ULP, BF16_P_RTOL = 2.0 ** -7, 2.0 ** -8
+# bf16 gradients against the plain backward, of each gradient's max |g|
+# (rel_grads): the kernels round p and ds to bf16 (2^-9 relative each)
+# before they meet v, k, q and dO, and round dq, dk, dv to bf16 (2^-9 of
+# each element), where the plain version rounds only the outputs
+BF16_GRAD_RTOL = 2e-2
+# (c): qwen3-1.7b at full width and depth, kimi-k2 cut to 2 layers (its
+# leading dense layer and one MoE layer) and 16 of 384 experts, top-8, at
+# full width; name, layers, experts, B, S, warm-up steps, counted steps,
+# decode steps
+LM20_RUNS = (("qwen3-1.7b", None, None, 4, 1024, 1, 3, 32),
+             ("kimi-k2-1t-a32b", 2, 16, 2, 1024, 1, 1, 8))
+LM20_LR = 1e-3           # the runs' AdamW / Adafactor peak, no warm-up
+LM20_CPU = (2, 16)       # the 2-layer cuts card vs CPU: B, S
+# card vs CPU in bf16: both round every product's output and every
+# activation to bf16 (2^-9 relative), in orders of their own (cuBLAS and
+# the flash kernel against the CPU's products and plain attention)
+LM20_BF16_LOSS_RTOL, LM20_BF16_GRAD_RTOL = 1e-2, 5e-2
+# bf16 prefill vs the forward over the prompt and the decoded tokens, and
+# decode vs that teacher-forced forward, of the max |logit|: the products
+# of the two runs have other shapes, so their bf16 roundings differ, and
+# decode's attention is the plain one over the cache
+LM20_PREFILL_RTOL, LM20_DECODE_RTOL = 3e-2, 5e-2
+# (d): six of the reference test's seven dry-run cells
+# (tests/test_dryrun_cells.py) on the production meshes, each cut to the
+# least depth that keeps its layer kinds (the trace runs every shard's
+# work on the host: the reference test's cuts would take longer than the
+# script has; see PERF.md).  The seventh, kimi-k2 train_4k on 2 x 16 x 16
+# (~370 s of host at 2 layers), is left to tests/test_torch_dryrun.py's
+# (2, 2, 4) mesh.  They run in worker processes of one thread each, the
+# longest cell first, from the end of (c)'s timed runs, beside (a) and the
+# card-vs-CPU comparisons, which are not timed.
+LM20_DRYRUN = (("arctic-480b", "train_4k", {"n_layers": 1}, False),
+               ("qwen3-1.7b", "train_4k", {"n_layers": 1}, True),
+               ("gemma2-2b", "prefill_32k", {"n_layers": 2}, False),
+               ("qwen3-1.7b", "train_4k", {"n_layers": 1}, False),
+               ("zamba2-1.2b", "decode_32k",
+                {"n_layers": 1, "hybrid_period": 1}, False),
+               ("mamba2-780m", "long_500k", {"n_layers": 1}, False))
+LM20_DRYRUN_WORKERS = 4
+LM20_DRYRUN_WAIT_S = 300  # the longest (d) waits for the last cell
+
+
+def flash_bound(name, dt, shape, causal=True):
+    """The least time of a flash kernel at ``shape`` (B, H, KV, Sq, Sk,
+    hd): its products (forward 2, dq 3, dk/dv 4) at the tensor cores' rate
+    for ``dt`` (bf16's, or 3xTF32's for float32), or its inputs and
+    outputs once at the HBM rate, the larger -> (ms, "bytes" or
+    "operations")."""
+    B, H, KV, Sq, Sk, hd = shape
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[name]
+    q, kv, row = B * H * Sq * hd, B * KV * Sk * hd, B * H * Sq
+    width = 2 if dt == torch.bfloat16 else 4
+    nbytes = {"fwd": width * (2 * q + 2 * kv) + 4 * row,
+              "dq": width * (3 * q + 2 * kv) + 8 * row,
+              "dkv": width * (2 * q + 4 * kv) + 8 * row}[name]
+    rate = BF16_OPS_PER_S if dt == torch.bfloat16 else TF32X3_OPS_PER_S
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = 2 * products * B * H * pairs * hd / rate * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def lm20_hold(g, dev, ops, dt, shape, causal):
+    """The forward, dq and dk/dv kernels at ``shape`` in ``dt`` against
+    their plain versions (bf16: ``BF16_*``; float32: phase 9's and 11's
+    bars), each bitwise run to run, and the autograd entry's gradients the
+    kernels' bits -> {"fwd", "dq", "dkv": max |err|, "grad_rel": the worst
+    gradient's error of its max}."""
+    B, H, KV, Sq, Sk, hd = shape
+    what = f"{dt} (B, H, KV, Sq, Sk, hd) {shape} causal={causal}"
+    q, k, v = (x.to(dt) for x in flash_inputs(g, dev, *shape))
+    do = torch.randn(B, H, Sq, hd, device=dev, generator=g).to(dt)
+    o, lse = same_bits(lambda *a: ops.flash_attention_fwd(*a, causal=causal),
+                       (q, k, v), f"flash_attention_fwd at {what}")
+    ro, rlse = ops.flash_attention_ref(q, k, v, causal)
+    bf = dt == torch.bfloat16
+    o_err = (o.float() - ro.float()).abs().max().item()
+    lse_err = (lse - rlse).abs().max().item()
+    o_bar = BF16_O_ATOL if bf else FLASH_O_ATOL
+    lse_bar = BF16_LSE_ATOL if bf else FLASH_LSE_ATOL
+    check(o.dtype == dt and o_err <= o_bar and lse_err <= lse_bar,
+          f"flash_attention_fwd != plain at {what}: o {o.dtype} {o_err} "
+          f"(bar {o_bar}), lse {lse_err} (bar {lse_bar})")
+    o_ratio = 0.0
+    if bf:
+        # sum_j p_j |v_j|: the plain forward of |v| in float32
+        pv = ops.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                     causal)[0]
+        o_ratio = ((o.float() - ro.float()).abs() / (
+            BF16_O_ULP * ro.float().abs() + BF16_P_RTOL * pv).clamp_min(
+                1e-30)).max().item()
+        del pv
+        check(o_ratio <= 1.0, f"flash_attention_fwd != plain at {what}: "
+              f"an element of o beyond {BF16_O_ULP} |o| + {BF16_P_RTOL} "
+              f"sum p |v| ({o_ratio} of it)")
+    args = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+    (dq,) = same_bits(lambda *a: (ops.flash_attention_bwd_dq(
+        *a, causal=causal),), args, f"flash_attention_bwd_dq at {what}")
+    dk, dv = same_bits(lambda *a: ops.flash_attention_bwd_dkv(
+        *a, causal=causal), args, f"flash_attention_bwd_dkv at {what}")
+    plain = (ops.flash_attention_bwd_dq_ref(*args, causal),
+             *ops.flash_attention_bwd_dkv_ref(*args, causal))
+    got = [x.float() for x in (dq, dk, dv)]
+    err = rel_grads(got, [x.float() for x in plain])
+    bar = BF16_GRAD_RTOL if bf else FLASH_BWD_RTOL
+    check(all(x.dtype == dt for x in (dq, dk, dv)) and err <= bar,
+          f"flash backward != plain at {what}: {err} of the max |g| "
+          f"(bar {bar})")
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    entry = torch.autograd.grad(ops.flash_attention(*leaves, causal),
+                                leaves, do)
+    check(all(torch.equal(a, b) for a, b in zip(entry, (dq, dk, dv))),
+          f"flash_attention's gradients != the kernels' bits at {what}")
+    return {"fwd": max(o_err, lse_err), "o_ratio": o_ratio,
+            "dq": (got[0] - plain[0].float()).abs().max().item(),
+            "dkv": max((got[i] - plain[i].float()).abs().max().item()
+                       for i in (1, 2)), "grad_rel": err}
+
+
+def lm20_holds(dev, ops):
+    """(a): every case of ``LM20_SHAPES`` (causal and full) and
+    ``LM20_EDGES`` in bf16, and those at hd 112 in float32 too ->
+    {variant: {kernel: max |err|}}, the worst gradient error by type."""
+    from repro_torch.kernels.flash_attention import variant
+    g = torch.Generator(device=dev).manual_seed(20)
+    worst = {}
+    rel = {"bf16": 0.0, "f32": 0.0}
+    o_ratio = 0.0
+    cases = [(s, c) for s in LM20_SHAPES.values() for c in (True, False)]
+    cases += [(e[:6], e[6]) for e in LM20_EDGES]
+    for shape, causal in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            if dt == torch.float32 and shape[5] != 112:
+                continue
+            got = lm20_hold(g, dev, ops, dt, shape, causal)
+            w = worst.setdefault(variant(dt, shape[5]),
+                                 {"fwd": 0.0, "dq": 0.0, "dkv": 0.0})
+            for k in w:
+                w[k] = max(w[k], got[k])
+            t = "bf16" if dt == torch.bfloat16 else "f32"
+            rel[t] = max(rel[t], got["grad_rel"])
+            o_ratio = max(o_ratio, got["o_ratio"])
+            torch.cuda.empty_cache()
+    print(f"phase 20 (a): the flash forward, dq and dk/dv in bf16 (o atol "
+          f"{BF16_O_ATOL} and per element {BF16_O_ULP} |o| + {BF16_P_RTOL} "
+          f"sum p |v|, worst at {o_ratio:.3f} of it, lse {BF16_LSE_ATOL}, "
+          f"gradients {BF16_GRAD_RTOL} of"
+          f" each max, worst {rel['bf16']:.3e}) and at hd 112 in float32 (o "
+          f"{FLASH_O_ATOL}, lse {FLASH_LSE_ATOL}, gradients {FLASH_BWD_RTOL}, "
+          f"worst {rel['f32']:.3e}) == their plain versions, bitwise run to "
+          f"run, the autograd entry's gradients the kernels' bits, at "
+          f"{len(cases)} (shape, causal) cases: the shapes {LM20_SHAPES} "
+          f"causal and full and the edges {LM20_EDGES}; max |err| " +
+          "; ".join(f"{v}: " + ", ".join(f"{k} {e:.3e}" for k, e in w.items())
+                    for v, w in worst.items()))
+    return worst, rel
+
+
+def lm20_times(dev, ops):
+    """(b): each kernel variant, its plain version and
+    ``scaled_dot_product_attention`` (forward; its backward, one call for
+    dq, dk and dv; timed only, the port never calls it) at the shapes of
+    ``LM20_SHAPES`` (float32 at kimi-k2's hd 112 only) ->
+    {variant: {shape name: {kernel: times and bound}}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import variant
+    g = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    for tier, shape in LM20_SHAPES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            if dt == torch.float32 and shape[5] != 112:
+                continue
+            B, H, KV, Sq, Sk, hd = shape
+            q, k, v = (x.to(dt) for x in flash_inputs(g, dev, *shape))
+            do = torch.randn(B, H, Sq, hd, device=dev, generator=g).to(dt)
+            o, lse = ops.flash_attention_fwd(q, k, v)
+            args = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            o_sdpa = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                    enable_gqa=True)
+            lib = {"fwd": device_ms(lambda a: F.scaled_dot_product_attention(
+                       *a, is_causal=True, enable_gqa=True), (q, k, v)),
+                   "bwd": device_ms(lambda a: torch.autograd.grad(
+                       o_sdpa, leaves, a, retain_graph=True), do)}
+            row = {}
+            for name, fn, plain, a in (
+                    ("fwd", ops.flash_attention_fwd, ops.flash_attention_ref,
+                     (q, k, v)),
+                    ("dq", ops.flash_attention_bwd_dq,
+                     ops.flash_attention_bwd_dq_ref, args),
+                    ("dkv", ops.flash_attention_bwd_dkv,
+                     ops.flash_attention_bwd_dkv_ref, args)):
+                bound, by = flash_bound(name, dt, shape)
+                row[name] = {
+                    "ms": device_ms(lambda x, fn=fn: fn(*x), a),
+                    "plain_ms": device_ms(lambda x, fn=plain: fn(*x), a,
+                                          reps=5),
+                    "bound_ms": bound, "bound_by": by,
+                    "library_ms": lib["fwd" if name == "fwd" else "bwd"],
+                    "shape": list(shape)}
+            out.setdefault(variant(dt, hd), {})[tier] = row
+            pair = (row["dq"]["ms"] + row["dkv"]["ms"]) / lib["bwd"]
+            print(f"phase 20 (b): {variant(dt, hd)} at the {tier} shape "
+                  f"{shape} (causal): " + "; ".join(
+                      f"{n} {r['ms'] * 1e3:.2f} us (plain "
+                      f"{r['plain_ms'] * 1e3:.2f}, bound "
+                      f"{r['bound_ms'] * 1e3:.2f} by {r['bound_by']}, at "
+                      f"{r['bound_ms'] / r['ms']:.3f} of it)"
+                      for n, r in row.items())
+                  + f"; scaled_dot_product_attention forward "
+                  f"{lib['fwd'] * 1e3:.2f} us (the forward at "
+                  f"{row['fwd']['ms'] / lib['fwd']:.3f}x it), backward (dq, "
+                  f"dk, dv in one call) {lib['bwd'] * 1e3:.2f} us (dq + dk/dv"
+                  f" at {pair:.3f}x it)")
+            del q, k, v, do, o, lse, args, leaves, o_sdpa
+            torch.cuda.empty_cache()
+    return out
+
+
+def lm20_config(name, layers, experts, dtype):
+    """``pd_config``'s configuration with ``dtype`` and ``param_dtype``
+    ``dtype``, as the dry-run sets them."""
+    from dataclasses import replace
+    return replace(pd_config(name, layers, experts), dtype=dtype,
+                   param_dtype=dtype)
+
+
+def lm20_variant_counts(ops):
+    """The flash wrappers' launches by variant (read after a sync)."""
+    torch.cuda.synchronize()
+    return {n: dict(ops.KERNELS[n].variant_launches)
+            for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")}
+
+
+def lm20_zero(ops):
+    from repro_torch.kernels.flash_attention import zero_variant_counts
+    for wrapper in ops.KERNELS.values():
+        wrapper.launches = 0
+    zero_variant_counts()
+
+
+def lm20_add(total, ops):
+    """Add the current counts (total and by variant) into ``total``."""
+    torch.cuda.synchronize()
+    for n, w in ops.KERNELS.items():
+        total["launches"][n] = total["launches"].get(n, 0) + w.launches
+    for n, by in lm20_variant_counts(ops).items():
+        for v, c in by.items():
+            key = f"{n}:{v}"
+            total["variants"][key] = total["variants"].get(key, 0) + c
+
+
+def lm20_train(dev, ops, cfg, B, S, warm, timed, total):
+    """``Trainer`` on the card in bf16 (the dry-run's policy: optimizer,
+    microbatches; remat on, hybrid off; ``LM20_LR`` from step 0) on one
+    fixed batch: ``warm`` steps, then ``timed`` counted ones
+    -> summary."""
+    from repro_torch.data.tokens import random_batch
+    from repro_torch.kernels.flash_attention import variant
+    from repro_torch.launch.dryrun import policy_for
+    from repro_torch.models import lm
+    from repro_torch.runtime.trainer import TrainCfg, Trainer
+    pol = policy_for(cfg.name)
+    tcfg = TrainCfg(optimizer=pol["optimizer"],
+                    microbatches=pol["microbatches"], lr=LM20_LR, warmup=0,
+                    total_steps=warm + timed + 1)
+    batch = random_batch(torch.Generator(device=dev).manual_seed(2000),
+                         cfg.vocab, B, S)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tcfg, lambda step: batch, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_count(tr.state["params"])
+    tr.run(warm, log_every=0)
+    lm20_zero(ops)
+    tr.run(timed, log_every=0)
+    counts = lm20_variant_counts(ops)
+    launches = {n: w.launches for n, w in ops.KERNELS.items()}
+    lm20_add(total, ops)
+    L, mb = cfg.n_layers, pol["microbatches"]
+    v = variant(cfg.xdtype, cfg.head_dim)
+    want = {"flash_attention_fwd": 2 * L * mb * timed,
+            "flash_attention_bwd_dq": L * mb * timed,
+            "flash_attention_bwd_dkv": L * mb * timed}
+    check(launches == {n: want.get(n, 0) for n in launches}
+          and all(counts[n][v] == c for n, c in want.items()),
+          f"{cfg.name} bf16: launches {launches}, by variant {counts} in "
+          f"{timed} steps; want {want} of {v} (2 flash forwards a layer and "
+          f"microbatch under remat, 1 dq and 1 dk/dv) and no other")
+    losses = [h["loss"] for h in tr.history]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{cfg.name} bf16: losses {losses} not finite and falling")
+    times = [h["time_s"] * 1e3 for h in tr.history[warm:]]
+    p50, p95 = np.percentile(times, 50), np.percentile(times, 95)
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"name": cfg.name, "layers": L, "params": n_params, "B": B,
+           "S": S, "optimizer": pol["optimizer"], "microbatches": mb,
+           "step_ms_p50": p50, "step_ms_p95": p95,
+           "tokens_per_s": B * S / (p50 / 1e3), "peak_bytes": peak,
+           "losses": losses, "init_s": init_s}
+    print(f"phase 20 (c): Trainer, {cfg.name} bf16 ({L} layers, "
+          f"{n_params:,} parameters; init {init_s:.2f} s), "
+          f"{pol['optimizer']}, {mb} microbatch(es), remat, hybrid off; B {B}"
+          f" x S {S}; {warm} + {timed} steps: step ms p50 {p50:.3f} (p95 "
+          f"{p95:.3f}), {rec['tokens_per_s']:.1f} tokens/s; peak memory "
+          f"{peak / 1e9:.3f} GB; losses " + ", ".join(f"{x:.4f}"
+                                                     for x in losses)
+          + f"; launches by variant {counts}")
+    params = tr.state["params"]
+    del tr
+    return rec, params
+
+
+def lm20_decode(dev, ops, cfg, params, B, S, steps, total):
+    """bf16 prefill of a random prompt (one warm-up, two timed) and
+    ``steps`` greedy decode steps, counted; then prefill against the
+    forward over the prompt and the decoded tokens, and each step against
+    it at its position -> record."""
+    from repro_torch.kernels.flash_attention import variant
+    from repro_torch.models import attention
+    from repro_torch.models import lm
+    g = torch.Generator(device=dev).manual_seed(2001)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+    max_len = S + PD_SLACK
+    n_attn = sum(attention.uses_kernel(cfg, w, S)
+                 for w in cfg.layer_windows())
+    v = variant(cfg.xdtype, cfg.head_dim)
+    with torch.inference_mode():
+        st, logits = lm.prefill(cfg, params, tokens=toks, max_len=max_len)
+        lm.decode_step(cfg, params, st, logits.argmax(-1))
+        del st, logits
+        prefill_ms = []
+        for _ in range(2):
+            st = first = None
+            lm20_zero(ops)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, first = lm.prefill(cfg, params, tokens=toks, max_len=max_len)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            pre = {n: w.launches for n, w in ops.KERNELS.items()}
+            by = lm20_variant_counts(ops)["flash_attention_fwd"][v]
+            check(pre["flash_attention_fwd"] == n_attn == by
+                  and sum(pre.values()) == n_attn,
+                  f"{cfg.name} bf16 prefill launched {pre} ({by} of {v}), "
+                  f"want flash_attention_fwd {n_attn} of {v} and no other")
+        ptrs = {k: x.data_ptr() for k, x in st.items()}
+        out = torch.empty((steps, B, cfg.vocab), dtype=first.dtype,
+                          device=dev)
+        fed = torch.empty((B, steps), dtype=toks.dtype, device=dev)
+        logits, step_ms = first, []
+        for t in range(steps):
+            fed[:, t] = logits.argmax(-1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits, st2 = lm.decode_step(cfg, params, st, fed[:, t])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check(st2 is st and {k: x.data_ptr() for k, x in st.items()}
+                  == ptrs, f"{cfg.name} bf16 decode step {t}: the state was "
+                  "not updated in place")
+            out[t].copy_(logits)
+        lm20_add(total, ops)
+        dec = {n: w.launches - pre[n] for n, w in ops.KERNELS.items()}
+        check(not any(dec.values()), f"{cfg.name} bf16 decode steps "
+              f"launched {dec}")
+        p50 = float(np.percentile(step_ms, 50))
+        prof = profile_decode_step(cfg, params, st, fed[:, -1], p50)
+        check(prof["syncs"] == 0 and prof["h2d"] == 0 and prof["d2h"] == 0,
+              f"{cfg.name} bf16: the profiled decode step synced or copied "
+              f"to or from the host: {prof}")
+        del st
+        h, _ = lm.forward(cfg, params, tokens=torch.cat([toks, fed], 1))
+        tf = lm.logits_from_hidden(cfg, params, h[:, S - 1:S + steps])
+        del h
+        pre_err = pd_rel(first.float(), tf[:, 0].float())
+        errs = [pd_rel(out[t].float(), tf[:, t + 1].float())
+                for t in range(steps)]
+    rec = {"name": cfg.name, "B": B, "prompt": S, "steps": steps,
+           "prefill_ms": float(np.median(prefill_ms)),
+           "prefill_ms_each": prefill_ms,
+           "decode_p50_ms": p50,
+           "decode_p95_ms": float(np.percentile(step_ms, 95)),
+           "decode_tokens_per_s": B / p50 * 1e3, "flash_launches": n_attn,
+           "prefill_err": pre_err, "decode_err": max(errs),
+           "decode_err_step": int(np.argmax(errs)), "profile": prof}
+    print(f"phase 20 (c): {cfg.name} bf16 prefill B {B} x {S}: "
+          f"{rec['prefill_ms']:.3f} ms ({n_attn} flash forwards of {v}); "
+          f"{steps} decode steps p50 {p50:.3f} ms (p95 "
+          f"{rec['decode_p95_ms']:.3f}), {rec['decode_tokens_per_s']:.1f} "
+          f"tokens/s, profiled step {prof['syncs']} syncs, {prof['h2d']} "
+          f"H2D, {prof['d2h']} D2H; prefill vs forward {pre_err:.3e} (bar "
+          f"{LM20_PREFILL_RTOL}), decode vs teacher-forced forward "
+          f"{rec['decode_err']:.3e} (bar {LM20_DECODE_RTOL}, worst step "
+          f"{rec['decode_err_step']})")
+    check(pre_err <= LM20_PREFILL_RTOL, f"{cfg.name} bf16: prefill vs "
+          f"forward {pre_err} > {LM20_PREFILL_RTOL}")
+    check(rec["decode_err"] <= LM20_DECODE_RTOL, f"{cfg.name} bf16: decode "
+          f"vs teacher-forced forward {rec['decode_err']} > "
+          f"{LM20_DECODE_RTOL}")
+    return rec
+
+
+@contextlib.contextmanager
+def record_routing(calls):
+    """A context in which every call of the MoE router appends its chosen
+    experts (a CPU copy) to ``calls``."""
+    from repro_torch.models import moe
+    real = moe._router
+
+    def recorded(p, moe_cfg, x2d):
+        out = real(p, moe_cfg, x2d)
+        calls.append(out[1].detach().cpu())
+        return out
+    moe._router = recorded
+    try:
+        yield
+    finally:
+        moe._router = real
+
+
+@contextlib.contextmanager
+def replay_routing(calls, flips):
+    """A context in which the MoE router's i-th call takes the experts of
+    ``calls[i]`` (``record_routing``'s) in place of its own top-k, their
+    weights its own probabilities of them, renormalised, as ``_router``
+    does; ``flips[0]`` counts the tokens whose own choice differed.  Every
+    recorded call must be replayed (checked on leaving)."""
+    from repro_torch.models import moe
+    real = moe._router
+    n = [0]
+
+    def replayed(p, moe_cfg, x2d):
+        _, own, probs = real(p, moe_cfg, x2d)
+        check(n[0] < len(calls), f"the router was called more than the "
+              f"{len(calls)} times the card's run called it")
+        top_e = calls[n[0]].to(own.device)
+        n[0] += 1
+        check(top_e.shape == own.shape, f"router call {n[0]}: experts "
+              f"{tuple(top_e.shape)} on the card, {tuple(own.shape)} here")
+        flips[0] += int((own.sort(-1).values != top_e.sort(-1).values)
+                        .any(-1).sum())
+        top_p = probs.gather(-1, top_e)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+        return top_p, top_e, probs
+    moe._router = replayed
+    try:
+        yield
+    finally:
+        moe._router = real
+    check(n[0] == len(calls), f"the router was called {n[0]} times, the "
+          f"card's run {len(calls)}")
+
+
+def lm20_card_vs_cpu(dev, ops, name, experts, total):
+    """The configuration cut to 2 layers at full width, in bf16 and in
+    float32: ``lm_loss`` and its gradient on the card (the flash kernels,
+    counted) against the port on the CPU, the same weights and batch ->
+    {dtype: {"loss", "gradients": relative errors, ...}}.
+
+    A MoE router picks its top-k experts from probabilities that carry the
+    layer input's rounding, so a token whose k-th and next experts lie
+    within that rounding could take another expert on each side (bf16: a
+    near-tie).  So the CPU run takes the card's choices
+    (``replay_routing``), its weights from its own probabilities, and
+    every leaf keeps the bar; the tokens whose own choice differed are
+    reported."""
+    from repro_torch.checkpoint.serial import _paths
+    from repro_torch.data.tokens import random_batch
+    from repro_torch.models import lm
+    from repro_torch.optim.sgd import value_and_grad
+    from repro_torch.weights import to_device
+    B, S = LM20_CPU
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        cfg = lm20_config(name, 2, experts, dt)
+        batch = random_batch(torch.Generator().manual_seed(2002), cfg.vocab,
+                             B, S)
+        p_dev = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(2003))
+        p_cpu = to_device(p_dev, "cpu")
+
+        def loss_fn(p, b):
+            loss, m = lm.lm_loss(cfg, p, b)
+            return loss, {}
+        lm20_zero(ops)
+        routes, flips = [], [0]
+        with record_routing(routes):
+            (l_dev, _), g_dev = value_and_grad(
+                loss_fn, p_dev, {k: x.to(dev) for k, x in batch.items()})
+        launched = ops.KERNELS["flash_attention_bwd_dq"].launches
+        lm20_add(total, ops)
+        g_dev = [x.cpu() for x in g_dev]
+        del p_dev
+        with replay_routing(routes, flips):
+            (l_cpu, _), g_cpu = value_and_grad(loss_fn, p_cpu, batch)
+        names = [k for k, _ in _paths(p_cpu)]
+        leaf = {n: pd_rel(a.float(), b.float())
+                for n, a, b in zip(names, g_dev, g_cpu)}
+        worst = max(leaf, key=leaf.get)
+        out[dt] = {"loss": abs(l_dev.item() - l_cpu.item())
+                   / abs(l_cpu.item()), "gradients": leaf[worst],
+                   "worst_leaf": worst, "dq_launches": launched,
+                   "router_calls": len(routes), "routing_flips": flips[0]}
+        loss_bar, grad_bar = ((LM20_BF16_LOSS_RTOL, LM20_BF16_GRAD_RTOL)
+                              if dt == "bfloat16" else (LM_RTOL, LM_RTOL))
+        check(launched == 2, f"{name} 2-layer {dt}: {launched} dq launches "
+              "on the card, want 2")
+        check(out[dt]["loss"] <= loss_bar and out[dt]["gradients"]
+              <= grad_bar, f"{name} 2-layer cut card vs CPU in {dt}: "
+              f"{out[dt]} (bars {loss_bar}, {grad_bar})")
+        del p_cpu, g_dev, g_cpu
+        torch.cuda.empty_cache()
+    print(f"phase 20 (c): {name} cut to 2 layers at full width, (B, S) "
+          f"{LM20_CPU}, card (flash kernels) vs the port on the CPU, "
+          f"relative to each tensor's max |x|: " + "; ".join(
+              f"{dt} loss {e['loss']:.3e}, gradients {e['gradients']:.3e} "
+              f"(worst {e['worst_leaf']}); the CPU took the card's experts "
+              f"in {e['router_calls']} router calls, {e['routing_flips']} "
+              "tokens of them otherwise than its own top-k would"
+              for dt, e in out.items())
+          + f" (bars: bf16 {LM20_BF16_LOSS_RTOL}, {LM20_BF16_GRAD_RTOL}; "
+          f"float32 {LM_RTOL})")
+    return out
+
+
+def lm20_worker_init():
+    """A dry-run worker: one intra-op thread (the workers share the
+    host's cores)."""
+    torch.set_num_threads(1)
+
+
+def lm20_dryrun_cell(spec):
+    """One dry-run cell in a worker process -> its record."""
+    arch, shape, overrides, multi_pod = spec
+    src = os.path.join(ROOT, "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh(multi_pod=multi_pod, devices=["meta"] * (
+        512 if multi_pod else 256))
+    return dryrun.build_and_compile(arch, shape, mesh, overrides=overrides)
+
+
+def lm20_dryrun_start():
+    """(d): ``LM20_DRYRUN``'s cells in a pool of spawned worker processes
+    -> (pool, pending results)."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(
+        LM20_DRYRUN_WORKERS, initializer=lm20_worker_init)
+    return pool, [pool.apply_async(lm20_dryrun_cell, (spec,))
+                  for spec in LM20_DRYRUN]
+
+
+def lm20_dryrun_finish(pool, pending, t0):
+    """(d): the cells' records (the pool terminated on leaving, a
+    failure's too), each checked as the reference's test checks it, their
+    summary lines and the report's two tables -> records.  ``t0``: the
+    pool's start on ``time.perf_counter``."""
+    from repro_torch.launch.dryrun import summary_line
+    from repro_torch.runtime.roofline_report import fmt_table
+    t1 = time.perf_counter()
+    try:
+        recs = [r.get(timeout=max(1.0, LM20_DRYRUN_WAIT_S
+                                  - (time.perf_counter() - t0)))
+                for r in pending]
+    finally:
+        pool.terminate()
+        pool.join()
+    now = time.perf_counter()
+    print(f"phase 20 (d): the dry-run's cells in {LM20_DRYRUN_WORKERS} "
+          f"workers took {now - t0:.1f} s, {now - t1:.1f} s of it awaited")
+    for (arch, shape, ovr, mp), rec in zip(LM20_DRYRUN, recs):
+        r = rec["roofline"]
+        print(f"=== {arch}__{shape}__{'multi' if mp else 'single'} "
+              f"{ovr} on {rec['mesh']} ===\n" + summary_line(rec)
+              + "  peak/chip "
+              f"{rec['memory']['peak_memory_in_bytes'] / 1e9:.2f} GB "
+              f"fits={rec['memory']['fits']}  collectives "
+              f"{rec['collectives']['per_kind_counts']}")
+        check(r["compute_s"] > 0 and r["bottleneck"] in (
+            "compute", "memory", "collective")
+            and rec["collectives"]["collective_bytes"] >= 0
+            and rec["memory"]["peak_memory_in_bytes"] > 0,
+            f"dry-run cell {arch} {shape}: {r}, {rec['memory']}")
+    print("## single-pod (16x16)\n\n" + fmt_table(recs, "single")
+          + "\n\n## multi-pod (2x16x16)\n\n" + fmt_table(recs, "multi"))
+    return recs
+
+
+def lm20_records(total, worst, times):
+    """The kernels' line's records of phase 20's variants: bf16 at the
+    large tier's layer (qwen3-1.7b's), hd 112 at kimi-k2's, each with its
+    launches on the ``lm_bf16`` path and its times at the other shapes."""
+    records = []
+    for v, tier in (("bf16", "large"), ("bf16_hd112", "kimi"),
+                    ("f32_hd112", "kimi")):
+        for name, short, line in (("flash_attention_fwd", "fwd", "143"),
+                                  ("flash_attention_bwd_dq", "dq", "190"),
+                                  ("flash_attention_bwd_dkv", "dkv", "207")):
+            n = total["variants"].get(f"{name}:{v}", 0)
+            records.append({
+                "name": f"{name}_{v}", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+                "launches": n, "max_abs_err": worst[v][short],
+                **times[v][tier][short], "launches_by_path": {"lm_bf16": n},
+                "other_shapes": {k: r[short] for k, r in times[v].items()
+                                 if k != tier}})
+    return records
+
+
+def phase20(dev, ops):
+    """bf16 and hd 112: the flash kernels held and timed, the bf16 LM at
+    full width (qwen3-1.7b) and kimi-k2's cut, and the dry-run's cells on
+    the production meshes -> (the ``lm_bf16`` path's launches and launches
+    by variant, the readings, max |err| by variant, the kernel times)."""
+    start = time.perf_counter()
+    marks = {}
+    times = lm20_times(dev, ops)
+    marks["b"] = time.perf_counter() - start
+    total = {"launches": {}, "variants": {}}
+    runs = []
+    for name, layers, experts, B, S, warm, timed, steps in LM20_RUNS:
+        cfg = lm20_config(name, layers, experts, "bfloat16")
+        train, params = lm20_train(dev, ops, cfg, B, S, warm, timed, total)
+        decode = lm20_decode(dev, ops, cfg, params, B, S, steps, total)
+        del params
+        torch.cuda.empty_cache()
+        marks[f"c {name}"] = time.perf_counter() - start
+        runs.append({"train": train, "decode": decode})
+    # nothing is timed from here on: the dry-run's cells trace beside it
+    t0 = time.perf_counter()
+    pool, pending = lm20_dryrun_start()
+    try:
+        worst, rel = lm20_holds(dev, ops)
+        marks["a"] = time.perf_counter() - start
+        for run, (name, _, experts, *_) in zip(runs, LM20_RUNS):
+            run["card_vs_cpu"] = lm20_card_vs_cpu(dev, ops, name, experts,
+                                                  total)
+            marks[f"c {name} card vs CPU"] = time.perf_counter() - start
+    except BaseException:
+        pool.terminate()
+        raise
+    lm_s = time.perf_counter() - start
+    recs = lm20_dryrun_finish(pool, pending, t0)
+    missing = [k for k in ("flash_attention_fwd:bf16",
+                           "flash_attention_bwd_dq:bf16",
+                           "flash_attention_bwd_dkv:bf16",
+                           "flash_attention_fwd:bf16_hd112",
+                           "flash_attention_bwd_dq:bf16_hd112",
+                           "flash_attention_bwd_dkv:bf16_hd112",
+                           "flash_attention_fwd:f32_hd112",
+                           "flash_attention_bwd_dq:f32_hd112",
+                           "flash_attention_bwd_dkv:f32_hd112")
+               if not total["variants"].get(k)]
+    check(not missing, f"the lm_bf16 path never launched {missing}")
+    readings = {"runs": runs, "dryrun": recs, "lm_seconds": lm_s,
+                "seconds": time.perf_counter() - start,
+                "grad_rel": rel, "marks_s": marks}
+    print(f"phase 20: {readings['seconds']:.1f} s ({lm_s:.1f} s before the "
+          "dry-run's last cell was awaited; parts ended at " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in marks.items()) + ")")
+    return total, readings, worst, times
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device")
@@ -5820,6 +6565,7 @@ def main():
     sharded_lm_launches, sharded_lm, sharded_lm_worst = phase18(
         dev, ops, lm_runs[0]["loss_first"], lm_runs[0]["step_ms_p50"])
     lm_mesh_launches, lm_mesh, lm_mesh_worst = phase19(dev, ops)
+    lm_bf16, bf16_readings, bf16_worst, bf16_times = phase20(dev, ops)
     paths = {"serve": launches, "refine": refine_launches,
              "train": train_launches, "per_frame": frame_launches,
              "stream": stream_launches, "cascade": cascade_launches,
@@ -5827,7 +6573,8 @@ def main():
              "prefill": prefill_launches, "decode": decode_launches,
              "cluster": cluster_launches, "quality": quality_launches,
              "examples": example_launches, "sharded": sharded_launches,
-             "sharded_lm": sharded_lm_launches, "lm_mesh": lm_mesh_launches}
+             "sharded_lm": sharded_lm_launches, "lm_mesh": lm_mesh_launches,
+             "lm_bf16": lm_bf16["launches"]}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -5956,6 +6703,8 @@ def main():
                  "bound_ms": row["bound_ms"][r["name"]]}
                 for row in lm_mesh["flash_ms"] if r["name"] in row]
     print(json.dumps({"lm_mesh": lm_mesh}))
+    records += lm20_records(lm_bf16, bf16_worst, bf16_times)
+    print(json.dumps({"lm_bf16": bf16_readings}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

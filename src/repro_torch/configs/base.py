@@ -3,8 +3,9 @@
 Port of ``repro.configs.base`` without JAX: ``ModelCfg.xdtype`` and
 ``pdtype`` are torch dtypes and ``layer_windows()`` is a list of ints.
 ``ShapeCfg`` and ``SHAPES`` are the launchers' named shapes; ``cells``
-and ``input_specs`` serve the reference's dry run only and come with
-``launch/dryrun.py`` (ROADMAP §1 item 7).
+lists the dry run's (arch, shape) cells and ``input_specs`` gives a
+cell's data inputs as ``meta`` tensors (shapes and dtypes, no data), as
+``launch/dryrun.py`` traces them.
 """
 from __future__ import annotations
 
@@ -107,6 +108,9 @@ SHAPES = {
     "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
 }
 
+# archs for which long_500k runs (sub-quadratic / O(1)-state decode).
+LONG_CONTEXT_OK = {"mamba2-780m", "zamba2-1.2b"}
+
 _REGISTRY: dict = {}
 
 
@@ -124,6 +128,49 @@ def get_config(name: str) -> ModelCfg:
 def list_configs() -> list:
     importlib.import_module("repro_torch.configs.all")
     return sorted(_REGISTRY)
+
+
+def cells(include_long=True) -> list:
+    """All (arch, shape) dry-run cells: every LM config (not the audio
+    encoder) at every shape, ``long_500k`` only for ``LONG_CONTEXT_OK``
+    (and not at all without ``include_long``)."""
+    out = []
+    for name in list_configs():
+        if _REGISTRY[name].family in ("audio_enc",):
+            continue
+        for sname in SHAPES:
+            if sname == "long_500k" and (not include_long
+                                         or name not in LONG_CONTEXT_OK):
+                continue
+            out.append((name, sname))
+    return out
+
+
+def input_specs(cfg: ModelCfg, shape: ShapeCfg, *, dtype=None) -> dict:
+    """A step's data inputs as ``meta`` tensors, the reference's keys,
+    shapes and dtypes: ``tokens`` and ``labels`` (B, S) int32 for a train
+    step (a ``vlm``'s ``embeds`` (B, S, d) in ``dtype``, default
+    ``cfg.dtype``, in place of tokens), ``tokens`` or ``embeds`` for a
+    prefill, ``tokens`` (B,) for a decode step."""
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else \
+        (dtype or cfg.xdtype)
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(shape_, dtype_):
+        return torch.empty(shape_, dtype=dtype_, device="meta")
+    i32 = torch.int32
+    if shape.kind == "train":
+        if cfg.family == "vlm":
+            return {"embeds": spec((B, S, cfg.d_model), dt),
+                    "labels": spec((B, S), i32)}
+        return {"tokens": spec((B, S), i32), "labels": spec((B, S), i32)}
+    if shape.kind == "prefill":
+        if cfg.family == "vlm":
+            return {"embeds": spec((B, S, cfg.d_model), dt)}
+        return {"tokens": spec((B, S), i32)}
+    if shape.kind == "decode":
+        return {"tokens": spec((B,), i32)}
+    raise ValueError(shape.kind)
 
 
 def smoke_config(cfg: ModelCfg) -> ModelCfg:

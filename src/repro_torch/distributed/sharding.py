@@ -36,6 +36,19 @@ of every shard's value, in the mesh's row-major order).
 the reduce-scatter (the group's gradients summed in shard order, each
 shard taking its block's slice), so each block's gradient comes back to
 the shard that holds it.
+
+``count_collectives()`` counts the collectives run inside it: a dict of
+``collective_bytes`` and, by kind (the reference's names: all-reduce,
+all-gather, reduce-scatter, all-to-all, collective-permute),
+``per_kind_bytes`` and ``per_kind_counts``, the counterpart of the
+reference's ``hlo_analysis.summarize``.  A call counts once (an ``_over``
+form's groups run one collective each, as one HLO instruction runs on
+every device) with the bytes of one shard's result, as the reference
+counts an instruction's result shape on one device; a collective over one
+shard moves nothing and is not counted.  The backward of ``all_gather``,
+``all_to_all`` and ``ppermute``, which autograd takes through the copies,
+is not counted (the reference's HLO holds it); FSDP's reduce-scatter is.
+Outside the context nothing is recorded.
 """
 from __future__ import annotations
 
@@ -116,6 +129,48 @@ def sessions_sharding(mesh: Mesh, n_rows: int,
 
 # -- collectives -------------------------------------------------------------
 
+# the record ``count_collectives`` counts into (None: not counting).  Not
+# thread-local: autograd may run a backward (the FSDP reduce-scatter) on a
+# thread of its own.
+_COUNT = {"rec": None}
+
+
+@contextmanager
+def count_collectives():
+    """Count the collectives run in the ``with`` block -> the dict they are
+    counted into (``collective_bytes``, ``per_kind_bytes``,
+    ``per_kind_counts``)."""
+    prev = _COUNT["rec"]
+    rec = {"collective_bytes": 0, "per_kind_bytes": {},
+           "per_kind_counts": {}}
+    _COUNT["rec"] = rec
+    try:
+        yield rec
+    finally:
+        _COUNT["rec"] = prev
+
+
+def _nbytes(tree) -> int:
+    """The bytes of the tensors of a tree (dicts, lists, tuples)."""
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size() \
+        if isinstance(tree, torch.Tensor) else 0
+
+
+def _tally(kind, shards, nbytes):
+    """Count one collective of ``kind`` over ``shards`` shards whose result
+    on one shard is ``nbytes()`` bytes.  Called only while counting."""
+    if shards < 2:
+        return
+    rec, n = _COUNT["rec"], int(nbytes())
+    rec["collective_bytes"] += n
+    rec["per_kind_bytes"][kind] = rec["per_kind_bytes"].get(kind, 0) + n
+    rec["per_kind_counts"][kind] = rec["per_kind_counts"].get(kind, 0) + 1
+
+
 def _tree_map(fn, *trees):
     t0 = trees[0]
     if isinstance(t0, dict):
@@ -146,11 +201,17 @@ def _reduce(xs, op):
 
 def psum(xs, axis_name=None):
     """Sum over the shards (``jax.lax.psum``)."""
+    if _COUNT["rec"] is not None:
+        xs = list(xs)
+        _tally("all-reduce", len(xs), lambda: _nbytes(xs[0]))
     return _reduce(xs, torch.add)
 
 
 def pmax(xs, axis_name=None):
     """Elementwise maximum over the shards (``jax.lax.pmax``)."""
+    if _COUNT["rec"] is not None:
+        xs = list(xs)
+        _tally("all-reduce", len(xs), lambda: _nbytes(xs[0]))
     return _reduce(xs, torch.maximum)
 
 
@@ -160,7 +221,10 @@ def pmean(xs, axis_name=None):
     if len(xs) == 1:
         return PerShard(xs)
     n = len(xs)
-    return PerShard(_tree_map(lambda t: t / n, s) for s in psum(xs))
+    if _COUNT["rec"] is not None:
+        _tally("all-reduce", n, lambda: _nbytes(xs[0]))
+    return PerShard(_tree_map(lambda t: t / n, s)
+                    for s in _reduce(xs, torch.add))
 
 
 def ppermute(xs, perm, axis_name=None):
@@ -171,6 +235,8 @@ def ppermute(xs, perm, axis_name=None):
     dsts = [d for _, d in perm]
     if len(set(dsts)) != len(dsts):
         raise ValueError(f"ppermute {perm}: a shard receives twice")
+    if _COUNT["rec"] is not None:
+        _tally("collective-permute", len(xs), lambda: _nbytes(xs[0]))
     out = PerShard(_tree_map(torch.zeros_like, x) for x in xs)
     for src, dst in perm:
         out[dst] = _tree_map(lambda a, x: a.to(x.device), xs[src], xs[dst])
@@ -189,6 +255,8 @@ def all_gather(xs, axis=0, *, tiled=False, axis_name=None):
     def leaf(*vals):
         dev = vals[0].device
         return join([v.to(dev) for v in vals], axis)
+    if _COUNT["rec"] is not None:
+        _tally("all-gather", len(xs), lambda: len(xs) * _nbytes(xs[0]))
     total = _tree_map(leaf, *xs)
     return PerShard(_tree_map(lambda a, x: a.to(x.device), total, x)
                     for x in xs)
@@ -208,6 +276,8 @@ def all_to_all(xs, split_axis, concat_axis, axis_name=None):
             raise ValueError(f"all_to_all: dim {split_axis} of "
                              f"{tuple(x.shape)} does not split {R} ways")
     parts = [x.chunk(R, split_axis) for x in xs]
+    if _COUNT["rec"] is not None:
+        _tally("all-to-all", R, lambda: _nbytes(xs[0]))
     return PerShard(torch.cat([parts[i][j].to(xs[j].device)
                                for i in range(R)], concat_axis)
                     for j in range(R))
@@ -238,36 +308,49 @@ def axis_groups(mesh, axes) -> list:
     return [list(map(int, row)) for row in arr]
 
 
-def _over(fn, vals, mesh, axes):
+def _over(fn, vals, mesh, axes, kind, gathered=False):
+    """``fn`` on each group of ``axis_groups(mesh, axes)``: one collective
+    of ``kind`` (one shard's result the group's values stacked when
+    ``gathered``, else one shard's value), whose groups' own calls are not
+    counted again."""
     vals = list(vals)
     out = [None] * len(vals)
-    for group in axis_groups(mesh, axes):
-        for i, v in zip(group, fn([vals[i] for i in group])):
-            out[i] = v
+    groups = axis_groups(mesh, axes)
+    rec = _COUNT["rec"]
+    if rec is not None:
+        R = len(groups[0])
+        _tally(kind, R, lambda: (R if gathered else 1) * _nbytes(vals[0]))
+        _COUNT["rec"] = None
+    try:
+        for group in groups:
+            for i, v in zip(group, fn([vals[i] for i in group])):
+                out[i] = v
+    finally:
+        _COUNT["rec"] = rec
     return PerShard(out)
 
 
 def psum_over(vals, mesh, axes):
     """``psum`` within each group of ``axis_groups(mesh, axes)``."""
-    return _over(psum, vals, mesh, axes)
+    return _over(psum, vals, mesh, axes, "all-reduce")
 
 
 def pmax_over(vals, mesh, axes):
-    return _over(pmax, vals, mesh, axes)
+    return _over(pmax, vals, mesh, axes, "all-reduce")
 
 
 def pmean_over(vals, mesh, axes):
-    return _over(pmean, vals, mesh, axes)
+    return _over(pmean, vals, mesh, axes, "all-reduce")
 
 
 def all_gather_over(vals, mesh, axes, axis=0, *, tiled=False):
     return _over(lambda xs: all_gather(xs, axis, tiled=tiled), vals, mesh,
-                 axes)
+                 axes, "all-gather", gathered=True)
 
 
 def all_to_all_over(vals, mesh, axes, split_axis, concat_axis):
     return _over(lambda xs: all_to_all(xs, split_axis, concat_axis), vals,
-                 mesh, axes)
+                 mesh, axes, "all-to-all")
 
 
 class _GatherScatter(torch.autograd.Function):
@@ -277,8 +360,8 @@ class _GatherScatter(torch.autograd.Function):
     each shard takes its block's slice."""
 
     @staticmethod
-    def forward(ctx, dim, *blocks):
-        ctx.dim = dim
+    def forward(ctx, dim, counted, *blocks):
+        ctx.dim, ctx.counted = dim, counted
         ctx.sizes = [b.shape[dim] for b in blocks]
         ctx.devices = [b.device for b in blocks]
         return tuple(torch.cat([b.to(x.device) for b in blocks], dim)
@@ -292,9 +375,14 @@ class _GatherScatter(torch.autograd.Function):
             if g is not None:
                 total = g.to(dev) if total is None else total + g.to(dev)
         if total is None:
-            return (None,) * (1 + len(grads))
+            return (None,) * (2 + len(grads))
+        if ctx.counted and _COUNT["rec"] is not None:
+            # the first group's backward counts the reduce-scatter for all
+            _tally("reduce-scatter", len(grads), lambda: total.numel()
+                   * total.element_size() // len(grads))
         parts = total.split(ctx.sizes, ctx.dim)
-        return (None,) + tuple(p.to(d) for p, d in zip(parts, ctx.devices))
+        return (None, None) + tuple(p.to(d) for p, d in
+                                    zip(parts, ctx.devices))
 
 
 def fsdp_gather_over(vals, mesh, axes, dim):
@@ -306,8 +394,12 @@ def fsdp_gather_over(vals, mesh, axes, dim):
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     if math.prod(mesh.shape[a] for a in axes) == 1:
         return PerShard(vals)
-    return _over(lambda xs: _GatherScatter.apply(dim, *xs), vals, mesh,
-                 axes)
+    groups = []
+
+    def gather(xs):
+        groups.append(xs)
+        return _GatherScatter.apply(dim, len(groups) == 1, *xs)
+    return _over(gather, vals, mesh, axes, "all-gather", gathered=True)
 
 
 # ---------------------------------------------------------------------------
@@ -773,7 +865,8 @@ def get_mesh():
 __all__ = ["SESSIONS_AXIS", "Mesh", "PerShard", "row_blocks",
            "sessions_sharding", "psum", "pmax", "pmean", "ppermute",
            "all_gather", "all_to_all", "axis_index", "axis_groups",
-           "psum_over", "pmax_over", "pmean_over", "all_gather_over",
+           "count_collectives", "psum_over", "pmax_over", "pmean_over",
+           "all_gather_over",
            "all_to_all_over", "fsdp_gather_over", "PartitionSpec", "P",
            "AxisRules", "current_rules", "axis_rules", "logical_spec",
            "is_axes_leaf", "map_axes", "param_pspecs", "entry_axes",

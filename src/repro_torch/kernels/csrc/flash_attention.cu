@@ -1,5 +1,6 @@
-// Flash attention, forward and backward, float32, on Hopper's tensor cores
-// (sm_90a).
+// Flash attention, forward and backward, float32 and bf16, on Hopper's
+// tensor cores (sm_90a).  The float32 kernels come first; the bf16 ones,
+// which share their structure, are in the section "bf16".
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention.py: the
 // forward `_fwd` / `_fwd_kernel` (flash_fwd_kernel) and `_bwd_rule`'s
@@ -62,7 +63,9 @@
 //   hd 16, 32: BQ 64, BK 32, 32 KB
 //   hd 64:     BQ 64, BK 32, 64 KB, three blocks an SM (BK 64: 96 KB,
 //              two blocks, 11 % slower)
-//   hd 128:    BQ 128 (8 warps), BK 32, 192 KB
+//   hd 112, 128: BQ 128 (8 warps), BK 32, 192 KB
+// (A row's pitch is hd rounded up to a multiple of 32 floats, so the
+// swizzle stays inside the row: hd 112 is laid out as 128.)
 // At hd 128 the o accumulator alone is 64 registers a thread: BK 32 keeps
 // the score tile and its A fragments small enough that ptxas spills
 // nothing (tools/ptxas_report.py; the variants measured are
@@ -85,7 +88,7 @@ namespace tc {
 
 template <int HD>
 __host__ __device__ constexpr int pitch() {
-  return HD < 32 ? 32 : HD;
+  return (HD + 31) / 32 * 32;
 }
 
 // column c of row r of a tile sits at r * P + (c ^ swizzle(r)): bits 2-4
@@ -632,9 +635,10 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o,
 // (tools/flash_bwd_variants.py).  Blocks with the most tiles start first.
 // Tiles and shared memory a block:
 //   dq   hd 16, 32: BQ 64, BK 32, 32 KB; hd 64: 64 KB, three blocks an
-//        SM; hd 128: BQ 128 (8 warps), BK 32, 192 KB
+//        SM; hd 112, 128: BQ 128 (8 warps), BK 32, 192 KB
 //   dkv  hd 16, 32: BK 64, BQ 32, 48.5 KB; hd 64: 96.5 KB, two blocks an
-//        SM; hd 128: BK 128 (8 warps), BQ 16, 224.3 KB
+//        SM; hd 128: BK 128 (8 warps), BQ 16, 224.3 KB; hd 112 as 128,
+//        216.3 KB
 
 template <int HD, int BQ, int BK>
 constexpr size_t dq_smem_bytes() {
@@ -912,15 +916,564 @@ int launch_bwd_dkv(const float* q, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16.
+//
+// The same three kernels for bf16 q, k, v and dO, which the TPU kernel
+// takes as well: it upcasts its tiles, computes in float32, and writes o,
+// dq, dk and dv in the input dtype, lse (and takes delta) in float32.
+// Here every product runs on the tensor cores as a bf16 mma.sync
+// (m16n8k16.row.col.f32.bf16.bf16.f32) with float32 accumulation: one
+// issue where 3xTF32 takes three, and 8 values a 16-byte cp.async.  The
+// products q k^T and dO v^T are exact (a bf16 product fits a float32),
+// summed in float32.  The other operand of P V is bf16 already, but P
+// itself must be rounded to bf16 to meet it, and so must dS in dS k and
+// dS^T q, and P^T in P^T dO: the one place where these kernels depart
+// from the reference's float32 arithmetic, and why their gradients are
+// held to a bar relative to each gradient's max (chip_smoke.py phase 20)
+// and not to the float32 kernels' 1e-5.  The softmax statistics m, l and
+// lse, p before it is rounded, ds, delta and every accumulator stay
+// float32; o, dq, dk and dv are rounded to bf16 (to nearest even) once,
+// as they are written.
+//
+// Bound: the float32 kernels' products at the H100's 989 TFLOP/s of dense
+// bf16 (NVIDIA's H100 SXM data sheet, 700 W), against 2 bytes an element
+// of q, k, v, dO, o, dq, dk and dv and 4 of lse and delta: operations
+// bound all three at the trainer's layers (chip_smoke.py phase 20 prints
+// each bound beside each time).
+//
+// Design: the float32 kernels' (a warp owns 16 rows of the output and
+// runs every product of those rows; two-stage cp.async rings; the causal
+// skips; a fixed order and no atomics, so two launches give the same
+// bits), with bf16 tiles in shared memory at a row pitch of hd + 8
+// values, (hd + 8) / 2 words: both fragment patterns of any 8 rows, a
+// word of one row (row g, columns 2t and 2t + 1) and a value of each of
+// two rows (rows 2t and 2t + 1, column g), then fall in distinct banks.
+// The m16n8 score accumulators of two neighbouring 8-column tiles are, in
+// the same registers, the m16n8k16 A fragment of the next product (lane
+// (g, t) holds columns 2t, 2t + 1 of rows g and g + 8 in both), so P and
+// dS go from the softmax to the tensor cores without leaving registers.
+// The o, dq, dk and dv accumulators sum in the tensor cores across all
+// tiles.  hd is a multiple of 16 (7 k-steps at hd 112).
+// Tiles a block (4 warps each):
+//   forward BQ 64, BK 64: 45 KB at hd 64, 85 KB at hd 128
+//   dq      BQ 64, BK 32 (dq's accumulator and two score tiles in
+//           registers): 36 KB at hd 64, 68 KB at hd 128
+//   dk/dv   BK 64 keys, BQ 32 queries a step at hd <= 64, 16 above (dk
+//           and dv both in registers): 36 KB at hd 64, 51 KB at hd 128
+namespace bf {
+
+using u16 = unsigned short;
+
+template <int HD>
+__host__ __device__ constexpr int pitch() {
+  return HD + 8;
+}
+
+__device__ __forceinline__ void cp_async16(u16* dst, const u16* src,
+                                           bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// rows row0 .. row0 + ROWS - 1 of a (S, HD) bf16 matrix into a tile, by
+// NT threads, 8 values a copy; rows past S are zero
+template <int ROWS, int HD, int NT>
+__device__ __forceinline__ void load_tile(u16* tile, const u16* src,
+                                          int row0, int S) {
+  constexpr int kChunks = HD / 8, P = pitch<HD>();
+  for (int e = threadIdx.x; e < ROWS * kChunks; e += NT) {
+    const int r = e / kChunks, c = (e % kChunks) * 8, row = row0 + r;
+    const bool in = row < S;
+    cp_async16(tile + r * P + c,
+               src + static_cast<size_t>(in ? row : 0) * HD + c, in);
+  }
+}
+
+// columns c and c + 1 of row r (c even): one word
+template <int P>
+__device__ __forceinline__ uint32_t pair(const u16* x, int r, int c) {
+  return *reinterpret_cast<const uint32_t*>(x + r * P + c);
+}
+
+// rows r and r + 1 of column c
+template <int P>
+__device__ __forceinline__ uint32_t pair_t(const u16* x, int r, int c) {
+  return static_cast<uint32_t>(x[r * P + c]) |
+         (static_cast<uint32_t>(x[(r + 1) * P + c]) << 16);
+}
+
+// lo and hi rounded to bf16 (to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[m] = x[m] . y[m]^T for m < M: rows r0 .. r0+15 of x[m] against rows
+// 0 .. 8N-1 of y[m], both row-major (., HD) tiles; c[m][n] is the m16n8
+// tile of y's rows 8n .. 8n+7, summed over HD in the tensor cores
+template <int HD, int M, int N>
+__device__ __forceinline__ void scores(float (&c)[M][N][4],
+                                       const u16* const (&x)[M],
+                                       const u16* const (&y)[M], int r0,
+                                       int g, int t) {
+  constexpr int P = pitch<HD>();
+#pragma unroll
+  for (int m = 0; m < M; ++m) tc::zero(c[m]);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int c0 = 16 * kk + 2 * t;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const uint32_t a[4] = {pair<P>(x[m], r0 + g, c0),
+                             pair<P>(x[m], r0 + g + 8, c0),
+                             pair<P>(x[m], r0 + g, c0 + 8),
+                             pair<P>(x[m], r0 + g + 8, c0 + 8)};
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        mma(c[m][n], a, pair<P>(y[m], 8 * n + g, c0),
+            pair<P>(y[m], 8 * n + g, c0 + 8));
+      }
+    }
+  }
+}
+
+// acc += c . y: c a 16 x 8N float32 score tile (N even), rounded to bf16
+// as the A operand, and y a row-major (8N, HD) tile; acc[nd] the m16n8
+// tile of output columns 8nd .. 8nd+7
+template <int HD, int N>
+__device__ __forceinline__ void accumulate(float (&acc)[HD / 8][4],
+                                           const float (&c)[N][4],
+                                           const u16* y, int g, int t) {
+  constexpr int P = pitch<HD>();
+  static_assert(N % 2 == 0, "the product's k steps are 16 wide");
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    const uint32_t a[4] = {pack(c[2 * j][0], c[2 * j][1]),
+                           pack(c[2 * j][2], c[2 * j][3]),
+                           pack(c[2 * j + 1][0], c[2 * j + 1][1]),
+                           pack(c[2 * j + 1][2], c[2 * j + 1][3])};
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) {
+      mma(acc[nd], a, pair_t<P>(y, 16 * j + 2 * t, 8 * nd + g),
+          pair_t<P>(y, 16 * j + 8 + 2 * t, 8 * nd + g));
+    }
+  }
+}
+
+// row g (half 0) or g + 8 (half 1) of an accumulator's columns 2t and
+// 2t + 1 times f, rounded to bf16, at out[8 nd + 2t]
+template <int ND>
+__device__ __forceinline__ void store_row(u16* out,
+                                          const float (&acc)[ND][4],
+                                          int half, int t, float f) {
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    *reinterpret_cast<uint32_t*>(out + 8 * nd + 2 * t) =
+        pack(__fmul_rn(acc[nd][2 * half], f),
+             __fmul_rn(acc[nd][2 * half + 1], f));
+  }
+}
+
+template <int HD, int BQ, int BK>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(u16) * (BQ + 2 * 2 * BK) * pitch<HD>();
+}
+
+template <int HD, int BQ, int BK>
+__global__ void __launch_bounds__(2 * BQ)
+flash_fwd_bf16_kernel(const u16* __restrict__ q, const u16* __restrict__ k,
+                      const u16* __restrict__ v, u16* __restrict__ o,
+                      float* __restrict__ lse, int BH, int H, int KV, int Sq,
+                      int Sk, float scale, int causal) {
+  constexpr int kThreads = 2 * BQ;            // a warp per 16 query rows
+  constexpr int P = pitch<HD>();
+  constexpr int NT = BK / 8, ND = HD / 8;
+  constexpr int kStage = 2 * BK * P;
+  extern __shared__ float4 smem4[];
+  u16* qs = reinterpret_cast<u16*>(smem4);      // BQ x P
+  u16* ring = qs + BQ * P;                      // 2 stages: k, v
+
+  const int lane = threadIdx.x % 32, r0 = 16 * (threadIdx.x / 32);
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x % BH, qt = blockIdx.x / BH;
+  // under the mask the last query tiles have the most keys: they go first
+  const int q0 = (causal ? (Sq + BQ - 1) / BQ - 1 - qt : qt) * BQ;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const size_t rows0 = static_cast<size_t>(bh) * Sq;
+  const u16* kp = k + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
+  const u16* vp = v + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
+  auto k_at = [&](int st) { return ring + st * kStage; };
+  auto v_at = [&](int st) { return ring + st * kStage + kStage / 2; };
+
+  load_tile<BQ, HD, kThreads>(qs, q + rows0 * HD, q0, Sq);
+  load_tile<BK, HD, kThreads>(k_at(0), kp, 0, Sk);
+  load_tile<BK, HD, kThreads>(v_at(0), vp, 0, Sk);
+  tc::cp_async_commit();
+
+  int rows[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    rows[e] = q0 + r0 + g + 8 * e;
+    m[e] = kMaskValue;
+    l[e] = 0.0f;
+  }
+  float acc[ND][4];
+  tc::zero(acc);
+
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int n_kt = (k_end + BK - 1) / BK;
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * BK, st = it & 1;
+    if (it + 1 < n_kt) {
+      load_tile<BK, HD, kThreads>(k_at(st ^ 1), kp, k0 + BK, Sk);
+      load_tile<BK, HD, kThreads>(v_at(st ^ 1), vp, k0 + BK, Sk);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    // a warp whose rows all precede the tile's first key has nothing here
+    if (!causal || k0 <= q0 + r0 + 15) {
+      float sc[1][NT][4];
+      scores<HD, 1, NT>(sc, {qs}, {k_at(st)}, r0, g, t);
+      float (&s)[NT][4] = sc[0];
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + 8 * n + 2 * t + (e & 1);
+          float x = __fmul_rn(s[n][e], scale);
+          if (j >= Sk) {
+            x = -CUDART_INF_F;                 // past the end: weighs 0
+          } else if (causal && j > rows[e / 2]) {
+            x = kMaskValue;
+          }
+          s[n][e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
+        }
+      }
+      float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float m_new = fmaxf(m[e], tc::quad_max(mx[e]));
+        alpha[e] = expf(__fsub_rn(m[e], m_new));
+        m[e] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = expf(__fsub_rn(s[n][e], m[e / 2]));
+          sum[e / 2] = __fadd_rn(sum[e / 2], s[n][e]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        l[e] = __fmaf_rn(l[e], alpha[e], tc::quad_sum(sum[e]));
+      }
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        acc[nd][0] = __fmul_rn(acc[nd][0], alpha[0]);
+        acc[nd][1] = __fmul_rn(acc[nd][1], alpha[0]);
+        acc[nd][2] = __fmul_rn(acc[nd][2], alpha[1]);
+        acc[nd][3] = __fmul_rn(acc[nd][3], alpha[1]);
+      }
+      accumulate<HD, NT>(acc, s, v_at(st), g, t);      // o += p v
+    }
+    __syncthreads();                 // the stage is consumed before refill
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (rows[e] >= Sq) continue;
+    const float denom = fmaxf(l[e], 1e-30f);
+    store_row(o + (rows0 + rows[e]) * HD, acc, e, t,
+              __fdiv_rn(1.0f, denom));
+    if (t == 0) lse[rows0 + rows[e]] = __fadd_rn(m[e], logf(denom));
+  }
+}
+
+template <int HD, int BQ, int BK>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(u16) * (2 * BQ + 2 * 2 * BK) * pitch<HD>();
+}
+
+template <int HD, int BQ, int BK>
+__global__ void __launch_bounds__(2 * BQ)
+flash_bwd_dq_bf16_kernel(const u16* __restrict__ q,
+                         const u16* __restrict__ k,
+                         const u16* __restrict__ v,
+                         const u16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         u16* __restrict__ dq, int BH, int H, int KV, int Sq,
+                         int Sk, float scale, int causal) {
+  constexpr int kThreads = 2 * BQ;            // a warp per 16 query rows
+  constexpr int P = pitch<HD>();
+  constexpr int NT = BK / 8, ND = HD / 8;
+  constexpr int kStage = 2 * BK * P;
+  extern __shared__ float4 smem4[];
+  u16* qs = reinterpret_cast<u16*>(smem4);      // BQ x P
+  u16* dos = qs + BQ * P;                       // BQ x P
+  u16* ring = dos + BQ * P;                     // 2 stages: k, v
+
+  const int lane = threadIdx.x % 32, r0 = 16 * (threadIdx.x / 32);
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x % BH, qt = blockIdx.x / BH;
+  const int q0 = (causal ? (Sq + BQ - 1) / BQ - 1 - qt : qt) * BQ;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const size_t rows0 = static_cast<size_t>(bh) * Sq;
+  const u16* kp = k + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
+  const u16* vp = v + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
+  auto k_at = [&](int st) { return ring + st * kStage; };
+  auto v_at = [&](int st) { return ring + st * kStage + kStage / 2; };
+
+  load_tile<BQ, HD, kThreads>(qs, q + rows0 * HD, q0, Sq);
+  load_tile<BQ, HD, kThreads>(dos, dout + rows0 * HD, q0, Sq);
+  load_tile<BK, HD, kThreads>(k_at(0), kp, 0, Sk);
+  load_tile<BK, HD, kThreads>(v_at(0), vp, 0, Sk);
+  tc::cp_async_commit();
+
+  int rows[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    rows[e] = q0 + r0 + g + 8 * e;
+    const bool in = rows[e] < Sq;
+    lse_r[e] = in ? lse[rows0 + rows[e]] : 0.0f;
+    delta_r[e] = in ? delta[rows0 + rows[e]] : 0.0f;
+  }
+  float acc[ND][4];
+  tc::zero(acc);
+
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int n_kt = (k_end + BK - 1) / BK;
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * BK, st = it & 1;
+    if (it + 1 < n_kt) {
+      load_tile<BK, HD, kThreads>(k_at(st ^ 1), kp, k0 + BK, Sk);
+      load_tile<BK, HD, kThreads>(v_at(st ^ 1), vp, k0 + BK, Sk);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (!causal || k0 <= q0 + r0 + 15) {
+      float sd[2][NT][4];                      // s and dp
+      scores<HD, 2, NT>(sd, {qs, dos}, {k_at(st), v_at(st)}, r0, g, t);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = rows[e / 2], j = k0 + 8 * n + 2 * t + (e & 1);
+          float ds = 0.0f;
+          if (j < Sk && !(causal && j > i)) {
+            const float p = expf(
+                __fsub_rn(__fmul_rn(sd[0][n][e], scale), lse_r[e / 2]));
+            ds = __fmul_rn(p, __fsub_rn(sd[1][n][e], delta_r[e / 2]));
+          }
+          sd[0][n][e] = ds;
+        }
+      }
+      accumulate<HD, NT>(acc, sd[0], k_at(st), g, t);   // dq += ds k
+    }
+    __syncthreads();                 // the stage is consumed before refill
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (rows[e] < Sq) {
+      store_row(dq + (rows0 + rows[e]) * HD, acc, e, t, scale);
+    }
+  }
+}
+
+template <int HD, int BK, int BQ>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(u16) * (2 * BK + 2 * 2 * BQ) * pitch<HD>() +
+         sizeof(float) * 4 * BQ;
+}
+
+template <int HD, int BK, int BQ>
+__global__ void __launch_bounds__(2 * BK, 1)
+flash_bwd_dkv_bf16_kernel(const u16* __restrict__ q,
+                          const u16* __restrict__ k,
+                          const u16* __restrict__ v,
+                          const u16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          u16* __restrict__ dk, u16* __restrict__ dv,
+                          int BKV, int H, int KV, int Sq, int Sk, float scale,
+                          int causal) {
+  constexpr int kThreads = 2 * BK;            // a warp per 16 keys
+  constexpr int P = pitch<HD>();
+  constexpr int NQ = BQ / 8, ND = HD / 8;
+  constexpr int kStage = 2 * BQ * P;
+  extern __shared__ float4 smem4[];
+  u16* ks = reinterpret_cast<u16*>(smem4);      // BK x P
+  u16* vs = ks + BK * P;                        // BK x P
+  u16* ring = vs + BK * P;                      // 2 stages: q, dO
+  float* ls = reinterpret_cast<float*>(ring + 2 * kStage);  // 2 x BQ lse
+  float* dls = ls + 2 * BQ;                                 // 2 x BQ delta
+
+  const int lane = threadIdx.x % 32, r0 = 16 * (threadIdx.x / 32);
+  const int g = lane / 4, t = lane % 4;
+  // under the mask the first key tiles see the most queries: they go first
+  const int bkv = blockIdx.x % BKV, k0 = (blockIdx.x / BKV) * BK;
+  const int b = bkv / KV, kvh = bkv % KV, G = H / KV;
+  const size_t kv_rows0 = static_cast<size_t>(bkv) * Sk;
+  auto q_at = [&](int st) { return ring + st * kStage; };
+  auto o_at = [&](int st) { return ring + st * kStage + kStage / 2; };
+
+  // query rows before k0 see none of this block's keys under the mask
+  const int q_lo = causal ? (k0 / BQ) * BQ : 0;
+  const int n_qt = q_lo < Sq ? (Sq - q_lo + BQ - 1) / BQ : 0;
+  const int n_steps = G * n_qt;
+  auto issue = [&](int step, int st) {
+    const int gi = step / n_qt, q0 = q_lo + (step % n_qt) * BQ;
+    const size_t rows0 = (static_cast<size_t>(b) * H + kvh * G + gi) * Sq;
+    load_tile<BQ, HD, kThreads>(q_at(st), q + rows0 * HD, q0, Sq);
+    load_tile<BQ, HD, kThreads>(o_at(st), dout + rows0 * HD, q0, Sq);
+    tc::load_rows<BQ, kThreads>(ls + st * BQ, lse + rows0, q0, Sq);
+    tc::load_rows<BQ, kThreads>(dls + st * BQ, delta + rows0, q0, Sq);
+  };
+  if (n_steps > 0) {
+    load_tile<BK, HD, kThreads>(ks, k + kv_rows0 * HD, k0, Sk);
+    load_tile<BK, HD, kThreads>(vs, v + kv_rows0 * HD, k0, Sk);
+    issue(0, 0);
+    tc::cp_async_commit();
+  }
+  float acc_k[ND][4], acc_v[ND][4];
+  tc::zero(acc_k);
+  tc::zero(acc_v);
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int st = step & 1;
+    if (step + 1 < n_steps) {
+      issue(step + 1, st ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = q_lo + (step % n_qt) * BQ;
+    const float* lt = ls + st * BQ;
+    const float* dt = dls + st * BQ;
+    // a warp whose keys all follow the tile's last query has nothing here
+    if (!causal || k0 + r0 <= q0 + BQ - 1) {
+      float sd[2][NQ][4];                      // s^T and dp^T
+      scores<HD, 2, NQ>(sd, {ks, vs}, {q_at(st), o_at(st)}, r0, g, t);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + r0 + g + 8 * (e / 2);
+          const int c = 8 * n + 2 * t + (e & 1), i = q0 + c;
+          float p = 0.0f, ds = 0.0f;
+          if (i < Sq && j < Sk && !(causal && j > i)) {
+            p = expf(__fsub_rn(__fmul_rn(sd[0][n][e], scale), lt[c]));
+            ds = __fmul_rn(p, __fsub_rn(sd[1][n][e], dt[c]));
+          }
+          sd[0][n][e] = p;
+          sd[1][n][e] = ds;
+        }
+      }
+      accumulate<HD, NQ>(acc_v, sd[0], o_at(st), g, t);   // dv += p^T dO
+      accumulate<HD, NQ>(acc_k, sd[1], q_at(st), g, t);   // dk += ds^T q
+    }
+    __syncthreads();                 // the stage is consumed before refill
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int key = k0 + r0 + g + 8 * e;
+    if (key >= Sk) continue;
+    store_row(dk + (kv_rows0 + key) * HD, acc_k, e, t, scale);
+    store_row(dv + (kv_rows0 + key) * HD, acc_v, e, t, 1.0f);
+  }
+}
+
+// a kernel on `blocks` blocks of `threads`, with `smem` bytes of dynamic
+// shared memory (its maximum set first)
+template <class... P, class... A>
+int launch(void (*kernel)(P...), long long blocks, int threads, size_t smem,
+           cudaStream_t stream, A... args) {
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, int BQ, int BK>
+int launch_fwd(const u16* q, const u16* k, const u16* v, u16* o, float* lse,
+               int B, int H, int KV, int Sq, int Sk, float scale, int causal,
+               cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem_bytes<HD, BQ, BK>();
+  static_assert(smem <= 232448, "over the 227 KB a block can use");
+  return launch(flash_fwd_bf16_kernel<HD, BQ, BK>,
+                static_cast<long long>((Sq + BQ - 1) / BQ) * B * H, 2 * BQ,
+                smem, stream, q, k, v, o, lse, B * H, H, KV, Sq, Sk, scale,
+                causal);
+}
+
+template <int HD, int BQ, int BK>
+int launch_bwd_dq(const u16* q, const u16* k, const u16* v, const u16* dout,
+                  const float* lse, const float* delta, u16* dq, int B, int H,
+                  int KV, int Sq, int Sk, float scale, int causal,
+                  cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<HD, BQ, BK>();
+  static_assert(smem <= 232448, "over the 227 KB a block can use");
+  return launch(flash_bwd_dq_bf16_kernel<HD, BQ, BK>,
+                static_cast<long long>((Sq + BQ - 1) / BQ) * B * H, 2 * BQ,
+                smem, stream, q, k, v, dout, lse, delta, dq, B * H, H, KV,
+                Sq, Sk, scale, causal);
+}
+
+template <int HD, int BK, int BQ>
+int launch_bwd_dkv(const u16* q, const u16* k, const u16* v, const u16* dout,
+                   const float* lse, const float* delta, u16* dk, u16* dv,
+                   int B, int H, int KV, int Sq, int Sk, float scale,
+                   int causal, cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem_bytes<HD, BK, BQ>();
+  static_assert(smem <= 232448, "over the 227 KB a block can use");
+  return launch(flash_bwd_dkv_bf16_kernel<HD, BK, BQ>,
+                static_cast<long long>((Sk + BK - 1) / BK) * B * KV, 2 * BK,
+                smem, stream, q, k, v, dout, lse, delta, dk, dv, B * KV, H,
+                KV, Sq, Sk, scale, causal);
+}
+
+}  // namespace bf
+
 }  // namespace
 
 extern "C" {
 
 // Each launcher launches on `stream` and returns the first CUDA error (0 on
 // success); the caller checks it, because a refused launch never runs.  q,
-// o (B, H, Sq, hd), k, v (B, KV, Sk, hd) and lse (B, H, Sq), contiguous
-// float32; hd one of 16, 32, 64, 128 and KV a divisor of H (the wrappers
-// check both).  The (B, ., S, hd) tensors must start on 16 bytes (cp.async
+// o (B, H, Sq, hd), k, v (B, KV, Sk, hd) and lse (B, H, Sq), contiguous,
+// float32 (the _f32 launchers) or bf16 with lse and delta float32 (the
+// _bf16 ones); hd one of 16, 32, 64, 112, 128 and KV a divisor of H (the
+// wrappers check both).  The (B, ., S, hd) tensors must start on 16 bytes (cp.async
 // copies 16; the launchers refuse others).
 static cudaError_t args_check(int B, int H, int KV, int Sq, int Sk,
                               std::initializer_list<const void*> tiles) {
@@ -951,6 +1504,8 @@ int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
       return launch_fwd<32, 64, 32, false>(FWD_ARGS);
     case 64:
       return launch_fwd<64, 64, 32, false>(FWD_ARGS);
+    case 112:
+      return launch_fwd<112, 128, 32, false>(FWD_ARGS);
     case 128:
       return launch_fwd<128, 128, 32, false>(FWD_ARGS);
     default:
@@ -981,6 +1536,8 @@ int flash_attention_bwd_dq_f32(const float* q, const float* k, const float* v,
       return launch_bwd_dq<32, 64, 32>(BWD_DQ_ARGS);
     case 64:
       return launch_bwd_dq<64, 64, 32>(BWD_DQ_ARGS);
+    case 112:
+      return launch_bwd_dq<112, 128, 32>(BWD_DQ_ARGS);
     case 128:
       return launch_bwd_dq<128, 128, 32>(BWD_DQ_ARGS);
     default:
@@ -1004,8 +1561,85 @@ int flash_attention_bwd_dkv_f32(const float* q, const float* k,
       return launch_bwd_dkv<32, 64, 32, true, false>(BWD_DKV_ARGS);
     case 64:
       return launch_bwd_dkv<64, 64, 32, true, false>(BWD_DKV_ARGS);
+    case 112:
+      return launch_bwd_dkv<112, 128, 16, false, true>(BWD_DKV_ARGS);
     case 128:
       return launch_bwd_dkv<128, 128, 16, false, true>(BWD_DKV_ARGS);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bf16 launchers: the same arguments, the tensors bf16 (as 16-bit
+// words) but lse and delta float32.
+using bf::u16;
+
+int flash_attention_fwd_bf16(const u16* q, const u16* k, const u16* v,
+                             u16* o, float* lse, int B, int H, int KV,
+                             int Sq, int Sk, int hd, float scale, int causal,
+                             cudaStream_t stream) {
+  const cudaError_t bad = args_check(B, H, KV, Sq, Sk, {q, k, v, o});
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  switch (hd) {
+    case 16:
+      return bf::launch_fwd<16, 64, 64>(FWD_ARGS);
+    case 32:
+      return bf::launch_fwd<32, 64, 64>(FWD_ARGS);
+    case 64:
+      return bf::launch_fwd<64, 64, 64>(FWD_ARGS);
+    case 112:
+      return bf::launch_fwd<112, 64, 64>(FWD_ARGS);
+    case 128:
+      return bf::launch_fwd<128, 64, 64>(FWD_ARGS);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int flash_attention_bwd_dq_bf16(const u16* q, const u16* k, const u16* v,
+                                const u16* dout, const float* lse,
+                                const float* delta, u16* dq, int B, int H,
+                                int KV, int Sq, int Sk, int hd, float scale,
+                                int causal, cudaStream_t stream) {
+  const cudaError_t bad =
+      args_check(B, H, KV, Sq, Sk, {q, k, v, dout, dq});
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  switch (hd) {
+    case 16:
+      return bf::launch_bwd_dq<16, 64, 32>(BWD_DQ_ARGS);
+    case 32:
+      return bf::launch_bwd_dq<32, 64, 32>(BWD_DQ_ARGS);
+    case 64:
+      return bf::launch_bwd_dq<64, 64, 32>(BWD_DQ_ARGS);
+    case 112:
+      return bf::launch_bwd_dq<112, 64, 32>(BWD_DQ_ARGS);
+    case 128:
+      return bf::launch_bwd_dq<128, 64, 32>(BWD_DQ_ARGS);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int flash_attention_bwd_dkv_bf16(const u16* q, const u16* k, const u16* v,
+                                 const u16* dout, const float* lse,
+                                 const float* delta, u16* dk, u16* dv, int B,
+                                 int H, int KV, int Sq, int Sk, int hd,
+                                 float scale, int causal,
+                                 cudaStream_t stream) {
+  const cudaError_t bad =
+      args_check(B, H, KV, Sq, Sk, {q, k, v, dout, dk, dv});
+  if (bad != cudaSuccess) return static_cast<int>(bad);
+  switch (hd) {
+    case 16:
+      return bf::launch_bwd_dkv<16, 64, 32>(BWD_DKV_ARGS);
+    case 32:
+      return bf::launch_bwd_dkv<32, 64, 32>(BWD_DKV_ARGS);
+    case 64:
+      return bf::launch_bwd_dkv<64, 64, 32>(BWD_DKV_ARGS);
+    case 112:
+      return bf::launch_bwd_dkv<112, 64, 16>(BWD_DKV_ARGS);
+    case 128:
+      return bf::launch_bwd_dkv<128, 64, 16>(BWD_DKV_ARGS);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

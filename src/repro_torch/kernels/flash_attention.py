@@ -27,10 +27,19 @@ on a CPU tensor it runs its plain PyTorch version (``flash_attention_ref``;
 explicit backward), which is also what the kernel is held against on the
 card.  Each wrapper counts its launches in ``<wrapper>.launches``.
 
-All three kernels run every product on the tensor cores in 3xTF32 (three
+q, k, v (and dO) are float32 or bf16, all of one type; lse and delta are
+float32 either way, and o, dq, dk and dv come back in the inputs' type, as
+the reference's kernel writes them.  hd is one of ``HEAD_DIMS``.  The
+float32 kernels run every product on the tensor cores in 3xTF32 (three
 TF32 products of split operands), which keeps float32 accuracy, not
 bitwise: the forward within 2e-5 of o and 1e-5 of lse, the backward within
-1e-5 of each gradient's max, of the exact float32 plain versions.
+1e-5 of each gradient's max, of the exact float32 plain versions.  The
+bf16 kernels run bf16 products with float32 sums, rounding p and ds to
+bf16 where they meet v, k, q and dO (``csrc/flash_attention.cu``,
+"bf16"); their plain versions upcast to float32, compute there and round
+the outputs, as the reference's ``flash_attention_ref`` does.  Besides
+``launches``, each wrapper counts its launches by variant in
+``<wrapper>.variant_launches`` (``VARIANTS``: the type, and hd 112 apart).
 """
 from __future__ import annotations
 
@@ -42,7 +51,28 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+VARIANTS = ("f32", "bf16", "f32_hd112", "bf16_hd112")
+
+
+def variant(dtype, hd) -> str:
+    """The kernel variant a launch of ``dtype`` inputs at head dim ``hd``
+    takes: one of ``VARIANTS``."""
+    return DTYPES[dtype] + ("_hd112" if hd == 112 else "")
+
+
+def _count(wrapper, q) -> None:
+    wrapper.launches += 1
+    wrapper.variant_launches[variant(q.dtype, q.shape[-1])] += 1
+
+
+def zero_variant_counts() -> None:
+    """Every flash wrapper's ``launches`` and ``variant_launches`` to 0."""
+    for w in (flash_attention_fwd, flash_attention_bwd_dq,
+              flash_attention_bwd_dkv):
+        w.launches = 0
+        w.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def _default_scale(hd, scale):
@@ -69,6 +99,14 @@ def flash_attention_ref(q, k, v, causal=True, scale=None):
     return o.to(q.dtype), torch.logsumexp(s, dim=-1)
 
 
+def _dtype(name, q) -> torch.dtype:
+    """The inputs' type, which must be one of ``DTYPES`` (float16 and the
+    rest raise)."""
+    if q.dtype not in DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    return q.dtype
+
+
 def _check_shapes(q, k, v, name="flash_attention_fwd") -> None:
     """Raise unless q (B, H, Sq, hd), k and v (B, KV, Sk, hd) fit the
     kernel: KV divides H, hd in ``HEAD_DIMS``, no empty axis."""
@@ -90,13 +128,14 @@ def _check_shapes(q, k, v, name="flash_attention_fwd") -> None:
 
 def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
     """Softmax attention of q (B, H, Sq, hd) over k, v (B, KV, Sk, hd) ->
-    ``(o (B, H, Sq, hd), lse (B, H, Sq))`` float32.
+    ``(o (B, H, Sq, hd) in the inputs' type, lse (B, H, Sq) float32)``.
 
-    Float32, contiguous inputs on one device, none requiring a gradient
-    (``flash_attention`` is the differentiable entry); hd in
-    ``HEAD_DIMS``.  A CUDA launch adds one to
+    Float32 or bf16 (all one type), contiguous inputs on one device, none
+    requiring a gradient (``flash_attention`` is the differentiable
+    entry); hd in ``HEAD_DIMS``.  A CUDA launch adds one to
     ``flash_attention_fwd.launches``."""
-    build.check_inputs("flash_attention_fwd", q, k, v)
+    dt = _dtype("flash_attention_fwd", q)
+    build.check_inputs("flash_attention_fwd", q, k, v, dtype=dt)
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, scale)
@@ -106,17 +145,14 @@ def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd_f32(
+        err = getattr(lib, f"flash_attention_fwd_{DTYPES[dt]}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, H, KV, Sq, Sk, hd,
             float(np.float32(_default_scale(hd, scale))), int(bool(causal)),
             build.stream_of(q))
     build.raise_on_error(lib, "flash_attention", err)
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, q)
     return o, lse
-
-
-flash_attention_fwd.launches = 0
 
 
 def _group(x, G):
@@ -127,7 +163,8 @@ def _group(x, G):
 def _bwd_probs(q, k, v, do, lse, delta, causal, scale):
     """The recomputation both backward passes share -> (p, ds) (B, H, Sq,
     Sk): p = exp(scale q k^T - lse), masked entries at -1e30 (so p = 0),
-    and ds = p * (do v^T - delta)."""
+    and ds = p * (do v^T - delta).  Float32 inputs (the plain backward
+    versions upcast bf16 ones first)."""
     G = q.shape[1] // k.shape[1]
     sc = _default_scale(q.shape[-1], scale)
     s = torch.einsum("bhqd,bhkd->bhqk", q * sc, _group(k, G))
@@ -144,30 +181,37 @@ def _bwd_probs(q, k, v, do, lse, delta, causal, scale):
 def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal=True,
                                scale=None):
     """Plain version of the dq kernel: dq = scale * ds k -> (B, H, Sq,
-    hd)."""
+    hd), computed in float32 and returned in q's type."""
+    dt = q.dtype
+    q, k, v, do = (x.float() for x in (q, k, v, do))
     _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
     G = q.shape[1] // k.shape[1]
-    return torch.einsum("bhqk,bhkd->bhqd", ds, _group(k, G)) \
-        * _default_scale(q.shape[-1], scale)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, _group(k, G))
+            * _default_scale(q.shape[-1], scale)).to(dt)
 
 
 def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal=True,
                                 scale=None):
     """Plain version of the dk/dv kernel: dv = p^T do and dk = ds^T (scale
     q), each summed over the G query heads of a KV head -> (dk, dv) (B,
-    KV, Sk, hd)."""
+    KV, Sk, hd), computed in float32 and returned in k's type."""
+    dt = k.dtype
+    q, k, v, do = (x.float() for x in (q, k, v, do))
     p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
     B, KV, Sk, hd = k.shape
     G = q.shape[1] // KV
     sc = _default_scale(hd, scale)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q * sc)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
-    return (dk.reshape(B, KV, G, Sk, hd).sum(2),
-            dv.reshape(B, KV, G, Sk, hd).sum(2))
+    return (dk.reshape(B, KV, G, Sk, hd).sum(2).to(dt),
+            dv.reshape(B, KV, G, Sk, hd).sum(2).to(dt))
 
 
 def _check_bwd(name, q, k, v, do, lse, delta) -> None:
-    build.check_inputs(name, q, k, v, do, lse, delta)
+    build.check_inputs(name, q, k, v, do, dtype=_dtype(name, q))
+    build.check_inputs(name, lse, delta, dtype=torch.float32)
+    if lse.device != q.device:
+        raise ValueError(f"{name}: inputs on {q.device} and {lse.device}")
     _check_shapes(q, k, v, name)
     if tuple(do.shape) != tuple(q.shape) \
             or tuple(lse.shape) != tuple(q.shape[:3]) \
@@ -182,7 +226,7 @@ def _bwd_launch(fn, q, k, v, do, lse, delta, outs, causal, scale):
     KV, Sk = k.shape[1], k.shape[2]
     lib = build.load("flash_attention.cu")
     with torch.cuda.device(q.device):
-        err = getattr(lib, fn)(
+        err = getattr(lib, f"{fn}_{DTYPES[q.dtype]}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
             B, H, KV, Sq, Sk, hd,
@@ -195,22 +239,20 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal=True,
                            scale=None):
     """dq (B, H, Sq, hd) of ``flash_attention_fwd(q, k, v)`` for the
     cotangent ``do`` of o, from its ``lse`` and ``delta = (do * o).sum(-1)``
-    (both (B, H, Sq)).
+    (both (B, H, Sq), float32).
 
-    Float32, contiguous inputs on one device, none requiring a gradient.
-    A CUDA launch adds one to ``flash_attention_bwd_dq.launches``."""
+    q, k, v and do float32 or bf16 (one type, dq's), contiguous, on one
+    device, none requiring a gradient.  A CUDA launch adds one to
+    ``flash_attention_bwd_dq.launches``."""
     _check_bwd("flash_attention_bwd_dq", q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal,
                                           scale)
     dq = torch.empty_like(q)
-    _bwd_launch("flash_attention_bwd_dq_f32", q, k, v, do, lse, delta, (dq,),
+    _bwd_launch("flash_attention_bwd_dq", q, k, v, do, lse, delta, (dq,),
                 causal, scale)
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, q)
     return dq
-
-
-flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
@@ -224,19 +266,21 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal,
                                            scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("flash_attention_bwd_dkv_f32", q, k, v, do, lse, delta,
+    _bwd_launch("flash_attention_bwd_dkv", q, k, v, do, lse, delta,
                 (dk, dv), causal, scale)
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, q)
     return dk, dv
 
 
-flash_attention_bwd_dkv.launches = 0
+zero_variant_counts()
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward ``flash_attention_fwd``, backward delta as one torch op then
+    """Forward ``flash_attention_fwd``, backward delta (float32, from dO and
+    o upcast, as the reference's) as one torch op then
     ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``: the
-    kernels on the card, their plain versions on the CPU."""
+    kernels on the card, their plain versions on the CPU.  The gradients
+    come back in the inputs' type."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
@@ -249,8 +293,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = (do * o).sum(-1)
+        do = do.to(q.dtype).contiguous()
+        delta = (do.float() * o.float()).sum(-1)
         kw = dict(causal=ctx.causal, scale=ctx.scale)
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)

@@ -7,7 +7,10 @@ takes an explicit ``devices=`` list, which may name one device more
 than once (S logical shards on one card, the counterpart of the
 reference's forced host devices), and otherwise takes the visible CUDA
 devices.  A CUDA device that is not there raises: nothing falls back to
-fewer shards or to the CPU.
+fewer shards or to the CPU.  ``devices=["meta"] * 256`` (512 with
+``multi_pod``) asks by name for the production mesh of shapes only, on
+which ``launch/dryrun.py`` traces a step: the counterpart of the
+reference's 512 forced host devices.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ def _devices(n, devices):
                 raise RuntimeError(f"mesh device {d}: only "
                                    f"{torch.cuda.device_count()} CUDA "
                                    "devices are visible")
-        elif d.type != "cpu":
+        elif d.type not in ("cpu", "meta"):
             raise ValueError(f"unsupported mesh device {d}")
         out.append(d)
     if n is not None and len(out) != n:

@@ -13,7 +13,8 @@ flash-attention kernels through their differentiable entry
 dq and dk/dv kernels under autograd) when the configuration allows it
 (``uses_kernel``: no score soft-cap, a window that masks nothing at this
 length (``None`` or >= S, as the 'global' sentinel ``1 << 30`` is), a
-head dim the kernel supports and float32 activations) and the caller
+head dim the kernel supports (``HEAD_DIMS``: 16, 32, 64, 112, 128) and
+float32 or bf16 activations, which the kernel returns o in) and the caller
 says the positions are the index, ``arange(S)`` on every row
 (``index_positions=True``, which ``lm.forward`` passes when it built the
 positions itself).  The kernel masks by index; the reference masks by
@@ -165,12 +166,13 @@ def uses_kernel(cfg, window, S) -> bool:
     return (cfg.attn_softcap is None
             and (window is None or window >= S)
             and cfg.head_dim in fa.HEAD_DIMS
-            and cfg.xdtype == torch.float32)
+            and cfg.xdtype in fa.DTYPES)
 
 
 def _attend_kernel(cfg, q, k, v):
-    """The kernels on (B, H, S, hd) copies of q, k, v -> (B, S, H, hd),
-    differentiable in q, k and v."""
+    """The kernels on (B, H, S, hd) copies of q, k, v -> (B, S, H, hd) in
+    their type (float32 or bf16, as ``_attend_chunked`` returns
+    ``q.dtype``), differentiable in q, k and v."""
     o = fa.flash_attention(q.transpose(1, 2).contiguous(),
                            k.transpose(1, 2).contiguous(),
                            v.transpose(1, 2).contiguous(),

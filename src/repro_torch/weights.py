@@ -18,6 +18,9 @@ axis, and an LM's whole train state (``train_state_from_jax``: its
 parameters, the AdamW, Adafactor or SGD state and the step) with it.
 An LM's decode state (``decode_state_from_jax``: ``index``, and the
 ``k``, ``v``, ``ssm`` and ``conv`` its family has) crosses bitwise too.
+An LM's leaves keep their dtype, bf16 too: a bf16 array crosses through
+its ``uint16`` view both ways (``tensor_from_numpy``, ``tensor_to_numpy``),
+since ``torch.from_numpy`` refuses ``ml_dtypes``' bfloat16.
 An LM's parameters (or any tree laid out like them) go onto a mesh with
 ``lm_to_mesh`` (each leaf laid out by ``lm.param_shardings`` under the
 rules, one copied block a shard) and come back whole with
@@ -118,24 +121,28 @@ def lm_from_mesh(placed, device="cpu") -> dict:
     return to_device(gather_tree(placed), device)
 
 
+def _walk(tree, leaf):
+    """``leaf`` on every leaf of a nested dict/list/tuple, the same tree
+    around the results."""
+    if isinstance(tree, dict):
+        return {k: _walk(v, leaf) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(v, leaf) for v in tree)
+    return leaf(tree)
+
+
 def head_from_jax(tree):
     """A task head's params (any nested dict/list of arrays, as the
     reference's ``head_init`` returns them) -> the same tree of float32
     CPU tensors."""
-    if isinstance(tree, dict):
-        return {k: head_from_jax(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(head_from_jax(v) for v in tree)
-    return _vec_from(tree)
+    return _walk(tree, _vec_from)
 
 
 def head_to_jax(params):
-    """Inverse of ``head_from_jax``: a tree of numpy arrays."""
-    if isinstance(params, dict):
-        return {k: head_to_jax(v) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return type(params)(head_to_jax(v) for v in params)
-    return params.detach().cpu().numpy().copy()
+    """Inverse of ``head_from_jax`` (and of ``lm_from_jax``): a tree of
+    numpy arrays, each leaf in its dtype as ``tensor_to_numpy`` gives
+    it."""
+    return _walk(params, tensor_to_numpy)
 
 
 def gmm_from_jax(state):
@@ -190,9 +197,48 @@ def ppo_to_jax(params) -> dict:
             for k in PPO_KEYS}
 
 
-# an LM's params (the reference's ``init_lm`` pytree, float32) cross as a
-# task head's do: the same nested dicts, every leaf bitwise
-lm_from_jax, lm_to_jax = head_from_jax, head_to_jax
+def _is_bf16(a) -> bool:
+    """Whether a numpy array holds bf16 (``ml_dtypes``' type, which a jax
+    array gives ``np.asarray``; told apart by its name, so the port never
+    imports ``ml_dtypes``)."""
+    return a.dtype.name == "bfloat16"
+
+
+def tensor_from_numpy(a) -> torch.Tensor:
+    """A numpy array (or anything ``np.asarray`` takes) -> a CPU tensor of
+    its dtype, bit for bit: a bf16 array through its ``uint16`` view,
+    which ``torch.from_numpy`` takes where it refuses bf16."""
+    a = np.array(a)
+    if _is_bf16(a):
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def tensor_to_numpy(t) -> np.ndarray:
+    """Inverse of ``tensor_from_numpy``: a bf16 tensor's bits as
+    ``np.dtype("bfloat16")``, the type ``ml_dtypes`` registers with numpy
+    (a process that runs jax has it)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        try:
+            bf16 = np.dtype("bfloat16")
+        except TypeError as e:
+            raise TypeError("a bf16 tensor crosses to numpy as ml_dtypes' "
+                            "bfloat16, which is not loaded in this "
+                            "process") from e
+        return t.view(torch.int16).numpy().view(np.uint16).view(bf16)
+    return t.numpy().copy()
+
+
+def lm_from_jax(tree):
+    """An LM's params (the reference's ``init_lm`` pytree, or a tree laid
+    out like it: AdamW moments, Adafactor statistics) -> the same nested
+    dicts of CPU tensors, every leaf in its dtype (float32 or bf16) bit
+    for bit."""
+    return _walk(tree, tensor_from_numpy)
+
+
+lm_to_jax = head_to_jax
 
 
 _DECODE_KEYS = ("k", "v", "ssm", "conv")
@@ -203,7 +249,7 @@ def decode_state_from_jax(state) -> dict:
     ``index`` and the caches of its family) -> the port's on the CPU,
     bitwise: ``index`` a 0-d int32 tensor, the caches in their dtype."""
     out = {"index": _step_from(state["index"])}
-    out.update({k: torch.from_numpy(np.array(state[k]))
+    out.update({k: tensor_from_numpy(state[k])
                 for k in _DECODE_KEYS if k in state})
     return out
 
@@ -228,7 +274,7 @@ def decode_state_from_mesh(placed, device="cpu") -> dict:
 def decode_state_to_jax(state) -> dict:
     """Inverse of ``decode_state_from_jax``: numpy arrays."""
     out = {"index": _step_to(state["index"])}
-    out.update({k: state[k].detach().cpu().numpy().copy()
+    out.update({k: tensor_to_numpy(state[k])
                 for k in _DECODE_KEYS if k in state})
     return out
 
@@ -238,13 +284,13 @@ def adafactor_from_jax(state) -> dict:
     pytree -> the port's, on the CPU: the ``vr``/``vc``/``v`` statistics as
     they are (a parameter tree in the reference's layout, as an LM's is;
     an encoder's transposed convolutions would not factor the same way)."""
-    return {"stats": head_from_jax(state["stats"]),
+    return {"stats": lm_from_jax(state["stats"]),
             "step": _step_from(state["step"])}
 
 
 def adafactor_to_jax(state) -> dict:
     """Inverse of ``adafactor_from_jax``."""
-    return {"stats": head_to_jax(state["stats"]),
+    return {"stats": lm_to_jax(state["stats"]),
             "step": _step_to(state["step"])}
 
 

@@ -135,12 +135,17 @@ def test_unsupported_head_dims_raise(hd):
         flash_attention_fwd(q, q, q)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16,
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32,
                                    torch.float16])
 def test_other_dtypes_raise(dtype):
+    """Float32 and bf16 are the kernel's types; any other raises, and so
+    do bf16 q with float32 k and v."""
     q = torch.zeros(1, 2, 4, 16, dtype=dtype)
     with pytest.raises(TypeError):
         flash_attention_fwd(q, q, q)
+    q = torch.zeros(1, 2, 4, 16, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q, q.float(), q.float())
 
 
 @pytest.mark.parametrize("q_shape,kv_shape", [
@@ -293,7 +298,7 @@ def _bwd_args(q_shape=(1, 4, 8, 16), kv_shape=(1, 2, 8, 16), dtype=None,
 
 @pytest.mark.parametrize("wrapper", [flash_attention_bwd_dq,
                                      flash_attention_bwd_dkv])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
 def test_backward_wrappers_refuse_other_dtypes(wrapper, dtype):
     with pytest.raises(TypeError):
         wrapper(*_bwd_args(dtype=dtype))

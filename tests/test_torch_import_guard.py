@@ -98,6 +98,18 @@ def test_guard_covers_the_lm_mesh_slice():
         assert os.path.join("src", "repro_torch", rel) in files
 
 
+def test_guard_covers_the_dryrun_slice():
+    """The dry-run's modules and the bf16 path's: every module of the
+    reference with a counterpart has one now."""
+    files = _port_files()
+    for rel in ("launch/dryrun.py", "launch/roofline.py",
+                "runtime/roofline_report.py", "configs/base.py",
+                "kernels/flash_attention.py", "launch/mesh.py",
+                "distributed/sharding.py", "models/attention.py",
+                "weights.py"):
+        assert os.path.join("src", "repro_torch", rel) in files
+
+
 @pytest.mark.parametrize("rel", _port_files())
 def test_no_jax_or_reference_import(rel):
     with open(os.path.join(REPO, rel)) as fh:

@@ -265,8 +265,9 @@ def test_init_attention_shapes():
 
 def test_kernel_rule():
     """Every layer of both full tiers goes to the kernel at S = 1,024 with
-    the 'global' sentinel window; a soft-cap, a window shorter than S, an
-    unsupported head dim or bf16 activations keep the plain path."""
+    the 'global' sentinel window, in float32 and in bf16, and at kimi-k2's
+    hd 112; a soft-cap, a window shorter than S, an unsupported head dim
+    (80) or float16 activations keep the plain path."""
     for name in TIERS:
         cfg = base.get_config(name)
         for w in cfg.layer_windows():
@@ -277,8 +278,14 @@ def test_kernel_rule():
         assert not attention.uses_kernel(cfg, 512, 1024)
         assert attention.uses_kernel(cfg, 1024, 1024)
         assert not attention.uses_kernel(replace(cfg, head_dim=80), None, 8)
-        assert not attention.uses_kernel(replace(cfg, dtype="bfloat16"),
+        assert attention.uses_kernel(replace(cfg, dtype="bfloat16"), None, 8)
+        assert attention.uses_kernel(replace(cfg, head_dim=112), None, 8)
+        assert attention.uses_kernel(
+            replace(cfg, head_dim=112, dtype="bfloat16"), None, 8)
+        assert not attention.uses_kernel(replace(cfg, dtype="float16"),
                                          None, 8)
+    assert attention.uses_kernel(base.get_config("kimi-k2-1t-a32b"), None,
+                                 1024)
 
 
 # ---------------------------------------------------------------------------
