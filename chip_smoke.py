@@ -596,6 +596,7 @@ def phase1(cfg, dev, ops, dequantize, quantize):
           f"one wire_roundtrip launch a group and from run to run at "
           f"{len(cases)} cases (" + "; ".join(w for w, _ in cases)
           + f"), special rows in every group (max |err| {worst})")
+    hold16_wire(cfg, g, dev, ops)
     return worst
 
 
@@ -1031,6 +1032,7 @@ def phase3(dev, ops):
           f"2,048), (1, 64, 128), (8, 64, 1,000), (8, 10, 1,024) "
           f"{wide:.3e}")
     worst["gmm_posterior"] = max(worst["gmm_posterior"], wide)
+    hold16_gmm(g, dev, ops)
     return worst
 
 
@@ -1565,6 +1567,7 @@ def phase5(dev, ops):
           f"(gradients within {GRAD_ATOL} x max |g|), autograd entries == "
           f"their backward kernels, bitwise from run to run; max |err| "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    hold16_infonce(g, dev, ops)
     return worst
 
 
@@ -1985,6 +1988,7 @@ def phase7(cfg, dev, ops):
           f"run_batch_async at B=1 "
           f"for k = 0..{cfg.n_blocks}, bitwise; max |err| " + ", ".join(
               f"{k} {v:.3e}" for k, v in worst.items()))
+    hold16_quant(cfg, g, dev, ops)
     return worst
 
 
@@ -2067,6 +2071,333 @@ def quant_kernel_times(cfg, dev, ops):
           f"{rows['int8_quantize_roundtrip']['largest']['ms'] * 1e3:.2f} "
           f"against {two['largest'] * 1e3:.2f} us")
     return rows
+
+
+# --- 16-bit inputs: the wire, INT8, GMM and InfoNCE kernels ------------------
+
+# The reference's kernels take bf16 input (the wire float16 too) and widen it
+# to float32 (tests/test_kernels.py sweeps them in bf16); the port's kernels
+# load it as it is and widen it in registers.  Widening is exact, so each
+# kernel on a 16-bit input must give the bits of its float32 launch on
+# x.float() (the gradients rounded once to bf16), and its plain version's
+# bits or its bar.  Phases 1, 3, 5 and 7 hold them (``hold16_*``) at the
+# reference's bf16 sweep shapes and at the path's shapes; no path of either
+# package reaches them (0 launches on every counted path).
+WIRE_SWEEP = ((1, (40, 32)), (5, (16, 16)), (17, (7,)), (64, (16, 16)),
+              (3, (100,)), (13, (10, 8, 4)), (2, (128,)), (33, (20, 24)))
+GMM_SWEEP = ((64, 8, 32), (200, 64, 128), (33, 16, 64), (128, 32, 256))
+INFONCE_SWEEP = ((32, 64, 32), (64, 256, 128), (16, 100, 64))
+INT8_SWEEP = ((100,), (37, 91), (8, 16, 33), (5000,))
+HALF = ((torch.bfloat16, "bf16"), (torch.float16, "f16"))   # and suffixes
+# max |err| against the plain versions by kernel and type, filled by the
+# holds in phases 1, 3, 5 and 7 for the kernels' line
+WORST16 = {}
+
+
+def note16(name, err):
+    WORST16[name] = max(WORST16.get(name, 0.0), err)
+
+
+def widened(fn, x, what):
+    """``fn(x)`` bitwise equal to ``fn(x.float())`` (tuples of outputs),
+    and to a second launch -> the outputs."""
+    got, again = fn(x), fn(x)
+    wide = fn([a.float() for a in x] if isinstance(x, list) else x.float())
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, wide):
+        check(same_values(a, b), f"{what} not bitwise from run to run")
+        check(same_values(a, w), f"{what} != its float32 launch on the "
+              "widened input")
+    return got
+
+
+def hold16_wire(cfg, g, dev, ops):
+    """Phase 1's wire in bf16 and float16: bitwise its plain version and
+    its float32 launch on the widened rows, one batch (every width and
+    batch size, special rows; the reference's sweep shapes) and the tick's
+    eight groups."""
+    cases = [special_rows(torch.randn(B, n, device=dev, generator=g)
+                          * 3.0 + 1.0)
+             for n in sorted(set(wire_widths(cfg))) for B in BATCH_SIZES]
+    cases += [torch.randn(B, *s, device=dev, generator=g) * 3.0 + 1.0
+              for B, s in WIRE_SWEEP]
+    for dt, t in HALF:
+        for x in cases:
+            x16 = x.to(dt)
+            (got,) = widened(lambda a: (ops.wire_roundtrip(a),), x16,
+                             f"wire_roundtrip {dt} at {tuple(x.shape)}")
+            want = ops.wire_roundtrip_ref(x16)
+            check(got.dtype == torch.float32 and same_values(got, want),
+                  f"wire_roundtrip {dt} != plain at {tuple(x.shape)}")
+            note16(f"wire_roundtrip_{t}",
+                   (got - want).nan_to_num().abs().max().item())
+        for what, xs in grouped_cases(cfg, g, dev)[:2]:
+            xs16 = [x.to(dt) for x in xs]
+            got = widened(ops.wire_roundtrip_grouped, xs16,
+                          f"wire_roundtrip_grouped {dt} at {what}")
+            for a, w in zip(got, ops.wire_roundtrip_grouped_ref(xs16)):
+                check(same_values(a, w), f"wire_roundtrip_grouped {dt} != "
+                      f"plain at {what}")
+                note16(f"wire_roundtrip_grouped_{t}",
+                       (a - w).nan_to_num().abs().max().item())
+    print(f"phase 1: wire_roundtrip and wire_roundtrip_grouped on bf16 and "
+          f"float16 rows bitwise == plain versions and == their float32 "
+          f"launches on the widened rows, at {len(cases)} batches (every "
+          f"width x B in {BATCH_SIZES} with special rows, and the "
+          f"reference's sweep shapes {WIRE_SWEEP}) and the tick's 8 groups")
+
+
+def hold16_gmm(g, dev, ops):
+    """Phase 3's GMM posterior on bf16 z (mu, var, logpi float32): its
+    float32 launch's bits on the widened z, and its plain version at phase
+    3's bars, at the reference's sweep shapes and the refine, cascade and
+    training shapes."""
+    shapes = GMM_SWEEP + ((SESSIONS * WINDOW, N_COMPONENTS, 128),
+                          (8, N_COMPONENTS, 1024), (BUFFER, 16, 128))
+    for B, C, d in shapes:
+        z, mu, var, logpi = gmm_inputs(g, dev, B, C, d)
+        z16 = z.to(torch.bfloat16)
+        what = f"bf16 z (B, C, d) = ({B}, {C}, {d})"
+        widened(lambda a: ops.gmm_posterior(a, mu, var, logpi), z16,
+                f"gmm_posterior {what}")
+        note16("gmm_posterior_bf16", hold(
+            "gmm_posterior", ops.gmm_posterior, ops.gmm_posterior_ref,
+            (z16, mu, var, logpi), [(0.0, RESP_ATOL), (0.0, ENT_ATOL)],
+            what))
+    print(f"phase 3: gmm_posterior on bf16 z == its float32 launch on the "
+          f"widened z bitwise and its plain version (resp atol {RESP_ATOL}, "
+          f"entropy atol {ENT_ATOL}) at (B, C, d) in {shapes}; max |err| "
+          f"{WORST16['gmm_posterior_bf16']:.3e}")
+
+
+def bf16_grad_err(got, want, what):
+    """A bf16 gradient against its plain version's: both are float32
+    values within GRAD_ATOL of the max of each other (the sums' order),
+    each rounded once to bf16, so they may land one bf16 ulp apart (at most
+    2^-7 of the element) -> max |err|."""
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    bar = 2.0 ** -7 * b.abs() + GRAD_ATOL * b.abs().max()
+    check(got.dtype == torch.bfloat16 and bool((err <= bar).all()),
+          f"{what}: max |err| {err.max().item()} past 2^-7 |g| + "
+          f"{GRAD_ATOL} max |g|")
+    return err.max().item()
+
+
+def hold16_infonce(g, dev, ops):
+    """Phase 5's InfoNCE forward and backward on bf16 z, z_pos, z_neg:
+    the float32 launches' bits on the widened inputs (the gradients
+    rounded to bf16), the plain versions at phase 5's bars, and the
+    autograd entry's bf16 gradients the kernels' bits, at the reference's
+    sweep shapes and the edge learner's."""
+    shapes = INFONCE_SWEEP + ((TRAIN_BATCH, N_SYN + TRAIN_BATCH, 128),)
+    for B, N, d in shapes:
+        what = f"bf16 (B, N, d) = ({B}, {N}, {d})"
+        z, zp, zn, cot = (x.to(torch.bfloat16) if x.dim() > 1 else x
+                          for x in infonce_inputs(g, dev, B, N, d))
+        loss, lse = same_bits(lambda *a: ops.infonce_vneg_fwd(*a, 0.1),
+                              (z, zp, zn), f"infonce_vneg_fwd {what}")
+        wl, wlse = ops.infonce_vneg_fwd(z.float(), zp.float(), zn.float(),
+                                        0.1)
+        check(torch.equal(loss, wl) and torch.equal(lse, wlse),
+              f"infonce_vneg_fwd {what} != its float32 launch widened")
+        for a, b in zip((loss, lse), ops.infonce_vneg_fwd_ref(z, zp, zn,
+                                                              0.1)):
+            err = (a - b).abs().max().item()
+            note16("infonce_vneg_fwd_bf16", err)
+            check(torch.allclose(a, b, rtol=INFONCE_RTOL, atol=0.0),
+                  f"infonce_vneg_fwd {what} != plain: max |err| {err}")
+        got = same_bits(lambda *a: ops.infonce_vneg_bwd(*a, 0.1),
+                        (z, zp, zn, lse, cot), f"infonce_vneg_bwd {what}")
+        wide = ops.infonce_vneg_bwd(z.float(), zp.float(), zn.float(), lse,
+                                    cot, 0.1)
+        check(all(torch.equal(a, w.to(torch.bfloat16))
+                  for a, w in zip(got, wide)),
+              f"infonce_vneg_bwd {what} != its float32 launch widened, "
+              "rounded to bf16")
+        for a, b, n in zip(got, ops.infonce_vneg_bwd_ref(z, zp, zn, lse,
+                                                         cot, 0.1),
+                           ("dz", "dz_pos", "dz_neg")):
+            note16("infonce_vneg_bwd_bf16",
+                   bf16_grad_err(a, b, f"infonce_vneg_bwd {n} {what}"))
+        leaves = [x.clone().requires_grad_() for x in (z, zp, zn)]
+        with torch.enable_grad():
+            entry = torch.autograd.grad(ops.infonce_vneg(*leaves, 0.1),
+                                        leaves, cot)
+        check(all(torch.equal(a, b) for a, b in zip(entry, got)),
+              f"infonce_vneg's bf16 gradients != the kernels' bits {what}")
+    print(f"phase 5: infonce_vneg fwd and bwd on bf16 inputs == their "
+          f"float32 launches on the widened inputs bitwise (the gradients "
+          f"rounded to bf16), their plain versions (loss and lse rtol "
+          f"{INFONCE_RTOL}, gradients one bf16 ulp + {GRAD_ATOL} max |g|), "
+          f"the autograd entry the kernels' bits, at (B, N, d) in {shapes}; max "
+          f"|err| fwd {WORST16['infonce_vneg_fwd_bf16']:.3e}, bwd "
+          f"{WORST16['infonce_vneg_bwd_bf16']:.3e}")
+
+
+def misaligned16(x):
+    """A contiguous bf16 copy of ``x`` one value past an 8-byte boundary
+    (the kernels' scalar path)."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=torch.bfloat16)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
+
+
+def hold16_quant(cfg, g, dev, ops):
+    """Phase 7's quantize and round trip on bf16 x (one block and two
+    passes), and the dequantize into bf16 and float16: bitwise their plain
+    versions and their float32 launches on the widened x, at phase 7's
+    cases, a bf16 view off 8 bytes and the reference's sweep shapes."""
+    cases = [(what, x.to(torch.bfloat16)) for what, x in quant_cases(
+        cfg, g, dev)]
+    cases.append(("bf16 view off 8 bytes, n=16,385", misaligned16(
+        torch.randn(16385, device=dev, generator=g))))
+    cases += [(f"sweep {s}", (torch.randn(*s, device=dev, generator=g) * 3.0
+                              + 1.0).to(torch.bfloat16)) for s in INT8_SWEEP]
+    for what, x in cases:
+        qt = widened(ops.int8_quantize, x, f"int8_quantize bf16 at {what}")
+        want = ops.int8_quantize_ref(x)
+        check(all(same_values(a, b) for a, b in zip(qt, want)),
+              f"int8_quantize bf16 != plain at {what}")
+        note16("int8_quantize_bf16",
+               (qt.q.int() - want.q.int()).abs().max().item())
+        rq, rout = ops.int8_quantize_roundtrip(x)
+        wq, wout = ops.int8_quantize_roundtrip(x.float())
+        want_out = ops.int8_dequantize_ref(want)
+        check(all(same_values(a, b) for a, b in zip(rq, wq))
+              and same_values(rout, wout) and same_values(rout, want_out),
+              f"int8_quantize_roundtrip bf16 at {what} != its float32 launch"
+              " widened or the plain version")
+        note16("int8_quantize_roundtrip_bf16",
+               (rout - want_out).nan_to_num().abs().max().item())
+        for dt, t in HALF:
+            out, out2 = (ops.int8_dequantize(qt, dtype=dt),
+                         ops.int8_dequantize(qt, dtype=dt))
+            plain = ops.int8_dequantize_ref(qt, dt)
+            check(out.dtype == dt and same_values(out, out2)
+                  and same_values(out, plain)
+                  and same_values(out, ops.int8_dequantize(qt).to(dt)),
+                  f"int8_dequantize into {dt} at {what} != plain, its "
+                  "float32 launch rounded, or its second launch")
+            note16(f"int8_dequantize_{t}", (out.float() - plain.float())
+                   .nan_to_num().abs().max().item())
+    print(f"phase 7: int8_quantize and int8_quantize_roundtrip on bf16 x "
+          f"(one block and two passes), int8_dequantize into bf16 and "
+          f"float16: bitwise == plain versions, == their float32 launches "
+          f"on the widened x (the dequantize's rounded), from run to run, at "
+          f"{len(cases)} cases (phase 7's in bf16, a view off 8 bytes, the "
+          f"reference's sweep shapes {INT8_SWEEP})")
+
+
+def times16(cfg, dev, ops):
+    """Each 16-bit variant, its plain version and its bound at the path's
+    shape: the wire at the tick's 8 buckets of 32 rows, INT8 per frame
+    (summed over the boundary shapes), the GMM at the refine shape, InfoNCE
+    at the edge learner's -> {record name: times and bound}."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    out = {}
+
+    def add(name, fn, plain, arg, nbytes, nops, reps=40, plain_reps=40):
+        ms = device_ms(fn, arg, reps=reps)
+        plain_ms = device_ms(plain, arg, reps=plain_reps)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = nops / FP32_OPS_PER_S * 1e3
+        row = out.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
+                                    "bytes_ms": 0.0, "ops_ms": 0.0})
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["bytes_ms"] += b_ms
+        row["ops_ms"] += o_ms
+    xs = [torch.randn(32, n, device=dev, generator=g)
+          for n in wire_widths(cfg)]
+    elems = sum(x.numel() for x in xs)
+    for dt, t in HALF:
+        # read x once (2 bytes), write float32 out once; kernel_times' 9
+        # operations an element; the one-group call a launch a bucket
+        add(f"wire_roundtrip_grouped_{t}", ops.wire_roundtrip_grouped,
+            ops.wire_roundtrip_grouped_ref, [x.to(dt) for x in xs],
+            6 * elems, 9 * elems, plain_reps=8)
+        add(f"wire_roundtrip_{t}",
+            lambda ys: [ops.wire_roundtrip(y) for y in ys],
+            ops.wire_roundtrip_grouped_ref, [x.to(dt) for x in xs],
+            6 * elems, 9 * elems, plain_reps=8)
+    for shape in boundary_shapes(cfg):
+        x = torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+        qt = ops.int8_quantize(x)
+        n = x.numel()
+        # quant_kernel_times' counts with x (or out) at 2 bytes an element
+        add("int8_quantize_bf16", ops.int8_quantize, ops.int8_quantize_ref,
+            x, 3 * n + 8, 8 * n)
+        add("int8_quantize_roundtrip_bf16", ops.int8_quantize_roundtrip,
+            ops.int8_quantize_roundtrip_ref, x, 7 * n + 8, 10 * n)
+        for dt, t in HALF:
+            add(f"int8_dequantize_{t}",
+                lambda a, dt=dt: ops.int8_dequantize(a, dtype=dt),
+                lambda a, dt=dt: ops.int8_dequantize_ref(a, dt), qt,
+                3 * n + 8, 3 * n)
+    B, C, d = SESSIONS * WINDOW, N_COMPONENTS, 128
+    z, mu, var, logpi = gmm_inputs(g, dev, B, C, d)
+    # refine_kernel_times' counts with z at 2 bytes an element
+    add("gmm_posterior_bf16", lambda a: ops.gmm_posterior(*a),
+        lambda a: ops.gmm_posterior_ref(*a),
+        (z.to(torch.bfloat16), mu, var, logpi),
+        2 * B * d + 4 * (2 * C * d + C + B * C + B),
+        4 * B * C * d + 11 * B * C, plain_reps=4)
+    B, N = TRAIN_BATCH, N_SYN + TRAIN_BATCH
+    z, zp, zn, cot = infonce_inputs(g, dev, B, N, d)
+    z, zp, zn = (x.to(torch.bfloat16) for x in (z, zp, zn))
+    _, lse = ops.infonce_vneg_fwd(z, zp, zn, 0.1)
+    # train_kernel_times' counts with z, z_pos, z_neg (and their
+    # gradients) at 2 bytes an element
+    add("infonce_vneg_fwd_bf16", lambda a: ops.infonce_vneg_fwd(*a, 0.1),
+        lambda a: ops.infonce_vneg_fwd_ref(*a, 0.1), (z, zp, zn),
+        2 * (2 * B * d + B * N * d) + 4 * 2 * B,
+        2 * B * N * d + 2 * B * d + 4 * B * (N + 1))
+    add("infonce_vneg_bwd_bf16", lambda a: ops.infonce_vneg_bwd(*a, 0.1),
+        lambda a: ops.infonce_vneg_bwd_ref(*a, 0.1), (z, zp, zn, lse, cot),
+        2 * (4 * B * d + 2 * B * N * d) + 4 * 2 * B,
+        5 * B * N * d + 6 * B * d + 3 * B * N)
+    for name, row in out.items():
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
+                           else "operations")
+        print(f"{name} at the path's shape: device kernel "
+              f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} "
+              f"us, bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+    return out
+
+
+def records16(times):
+    """The kernels' line's records of the 16-bit variants: 0 launches, on
+    no counted path."""
+    base = {"wire_roundtrip_grouped": ("wire_roundtrip.cu",
+                                       "int8_quant.py:90"),
+            "wire_roundtrip": ("wire_roundtrip.cu", "int8_quant.py:90"),
+            "int8_quantize": ("int8_quant.cu", "int8_quant.py:36"),
+            "int8_quantize_roundtrip": ("int8_quant.cu",
+                                        "int8_quant.py:36 and :129"),
+            "int8_dequantize": ("int8_quant.cu", "int8_quant.py:129"),
+            "gmm_posterior": ("gmm_posterior.cu", "gmm_posterior.py:50"),
+            "infonce_vneg_fwd": ("infonce_vneg.cu", "infonce_vneg.py:52")}
+    records = []
+    for name, row in times.items():
+        kernel = name.rsplit("_", 1)[0]
+        if kernel == "infonce_vneg_bwd":
+            source, replaces = "infonce_vneg.cu", (
+                "no Pallas counterpart: the reference differentiates the jnp "
+                "twin (src/repro/core/infonce.py:19)")
+        else:
+            source, line = base[kernel]
+            replaces = f"src/repro/kernels/{line}"
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": WORST16[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "launches_by_path": {}})
+    return records
 
 
 # --- StreamServer at full width with the RL split policy ---------------------
@@ -6444,6 +6775,21 @@ def lm20_records(total, worst, times):
     """The kernels' line's records of phase 20's variants: bf16 at the
     large tier's layer (qwen3-1.7b's), hd 112 at kimi-k2's, each with its
     launches on the ``lm_bf16`` path and its times at the other shapes."""
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                      bwd_bf16_attributes)
+    # the bf16 backward (wgmma, warp-specialised) as built: registers a
+    # thread at launch (the consumers rise to 232 with setmaxnreg) and
+    # local bytes (spills and stack), which must be none
+    attrs = {hd: bwd_bf16_attributes(hd) for hd in HEAD_DIMS}
+    print("phase 20: the bf16 backward kernels' registers at launch and "
+          "local bytes: " + "; ".join(
+              f"hd {hd} " + ", ".join(f"{k} {a['registers']} / "
+                                      f"{a['local_bytes']} B"
+                                      for k, a in at.items())
+              for hd, at in attrs.items()))
+    check(all(a["local_bytes"] == 0 for at in attrs.values()
+              for a in at.values()),
+          f"a bf16 backward kernel spills: {attrs}")
     records = []
     for v, tier in (("bf16", "large"), ("bf16_hd112", "kimi"),
                     ("f32_hd112", "kimi")):
@@ -6459,6 +6805,9 @@ def lm20_records(total, worst, times):
                 **times[v][tier][short], "launches_by_path": {"lm_bf16": n},
                 "other_shapes": {k: r[short] for k, r in times[v].items()
                                  if k != tier}})
+            if v.startswith("bf16") and short != "fwd":
+                records[-1]["built"] = attrs[112 if "hd112" in v
+                                             else 128][short]
     return records
 
 
@@ -6549,6 +6898,7 @@ def main():
     train_times = train_kernel_times(dev, ops)
     quant_worst = phase7(CFG, dev, ops)
     quant_times = quant_kernel_times(CFG, dev, ops)
+    times_16 = times16(CFG, dev, ops)
     stream_launches = phase8(CFG, dev, ops)
     flash_worst = phase9(dev, ops)
     cascade_times = cascade_kernel_times(dev, ops)
@@ -6655,6 +7005,7 @@ def main():
             **({"quantize_dequantize_ms": per_frame["quantize_dequantize_ms"]}
                if name == "int8_quantize_roundtrip" else {}),
             "largest_shape": quant_times[name]["largest"]})
+    records += records16(times_16)
     records.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -37,14 +37,19 @@ _S = ctypes.c_char_p
 # C signature of every entry point, by source file
 SIGNATURES = {
     "wire_roundtrip.cu": {
-        "wire_roundtrip_f32": ([_P, _P, _I, _I, _P], _I),
-        "wire_roundtrip_grouped_f32": ([_P, _P], _I),
+        **{f"wire_roundtrip_{t}": ([_P, _P, _I, _I, _P], _I)
+           for t in ("f32", "bf16", "f16")},
+        **{f"wire_roundtrip_grouped_{t}": ([_P, _P], _I)
+           for t in ("f32", "bf16", "f16")},
         "wire_roundtrip_error_string": ([_I], _S),
     },
     "int8_quant.cu": {
-        "int8_quantize_f32": ([_P, _P, _P, _P, _L, _P], _I),
-        "int8_quantize_roundtrip_f32": ([_P, _P, _P, _P, _P, _L, _P], _I),
-        "int8_dequantize_f32": ([_P, _P, _P, _P, _L, _P], _I),
+        **{f"int8_quantize_{t}": ([_P, _P, _P, _P, _L, _P], _I)
+           for t in ("f32", "bf16")},
+        **{f"int8_quantize_roundtrip_{t}": ([_P, _P, _P, _P, _P, _L, _P], _I)
+           for t in ("f32", "bf16")},
+        **{f"int8_dequantize_{t}": ([_P, _P, _P, _P, _L, _P], _I)
+           for t in ("f32", "bf16", "f16")},
         "int8_quant_error_string": ([_I], _S),
     },
     "swd.cu": {
@@ -63,16 +68,17 @@ SIGNATURES = {
         "hybrid_reg_bwd_error_string": ([_I], _S),
     },
     "gmm_posterior.cu": {
-        "gmm_posterior_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                               _P], _I),
+        **{f"gmm_posterior_{t}": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _F, _P], _I) for t in ("f32", "bf16")},
         "gmm_posterior_scratch_floats": ([_I, _I, _I], _L),
         "gmm_posterior_error_string": ([_I], _S),
     },
     "infonce_vneg.cu": {
-        "infonce_vneg_fwd_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _F, _P], _I),
-        "infonce_vneg_bwd_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _F, _P], _I),
+        **{f"infonce_vneg_fwd_{t}": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _F, _P], _I) for t in ("f32", "bf16")},
+        **{f"infonce_vneg_bwd_{t}": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _F, _P], _I)
+           for t in ("f32", "bf16")},
         "infonce_vneg_error_string": ([_I], _S),
     },
     "flash_attention.cu": {
@@ -90,6 +96,7 @@ SIGNATURES = {
         "flash_attention_bwd_dkv_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                           _I, _I, _I, _I, _I, _F, _I, _P],
                                          _I),
+        "flash_attention_bwd_bf16_attributes": ([_I, _P], _I),
         "flash_attention_error_string": ([_I], _S),
     },
 }
@@ -146,22 +153,39 @@ def build_all() -> list[Path]:
         return list(pool.map(build, SOURCES))
 
 
+# the launchers' suffix of each input type a kernel may take
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def input_dtype(name: str, x, allowed) -> torch.dtype:
+    """``x``'s type, which must be one of ``allowed`` (float64, integer and
+    any other type raise ``TypeError``)."""
+    if x.dtype not in allowed:
+        raise TypeError(f"{name} takes "
+                        f"{', '.join(str(t) for t in allowed)}, got "
+                        f"{x.dtype}")
+    return x.dtype
+
+
 def check_inputs(name: str, *tensors, dtype=torch.float32) -> None:
     """The checks a kernel wrapper makes on its inputs: ``dtype``
-    (float32 unless given), contiguous, on one CPU or CUDA device, and not
-    requiring a gradient (a wrapper launches one kernel; the
-    differentiable entries call it with detached tensors).  The refine
-    and training wrappers make them before they pick a path; the
-    per-tensor INT8 wrappers on their CUDA path only, as their plain
-    versions take any float tensor; the wire's makes its own."""
+    (float32 unless given; a sequence gives each tensor's), contiguous,
+    on one CPU or CUDA device, and not requiring a gradient (a wrapper
+    launches one kernel; the differentiable entries call it with detached
+    tensors).  The refine and training wrappers make them before they pick
+    a path; the per-tensor INT8 wrappers on their CUDA path only (they
+    check the type on both, with ``input_dtype``), as their plain versions
+    take any layout; the wire's makes its own."""
     dev = tensors[0].device
-    for x in tensors:
+    dtypes = (dtype if isinstance(dtype, (tuple, list))
+              else (dtype,) * len(tensors))
+    for x, dt in zip(tensors, dtypes, strict=True):
         if x.device.type not in ("cpu", "cuda"):
             raise ValueError(f"{name}: no kernel for device {x.device}")
         if x.device != dev:
             raise ValueError(f"{name}: inputs on {dev} and {x.device}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name} takes {dtype}, got {x.dtype}")
+        if x.dtype != dt:
+            raise TypeError(f"{name} takes {dt}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} takes contiguous tensors")
         if x.requires_grad:

@@ -1,6 +1,8 @@
 // Flash attention, forward and backward, float32 and bf16, on Hopper's
-// tensor cores (sm_90a).  The float32 kernels come first; the bf16 ones,
-// which share their structure, are in the section "bf16".
+// tensor cores (sm_90a).  The float32 kernels come first; the bf16
+// forward, which shares their structure, is in the section "bf16", and
+// the bf16 backward, on warpgroup MMAs fed by TMA, in the section "bf16
+// backward on Hopper's warpgroup tensor cores".
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention.py: the
 // forward `_fwd` / `_fwd_kernel` (flash_fwd_kernel) and `_bwd_rule`'s
@@ -71,6 +73,7 @@
 // nothing (tools/ptxas_report.py; the variants measured are
 // tools/flash_fwd_variants.py's).
 // Inputs must be 16-byte aligned (the launchers refuse others).
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -919,12 +922,14 @@ int launch_bwd_dkv(const float* q, const float* k, const float* v,
 // ---------------------------------------------------------------------------
 // bf16.
 //
-// The same three kernels for bf16 q, k, v and dO, which the TPU kernel
-// takes as well: it upcasts its tiles, computes in float32, and writes o,
-// dq, dk and dv in the input dtype, lse (and takes delta) in float32.
-// Here every product runs on the tensor cores as a bf16 mma.sync
-// (m16n8k16.row.col.f32.bf16.bf16.f32) with float32 accumulation: one
-// issue where 3xTF32 takes three, and 8 values a 16-byte cp.async.  The
+// The three kernels for bf16 q, k, v and dO, which the TPU kernel takes as
+// well: it upcasts its tiles, computes in float32, and writes o, dq, dk
+// and dv in the input dtype, lse (and takes delta) in float32.  Here
+// every product runs on the tensor cores in bf16 with float32
+// accumulation: the forward below as a bf16 mma.sync
+// (m16n8k16.row.col.f32.bf16.bf16.f32), one issue where 3xTF32 takes
+// three, and 8 values a 16-byte cp.async; dq and dk/dv on wgmma (the next
+// section), with these numerics.  The
 // products q k^T and dO v^T are exact (a bf16 product fits a float32),
 // summed in float32.  The other operand of P V is bf16 already, but P
 // itself must be rounded to bf16 to meet it, and so must dS in dS k and
@@ -942,25 +947,20 @@ int launch_bwd_dkv(const float* q, const float* k, const float* v,
 // bound all three at the trainer's layers (chip_smoke.py phase 20 prints
 // each bound beside each time).
 //
-// Design: the float32 kernels' (a warp owns 16 rows of the output and
-// runs every product of those rows; two-stage cp.async rings; the causal
-// skips; a fixed order and no atomics, so two launches give the same
-// bits), with bf16 tiles in shared memory at a row pitch of hd + 8
+// Design (forward): the float32 kernel's (a warp owns 16 rows of the
+// output and runs every product of those rows; a two-stage cp.async ring;
+// the causal skips; a fixed order and no atomics, so two launches give
+// the same bits), with bf16 tiles in shared memory at a row pitch of hd + 8
 // values, (hd + 8) / 2 words: both fragment patterns of any 8 rows, a
 // word of one row (row g, columns 2t and 2t + 1) and a value of each of
 // two rows (rows 2t and 2t + 1, column g), then fall in distinct banks.
 // The m16n8 score accumulators of two neighbouring 8-column tiles are, in
 // the same registers, the m16n8k16 A fragment of the next product (lane
-// (g, t) holds columns 2t, 2t + 1 of rows g and g + 8 in both), so P and
-// dS go from the softmax to the tensor cores without leaving registers.
-// The o, dq, dk and dv accumulators sum in the tensor cores across all
-// tiles.  hd is a multiple of 16 (7 k-steps at hd 112).
-// Tiles a block (4 warps each):
-//   forward BQ 64, BK 64: 45 KB at hd 64, 85 KB at hd 128
-//   dq      BQ 64, BK 32 (dq's accumulator and two score tiles in
-//           registers): 36 KB at hd 64, 68 KB at hd 128
-//   dk/dv   BK 64 keys, BQ 32 queries a step at hd <= 64, 16 above (dk
-//           and dv both in registers): 36 KB at hd 64, 51 KB at hd 128
+// (g, t) holds columns 2t, 2t + 1 of rows g and g + 8 in both), so P goes
+// from the softmax to the tensor cores without leaving registers.
+// The o accumulator sums in the tensor cores across all tiles.  hd is a
+// multiple of 16 (7 k-steps at hd 112).  Tiles a block (4 warps): BQ 64,
+// BK 64: 45 KB at hd 64, 85 KB at hd 128.
 namespace bf {
 
 using u16 = unsigned short;
@@ -1208,208 +1208,6 @@ flash_fwd_bf16_kernel(const u16* __restrict__ q, const u16* __restrict__ k,
   }
 }
 
-template <int HD, int BQ, int BK>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(u16) * (2 * BQ + 2 * 2 * BK) * pitch<HD>();
-}
-
-template <int HD, int BQ, int BK>
-__global__ void __launch_bounds__(2 * BQ)
-flash_bwd_dq_bf16_kernel(const u16* __restrict__ q,
-                         const u16* __restrict__ k,
-                         const u16* __restrict__ v,
-                         const u16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         u16* __restrict__ dq, int BH, int H, int KV, int Sq,
-                         int Sk, float scale, int causal) {
-  constexpr int kThreads = 2 * BQ;            // a warp per 16 query rows
-  constexpr int P = pitch<HD>();
-  constexpr int NT = BK / 8, ND = HD / 8;
-  constexpr int kStage = 2 * BK * P;
-  extern __shared__ float4 smem4[];
-  u16* qs = reinterpret_cast<u16*>(smem4);      // BQ x P
-  u16* dos = qs + BQ * P;                       // BQ x P
-  u16* ring = dos + BQ * P;                     // 2 stages: k, v
-
-  const int lane = threadIdx.x % 32, r0 = 16 * (threadIdx.x / 32);
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x % BH, qt = blockIdx.x / BH;
-  const int q0 = (causal ? (Sq + BQ - 1) / BQ - 1 - qt : qt) * BQ;
-  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
-  const size_t rows0 = static_cast<size_t>(bh) * Sq;
-  const u16* kp = k + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
-  const u16* vp = v + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
-  auto k_at = [&](int st) { return ring + st * kStage; };
-  auto v_at = [&](int st) { return ring + st * kStage + kStage / 2; };
-
-  load_tile<BQ, HD, kThreads>(qs, q + rows0 * HD, q0, Sq);
-  load_tile<BQ, HD, kThreads>(dos, dout + rows0 * HD, q0, Sq);
-  load_tile<BK, HD, kThreads>(k_at(0), kp, 0, Sk);
-  load_tile<BK, HD, kThreads>(v_at(0), vp, 0, Sk);
-  tc::cp_async_commit();
-
-  int rows[2];
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    rows[e] = q0 + r0 + g + 8 * e;
-    const bool in = rows[e] < Sq;
-    lse_r[e] = in ? lse[rows0 + rows[e]] : 0.0f;
-    delta_r[e] = in ? delta[rows0 + rows[e]] : 0.0f;
-  }
-  float acc[ND][4];
-  tc::zero(acc);
-
-  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-  const int n_kt = (k_end + BK - 1) / BK;
-  for (int it = 0; it < n_kt; ++it) {
-    const int k0 = it * BK, st = it & 1;
-    if (it + 1 < n_kt) {
-      load_tile<BK, HD, kThreads>(k_at(st ^ 1), kp, k0 + BK, Sk);
-      load_tile<BK, HD, kThreads>(v_at(st ^ 1), vp, k0 + BK, Sk);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (!causal || k0 <= q0 + r0 + 15) {
-      float sd[2][NT][4];                      // s and dp
-      scores<HD, 2, NT>(sd, {qs, dos}, {k_at(st), v_at(st)}, r0, g, t);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = rows[e / 2], j = k0 + 8 * n + 2 * t + (e & 1);
-          float ds = 0.0f;
-          if (j < Sk && !(causal && j > i)) {
-            const float p = expf(
-                __fsub_rn(__fmul_rn(sd[0][n][e], scale), lse_r[e / 2]));
-            ds = __fmul_rn(p, __fsub_rn(sd[1][n][e], delta_r[e / 2]));
-          }
-          sd[0][n][e] = ds;
-        }
-      }
-      accumulate<HD, NT>(acc, sd[0], k_at(st), g, t);   // dq += ds k
-    }
-    __syncthreads();                 // the stage is consumed before refill
-  }
-
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    if (rows[e] < Sq) {
-      store_row(dq + (rows0 + rows[e]) * HD, acc, e, t, scale);
-    }
-  }
-}
-
-template <int HD, int BK, int BQ>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(u16) * (2 * BK + 2 * 2 * BQ) * pitch<HD>() +
-         sizeof(float) * 4 * BQ;
-}
-
-template <int HD, int BK, int BQ>
-__global__ void __launch_bounds__(2 * BK, 1)
-flash_bwd_dkv_bf16_kernel(const u16* __restrict__ q,
-                          const u16* __restrict__ k,
-                          const u16* __restrict__ v,
-                          const u16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          u16* __restrict__ dk, u16* __restrict__ dv,
-                          int BKV, int H, int KV, int Sq, int Sk, float scale,
-                          int causal) {
-  constexpr int kThreads = 2 * BK;            // a warp per 16 keys
-  constexpr int P = pitch<HD>();
-  constexpr int NQ = BQ / 8, ND = HD / 8;
-  constexpr int kStage = 2 * BQ * P;
-  extern __shared__ float4 smem4[];
-  u16* ks = reinterpret_cast<u16*>(smem4);      // BK x P
-  u16* vs = ks + BK * P;                        // BK x P
-  u16* ring = vs + BK * P;                      // 2 stages: q, dO
-  float* ls = reinterpret_cast<float*>(ring + 2 * kStage);  // 2 x BQ lse
-  float* dls = ls + 2 * BQ;                                 // 2 x BQ delta
-
-  const int lane = threadIdx.x % 32, r0 = 16 * (threadIdx.x / 32);
-  const int g = lane / 4, t = lane % 4;
-  // under the mask the first key tiles see the most queries: they go first
-  const int bkv = blockIdx.x % BKV, k0 = (blockIdx.x / BKV) * BK;
-  const int b = bkv / KV, kvh = bkv % KV, G = H / KV;
-  const size_t kv_rows0 = static_cast<size_t>(bkv) * Sk;
-  auto q_at = [&](int st) { return ring + st * kStage; };
-  auto o_at = [&](int st) { return ring + st * kStage + kStage / 2; };
-
-  // query rows before k0 see none of this block's keys under the mask
-  const int q_lo = causal ? (k0 / BQ) * BQ : 0;
-  const int n_qt = q_lo < Sq ? (Sq - q_lo + BQ - 1) / BQ : 0;
-  const int n_steps = G * n_qt;
-  auto issue = [&](int step, int st) {
-    const int gi = step / n_qt, q0 = q_lo + (step % n_qt) * BQ;
-    const size_t rows0 = (static_cast<size_t>(b) * H + kvh * G + gi) * Sq;
-    load_tile<BQ, HD, kThreads>(q_at(st), q + rows0 * HD, q0, Sq);
-    load_tile<BQ, HD, kThreads>(o_at(st), dout + rows0 * HD, q0, Sq);
-    tc::load_rows<BQ, kThreads>(ls + st * BQ, lse + rows0, q0, Sq);
-    tc::load_rows<BQ, kThreads>(dls + st * BQ, delta + rows0, q0, Sq);
-  };
-  if (n_steps > 0) {
-    load_tile<BK, HD, kThreads>(ks, k + kv_rows0 * HD, k0, Sk);
-    load_tile<BK, HD, kThreads>(vs, v + kv_rows0 * HD, k0, Sk);
-    issue(0, 0);
-    tc::cp_async_commit();
-  }
-  float acc_k[ND][4], acc_v[ND][4];
-  tc::zero(acc_k);
-  tc::zero(acc_v);
-
-  for (int step = 0; step < n_steps; ++step) {
-    const int st = step & 1;
-    if (step + 1 < n_steps) {
-      issue(step + 1, st ^ 1);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int q0 = q_lo + (step % n_qt) * BQ;
-    const float* lt = ls + st * BQ;
-    const float* dt = dls + st * BQ;
-    // a warp whose keys all follow the tile's last query has nothing here
-    if (!causal || k0 + r0 <= q0 + BQ - 1) {
-      float sd[2][NQ][4];                      // s^T and dp^T
-      scores<HD, 2, NQ>(sd, {ks, vs}, {q_at(st), o_at(st)}, r0, g, t);
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = k0 + r0 + g + 8 * (e / 2);
-          const int c = 8 * n + 2 * t + (e & 1), i = q0 + c;
-          float p = 0.0f, ds = 0.0f;
-          if (i < Sq && j < Sk && !(causal && j > i)) {
-            p = expf(__fsub_rn(__fmul_rn(sd[0][n][e], scale), lt[c]));
-            ds = __fmul_rn(p, __fsub_rn(sd[1][n][e], dt[c]));
-          }
-          sd[0][n][e] = p;
-          sd[1][n][e] = ds;
-        }
-      }
-      accumulate<HD, NQ>(acc_v, sd[0], o_at(st), g, t);   // dv += p^T dO
-      accumulate<HD, NQ>(acc_k, sd[1], q_at(st), g, t);   // dk += ds^T q
-    }
-    __syncthreads();                 // the stage is consumed before refill
-  }
-
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int key = k0 + r0 + g + 8 * e;
-    if (key >= Sk) continue;
-    store_row(dk + (kv_rows0 + key) * HD, acc_k, e, t, scale);
-    store_row(dv + (kv_rows0 + key) * HD, acc_v, e, t, 1.0f);
-  }
-}
-
 // a kernel on `blocks` blocks of `threads`, with `smem` bytes of dynamic
 // shared memory (its maximum set first)
 template <class... P, class... A>
@@ -1436,33 +1234,913 @@ int launch_fwd(const u16* q, const u16* k, const u16* v, u16* o, float* lse,
                 causal);
 }
 
-template <int HD, int BQ, int BK>
+}  // namespace bf
+
+// ---------------------------------------------------------------------------
+// bf16 backward on Hopper's warpgroup tensor cores.
+//
+// The dq and dk/dv kernels for bf16 q, k, v and dO: the products of the
+// float32 backward (S = q k^T, dP = dO v^T, then dq += dS k, dv += P^T dO,
+// dk += dS^T q), each on `wgmma.mma_async` m64nNk16 bf16 with float32
+// accumulators, the only way to Hopper's bf16 rate (the forward above
+// keeps mma.sync).  The numerics are the section "bf16"'s: bf16 products
+// summed in float32, P and dS rounded to bf16 (to nearest even) where they
+// meet dO, q and k, everything else float32, dq, dk and dv rounded once as
+// they are written; the k steps of every product in ascending order, a
+// fixed order of sums and no atomics, so two launches give the same bits.
+// P = exp(S scale - lse) is one fmaf and one ex2.approx with the scale and
+// lse taken to base 2 (a few float32 ulps, far below the bf16 rounding of
+// P that follows): at the layer shapes the softmax's instructions, not
+// the products, set these kernels' time, and expf's range reduction is
+// several instructions more an element.
+//
+// Bound: as the mma.sync kernels' note above says, the products at 989
+// TFLOP/s bound both at the trainer's layers (dq 3 products, dk/dv 4).
+//
+// Design (warp specialisation).  A block is two consumer warpgroups and
+// one producer warpgroup (384 threads).  Each consumer owns 64 rows of the
+// output: keys in dk/dv, queries in dq.  One producer thread issues every
+// copy as a TMA load (`cp.async.bulk.tensor.3d`) into a ring of kStages
+// stages, each with a full and an empty `mbarrier`; the consumers never
+// copy and the main loop has no __syncthreads().  The tensor maps are 3-D
+// over (B*H, S, hd), so the rows of a ragged tile past S are zero-filled
+// inside their own head; a row of a tile is at most 64 values (128 bytes,
+// the 128-byte swizzle), hd 112 and 128 take two such boxes (at 112 the
+// second box's last 16 columns are zero-filled), hd 16 and 32 one box of
+// 32 or 64 bytes under the 32- and 64-byte swizzles.
+//   dk/dv: a block holds BK = 128 keys of one KV head, two 64-key tiles (K and
+//   V resident, loaded once), and streams BQ = 64 queries a step, each of the
+//   G query heads of the group in turn: Q and dO by TMA, lse and delta by the
+//   producer warp's plain loads into the stage (+inf and 0 past Sq, so P and
+//   dS vanish there without a mask).  S^T = K Q^T and dP^T = V dO^T read both
+//   operands from shared memory by descriptor (K-major); P^T and dS^T are
+//   rounded to bf16 straight from the accumulator registers, which are the
+//   m16n8k16 A fragments of the next products (each warp's 16 rows, columns
+//   2t, 2t + 1 of rows g and g + 8), and dV += P^T dO, dK += dS^T Q take them
+//   as register A operands, with dO and Q as B through the descriptor's
+//   transpose bit (MN-major).  64 queries a step at every hd.
+//   dq: a block holds BQ = 128 queries of one head (Q and dO resident) and
+//   streams BK = 64 keys a step: S = Q K^T and dP = dO V^T from shared
+//   memory, dS from the registers, dQ += dS K with K transposed.  dq keeps
+//   its own kernel: summing dq in dk/dv with float32 atomics would change
+//   its bits from run to run.
+// Causal tiles wholly above the diagonal are skipped by the warpgroup they
+// fall to (the producer still streams the block's tiles), the diagonal
+// tiles (and dq's last ragged key tile) mask, the rest do not.  Registers:
+// the producer drops to kProducerRegs with `setmaxnreg` and the consumers
+// rise to kConsumerRegs; at hd 128 dk and dv for 64 keys are 128 float32 a
+// consumer thread, S^T and dP^T 64 more.  Why two consumers and BK 128 (BQ
+// 128 for dq): one block an SM holds 2 x 64 output rows in 232 registers a
+// thread (65,536 on an SM), and the grid fills the 132 SMs at the layer
+// shapes: dk/dv 4 x 8 x 8 = 256 blocks at the large tier, 2 x 8 x 8 = 128 at
+// kimi-k2's, dq 512 and 1,024.  Where the grid is one wave (kimi-k2's
+// dk/dv), under the causal mask a block of the first 128 keys would set
+// the time at about twice the mean block's work, so a block pairs a tile
+// with its mirror from the far end of Sk (the host picks this from the
+// grid and the card's SMs); over several waves adjacent tiles keep both
+// warpgroups of a block equally busy.  The two warpgroups share each
+// streamed tile, which halves the copies a key costs against one
+// warpgroup a block, and the blocks with the most work go first.  Shared
+// memory (hd 128): dk/dv 64 KB of K and V and 3 stages of 33 KB; dq 64 KB
+// of Q and dO and 3 stages of 32 KB.
+namespace hb {
+
+using bf::pack;
+using bf::u16;
+
+constexpr int kConsumers = 2;                      // warpgroups that compute
+constexpr int kThreads = 128 * (kConsumers + 1);   // and the producer's
+constexpr int kStages = 3;
+// 384 x 168 registers at launch; the producer gives back 128 of its 168 a
+// thread, which raise each consumer thread to 232
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kDkvBK = 64 * kConsumers, kDkvBQ = 64;
+constexpr int kDqBQ = 64 * kConsumers, kDqBK = 64;
+
+// A tile of rows of hd bf16 values in shared memory, as TMA writes it:
+// kBoxes boxes of `rows` rows of kRowBytes each (one box's columns a row),
+// swizzled over their kRowBytes; a wgmma k step covers 16 columns (32
+// bytes), kSteps of them span hd
+template <int HD>
+struct Geo {
+  static constexpr int kRowBytes = HD >= 64 ? 128 : 2 * HD;
+  static constexpr int kBoxCols = kRowBytes / 2;
+  static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;
+  static constexpr int kSteps = HD / 16;
+  static constexpr int kStepsPerBox = kRowBytes / 32;
+  // the descriptor's layout: 1 the 128-byte swizzle, 2 the 64, 3 the 32
+  static constexpr int kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2
+                                                                        : 3;
+  static constexpr unsigned kAtom = 8 * kRowBytes;   // 8 rows: the swizzle's
+  static constexpr int tile(int rows) { return kBoxes * rows * kRowBytes; }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// an arrival that also expects `bytes` of TMA copies before the phase ends
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 3-D tensor map at (column, row, head) into dst
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// rows row0 .. row0 + 63 of head `head` (all hd columns) into rows 64 half
+// .. 64 half + 63 of a tile of `rows` rows
+template <int HD>
+__device__ __forceinline__ void tma_rows64(unsigned char* dst,
+                                           const CUtensorMap* map,
+                                           uint64_t* bar, int row0, int head,
+                                           int rows, int half) {
+  using G = Geo<HD>;
+#pragma unroll
+  for (int b = 0; b < G::kBoxes; ++b) {
+    tma_load3(dst + (b * rows + 64 * half) * G::kRowBytes, map, bar,
+              b * G::kBoxCols, row0, head);
+  }
+}
+
+// rows row0 .. row0 + rows - 1 of head `head` (all hd columns) into a tile
+template <int HD>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int row0, int head,
+                                         int rows) {
+  using G = Geo<HD>;
+#pragma unroll
+  for (int b = 0; b < G::kBoxes; ++b) {
+    tma_load3(dst + b * rows * G::kRowBytes, map, bar, b * G::kBoxCols, row0,
+              head);
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving an accumulator across a wgmma boundary
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// a wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets, swizzle layout
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+// K-major operand: rows r0 .. r0 + 63 (A) or all rows (B) of a tile of
+// `rows` rows at `tile`, hd columns 16kk .. 16kk + 15
+template <int HD>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int r0,
+                                           int kk) {
+  using G = Geo<HD>;
+  return desc(tile + (kk / G::kStepsPerBox) * rows * G::kRowBytes +
+                  r0 * G::kRowBytes + (kk % G::kStepsPerBox) * 32,
+              16, G::kAtom, G::kLayout);
+}
+
+// MN-major B (the transpose bit): rows 16kq .. 16kq + 15 of a tile of
+// `rows` rows as the k dimension, all hd columns as N; the boxes lie
+// rows * kRowBytes apart
+template <int HD>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows, int kq) {
+  using G = Geo<HD>;
+  return desc(tile + 16 * kq * G::kRowBytes, rows * G::kRowBytes, G::kAtom,
+              G::kLayout);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x, one MUFU.EX2 (flushes denormal results to 0; 2^-inf = 0): with the
+// scale and lse taken to base 2, exp(s scale - lse) as one fmaf and this
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// d (+)= A . B^T, m64n64k16: A (64 x 16) and B (64 x 16) K-major in shared
+// memory by descriptor; `acc` 0 overwrites d
+__device__ __forceinline__ void ss_m64n64(float (&d)[32], uint64_t da,
+                                          uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d += A . B, m64n16k16: A (64 x 16) in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B (16 x 16) MN-major in shared memory
+// by descriptor (the transpose bit)
+__device__ __forceinline__ void rs_m64n16(float (&d)[8],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B, m64n32k16: A (64 x 16) in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B (16 x 32) MN-major in shared memory
+// by descriptor (the transpose bit)
+__device__ __forceinline__ void rs_m64n32(float (&d)[16],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B, m64n64k16: A (64 x 16) in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B (16 x 64) MN-major in shared memory
+// by descriptor (the transpose bit)
+__device__ __forceinline__ void rs_m64n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B, m64n112k16: A (64 x 16) in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B (16 x 112) MN-major in shared memory
+// by descriptor (the transpose bit)
+__device__ __forceinline__ void rs_m64n112(float (&d)[56],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B, m64n128k16: A (64 x 16) in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B (16 x 128) MN-major in shared memory
+// by descriptor (the transpose bit)
+__device__ __forceinline__ void rs_m64n128(float (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                   uint64_t db) {
+  if constexpr (N == 16) {
+    rs_m64n16(d, a, db);
+  } else if constexpr (N == 32) {
+    rs_m64n32(d, a, db);
+  } else if constexpr (N == 64) {
+    rs_m64n64(d, a, db);
+  } else if constexpr (N == 112) {
+    rs_m64n112(d, a, db);
+  } else {
+    static_assert(N == 128, "hd is one of 16, 32, 64, 112, 128");
+    rs_m64n128(d, a, db);
+  }
+}
+
+// the 64 x 64 accumulator's 32 values, rounded to bf16, as the four
+// m64k16 A fragments of a product over its 64 columns
+__device__ __forceinline__ void a_fragments(uint32_t (&a)[4][4],
+                                            const float (&c)[32]) {
+#pragma unroll
+  for (int kq = 0; kq < 4; ++kq) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      a[kq][x] = pack(c[8 * kq + 2 * x], c[8 * kq + 2 * x + 1]);
+    }
+  }
+}
+
+// row `half` (g or g + 8) of an accumulator of N columns times f, rounded
+// to bf16, at out[8n + 2t]
+template <int N>
+__device__ __forceinline__ void store_row(u16* out, const float (&acc)[N / 2],
+                                          int half, int t, float f) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(out + 8 * n + 2 * t) =
+        pack(__fmul_rn(acc[4 * n + 2 * half], f),
+             __fmul_rn(acc[4 * n + 2 * half + 1], f));
+  }
+}
+
+// dk/dv's shared memory: K and V (kDkvBK rows each, half of each in
+// the block's second tile), then kStages stages
+// of Q, dO (kDkvBQ rows each), lse and delta, then the barriers
+template <int HD>
+struct DkvSmem {
+  using G = Geo<HD>;
+  static constexpr int kKV = G::tile(kDkvBK);   // (kKV / 2: one tile)
+  static constexpr int kQ = G::tile(kDkvBQ);
+  static constexpr int kStage = (2 * kQ + 8 * kDkvBQ + 1023) / 1024 * 1024;
+  static constexpr int kBars = 2 * kKV + kStages * kStage;
+  static constexpr int kBytes = kBars + 8 * (2 * kStages + 1) + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          u16* __restrict__ dk, u16* __restrict__ dv,
+                          int BKV, int H, int KV, int Sq, int Sk, float scale,
+                          int causal, int mirrored) {
+  using G = Geo<HD>;
+  using L = DkvSmem<HD>;
+  constexpr int BK = kDkvBK, BQ = kDkvBQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ks = smem;
+  unsigned char* vs = smem + L::kKV;
+  unsigned char* stages = smem + 2 * L::kKV;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+
+  // the block's keys, two of the 64-key tiles of Sk, one a warpgroup
+  // (none for warpgroup 1 past the end or where a pair meets): tiles 2i
+  // and 2i + 1 of block i, or `mirrored`, tile i and its mirror from the
+  // far end, so under the mask each block sees about as many queries as
+  // any other; the blocks with the most work go first
+  const int bkv = blockIdx.x % BKV, i = blockIdx.x / BKV;
+  const int n64 = (Sk + 63) / 64;
+  const int t0 = mirrored ? i : 2 * i;
+  const int t1 = mirrored ? n64 - 1 - i : 2 * i + 1;
+  const int tiles = t1 != t0 && t1 < n64 ? 2 : 1;
+  const int b = bkv / KV, kvh = bkv % KV, group = H / KV;
+  // query rows before tile t0 see none of the block's keys under the mask
+  const int q_lo = causal ? 64 * t0 : 0;
+  const int n_qt = q_lo < Sq ? (Sq - q_lo + BQ - 1) / BQ : 0;
+  const int n_steps = group * n_qt;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);                   // the producer warp
+      mbar_init(&empty[s], 128 * kConsumers);    // every consumer thread
+    }
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // the producer: its first warp loads; the others leave
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 >= 32 || n_steps == 0) return;
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, tiles * L::kKV);
+      for (int half = 0; half < tiles; ++half) {
+        const int row0 = 64 * (half == 0 ? t0 : t1);
+        tma_rows64<HD>(ks, &tk, kv_full, row0, bkv, BK, half);
+        tma_rows64<HD>(vs, &tv, kv_full, row0, bkv, BK, half);
+      }
+    }
+    for (int step = 0; step < n_steps; ++step) {
+      const int s = step % kStages;
+      mbar_wait(&empty[s], ((step / kStages) & 1) ^ 1);
+      const int q0 = q_lo + (step % n_qt) * BQ;
+      const int bh = b * H + kvh * group + step / n_qt;
+      unsigned char* st = stages + s * L::kStage;
+      float* ls = reinterpret_cast<float*>(st + 2 * L::kQ);
+      const size_t rows0 = static_cast<size_t>(bh) * Sq;
+      for (int r = lane; r < BQ; r += 32) {
+        const int i = q0 + r;
+        ls[r] = i < Sq ? __fmul_rn(lse[rows0 + i], kLog2e) : CUDART_INF_F;
+        ls[BQ + r] = i < Sq ? delta[rows0 + i] : 0.0f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * L::kQ);
+        tma_tile<HD>(st, &tq, &full[s], q0, bh, BQ);
+        tma_tile<HD>(st + L::kQ, &tdo, &full[s], q0, bh, BQ);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int kw = 64 * (wg == 0 ? t0 : t1);     // this warpgroup's keys
+    const bool keys = wg < tiles;
+    const float scale2 = __fmul_rn(scale, kLog2e);
+    float acc_k[HD / 2], acc_v[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) {
+      acc_k[i] = 0.0f;
+      acc_v[i] = 0.0f;
+    }
+    const uint32_t ks_a = smem_u32(ks), vs_a = smem_u32(vs);
+    if (n_steps > 0) mbar_wait(kv_full, 0);
+    for (int step = 0; step < n_steps; ++step) {
+      const int s = step % kStages;
+      mbar_wait(&full[s], (step / kStages) & 1);
+      const int q0 = q_lo + (step % n_qt) * BQ;
+      // a tile wholly above the diagonal has nothing for these keys
+      if (keys && (!causal || q0 + BQ - 1 >= kw)) {
+        const uint32_t qa = smem_u32(stages + s * L::kStage), oa = qa + L::kQ;
+        const float* ls =
+            reinterpret_cast<const float*>(stages + s * L::kStage + 2 * L::kQ);
+        float sc[32], dp[32];                    // S^T and dP^T
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < G::kSteps; ++kk) {
+          ss_m64n64(sc, kmajor<HD>(ks_a, BK, 64 * wg, kk),
+                    kmajor<HD>(qa, BQ, 0, kk), kk);
+        }
+#pragma unroll
+        for (int kk = 0; kk < G::kSteps; ++kk) {
+          ss_m64n64(dp, kmajor<HD>(vs_a, BK, 64 * wg, kk),
+                    kmajor<HD>(oa, BQ, 0, kk), kk);
+        }
+        wg_commit();
+        wg_wait_all();
+        fence_regs(sc);
+        fence_regs(dp);
+        const bool diag = causal && q0 < kw + 63;
+        // lse and delta of queries 8n + 2t and 8n + 2t + 1, one 8-byte load
+        const float2* l2 = reinterpret_cast<const float2*>(ls) + t;
+        const float2* d2 = reinterpret_cast<const float2*>(ls + BQ) + t;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 lse2 = l2[4 * n], delta2 = d2[4 * n];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int e = 4 * n + x, c = 8 * n + 2 * t + (x & 1);
+            const int j = kw + 16 * w + g + 8 * (x >> 1);
+            float p = ex2(__fmaf_rn(sc[e], scale2,
+                                    -(x & 1 ? lse2.y : lse2.x)));
+            if (diag && j > q0 + c) p = 0.0f;           // query q0 + c
+            sc[e] = p;
+            dp[e] = __fmul_rn(p, __fsub_rn(dp[e],
+                                           x & 1 ? delta2.y : delta2.x));
+          }
+        }
+        uint32_t pa[4][4], da[4][4];
+        a_fragments(pa, sc);
+        a_fragments(da, dp);
+        wg_fence();
+        fence_regs(acc_v);
+        fence_regs(acc_k);
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          rs<HD>(acc_v, pa[kq], mnmajor<HD>(oa, BQ, kq));   // dv += P^T dO
+        }
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          rs<HD>(acc_k, da[kq], mnmajor<HD>(qa, BQ, kq));   // dk += dS^T q
+        }
+        wg_commit();
+        wg_wait_all();
+        fence_regs(acc_v);
+        fence_regs(acc_k);
+      }
+      mbar_arrive(&empty[s]);
+    }
+    const size_t kv_rows0 = static_cast<size_t>(bkv) * Sk;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = kw + 16 * w + g + 8 * half;
+      if (!keys || key >= Sk) continue;
+      store_row<HD>(dk + (kv_rows0 + key) * HD, acc_k, half, t, scale);
+      store_row<HD>(dv + (kv_rows0 + key) * HD, acc_v, half, t, 1.0f);
+    }
+  }
+}
+
+// dq's shared memory: Q and dO (kDqBQ rows each), then kStages stages of
+// K and V (kDqBK rows each), then the barriers
+template <int HD>
+struct DqSmem {
+  using G = Geo<HD>;
+  static constexpr int kQ = G::tile(kDqBQ);
+  static constexpr int kK = G::tile(kDqBK);
+  static constexpr int kStage = 2 * kK;
+  static constexpr int kBars = 2 * kQ + kStages * kStage;
+  static constexpr int kBytes = kBars + 8 * (2 * kStages + 1) + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         u16* __restrict__ dq, int BH, int H, int KV, int Sq,
+                         int Sk, float scale, int causal) {
+  using G = Geo<HD>;
+  using L = DqSmem<HD>;
+  constexpr int BQ = kDqBQ, BK = kDqBK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* qs = smem;
+  unsigned char* dos = smem + L::kQ;
+  unsigned char* stages = smem + 2 * L::kQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int bh = blockIdx.x % BH, qt = blockIdx.x / BH;
+  // under the mask the last query tiles have the most keys: they go first
+  const int q0 = (causal ? (Sq + BQ - 1) / BQ - 1 - qt : qt) * BQ;
+  const int b = bh / H, kvh = (bh % H) / (H / KV);
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int n_kt = (k_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * kConsumers);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // the producer: one thread loads; the others leave
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 != 0) return;
+    mbar_expect_tx(q_full, 2 * L::kQ);
+    tma_tile<HD>(qs, &tq, q_full, q0, bh, BQ);
+    tma_tile<HD>(dos, &tdo, q_full, q0, bh, BQ);
+    const int bkv = b * KV + kvh;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+      unsigned char* st = stages + s * L::kStage;
+      mbar_expect_tx(&full[s], L::kStage);
+      tma_tile<HD>(st, &tk, &full[s], kt * BK, bkv, BK);
+      tma_tile<HD>(st + L::kK, &tv, &full[s], kt * BK, bkv, BK);
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int qw = q0 + 64 * wg;                 // this warpgroup's queries
+    const size_t rows0 = static_cast<size_t>(bh) * Sq;
+    int rows[2];
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      rows[half] = qw + 16 * w + g + 8 * half;
+      const bool in = rows[half] < Sq;
+      lse_r[half] = in ? __fmul_rn(lse[rows0 + rows[half]], kLog2e) : 0.0f;
+      delta_r[half] = in ? delta[rows0 + rows[half]] : 0.0f;
+    }
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+    const uint32_t qs_a = smem_u32(qs), dos_a = smem_u32(dos);
+    const float scale2 = __fmul_rn(scale, kLog2e);
+    mbar_wait(q_full, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % kStages, k0 = kt * BK;
+      mbar_wait(&full[s], (kt / kStages) & 1);
+      // a tile wholly above the diagonal has nothing for these queries
+      if (!causal || k0 <= qw + 63) {
+        const uint32_t ka = smem_u32(stages + s * L::kStage), va = ka + L::kK;
+        float sc[32], dp[32];                    // S and dP
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < G::kSteps; ++kk) {
+          ss_m64n64(sc, kmajor<HD>(qs_a, BQ, 64 * wg, kk),
+                    kmajor<HD>(ka, BK, 0, kk), kk);
+        }
+#pragma unroll
+        for (int kk = 0; kk < G::kSteps; ++kk) {
+          ss_m64n64(dp, kmajor<HD>(dos_a, BQ, 64 * wg, kk),
+                    kmajor<HD>(va, BK, 0, kk), kk);
+        }
+        wg_commit();
+        wg_wait_all();
+        fence_regs(sc);
+        fence_regs(dp);
+        // the diagonal tile and the ragged last one mask; keys past Sk
+        // are zero rows of K but must not weigh: exp(-lse) may overflow
+        const bool masked = (causal && k0 + BK - 1 > qw) || k0 + BK > Sk;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int j = k0 + 8 * (e / 4) + 2 * t + (e & 1);
+          const int h = (e >> 1) & 1;
+          float p = ex2(__fmaf_rn(sc[e], scale2, -lse_r[h]));
+          if (masked && (j >= Sk || (causal && j > rows[h]))) p = 0.0f;
+          dp[e] = __fmul_rn(p, __fsub_rn(dp[e], delta_r[h]));
+        }
+        uint32_t da[4][4];
+        a_fragments(da, dp);
+        wg_fence();
+        fence_regs(acc);
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          rs<HD>(acc, da[kq], mnmajor<HD>(ka, BK, kq));   // dq += dS k
+        }
+        wg_commit();
+        wg_wait_all();
+        fence_regs(acc);
+      }
+      mbar_arrive(&empty[s]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (rows[half] < Sq) {
+        store_row<HD>(dq + (rows0 + rows[half]) * HD, acc, half, t, scale);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query
+// (so the library needs no -lcuda), or null
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A (heads, S, HD) bf16 tensor as a 3-D map of boxes of `rows` rows and
+// one box's columns, swizzled as the tiles are; rows past S, and columns
+// past HD, read as zeros
+template <int HD>
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int S, int heads,
+                       int rows) {
+  using G = Geo<HD>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {2ull * HD, 2ull * HD * S};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(G::kBoxCols),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      G::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : G::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the four maps of q, k, v and dO: q and dO in boxes of `q_rows` rows, k
+// and v of `k_rows`
+template <int HD>
+cudaError_t maps(CUtensorMap (&m)[4], const u16* q, const u16* k,
+                 const u16* v, const u16* dout, int B, int H, int KV, int Sq,
+                 int Sk, int q_rows, int k_rows) {
+  cudaError_t err = tensor_map<HD>(&m[0], q, Sq, B * H, q_rows);
+  if (err == cudaSuccess) err = tensor_map<HD>(&m[1], k, Sk, B * KV, k_rows);
+  if (err == cudaSuccess) err = tensor_map<HD>(&m[2], v, Sk, B * KV, k_rows);
+  if (err == cudaSuccess) {
+    err = tensor_map<HD>(&m[3], dout, Sq, B * H, q_rows);
+  }
+  return err;
+}
+
+template <int HD>
 int launch_bwd_dq(const u16* q, const u16* k, const u16* v, const u16* dout,
                   const float* lse, const float* delta, u16* dq, int B, int H,
                   int KV, int Sq, int Sk, float scale, int causal,
                   cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<HD, BQ, BK>();
+  constexpr size_t smem = DqSmem<HD>::kBytes;
   static_assert(smem <= 232448, "over the 227 KB a block can use");
-  return launch(flash_bwd_dq_bf16_kernel<HD, BQ, BK>,
-                static_cast<long long>((Sq + BQ - 1) / BQ) * B * H, 2 * BQ,
-                smem, stream, q, k, v, dout, lse, delta, dq, B * H, H, KV,
-                Sq, Sk, scale, causal);
+  CUtensorMap m[4];
+  const cudaError_t err =
+      maps<HD>(m, q, k, v, dout, B, H, KV, Sq, Sk, kDqBQ, kDqBK);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return bf::launch(flash_bwd_dq_bf16_kernel<HD>,
+                    static_cast<long long>((Sq + kDqBQ - 1) / kDqBQ) * B * H,
+                    kThreads, smem, stream, m[0], m[1], m[2], m[3], lse,
+                    delta, dq, B * H, H, KV, Sq, Sk, scale, causal);
 }
 
-template <int HD, int BK, int BQ>
+template <int HD>
 int launch_bwd_dkv(const u16* q, const u16* k, const u16* v, const u16* dout,
                    const float* lse, const float* delta, u16* dk, u16* dv,
                    int B, int H, int KV, int Sq, int Sk, float scale,
                    int causal, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<HD, BK, BQ>();
+  constexpr size_t smem = DkvSmem<HD>::kBytes;
   static_assert(smem <= 232448, "over the 227 KB a block can use");
-  return launch(flash_bwd_dkv_bf16_kernel<HD, BK, BQ>,
-                static_cast<long long>((Sk + BK - 1) / BK) * B * KV, 2 * BK,
-                smem, stream, q, k, v, dout, lse, delta, dk, dv, B * KV, H,
-                KV, Sq, Sk, scale, causal);
+  CUtensorMap m[4];
+  cudaError_t err =
+      maps<HD>(m, q, k, v, dout, B, H, KV, Sq, Sk, kDkvBQ, 64);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks =
+      static_cast<long long>((Sk + kDkvBK - 1) / kDkvBK) * B * KV;
+  // one wave (a block an SM): the longest block sets the time, so under
+  // the mask the tiles pair with their mirrors; over several waves the
+  // blocks in order of work keep both warpgroups of a block busy
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int mirrored = causal && blocks <= sms;
+  return bf::launch(flash_bwd_dkv_bf16_kernel<HD>, blocks, kThreads, smem,
+                    stream, m[0], m[1], m[2], m[3], lse, delta, dk, dv,
+                    B * KV, H, KV, Sq, Sk, scale, causal, mirrored);
 }
 
-}  // namespace bf
+template <int HD>
+cudaError_t attributes(cudaFuncAttributes* dq, cudaFuncAttributes* dkv) {
+  const cudaError_t err =
+      cudaFuncGetAttributes(dq, flash_bwd_dq_bf16_kernel<HD>);
+  return err != cudaSuccess
+             ? err
+             : cudaFuncGetAttributes(dkv, flash_bwd_dkv_bf16_kernel<HD>);
+}
+
+}  // namespace hb
 
 }  // namespace
 
@@ -1606,15 +2284,15 @@ int flash_attention_bwd_dq_bf16(const u16* q, const u16* k, const u16* v,
   if (bad != cudaSuccess) return static_cast<int>(bad);
   switch (hd) {
     case 16:
-      return bf::launch_bwd_dq<16, 64, 32>(BWD_DQ_ARGS);
+      return hb::launch_bwd_dq<16>(BWD_DQ_ARGS);
     case 32:
-      return bf::launch_bwd_dq<32, 64, 32>(BWD_DQ_ARGS);
+      return hb::launch_bwd_dq<32>(BWD_DQ_ARGS);
     case 64:
-      return bf::launch_bwd_dq<64, 64, 32>(BWD_DQ_ARGS);
+      return hb::launch_bwd_dq<64>(BWD_DQ_ARGS);
     case 112:
-      return bf::launch_bwd_dq<112, 64, 32>(BWD_DQ_ARGS);
+      return hb::launch_bwd_dq<112>(BWD_DQ_ARGS);
     case 128:
-      return bf::launch_bwd_dq<128, 64, 32>(BWD_DQ_ARGS);
+      return hb::launch_bwd_dq<128>(BWD_DQ_ARGS);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1631,18 +2309,52 @@ int flash_attention_bwd_dkv_bf16(const u16* q, const u16* k, const u16* v,
   if (bad != cudaSuccess) return static_cast<int>(bad);
   switch (hd) {
     case 16:
-      return bf::launch_bwd_dkv<16, 64, 32>(BWD_DKV_ARGS);
+      return hb::launch_bwd_dkv<16>(BWD_DKV_ARGS);
     case 32:
-      return bf::launch_bwd_dkv<32, 64, 32>(BWD_DKV_ARGS);
+      return hb::launch_bwd_dkv<32>(BWD_DKV_ARGS);
     case 64:
-      return bf::launch_bwd_dkv<64, 64, 32>(BWD_DKV_ARGS);
+      return hb::launch_bwd_dkv<64>(BWD_DKV_ARGS);
     case 112:
-      return bf::launch_bwd_dkv<112, 64, 16>(BWD_DKV_ARGS);
+      return hb::launch_bwd_dkv<112>(BWD_DKV_ARGS);
     case 128:
-      return bf::launch_bwd_dkv<128, 64, 16>(BWD_DKV_ARGS);
+      return hb::launch_bwd_dkv<128>(BWD_DKV_ARGS);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The bf16 backward kernels' attributes at head dim hd, for the record:
+// out[0], out[1] the dq kernel's registers a thread at launch and its local
+// memory (spills and stack) in bytes a thread, out[2], out[3] dk/dv's.
+// The consumer warpgroups run with kConsumerRegs after setmaxnreg.
+int flash_attention_bwd_bf16_attributes(int hd, int* out) {
+  cudaFuncAttributes dq, dkv;
+  cudaError_t err;
+  switch (hd) {
+    case 16:
+      err = hb::attributes<16>(&dq, &dkv);
+      break;
+    case 32:
+      err = hb::attributes<32>(&dq, &dkv);
+      break;
+    case 64:
+      err = hb::attributes<64>(&dq, &dkv);
+      break;
+    case 112:
+      err = hb::attributes<112>(&dq, &dkv);
+      break;
+    case 128:
+      err = hb::attributes<128>(&dq, &dkv);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = dq.numRegs;
+  out[1] = static_cast<int>(dq.localSizeBytes);
+  out[2] = dkv.numRegs;
+  out[3] = static_cast<int>(dkv.localSizeBytes);
+  return 0;
 }
 
 const char* flash_attention_error_string(int err) {

@@ -1,7 +1,8 @@
 // Diagonal-GMM posterior and its entropy, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `gmm_posterior_pallas` / `_kernel` in
-// src/repro/kernels/gmm_posterior.py.  For z (B, d) against C components
+// src/repro/kernels/gmm_posterior.py.  For z (B, d), float32 or bf16,
+// against C components
 // with means mu (C, d), variances var (C, d) and log weights logpi (C,):
 //   lj[b,c]  = logpi[c] - 0.5 * (maha[b,c] + logdet[c] + d*log(2*pi))
 //   maha     = sum_j (z[b,j] - mu[c,j])^2 / var[c,j]
@@ -14,7 +15,10 @@
 // variance sits at its 1e-4 floor.  Each term is (z - mu)^2 times 1/var,
 // the reciprocal rounded once per (c, j) as a block stages it: a rounding
 // more than the quotient, far inside the tolerances (chip_smoke.py phase 3
-// holds the floor case).
+// holds the floor case).  A bf16 z is staged as it is read, widened to
+// float32 (exact), as the TPU kernel reads its tile `.astype(jnp.float32)`
+// under float32 mu, var and logpi: the same plan and the same sums, so a
+// bf16 z gives the bits of the float32 kernel on the widened z.
 //
 // Bound: the direct form takes 4 float operations (subtract, square,
 // divide, add) per (b, c, j): 839 MFLOP at the refine shape (B=25,600,
@@ -63,6 +67,16 @@ constexpr int kPitch = kChunk + 1;
 constexpr int kBlocksPerSM = 4;
 constexpr int kMaxSplits = 32;
 
+// bf16 z, as its bits: it widens to float32 exactly
+struct bf16_t {
+  unsigned short bits;
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16_t v) {
+  return __uint_as_float(static_cast<unsigned>(v.bits) << 16);
+}
+
 struct Plan {
   int tr, tc;              // micro-tile: rows and components a thread
   int row_tiles, comp_tiles, splits, cols;   // cols: columns a split
@@ -99,9 +113,9 @@ Plan plan(int B, int C, int d) {
   return p;
 }
 
-template <int TR, int TC>
+template <typename T, int TR, int TC>
 __global__ void __launch_bounds__(kThreads)
-gmm_maha_kernel(const float* __restrict__ z, const float* __restrict__ mu,
+gmm_maha_kernel(const T* __restrict__ z, const float* __restrict__ mu,
                 const float* __restrict__ var, float* __restrict__ maha,
                 float* __restrict__ logdet, int B, int C, int d, int cols) {
   constexpr int RT = 16 * TR, CT = 16 * TC;
@@ -133,7 +147,8 @@ gmm_maha_kernel(const float* __restrict__ z, const float* __restrict__ mu,
     for (int i = tid; i < RT * kChunk; i += kThreads) {
       const int r = i / kChunk, j = i % kChunk, row = row0 + r;
       z_s[r * kPitch + j] =
-          row < B && j < w ? z[static_cast<size_t>(row) * d + j0 + j] : 0.0f;
+          row < B && j < w ? widen(z[static_cast<size_t>(row) * d + j0 + j])
+                           : 0.0f;
     }
     for (int i = tid; i < CT * kChunk; i += kThreads) {
       const int r = i / kChunk, j = i % kChunk, c = c0 + r;
@@ -301,14 +316,47 @@ cudaError_t launch_softmax(const Plan& p, const float* maha,
                             logpi, resp, ent, B, C, p.splits, d_log2pi);
 }
 
-template <int TR, int TC>
-cudaError_t launch_maha(const Plan& p, const float* z, const float* mu,
+template <typename T, int TR, int TC>
+cudaError_t launch_maha(const Plan& p, const T* z, const float* mu,
                         const float* var, float* maha, float* logdet, int B,
                         int C, int d, cudaStream_t stream) {
   const dim3 grid(p.row_tiles, p.comp_tiles, p.splits);
-  gmm_maha_kernel<TR, TC><<<grid, kThreads, 0, stream>>>(
+  gmm_maha_kernel<T, TR, TC><<<grid, kThreads, 0, stream>>>(
       z, mu, var, maha, logdet, B, C, d, p.cols);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch_posterior(const T* z, const float* mu, const float* var,
+                     const float* logpi, float* resp, float* ent,
+                     float* scratch, int B, int C, int d, float d_log2pi,
+                     cudaStream_t stream) {
+  if (B <= 0 || C <= 0 || d <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Plan p = plan(B, C, d);
+  if (p.comp_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  float* maha = scratch;
+  float* logdet = scratch + static_cast<size_t>(p.splits) * B * C;
+  cudaError_t err;
+  if (p.tr == 4) {
+    err = p.tc == 4 ? launch_maha<T, 4, 4>(p, z, mu, var, maha, logdet, B, C,
+                                           d, stream)
+                    : launch_maha<T, 4, 1>(p, z, mu, var, maha, logdet, B, C,
+                                           d, stream);
+  } else {
+    err = p.tc == 4 ? launch_maha<T, 1, 4>(p, z, mu, var, maha, logdet, B, C,
+                                           d, stream)
+                    : launch_maha<T, 1, 1>(p, z, mu, var, maha, logdet, B, C,
+                                           d, stream);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      p.splits <= 4
+          ? launch_softmax<4>(p, maha, logdet, logpi, resp, ent, B, C,
+                              d_log2pi, stream)
+          : launch_softmax<kMaxSplits>(p, maha, logdet, logpi, resp, ent, B,
+                                       C, d_log2pi, stream));
 }
 
 }  // namespace
@@ -328,37 +376,22 @@ long long gmm_posterior_scratch_floats(int B, int C, int d) {
 // Launches both kernels on `stream` and returns the first CUDA error (0 on
 // success); the caller checks it, because a refused launch never runs.
 // scratch holds gmm_posterior_scratch_floats(B, C, d) floats.  d_log2pi is
-// d*log(2*pi) rounded once to float32, as the reference's constant is.
+// d*log(2*pi) rounded once to float32, as the reference's constant is.  z
+// is float32 (_f32) or bf16 (_bf16); mu, var and logpi are float32.
 int gmm_posterior_f32(const float* z, const float* mu, const float* var,
                       const float* logpi, float* resp, float* ent,
                       float* scratch, int B, int C, int d, float d_log2pi,
                       cudaStream_t stream) {
-  if (B <= 0 || C <= 0 || d <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Plan p = plan(B, C, d);
-  if (p.comp_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  float* maha = scratch;
-  float* logdet = scratch + static_cast<size_t>(p.splits) * B * C;
-  cudaError_t err;
-  if (p.tr == 4) {
-    err = p.tc == 4 ? launch_maha<4, 4>(p, z, mu, var, maha, logdet, B, C, d,
-                                        stream)
-                    : launch_maha<4, 1>(p, z, mu, var, maha, logdet, B, C, d,
-                                        stream);
-  } else {
-    err = p.tc == 4 ? launch_maha<1, 4>(p, z, mu, var, maha, logdet, B, C, d,
-                                        stream)
-                    : launch_maha<1, 1>(p, z, mu, var, maha, logdet, B, C, d,
-                                        stream);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      p.splits <= 4
-          ? launch_softmax<4>(p, maha, logdet, logpi, resp, ent, B, C,
-                              d_log2pi, stream)
-          : launch_softmax<kMaxSplits>(p, maha, logdet, logpi, resp, ent, B,
-                                       C, d_log2pi, stream));
+  return launch_posterior(z, mu, var, logpi, resp, ent, scratch, B, C, d,
+                          d_log2pi, stream);
+}
+
+int gmm_posterior_bf16(const void* z, const float* mu, const float* var,
+                       const float* logpi, float* resp, float* ent,
+                       float* scratch, int B, int C, int d, float d_log2pi,
+                       cudaStream_t stream) {
+  return launch_posterior(static_cast<const bf16_t*>(z), mu, var, logpi,
+                          resp, ent, scratch, B, C, d, d_log2pi, stream);
 }
 
 const char* gmm_posterior_error_string(int err) {

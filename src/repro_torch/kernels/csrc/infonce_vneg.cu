@@ -13,12 +13,21 @@
 //   dz         = c * ((p0 - 1) * z_pos + sum_n p_n * z_neg[n])
 //   dz_pos     = c * (p0 - 1) * z
 //   dz_neg[n]  = c * p_n * z
+// z, z_pos and z_neg are float32 or bf16, all of one type.  A bf16 input is
+// loaded as it is (8 bytes for 4 values at d % 4 == 0) and widened to
+// float32 in registers, as the TPU kernel reads its tiles
+// `.astype(jnp.float32)`: the widening is exact, and the plan and every sum
+// are the float32 kernel's, so a bf16 call gives the bits of the float32
+// kernels on the widened inputs.  loss and lse are float32; the backward
+// writes dz, dz_pos and dz_neg in the inputs' type, each the float32 value
+// rounded to nearest even once, as the reference's `astype` gives a
+// gradient back in its input's type.
 //
 // Bound: both kernels stream z_neg (B*N*d floats) once, the backward
 // writes dz_neg of the same size; 2 flops per element of z_neg each.  At
 // the edge trainer's shape (B=8, N=264, d=128) that is 1.1 MB read,
-// 0.3 us at 3.35 TB/s, against 8 ns of arithmetic at 67 TFLOP/s float32:
-// bytes bound them, and at this size the latency of a launch and of a load
+// 0.3 us at 3.35 TB/s (half of it in bf16), against 8 ns of arithmetic at
+// 67 TFLOP/s float32: bytes bound them, and at this size the latency of a launch and of a load
 // from device memory costs more than either.
 //
 // Design: each call is two kernels.  The first runs a grid of (B, NS)
@@ -60,6 +69,50 @@ constexpr int kRows = 4;                // negatives a warp has in flight
 constexpr int kMergeWarps = 8;          // the forward's merge: a warp a sample
 constexpr float kNegBig = -1e30f;
 
+// bf16, as its bits: it widens to float32 exactly and a float32 is
+// rounded to it to nearest even
+struct bf16_t {
+  unsigned short bits;
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16_t v) {
+  return __uint_as_float(static_cast<unsigned>(v.bits) << 16);
+}
+
+// a and b rounded to bf16, a in the low half
+__device__ __forceinline__ unsigned pack_bf16(float a, float b) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(b), "f"(a));
+  return r;
+}
+
+// Values 4i .. 4i + 3 of p, widened (p aligned to 4 values), and v stored
+// there in p's type
+__device__ __forceinline__ float4 load4(const float* p, int i) {
+  return reinterpret_cast<const float4*>(p)[i];
+}
+__device__ __forceinline__ float4 load4(const bf16_t* p, int i) {
+  const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void store4(float* p, int i, float4 v) {
+  reinterpret_cast<float4*>(p)[i] = v;
+}
+__device__ __forceinline__ void store4(bf16_t* p, int i, float4 v) {
+  reinterpret_cast<uint2*>(p)[i] =
+      make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+__device__ __forceinline__ void store1(float* p, size_t i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void store1(bf16_t* p, size_t i, float v) {
+  p[i] = bf16_t{static_cast<unsigned short>(pack_bf16(v, 0.0f))};
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) {
     v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -69,21 +122,25 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // s+ = z.z_pos / tau of one sample, the lanes of one warp in a fixed order;
 // every lane gets it
-__device__ __forceinline__ float positive(const float* __restrict__ zb,
-                                          const float* __restrict__ zpb,
+template <typename T>
+__device__ __forceinline__ float positive(const T* __restrict__ zb,
+                                          const T* __restrict__ zpb,
                                           int d, int lane, float tau) {
   float acc = 0.0f;
-  for (int j = lane; j < d; j += 32) acc = fmaf(zb[j], zpb[j], acc);
+  for (int j = lane; j < d; j += 32) {
+    acc = fmaf(widen(zb[j]), widen(zpb[j]), acc);
+  }
   return __fdiv_rn(warp_sum(acc), tau);
 }
 
 // The partial dot products z.z_neg[n] of negatives n = base + kWarps*r
-// (r < kRows, n < n1) of one lane: float4 columns 4 lane, 4 lane + 128, ...
-// where `vec`, else columns lane, lane + 32, ...; all the batch's loads of
-// a column step issue before its multiply-adds.
+// (r < kRows, n < n1) of one lane: 4-value columns 4 lane, 4 lane + 128,
+// ... where `vec`, else columns lane, lane + 32, ...; all the batch's loads
+// of a column step issue before its multiply-adds.
+template <typename T>
 __device__ __forceinline__ void lane_dots(float (&acc)[kRows],
-                                          const float* __restrict__ zb,
-                                          const float* __restrict__ znb,
+                                          const T* __restrict__ zb,
+                                          const T* __restrict__ znb,
                                           int base, int n1, int d, int lane,
                                           bool vec) {
 #pragma unroll
@@ -91,13 +148,12 @@ __device__ __forceinline__ void lane_dots(float (&acc)[kRows],
   if (vec) {
     const int d4 = d / 4;
     for (int j = lane; j < d4; j += 32) {
-      const float4 a = reinterpret_cast<const float4*>(zb)[j];
+      const float4 a = load4(zb, j);
       float4 x[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int n = base + kWarps * r;
-        x[r] = n < n1 ? reinterpret_cast<const float4*>(
-                            znb + static_cast<size_t>(n) * d)[j]
+        x[r] = n < n1 ? load4(znb + static_cast<size_t>(n) * d, j)
                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
 #pragma unroll
@@ -110,12 +166,12 @@ __device__ __forceinline__ void lane_dots(float (&acc)[kRows],
     }
   } else {
     for (int j = lane; j < d; j += 32) {
-      const float a = zb[j];
+      const float a = widen(zb[j]);
       float x[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int n = base + kWarps * r;
-        x[r] = n < n1 ? znb[static_cast<size_t>(n) * d + j] : 0.0f;
+        x[r] = n < n1 ? widen(znb[static_cast<size_t>(n) * d + j]) : 0.0f;
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = fmaf(a, x[r], acc[r]);
@@ -190,9 +246,10 @@ __device__ __forceinline__ void fwd_merge(const float* part,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-infonce_fwd_split_kernel(const float* __restrict__ z,
-                         const float* __restrict__ zn,
+infonce_fwd_split_kernel(const T* __restrict__ z,
+                         const T* __restrict__ zn,
                          float* __restrict__ part, int B, int N, int d,
                          int NS, float tau, bool vec) {
   __shared__ float wm[kWarps], wl[kWarps];
@@ -202,8 +259,8 @@ infonce_fwd_split_kernel(const float* __restrict__ z,
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   int n0, n1;
   split_range(N, NS, split, &n0, &n1);
-  const float* zb = z + static_cast<size_t>(b) * d;
-  const float* znb = zn + static_cast<size_t>(b) * N * d;
+  const T* zb = z + static_cast<size_t>(b) * d;
+  const T* znb = zn + static_cast<size_t>(b) * N * d;
   float m = kNegBig, l = 0.0f;
   for (int base = n0 + warp; base < n1; base += kWarps * kRows) {
     // the batch's rows, the same in every lane: the others are skipped
@@ -231,9 +288,10 @@ infonce_fwd_split_kernel(const float* __restrict__ z,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(32 * kMergeWarps)
-infonce_fwd_merge_kernel(const float* __restrict__ z,
-                         const float* __restrict__ zp,
+infonce_fwd_merge_kernel(const T* __restrict__ z,
+                         const T* __restrict__ zp,
                          const float* __restrict__ part,
                          float* __restrict__ loss, float* __restrict__ lse,
                          int B, int d, int NS, float tau) {
@@ -249,9 +307,10 @@ infonce_fwd_merge_kernel(const float* __restrict__ z,
 
 // The backward's merge of sample b by a block of kThreads: dz_pos, then dz
 // with the NS partials summed in split order (pos in every thread)
-__device__ __forceinline__ void bwd_dz(const float* __restrict__ zp,
+template <typename T>
+__device__ __forceinline__ void bwd_dz(const T* __restrict__ zp,
                                        const float* part,
-                                       float* __restrict__ dz, int b, int d,
+                                       T* __restrict__ dz, int b, int d,
                                        int NS, float c, float p0m1) {
   const float* pb = part + static_cast<size_t>(b) * NS * d;
   for (int j = threadIdx.x; j < d; j += kThreads) {
@@ -268,23 +327,25 @@ __device__ __forceinline__ void bwd_dz(const float* __restrict__ zp,
       }
     }
     const size_t o = static_cast<size_t>(b) * d + j;
-    dz[o] = __fmul_rn(c, fmaf(p0m1, zp[o], a));
+    store1(dz, o, __fmul_rn(c, fmaf(p0m1, widen(zp[o]), a)));
   }
 }
 
-__device__ __forceinline__ void bwd_dz_pos(const float* __restrict__ z,
-                                           float* __restrict__ dzp, int b,
+template <typename T>
+__device__ __forceinline__ void bwd_dz_pos(const T* __restrict__ z,
+                                           T* __restrict__ dzp, int b,
                                            int d, float c, float p0m1) {
   const float cp0 = __fmul_rn(c, p0m1);
   for (int j = threadIdx.x; j < d; j += kThreads) {
     const size_t o = static_cast<size_t>(b) * d + j;
-    dzp[o] = __fmul_rn(cp0, z[o]);
+    store1(dzp, o, __fmul_rn(cp0, widen(z[o])));
   }
 }
 
 // s+ of sample b by warp 0, shared with the block
-__device__ __forceinline__ float block_positive(const float* __restrict__ z,
-                                                const float* __restrict__ zp,
+template <typename T>
+__device__ __forceinline__ float block_positive(const T* __restrict__ z,
+                                                const T* __restrict__ zp,
                                                 int b, int d, float tau) {
   __shared__ float pos;
   if (threadIdx.x < 32) {
@@ -297,11 +358,12 @@ __device__ __forceinline__ float block_positive(const float* __restrict__ z,
   return pos;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-infonce_bwd_split_kernel(const float* __restrict__ z,
-                         const float* __restrict__ zn,
+infonce_bwd_split_kernel(const T* __restrict__ z,
+                         const T* __restrict__ zn,
                          const float* __restrict__ lse,
-                         const float* __restrict__ g, float* __restrict__ dzn,
+                         const float* __restrict__ g, T* __restrict__ dzn,
                          float* __restrict__ part, int N, int d, int NS,
                          float tau, bool vec) {
   extern __shared__ __align__(16) float sums[];   // kWarps x d
@@ -312,9 +374,9 @@ infonce_bwd_split_kernel(const float* __restrict__ z,
   split_range(N, NS, split, &n0, &n1);
   const float lse_b = lse[b];
   const float c = __fdiv_rn(g[b], tau);
-  const float* zb = z + static_cast<size_t>(b) * d;
-  const float* znb = zn + static_cast<size_t>(b) * N * d;
-  float* dznb = dzn + static_cast<size_t>(b) * N * d;
+  const T* zb = z + static_cast<size_t>(b) * d;
+  const T* znb = zn + static_cast<size_t>(b) * N * d;
+  T* dznb = dzn + static_cast<size_t>(b) * N * d;
   float* mine = sums + warp * d;        // lane j's columns j, j + 32, ...
   for (int j = lane; j < d; j += 32) mine[j] = 0.0f;
   for (int base = n0 + warp; base < n1; base += kWarps * kRows) {
@@ -331,17 +393,17 @@ infonce_bwd_split_kernel(const float* __restrict__ z,
     if (vec) {
       float4* mine4 = reinterpret_cast<float4*>(mine);
       for (int j = lane; j < d / 4; j += 32) {
-        const float4 a = reinterpret_cast<const float4*>(zb)[j];
+        const float4 a = load4(zb, j);
         float4 s = mine4[j];
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           const int n = base + kWarps * r;
           if (n >= n1) continue;
           const size_t row = static_cast<size_t>(n) * d;
-          const float4 x = reinterpret_cast<const float4*>(znb + row)[j];
-          reinterpret_cast<float4*>(dznb + row)[j] =
-              make_float4(__fmul_rn(cp[r], a.x), __fmul_rn(cp[r], a.y),
-                          __fmul_rn(cp[r], a.z), __fmul_rn(cp[r], a.w));
+          const float4 x = load4(znb + row, j);
+          store4(dznb + row, j,
+                 make_float4(__fmul_rn(cp[r], a.x), __fmul_rn(cp[r], a.y),
+                             __fmul_rn(cp[r], a.z), __fmul_rn(cp[r], a.w)));
           s.x = fmaf(p[r], x.x, s.x);
           s.y = fmaf(p[r], x.y, s.y);
           s.z = fmaf(p[r], x.z, s.z);
@@ -351,15 +413,15 @@ infonce_bwd_split_kernel(const float* __restrict__ z,
       }
     } else {
       for (int j = lane; j < d; j += 32) {
-        const float a = zb[j];
+        const float a = widen(zb[j]);
         float s = mine[j];
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           const int n = base + kWarps * r;
           if (n >= n1) continue;
           const size_t row = static_cast<size_t>(n) * d;
-          dznb[row + j] = __fmul_rn(cp[r], a);
-          s = fmaf(p[r], znb[row + j], s);
+          store1(dznb, row + j, __fmul_rn(cp[r], a));
+          s = fmaf(p[r], widen(znb[row + j]), s);
         }
         mine[j] = s;
       }
@@ -374,13 +436,14 @@ infonce_bwd_split_kernel(const float* __restrict__ z,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-infonce_bwd_merge_kernel(const float* __restrict__ z,
-                         const float* __restrict__ zp,
+infonce_bwd_merge_kernel(const T* __restrict__ z,
+                         const T* __restrict__ zp,
                          const float* __restrict__ lse,
                          const float* __restrict__ g,
                          const float* __restrict__ part,
-                         float* __restrict__ dz, float* __restrict__ dzp,
+                         T* __restrict__ dz, T* __restrict__ dzp,
                          int d, int NS, float tau) {
   const int b = blockIdx.x;
   // s+ and dz_pos read only the inputs: before the wait
@@ -392,8 +455,9 @@ infonce_bwd_merge_kernel(const float* __restrict__ z,
   bwd_dz(zp, part, dz, b, d, NS, c, p0m1);
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+// whether p lies on a multiple of `bytes`
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 // Past the 48 KB that a launch gets by default, the kernel must opt in.
@@ -427,51 +491,92 @@ bool bad_shape(int B, int N, int d, int NS, float tau) {
          !(tau > 0.0f);
 }
 
-}  // namespace
-
-extern "C" {
-
 // Both launch two kernels on `stream` and return the first CUDA error (0
 // on success); the caller checks it, because a refused launch never runs.
 // NS is the number of splits of each sample's negatives (the wrapper's
 // plan, 1 <= NS <= N); `part` is scratch of 2*B*NS floats (forward) or
 // B*NS*d floats (backward).
 
-int infonce_vneg_fwd_f32(const float* z, const float* zp, const float* zn,
-                         float* loss, float* lse, float* part, int B, int N,
-                         int d, int NS, float tau, cudaStream_t stream) {
+template <typename T>
+int launch_fwd(const T* z, const T* zp, const T* zn, float* loss, float* lse,
+               float* part, int B, int N, int d, int NS, float tau,
+               cudaStream_t stream) {
   if (bad_shape(B, N, d, NS, tau)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = d % 4 == 0 && aligned16(z) && aligned16(zn);
-  infonce_fwd_split_kernel<<<dim3(B, NS), kThreads, 0, stream>>>(
+  const bool vec =
+      d % 4 == 0 && aligned(z, 4 * sizeof(T)) && aligned(zn, 4 * sizeof(T));
+  infonce_fwd_split_kernel<T><<<dim3(B, NS), kThreads, 0, stream>>>(
       z, zn, part, B, N, d, NS, tau, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_dependent(
-      infonce_fwd_merge_kernel, (B + kMergeWarps - 1) / kMergeWarps,
+      infonce_fwd_merge_kernel<T>, (B + kMergeWarps - 1) / kMergeWarps,
       32 * kMergeWarps, stream, z, zp, static_cast<const float*>(part), loss,
       lse, B, d, NS, tau));
+}
+
+template <typename T>
+int launch_bwd(const T* z, const T* zp, const T* zn, const float* lse,
+               const float* g, T* dz, T* dzp, T* dzn, float* part, int B,
+               int N, int d, int NS, float tau, cudaStream_t stream) {
+  if (bad_shape(B, N, d, NS, tau)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = d % 4 == 0 && aligned(z, 4 * sizeof(T)) &&
+                   aligned(zn, 4 * sizeof(T)) && aligned(dzn, 4 * sizeof(T));
+  const size_t smem = sizeof(float) * kWarps * static_cast<size_t>(d);
+  cudaError_t err = allow_smem(infonce_bwd_split_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  infonce_bwd_split_kernel<T><<<dim3(B, NS), kThreads, smem, stream>>>(
+      z, zn, lse, g, dzn, part, N, d, NS, tau, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_dependent(
+      infonce_bwd_merge_kernel<T>, B, kThreads, stream, z, zp, lse, g,
+      static_cast<const float*>(part), dz, dzp, d, NS, tau));
+}
+
+}  // namespace
+
+extern "C" {
+
+// The _f32 launchers take float32 z, z_pos and z_neg (and write float32
+// gradients), the _bf16 ones bf16 (and write bf16 gradients); loss, lse,
+// g and `part` are float32 either way.
+
+int infonce_vneg_fwd_f32(const float* z, const float* zp, const float* zn,
+                         float* loss, float* lse, float* part, int B, int N,
+                         int d, int NS, float tau, cudaStream_t stream) {
+  return launch_fwd(z, zp, zn, loss, lse, part, B, N, d, NS, tau, stream);
+}
+
+int infonce_vneg_fwd_bf16(const void* z, const void* zp, const void* zn,
+                          float* loss, float* lse, float* part, int B, int N,
+                          int d, int NS, float tau, cudaStream_t stream) {
+  return launch_fwd(static_cast<const bf16_t*>(z),
+                    static_cast<const bf16_t*>(zp),
+                    static_cast<const bf16_t*>(zn), loss, lse, part, B, N, d,
+                    NS, tau, stream);
 }
 
 int infonce_vneg_bwd_f32(const float* z, const float* zp, const float* zn,
                          const float* lse, const float* g, float* dz,
                          float* dzp, float* dzn, float* part, int B, int N,
                          int d, int NS, float tau, cudaStream_t stream) {
-  if (bad_shape(B, N, d, NS, tau)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const bool vec = d % 4 == 0 && aligned16(z) && aligned16(zn);
-  const size_t smem = sizeof(float) * kWarps * static_cast<size_t>(d);
-  cudaError_t err = allow_smem(infonce_bwd_split_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  infonce_bwd_split_kernel<<<dim3(B, NS), kThreads, smem, stream>>>(
-      z, zn, lse, g, dzn, part, N, d, NS, tau, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_dependent(
-      infonce_bwd_merge_kernel, B, kThreads, stream, z, zp, lse, g,
-      static_cast<const float*>(part), dz, dzp, d, NS, tau));
+  return launch_bwd(z, zp, zn, lse, g, dz, dzp, dzn, part, B, N, d, NS, tau,
+                    stream);
+}
+
+int infonce_vneg_bwd_bf16(const void* z, const void* zp, const void* zn,
+                          const float* lse, const float* g, void* dz,
+                          void* dzp, void* dzn, float* part, int B, int N,
+                          int d, int NS, float tau, cudaStream_t stream) {
+  return launch_bwd(
+      static_cast<const bf16_t*>(z), static_cast<const bf16_t*>(zp),
+      static_cast<const bf16_t*>(zn), lse, g, static_cast<bf16_t*>(dz),
+      static_cast<bf16_t*>(dzp), static_cast<bf16_t*>(dzn), part, B, N, d, NS,
+      tau, stream);
 }
 
 const char* infonce_vneg_error_string(int err) {

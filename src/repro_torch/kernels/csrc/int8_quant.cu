@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernels `int8_quantize_pallas` (`_minmax_kernel` then
 // `_quant_kernel`) and `int8_dequantize_pallas` (`_dequant_kernel`) in
-// src/repro/kernels/int8_quant.py.  Over a flat float32 tensor of n
-// elements:
+// src/repro/kernels/int8_quant.py.  Over a flat float32 or bf16 tensor of
+// n elements:
 //   lo, hi = min(x), max(x)
 //   scale  = max((hi - lo) * float32(1/255), 1e-12)
 //   zero   = -128 - lo / scale
@@ -13,6 +13,13 @@
 // (`int8_quantize_roundtrip_f32`) writes q, the header and out in the one
 // launch: out is dequantized from the level each thread holds, through
 // the same int8 conversion, so it equals the dequantize of the payload.
+// A bf16 x is loaded as it is (8 bytes for 4 values) and widened to float32
+// in registers, as the TPU kernel reads its tile `.astype(jnp.float32)`:
+// the widening is exact and min and max are exact in any order, so a bf16
+// x gives the bits of the float32 kernel on the widened tensor, by the
+// same plan.  The dequantize writes float32, bf16 or float16 itself (the
+// float32 value rounded to nearest even, as the TPU kernel's `astype`
+// into its output type), with no cast launch after it.
 //
 // Bitwise contract: equal to the plain PyTorch versions
 // (`int8_quantize_ref` / `int8_dequantize_ref` in int8_quant.py), which
@@ -69,7 +76,8 @@
 // quantize reads x and writes q and the header, dequantize reads q and
 // the header and writes out, 5 bytes an element (+ 8) either way, against
 // a handful of float operations: both are memory-bound on an H100 (3.35
-// TB/s).  The round trip reads x and writes q, the header and out, 9
+// TB/s); a bf16 x takes 1 byte an element off the quantize, a 16-bit out 2
+// off the dequantize.  The round trip reads x and writes q, the header and out, 9
 // bytes an element (+ 8).  At the per-frame shapes that bound is under
 // 0.02 us and launch latency sets the time; at 2^24 elements it is 25 us
 // each (45 us for the round trip).  The one-block
@@ -91,6 +99,62 @@ constexpr long long kOneBlockMax =
 constexpr int kMaxBlocks = 1024;      // quantize partials; 132 SMs x 8
 constexpr int kMaxDequantBlocks = 4096;
 constexpr float kInv255 = 0x1.010102p-8f;  // float32(1/255), 0x3B808081
+
+// The 16-bit types, as their bits: bf16 in (widened exactly to float32),
+// bf16 and float16 out (rounded to nearest even).
+struct bf16_t {
+  unsigned short bits;
+};
+struct f16_t {
+  unsigned short bits;
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16_t v) {
+  return __uint_as_float(static_cast<unsigned>(v.bits) << 16);
+}
+
+// Values 4i .. 4i + 3 of p, widened: one 16-byte load of float32, one
+// 8-byte load of bf16 (p aligned to 4 values)
+__device__ __forceinline__ float4 load4(const float* p, long long i) {
+  return reinterpret_cast<const float4*>(p)[i];
+}
+__device__ __forceinline__ float4 load4(const bf16_t* p, long long i) {
+  const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// a and b rounded to nearest even, a in the low half
+__device__ __forceinline__ unsigned pack2(bf16_t*, float a, float b) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(b), "f"(a));
+  return r;
+}
+__device__ __forceinline__ unsigned pack2(f16_t*, float a, float b) {
+  unsigned r;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(b), "f"(a));
+  return r;
+}
+
+// v into values 4i .. 4i + 3 of out, and one value into out[i]
+__device__ __forceinline__ void store4(float* out, long long i, float4 v) {
+  reinterpret_cast<float4*>(out)[i] = v;
+}
+template <typename O>
+__device__ __forceinline__ void store4(O* out, long long i, float4 v) {
+  reinterpret_cast<uint2*>(out)[i] =
+      make_uint2(pack2(out, v.x, v.y), pack2(out, v.z, v.w));
+}
+__device__ __forceinline__ void store1(float* out, long long i, float v) {
+  out[i] = v;
+}
+template <typename O>
+__device__ __forceinline__ void store1(O* out, long long i, float v) {
+  out[i] = O{static_cast<unsigned short>(pack2(out, v, 0.0f))};
+}
 
 __host__ __device__ inline long long blocks_for(long long n, int cap) {
   long long g = (n + kThreads * kElemsPerThread - 1) /
@@ -173,27 +237,27 @@ __device__ __forceinline__ float4 unlevel4(char4 c, float scale, float zero) {
                      unlevel(c.z, scale, zero), unlevel(c.w, scale, zero));
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-minmax_partials_kernel(const float* __restrict__ x, long long n,
+minmax_partials_kernel(const T* __restrict__ x, long long n,
                        float* __restrict__ partials) {
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   const long long start = static_cast<long long>(blockIdx.x) * kThreads +
                           threadIdx.x;
   float lo = CUDART_INF_F, hi = -CUDART_INF_F;
   long long tail = 0;
-  if (reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
+  if (reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0) {
     const long long nq = n / 4;
     for (long long i = start; i < nq; i += stride) {
-      const float4 v = x4[i];
+      const float4 v = load4(x, i);
       lo = min_nan(lo, min_nan(min_nan(v.x, v.y), min_nan(v.z, v.w)));
       hi = max_nan(hi, max_nan(max_nan(v.x, v.y), max_nan(v.z, v.w)));
     }
     tail = 4 * nq;
   }
   for (long long i = tail + start; i < n; i += stride) {
-    lo = min_nan(lo, x[i]);
-    hi = max_nan(hi, x[i]);
+    lo = min_nan(lo, widen(x[i]));
+    hi = max_nan(hi, widen(x[i]));
   }
   block_minmax(lo, hi);
   if (threadIdx.x == 0) {
@@ -204,8 +268,9 @@ minmax_partials_kernel(const float* __restrict__ x, long long n,
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-quantize_kernel(const float* __restrict__ x, long long n,
+quantize_kernel(const T* __restrict__ x, long long n,
                 const float* __restrict__ partials, int8_t* __restrict__ q,
                 float* __restrict__ out, float* __restrict__ sz) {
   // launched early (programmatic dependent launch): wait for pass 1 to
@@ -228,14 +293,13 @@ quantize_kernel(const float* __restrict__ x, long long n,
   const long long start = static_cast<long long>(blockIdx.x) * kThreads +
                           threadIdx.x;
   long long tail = 0;
-  if (reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+  if (reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0 &&
       reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
       reinterpret_cast<uintptr_t>(out) % 16 == 0) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
     char4* q4 = reinterpret_cast<char4*>(q);
     const long long nq = n / 4;
     for (long long i = start; i < nq; i += stride) {
-      const float4 v = x4[i];
+      const float4 v = load4(x, i);
       const char4 c = make_char4(
           level(v.x, scale, zero), level(v.y, scale, zero),
           level(v.z, scale, zero), level(v.w, scale, zero));
@@ -247,7 +311,7 @@ quantize_kernel(const float* __restrict__ x, long long n,
     tail = 4 * nq;
   }
   for (long long i = tail + start; i < n; i += stride) {
-    const int8_t c = level(x[i], scale, zero);
+    const int8_t c = level(widen(x[i]), scale, zero);
     q[i] = c;
     if (out != nullptr) out[i] = unlevel(c, scale, zero);
   }
@@ -255,14 +319,14 @@ quantize_kernel(const float* __restrict__ x, long long n,
 
 // The whole quantize in one block (n <= kOneBlockMax, blockDim.x a
 // multiple of 32 with n <= kOneBlockPerThread * blockDim.x): x read once
-// into registers, element i of the float4 (VEC) or float view held by
+// into registers, element i of the 4-value (VEC) or 1-value view held by
 // thread i % blockDim.x; (lo, hi) reduced over the block; q (and, with
 // OUT, its dequantized value) written from the registers.  VEC needs x
-// 16-byte, q 4-byte and out 16-byte aligned; its n % 4 tail elements are
-// held by threads 0..2.
-template <bool VEC, bool OUT>
+// aligned to 4 values, q 4-byte and out 16-byte aligned; its n % 4 tail
+// elements are held by threads 0..2.
+template <typename T, bool VEC, bool OUT>
 __global__ void __launch_bounds__(kOneBlockThreads)
-quantize_one_block_kernel(const float* __restrict__ x, int n,
+quantize_one_block_kernel(const T* __restrict__ x, int n,
                           int8_t* __restrict__ q, float* __restrict__ out,
                           float* __restrict__ sz) {
   constexpr int kUnits = VEC ? kOneBlockPerThread / 4 : kOneBlockPerThread;
@@ -275,7 +339,7 @@ quantize_one_block_kernel(const float* __restrict__ x, int n,
     const int i = tid + j * threads;
     if (i >= units) break;
     if constexpr (VEC) {
-      const float4 f = reinterpret_cast<const float4*>(x)[i];
+      const float4 f = load4(x, i);
       v[4 * j] = f.x;
       v[4 * j + 1] = f.y;
       v[4 * j + 2] = f.z;
@@ -283,7 +347,7 @@ quantize_one_block_kernel(const float* __restrict__ x, int n,
       lo = min_nan(lo, min_nan(min_nan(f.x, f.y), min_nan(f.z, f.w)));
       hi = max_nan(hi, max_nan(max_nan(f.x, f.y), max_nan(f.z, f.w)));
     } else {
-      v[j] = x[i];
+      v[j] = widen(x[i]);
       lo = min_nan(lo, v[j]);
       hi = max_nan(hi, v[j]);
     }
@@ -292,7 +356,7 @@ quantize_one_block_kernel(const float* __restrict__ x, int n,
   const bool has_tail = VEC && tail < n;
   float t = 0.0f;
   if (has_tail) {
-    t = x[tail];
+    t = widen(x[tail]);
     lo = min_nan(lo, t);
     hi = max_nan(hi, t);
   }
@@ -328,27 +392,27 @@ quantize_one_block_kernel(const float* __restrict__ x, int n,
   }
 }
 
+template <typename O>
 __global__ void __launch_bounds__(kThreads)
 dequantize_kernel(const int8_t* __restrict__ q, long long n,
                   const float* __restrict__ scale_p,
-                  const float* __restrict__ zero_p, float* __restrict__ out) {
+                  const float* __restrict__ zero_p, O* __restrict__ out) {
   const float scale = *scale_p, zero = *zero_p;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   const long long start = static_cast<long long>(blockIdx.x) * kThreads +
                           threadIdx.x;
   long long tail = 0;
   if (reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
-      reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+      reinterpret_cast<uintptr_t>(out) % (4 * sizeof(O)) == 0) {
     const char4* q4 = reinterpret_cast<const char4*>(q);
-    float4* o4 = reinterpret_cast<float4*>(out);
     const long long nq = n / 4;
     for (long long i = start; i < nq; i += stride) {
-      o4[i] = unlevel4(q4[i], scale, zero);
+      store4(out, i, unlevel4(q4[i], scale, zero));
     }
     tail = 4 * nq;
   }
   for (long long i = tail + start; i < n; i += stride) {
-    out[i] = unlevel(q[i], scale, zero);
+    store1(out, i, unlevel(q[i], scale, zero));
   }
 }
 
@@ -358,10 +422,10 @@ dequantize_kernel(const int8_t* __restrict__ q, long long n,
 // of 2 * kMaxBlocks floats, read only by the two passes (it may be null
 // for n <= kOneBlockMax); `sz` receives (scale, zero); `out`, if not
 // null, receives the dequantized levels.
-template <bool OUT>
-int launch_one_block(const float* x, int8_t* q, float* out, float* sz,
+template <typename T, bool OUT>
+int launch_one_block(const T* x, int8_t* q, float* out, float* sz,
                      long long n, cudaStream_t stream) {
-  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+  const bool vec = reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0 &&
                    reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   // a thread for each float4 (or float) up to 1,024, then up to
@@ -372,26 +436,27 @@ int launch_one_block(const float* x, int8_t* q, float* out, float* sz,
       warps < 1 ? 32 : (warps > kOneBlockThreads / 32 ? kOneBlockThreads
                                                        : 32 * warps));
   if (vec) {
-    quantize_one_block_kernel<true, OUT><<<1, threads, 0, stream>>>(
+    quantize_one_block_kernel<T, true, OUT><<<1, threads, 0, stream>>>(
         x, static_cast<int>(n), q, out, sz);
   } else {
-    quantize_one_block_kernel<false, OUT><<<1, threads, 0, stream>>>(
+    quantize_one_block_kernel<T, false, OUT><<<1, threads, 0, stream>>>(
         x, static_cast<int>(n), q, out, sz);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_quantize(const float* x, int8_t* q, float* out, float* partials,
+template <typename T>
+int launch_quantize(const T* x, int8_t* q, float* out, float* partials,
                     float* sz, long long n, cudaStream_t stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= kOneBlockMax) {
     return out == nullptr
-               ? launch_one_block<false>(x, q, out, sz, n, stream)
-               : launch_one_block<true>(x, q, out, sz, n, stream);
+               ? launch_one_block<T, false>(x, q, out, sz, n, stream)
+               : launch_one_block<T, true>(x, q, out, sz, n, stream);
   }
   if (partials == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int g = static_cast<int>(blocks_for(n, kMaxBlocks));
-  minmax_partials_kernel<<<g, kThreads, 0, stream>>>(x, n, partials);
+  minmax_partials_kernel<T><<<g, kThreads, 0, stream>>>(x, n, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // pass 2 as pass 1's programmatic dependent
@@ -405,13 +470,32 @@ int launch_quantize(const float* x, int8_t* q, float* out, float* partials,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, quantize_kernel, x, n,
+      &cfg, quantize_kernel<T>, x, n,
       static_cast<const float*>(partials), q, out, sz));
+}
+
+template <typename T>
+int launch_roundtrip(const T* x, int8_t* q, float* out, float* partials,
+                     float* sz, long long n, cudaStream_t stream) {
+  if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_quantize(x, q, out, partials, sz, n, stream);
+}
+
+template <typename O>
+int launch_dequantize(const int8_t* q, const float* scale, const float* zero,
+                      O* out, long long n, cudaStream_t stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int g = static_cast<int>(blocks_for(n, kMaxDequantBlocks));
+  dequantize_kernel<O><<<g, kThreads, 0, stream>>>(q, n, scale, zero, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
+
+// The _f32 launchers read x as float32, the _bf16 ones as bf16 (the
+// dequantize's _bf16 and _f16 write out as bf16 and float16).
 
 // The quantize: q and the (scale, zero) header.
 int int8_quantize_f32(const float* x, int8_t* q, float* partials, float* sz,
@@ -419,22 +503,45 @@ int int8_quantize_f32(const float* x, int8_t* q, float* partials, float* sz,
   return launch_quantize(x, q, nullptr, partials, sz, n, stream);
 }
 
+int int8_quantize_bf16(const void* x, int8_t* q, float* partials, float* sz,
+                       long long n, cudaStream_t stream) {
+  return launch_quantize(static_cast<const bf16_t*>(x), q, nullptr, partials,
+                         sz, n, stream);
+}
+
 // The round trip in the quantize's launch(es): q, the header, and
-// out = (q - zero) * scale.
+// out = (q - zero) * scale (float32).
 int int8_quantize_roundtrip_f32(const float* x, int8_t* q, float* out,
                                 float* partials, float* sz, long long n,
                                 cudaStream_t stream) {
-  if (out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_quantize(x, q, out, partials, sz, n, stream);
+  return launch_roundtrip(x, q, out, partials, sz, n, stream);
+}
+
+int int8_quantize_roundtrip_bf16(const void* x, int8_t* q, float* out,
+                                 float* partials, float* sz, long long n,
+                                 cudaStream_t stream) {
+  return launch_roundtrip(static_cast<const bf16_t*>(x), q, out, partials,
+                          sz, n, stream);
 }
 
 int int8_dequantize_f32(const int8_t* q, const float* scale,
                         const float* zero, float* out, long long n,
                         cudaStream_t stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int g = static_cast<int>(blocks_for(n, kMaxDequantBlocks));
-  dequantize_kernel<<<g, kThreads, 0, stream>>>(q, n, scale, zero, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dequantize(q, scale, zero, out, n, stream);
+}
+
+int int8_dequantize_bf16(const int8_t* q, const float* scale,
+                         const float* zero, void* out, long long n,
+                         cudaStream_t stream) {
+  return launch_dequantize(q, scale, zero, static_cast<bf16_t*>(out), n,
+                           stream);
+}
+
+int int8_dequantize_f16(const int8_t* q, const float* scale,
+                        const float* zero, void* out, long long n,
+                        cudaStream_t stream) {
+  return launch_dequantize(q, scale, zero, static_cast<f16_t*>(out), n,
+                           stream);
 }
 
 const char* int8_quant_error_string(int err) {

@@ -1,5 +1,6 @@
 // Fused per-row INT8 wire round trip for Hopper (sm_90a), any number of
-// (rows, n) float32 matrices of different widths in one launch.
+// (rows, n) float32, bf16 or float16 matrices of different widths in one
+// launch (all of one type).
 //
 // Replaces the TPU kernel `wire_roundtrip_pallas` / `_wire_roundtrip_kernel`
 // in src/repro/kernels/int8_quant.py.  For each row of each matrix it
@@ -8,7 +9,11 @@
 //   zero  = -128 - lo / scale
 //   q     = clip(round_half_even(x / scale + zero), -128, 127)
 //   out   = (q - zero) * scale
-// and writes float32: the int8 level never goes to device memory.
+// and writes float32: the int8 level never goes to device memory.  A bf16
+// or float16 input is loaded as it is (8 bytes for 4 values) and widened to
+// float32 in registers, as the TPU kernel casts its tile (`astype`): the
+// widening is exact, so a 16-bit input gives the bits of the float32
+// kernel on the widened tensor.
 //
 // Bitwise contract: equal to the plain PyTorch version
 // (`wire_roundtrip_ref` in int8_quant.py), which equals the reference's
@@ -27,7 +32,7 @@
 // reference's int8 cast does.
 //
 // Bound: the function reads each input once and writes each output once,
-// 8 bytes per element, against a handful of float operations: on an H100
+// 8 bytes per element (6 from a 16-bit input), against a handful of float operations: on an H100
 // (3.35 TB/s) it is memory-bound at 8 * elements / 3.35e12 s.  The serving
 // tick's eight k-buckets (32 rows each, n 3,200-12,800) hold 1.55 M
 // elements, a 3.70 us bound; one launch costs about 3 us by itself, which
@@ -58,10 +63,11 @@
 // the launcher internal too.
 constexpr int kMaxGroups = 16;
 
-// One matrix of the launch: `rows` rows of `n` floats from x to out, rows
-// in blocks first_block .. first_block + rows - 1.
+// One matrix of the launch: `rows` rows of `n` values from x (of the
+// launch's input type) to out (float32), rows in blocks first_block ..
+// first_block + rows - 1.
 struct Group {
-  const float* x;
+  const void* x;
   float* out;
   int rows;
   int n;
@@ -82,6 +88,38 @@ constexpr int kThreads = 512;
 constexpr int kUnitsPerThread = 8;      // float4 a thread held in registers
 constexpr int kRowMax = kThreads * kUnitsPerThread * 4;   // 16,384 floats
 constexpr float kInv255 = 0x1.010102p-8f;  // float32(1/255), 0x3B808081
+
+// The 16-bit input types, as their bits: each widens to float32 exactly.
+struct bf16_t {
+  unsigned short bits;
+};
+struct f16_t {
+  unsigned short bits;
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16_t v) {
+  return __uint_as_float(static_cast<unsigned>(v.bits) << 16);
+}
+__device__ __forceinline__ float widen(f16_t v) {
+  float r;
+  asm("cvt.f32.f16 %0, %1;" : "=f"(r) : "h"(v.bits));
+  return r;
+}
+
+// Values 4i .. 4i + 3 of p, widened: one 16-byte load of float32, one
+// 8-byte load of a 16-bit type (p aligned to 4 values)
+__device__ __forceinline__ float4 load4(const float* p, long long i) {
+  return reinterpret_cast<const float4*>(p)[i];
+}
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p, long long i) {
+  const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+  return make_float4(widen(T{static_cast<unsigned short>(u.x)}),
+                     widen(T{static_cast<unsigned short>(u.x >> 16)}),
+                     widen(T{static_cast<unsigned short>(u.y)}),
+                     widen(T{static_cast<unsigned short>(u.y >> 16)}));
+}
 
 // min and max that keep a NaN operand (fminf/fmaxf drop it), and are
 // fminf/fmaxf otherwise: one PTX instruction each (sm_80+), as cheap as
@@ -154,13 +192,13 @@ __device__ __forceinline__ void row_scale_zero(float lo, float hi,
   zero = s_zero;
 }
 
-// A row of n <= kRowMax floats, n % 4 == 0, 16-byte aligned: read once into
-// registers (unit i of the float4 view held by thread i % kThreads).
-__device__ __forceinline__ void row_in_registers(const float* __restrict__ xr,
+// A row of n <= kRowMax values, n % 4 == 0, aligned to 4 values: read once
+// into registers (unit i, values 4i .. 4i + 3, held by thread i % kThreads).
+template <typename T>
+__device__ __forceinline__ void row_in_registers(const T* __restrict__ xr,
                                                  float* __restrict__ outr,
                                                  int n) {
   const int tid = threadIdx.x, units = n / 4;
-  const float4* x4 = reinterpret_cast<const float4*>(xr);
   float4* o4 = reinterpret_cast<float4*>(outr);
   float4 v[kUnitsPerThread];
   float lo = CUDART_INF_F, hi = -CUDART_INF_F;
@@ -168,7 +206,7 @@ __device__ __forceinline__ void row_in_registers(const float* __restrict__ xr,
   for (int j = 0; j < kUnitsPerThread; ++j) {
     const int i = tid + j * kThreads;
     if (i >= units) break;
-    v[j] = x4[i];
+    v[j] = load4(xr, i);
     fold4(v[j], lo, hi);
   }
   float scale, zero;
@@ -183,34 +221,35 @@ __device__ __forceinline__ void row_in_registers(const float* __restrict__ xr,
 
 // Any other row: a strided min/max pass, then a second pass (the row
 // again, from L2) that quantizes and writes; float4 where the row allows.
-__device__ __forceinline__ void row_twice(const float* __restrict__ xr,
+template <typename T>
+__device__ __forceinline__ void row_twice(const T* __restrict__ xr,
                                           float* __restrict__ outr, int n,
                                           bool vec) {
   const int tid = threadIdx.x;
-  const float4* x4 = reinterpret_cast<const float4*>(xr);
   float4* o4 = reinterpret_cast<float4*>(outr);
   float lo = CUDART_INF_F, hi = -CUDART_INF_F;
   if (vec) {
-    for (int i = tid; i < n / 4; i += kThreads) fold4(x4[i], lo, hi);
+    for (int i = tid; i < n / 4; i += kThreads) fold4(load4(xr, i), lo, hi);
   } else {
     for (int i = tid; i < n; i += kThreads) {
-      lo = min_nan(lo, xr[i]);
-      hi = max_nan(hi, xr[i]);
+      lo = min_nan(lo, widen(xr[i]));
+      hi = max_nan(hi, widen(xr[i]));
     }
   }
   float scale, zero;
   row_scale_zero(lo, hi, scale, zero);
   if (vec) {
     for (int i = tid; i < n / 4; i += kThreads) {
-      o4[i] = roundtrip4(x4[i], scale, zero);
+      o4[i] = roundtrip4(load4(xr, i), scale, zero);
     }
   } else {
     for (int i = tid; i < n; i += kThreads) {
-      outr[i] = roundtrip(xr[i], scale, zero);
+      outr[i] = roundtrip(widen(xr[i]), scale, zero);
     }
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 wire_roundtrip_grouped_kernel(const __grid_constant__ GroupTable table) {
   // launched early (programmatic dependent launch): wait for the kernel
@@ -222,10 +261,10 @@ wire_roundtrip_grouped_kernel(const __grid_constant__ GroupTable table) {
   const Group& grp = table.g[gi];
   const int n = grp.n;
   const size_t offset = static_cast<size_t>(b - grp.first_block) * n;
-  const float* xr = grp.x + offset;
+  const T* xr = static_cast<const T*>(grp.x) + offset;
   float* outr = grp.out + offset;
   const bool vec = (n % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(xr) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(xr) % (4 * sizeof(T)) == 0) &&
                    (reinterpret_cast<uintptr_t>(outr) % 16 == 0);
   if (vec && n <= kRowMax) {
     row_in_registers(xr, outr, n);
@@ -250,6 +289,7 @@ long long table_blocks(const GroupTable& t) {
   return blocks < (1LL << 31) ? blocks : 0;
 }
 
+template <typename T>
 int launch(const GroupTable& table, cudaStream_t stream) {
   const long long blocks = table_blocks(table);
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -263,7 +303,25 @@ int launch(const GroupTable& table, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return static_cast<int>(
-      cudaLaunchKernelEx(&cfg, wire_roundtrip_grouped_kernel, table));
+      cudaLaunchKernelEx(&cfg, wire_roundtrip_grouped_kernel<T>, table));
+}
+
+// One (rows, n) matrix: a table of one group.
+template <typename T>
+int one_group(const void* x, float* out, int rows, int n,
+              cudaStream_t stream) {
+  GroupTable table = {};
+  table.g[0] = {x, out, rows, n, 0, 0};
+  table.count = 1;
+  return launch<T>(table, stream);
+}
+
+// The groups of a table the host packed (read here, on the host, and
+// passed to the kernel by value).
+template <typename T>
+int grouped(const GroupTable* table, cudaStream_t stream) {
+  if (table == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<T>(*table, stream);
 }
 
 }  // namespace
@@ -272,21 +330,38 @@ extern "C" {
 
 // Each launcher runs on `stream` and returns cudaGetLastError() (0 on
 // success); the caller checks it, because a refused launch never runs.
+// The _f32, _bf16 and _f16 launchers read x as float32, bf16 or float16
+// and write float32.
 
 // One (rows, n) matrix: a table of one group.
 int wire_roundtrip_f32(const float* x, float* out, int rows, int n,
                        cudaStream_t stream) {
-  GroupTable table = {};
-  table.g[0] = {x, out, rows, n, 0, 0};
-  table.count = 1;
-  return launch(table, stream);
+  return one_group<float>(x, out, rows, n, stream);
 }
 
-// The groups of a table the host packed (read here, on the host, and
-// passed to the kernel by value).
+int wire_roundtrip_bf16(const void* x, float* out, int rows, int n,
+                        cudaStream_t stream) {
+  return one_group<bf16_t>(x, out, rows, n, stream);
+}
+
+int wire_roundtrip_f16(const void* x, float* out, int rows, int n,
+                       cudaStream_t stream) {
+  return one_group<f16_t>(x, out, rows, n, stream);
+}
+
+// The groups of a table the host packed.
 int wire_roundtrip_grouped_f32(const GroupTable* table, cudaStream_t stream) {
-  if (table == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(*table, stream);
+  return grouped<float>(table, stream);
+}
+
+int wire_roundtrip_grouped_bf16(const GroupTable* table,
+                                cudaStream_t stream) {
+  return grouped<bf16_t>(table, stream);
+}
+
+int wire_roundtrip_grouped_f16(const GroupTable* table,
+                               cudaStream_t stream) {
+  return grouped<f16_t>(table, stream);
 }
 
 const char* wire_roundtrip_error_string(int err) {

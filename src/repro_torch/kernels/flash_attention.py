@@ -35,9 +35,10 @@ TF32 products of split operands), which keeps float32 accuracy, not
 bitwise: the forward within 2e-5 of o and 1e-5 of lse, the backward within
 1e-5 of each gradient's max, of the exact float32 plain versions.  The
 bf16 kernels run bf16 products with float32 sums, rounding p and ds to
-bf16 where they meet v, k, q and dO (``csrc/flash_attention.cu``,
-"bf16"); their plain versions upcast to float32, compute there and round
-the outputs, as the reference's ``flash_attention_ref`` does.  Besides
+bf16 where they meet v, k, q and dO (``csrc/flash_attention.cu``: the
+forward on ``mma.sync``, dq and dk/dv on Hopper's warpgroup MMAs fed by
+TMA copies); their plain versions upcast to float32, compute there and
+round the outputs, as the reference's ``flash_attention_ref`` does.  Besides
 ``launches``, each wrapper counts its launches by variant in
 ``<wrapper>.variant_launches`` (``VARIANTS``: the type, and hd 112 apart).
 """
@@ -273,6 +274,19 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
 
 
 zero_variant_counts()
+
+
+def bwd_bf16_attributes(hd) -> dict:
+    """The bf16 dq and dk/dv kernels at head dim ``hd``, as built:
+    {"dq", "dkv": {"registers": a thread's at launch, "local_bytes": its
+    spills and stack}} (``cudaFuncGetAttributes``; needs the card)."""
+    import ctypes
+    lib = build.load("flash_attention.cu")
+    out = (ctypes.c_int * 4)()
+    build.raise_on_error(lib, "flash_attention",
+                         lib.flash_attention_bwd_bf16_attributes(hd, out))
+    return {"dq": {"registers": out[0], "local_bytes": out[1]},
+            "dkv": {"registers": out[2], "local_bytes": out[3]}}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -23,6 +23,14 @@ twin); here the backward is a hand-written kernel too.
 - Each call launches two kernels: the first over (sample, split of the
   negatives) blocks, the split plan being ``splits`` here; the second
   merges the splits in split order.
+
+z, z_pos and z_neg are float32 or bf16 (``DTYPES``), all of one type, as
+the reference's kernel takes them; loss and lse are float32, and the
+backward gives dz, dz_pos and dz_neg in the inputs' type.  The kernels
+read a bf16 input as it is and widen it to float32 (exact); the plain
+versions upcast first.  So a bf16 call gives the bits of the float32 call
+on the widened inputs, the gradients rounded once to bf16 (to nearest
+even).
 """
 from __future__ import annotations
 
@@ -30,10 +38,13 @@ import torch
 
 from repro_torch.kernels import build
 
+DTYPES = (torch.float32, torch.bfloat16)
+
 
 def infonce_vneg_fwd_ref(z, z_pos, z_neg, tau):
     """Plain version of the forward kernel (differentiable): z, z_pos
-    (B, d), z_neg (B, N, d) -> (loss (B,), lse (B,))."""
+    (B, d), z_neg (B, N, d), upcast to float32 -> (loss (B,), lse (B,))."""
+    z, z_pos, z_neg = z.float(), z_pos.float(), z_neg.float()
     pos = (z * z_pos).sum(-1) / tau
     negs = torch.einsum("bd,bnd->bn", z, z_neg) / tau
     lse = torch.logsumexp(torch.cat([pos[:, None], negs], dim=1), dim=1)
@@ -46,8 +57,11 @@ def infonce_vneg_ref(z, z_pos, z_neg, tau):
 
 
 def infonce_vneg_bwd_ref(z, z_pos, z_neg, lse, g, tau):
-    """Plain version of the backward kernel, the explicit formula ->
-    (dz (B, d), dz_pos (B, d), dz_neg (B, N, d))."""
+    """Plain version of the backward kernel, the explicit formula on the
+    inputs upcast to float32 -> (dz (B, d), dz_pos (B, d), dz_neg (B, N,
+    d)) in the inputs' type."""
+    dt = z.dtype
+    z, z_pos, z_neg = z.float(), z_pos.float(), z_neg.float()
     pos = (z * z_pos).sum(-1) / tau
     negs = torch.einsum("bd,bnd->bn", z, z_neg) / tau
     c = g / tau
@@ -57,7 +71,7 @@ def infonce_vneg_bwd_ref(z, z_pos, z_neg, lse, g, tau):
                        + torch.einsum("bn,bnd->bd", p, z_neg))
     dz_pos = (c * p0m1)[:, None] * z
     dz_neg = (c[:, None] * p)[:, :, None] * z[:, None, :]
-    return dz, dz_pos, dz_neg
+    return dz.to(dt), dz_pos.to(dt), dz_neg.to(dt)
 
 
 # The kernels' grid: (B, splits) blocks, each split a run of consecutive
@@ -92,10 +106,11 @@ def _check(name, z, z_pos, z_neg):
 def infonce_vneg_fwd(z, z_pos, z_neg, tau):
     """Per-sample loss and logsumexp -> ``(loss (B,), lse (B,))`` float32.
 
-    Float32, contiguous inputs on one device, none requiring a gradient
-    (``infonce_vneg`` is the differentiable entry).  A CUDA launch adds
-    one to ``infonce_vneg_fwd.launches``."""
-    build.check_inputs("infonce_vneg_fwd", z, z_pos, z_neg)
+    Float32 or bf16 (all one type), contiguous inputs on one device, none
+    requiring a gradient (``infonce_vneg`` is the differentiable entry).
+    A CUDA launch adds one to ``infonce_vneg_fwd.launches``."""
+    dt = build.input_dtype("infonce_vneg_fwd", z, DTYPES)
+    build.check_inputs("infonce_vneg_fwd", z, z_pos, z_neg, dtype=dt)
     _check("infonce_vneg_fwd", z, z_pos, z_neg)
     if z.device.type == "cpu":
         return infonce_vneg_fwd_ref(z, z_pos, z_neg, tau)
@@ -106,10 +121,10 @@ def infonce_vneg_fwd(z, z_pos, z_neg, tau):
     lse = torch.empty(B, dtype=torch.float32, device=z.device)
     part = torch.empty(2 * B * ns, dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
-        err = lib.infonce_vneg_fwd_f32(z.data_ptr(), z_pos.data_ptr(),
-                                       z_neg.data_ptr(), loss.data_ptr(),
-                                       lse.data_ptr(), part.data_ptr(), B, N,
-                                       d, ns, float(tau), build.stream_of(z))
+        err = getattr(lib, f"infonce_vneg_fwd_{build.SUFFIX[dt]}")(
+            z.data_ptr(), z_pos.data_ptr(), z_neg.data_ptr(), loss.data_ptr(),
+            lse.data_ptr(), part.data_ptr(), B, N, d, ns, float(tau),
+            build.stream_of(z))
     build.raise_on_error(lib, "infonce_vneg", err)
     infonce_vneg_fwd.launches += 1
     return loss, lse
@@ -120,11 +135,15 @@ infonce_vneg_fwd.launches = 0
 
 def infonce_vneg_bwd(z, z_pos, z_neg, lse, g, tau):
     """The loss's gradient for the cotangent ``g`` (B,) given the
-    forward's ``lse`` -> ``(dz, dz_pos, dz_neg)`` float32.
+    forward's ``lse`` -> ``(dz, dz_pos, dz_neg)`` in the inputs' type.
 
-    Float32, contiguous inputs on one device.  A CUDA launch adds one to
+    z, z_pos and z_neg float32 or bf16 (one type), lse and g float32;
+    contiguous, on one device.  A CUDA launch adds one to
     ``infonce_vneg_bwd.launches``."""
-    build.check_inputs("infonce_vneg_bwd", z, z_pos, z_neg, lse, g)
+    dt = build.input_dtype("infonce_vneg_bwd", z, DTYPES)
+    f32 = torch.float32
+    build.check_inputs("infonce_vneg_bwd", z, z_pos, z_neg, lse, g,
+                       dtype=(dt, dt, dt, f32, f32))
     _check("infonce_vneg_bwd", z, z_pos, z_neg)
     B, N, d = z_neg.shape
     if tuple(lse.shape) != (B,) or tuple(g.shape) != (B,):
@@ -139,12 +158,10 @@ def infonce_vneg_bwd(z, z_pos, z_neg, lse, g, tau):
     dz_neg = torch.empty_like(z_neg)
     part = torch.empty(B * ns * d, dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
-        err = lib.infonce_vneg_bwd_f32(z.data_ptr(), z_pos.data_ptr(),
-                                       z_neg.data_ptr(), lse.data_ptr(),
-                                       g.data_ptr(), dz.data_ptr(),
-                                       dz_pos.data_ptr(), dz_neg.data_ptr(),
-                                       part.data_ptr(), B, N, d, ns,
-                                       float(tau), build.stream_of(z))
+        err = getattr(lib, f"infonce_vneg_bwd_{build.SUFFIX[dt]}")(
+            z.data_ptr(), z_pos.data_ptr(), z_neg.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), dz.data_ptr(), dz_pos.data_ptr(), dz_neg.data_ptr(),
+            part.data_ptr(), B, N, d, ns, float(tau), build.stream_of(z))
     build.raise_on_error(lib, "infonce_vneg", err)
     infonce_vneg_bwd.launches += 1
     return dz, dz_pos, dz_neg
@@ -176,9 +193,14 @@ def infonce_vneg(z, z_pos, z_neg, tau):
     """Differentiable per-sample streaming InfoNCE -> (B,) float32.
 
     A CUDA tensor runs the forward and, under autograd, the backward
-    kernel; a CPU tensor runs ``infonce_vneg_ref``.  Float32 contiguous
-    inputs on one device."""
+    kernel; a CPU tensor runs ``infonce_vneg_ref``.  Float32 or bf16 (one
+    type) contiguous inputs on one device; the gradients come back in
+    their type."""
     if z.device.type == "cpu":
+        dt = build.input_dtype("infonce_vneg", z, DTYPES)
+        if z_pos.dtype != dt or z_neg.dtype != dt:
+            raise TypeError(f"infonce_vneg takes inputs of one type, got "
+                            f"{z.dtype}, {z_pos.dtype}, {z_neg.dtype}")
         _check("infonce_vneg", z, z_pos, z_neg)
         return infonce_vneg_ref(z, z_pos, z_neg, tau)
     return _InfoNCEVNeg.apply(z, z_pos, z_neg, tau)

@@ -20,7 +20,14 @@ Port of ``repro.kernels.int8_quant``:
 Each public wrapper dispatches on its input's device.  On a CUDA tensor
 it launches its hand-written kernel or raises; on a CPU tensor it runs
 its ``*_ref``, the plain PyTorch version, which is also what the kernel
-is held against bitwise on the card.  Each wrapper counts its launches
+is held against bitwise on the card.  The input types are the
+reference's: the wire takes float32, bf16 and float16
+(``WIRE_DTYPES``), the quantize and the round trip float32 and bf16
+(``QUANT_DTYPES``), each read as it is and widened to float32 in the
+kernel (the plain versions upcast first), so a 16-bit input gives the
+bits of the float32 call on the widened tensor; the dequantize writes
+float32, bf16 or float16 from its kernel.  Any other type raises
+``TypeError``, on the CPU too.  Each wrapper counts its launches
 in ``<wrapper>.launches`` (one a call: ``int8_quantize``'s call is one
 kernel launch up to ``ONE_BLOCK_MAX`` elements, two passes above it;
 ``quantize_plan`` says which; the round trip's likewise).
@@ -35,6 +42,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.quant.int8 import (QTensor, dequantize, levels,
                                    quantize, scale_zero)
+
+
+WIRE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+QUANT_DTYPES = (torch.float32, torch.bfloat16)
+DEQUANT_DTYPES = WIRE_DTYPES
 
 
 def wire_roundtrip_ref(x):
@@ -108,8 +120,6 @@ def group_plan(shapes):
 def _check_wire_input(x):
     if x.device.type != "cuda":
         raise ValueError(f"wire_roundtrip: no kernel for device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"wire_roundtrip kernel takes float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("wire_roundtrip kernel takes a contiguous tensor")
 
@@ -117,12 +127,13 @@ def _check_wire_input(x):
 def wire_roundtrip(x):
     """Fused per-row INT8 wire round trip of one ``(B, ...)`` batch — the
     wire stage of ``SplitEngine.run_batch_async``: the grouped kernel's
-    launch of one group.
+    launch of one group -> float32 like ``x``.
 
-    A CUDA tensor must be contiguous float32 with a batch dim; the kernel
-    runs on the current stream and ``wire_roundtrip.launches`` counts
-    each launch.  A CPU tensor goes to ``wire_roundtrip_ref``.  Any other
-    device raises."""
+    ``x`` is float32, bf16 or float16.  A CUDA tensor must be contiguous
+    with a batch dim; the kernel runs on the current stream and
+    ``wire_roundtrip.launches`` counts each launch.  A CPU tensor goes to
+    ``wire_roundtrip_ref``.  Any other device raises."""
+    dt = build.input_dtype("wire_roundtrip", x, WIRE_DTYPES)
     if x.device.type == "cpu":
         return wire_roundtrip_ref(x)
     _check_wire_input(x)
@@ -132,10 +143,10 @@ def wire_roundtrip(x):
     slots, _ = group_plan([x.shape])
     _, rows, n, _ = slots[0]
     lib = build.load("wire_roundtrip.cu")
-    out = torch.empty_like(x)
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.wire_roundtrip_f32(x.data_ptr(), out.data_ptr(), rows, n,
-                                     build.stream_of(x))
+        err = getattr(lib, f"wire_roundtrip_{build.SUFFIX[dt]}")(
+            x.data_ptr(), out.data_ptr(), rows, n, build.stream_of(x))
     build.raise_on_error(lib, "wire_roundtrip", err)
     wire_roundtrip.launches += 1
     return out
@@ -146,11 +157,12 @@ def wire_roundtrip_grouped(xs):
     ...)`` tensors of any widths) -> the list of outputs, in ONE kernel
     launch: the serving tick's wire stage over all its k-buckets.
 
-    On the card each tensor must be contiguous float32 on one device; at
-    most ``MAX_GROUPS`` of them may have rows (``group_plan``), and
-    ``wire_roundtrip_grouped.launches`` counts each launch (none when no
-    tensor has rows).  The group table goes to the kernel by value.  CPU
-    tensors go to ``wire_roundtrip_grouped_ref``."""
+    The tensors are all float32, all bf16 or all float16 (a mix raises:
+    one launch reads one type).  On the card each tensor must be
+    contiguous on one device; at most ``MAX_GROUPS`` of them may have rows
+    (``group_plan``), and ``wire_roundtrip_grouped.launches`` counts each
+    launch (none when no tensor has rows).  The group table goes to the
+    kernel by value.  CPU tensors go to ``wire_roundtrip_grouped_ref``."""
     xs = list(xs)
     if not xs:
         return []
@@ -158,12 +170,17 @@ def wire_roundtrip_grouped(xs):
     if any(x.device != dev for x in xs):
         raise ValueError("wire_roundtrip_grouped: inputs on "
                          f"{sorted({str(x.device) for x in xs})}")
+    dt = build.input_dtype("wire_roundtrip_grouped", xs[0], WIRE_DTYPES)
+    if any(x.dtype != dt for x in xs):
+        raise TypeError("wire_roundtrip_grouped takes tensors of one type, "
+                        f"got {sorted({str(x.dtype) for x in xs})}")
     if dev.type == "cpu":
         return wire_roundtrip_grouped_ref(xs)
     for x in xs:
         _check_wire_input(x)
     slots, _ = group_plan([x.shape for x in xs])
-    outs = [torch.empty_like(x) for x in xs]
+    outs = [torch.empty(x.shape, dtype=torch.float32, device=dev)
+            for x in xs]
     if not slots:
         return outs
     table = _GroupTable(count=len(slots))
@@ -172,8 +189,8 @@ def wire_roundtrip_grouped(xs):
                             first, 0)
     lib = build.load("wire_roundtrip.cu")
     with torch.cuda.device(dev):
-        err = lib.wire_roundtrip_grouped_f32(ctypes.byref(table),
-                                             build.stream_of(xs[0]))
+        err = getattr(lib, f"wire_roundtrip_grouped_{build.SUFFIX[dt]}")(
+            ctypes.byref(table), build.stream_of(xs[0]))
     build.raise_on_error(lib, "wire_roundtrip", err)
     wire_roundtrip_grouped.launches += 1
     return outs
@@ -213,13 +230,15 @@ def int8_quantize(x) -> QTensor:
     """Per-tensor INT8 quantize of ``x`` (any shape, taken flat) ->
     ``QTensor(q int8 like x, scale () f32, zero () f32)``.
 
-    A CUDA tensor must be contiguous float32: the kernel (one block up to
-    ``ONE_BLOCK_MAX`` elements, else two passes with no host round trip
-    between them) runs on the current stream, and scale and zero stay on
-    the device.  A CPU tensor goes to ``int8_quantize_ref``."""
+    ``x`` is float32 or bf16.  A CUDA tensor must be contiguous: the
+    kernel (one block up to ``ONE_BLOCK_MAX`` elements, else two passes
+    with no host round trip between them) runs on the current stream, and
+    scale and zero stay on the device.  A CPU tensor goes to
+    ``int8_quantize_ref``."""
+    dt = build.input_dtype("int8_quantize", x, QUANT_DTYPES)
     if x.device.type == "cpu":
         return int8_quantize_ref(x)
-    build.check_inputs("int8_quantize", x)
+    build.check_inputs("int8_quantize", x, dtype=dt)
     _non_empty("int8_quantize", x)
     lib = build.load("int8_quant.cu")
     n = x.numel()
@@ -229,7 +248,7 @@ def int8_quantize(x) -> QTensor:
     partials = (torch.empty(scratch, dtype=torch.float32, device=x.device)
                 if scratch else None)
     with torch.cuda.device(x.device):
-        err = lib.int8_quantize_f32(
+        err = getattr(lib, f"int8_quantize_{build.SUFFIX[dt]}")(
             x.data_ptr(), q.data_ptr(),
             None if partials is None else partials.data_ptr(),
             sz.data_ptr(), n, build.stream_of(x))
@@ -252,11 +271,13 @@ def int8_quantize_roundtrip(x):
     what the server reads back from them — the wire of
     ``SplitEngine.run``.  Bitwise ``int8_dequantize(int8_quantize(x))``.
 
-    A CUDA tensor must be contiguous float32; a CPU tensor goes to
+    ``x`` is float32 or bf16 (``out`` float32 either way).  A CUDA tensor
+    must be contiguous; a CPU tensor goes to
     ``int8_quantize_roundtrip_ref``."""
+    dt = build.input_dtype("int8_quantize_roundtrip", x, QUANT_DTYPES)
     if x.device.type == "cpu":
         return int8_quantize_roundtrip_ref(x)
-    build.check_inputs("int8_quantize_roundtrip", x)
+    build.check_inputs("int8_quantize_roundtrip", x, dtype=dt)
     _non_empty("int8_quantize_roundtrip", x)
     lib = build.load("int8_quant.cu")
     n = x.numel()
@@ -267,7 +288,7 @@ def int8_quantize_roundtrip(x):
     partials = (torch.empty(scratch, dtype=torch.float32, device=x.device)
                 if scratch else None)
     with torch.cuda.device(x.device):
-        err = lib.int8_quantize_roundtrip_f32(
+        err = getattr(lib, f"int8_quantize_roundtrip_{build.SUFFIX[dt]}")(
             x.data_ptr(), q.data_ptr(), out.data_ptr(),
             None if partials is None else partials.data_ptr(),
             sz.data_ptr(), n, build.stream_of(x))
@@ -277,13 +298,18 @@ def int8_quantize_roundtrip(x):
 
 
 def int8_dequantize(qt: QTensor, dtype=torch.float32):
-    """``(q − zero) · scale`` of a per-tensor ``QTensor`` -> ``dtype``
-    (the kernel writes float32; another ``dtype`` is a cast after it).
+    """``(q − zero) · scale`` of a per-tensor ``QTensor`` -> ``dtype``,
+    float32, bf16 or float16, which the kernel writes itself (the float32
+    value rounded to nearest even; any other ``dtype`` raises).
 
     On the card ``q`` must be contiguous int8 and ``scale``/``zero``
     float32 scalars on its device: the kernel reads them from device
     memory.  A ``q`` on the CPU goes to ``int8_dequantize_ref``."""
     q = qt.q
+    if dtype not in DEQUANT_DTYPES:
+        raise TypeError(f"int8_dequantize writes "
+                        f"{', '.join(str(t) for t in DEQUANT_DTYPES)}, asked "
+                        f"for {dtype}")
     if q.device.type == "cpu":
         return int8_dequantize_ref(qt, dtype)
     build.check_inputs("int8_dequantize", q, dtype=torch.int8)
@@ -295,14 +321,14 @@ def int8_dequantize(qt: QTensor, dtype=torch.float32):
                              f"on {q.device}, got {v.dtype} {tuple(v.shape)}"
                              f" on {v.device}")
     lib = build.load("int8_quant.cu")
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
     with torch.cuda.device(q.device):
-        err = lib.int8_dequantize_f32(q.data_ptr(), qt.scale.data_ptr(),
-                                      qt.zero.data_ptr(), out.data_ptr(),
-                                      q.numel(), build.stream_of(q))
+        err = getattr(lib, f"int8_dequantize_{build.SUFFIX[dtype]}")(
+            q.data_ptr(), qt.scale.data_ptr(), qt.zero.data_ptr(),
+            out.data_ptr(), q.numel(), build.stream_of(q))
     build.raise_on_error(lib, "int8_quant", err)
     int8_dequantize.launches += 1
-    return out if dtype == torch.float32 else out.to(dtype)
+    return out
 
 
 int8_quantize.launches = 0

@@ -69,8 +69,8 @@ __device__ __forceinline__ bool last_to_arrive(int b, int NS) {
   return last;
 }
 """,
-    "infonce_fwd_split_kernel(const float* __restrict__ z,\n":
-    "infonce_fwd_split_kernel(const float* __restrict__ z, const float* zp,\n"
+    "infonce_fwd_split_kernel(const T* __restrict__ z,\n":
+    "infonce_fwd_split_kernel(const T* __restrict__ z, const T* zp,\n"
     "                         float* loss, float* lse,\n",
     "      z, zn, part, B, N, d, NS, tau, vec);":
     "      z, zp, loss, lse, zn, part, B, N, d, NS, tau, vec);",
@@ -80,9 +80,9 @@ __device__ __forceinline__ bool last_to_arrive(int b, int NS) {
     "  fwd_merge(part, loss, lse, b, B, NS,\n"
     "            positive(zb, zp + static_cast<size_t>(b) * d, d, lane, tau),\n"
     "            lane);\n}\n",
-    "infonce_bwd_split_kernel(const float* __restrict__ z,\n":
-    "infonce_bwd_split_kernel(const float* __restrict__ z, const float* zp,\n"
-    "                         float* dz, float* dzp,\n",
+    "infonce_bwd_split_kernel(const T* __restrict__ z,\n":
+    "infonce_bwd_split_kernel(const T* __restrict__ z, const T* zp,\n"
+    "                         T* dz, T* dzp,\n",
     "      z, zn, lse, g, dzn, part, N, d, NS, tau, vec);":
     "      z, zp, dz, dzp, zn, lse, g, dzn, part, N, d, NS, tau, vec);",
     "    pb[j] = a;\n  }\n}\n":

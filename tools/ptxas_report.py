@@ -10,12 +10,14 @@ sources at once, into a temporary directory, and prints one line per
 kernel entry: its demangled template arguments where ``c++filt`` is
 there, registers, static shared memory (the dynamic part is set at
 launch: the sources state it), spill stores and loads, stack frame, and
-the count of ``HMMA`` (tensor-core) instructions in its SASS, from
-``cuobjdump -sass`` of the library just built.  Prints the card's name
-and power limit first when ``nvidia-smi`` is there.  Exits non-zero if a
-flash-attention kernel (forward or backward, any head dim) has no
-``HMMA`` (all three run on the tensor cores) or the forward spills, and
-names the backward kernels that spill.
+the count of its tensor-core instructions in its SASS, from ``cuobjdump
+-sass`` of the library just built: ``HMMA`` (mma.sync), ``HGMMA``
+(wgmma) and ``UTMALDG`` (TMA loads).  Prints the card's name and power
+limit first when ``nvidia-smi`` is there, and any ``ptxas`` warning.
+Exits non-zero if a flash-attention kernel (forward or backward, any head
+dim) has no tensor-core instruction, if a bf16 backward kernel (dq,
+dk/dv: wgmma fed by TMA) has no ``HGMMA`` or no ``UTMALDG`` or spills, or
+if the forward spills; names the other backward kernels that spill.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ STATS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
 REGS = re.compile(r"Used (\d+) registers")
 SMEM = re.compile(r"(\d+) bytes smem")
 SASS_FUNCTION = re.compile(r"Function : (\S+)")
+OPS = ("HMMA", "HGMMA", "UTMALDG")
 
 
 def demangle(name):
@@ -47,8 +50,9 @@ def demangle(name):
                           text=True).stdout.strip() or name
 
 
-def hmma_counts(library):
-    """{mangled kernel name: HMMA instructions} from the library's SASS."""
+def sass_counts(library):
+    """{mangled kernel name: {op: instructions} for each of ``OPS``} from
+    the library's SASS."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     r = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
                        text=True)
@@ -58,9 +62,11 @@ def hmma_counts(library):
     for line in r.stdout.splitlines():
         if m := SASS_FUNCTION.search(line):
             name = m.group(1)
-            counts[name] = 0
-        elif name is not None and "HMMA" in line:
-            counts[name] += 1
+            counts[name] = dict.fromkeys(OPS, 0)
+        elif name is not None:
+            for op in OPS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
     return counts
 
 
@@ -71,9 +77,11 @@ def report(source, out_dir):
                        capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{r.stderr}")
-    hmma = hmma_counts(library)
+    sass = sass_counts(library)
     lines, bad, notes, entry, stats = [], [], [], None, None
     for line in r.stderr.splitlines():
+        if "warning" in line.lower():
+            lines.append(f"{source}: {line.strip()}")
         if m := ENTRY.search(line):
             entry, stats = m.group(1), None
         elif m := STATS.search(line):
@@ -83,14 +91,22 @@ def report(source, out_dir):
             smem = SMEM.search(line)
             name = demangle(entry).replace("(anonymous namespace)::", "")
             name = name.split("(")[0]
+            ops = sass.get(entry, {})
             lines.append(f"{source}: {name}: {m.group(1)} "
                          f"registers, static smem "
                          f"{smem.group(1) if smem else 0} B, spill stores "
                          f"{stores} B, spill loads {loads} B, stack frame "
-                         f"{frame} B, HMMA {hmma.get(entry, '?')}")
+                         f"{frame} B, " + ", ".join(
+                             f"{op} {ops.get(op, '?')}" for op in OPS))
             spills = stores != "0" or loads != "0"
-            if "flash_" in name and not hmma.get(entry):
-                bad.append(f"{name} (no HMMA)")
+            wgmma = "flash_bwd_" in name and "bf16" in name
+            if wgmma and not (ops.get("HGMMA") and ops.get("UTMALDG")):
+                bad.append(f"{name} (no HGMMA or no UTMALDG)")
+            elif wgmma and spills:
+                bad.append(f"{name} (spills)")
+            elif "flash_" in name and not (ops.get("HMMA")
+                                           or ops.get("HGMMA")):
+                bad.append(f"{name} (no tensor-core instruction)")
             elif "flash_fwd" in name and spills:
                 bad.append(f"{name} (spills)")
             elif "flash_" in name and spills:
@@ -116,8 +132,9 @@ def main():
         print("backward kernels that spill: " + ", ".join(notes))
     if bad:
         sys.exit("flash-attention kernels at fault: " + ", ".join(bad))
-    print("every flash-attention kernel has HMMA; the forward spills at no "
-          "head dim")
+    print("every flash-attention kernel runs on the tensor cores, the bf16 "
+          "backward on HGMMA fed by UTMALDG without spills; the forward "
+          "spills at no head dim")
 
 
 if __name__ == "__main__":
