@@ -4322,9 +4322,13 @@ def phase15(cfg, ops):
               f"{par['max_abs_dz']:.3e}, {par['bitwise_frames']} bitwise")
 
     # --- (c) card against CPU ------------------------------------------------
+    # on a member clock that never moves, as the CPU tests run the lanes: on
+    # the wall clock the slower CPU members age and shed other frames, and
+    # the books (ticks, shed_expired, ...) then differ by timing alone
     runs = {dev: cs.cluster_chaos(2, replicate=True, device=dev, enc_cfg=cfg,
                                   params=params, spm=CLUSTER_CPU_SPM,
-                                  oracle=False) for dev in ("cuda", "cpu")}
+                                  oracle=False, clock=lambda: 0.0)
+            for dev in ("cuda", "cpu")}
     card = {(r.sid, r.t): r for r in runs["cuda"]["results"]}
     cpu = {(r.sid, r.t): r for r in runs["cpu"]["results"]}
     check(card.keys() == cpu.keys()
@@ -4343,7 +4347,8 @@ def phase15(cfg, ops):
     print(f"phase 15 (c): chaos with replication at 2 x {CLUSTER_CPU_SPM} "
           f"sessions, card vs CPU: {len(card)} frames with equal (sid, t, k, "
           f"route, wire_bytes), max |dz| {dz:.3e} (atol {cs.Z_ATOL}), every "
-          "ClusterStats book equal but the pause times")
+          "ClusterStats book equal but the pause times (a frozen member "
+          "clock)")
 
     # --- (e) the two demos on the card ---------------------------------------
     record["cluster_demo"] = cluster_demo.main(device="cuda")
@@ -6235,6 +6240,37 @@ def flash_bound(name, dt, shape, causal=True):
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
+def fwd_hold(ops, q, k, v, o, lse, causal, what, name="flash_attention_fwd"):
+    """A forward's o and lse at (q, k, v) against the plain version, at
+    phase 9's bars (float32) or phase 20's (bf16: o atol ``BF16_O_ATOL``,
+    each element within ``BF16_O_ULP`` |o| + ``BF16_P_RTOL`` sum p |v|,
+    lse ``BF16_LSE_ATOL``) -> (max |o err|, max |lse err|, the worst
+    element's share of the per-element bar, 0 in float32)."""
+    dt = q.dtype
+    ro, rlse = ops.flash_attention_ref(q, k, v, causal)
+    bf = dt == torch.bfloat16
+    o_err = (o.float() - ro.float()).abs().max().item()
+    lse_err = (lse - rlse).abs().max().item()
+    o_bar = BF16_O_ATOL if bf else FLASH_O_ATOL
+    lse_bar = BF16_LSE_ATOL if bf else FLASH_LSE_ATOL
+    check(o.dtype == dt and o_err <= o_bar and lse_err <= lse_bar,
+          f"{name} != plain at {what}: o {o.dtype} {o_err} "
+          f"(bar {o_bar}), lse {lse_err} (bar {lse_bar})")
+    o_ratio = 0.0
+    if bf:
+        # sum_j p_j |v_j|: the plain forward of |v| in float32
+        pv = ops.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                     causal)[0]
+        o_ratio = ((o.float() - ro.float()).abs() / (
+            BF16_O_ULP * ro.float().abs() + BF16_P_RTOL * pv).clamp_min(
+                1e-30)).max().item()
+        del pv
+        check(o_ratio <= 1.0, f"{name} != plain at {what}: "
+              f"an element of o beyond {BF16_O_ULP} |o| + {BF16_P_RTOL} "
+              f"sum p |v| ({o_ratio} of it)")
+    return o_err, lse_err, o_ratio
+
+
 def lm20_hold(g, dev, ops, dt, shape, causal):
     """The forward, dq and dk/dv kernels at ``shape`` in ``dt`` against
     their plain versions (bf16: ``BF16_*``; float32: phase 9's and 11's
@@ -6247,27 +6283,8 @@ def lm20_hold(g, dev, ops, dt, shape, causal):
     do = torch.randn(B, H, Sq, hd, device=dev, generator=g).to(dt)
     o, lse = same_bits(lambda *a: ops.flash_attention_fwd(*a, causal=causal),
                        (q, k, v), f"flash_attention_fwd at {what}")
-    ro, rlse = ops.flash_attention_ref(q, k, v, causal)
+    o_err, lse_err, o_ratio = fwd_hold(ops, q, k, v, o, lse, causal, what)
     bf = dt == torch.bfloat16
-    o_err = (o.float() - ro.float()).abs().max().item()
-    lse_err = (lse - rlse).abs().max().item()
-    o_bar = BF16_O_ATOL if bf else FLASH_O_ATOL
-    lse_bar = BF16_LSE_ATOL if bf else FLASH_LSE_ATOL
-    check(o.dtype == dt and o_err <= o_bar and lse_err <= lse_bar,
-          f"flash_attention_fwd != plain at {what}: o {o.dtype} {o_err} "
-          f"(bar {o_bar}), lse {lse_err} (bar {lse_bar})")
-    o_ratio = 0.0
-    if bf:
-        # sum_j p_j |v_j|: the plain forward of |v| in float32
-        pv = ops.flash_attention_ref(q.float(), k.float(), v.float().abs(),
-                                     causal)[0]
-        o_ratio = ((o.float() - ro.float()).abs() / (
-            BF16_O_ULP * ro.float().abs() + BF16_P_RTOL * pv).clamp_min(
-                1e-30)).max().item()
-        del pv
-        check(o_ratio <= 1.0, f"flash_attention_fwd != plain at {what}: "
-              f"an element of o beyond {BF16_O_ULP} |o| + {BF16_P_RTOL} "
-              f"sum p |v| ({o_ratio} of it)")
     args = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
     (dq,) = same_bits(lambda *a: (ops.flash_attention_bwd_dq(
         *a, causal=causal),), args, f"flash_attention_bwd_dq at {what}")
@@ -6776,20 +6793,22 @@ def lm20_records(total, worst, times):
     large tier's layer (qwen3-1.7b's), hd 112 at kimi-k2's, each with its
     launches on the ``lm_bf16`` path and its times at the other shapes."""
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
-                                                      bwd_bf16_attributes)
-    # the bf16 backward (wgmma, warp-specialised) as built: registers a
-    # thread at launch (the consumers rise to 232 with setmaxnreg) and
-    # local bytes (spills and stack), which must be none
-    attrs = {hd: bwd_bf16_attributes(hd) for hd in HEAD_DIMS}
-    print("phase 20: the bf16 backward kernels' registers at launch and "
-          "local bytes: " + "; ".join(
+                                                      bwd_bf16_attributes,
+                                                      fwd_bf16_attributes)
+    # the bf16 forward and backward (wgmma, warp-specialised) as built:
+    # registers a thread at launch (the consumers rise to 232 with
+    # setmaxnreg) and local bytes (spills and stack), which must be none
+    attrs = {hd: {"fwd": fwd_bf16_attributes(hd), **bwd_bf16_attributes(hd)}
+             for hd in HEAD_DIMS}
+    print("phase 20: the bf16 forward and backward kernels' registers at "
+          "launch and local bytes: " + "; ".join(
               f"hd {hd} " + ", ".join(f"{k} {a['registers']} / "
                                       f"{a['local_bytes']} B"
                                       for k, a in at.items())
               for hd, at in attrs.items()))
     check(all(a["local_bytes"] == 0 for at in attrs.values()
               for a in at.values()),
-          f"a bf16 backward kernel spills: {attrs}")
+          f"a bf16 flash kernel spills: {attrs}")
     records = []
     for v, tier in (("bf16", "large"), ("bf16_hd112", "kimi"),
                     ("f32_hd112", "kimi")):
@@ -6805,7 +6824,7 @@ def lm20_records(total, worst, times):
                 **times[v][tier][short], "launches_by_path": {"lm_bf16": n},
                 "other_shapes": {k: r[short] for k, r in times[v].items()
                                  if k != tier}})
-            if v.startswith("bf16") and short != "fwd":
+            if v.startswith("bf16"):
                 records[-1]["built"] = attrs[112 if "hd112" in v
                                              else 128][short]
     return records

@@ -96,6 +96,7 @@ SIGNATURES = {
         "flash_attention_bwd_dkv_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                           _I, _I, _I, _I, _I, _F, _I, _P],
                                          _I),
+        "flash_attention_fwd_bf16_attributes": ([_I, _P], _I),
         "flash_attention_bwd_bf16_attributes": ([_I, _P], _I),
         "flash_attention_error_string": ([_I], _S),
     },

@@ -1,8 +1,8 @@
 // Flash attention, forward and backward, float32 and bf16, on Hopper's
 // tensor cores (sm_90a).  The float32 kernels come first; the bf16
-// forward, which shares their structure, is in the section "bf16", and
-// the bf16 backward, on warpgroup MMAs fed by TMA, in the section "bf16
-// backward on Hopper's warpgroup tensor cores".
+// numerics are in the section "bf16", and the bf16 forward and backward,
+// on warpgroup MMAs fed by TMA, in the section "bf16 on Hopper's
+// warpgroup tensor cores".
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention.py: the
 // forward `_fwd` / `_fwd_kernel` (flash_fwd_kernel) and `_bwd_rule`'s
@@ -925,11 +925,9 @@ int launch_bwd_dkv(const float* q, const float* k, const float* v,
 // The three kernels for bf16 q, k, v and dO, which the TPU kernel takes as
 // well: it upcasts its tiles, computes in float32, and writes o, dq, dk
 // and dv in the input dtype, lse (and takes delta) in float32.  Here
-// every product runs on the tensor cores in bf16 with float32
-// accumulation: the forward below as a bf16 mma.sync
-// (m16n8k16.row.col.f32.bf16.bf16.f32), one issue where 3xTF32 takes
-// three, and 8 values a 16-byte cp.async; dq and dk/dv on wgmma (the next
-// section), with these numerics.  The
+// every product runs on Hopper's warpgroup tensor cores (`wgmma`, fed by
+// TMA copies: the section "bf16 on Hopper's warpgroup tensor cores") in
+// bf16 with float32 accumulation.  The
 // products q k^T and dO v^T are exact (a bf16 product fits a float32),
 // summed in float32.  The other operand of P V is bf16 already, but P
 // itself must be rounded to bf16 to meet it, and so must dS in dS k and
@@ -946,266 +944,15 @@ int launch_bwd_dkv(const float* q, const float* k, const float* v,
 // of q, k, v, dO, o, dq, dk and dv and 4 of lse and delta: operations
 // bound all three at the trainer's layers (chip_smoke.py phase 20 prints
 // each bound beside each time).
-//
-// Design (forward): the float32 kernel's (a warp owns 16 rows of the
-// output and runs every product of those rows; a two-stage cp.async ring;
-// the causal skips; a fixed order and no atomics, so two launches give
-// the same bits), with bf16 tiles in shared memory at a row pitch of hd + 8
-// values, (hd + 8) / 2 words: both fragment patterns of any 8 rows, a
-// word of one row (row g, columns 2t and 2t + 1) and a value of each of
-// two rows (rows 2t and 2t + 1, column g), then fall in distinct banks.
-// The m16n8 score accumulators of two neighbouring 8-column tiles are, in
-// the same registers, the m16n8k16 A fragment of the next product (lane
-// (g, t) holds columns 2t, 2t + 1 of rows g and g + 8 in both), so P goes
-// from the softmax to the tensor cores without leaving registers.
-// The o accumulator sums in the tensor cores across all tiles.  hd is a
-// multiple of 16 (7 k-steps at hd 112).  Tiles a block (4 warps): BQ 64,
-// BK 64: 45 KB at hd 64, 85 KB at hd 128.
 namespace bf {
 
 using u16 = unsigned short;
-
-template <int HD>
-__host__ __device__ constexpr int pitch() {
-  return HD + 8;
-}
-
-__device__ __forceinline__ void cp_async16(u16* dst, const u16* src,
-                                           bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-// rows row0 .. row0 + ROWS - 1 of a (S, HD) bf16 matrix into a tile, by
-// NT threads, 8 values a copy; rows past S are zero
-template <int ROWS, int HD, int NT>
-__device__ __forceinline__ void load_tile(u16* tile, const u16* src,
-                                          int row0, int S) {
-  constexpr int kChunks = HD / 8, P = pitch<HD>();
-  for (int e = threadIdx.x; e < ROWS * kChunks; e += NT) {
-    const int r = e / kChunks, c = (e % kChunks) * 8, row = row0 + r;
-    const bool in = row < S;
-    cp_async16(tile + r * P + c,
-               src + static_cast<size_t>(in ? row : 0) * HD + c, in);
-  }
-}
-
-// columns c and c + 1 of row r (c even): one word
-template <int P>
-__device__ __forceinline__ uint32_t pair(const u16* x, int r, int c) {
-  return *reinterpret_cast<const uint32_t*>(x + r * P + c);
-}
-
-// rows r and r + 1 of column c
-template <int P>
-__device__ __forceinline__ uint32_t pair_t(const u16* x, int r, int c) {
-  return static_cast<uint32_t>(x[r * P + c]) |
-         (static_cast<uint32_t>(x[(r + 1) * P + c]) << 16);
-}
 
 // lo and hi rounded to bf16 (to nearest even), lo in the low half
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c[m] = x[m] . y[m]^T for m < M: rows r0 .. r0+15 of x[m] against rows
-// 0 .. 8N-1 of y[m], both row-major (., HD) tiles; c[m][n] is the m16n8
-// tile of y's rows 8n .. 8n+7, summed over HD in the tensor cores
-template <int HD, int M, int N>
-__device__ __forceinline__ void scores(float (&c)[M][N][4],
-                                       const u16* const (&x)[M],
-                                       const u16* const (&y)[M], int r0,
-                                       int g, int t) {
-  constexpr int P = pitch<HD>();
-#pragma unroll
-  for (int m = 0; m < M; ++m) tc::zero(c[m]);
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int c0 = 16 * kk + 2 * t;
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      const uint32_t a[4] = {pair<P>(x[m], r0 + g, c0),
-                             pair<P>(x[m], r0 + g + 8, c0),
-                             pair<P>(x[m], r0 + g, c0 + 8),
-                             pair<P>(x[m], r0 + g + 8, c0 + 8)};
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        mma(c[m][n], a, pair<P>(y[m], 8 * n + g, c0),
-            pair<P>(y[m], 8 * n + g, c0 + 8));
-      }
-    }
-  }
-}
-
-// acc += c . y: c a 16 x 8N float32 score tile (N even), rounded to bf16
-// as the A operand, and y a row-major (8N, HD) tile; acc[nd] the m16n8
-// tile of output columns 8nd .. 8nd+7
-template <int HD, int N>
-__device__ __forceinline__ void accumulate(float (&acc)[HD / 8][4],
-                                           const float (&c)[N][4],
-                                           const u16* y, int g, int t) {
-  constexpr int P = pitch<HD>();
-  static_assert(N % 2 == 0, "the product's k steps are 16 wide");
-#pragma unroll
-  for (int j = 0; j < N / 2; ++j) {
-    const uint32_t a[4] = {pack(c[2 * j][0], c[2 * j][1]),
-                           pack(c[2 * j][2], c[2 * j][3]),
-                           pack(c[2 * j + 1][0], c[2 * j + 1][1]),
-                           pack(c[2 * j + 1][2], c[2 * j + 1][3])};
-#pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd) {
-      mma(acc[nd], a, pair_t<P>(y, 16 * j + 2 * t, 8 * nd + g),
-          pair_t<P>(y, 16 * j + 8 + 2 * t, 8 * nd + g));
-    }
-  }
-}
-
-// row g (half 0) or g + 8 (half 1) of an accumulator's columns 2t and
-// 2t + 1 times f, rounded to bf16, at out[8 nd + 2t]
-template <int ND>
-__device__ __forceinline__ void store_row(u16* out,
-                                          const float (&acc)[ND][4],
-                                          int half, int t, float f) {
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    *reinterpret_cast<uint32_t*>(out + 8 * nd + 2 * t) =
-        pack(__fmul_rn(acc[nd][2 * half], f),
-             __fmul_rn(acc[nd][2 * half + 1], f));
-  }
-}
-
-template <int HD, int BQ, int BK>
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(u16) * (BQ + 2 * 2 * BK) * pitch<HD>();
-}
-
-template <int HD, int BQ, int BK>
-__global__ void __launch_bounds__(2 * BQ)
-flash_fwd_bf16_kernel(const u16* __restrict__ q, const u16* __restrict__ k,
-                      const u16* __restrict__ v, u16* __restrict__ o,
-                      float* __restrict__ lse, int BH, int H, int KV, int Sq,
-                      int Sk, float scale, int causal) {
-  constexpr int kThreads = 2 * BQ;            // a warp per 16 query rows
-  constexpr int P = pitch<HD>();
-  constexpr int NT = BK / 8, ND = HD / 8;
-  constexpr int kStage = 2 * BK * P;
-  extern __shared__ float4 smem4[];
-  u16* qs = reinterpret_cast<u16*>(smem4);      // BQ x P
-  u16* ring = qs + BQ * P;                      // 2 stages: k, v
-
-  const int lane = threadIdx.x % 32, r0 = 16 * (threadIdx.x / 32);
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x % BH, qt = blockIdx.x / BH;
-  // under the mask the last query tiles have the most keys: they go first
-  const int q0 = (causal ? (Sq + BQ - 1) / BQ - 1 - qt : qt) * BQ;
-  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
-  const size_t rows0 = static_cast<size_t>(bh) * Sq;
-  const u16* kp = k + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
-  const u16* vp = v + (static_cast<size_t>(b) * KV + kvh) * Sk * HD;
-  auto k_at = [&](int st) { return ring + st * kStage; };
-  auto v_at = [&](int st) { return ring + st * kStage + kStage / 2; };
-
-  load_tile<BQ, HD, kThreads>(qs, q + rows0 * HD, q0, Sq);
-  load_tile<BK, HD, kThreads>(k_at(0), kp, 0, Sk);
-  load_tile<BK, HD, kThreads>(v_at(0), vp, 0, Sk);
-  tc::cp_async_commit();
-
-  int rows[2];
-  float m[2], l[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    rows[e] = q0 + r0 + g + 8 * e;
-    m[e] = kMaskValue;
-    l[e] = 0.0f;
-  }
-  float acc[ND][4];
-  tc::zero(acc);
-
-  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-  const int n_kt = (k_end + BK - 1) / BK;
-  for (int it = 0; it < n_kt; ++it) {
-    const int k0 = it * BK, st = it & 1;
-    if (it + 1 < n_kt) {
-      load_tile<BK, HD, kThreads>(k_at(st ^ 1), kp, k0 + BK, Sk);
-      load_tile<BK, HD, kThreads>(v_at(st ^ 1), vp, k0 + BK, Sk);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();
-    // a warp whose rows all precede the tile's first key has nothing here
-    if (!causal || k0 <= q0 + r0 + 15) {
-      float sc[1][NT][4];
-      scores<HD, 1, NT>(sc, {qs}, {k_at(st)}, r0, g, t);
-      float (&s)[NT][4] = sc[0];
-      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = k0 + 8 * n + 2 * t + (e & 1);
-          float x = __fmul_rn(s[n][e], scale);
-          if (j >= Sk) {
-            x = -CUDART_INF_F;                 // past the end: weighs 0
-          } else if (causal && j > rows[e / 2]) {
-            x = kMaskValue;
-          }
-          s[n][e] = x;
-          mx[e / 2] = fmaxf(mx[e / 2], x);
-        }
-      }
-      float alpha[2], sum[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float m_new = fmaxf(m[e], tc::quad_max(mx[e]));
-        alpha[e] = expf(__fsub_rn(m[e], m_new));
-        m[e] = m_new;
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[n][e] = expf(__fsub_rn(s[n][e], m[e / 2]));
-          sum[e / 2] = __fadd_rn(sum[e / 2], s[n][e]);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        l[e] = __fmaf_rn(l[e], alpha[e], tc::quad_sum(sum[e]));
-      }
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        acc[nd][0] = __fmul_rn(acc[nd][0], alpha[0]);
-        acc[nd][1] = __fmul_rn(acc[nd][1], alpha[0]);
-        acc[nd][2] = __fmul_rn(acc[nd][2], alpha[1]);
-        acc[nd][3] = __fmul_rn(acc[nd][3], alpha[1]);
-      }
-      accumulate<HD, NT>(acc, s, v_at(st), g, t);      // o += p v
-    }
-    __syncthreads();                 // the stage is consumed before refill
-  }
-
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    if (rows[e] >= Sq) continue;
-    const float denom = fmaxf(l[e], 1e-30f);
-    store_row(o + (rows0 + rows[e]) * HD, acc, e, t,
-              __fdiv_rn(1.0f, denom));
-    if (t == 0) lse[rows0 + rows[e]] = __fadd_rn(m[e], logf(denom));
-  }
 }
 
 // a kernel on `blocks` blocks of `threads`, with `smem` bytes of dynamic
@@ -1222,42 +969,33 @@ int launch(void (*kernel)(P...), long long blocks, int threads, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, int BQ, int BK>
-int launch_fwd(const u16* q, const u16* k, const u16* v, u16* o, float* lse,
-               int B, int H, int KV, int Sq, int Sk, float scale, int causal,
-               cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<HD, BQ, BK>();
-  static_assert(smem <= 232448, "over the 227 KB a block can use");
-  return launch(flash_fwd_bf16_kernel<HD, BQ, BK>,
-                static_cast<long long>((Sq + BQ - 1) / BQ) * B * H, 2 * BQ,
-                smem, stream, q, k, v, o, lse, B * H, H, KV, Sq, Sk, scale,
-                causal);
-}
-
 }  // namespace bf
 
 // ---------------------------------------------------------------------------
-// bf16 backward on Hopper's warpgroup tensor cores.
+// bf16 on Hopper's warpgroup tensor cores.
 //
-// The dq and dk/dv kernels for bf16 q, k, v and dO: the products of the
-// float32 backward (S = q k^T, dP = dO v^T, then dq += dS k, dv += P^T dO,
-// dk += dS^T q), each on `wgmma.mma_async` m64nNk16 bf16 with float32
-// accumulators, the only way to Hopper's bf16 rate (the forward above
-// keeps mma.sync).  The numerics are the section "bf16"'s: bf16 products
-// summed in float32, P and dS rounded to bf16 (to nearest even) where they
-// meet dO, q and k, everything else float32, dq, dk and dv rounded once as
-// they are written; the k steps of every product in ascending order, a
-// fixed order of sums and no atomics, so two launches give the same bits.
-// P = exp(S scale - lse) is one fmaf and one ex2.approx with the scale and
-// lse taken to base 2 (a few float32 ulps, far below the bf16 rounding of
-// P that follows): at the layer shapes the softmax's instructions, not
-// the products, set these kernels' time, and expf's range reduction is
-// several instructions more an element.
+// The forward, dq and dk/dv kernels for bf16 q, k, v and dO: the forward's
+// products (S = q k^T, then o += P v) and the float32 backward's (S = q
+// k^T, dP = dO v^T, then dq += dS k, dv += P^T dO, dk += dS^T q), each on
+// `wgmma.mma_async` m64nNk16 bf16 with float32 accumulators, the only way
+// to Hopper's bf16 rate.  The numerics are the section "bf16"'s: bf16
+// products summed in float32, P and dS rounded to bf16 (to nearest even)
+// where they meet v, dO, q and k, everything else float32, o, dq, dk and
+// dv rounded once as they are written; the k steps of every product in
+// ascending order, a fixed order of sums and no atomics, so two launches
+// give the same bits.  P = exp(S scale - lse) (the backward) and exp(S
+// scale - m) (the forward's online softmax) are one fmaf and one
+// ex2.approx with the scale and lse or m taken to base 2 (a few float32
+// ulps, far below the bf16 rounding of P that follows): at the layer
+// shapes the softmax's instructions, not the products, set these kernels'
+// time, and expf's range reduction is several instructions more an
+// element.
 //
-// Bound: as the mma.sync kernels' note above says, the products at 989
-// TFLOP/s bound both at the trainer's layers (dq 3 products, dk/dv 4).
+// Bound: as the section "bf16" says, the products at 989 TFLOP/s bound
+// all three at the trainer's layers (forward 2 products, dq 3, dk/dv 4).
 //
-// Design (warp specialisation).  A block is two consumer warpgroups and
+// Design of the backward (warp specialisation; the forward's is above its
+// kernel).  A block is two consumer warpgroups and
 // one producer warpgroup (384 threads).  Each consumer owns 64 rows of the
 // output: keys in dk/dv, queries in dq.  One producer thread issues every
 // copy as a TMA load (`cp.async.bulk.tensor.3d`) into a ring of kStages
@@ -1333,6 +1071,12 @@ struct Geo {
                                                                         : 3;
   static constexpr unsigned kAtom = 8 * kRowBytes;   // 8 rows: the swizzle's
   static constexpr int tile(int rows) { return kBoxes * rows * kRowBytes; }
+  // where byte b of row r of a box lies: the 16-byte chunk's index XOR
+  // the row's place in the swizzle (TMA's swizzle of kRowBytes)
+  static __device__ __forceinline__ int at(int r, int b) {
+    const int off = r * kRowBytes + b;
+    return off ^ (((off >> 7) & (kRowBytes / 16 - 1)) << 4);
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -1437,6 +1181,22 @@ __device__ __forceinline__ void wg_commit() {
 
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// until at most one of this warpgroup's committed wgmma groups is pending
+// (the older ones complete first)
+__device__ __forceinline__ void wg_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// named barrier `id` of `n` threads: sync waits until all n have
+// arrived, arrive does not wait
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // keeps the compiler from moving an accumulator across a wgmma boundary
@@ -2021,6 +1781,399 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// Design of the forward (FlashAttention-3's, on the backward's pieces).
+// A block is two consumer warpgroups of 64 query rows each (kFwdBQ = 128
+// rows of one (b, h) a query tile) and a producer warpgroup, 384 threads,
+// and it is persistent: one block an SM walks over query tiles (the ones
+// with the most key tiles first, dealt to the blocks in a snake order so
+// that each block's sum of work is about the mean), so that one tile's
+// loads run under the last one's softmax and store.  One producer thread
+// loads each tile's q by TMA into one of kFwdQBufs Q buffers, each with a
+// full and an empty `mbarrier`, and streams K and V through a ring of
+// stages of kFwdBK keys (as many as fit, up to kFwdMaxStages: 5 at hd 112
+// and 128, 8 below), each with a full and an empty `mbarrier`; the
+// consumers never copy and the main loop has no __syncthreads().  The
+// tensor maps are the backward's (3-D over (B*H, Sq, hd) and (B*KV, Sk,
+// hd)), so a ragged tile's rows past S are zero inside their own head and
+// hd 112's second box is zero past column 112.
+// Each consumer warpgroup computes S = Q K^T from shared memory (both
+// operands K-major, one m64n64 wgmma a k step), runs the online softmax in
+// registers (lane (g, t) of warp w holds columns 2t, 2t + 1 of rows 16w + g
+// and 16w + g + 8 of each 8-column group: the row max and sum over the 4
+// lanes of a quad by xor shuffles 1 and 2, a fixed order), rounds P to bf16
+// into the m64k16 A fragments straight from the accumulator registers, and
+// sums O += P V as register-A wgmma against V through the descriptor's
+// transpose bit (MN-major), dq's dS K.  m stays in natural units: the max
+// of s is taken raw (a positive scale keeps the order, so the rounded
+// product of the max is the max of the rounded products), p = ex2(fmaf(s,
+// scale log2e, -m log2e)), and lse = m + log(l).  l is summed by each lane
+// over its own columns and over the quad once at the end; O is rescaled by
+// alpha once a key tile, in registers.  o, rounded to bf16 once as acc (1 /
+// max(l, 1e-30)), goes into the warpgroup's own rows of its Q buffer (the
+// swizzle TMA wrote q in) and out as 16-byte stores of whole rows (4 bytes
+// a lane straight from the registers took longer, a TMA store about as
+// long); lse from the registers.
+// The schedule (kFwdOverlap): after the first key tile, a warpgroup issues
+// S of key tile j, then O += P V of tile j - 1, as two commit groups, and
+// runs tile j's softmax while the second is on the tensor cores
+// (FlashAttention-3's in-warpgroup overlap: S_j and P_{j-1} live at once).
+// kFwdPingPong makes the two warpgroups take turns to issue on named
+// barriers 1 and 2, so that one's softmax runs under the other's products
+// (the inter-warpgroup schedule, not taken: no faster here); a warpgroup
+// takes n_kt + 1 turns a query tile whatever its work, and warpgroup 0 the
+// last hand-over.  ptxas waits after every wgmma where a wgmma's
+// registers are touched while it runs, or where it takes a branch around
+// a wgmma or its wait for divergent (its notes C7514 and C7518;
+// tools/ptxas_report.py fails on them): so the loop is peeled (the first S
+// alone, the last P V alone), o is rescaled before a stage's first
+// wgmma, and the warpgroup index is broadcast by a shuffle, which ptxas
+// sees as uniform.  tools/flash_fwd_bf16_variants.py builds and times the
+// schedules, key tiles, rings, stores and grids this source does not
+// take, and probes that drop one part of the work.
+// Causal: a warpgroup skips the key tiles whose first key lies past all of
+// its 64 rows (exact: alpha 1, p 0), and one whose rows all lie past Sq
+// skips every tile; only the diagonal tile and the ragged last tile mask
+// (a zero-filled K row past Sk gives s = 0 and must weigh 0).  Registers:
+// at hd 128 O is 64 floats a consumer thread, S 32 and P 16 words.
+constexpr int kFwdBQ = 64 * kConsumers;
+constexpr int kFwdBK = 64, kFwdMaxStages = 8, kFwdQBufs = 2;
+constexpr bool kFwdOverlap = true, kFwdPingPong = false;
+
+// the forward's shared memory: kFwdQBufs Q buffers (kFwdBQ rows each),
+// then kStages stages of K and V (kFwdBK rows each: as many as fit, up to
+// kFwdMaxStages), then the barriers
+template <int HD>
+struct FwdSmem {
+  using G = Geo<HD>;
+  static constexpr int kQ = G::tile(kFwdBQ);
+  static constexpr int kK = G::tile(kFwdBK);
+  static constexpr int kStage = 2 * kK;
+  static constexpr int kFit =
+      (232448 - 1024 - 8 * (2 * kFwdMaxStages + 2 * kFwdQBufs) -
+       kFwdQBufs * kQ) / kStage;
+  static constexpr int kStages = kFit < kFwdMaxStages ? kFit : kFwdMaxStages;
+  static constexpr int kBars = kFwdQBufs * kQ + kStages * kStage;
+  static constexpr int kBytes =
+      kBars + 8 * (2 * kStages + 2 * kFwdQBufs) + 1024;
+};
+
+// a query tile: head bh (of B*H), rows q0 .. q0 + kFwdBQ - 1, n_kt key
+// tiles (none past the diagonal under the mask)
+struct FwdTile {
+  int bh, q0, n_kt;
+};
+
+// the block's round-th query tile, or bh -1 past the last: tile i is head
+// i % BH's query tile i / BH counted from the end under the mask (the
+// most key tiles first); round r deals tiles r G .. r G + G - 1 to the G
+// blocks, in reverse order on odd rounds
+__device__ __forceinline__ FwdTile fwd_tile(int round, int n_tiles, int BH,
+                                            int Sq, int Sk, int causal) {
+  const int G = gridDim.x;
+  const int i = round * G + (round & 1 ? G - 1 - blockIdx.x : blockIdx.x);
+  if (i >= n_tiles) return {-1, 0, 0};
+  const int qt = i / BH;
+  const int q0 = (causal ? (Sq + kFwdBQ - 1) / kFwdBQ - 1 - qt : qt) * kFwdBQ;
+  const int k_end = causal ? min(Sk, q0 + kFwdBQ) : Sk;
+  return {i % BH, q0, (k_end + kFwdBK - 1) / kFwdBK};
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      u16* __restrict__ o, float* __restrict__ lse, int BH,
+                      int H, int KV, int Sq, int Sk, float scale, int causal,
+                      int n_tiles) {
+  using G = Geo<HD>;
+  using L = FwdSmem<HD>;
+  constexpr int BQ = kFwdBQ, BK = kFwdBK, NS = BK / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* stages = smem + kFwdQBufs * L::kQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* q_full = empty + L::kStages;
+  uint64_t* q_empty = q_full + kFwdQBufs;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * kConsumers);
+    }
+    for (int b = 0; b < kFwdQBufs; ++b) {
+      mbar_init(&q_full[b], 1);
+      mbar_init(&q_empty[b], kConsumers);      // a thread a warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the warpgroup, as a value ptxas sees is the same across each warp:
+  // the wgmma issues and waits below sit under branches on it, and a
+  // branch ptxas takes for divergent serializes every wgmma (C7518)
+  const int wg =
+      __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == kConsumers) {
+    // the producer: one thread loads; the others leave
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 != 0) return;
+    int kv = 0;                                  // K/V tiles streamed
+    for (int round = 0;; ++round) {
+      const FwdTile tile = fwd_tile(round, n_tiles, BH, Sq, Sk, causal);
+      if (tile.bh < 0) break;
+      const int b = round % kFwdQBufs;
+      mbar_wait(&q_empty[b], ((round / kFwdQBufs) & 1) ^ 1);
+      mbar_expect_tx(&q_full[b], L::kQ);
+      tma_tile<HD>(smem + b * L::kQ, &tq, &q_full[b], tile.q0, tile.bh, BQ);
+      const int bkv = tile.bh / H * KV + tile.bh % H / (H / KV);
+      for (int kt = 0; kt < tile.n_kt; ++kt, ++kv) {
+        const int s = kv % L::kStages;
+        mbar_wait(&empty[s], ((kv / L::kStages) & 1) ^ 1);
+        unsigned char* st = stages + s * L::kStage;
+        mbar_expect_tx(&full[s], L::kStage);
+        tma_tile<HD>(st, &tk, &full[s], kt * BK, bkv, BK);
+        tma_tile<HD>(st + L::kK, &tv, &full[s], kt * BK, bkv, BK);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float scale2 = __fmul_rn(scale, kLog2e);
+  const uint32_t st0 = smem_u32(stages);
+  int kv = 0;                                    // K/V tiles consumed
+  for (int round = 0;; ++round) {
+    const FwdTile tile = fwd_tile(round, n_tiles, BH, Sq, Sk, causal);
+    if (tile.bh < 0) break;
+    const int n_kt = tile.n_kt;
+    const int qb = round % kFwdQBufs;
+    unsigned char* qs = smem + qb * L::kQ;
+    const uint32_t qa = smem_u32(qs);
+    const int qw = tile.q0 + 64 * wg;            // this warpgroup's queries
+    // its key tiles: the first n_own of the tile's (none past its rows'
+    // diagonal, none at all if its rows all lie past Sq)
+    const int n_own = qw >= Sq ? 0
+                      : causal ? min(n_kt, (qw + 63) / BK + 1)
+                               : n_kt;
+    int rows[2];
+    float m[2], l[2], alpha[2] = {1.0f, 1.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rows[h] = qw + 16 * w + g + 8 * h;
+      m[h] = kMaskValue;
+      l[h] = 0.0f;
+    }
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+    float sc[NS][32];                            // S, then P, of a tile
+    uint32_t pa[NS][4][4];                       // P of the one before, bf16
+
+    auto issue_s = [&](uint32_t ka) {
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < G::kSteps; ++kk) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          ss_m64n64(sc[n], kmajor<HD>(qa, BQ, 64 * wg, kk),
+                    kmajor<HD>(ka, BK, 64 * n, kk), kk);
+        }
+      }
+      wg_commit();
+    };
+    auto issue_pv = [&](uint32_t va) {          // o += P v
+      wg_fence();
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {
+          rs<HD>(acc, pa[n][kq], mnmajor<HD>(va, BK, 4 * n + kq));
+        }
+      }
+      wg_commit();
+    };
+
+    // the online softmax of key tile kt's S, in place: sc becomes P
+    auto softmax = [&](int kt) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) fence_regs(sc[n]);
+      const int k0 = kt * BK;
+      // the diagonal tile and the ragged last one mask
+      if ((causal && k0 + BK - 1 > qw) || k0 + BK > Sk) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int j = k0 + 64 * n + 8 * (e / 4) + 2 * t + (e & 1);
+            if (j >= Sk || (causal && j > rows[(e >> 1) & 1])) {
+              sc[n][e] = -CUDART_INF_F;          // weighs 0
+            }
+          }
+        }
+      }
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[n][e]);
+        }
+      }
+      float mneg[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new =
+            fmaxf(m[h], __fmul_rn(tc::quad_max(mx[h]), scale));
+        alpha[h] = ex2(__fmul_rn(__fsub_rn(m[h], m_new), kLog2e));
+        m[h] = m_new;
+        mneg[h] = -__fmul_rn(m_new, kLog2e);
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int h = (e >> 1) & 1;
+          sc[n][e] = ex2(__fmaf_rn(sc[n][e], scale2, mneg[h]));
+          sum[h] = __fadd_rn(sum[h], sc[n][e]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = __fmaf_rn(l[h], alpha[h], sum[h]);
+    };
+    // o = alpha o, before any wgmma of a stage is issued: ptxas serializes
+    // every wgmma if o's registers are touched while S is in flight
+    auto rescale = [&] {
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) {
+        acc[i] = __fmul_rn(acc[i], alpha[(i >> 1) & 1]);
+      }
+    };
+    auto stage = [&](int kt) { return (kv + kt) % L::kStages; };
+    auto wait_full = [&](int kt) {
+      mbar_wait(&full[stage(kt)], ((kv + kt) / L::kStages) & 1);
+    };
+    auto k_at = [&](int kt) { return st0 + stage(kt) * L::kStage; };
+    // the ping-pong: this warpgroup's turn to issue, then the other's
+    auto turn = [&] {
+      if (kFwdPingPong) bar_sync(1 + wg, 256);
+    };
+    auto hand_over = [&] {
+      if (kFwdPingPong) bar_arrive(2 - wg, 256);
+    };
+
+    // the ping-pong's first turn is warpgroup 0's; each warpgroup takes
+    // n_kt + 1 turns a query tile: one for each key tile's S (the first's
+    // alone, the others' with the P V before), one for the last P V
+    if (kFwdPingPong && wg == 0) bar_arrive(1, 256);
+    mbar_wait(&q_full[qb], (round / kFwdQBufs) & 1);
+    if (n_own > 0) {
+      wait_full(0);
+      turn();
+      issue_s(k_at(0));
+      hand_over();
+      wg_wait_all();
+      softmax(0);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) a_fragments(pa[n], sc[n]);
+    }
+    // key tile kt's S and softmax, and key tile kt - 1's P V, in one stage
+    for (int kt = 1; kt < n_own; ++kt) {
+      wait_full(kt);
+      rescale();
+      turn();
+      if (kFwdOverlap) {
+        issue_s(k_at(kt));
+        issue_pv(k_at(kt - 1) + L::kK);
+        hand_over();
+        wg_wait_one();                            // S is done, P V runs on
+        softmax(kt);
+        wg_wait_all();
+      } else {
+        issue_pv(k_at(kt - 1) + L::kK);
+        issue_s(k_at(kt));
+        hand_over();
+        wg_wait_all();
+        softmax(kt);
+      }
+      fence_regs(acc);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) fence_regs(sc[n]);
+      mbar_arrive(&empty[stage(kt - 1)]);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) a_fragments(pa[n], sc[n]);
+    }
+    turn();
+    if (n_own > 0) {                             // the last tile's P V
+      rescale();
+      issue_pv(k_at(n_own - 1) + L::kK);
+      hand_over();
+      wg_wait_all();
+      fence_regs(acc);
+      mbar_arrive(&empty[stage(n_own - 1)]);
+    } else {
+      hand_over();
+    }
+    // the key tiles past this warpgroup's rows: released unread
+    for (int kt = n_own; kt < n_kt; ++kt) {
+      wait_full(kt);
+      turn();
+      hand_over();
+      mbar_arrive(&empty[stage(kt)]);
+    }
+    // warpgroup 1's last turn ends on barrier 1: taken, so both end even
+    if (kFwdPingPong && wg == 0) bar_sync(1, 256);
+    kv += n_kt;
+
+    // o = acc / max(l, 1e-30), rounded to bf16 into this warpgroup's rows
+    // of the Q buffer (its last S is done; the other warpgroup reads only
+    // its own rows), swizzled as TMA wrote q; then one thread stores the
+    // rows by TMA and, once they are read, frees the buffer
+    if (qw < Sq) {
+      const size_t rows0 = static_cast<size_t>(tile.bh) * Sq;
+      float f[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float denom = fmaxf(tc::quad_sum(l[h]), 1e-30f);
+        f[h] = __fdiv_rn(1.0f, denom);
+        if (t == 0 && rows[h] < Sq) {
+          lse[rows0 + rows[h]] = __fadd_rn(m[h], logf(denom));
+        }
+      }
+      unsigned char* os = qs + 64 * wg * G::kRowBytes;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        const int c = 8 * n + 2 * t;             // this lane's two columns
+        unsigned char* box = os + (c / G::kBoxCols) * BQ * G::kRowBytes;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<uint32_t*>(
+              box + G::at(16 * w + g + 8 * h, 2 * (c % G::kBoxCols))) =
+              pack(__fmul_rn(acc[4 * n + 2 * h], f[h]),
+                   __fmul_rn(acc[4 * n + 2 * h + 1], f[h]));
+        }
+      }
+      // 16 bytes a thread a copy, a row's in order: whole lines
+      bar_sync(3 + wg, 128);
+      constexpr int kRowChunks = HD / 8;
+      for (int q = threadIdx.x % 128; q < 64 * kRowChunks; q += 128) {
+        const int r = q / kRowChunks, c = 8 * (q % kRowChunks);
+        if (qw + r < Sq) {
+          const unsigned char* box =
+              os + (c / G::kBoxCols) * BQ * G::kRowBytes;
+          *reinterpret_cast<uint4*>(o + (rows0 + qw + r) * HD + c) =
+              *reinterpret_cast<const uint4*>(
+                  box + G::at(r, 2 * (c % G::kBoxCols)));
+        }
+      }
+      bar_sync(3 + wg, 128);
+    }
+    if (threadIdx.x % 128 == 0) mbar_arrive(&q_empty[qb]);
+  }
+}
+
 // cuTensorMapEncodeTiled, found through the runtime's entry-point query
 // (so the library needs no -lcuda), or null
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -2132,12 +2285,45 @@ int launch_bwd_dkv(const u16* q, const u16* k, const u16* v, const u16* dout,
 }
 
 template <int HD>
+int launch_fwd(const u16* q, const u16* k, const u16* v, u16* o, float* lse,
+               int B, int H, int KV, int Sq, int Sk, float scale, int causal,
+               cudaStream_t stream) {
+  constexpr size_t smem = FwdSmem<HD>::kBytes;
+  static_assert(smem <= 232448, "over the 227 KB a block can use");
+  // q in boxes of the block's rows, k and v of a tile's
+  CUtensorMap m[3];
+  cudaError_t err = tensor_map<HD>(&m[0], q, Sq, B * H, kFwdBQ);
+  if (err == cudaSuccess) err = tensor_map<HD>(&m[1], k, Sk, B * KV, kFwdBK);
+  if (err == cudaSuccess) err = tensor_map<HD>(&m[2], v, Sk, B * KV, kFwdBK);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles =
+      static_cast<long long>((Sq + kFwdBQ - 1) / kFwdBQ) * B * H;
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // a block an SM, each walking over its share of the query tiles
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return bf::launch(flash_fwd_bf16_kernel<HD>, tiles < sms ? tiles : sms,
+                    kThreads, smem, stream, m[0], m[1], m[2], o, lse,
+                    B * H, H, KV, Sq, Sk, scale, causal,
+                    static_cast<int>(tiles));
+}
+
+template <int HD>
 cudaError_t attributes(cudaFuncAttributes* dq, cudaFuncAttributes* dkv) {
   const cudaError_t err =
       cudaFuncGetAttributes(dq, flash_bwd_dq_bf16_kernel<HD>);
   return err != cudaSuccess
              ? err
              : cudaFuncGetAttributes(dkv, flash_bwd_dkv_bf16_kernel<HD>);
+}
+
+template <int HD>
+cudaError_t fwd_attributes(cudaFuncAttributes* fwd) {
+  return cudaFuncGetAttributes(fwd, flash_fwd_bf16_kernel<HD>);
 }
 
 }  // namespace hb
@@ -2260,15 +2446,15 @@ int flash_attention_fwd_bf16(const u16* q, const u16* k, const u16* v,
   if (bad != cudaSuccess) return static_cast<int>(bad);
   switch (hd) {
     case 16:
-      return bf::launch_fwd<16, 64, 64>(FWD_ARGS);
+      return hb::launch_fwd<16>(FWD_ARGS);
     case 32:
-      return bf::launch_fwd<32, 64, 64>(FWD_ARGS);
+      return hb::launch_fwd<32>(FWD_ARGS);
     case 64:
-      return bf::launch_fwd<64, 64, 64>(FWD_ARGS);
+      return hb::launch_fwd<64>(FWD_ARGS);
     case 112:
-      return bf::launch_fwd<112, 64, 64>(FWD_ARGS);
+      return hb::launch_fwd<112>(FWD_ARGS);
     case 128:
-      return bf::launch_fwd<128, 64, 64>(FWD_ARGS);
+      return hb::launch_fwd<128>(FWD_ARGS);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -2354,6 +2540,38 @@ int flash_attention_bwd_bf16_attributes(int hd, int* out) {
   out[1] = static_cast<int>(dq.localSizeBytes);
   out[2] = dkv.numRegs;
   out[3] = static_cast<int>(dkv.localSizeBytes);
+  return 0;
+}
+
+// The bf16 forward kernel's attributes at head dim hd, for the record:
+// out[0] its registers a thread at launch, out[1] its local memory (spills
+// and stack) in bytes a thread.  The consumer warpgroups run with
+// kConsumerRegs after setmaxnreg.
+int flash_attention_fwd_bf16_attributes(int hd, int* out) {
+  cudaFuncAttributes fwd;
+  cudaError_t err;
+  switch (hd) {
+    case 16:
+      err = hb::fwd_attributes<16>(&fwd);
+      break;
+    case 32:
+      err = hb::fwd_attributes<32>(&fwd);
+      break;
+    case 64:
+      err = hb::fwd_attributes<64>(&fwd);
+      break;
+    case 112:
+      err = hb::fwd_attributes<112>(&fwd);
+      break;
+    case 128:
+      err = hb::fwd_attributes<128>(&fwd);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fwd.numRegs;
+  out[1] = static_cast<int>(fwd.localSizeBytes);
   return 0;
 }
 

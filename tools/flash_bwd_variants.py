@@ -99,9 +99,10 @@ def patched(text, name, subs):
 def compile_all(build, variants=None, kernels="flash_bwd",
                 out="flash_bwd_variants", source=SOURCE, suffix=""):
     """{name: (library path, ptxas lines of the kernels whose names hold
-    ``kernels``)} for ``csrc/<source>`` and every variant of it
-    (``VARIANTS`` unless given: {name: {old text: new text}}), each copy
-    ending in ``suffix``, compiled at once into ``build/<out>/``."""
+    ``kernels``: registers, spills, serialized wgmma)} for
+    ``csrc/<source>`` and every variant of it (``VARIANTS`` unless given:
+    {name: {old text: new text}}), each copy ending in ``suffix``,
+    compiled at once into ``build/<out>/``."""
     out_dir = os.path.join(ROOT, "build", out)
     os.makedirs(out_dir, exist_ok=True)
     text = (build.CSRC / source).read_text()
@@ -123,6 +124,8 @@ def compile_all(build, variants=None, kernels="flash_bwd",
         for line in r.stderr.splitlines():
             if m := ENTRY.search(line):
                 entry = m.group(1) if kernels in m.group(1) else None
+            elif "serialized" in line and kernels in line:
+                lines.append("ptxas: " + line.split(":", 1)[-1].strip())
             elif entry and ("spill" in line or "registers" in line):
                 lines.append(f"{entry[-60:]}: {line.split(':')[-1].strip()}")
         return name, (lib, lines)

@@ -15,9 +15,11 @@ the count of its tensor-core instructions in its SASS, from ``cuobjdump
 (wgmma) and ``UTMALDG`` (TMA loads).  Prints the card's name and power
 limit first when ``nvidia-smi`` is there, and any ``ptxas`` warning.
 Exits non-zero if a flash-attention kernel (forward or backward, any head
-dim) has no tensor-core instruction, if a bf16 backward kernel (dq,
-dk/dv: wgmma fed by TMA) has no ``HGMMA`` or no ``UTMALDG`` or spills, or
-if the forward spills; names the other backward kernels that spill.
+dim) has no tensor-core instruction, if a bf16 kernel (the forward, dq,
+dk/dv: wgmma fed by TMA) has no ``HGMMA`` or no ``UTMALDG``, spills, or
+has its wgmma serialized by ptxas (its notes C7514 / C7518: a wait after
+every wgmma), or if the float32 forward spills; names the other backward
+kernels that spill.
 """
 from __future__ import annotations
 
@@ -40,6 +42,9 @@ STATS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
 REGS = re.compile(r"Used (\d+) registers")
 SMEM = re.compile(r"(\d+) bytes smem")
 SASS_FUNCTION = re.compile(r"Function : (\S+)")
+# ptxas's note that it waits for every wgmma of a function in turn
+SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized.*"
+                        r"function '([^']+)'")
 OPS = ("HMMA", "HGMMA", "UTMALDG")
 
 
@@ -78,6 +83,7 @@ def report(source, out_dir):
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{r.stderr}")
     sass = sass_counts(library)
+    serialized = set(SERIALIZED.findall(r.stderr))
     lines, bad, notes, entry, stats = [], [], [], None, None
     for line in r.stderr.splitlines():
         if "warning" in line.lower():
@@ -99,9 +105,11 @@ def report(source, out_dir):
                          f"{frame} B, " + ", ".join(
                              f"{op} {ops.get(op, '?')}" for op in OPS))
             spills = stores != "0" or loads != "0"
-            wgmma = "flash_bwd_" in name and "bf16" in name
+            wgmma = "flash_" in name and "bf16" in name
             if wgmma and not (ops.get("HGMMA") and ops.get("UTMALDG")):
                 bad.append(f"{name} (no HGMMA or no UTMALDG)")
+            elif wgmma and entry in serialized:
+                bad.append(f"{name} (wgmma serialized by ptxas)")
             elif wgmma and spills:
                 bad.append(f"{name} (spills)")
             elif "flash_" in name and not (ops.get("HMMA")
@@ -133,8 +141,8 @@ def main():
     if bad:
         sys.exit("flash-attention kernels at fault: " + ", ".join(bad))
     print("every flash-attention kernel runs on the tensor cores, the bf16 "
-          "backward on HGMMA fed by UTMALDG without spills; the forward "
-          "spills at no head dim")
+          "forward and backward on HGMMA fed by UTMALDG without spills or "
+          "serialized wgmma; the float32 forward spills at no head dim")
 
 
 if __name__ == "__main__":
