@@ -1110,6 +1110,13 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// orders this thread's generic-proxy accesses to shared memory before the
+// async-proxy ones (a TMA load) that a later barrier arrive releases: the
+// PTX memory model orders the two proxies only through this fence
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // until the phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   asm volatile(
@@ -1189,14 +1196,9 @@ __device__ __forceinline__ void wg_wait_one() {
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
-// named barrier `id` of `n` threads: sync waits until all n have
-// arrived, arrive does not wait
+// named barrier `id` of `n` threads: waits until all n have arrived
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // keeps the compiler from moving an accumulator across a wgmma boundary
@@ -1813,15 +1815,14 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 // swizzle TMA wrote q in) and out as 16-byte stores of whole rows (4 bytes
 // a lane straight from the registers took longer, a TMA store about as
 // long); lse from the registers.
-// The schedule (kFwdOverlap): after the first key tile, a warpgroup issues
-// S of key tile j, then O += P V of tile j - 1, as two commit groups, and
-// runs tile j's softmax while the second is on the tensor cores
-// (FlashAttention-3's in-warpgroup overlap: S_j and P_{j-1} live at once).
-// kFwdPingPong makes the two warpgroups take turns to issue on named
-// barriers 1 and 2, so that one's softmax runs under the other's products
-// (the inter-warpgroup schedule, not taken: no faster here); a warpgroup
-// takes n_kt + 1 turns a query tile whatever its work, and warpgroup 0 the
-// last hand-over.  ptxas waits after every wgmma where a wgmma's
+// The schedule: after the first key tile, a warpgroup issues S of key tile
+// j, then O += P V of tile j - 1, as two commit groups, and runs tile j's
+// softmax while the second is on the tensor cores (FlashAttention-3's
+// in-warpgroup overlap: S_j and P_{j-1} live at once).  The
+// inter-warpgroup ping-pong (the two warpgroups taking turns to issue on
+// named barriers) was no faster here, and P V before S with no overlap
+// slower: both stay as patches in tools/flash_fwd_bf16_variants.py.
+// ptxas waits after every wgmma where a wgmma's
 // registers are touched while it runs, or where it takes a branch around
 // a wgmma or its wait for divergent (its notes C7514 and C7518;
 // tools/ptxas_report.py fails on them): so the loop is peeled (the first S
@@ -1837,7 +1838,6 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 // at hd 128 O is 64 floats a consumer thread, S 32 and P 16 words.
 constexpr int kFwdBQ = 64 * kConsumers;
 constexpr int kFwdBK = 64, kFwdMaxStages = 8, kFwdQBufs = 2;
-constexpr bool kFwdOverlap = true, kFwdPingPong = false;
 
 // the forward's shared memory: kFwdQBufs Q buffers (kFwdBQ rows each),
 // then kStages stages of K and V (kFwdBK rows each: as many as fit, up to
@@ -2056,24 +2056,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(&full[stage(kt)], ((kv + kt) / L::kStages) & 1);
     };
     auto k_at = [&](int kt) { return st0 + stage(kt) * L::kStage; };
-    // the ping-pong: this warpgroup's turn to issue, then the other's
-    auto turn = [&] {
-      if (kFwdPingPong) bar_sync(1 + wg, 256);
-    };
-    auto hand_over = [&] {
-      if (kFwdPingPong) bar_arrive(2 - wg, 256);
-    };
 
-    // the ping-pong's first turn is warpgroup 0's; each warpgroup takes
-    // n_kt + 1 turns a query tile: one for each key tile's S (the first's
-    // alone, the others' with the P V before), one for the last P V
-    if (kFwdPingPong && wg == 0) bar_arrive(1, 256);
     mbar_wait(&q_full[qb], (round / kFwdQBufs) & 1);
     if (n_own > 0) {
       wait_full(0);
-      turn();
       issue_s(k_at(0));
-      hand_over();
       wg_wait_all();
       softmax(0);
 #pragma unroll
@@ -2083,21 +2070,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kt = 1; kt < n_own; ++kt) {
       wait_full(kt);
       rescale();
-      turn();
-      if (kFwdOverlap) {
-        issue_s(k_at(kt));
-        issue_pv(k_at(kt - 1) + L::kK);
-        hand_over();
-        wg_wait_one();                            // S is done, P V runs on
-        softmax(kt);
-        wg_wait_all();
-      } else {
-        issue_pv(k_at(kt - 1) + L::kK);
-        issue_s(k_at(kt));
-        hand_over();
-        wg_wait_all();
-        softmax(kt);
-      }
+      issue_s(k_at(kt));
+      issue_pv(k_at(kt - 1) + L::kK);
+      wg_wait_one();                              // S is done, P V runs on
+      softmax(kt);
+      wg_wait_all();
       fence_regs(acc);
 #pragma unroll
       for (int n = 0; n < NS; ++n) fence_regs(sc[n]);
@@ -2105,32 +2082,25 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int n = 0; n < NS; ++n) a_fragments(pa[n], sc[n]);
     }
-    turn();
     if (n_own > 0) {                             // the last tile's P V
       rescale();
       issue_pv(k_at(n_own - 1) + L::kK);
-      hand_over();
       wg_wait_all();
       fence_regs(acc);
       mbar_arrive(&empty[stage(n_own - 1)]);
-    } else {
-      hand_over();
     }
     // the key tiles past this warpgroup's rows: released unread
     for (int kt = n_own; kt < n_kt; ++kt) {
       wait_full(kt);
-      turn();
-      hand_over();
       mbar_arrive(&empty[stage(kt)]);
     }
-    // warpgroup 1's last turn ends on barrier 1: taken, so both end even
-    if (kFwdPingPong && wg == 0) bar_sync(1, 256);
     kv += n_kt;
 
     // o = acc / max(l, 1e-30), rounded to bf16 into this warpgroup's rows
     // of the Q buffer (its last S is done; the other warpgroup reads only
-    // its own rows), swizzled as TMA wrote q; then one thread stores the
-    // rows by TMA and, once they are read, frees the buffer
+    // its own rows), swizzled as TMA wrote q; then the warpgroup copies the
+    // rows out and, once every thread has fenced its accesses against the
+    // next TMA load of q, one thread frees the buffer
     if (qw < Sq) {
       const size_t rows0 = static_cast<size_t>(tile.bh) * Sq;
       float f[2];
@@ -2168,6 +2138,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                   box + G::at(r, 2 * (c % G::kBoxCols)));
         }
       }
+      fence_proxy_async();
       bar_sync(3 + wg, 128);
     }
     if (threadIdx.x % 128 == 0) mbar_arrive(&q_empty[qb]);

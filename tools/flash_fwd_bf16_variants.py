@@ -6,18 +6,18 @@ rejected.
 
 ``csrc/flash_attention.cu``'s bf16 forward (``hb::flash_fwd_bf16_kernel``)
 streams ``kFwdBK`` keys a tile through ``kFwdStages`` stages, on a
-persistent grid (a block an SM), and takes one of FlashAttention-3's two
-schedules, or both, by ``kFwdOverlap`` (a warpgroup issues S of tile j and
-P V of tile j - 1 together and runs tile j's softmax under the second) and
-``kFwdPingPong`` (the two consumer warpgroups take turns to issue on named
-barriers, one's softmax under the other's products).  This script builds
+persistent grid (a block an SM), and takes FlashAttention-3's
+in-warpgroup overlap (a warpgroup issues S of tile j and P V of tile j - 1
+together and runs tile j's softmax under the second).  This script builds
 each other choice in a copy of the source, compiled beside it into
 ``build/flash_fwd_bf16_variants/`` with the build's flags and ``-Xptxas
 -v`` (``VARIANTS``: text patches of the source):
 
-- ``serial``, ``pingpong``, ``both``, ``overlap``: the schedules that
-  the source does not take (neither; the turns alone; both; the
-  in-warpgroup overlap alone);
+- ``serial``, ``pingpong``, ``both``: the schedules that the source does
+  not take (``schedule``: P V then S, then the softmax, with no overlap;
+  the inter-warpgroup ping-pong alone, the two consumer warpgroups taking
+  turns to issue on named barriers, one's softmax under the other's
+  products; both);
 - ``bk128_one_q_*``: each schedule with 128-key tiles (S one m64n128
   product) in three stages beside one Q buffer (the next tile's q waits
   for this tile's o); ``bk128``: 128-key tiles in two stages beside two
@@ -63,9 +63,98 @@ with open(os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
                        SOURCE)) as _f:
     CU = _f.read()
 BK = "constexpr int kFwdBK = 64, kFwdMaxStages = 8, kFwdQBufs = 2;"
-SCHEDULE = "constexpr bool kFwdOverlap = true, kFwdPingPong = false;"
+# the consumers' main loop, from q's wait to the count of K/V tiles
+LOOP = CU[CU.index("    mbar_wait(&q_full[qb]"):CU.index("    kv += n_kt;\n")]
+# bar.arrive on a named barrier, which the ping-pong's hand-over needs
+BAR_ARRIVE = ("__device__ __forceinline__ void bar_arrive(int id, int n) {\n"
+              '  asm volatile("bar.arrive %0, %1;\\n" ::"r"(id), "r"(n) : '
+              '"memory");\n}\n\n')
+FENCE_REGS = "// keeps the compiler from moving an accumulator across a wgmma"
 SCHEDULES = {"serial": (False, False), "pingpong": (False, True),
-             "both": (True, True)}
+             "both": (True, True), "overlap": (True, False)}
+
+
+def schedule(overlap, pingpong):
+    """The consumers' main loop (``LOOP``) under the in-warpgroup overlap
+    (S of tile j issued before P V of tile j - 1, the softmax of j under
+    the second) or not (P V then S, then the softmax), with or without the
+    ping-pong: the two warpgroups take turns to issue on named barriers 1
+    and 2, warpgroup 0 first; each takes n_kt + 1 turns a query tile (one
+    for each key tile's S, the first's alone and the others' with the P V
+    before, one for the last P V) whatever its work, and warpgroup 0 ends
+    on the last hand-over.  ``schedule(True, False)`` is the source's."""
+    def turn(ind):
+        return " " * ind + "turn();\n" if pingpong else ""
+
+    def hand_over(ind):
+        return " " * ind + "hand_over();\n" if pingpong else ""
+    pre = ""
+    if pingpong:
+        pre = ("    auto turn = [&] { bar_sync(1 + wg, 256); };\n"
+               "    auto hand_over = [&] { bar_arrive(2 - wg, 256); };\n"
+               "    if (wg == 0) bar_arrive(1, 256);\n")
+    if overlap:
+        stage = ("      issue_s(k_at(kt));\n"
+                 "      issue_pv(k_at(kt - 1) + L::kK);\n" + hand_over(6) +
+                 "      wg_wait_one();                              "
+                 "// S is done, P V runs on\n"
+                 "      softmax(kt);\n"
+                 "      wg_wait_all();\n")
+    else:
+        stage = ("      issue_pv(k_at(kt - 1) + L::kK);\n"
+                 "      issue_s(k_at(kt));\n" + hand_over(6) +
+                 "      wg_wait_all();\n"
+                 "      softmax(kt);\n")
+    last_end = "    } else {\n" + hand_over(6) + "    }\n" if pingpong \
+        else "    }\n"
+    return (
+        pre + "    mbar_wait(&q_full[qb], (round / kFwdQBufs) & 1);\n"
+        "    if (n_own > 0) {\n"
+        "      wait_full(0);\n" + turn(6) +
+        "      issue_s(k_at(0));\n" + hand_over(6) +
+        "      wg_wait_all();\n"
+        "      softmax(0);\n"
+        "#pragma unroll\n"
+        "      for (int n = 0; n < NS; ++n) a_fragments(pa[n], sc[n]);\n"
+        "    }\n"
+        "    // key tile kt's S and softmax, and key tile kt - 1's P V, in one "
+        "stage\n"
+        "    for (int kt = 1; kt < n_own; ++kt) {\n"
+        "      wait_full(kt);\n"
+        "      rescale();\n" + turn(6) + stage +
+        "      fence_regs(acc);\n"
+        "#pragma unroll\n"
+        "      for (int n = 0; n < NS; ++n) fence_regs(sc[n]);\n"
+        "      mbar_arrive(&empty[stage(kt - 1)]);\n"
+        "#pragma unroll\n"
+        "      for (int n = 0; n < NS; ++n) a_fragments(pa[n], sc[n]);\n"
+        "    }\n" + turn(4) +
+        "    if (n_own > 0) {                             // the last tile's "
+        "P V\n"
+        "      rescale();\n"
+        "      issue_pv(k_at(n_own - 1) + L::kK);\n" + hand_over(6) +
+        "      wg_wait_all();\n"
+        "      fence_regs(acc);\n"
+        "      mbar_arrive(&empty[stage(n_own - 1)]);\n" + last_end +
+        "    // the key tiles past this warpgroup's rows: released unread\n"
+        "    for (int kt = n_own; kt < n_kt; ++kt) {\n"
+        "      wait_full(kt);\n" + turn(6) + hand_over(6) +
+        "      mbar_arrive(&empty[stage(kt)]);\n"
+        "    }\n" +
+        ("    if (wg == 0) bar_sync(1, 256);\n" if pingpong else ""))
+
+
+def schedule_patch(overlap, pingpong):
+    """{old: new}: the source's main loop replaced by ``schedule``'s."""
+    if schedule(True, False) != LOOP:
+        raise RuntimeError("the source's main loop is no longer "
+                           "schedule(True, False): bring schedule up to date")
+    if (overlap, pingpong) == (True, False):
+        return {}
+    out = {LOOP: schedule(overlap, pingpong)}
+    if pingpong:
+        out[FENCE_REGS] = BAR_ARRIVE + FENCE_REGS
+    return out
 # S of a 128-key tile as one m64n128 wgmma a k step, in place of one
 # m64n64 a 64-key slice
 S_SLICES = """#pragma unroll
@@ -112,10 +201,10 @@ STORE_ROW = """#pragma unroll
     }
 """
 S_ISSUES = {"      issue_s(k_at(0));\n": "",
-            "        issue_s(k_at(kt));\n": ""}
-PV_ISSUES = {"        issue_pv(k_at(kt - 1) + L::kK);\n": "",
+            "      issue_s(k_at(kt));\n": ""}
+PV_ISSUES = {"      issue_pv(k_at(kt - 1) + L::kK);\n": "",
              "      issue_pv(k_at(n_own - 1) + L::kK);\n": ""}
-SOFTMAX = {"      softmax(0);\n": "", "        softmax(kt);\n": ""}
+SOFTMAX = {"      softmax(0);\n": "", "      softmax(kt);\n": ""}
 
 
 def _variants():
@@ -124,15 +213,11 @@ def _variants():
     its time (their results are wrong; they are timed, not held)."""
     out = {}
     bk128 = "constexpr int kFwdBK = 128, kFwdMaxStages = 3, kFwdQBufs = 1;"
-    for name, (overlap, pingpong) in {**SCHEDULES, "overlap": (True, False)
-                                      }.items():
-        line = (f"constexpr bool kFwdOverlap = {str(overlap).lower()}, "
-                f"kFwdPingPong = {str(pingpong).lower()};")
-        if line != SCHEDULE:
-            out[name] = {SCHEDULE: line}
-        out[f"bk128_one_q_{name}"] = {BK: bk128, SCHEDULE: line, **N128}
-        if line == SCHEDULE:
-            del out[f"bk128_one_q_{name}"][SCHEDULE]
+    for name, (overlap, pingpong) in SCHEDULES.items():
+        patch = schedule_patch(overlap, pingpong)
+        if patch:
+            out[name] = patch
+        out[f"bk128_one_q_{name}"] = {BK: bk128, **patch, **N128}
     out["bk128"] = {BK: "constexpr int kFwdBK = 128, kFwdMaxStages = 2, "
                     "kFwdQBufs = 2;", **N128}
     out["bk128_s_two_m64n64"] = {BK: bk128}
