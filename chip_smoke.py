@@ -307,8 +307,8 @@ its one-half backward at (1, 104, 32) k 3 and the forward at §3.3's (1,
 (96 and 8, 16, 32); the demos' refine kernels at (8, 32, 32) and (32,
 50, 32), M 50, k 5, and their wire bitwise (grouped and one-group, B
 1-32, every width).  (b) Every table at the reference's widths (14
-training runs of 110 steps, Fig 9's of 75: half the reference's 220 and
-150, for the script's time limit on a slow host), with the counts set to 0
+training runs of 80 steps, Fig 9's of 55: the reference's 220 and 150
+cut for the script's time limit on a slow host), with the counts set to 0
 just before and read just after (the ``quality`` path), each step's
 launches checked against those the code implies for its (mode, variant):
 ``task_sw`` and ``task_lap`` launch ``swd_rank_bwd`` and
@@ -352,6 +352,23 @@ phase 15's asserts (zero shed, zero lost, the replay oracle), and one
 migration host -> sharded.  Counted as the ``sharded`` path: (a)'s
 sharded rounds, (b)'s rounds and (c)'s sharded ticks.
 
+Phase 21, run right after phase 17, refines (b)'s 2-shard fleet from two
+processes: two ranks spawned on the card join a job over gloo through
+the environment contract and ``maybe_init_distributed`` (ranks on one
+card get no NCCL group; the collectives stage through pinned host
+memory), each builds the fleet on its shard of ``make_sessions_mesh()``
+(spanning the job), prefills it and runs 9 rounds.  Gated: every round's
+loss, parts and per-session losses, the head and the memory bitwise
+(b)'s 2-shard run; each round's SWD draws, and the head and the memory
+after every round, equal across the ranks; one ``swd_sessions``, one
+``laplacian_energy`` and one ``gmm_posterior`` launch a process a round
+and no other; the collective counts those of (b)'s run; a rank that
+dies or hangs past 300 s fails the phase.  Printed: each rank's round
+p50 / p95 beside (b)'s 2-shard p50, and its staging a round (exchanges,
+D2H and H2D bytes, host ms).  The kernels are held at these per-shard
+shapes in phase 17.  Counted as the ``multiprocess`` path (both ranks'
+rounds), with a ``{"multiprocess": ...}`` line after phase 17's.
+
 Phase 18 runs the LM half of sharding on the card, float32, seeded
 random weights, meshes of logical shards of the one card. The flash
 kernels are held at each shard's block of heads against their plain
@@ -384,7 +401,7 @@ forward at the prefills') against their plain versions and timed. (a)
 mamba2-780m at full width and depth on (data 2, model 2), B 8 x 1,024,
 AdamW, the hybrid term, remat: step 0's loss and gradients against the
 unsharded port (rtol 1e-5, 1e-4 of each gradient's max), bitwise from
-run to run, then ``Trainer`` for 1 + 3 steps, replicas bitwise after
+run to run, then ``Trainer`` for 1 + 2 steps, replicas bitwise after
 every step, one ``swd_rank_fwd``, ``laplacian_energy`` and
 ``hybrid_reg_bwd`` a step; (b) zamba2-1.2b cut to 13 of its 38 mamba
 layers (two uses of the shared block and a tail), B 4 x 1,024, the same
@@ -397,8 +414,8 @@ checkpoint restored onto (1, 2) by ``reshard_state(..., fsdp=True)``
 against the unsharded port in the same call (logits 1e-4 of the max
 for the attention families, ``LM19_SSM_RTOL`` with mamba layers;
 greedy tokens equal but for near-ties): qwen3-1.7b, B 4, prompt 1,024,
-32 steps on (2, 2) (kv heads over 'model') and (1, 16) (positions over
-'model'); zamba2-1.2b at batch 1, prompt 4,096, ``max_len`` 131,072
+8 steps on (2, 2) (kv heads over 'model') and 4 on (1, 16) (positions
+over 'model'); zamba2-1.2b at batch 1, prompt 4,096, ``max_len`` 131,072
 (``long_500k``'s 524,288 cut by 4), on (2, 2) under ``kind="decode"``
 (positions over 'data', SSM heads over 'model'); mamba2-780m at batch 1,
 ``max_len`` 524,288; phase 14's arctic cut on (1, 4). Each mesh step
@@ -454,8 +471,9 @@ Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
 result.  The line before the last is the kernels' JSON record (after a
 line with phase 12's summary, one with phase 13's, one with phase 14's
-one with phase 15's, one with phase 16's, one with phase 17's and one
-with phase 18's, one with phase 19's and one with phase 20's records);
+one with phase 15's, one with phase 16's, one with phase 17's, one with
+phase 21's, one with phase 18's, one with phase 19's and one with phase
+20's records);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -4361,11 +4379,12 @@ def phase15(cfg, ops):
 # --- the representation-quality tables and the gateway examples ----------
 
 # phase 16: the training steps a Fig 8 / Table 5 run and Fig 9's
-# (runtime/quality_tables.py), half the reference's 220 and 150: at those
-# the whole script took 1,261 s of a 1,200 s limit on a slow host (phase
-# 16 334 s of it; see PERF.md); the edge learner's shapes at ENC: d 32,
-# 16 virtual negatives, the 96-frame buffer and a batch of 8
-QUALITY_STEPS, QUALITY_CALIB_STEPS = 110, 75
+# (runtime/quality_tables.py), cut from the reference's 220 and 150: at
+# those the whole script took 1,261 s of a 1,200 s limit on a slow host
+# (phase 16 334 s of it; see PERF.md), at 110 and 75 1,089 s once phase 21
+# was added (phase 16 192 s); the edge learner's shapes at ENC: d 32, 16
+# virtual negatives, the 96-frame buffer and a batch of 8
+QUALITY_STEPS, QUALITY_CALIB_STEPS = 80, 55
 Q_D, Q_SYN, Q_DIRS, Q_KNN, Q_C = 32, 16, 32, 3, 16
 # the demos' refine shapes (sessions, window): quickstart, fleet demo
 DEMO_REFINE = ((8, 32), (32, 50))
@@ -4769,16 +4788,16 @@ def shard_mesh(shards, device):
     return make_sessions_mesh(devices=[device] * shards)
 
 
-def sharded_refine_backend(cfg, shards, device, head_init):
+def sharded_refine_backend(cfg, shards, device, head_init, mesh=None):
     """``refine_backend``'s fleet as a ``ShardedFleetBackend`` of
-    ``shards`` logical shards on ``device``."""
+    ``shards`` logical shards on ``device`` (or on ``mesh``)."""
     from repro_torch.core.fleet_backend import ShardedFleetBackend
     from repro_torch.core.hybrid import HybridCfg
     return ShardedFleetBackend(
         capacity=SESSIONS, window=WINDOW, dim=cfg.d_embed,
         head_init=head_init, head_apply=linear_head, cfg=HybridCfg(),
         lr=1e-2, seed=0, n_components=N_COMPONENTS, memory_decay=0.05,
-        mesh=shard_mesh(shards, device))
+        mesh=mesh or shard_mesh(shards, device))
 
 
 def zero_counts(ops):
@@ -4940,7 +4959,10 @@ def sharded_gateway(cfg, params, shards, shard_dispatch):
 def phase17_refine(cfg, dev, ops, counted):
     """(a) one shard against the host backend, bitwise; (b) 2 and 4
     logical shards: round 0 card vs CPU, every round against one shard,
-    launches gated -> the readings."""
+    launches gated -> (the readings, the 2-shard run's rounds, head and
+    memory, collectives and round ms, which phase 21 holds its processes
+    to)."""
+    from repro_torch.distributed.sharding import count_collectives
     out = {}
     host = refine_backend(cfg, CARD, init_linear_head)
     one = sharded_refine_backend(cfg, 1, CARD, init_linear_head)
@@ -4992,8 +5014,12 @@ def phase17_refine(cfg, dev, ops, counted):
         prefill(be, rows, np.random.default_rng(1))
         exported = [be.export_row(sid) for sid in rows]
         zero_counts(ops)
-        outs, ms = refine_rounds(be, SHARD_ROUNDS)
+        with count_collectives() as collectives:
+            outs, ms = refine_rounds(be, SHARD_ROUNDS)
         launches = read_counts(ops)
+        if S == 2:
+            two = {"sids": sids, "outs": outs, "state": state_of(be),
+                   "collectives": collectives, "round_ms": pct(ms[1:])}
         add_counts(counted, launches)
         for name in ("swd_sessions", "laplacian_energy", "gmm_posterior"):
             check(launches[name] == S * SHARD_ROUNDS,
@@ -5026,7 +5052,7 @@ def phase17_refine(cfg, dev, ops, counted):
               f"each refine kernel a round; against one shard (rel) rounds "
               f"{vs_one:.3e}, head and memory after {SHARD_ROUNDS} rounds "
               f"{vs_one_state:.3e}; round 0 card vs CPU {vs_cpu:.3e}")
-    return out
+    return out, two
 
 
 def phase17_dispatch(cfg, ops, counted):
@@ -5208,12 +5234,14 @@ def phase17_federation(cfg):
 
 def phase17(cfg, ops):
     """The sharded fleet on the card -> (the sharded path's launch
-    counts, the readings, max |err| by kernel at the per-shard shapes)."""
+    counts, the readings, max |err| by kernel at the per-shard shapes,
+    (b)'s 2-shard run for phase 21)."""
     dev = torch.device(CARD)
     start = time.perf_counter()
     counted = {}
     worst = hold_sharded_kernels(dev, ops)
-    readings = {"refine": phase17_refine(cfg, dev, ops, counted)}
+    readings = {}
+    readings["refine"], two = phase17_refine(cfg, dev, ops, counted)
     readings["dispatch"] = phase17_dispatch(cfg, ops, counted)
     worst["wire"] = max(readings["dispatch"][f"S{s}"]["wire_max_abs_err"]
                         for s in (1, DISPATCH_SHARDS))
@@ -5223,7 +5251,193 @@ def phase17(cfg, ops):
     print(f"phase 17: {readings['seconds']:.1f} s; per-shard kernels "
           "against their plain versions, max |err| " + ", ".join(
               f"{k} {v:.3e}" for k, v in worst.items()))
-    return counted, readings, worst
+    return counted, readings, worst, two
+
+
+# phase 21: phase 17's 2-shard fleet refined by 2 processes, a shard each,
+# both on the card, over gloo (ranks that share a card stage the
+# collectives through pinned host memory)
+MP_WORLD = 2
+MP_TIMEOUT_S = 300         # the ranks' deadline, their start included
+REFINE_KERNELS = ("swd_sessions", "laplacian_energy", "gmm_posterior")
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def replicas_agree(job, owners, tensors, what):
+    """Whether every rank holds ``tensors`` bit for bit (gathered over
+    the job; the exchange is counted in ``job.staged``, not as a
+    collective)."""
+    from repro_torch.distributed.job import exchange
+    every = exchange([list(tensors)], owners, what)
+    return all(torch.equal(a, b) for theirs in every
+               for a, b in zip(theirs, tensors))
+
+
+def phase21_rank(rank, port, device, path, sizes):
+    """One rank of phase 21, spawned: joins the job through the
+    environment contract, builds the full-width fleet on its shard of
+    ``make_sessions_mesh()`` (spanning the job), prefills it and runs
+    ``SHARD_ROUNDS`` refine rounds -> its readings, saved to ``path``.
+    ``sizes``: the parent's ``SESSIONS``, ``SHARD_ROUNDS`` and
+    ``N_COMPONENTS`` (a CPU rehearsal cuts them)."""
+    globals().update(sizes)
+    src = os.path.join(ROOT, "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch.configs.streamsplit_audio import CFG
+    from repro_torch.distributed.job import current_job, exchange
+    from repro_torch.distributed.sharding import count_collectives
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import (make_sessions_mesh,
+                                         maybe_init_distributed)
+    check(maybe_init_distributed(env={
+        "REPRO_COORDINATOR": f"127.0.0.1:{port}",
+        "REPRO_NUM_PROCESSES": str(MP_WORLD),
+        "REPRO_PROCESS_ID": str(rank)}), f"rank {rank} joined no job")
+    job = current_job()
+    mesh = make_sessions_mesh(devices=None if device == "cuda" else [device])
+    be = sharded_refine_backend(CFG, None, device, init_linear_head,
+                                mesh=mesh)
+    check(be.shards == MP_WORLD and be.local == [rank],
+          f"rank {rank}: shards {be.shards}, local {be.local}")
+    rows = np.arange(SESSIONS)
+    sids = [be.admit() for _ in range(SESSIONS)]
+    prefill(be, rows, np.random.default_rng(1))
+    draws = all(replicas_agree(job, be.owners, be.refiner.draw(
+        r, WINDOW, CFG.d_embed), "draws") for r in range(SHARD_ROUNDS))
+    zero_counts(ops)
+    outs, ms, staged, replicated = [], [], [], True
+    with count_collectives() as collectives:
+        for r in range(SHARD_ROUNDS):
+            before = dict(job.staged)
+            start = time.perf_counter()
+            outs.append(be.refine(r))
+            ms.append((time.perf_counter() - start) * 1e3)
+            staged.append({k: job.staged[k] - before[k] for k in before})
+            head, memory = state_of(be)
+            replicated &= replicas_agree(
+                job, be.owners, [*head.values(), *memory], "head, memory")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    # a bare exchange of 16 host bytes: the gloo round trip alone
+    probe = [torch.zeros(4)]
+    rtt = []
+    for _ in range(50):
+        start = time.perf_counter()
+        exchange(probe, be.owners, "probe")
+        rtt.append((time.perf_counter() - start) * 1e3)
+    torch.save({"sids": sids, "outs": outs, "ms": ms, "staged": staged,
+                "exchange_ms": pct(np.array(rtt[5:])),
+                "draws_equal": draws, "replicated": replicated,
+                "state": state_of(be), "collectives": collectives,
+                "launches": {n: w.launches for n, w in ops.KERNELS.items()},
+                "device": str(be.device), "nccl": job.nccl is not None},
+               path)
+
+
+def phase21(ops, two):
+    """The sharded fleet across processes: ``MP_WORLD`` spawned ranks,
+    a shard each on the card, held to phase 17's one process x 2
+    logical shards (``two``) -> (the ``multiprocess`` path's launches,
+    summed over the ranks; the readings)."""
+    import multiprocessing
+    start = time.perf_counter()
+    if CARD == "cuda":
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(ROOT, "build", "phase21")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = [os.path.join(out_dir, f"rank{r}.pt") for r in range(MP_WORLD)]
+    for p in paths:
+        if os.path.exists(p):
+            os.unlink(p)
+    port = free_port()
+    ctx = multiprocessing.get_context("spawn")
+    sizes = {"SESSIONS": SESSIONS, "SHARD_ROUNDS": SHARD_ROUNDS,
+             "N_COMPONENTS": N_COMPONENTS}
+    procs = [ctx.Process(target=phase21_rank,
+                         args=(r, port, CARD, p, sizes))
+             for r, p in enumerate(paths)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + MP_TIMEOUT_S
+        while any(p.is_alive() for p in procs):
+            dead = [r for r, p in enumerate(procs)
+                    if p.exitcode not in (None, 0)]
+            check(not dead, f"phase 21: rank {dead[:1]} exited "
+                  f"{[procs[r].exitcode for r in dead]}")
+            check(time.monotonic() < deadline,
+                  f"phase 21: the ranks ran past {MP_TIMEOUT_S} s")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"phase 21: exit codes {[p.exitcode for p in procs]}")
+    ranks = [torch.load(p, weights_only=False) for p in paths]
+    total = {}
+    readings = {"ranks": [], "phase17_two_shards_round_ms": two["round_ms"],
+                "collectives": two["collectives"]}
+    for r, got in enumerate(ranks):
+        check(got["sids"] == two["sids"], f"rank {r}: placement "
+              f"{got['sids'][:8]}... != one process's")
+        check(got["draws_equal"], f"rank {r}: a round's SWD draws differ "
+              "across the ranks")
+        check(got["replicated"], f"rank {r}: the head or the memory "
+              "differs across the ranks after a round")
+        check(not got["nccl"], f"rank {r}: an NCCL group on one card")
+        for i, (a, b) in enumerate(zip(got["outs"], two["outs"])):
+            check(a[0] == b[0] and a[1] == b[1]
+                  and np.array_equal(a[2], b[2]),
+                  f"rank {r} round {i}: 2 processes != 1 process x 2 "
+                  f"shards: {a[:2]} vs {b[:2]}")
+        (gh, gm), (wh, wm) = got["state"], two["state"]
+        check(all(torch.equal(gh[k], wh[k]) for k in wh)
+              and all(torch.equal(x, y) for x, y in zip(gm, wm)),
+              f"rank {r}: head or memory != 1 process x 2 shards")
+        check(got["collectives"] == two["collectives"],
+              f"rank {r}: collectives {got['collectives']} != one "
+              f"process's {two['collectives']}")
+        launches = got["launches"]
+        check(all(launches[k] == (SHARD_ROUNDS if k in REFINE_KERNELS
+                                  else 0) for k in launches),
+              f"rank {r}: launches {launches}, want one of each refine "
+              f"kernel a round ({SHARD_ROUNDS})")
+        add_counts(total, launches)
+        steady = got["staged"][1:]
+        per_round = {k: float(np.mean([x[k] for x in steady]))
+                     for k in steady[0]}
+        readings["ranks"].append({"round_ms": pct(np.array(got["ms"][1:])),
+                                  "staged_per_round": per_round,
+                                  "bare_exchange_ms": got["exchange_ms"],
+                                  "device": got["device"]})
+    readings["seconds"] = time.perf_counter() - start
+    print(f"phase 21: {MP_WORLD} processes x 1 shard of phase 4's fleet on "
+          f"{ranks[0]['device']} over gloo, bitwise phase 17's 1 process x "
+          f"2 shards over {SHARD_ROUNDS} rounds (loss, parts, per-session "
+          "losses, head, memory; draws, head and memory equal across the "
+          "ranks; collectives " + json.dumps(two["collectives"]["per_kind_"
+                                                               "counts"])
+          + "); round ms a process " + "; ".join(
+              f"rank {r} p50 {x['round_ms']['p50']:.3f} p95 "
+              f"{x['round_ms']['p95']:.3f}, staged a round "
+              f"{x['staged_per_round']['calls']:.0f} exchanges, D2H "
+              f"{x['staged_per_round']['d2h_bytes']:.0f} B, H2D "
+              f"{x['staged_per_round']['h2d_bytes']:.0f} B, "
+              f"{x['staged_per_round']['ms']:.3f} ms (a bare exchange of 16 "
+              f"host bytes p50 {x['bare_exchange_ms']['p50']:.3f} ms)"
+              for r, x in enumerate(readings["ranks"]))
+          + f"; phase 17's 2-shard p50 {two['round_ms']['p50']:.3f}; "
+          f"{readings['seconds']:.1f} s")
+    return total, readings
 
 
 # phase 18: the LM half of sharding on logical shards of the card
@@ -5669,20 +5883,21 @@ def phase18(dev, ops, p12_first_loss, p12_p50):
 # phase 19: the rest of the LM on a mesh, logical shards of the card
 # training runs: (name, layers or None, B, S, warm-up, counted steps, mesh,
 # fsdp); each step 0 also runs unsharded in the same call
-LM19_TRAIN = (("mamba2-780m", None, 8, 1024, 1, 3, (2, 2), False),
-              ("zamba2-1.2b", 13, 4, 1024, 1, 3, (2, 2), False),
-              ("qwen3-1.7b", None, 4, 1024, 1, 3, (2, 2), True))
+LM19_TRAIN = (("mamba2-780m", None, 8, 1024, 1, 2, (2, 2), False),
+              ("zamba2-1.2b", 13, 4, 1024, 1, 2, (2, 2), False),
+              ("qwen3-1.7b", None, 4, 1024, 1, 2, (2, 2), True))
 # (c)'s checkpoint: the same FSDP run cut to 2 layers (its full state,
 # 20.6 GB with AdamW's moments, would take ~100 s to save and restore at
 # phase 18's measured rate), one step on (2, 2), restored onto (1, 2)
 LM19_RESTORE = ("qwen3-1.7b", 2, 4, 1024, (2, 2), (1, 2))
 # prefill and decode: (name, layers, experts, B, prompt, max_len, decode
-# steps, mesh); every run under rules_for(kind="decode")
-LM19_DECODE = (("qwen3-1.7b", None, None, 4, 1024, 1024 + 64, 32, (2, 2)),
-               # 8 steps: a step on 16 shards is 16x the launches (~1 s)
-               ("qwen3-1.7b", None, None, 4, 1024, 1024 + 64, 8, (1, 16)),
-               ("zamba2-1.2b", None, None, 1, 4096, 131072, 32, (2, 2)),
-               ("mamba2-780m", None, None, 1, 4096, 524288, 32, (2, 2)),
+# steps, mesh); every run under rules_for(kind="decode"); 8 steps (32
+# before phase 21 was added), 4 on 16 shards, whose step is 16x the
+# launches (1.35 s)
+LM19_DECODE = (("qwen3-1.7b", None, None, 4, 1024, 1024 + 64, 8, (2, 2)),
+               ("qwen3-1.7b", None, None, 4, 1024, 1024 + 64, 4, (1, 16)),
+               ("zamba2-1.2b", None, None, 1, 4096, 131072, 8, (2, 2)),
+               ("mamba2-780m", None, None, 1, 4096, 524288, 8, (2, 2)),
                ("arctic-480b", 2, 8, 2, 256, 256 + 64, 8, (1, 4)))
 # sharded vs unsharded decode logits, of the max |logit|: the attention
 # families' bar, and the families with mamba layers', set from the first
@@ -6930,7 +7145,8 @@ def main():
     cluster_launches, cluster = phase15(CFG, ops)
     quality_launches, example_launches, quality, quality_worst = \
         phase16(ops)
-    sharded_launches, sharded, sharded_worst = phase17(CFG, ops)
+    sharded_launches, sharded, sharded_worst, two_shards = phase17(CFG, ops)
+    multiprocess_launches, multiprocess = phase21(ops, two_shards)
     sharded_lm_launches, sharded_lm, sharded_lm_worst = phase18(
         dev, ops, lm_runs[0]["loss_first"], lm_runs[0]["step_ms_p50"])
     lm_mesh_launches, lm_mesh, lm_mesh_worst = phase19(dev, ops)
@@ -6943,7 +7159,8 @@ def main():
              "cluster": cluster_launches, "quality": quality_launches,
              "examples": example_launches, "sharded": sharded_launches,
              "sharded_lm": sharded_lm_launches, "lm_mesh": lm_mesh_launches,
-             "lm_bf16": lm_bf16["launches"]}
+             "lm_bf16": lm_bf16["launches"],
+             "multiprocess": multiprocess_launches}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -7057,6 +7274,7 @@ def main():
         r["sharded_max_abs_err"] = sharded_worst.get(
             "wire" if r["name"] == "wire_roundtrip_grouped" else r["name"])
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"multiprocess": multiprocess}))
     # phase 18's holds at the LM's per-shard shapes, and its flash times
     for r in records:
         r["sharded_lm_max_abs_err"] = sharded_lm_worst.get(r["name"])

@@ -15,6 +15,9 @@ Port of ``repro.core.fleet_backend``:
   gradients ``pmean``'d (``distributed.sharding``), one SGD step on the
   replicated head, and the GMM memory's ``psum``'d EM step.  No fleet
   snapshot crosses the host boundary (``snapshot_h2d_bytes`` stays 0).
+  On a mesh that spans a job of several processes
+  (``launch.mesh.maybe_init_distributed``) each process keeps and
+  refines only its own shards' rows; the collectives cross processes.
 
 Contracts, as in the reference: a 1-shard ``ShardedFleetBackend`` is
 bit-identical to ``HostFleetBackend`` (snapshots, losses, parts,
@@ -36,6 +39,7 @@ from repro_torch.core.fleet_buffer import (T_SENTINEL, FleetBuffer,
 from repro_torch.core.fleet_refiner import (FleetRefiner, fetch,
                                             make_fleet_loss)
 from repro_torch.core.hybrid import HybridCfg
+from repro_torch.distributed import job as _job
 from repro_torch.distributed.grad_sync import pmean_grads
 from repro_torch.distributed.sharding import (SESSIONS_AXIS, pmean, psum,
                                               sessions_sharding)
@@ -301,7 +305,21 @@ class ShardedFleetBackend(FleetBackend):
     then ``pmean`` of loss, parts and gradients, ONE SGD step on the head
     (replicated: it lives on the mesh's first device) and, with
     ``n_components``, ``gmm.em_update(axis_name=...)`` (``gmm_posterior``
-    per shard).  Arguments as ``HostFleetBackend``'s."""
+    per shard).  Arguments as ``HostFleetBackend``'s.
+
+    Across processes (a ``mesh`` that spans a joined job, as
+    ``make_sessions_mesh()`` builds after ``maybe_init_distributed``),
+    every process makes the same calls in the same order, as JAX's
+    multi-controller model has it.  The host-side admission book stays
+    whole and identical on every process; each process allocates and
+    writes only its own shards' rings (``local`` lists them, and ``z``,
+    ``t`` ... are their rows), and skips the other rows' writes and
+    payload.  ``refine`` runs the local shards and the collectives cross
+    processes: every process gets the same (loss, parts, per-session
+    losses), head and memory as one process holding every shard.
+    ``snapshot`` gathers every shard's rows; ``export_row`` and
+    ``fill_fraction`` read only a local row.  ``shards`` stays the global
+    count; every process must hold as many shards, in rank order."""
 
     kind = "sharded"
     device_ingest = True
@@ -328,11 +346,20 @@ class ShardedFleetBackend(FleetBackend):
         placed = sessions_sharding(mesh, capacity, axis)
         self.devices = [dev for dev, _ in placed]
         self.rows = capacity // self.shards
-        # each device's shards, in shard order: their rows share one
+        self.owners = mesh.axis_process_ids(axis)
+        counts = np.bincount(self.owners)
+        if self.owners != sorted(self.owners) or counts.min() != counts.max():
+            raise ValueError("the session shards must lie in rank order, as "
+                             "many on every process: a mesh from "
+                             f"make_sessions_mesh(), not {self.owners}")
+        self.local = mesh.axis_local(axis)
+        if not self.local:
+            raise ValueError("this process owns no shard of the mesh")
+        # each device's local shards, in shard order: their rows share one
         # storage there, so a one-device mesh keeps whole-fleet tensors
         self.shards_by_device = {}
-        for s, dev in enumerate(self.devices):
-            self.shards_by_device.setdefault(dev, []).append(s)
+        for s in self.local:
+            self.shards_by_device.setdefault(self.devices[s], []).append(s)
         self._storage = {}
         for dev, owned in self.shards_by_device.items():
             n = len(owned) * self.rows
@@ -343,13 +370,14 @@ class ShardedFleetBackend(FleetBackend):
                 torch.full((n, window), -1, dtype=torch.int32, device=dev),
                 torch.full((n,), -1, dtype=torch.int32, device=dev),
                 torch.zeros(n, device=dev))
-        self._blocks = []
-        for s, (dev, _) in enumerate(placed):
+        self._blocks = [None] * self.shards       # another process's: None
+        for s in self.local:
+            dev = self.devices[s]
             j = self.shards_by_device[dev].index(s)
             local = slice(j * self.rows, (j + 1) * self.rows)
-            self._blocks.append(_Rings(*(
+            self._blocks[s] = _Rings(*(
                 getattr(self._storage[dev], f)[local]
-                for f in _Rings.__slots__)))
+                for f in _Rings.__slots__))
         # host-side admission bookkeeping: a lowest-row-first free list
         # per shard and per-shard active counts (least-loaded placement)
         self._active = np.zeros((capacity,), bool)
@@ -365,7 +393,7 @@ class ShardedFleetBackend(FleetBackend):
         self.memory = None
         self.memory_decay = memory_decay
         if head_init is not None:
-            self.device = self.devices[0]
+            self.device = self.devices[self.local[0]]
             self.refiner = FleetRefiner(head_init, head_apply, cfg=cfg, lr=lr,
                                         seed=seed, draws=draws,
                                         device=self.device)
@@ -377,10 +405,13 @@ class ShardedFleetBackend(FleetBackend):
 
     # -- the rings, whole (one tensor on a one-device mesh) ------------------
     def _whole(self, field):
+        """This process's rows of a ring field (every row in one
+        process)."""
         if len(self._storage) == 1:
             return getattr(next(iter(self._storage.values())), field)
-        first = self.devices[0]
-        return torch.cat([getattr(b, field).to(first) for b in self._blocks])
+        first = self.devices[self.local[0]]
+        return torch.cat([getattr(self._blocks[s], field).to(first)
+                          for s in self.local])
 
     z = property(lambda self: self._whole("z"))
     t = property(lambda self: self._whole("t"))
@@ -389,8 +420,17 @@ class ShardedFleetBackend(FleetBackend):
     active_dev = property(lambda self: self._whole("active"))
 
     def _locate(self, sid):
+        """-> (the rings of ``sid``'s shard, None on another process's;
+        its row there)."""
         shard = int(sid) // self.rows
         return self._blocks[shard], int(sid) - shard * self.rows
+
+    def _local_row(self, sid):
+        blk, row = self._locate(sid)
+        if blk is None:
+            raise ValueError(f"session {sid} lives on process "
+                             f"{self.owners[self.shard_of(sid)]}'s shard")
+        return blk, row
 
     # -- session lifecycle ---------------------------------------------------
     @property
@@ -415,9 +455,11 @@ class ShardedFleetBackend(FleetBackend):
             self._shard_active[shard] += 1
             blk, row = self._locate(sid)
             if self._dirty[sid]:    # the deferred wipe, on the device
-                blk.wipe(row)
+                if blk is not None:
+                    blk.wipe(row)
                 self._dirty[sid] = False
-            blk.active[row].fill_(1.0)
+            if blk is not None:
+                blk.active[row].fill_(1.0)
             self._active[sid] = True
             return sid
 
@@ -431,7 +473,8 @@ class ShardedFleetBackend(FleetBackend):
             self._free_by_shard[shard].append(sid)
             self._shard_active[shard] -= 1
             blk, row = self._locate(sid)
-            blk.active[row].fill_(0.0)
+            if blk is not None:
+                blk.active[row].fill_(0.0)
 
     # -- ingest --------------------------------------------------------------
     def _check_ts(self, ts):
@@ -444,11 +487,12 @@ class ShardedFleetBackend(FleetBackend):
 
     def _plan(self, sids, ts, labels, rows, block):
         """The host half of a scatter: duplicate (sid, slot) writes folded
-        to the last, each shard's entries -> per shard an int32 array
-        ``[payload rows (m), ring cells (m), ts (m), labels (m), rows to
-        advance (k), their newest (k)]`` and ``(m, k)``.  Shard s reads
-        payload row ``rows[i] - s * block`` of its own payload (``block``
-        0: every shard reads the whole batch)."""
+        to the last, each local shard's entries -> per shard an int32
+        array ``[payload rows (m), ring cells (m), ts (m), labels (m), rows
+        to advance (k), their newest (k)]`` and ``(m, k)``; None for
+        another process's shard.  Shard s reads payload row ``rows[i] - s
+        * block`` of its own payload (``block`` 0: every shard reads the
+        whole batch)."""
         slots = ts % self.window
         keys = sids * self.window + slots
         keep = np.ones(len(sids), bool)
@@ -459,8 +503,8 @@ class ShardedFleetBackend(FleetBackend):
             keep[:] = False
             keep[np.fromiter(last.values(), np.int64)] = True
         shard = self.shards_of(sids)
-        out = []
-        for s in range(self.shards):
+        out = [None] * self.shards
+        for s in self.local:
             mine = shard == s
             w = keep & mine
             loc = sids - s * self.rows
@@ -470,7 +514,7 @@ class ShardedFleetBackend(FleetBackend):
             seg = np.concatenate([
                 rows[w] - s * block, loc[w] * self.window + slots[w],
                 ts[w], labels[w], adv, tmax]).astype(np.int32)
-            out.append((seg, (int(w.sum()), len(adv))))
+            out[s] = (seg, (int(w.sum()), len(adv)))
         return out
 
     def _scatter(self, s, zs, seg, m, k):
@@ -529,16 +573,29 @@ class ShardedFleetBackend(FleetBackend):
             self._check_ts(ts)
             labels = (np.full(len(sids), -1, np.int64) if labels is None
                       else as_host(labels, np.int64))
-            if isinstance(zs, torch.Tensor) and zs.device in self.devices:
+            rows = np.arange(len(sids))
+            if len(self.local) < self.shards:
+                # another process writes its shards' rows: keep this
+                # process's frames, and move only their payload
+                pick = np.flatnonzero(np.isin(self.shards_of(sids),
+                                              self.local))
+                rows = np.full(len(sids), -1)
+                rows[pick] = np.arange(len(pick))
+                zs = zs[torch.from_numpy(pick)] \
+                    if isinstance(zs, torch.Tensor) else \
+                    as_host(zs, np.float32)[pick]
+            if isinstance(zs, torch.Tensor) and \
+                    zs.device in self.shards_by_device:
                 self.ingest_d2d_bytes += zs.shape[0] * self.dim * 4
             else:
                 zs = torch.from_numpy(np.ascontiguousarray(
                     as_host(zs, np.float32)))
                 self.ingest_h2d_bytes += zs.numel() * 4
-            plans = self._plan(sids, ts, labels, np.arange(len(sids)), 0)
+            plans = self._plan(sids, ts, labels, rows, 0)
             views = self._upload(plans)
             on = {dev: zs.to(dev).float() for dev in self.shards_by_device}
-            for s, (_, (m, k)) in enumerate(plans):
+            for s in self.local:
+                m, k = plans[s][1]
                 self._scatter(s, on[self.devices[s]], views[s], m, k)
 
     def place_batch(self, sids, ts, labels, rows, block):
@@ -565,7 +622,8 @@ class ShardedFleetBackend(FleetBackend):
         ``views[s]``, both on shard s's device — no payload byte crosses
         a shard."""
         with self._lock:
-            for s, (_, (m, k)) in enumerate(plans):
+            for s in self.local:
+                m, k = plans[s][1]
                 self._scatter(s, z_blocks[s], views[s], m, k)
             self.ingest_d2d_bytes += frames * self.dim * 4
 
@@ -590,7 +648,7 @@ class ShardedFleetBackend(FleetBackend):
                 if R % self.shards:
                     raise ValueError(f"blocked batch of {R} rows does not "
                                      f"split over {self.shards} shards")
-                if any(d != zs.device for d in self.devices):
+                if any(d != zs.device for d in self.shards_by_device):
                     raise ValueError("one blocked tensor needs every shard "
                                      "on its device: pass per-shard blocks")
                 blocks = list(zs.split(R // self.shards))
@@ -614,7 +672,7 @@ class ShardedFleetBackend(FleetBackend):
         with self._lock:
             if not self._active[sid]:
                 raise KeyError(f"session {sid} is not active")
-            blk, row = self._locate(sid)
+            blk, row = self._local_row(sid)
             z = blk.z[row].cpu().numpy()
             t32 = blk.t[row].cpu().numpy()
             t = t32.astype(np.int64)
@@ -637,6 +695,8 @@ class ShardedFleetBackend(FleetBackend):
             self._check_ts(t[live])
             t32 = np.where(live, t, T_SENTINEL_DEV).astype(np.int32)
             blk, row = self._locate(sid)
+            if blk is None:                 # another process's row
+                return
             blk.z[row].copy_(torch.from_numpy(np.ascontiguousarray(z)))
             blk.t[row].copy_(torch.from_numpy(t32))
             blk.label[row].copy_(torch.from_numpy(
@@ -648,7 +708,7 @@ class ShardedFleetBackend(FleetBackend):
         with self._lock:
             if not self._active[sid]:
                 return 0.0
-            blk, row = self._locate(sid)
+            blk, row = self._local_row(sid)
             newest = int(blk.newest[row])
             if newest < 0:
                 return 0.0
@@ -658,8 +718,19 @@ class ShardedFleetBackend(FleetBackend):
 
     # -- refinement ----------------------------------------------------------
     def _snapshots(self):
+        """The local shards' snapshots, in shard order."""
         return [_snapshot_rows(b.z, b.t, b.label, b.newest, b.active,
-                               window=self.window) for b in self._blocks]
+                               window=self.window)
+                for b in (self._blocks[s] for s in self.local)]
+
+    def _every_shard(self, vals, what):
+        """The local shards' values -> every shard's, in shard order: as
+        given in one process, else gathered from the job's processes (an
+        exchange, not a collective of the round: its staging is counted
+        in ``Job.staged``)."""
+        if len(self.local) == self.shards:
+            return vals
+        return _job.exchange(vals, self.owners, what)
 
     def refine(self, rnd):
         """One fleet-wide step across the mesh with round ``rnd``'s draws:
@@ -671,12 +742,13 @@ class ShardedFleetBackend(FleetBackend):
             W, d = self.window, self.dim
             dirs, prior = self.refiner.draw(rnd, W, d)
             snaps = self._snapshots()
-            actives = [b.active for b in self._blocks]
+            actives = [self._blocks[s].active for s in self.local]
             a_total = psum([a.sum() for a in actives], self.axis)
             params = self.refiner.state.params
             outs = []
             for dev, (z, mask, labels), act, a_tot in zip(
-                    self.devices, snaps, actives, a_total):
+                    [self.devices[s] for s in self.local], snaps, actives,
+                    a_total):
                 outs.append(value_and_grad(
                     self._loss, tree_map(lambda p: p.to(dev), params),
                     dirs.to(dev), prior.to(dev), z, mask, labels, act,
@@ -692,8 +764,8 @@ class ShardedFleetBackend(FleetBackend):
                     weights=[m.reshape(-1) for _, m, _ in snaps],
                     decay=self.memory_decay, reseed_frac=0.0,
                     axis_name=self.axis)[0]
-            first = self.devices[0]
-            losses = torch.cat([o[0][1][0].to(first) for o in outs])
+            losses = torch.cat([x.to(self.device) for x in self._every_shard(
+                [o[0][1][0] for o in outs], "refine losses")])
             return fetch((loss, parts, losses))
 
     # -- observability -------------------------------------------------------
@@ -701,7 +773,7 @@ class ShardedFleetBackend(FleetBackend):
         """Host copy of the fleet view (observability — NOT the refine
         path, which reads the rings in place)."""
         with self._lock:
-            snaps = self._snapshots()
+            snaps = self._every_shard(self._snapshots(), "snapshot")
             return tuple(torch.cat([s[i].cpu() for s in snaps]).numpy()
                          for i in range(3))
 

@@ -41,9 +41,10 @@ def make_fleet_loss(head_apply, cfg: HybridCfg, *, axis_name=None,
     ``labels``, ``active`` are one shard's rows: ``a_total`` must then be
     the active count ``psum``'d over the axis (each shard's
     ``active.sum()``), so every shard weights its sessions by the GLOBAL
-    count, and the loss and parts are pre-scaled by ``axis_size`` so that
-    a ``pmean`` over the axis (gradients included, see
-    ``distributed.grad_sync.pmean_grads``) is the global sum.  At
+    count, and the loss and parts are pre-scaled by ``axis_size`` (the
+    axis's GLOBAL shard count, every process's shards together in a
+    joined job) so that a ``pmean`` over the axis (gradients included,
+    see ``distributed.grad_sync.pmean_grads``) is the global sum.  At
     ``axis_size == 1`` the psum'd count is the local one and the scaling
     is skipped, so a 1-shard mesh is bit-identical to the unsharded
     loss."""

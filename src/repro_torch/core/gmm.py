@@ -115,8 +115,10 @@ def em_update(state: GMMState, z, *, decay=0.05, reseed_frac=0.2,
     the shards' blocks, a sequence in shard order, each shard's
     statistics b0, b1, b2 and n are ``psum``'d — distributed streaming
     EM with the global fixed point — and every shard updates ``state``
-    (replicated) from the sums -> a ``PerShard`` list of states.  A
-    shard reseeds from its own block, as in the reference."""
+    (replicated) from the sums -> a ``PerShard`` list of states.  In a
+    joined job the blocks are this process's shards' and the sums cross
+    processes, so every process's states are the same bits.  A shard
+    reseeds from its own block, as in the reference."""
     if axis_name is None:
         z = z.float()
         r, stats = _batch_stats(state, z, weights)

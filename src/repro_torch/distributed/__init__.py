@@ -1,7 +1,7 @@
-"""Sharding over a mesh of devices in one process: the LM's logical-axis
-rules and where a global value's blocks live, the sessions mesh, the
-collectives and gradient synchronization (port of
-``repro.distributed``)."""
+"""Sharding over a mesh of devices: the LM's logical-axis rules and where
+a global value's blocks live, the sessions mesh, the collectives (within
+a process, and across the processes of a joined job) and gradient
+synchronization (port of ``repro.distributed``)."""
 from repro_torch.distributed.sharding import (SESSIONS_AXIS, AxisRules, Mesh,
                                               NamedSharding, PartitionSpec,
                                               PerShard, Placed, ShardLayout,

@@ -2,10 +2,10 @@
 synchronization, optionally *compressed* (int8 wire + error feedback).
 
 Port of ``repro.distributed.grad_sync``.  The reference runs its step
-under ``shard_map``; here one process computes each shard's gradient on
-that shard's block of the batch, on the shard's device, and the
-gradients meet through the collectives of ``distributed.sharding``
-(``PerShard`` lists in shard order).
+under ``shard_map``; here a process computes each of its shards'
+gradients on that shard's block of the batch, on the shard's device, and
+the gradients meet through the collectives of ``distributed.sharding``
+(``PerShard`` lists in shard order), across processes in a joined job.
 """
 from __future__ import annotations
 
@@ -51,21 +51,26 @@ def make_compressed_dp_step(mesh, loss_fn, opt_update, *, axis="data",
     (``ef_init``; every shard starts from it) or the ``PerShard``
     trees a previous step returned: each shard keeps its own residual,
     as each device keeps its own buffer in the reference.  The row
-    blocks are planned once for each batch tree structure."""
+    blocks are planned once for each batch tree structure.  In a joined
+    job each process runs its own shards of ``axis`` on their blocks (and
+    holds their residuals); every process passes the whole batch."""
     opt_kwargs = opt_kwargs or {}
-    devices = mesh.axis_devices(axis)
-    S = len(devices)
+    S = mesh.shape[axis]
+    local = mesh.axis_local(axis)
+    devices = [mesh.axis_devices(axis)[s] for s in local]
     plans = {}
 
     def split(batch):
+        """The batch -> this process's shards' row blocks, on their
+        devices."""
         key = _structure(batch)
         if key not in plans:
             plans[key] = [row_blocks(x.shape[0], S)
                           for x in tree_leaves(batch)]
         leaves = tree_leaves(batch)
-        return [tree_unflatten(batch, [x[blk[s]].to(devices[s])
+        return [tree_unflatten(batch, [x[blk[s]].to(dev)
                                        for x, blk in zip(leaves, plans[key])])
-                for s in range(S)]
+                for s, dev in zip(local, devices)]
 
     def grad_of(params, batch):
         (_, _), grads = value_and_grad(

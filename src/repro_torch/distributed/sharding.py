@@ -1,14 +1,16 @@
-"""Sharding over a mesh of devices in one process: the reference's
-logical-axis rules for the LM, the sessions mesh of the fleet data plane,
-where a global value's blocks live, and the collectives the reference's
-``shard_map`` code calls.
+"""Sharding over a mesh of devices: the reference's logical-axis rules
+for the LM, the sessions mesh of the fleet data plane, where a global
+value's blocks live, and the collectives the reference's ``shard_map``
+code calls.
 
 Port of ``repro.distributed.sharding``.  The reference runs one program
-per device (GSPMD, or ``shard_map``); the port runs in one process and
-holds one value per shard, in shard order.  A mesh is an ordered array of
-``torch.device``s with named axes, and a device may appear more than
-once: S logical shards on one card are the counterpart of the reference's
-forced host devices on one CPU.
+per device (GSPMD, or ``shard_map``); the port runs one program per
+process and holds one value per shard of that process, in shard order.
+A mesh is an ordered array of ``torch.device``s with named axes, and a
+device may appear more than once: S logical shards on one card are the
+counterpart of the reference's forced host devices on one CPU.  In a
+job of several processes (``launch.mesh.maybe_init_distributed``) a mesh
+also records which process owns each shard (``Mesh.process_ids``).
 
 Logical axes: model code names each dim of a parameter or activation
 ("batch", "heads", "mlp", ...); a rule set (``AxisRules``, installed with
@@ -37,6 +39,23 @@ the reduce-scatter (the group's gradients summed in shard order, each
 shard taking its block's slice), so each block's gradient comes back to
 the shard that holds it.
 
+Across processes (a joined job, ``distributed.job``), every process runs
+the same program on the same host inputs, as JAX's multi-controller
+model does.  A collective then takes the values of this process's
+shards, in global shard order, and returns this process's shards'
+results: the plain forms over every process's shards in rank order
+(each process holding as many), the ``*_over`` forms and
+``fsdp_gather_over`` over the shards of a mesh whose ``process_ids``
+name more than one process.  Each gathers every shard's value to every
+process (``job.exchange``) and runs the one-process collective on them,
+so every result equals bitwise what one process holding every shard
+returns at those shards.  Autograd through such a collective gathers
+every shard's output gradient likewise and replays the one-process
+collective's backward on them, accumulating the shards' gradients as
+one process's engine does for a program built shard by shard (the last
+shard's first); so each shard's gradient reaches the process that owns
+it, and a backward through a collective must run on every process.
+
 ``count_collectives()`` counts the collectives run inside it: a dict of
 ``collective_bytes`` and, by kind (the reference's names: all-reduce,
 all-gather, reduce-scatter, all-to-all, collective-permute),
@@ -45,7 +64,9 @@ reference's ``hlo_analysis.summarize``.  A call counts once (an ``_over``
 form's groups run one collective each, as one HLO instruction runs on
 every device) with the bytes of one shard's result, as the reference
 counts an instruction's result shape on one device; a collective over one
-shard moves nothing and is not counted.  The backward of ``all_gather``,
+shard moves nothing and is not counted.  A collective across processes
+counts as the same collective in one process would; its exchange's
+staging is counted apart (``Job.staged``).  The backward of ``all_gather``,
 ``all_to_all`` and ``ppermute``, which autograd takes through the copies,
 is not counted (the reference's HLO holds it); FSDP's reduce-scatter is.
 Outside the context nothing is recorded.
@@ -59,6 +80,8 @@ from contextlib import contextmanager
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import job as _job
 
 # The mesh axis the fleet data plane shards the session dimension over:
 # every (N, W, d) ring, its timestamp and label rings and the per-session
@@ -76,9 +99,12 @@ class Mesh:
     """An n-d array of ``torch.device``s with one name per axis.
 
     ``shape`` maps each axis name to its size, as the reference's
-    ``Mesh.shape`` does; ``devices`` is the object array itself."""
+    ``Mesh.shape`` does; ``devices`` is the object array itself.
+    ``process_ids`` (an int array of the devices' shape, default all
+    zeros) names the process of a joined job that owns each shard; a
+    device of another process means that process's device there."""
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, process_ids=None):
         arr = np.empty(np.shape(devices), dtype=object)
         flat = [torch.device(d) for d in np.asarray(devices,
                                                     dtype=object).flat]
@@ -91,17 +117,42 @@ class Mesh:
             raise ValueError("a mesh needs at least one device")
         self.devices = arr
         self.axis_names = tuple(axis_names)
+        ids = np.zeros(arr.shape, np.int64) if process_ids is None \
+            else np.asarray(process_ids, np.int64)
+        if ids.shape != arr.shape:
+            raise ValueError(f"process_ids {ids.shape} for devices "
+                             f"{arr.shape}")
+        self.process_ids = ids
 
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.devices.shape))
 
-    def axis_devices(self, axis) -> list:
-        """The devices along ``axis`` at index 0 of every other axis."""
+    @property
+    def spans(self) -> bool:
+        """Whether the shards belong to more than one process."""
+        return len(np.unique(self.process_ids)) > 1
+
+    def _along(self, arr, axis) -> list:
         i = self.axis_names.index(axis)
         idx = tuple(slice(None) if j == i else 0
                     for j in range(len(self.axis_names)))
-        return list(self.devices[idx])
+        return list(arr[idx])
+
+    def axis_devices(self, axis) -> list:
+        """The devices along ``axis`` at index 0 of every other axis."""
+        return self._along(self.devices, axis)
+
+    def axis_process_ids(self, axis) -> list:
+        """The owning process of each of ``axis_devices(axis)``."""
+        return [int(p) for p in self._along(self.process_ids, axis)]
+
+    def axis_local(self, axis) -> list:
+        """The indices along ``axis`` (at index 0 of every other axis) of
+        the shards this process owns."""
+        me = _job.rank()
+        return [i for i, p in enumerate(self.axis_process_ids(axis))
+                if p == me]
 
     def __repr__(self):
         return f"Mesh({self.shape}, {list(self.devices.flat)})"
@@ -199,8 +250,153 @@ def _reduce(xs, op):
                     for x in xs)
 
 
+# -- across processes --------------------------------------------------------
+
+# set on a thread while it runs a spanned collective's one-process form
+_LOCAL = threading.local()
+
+
+def _cross() -> bool:
+    """Whether the plain collectives cross processes: in a job of several
+    processes, outside the one-process run of a spanned collective."""
+    job = _job.current_job()
+    return (job is not None and job.world > 1
+            and not getattr(_LOCAL, "on", False))
+
+
+def _mesh_cross(mesh) -> bool:
+    """Whether a collective over ``mesh``'s groups crosses processes."""
+    return mesh.spans and not getattr(_LOCAL, "on", False)
+
+
+def _owners(k) -> list:
+    """The plain forms' layout: every process holds ``k`` shards, in rank
+    order -> the rank of each global shard."""
+    return [r for r in range(_job.current_job().world) for _ in range(k)]
+
+
+@contextmanager
+def _one_process(count=True):
+    """Run collectives as one process holding every shard (counted
+    unless ``count`` is False)."""
+    on, rec = getattr(_LOCAL, "on", False), _COUNT["rec"]
+    _LOCAL.on = True
+    if not count:
+        _COUNT["rec"] = None
+    try:
+        yield
+    finally:
+        _LOCAL.on, _COUNT["rec"] = on, rec
+
+
+class _Plan:
+    """What a spanned collective's autograd node keeps: the one-process
+    collective, the layout, and the trees' structure."""
+
+    def __init__(self, run, xs, owners, kind):
+        me = _job.rank()
+        self.run, self.owners, self.kind = run, owners, kind
+        self.mine = [i for i, r in enumerate(owners) if r == me]
+        self.in_tree, self.k = xs[0], len(xs)
+        self.out_tree = None
+
+
+def _split(flat, tree, k) -> list:
+    n = len(flat) // k
+    return [_job.rebuild(tree, flat[s * n:(s + 1) * n]) for s in range(k)]
+
+
+class _Spanned(torch.autograd.Function):
+    """A collective across processes under autograd: the forward gathers
+    every shard's value and runs the one-process collective; the backward
+    gathers every shard's output gradient, replays the one-process
+    collective on the gathered inputs, and takes this process's inputs'
+    gradients of ``sum_s <out_s, grad_s>`` (built shard by shard, so the
+    engine accumulates the shards' terms as it does for one process)."""
+
+    @staticmethod
+    def forward(ctx, plan, *flat):
+        xs = _split(flat, plan.in_tree, plan.k)
+        glob = _job.exchange(xs, plan.owners, plan.kind)
+        with _one_process():
+            outs = plan.run(glob)
+        local = [outs[i] for i in plan.mine]
+        plan.out_tree = local[0]
+        res, seen = [], {id(t) for t in flat}
+        for o in local:
+            for t in _job.leaves(o):
+                if id(t) in seen:            # an output aliasing another
+                    t = t.clone()
+                seen.add(id(t))
+                res.append(t)
+        ctx.plan = plan
+        ctx.glob = [_tree_map(lambda t: t.detach(), g) for g in glob]
+        ctx.mark_non_differentiable(*[t for t in res
+                                      if not t.is_floating_point()])
+        return tuple(res)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan = ctx.plan
+        like = _job.leaves(plan.out_tree)
+        n = len(like)
+        cots = []
+        for s in range(plan.k):
+            g = grads[s * n:(s + 1) * n]
+            have = torch.tensor([x is not None for x in g], dtype=torch.uint8,
+                                device=like[0].device)
+            cots.append([x if x is not None else torch.zeros_like(t)
+                         for x, t in zip(g, like)] + [have])
+        gathered = _job.exchange(cots, plan.owners,
+                                 plan.kind + " (backward)")
+        ins = [[t.detach().requires_grad_(t.is_floating_point())
+                for t in _job.leaves(x)] for x in ctx.glob]
+        want = [t for i in plan.mine for t in ins[i]]
+        with torch.enable_grad():
+            with _one_process(count=False):
+                outs = plan.run([_job.rebuild(x, lv)
+                                 for x, lv in zip(ctx.glob, ins)])
+            terms = []
+            for o, c in zip(outs, gathered):
+                for t, ct, h in zip(_job.leaves(o), c[:-1], c[-1].tolist()):
+                    if h and t.requires_grad:
+                        terms.append((t * ct).sum())
+            if not terms:
+                return (None,) * (1 + len(want))
+            total = terms[0]
+            for t in terms[1:]:
+                total = total + t
+            # every shard's inputs, so every group's backward runs (and
+            # FSDP's reduce-scatter is counted as in one process)
+            need = [t for lv in ins for t in lv if t.requires_grad]
+            with _one_process():
+                got = dict(zip(map(id, need), torch.autograd.grad(
+                    total, need, allow_unused=True)))
+        return (None,) + tuple(got.get(id(t)) for t in want)
+
+
+def _span(run, xs, owners, kind):
+    """``run`` (a one-process collective, over every global shard's value
+    in global order) across the job: ``xs`` are this process's shards'
+    values, ``owners`` the rank owning each global shard -> this
+    process's shards' results (``PerShard``)."""
+    xs = list(xs)
+    flat = [t for x in xs for t in _job.leaves(x)]
+    plan = _Plan(run, xs, owners, kind)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
+        return PerShard(_split(_Spanned.apply(plan, *flat), plan.out_tree,
+                               plan.k))
+    glob = _job.exchange(xs, owners, kind)
+    with _one_process():
+        outs = run(glob)
+    return PerShard(outs[i] for i in plan.mine)
+
+
 def psum(xs, axis_name=None):
     """Sum over the shards (``jax.lax.psum``)."""
+    if _cross():
+        xs = list(xs)
+        return _span(psum, xs, _owners(len(xs)), "psum")
     if _COUNT["rec"] is not None:
         xs = list(xs)
         _tally("all-reduce", len(xs), lambda: _nbytes(xs[0]))
@@ -209,6 +405,9 @@ def psum(xs, axis_name=None):
 
 def pmax(xs, axis_name=None):
     """Elementwise maximum over the shards (``jax.lax.pmax``)."""
+    if _cross():
+        xs = list(xs)
+        return _span(pmax, xs, _owners(len(xs)), "pmax")
     if _COUNT["rec"] is not None:
         xs = list(xs)
         _tally("all-reduce", len(xs), lambda: _nbytes(xs[0]))
@@ -218,6 +417,8 @@ def pmax(xs, axis_name=None):
 def pmean(xs, axis_name=None):
     """``psum`` divided by the shard count (``jax.lax.pmean``)."""
     xs = list(xs)
+    if _cross():
+        return _span(pmean, xs, _owners(len(xs)), "pmean")
     if len(xs) == 1:
         return PerShard(xs)
     n = len(xs)
@@ -232,6 +433,9 @@ def ppermute(xs, perm, axis_name=None):
     of ``perm``; a shard no pair sends to gets zeros
     (``jax.lax.ppermute``)."""
     xs = list(xs)
+    if _cross():
+        return _span(lambda g: ppermute(g, perm), xs, _owners(len(xs)),
+                     "ppermute")
     dsts = [d for _, d in perm]
     if len(set(dsts)) != len(dsts):
         raise ValueError(f"ppermute {perm}: a shard receives twice")
@@ -248,6 +452,9 @@ def all_gather(xs, axis=0, *, tiled=False, axis_name=None):
     along a new dim ``axis`` in shard order, or concatenated along
     ``axis`` with ``tiled``."""
     xs = list(xs)
+    if _cross():
+        return _span(lambda g: all_gather(g, axis, tiled=tiled), xs,
+                     _owners(len(xs)), "all_gather")
     if len(xs) == 1 and tiled:
         return PerShard(xs)
     join = torch.cat if tiled else torch.stack
@@ -268,6 +475,9 @@ def all_to_all(xs, split_axis, concat_axis, axis_name=None):
     shard j, which concatenates what it receives along ``concat_axis`` in
     source order."""
     xs = list(xs)
+    if _cross():
+        return _span(lambda g: all_to_all(g, split_axis, concat_axis), xs,
+                     _owners(len(xs)), "all_to_all")
     R = len(xs)
     if R == 1:
         return PerShard(xs)
@@ -285,7 +495,9 @@ def all_to_all(xs, split_axis, concat_axis, axis_name=None):
 
 def axis_index(xs, axis_name=None):
     """Each shard's index along the axis (``jax.lax.axis_index``)."""
-    return PerShard(range(len(list(xs))))
+    k = len(list(xs))
+    start = _job.rank() * k if _cross() else 0
+    return PerShard(range(start, start + k))
 
 
 # -- groups of a mesh ---------------------------------------------------------
@@ -314,6 +526,9 @@ def _over(fn, vals, mesh, axes, kind, gathered=False):
     ``gathered``, else one shard's value), whose groups' own calls are not
     counted again."""
     vals = list(vals)
+    if _mesh_cross(mesh):
+        return _span(lambda g: _over(fn, g, mesh, axes, kind, gathered),
+                     vals, list(mesh.process_ids.flat), kind)
     out = [None] * len(vals)
     groups = axis_groups(mesh, axes)
     rec = _COUNT["rec"]
@@ -394,6 +609,9 @@ def fsdp_gather_over(vals, mesh, axes, dim):
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     if math.prod(mesh.shape[a] for a in axes) == 1:
         return PerShard(vals)
+    if _mesh_cross(mesh):
+        return _span(lambda g: fsdp_gather_over(g, mesh, axes, dim), vals,
+                     list(mesh.process_ids.flat), "all-gather")
     groups = []
 
     def gather(xs):

@@ -1,7 +1,11 @@
 """Meshes for the port's sharded paths, and the multi-process on-ramp.
 
 Port of ``repro.launch.mesh``: the production, test and sessions meshes
-and ``maybe_init_distributed``.  The reference builds its meshes over
+and ``maybe_init_distributed``.  After ``maybe_init_distributed`` joined
+a job of several processes, ``make_sessions_mesh()`` spans the job: each
+process contributes its devices, in rank order, and owns their shards
+(``Mesh.process_ids``), and the collectives of ``distributed.sharding``
+cross processes (``distributed.job``).  The reference builds its meshes over
 ``jax.devices()``; here each builder
 takes an explicit ``devices=`` list, which may name one device more
 than once (S logical shards on one card, the counterpart of the
@@ -14,13 +18,19 @@ reference's 512 forced host devices.
 """
 from __future__ import annotations
 
+import datetime
 import math
 import os
+import socket
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.job import Job, current_job, set_job
 from repro_torch.distributed.sharding import SESSIONS_AXIS, Mesh
+
+# how long a rank waits to join, and a collective for every rank
+TIMEOUT_S = 120.0
 
 
 def _devices(n, devices):
@@ -73,10 +83,32 @@ def make_sessions_mesh(n_shards=None, *, axis=None, devices=None):
     """The 1-D mesh ``ShardedFleetBackend`` shards its rings over:
     ``n_shards`` shards (default: one per device) along ``axis``
     (default ``SESSIONS_AXIS``) over ``devices`` (default the visible
-    CUDA devices)."""
-    devs = _devices(n_shards, devices)
-    return make_test_mesh((len(devs),), (axis or SESSIONS_AXIS,),
-                          devices=devs)
+    CUDA devices).
+
+    In a joined job of several processes every process calls it and the
+    mesh spans the job: each process contributes ``devices`` (default its
+    visible CUDA devices; ``n_shards`` counts the whole job's shards and
+    must split evenly over the processes), in rank order, and owns their
+    shards."""
+    job = current_job()
+    if job is None or job.world == 1:
+        devs = _devices(n_shards, devices)
+        return make_test_mesh((len(devs),), (axis or SESSIONS_AXIS,),
+                              devices=devs)
+    if n_shards is not None and n_shards % job.world:
+        raise ValueError(f"{n_shards} session shards do not split over "
+                         f"{job.world} processes")
+    devs = _devices(None if n_shards is None else n_shards // job.world,
+                    devices)
+    import torch.distributed as dist
+    everyone = [None] * job.world
+    dist.all_gather_object(everyone, [str(d) for d in devs],
+                           group=job.group)
+    flat = np.empty(sum(map(len, everyone)), dtype=object)
+    for i, d in enumerate(d for ds in everyone for d in ds):
+        flat[i] = torch.device(d)
+    owners = [r for r, ds in enumerate(everyone) for _ in ds]
+    return Mesh(flat, (axis or SESSIONS_AXIS,), process_ids=owners)
 
 
 def make_production_mesh(*, multi_pod: bool = False, devices=None):
@@ -92,15 +124,50 @@ def make_production_mesh(*, multi_pod: bool = False, devices=None):
 _distributed = {"initialized": False}
 
 
-def _init_process_group(*, coordinator_address, num_processes, process_id):
+def cards() -> tuple:
+    """This process's host name and the UUIDs of its visible CUDA
+    devices."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return socket.gethostname(), [
+        str(torch.cuda.get_device_properties(i).uuid) for i in range(n)]
+
+
+def data_backend(places) -> str:
+    """The backend for the collectives' payloads, from every rank's
+    ``cards()``: ``"nccl"`` when every rank owns cards that no other rank
+    sees, else ``"gloo"`` (NCCL refuses two ranks on one device, so ranks
+    that share a card stage through host memory)."""
+    seen = set()
+    for host, uuids in places:
+        if not uuids or seen & {(host, u) for u in uuids}:
+            return "gloo"
+        seen |= {(host, u) for u in uuids}
+    return "nccl"
+
+
+def _init_process_group(*, coordinator_address, num_processes, process_id,
+                        dist=None):
     """Join ``torch.distributed`` at ``tcp://coordinator_address`` with an
-    explicit world size and rank (NCCL where CUDA is visible, else
-    gloo)."""
-    import torch.distributed as dist
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    explicit world size and rank, over gloo, with ``TIMEOUT_S`` for the
+    join and every collective; then exchange every rank's ``cards()`` and
+    add an NCCL group for CUDA payloads only where ``data_backend`` allows
+    one -> the ``Job``, recorded for the collectives.  A rank that cannot
+    join raises; nothing retries on another backend.  ``dist`` is a seam
+    for tests (default ``torch.distributed``)."""
+    if dist is None:
+        import torch.distributed as dist
+    timeout = datetime.timedelta(seconds=TIMEOUT_S)
     dist.init_process_group(
-        backend, init_method=f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id)
+        "gloo", init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id, timeout=timeout)
+    places = [None] * num_processes
+    dist.all_gather_object(places, cards())
+    nccl = None
+    if num_processes > 1 and data_backend(places) == "nccl":
+        nccl = dist.new_group(backend="nccl", timeout=timeout)
+    job = Job(rank=process_id, world=num_processes, nccl=nccl)
+    set_job(job)
+    return job
 
 
 def maybe_init_distributed(*, env=None, initialize=None) -> bool:
@@ -116,8 +183,9 @@ def maybe_init_distributed(*, env=None, initialize=None) -> bool:
     Returns True when the process joined (or had already joined) a job,
     False for the single-process no-op; idempotent per process.
     ``env``/``initialize`` are injection seams for tests (default
-    ``os.environ`` and ``torch.distributed.init_process_group`` at
-    ``tcp://`` the coordinator), called as ``initialize(
+    ``os.environ`` and ``_init_process_group``: gloo at ``tcp://`` the
+    coordinator, an NCCL group only for ranks on distinct cards, the
+    ``Job`` recorded for the collectives), called as ``initialize(
     coordinator_address=, num_processes=, process_id=)``."""
     env = os.environ if env is None else env
     coordinator = env.get("REPRO_COORDINATOR")
@@ -139,4 +207,4 @@ def maybe_init_distributed(*, env=None, initialize=None) -> bool:
 
 
 __all__ = ["make_test_mesh", "make_sessions_mesh", "make_production_mesh",
-           "maybe_init_distributed"]
+           "maybe_init_distributed", "cards", "data_backend", "TIMEOUT_S"]

@@ -110,6 +110,15 @@ def test_guard_covers_the_dryrun_slice():
         assert os.path.join("src", "repro_torch", rel) in files
 
 
+def test_guard_covers_the_multiprocess_slice():
+    """The modules of the sharded fleet plane across processes."""
+    files = _port_files()
+    for rel in ("distributed/job.py", "distributed/sharding.py",
+                "distributed/grad_sync.py", "launch/mesh.py",
+                "core/fleet_backend.py"):
+        assert os.path.join("src", "repro_torch", rel) in files
+
+
 @pytest.mark.parametrize("rel", _port_files())
 def test_no_jax_or_reference_import(rel):
     with open(os.path.join(REPO, rel)) as fh:
