@@ -4382,9 +4382,10 @@ def phase15(cfg, ops):
 # (runtime/quality_tables.py), cut from the reference's 220 and 150: at
 # those the whole script took 1,261 s of a 1,200 s limit on a slow host
 # (phase 16 334 s of it; see PERF.md), at 110 and 75 1,089 s once phase 21
-# was added (phase 16 192 s); the edge learner's shapes at ENC: d 32, 16
+# was added (phase 16 192 s), at 80 and 55 1,049 s once phase 22 was
+# added (phase 16 146 s); the edge learner's shapes at ENC: d 32, 16
 # virtual negatives, the 96-frame buffer and a batch of 8
-QUALITY_STEPS, QUALITY_CALIB_STEPS = 80, 55
+QUALITY_STEPS, QUALITY_CALIB_STEPS = 64, 44
 Q_D, Q_SYN, Q_DIRS, Q_KNN, Q_C = 32, 16, 32, 3, 16
 # the demos' refine shapes (sessions, window): quickstart, fleet demo
 DEMO_REFINE = ((8, 32), (32, 50))
@@ -5565,7 +5566,15 @@ def lm18_train(dev, ops, p12_first_loss, p12_p50):
     rules = lm18_rules(cfg, shape, B)
     with shd.axis_rules(rules):
         trainer = Trainer(cfg, tcfg, data_fn, device=dev)
-    trainer.run(warm, log_every=0)
+    # phase 22's reference: the first LM22_STEPS steps' history,
+    # collectives and state (every block's digest)
+    with shd.count_collectives() as coll:
+        trainer.run(LM22_STEPS, log_every=0)
+    LM22_REF["train"] = {
+        "hist": [{k: v for k, v in h.items() if k != "time_s"}
+                 for h in trainer.history],
+        "collectives": coll, "digests": state_digests(trainer.state)}
+    trainer.run(warm - LM22_STEPS, log_every=0)
     for wrapper in ops.KERNELS.values():
         wrapper.launches = 0
     trainer.run(timed, log_every=0)
@@ -5731,7 +5740,7 @@ def lm18_moe(dev, ops):
         trainer = Trainer(cfg, TrainCfg(total_steps=1, warmup=1), data_fn,
                           device=dev)
         lay = trainer.layout
-        ps = shd.local_trees(trainer.state["params"], lay.n)
+        ps = shd.local_trees(trainer.state["params"], lay.local)
         batch = {k: lay.batch_blocks(v.to(dev))
                  for k, v in data_fn(0).items()}
         with torch.no_grad():
@@ -5759,7 +5768,7 @@ def lm18_moe(dev, ops):
             ys = moe_mod.moe_ep_sharded(
                 lay, shd.local_trees(shd.place_tree(
                     moe_p, shd.param_sharding(moe_mod._moe_axes(mc))),
-                    lay.n), mc, lay.batch_blocks(x), with_drops=True)
+                    lay.local), mc, lay.batch_blocks(x), with_drops=True)
             y_dev = lay.gather_batch(ys[0])
             dropped = int(sum(d.item() for d in ys[2]))
             x1 = x[:, :1]
@@ -6234,6 +6243,9 @@ def lm19_decode(dev, ops, spec, launches):
         ref, got, torch.tensor(abs_err, device=dev)[:, None])
     first_miss = lm19_greedy_misses(first[None], first_s[None], torch.full(
         (1, 1), (first_s - first).abs().max().item(), device=dev))
+    if spec is LM19_DECODE[0]:
+        LM22_REF["decode"] = {"fed": fed.cpu(), "prefill": first_s.cpu(),
+                              "steps": got.cpu()}
     check(max(errs.values()) <= bar, f"{name} on {shape}: sharded vs "
           f"unsharded logits {errs} of the max > {bar}")
     check(misses == 0 and first_miss[0] == 0,
@@ -6366,6 +6378,352 @@ def phase19(dev, ops):
                 "seconds": time.perf_counter() - start}
     print(f"phase 19: {readings['seconds']:.1f} s")
     return launches, readings, worst
+
+
+# --- phase 22: the LM on a mesh across processes -----------------------------
+
+# the steps of phase 18 (a)'s run that phase 22 repeats: 1 warm-up and 2
+# counted (phase 18 (a) records its first three: history, collectives and
+# every block's digest), and phase 19 (d)'s first decode run's references
+LM22_STEPS = 3
+LM22_WARM = 1
+LM22_TIMEOUT_S = 300       # the ranks' deadline, their start included
+LM22_REF = {}
+LM22_SAFE_KINDS = ("all-reduce", "all-reduce (backward)", "gather",
+                   "gather (backward)", "global norm")
+
+
+def digest(t):
+    """Two int64 sums over a tensor's bits, a plain one and one weighted
+    by position (wrapping), taken on its device -> a pair of ints."""
+    b = t.detach().contiguous().view(-1)
+    b = b.view(torch.int32) if b.element_size() == 4 else b.view(torch.uint8)
+    out = torch.zeros(2, dtype=torch.int64, device=b.device)
+    step = 1 << 24
+    for start in range(0, b.numel(), step):
+        x = b[start:start + step].to(torch.int64)
+        w = torch.arange(start, start + x.numel(), device=b.device) \
+            % 1_000_003 + 1
+        out[0] += x.sum()
+        out[1] += (x * w).sum()
+    return tuple(out.tolist())
+
+
+def state_digests(state):
+    """{(leaf path, global shard): digest} of every block this process
+    holds of a train state's ``Placed`` params and optimizer leaves."""
+    from repro_torch.checkpoint.serial import _paths
+    from repro_torch.distributed import sharding as shd
+    return {(k, i): digest(b)
+            for k, t in _paths({"params": state["params"],
+                                "opt": state["opt"]})
+            if isinstance(t, shd.Placed)
+            for i, b in enumerate(t.blocks) if b is not None}
+
+
+def lm22_rank(rank, port, device, path, sizes, cfgs, fed):
+    """One rank of phase 22, spawned: joins the job through the
+    environment contract; (a) ``Trainer`` under ``rules_for`` on the
+    (data 2, model 2) mesh that ``make_test_mesh`` spans over the two
+    processes (two logical shards each), phase 18 (a)'s run (``cfgs[0]``)
+    for ``LM22_STEPS`` steps; (b) phase 19 (d)'s first prefill and decode
+    run (``cfgs[1]``) on (2, 2) fed ``fed`` -> its readings, saved to
+    ``path``.  ``sizes``: the parent's run specs (a CPU rehearsal cuts
+    them)."""
+    globals().update(sizes)
+    src = os.path.join(ROOT, "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch.data.tokens import random_batch
+    from repro_torch.distributed import job as jobmod
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh, maybe_init_distributed
+    from repro_torch.models import lm
+    from repro_torch.optim.sgd import tree_leaves
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.weights import lm_to_mesh
+    check(maybe_init_distributed(env={
+        "REPRO_COORDINATOR": f"127.0.0.1:{port}",
+        "REPRO_NUM_PROCESSES": str(MP_WORLD),
+        "REPRO_PROCESS_ID": str(rank)}), f"rank {rank} joined no job")
+    job = jobmod.current_job()
+
+    def counts():                 # the wrappers count on the host
+        return {n: w.launches for n, w in ops.KERNELS.items()}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _, _, B, S, warm, timed, shape = LM18_TRAIN
+    cfg = cfgs[0]
+    k = int(np.prod(shape)) // MP_WORLD
+    mesh = make_test_mesh(shape, devices=[device] * k)
+    rules = shd.rules_for(mesh, cfg, batch=B, kind="train")
+    tcfg = lm_train_cfg(warm + timed, S)
+    data_fn = lambda step: random_batch(  # noqa: E731
+        torch.Generator(device=device).manual_seed(100 + step), cfg.vocab,
+        B, S)
+    with shd.axis_rules(rules):
+        trainer = Trainer(cfg, tcfg, data_fn, device=device)
+    lay = trainer.layout
+    kinds, real = [], jobmod.exchange
+
+    def spy(trees, owners, kind):
+        kinds.append(kind)
+        return real(trees, owners, kind)
+    jobmod.exchange = spy
+    staged, ms = [], []
+    with shd.count_collectives() as coll:
+        trainer.run(LM22_WARM, log_every=0)
+        zero_counts(ops)
+        for _ in range(LM22_STEPS - LM22_WARM):
+            before = dict(job.staged)
+            trainer.run(1, log_every=0)
+            staged.append({k2: job.staged[k2] - before[k2] for k2 in before})
+    jobmod.exchange = real
+    launches = counts()
+    hist = trainer.history
+    train = {"hist": [{k2: v for k2, v in h.items() if k2 != "time_s"}
+                      for h in hist],
+             "step_ms": [h["time_s"] * 1e3 for h in hist[LM22_WARM:]],
+             "collectives": coll, "launches": launches, "staged": staged,
+             "kinds": sorted(set(kinds)), "exchanges": len(kinds),
+             "leaves": len(tree_leaves(trainer.state["params"])),
+             "local": lay.local, "layers": cfg.n_layers,
+             "digests": state_digests(trainer.state)}
+    if device == "cuda":
+        torch.cuda.synchronize()
+        train["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del trainer
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # (b) phase 19 (d)'s first run: prefill, then the steps fed ``fed``
+    _, _, _, Bd, Sd, max_len, steps, shape = LM19_DECODE[0]
+    cfg = cfgs[1]
+    params = lm.init_lm(cfg, torch.Generator(device=device).manual_seed(29))
+    toks = torch.randint(0, cfg.vocab, (Bd, Sd), generator=torch.Generator(
+        device=device).manual_seed(39), device=device)
+    fed = fed.to(device)
+    k = int(np.prod(shape)) // MP_WORLD
+    rules = shd.rules_for(make_test_mesh(shape, devices=[device] * k), cfg,
+                          batch=Bd, kind="decode")
+    params = lm_to_mesh(params, cfg, rules, copy=False)
+    zero_counts(ops)
+    before = dict(job.staged)
+    with torch.inference_mode(), shd.axis_rules(rules):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        start = time.perf_counter()
+        st, first = lm.prefill(cfg, params, tokens=toks, max_len=max_len)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - start) * 1e3
+        pre = counts()
+        zero_counts(ops)
+        out, step_ms = [], []
+        for t in range(fed.shape[1]):
+            start = time.perf_counter()
+            logits, _ = lm.decode_step(cfg, params, st, fed[:, t])
+            out.append(logits.cpu())
+            step_ms.append((time.perf_counter() - start) * 1e3)
+    decode = {"prefill": first.cpu(), "steps": torch.stack(out),
+              "prefill_ms": prefill_ms, "step_ms": step_ms,
+              "prefill_launches": pre, "step_launches": counts(),
+              "staged": {k2: job.staged[k2] - before[k2] for k2 in before},
+              "index": [int(i) for i in st["index"].local_blocks],
+              "layers": cfg.n_layers, "local": len(st["index"].local_blocks)}
+    if device == "cuda":
+        decode["peak_bytes"] = torch.cuda.max_memory_allocated()
+    torch.save({"train": train, "decode": decode, "device": device,
+                "nccl": job.nccl is not None}, path)
+
+
+def lm22_spawn(sizes, cfgs, fed):
+    """The ``MP_WORLD`` ranks of phase 22, spawned with a deadline; no
+    failure is caught -> each rank's readings."""
+    import multiprocessing
+    out_dir = os.path.join(ROOT, "build", "phase22")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = [os.path.join(out_dir, f"rank{r}.pt") for r in range(MP_WORLD)]
+    for p in paths:
+        if os.path.exists(p):
+            os.unlink(p)
+    port = free_port()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=lm22_rank,
+                         args=(r, port, CARD, p, sizes, cfgs, fed))
+             for r, p in enumerate(paths)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + LM22_TIMEOUT_S
+        while any(p.is_alive() for p in procs):
+            dead = [r for r, p in enumerate(procs)
+                    if p.exitcode not in (None, 0)]
+            check(not dead, f"phase 22: rank {dead[:1]} exited "
+                  f"{[procs[r].exitcode for r in dead]}")
+            check(time.monotonic() < deadline,
+                  f"phase 22: the ranks ran past {LM22_TIMEOUT_S} s")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    check(all(p.exitcode == 0 for p in procs),
+          f"phase 22: exit codes {[p.exitcode for p in procs]}")
+    return [torch.load(p, weights_only=False) for p in paths]
+
+
+def lm22_check_train(ranks, p18_p50):
+    """(a)'s gates over the ranks' readings -> (launches summed over the
+    ranks, readings)."""
+    ref = LM22_REF["train"]
+    total, out, seen = {}, [], {}
+    for r, got in enumerate(ranks):
+        a = got["train"]
+        L, k = a["layers"], len(a["local"])
+        counted = LM22_STEPS - LM22_WARM
+        check(a["local"] == list(range(r * k, (r + 1) * k)),
+              f"rank {r}: local shards {a['local']}")
+        check(a["hist"] == ref["hist"],
+              f"rank {r}: steps' loss and metrics {a['hist']} != phase 18 "
+              f"(a)'s first {LM22_STEPS} {ref['hist']}")
+        check(a["collectives"] == ref["collectives"],
+              f"rank {r}: collectives {a['collectives']} != one process's "
+              f"{ref['collectives']}")
+        for key, d in a["digests"].items():
+            check(ref["digests"].get(key) == d,
+                  f"rank {r}: block {key} differs from phase 18 (a)'s after "
+                  f"{LM22_STEPS} steps")
+            seen.setdefault(key[0], {})[key[1]] = d
+        want = {"flash_attention_fwd": 2 * L * k * counted,
+                "flash_attention_bwd_dq": L * k * counted,
+                "flash_attention_bwd_dkv": L * k * counted,
+                "swd_rank_fwd": counted, "laplacian_energy": counted,
+                "hybrid_reg_bwd": counted}
+        launches = a["launches"]
+        check(launches == {n: want.get(n, 0) for n in launches},
+              f"rank {r}: launches {launches} in {counted} steps, want {want}"
+              " (per local shard 2 flash forwards a layer under remat, 1 dq "
+              "and 1 dk/dv; the hybrid term once a step) and no other")
+        add_counts(total, launches)
+        # what crosses a step: the CE's two sums over 'data' and the frames'
+        # gather (and their backward: the loss's sum and the gather), each
+        # leaf's replicas summed over 'data', the global norm; nothing over
+        # 'model', whose groups lie within each process
+        crossing = 2 + 1 + 2 + a["leaves"] + 1
+        per_step = [x["calls"] for x in a["staged"]]
+        check(all(c == crossing for c in per_step)
+              and a["exchanges"] == crossing * LM22_STEPS
+              and set(a["kinds"]) <= set(LM22_SAFE_KINDS),
+              f"rank {r}: {per_step} exchanges a step ({a['exchanges']} in "
+              f"{LM22_STEPS} steps, kinds {a['kinds']}), want {crossing} "
+              "(the crossing collectives only)")
+        ms = np.array(a["step_ms"])
+        per = {k2: float(np.mean([x[k2] for x in a["staged"]]))
+               for k2 in a["staged"][0]}
+        out.append({"step_ms_p50": float(np.percentile(ms, 50)),
+                    "step_ms_p95": float(np.percentile(ms, 95)),
+                    "staged_per_step": per,
+                    "peak_bytes": a.get("peak_bytes")})
+    slices = LM22_REF["train"]["digests"]
+    # replicas across the ranks: each block's digest equal wherever its
+    # slice lives (phase 18 (a)'s replicas are bitwise equal)
+    check(all(slices[(p, i)] == d for p, ds in seen.items()
+              for i, d in ds.items()), "phase 22: replicas differ")
+    return total, {"ranks": out, "phase18_step_ms_p50": p18_p50}
+
+
+def lm22_check_decode(ranks):
+    """(b)'s gates -> (prefill launches summed over the ranks, readings)."""
+    ref = LM22_REF["decode"]
+    total, out = {}, []
+    first = ranks[0]["decode"]
+    for r, got in enumerate(ranks):
+        d = got["decode"]
+        steps = ref["fed"].shape[1]
+        check(torch.equal(d["prefill"], ref["prefill"])
+              and torch.equal(d["steps"], ref["steps"]),
+              f"rank {r}: prefill or decode logits != phase 19 (d)'s (2, 2) "
+              "run's")
+        check(torch.equal(d["steps"].argmax(-1), ref["steps"].argmax(-1)),
+              f"rank {r}: greedy tokens differ from phase 19 (d)'s")
+        check(torch.equal(d["prefill"], first["prefill"])
+              and torch.equal(d["steps"], first["steps"]),
+              f"rank {r}: its global logits differ from rank 0's")
+        S = LM19_DECODE[0][4]
+        check(d["index"] == [S + steps] * d["local"], f"rank {r}: index "
+              f"{d['index']}")
+        want = d["layers"] * d["local"]
+        check(d["prefill_launches"] == {
+            n: (want if n == "flash_attention_fwd" else 0)
+            for n in d["prefill_launches"]}
+            and not any(d["step_launches"].values()),
+            f"rank {r}: prefill launched {d['prefill_launches']}, steps "
+            f"{d['step_launches']}; want {want} flash forwards (a layer a "
+            "local shard) and nothing in the steps")
+        add_counts(total, d["prefill_launches"])
+        out.append({"prefill_ms": d["prefill_ms"],
+                    "decode_ms_p50": float(np.percentile(d["step_ms"], 50)),
+                    "decode_ms_p95": float(np.percentile(d["step_ms"], 95)),
+                    "staged": d["staged"], "peak_bytes": d.get("peak_bytes")})
+    return total, {"ranks": out}
+
+
+def phase22(ops, p18_p50):
+    """The LM on a mesh across processes: ``MP_WORLD`` spawned ranks, two
+    logical shards of the card each, (a) phase 18 (a)'s training run and
+    (b) phase 19 (d)'s first decode run, held bitwise to them -> (the
+    ``lm_processes`` path's launches, summed over the ranks; readings)."""
+    start = time.perf_counter()
+    check("train" in LM22_REF and "decode" in LM22_REF,
+          "phase 22 needs phases 18 (a) and 19 (d) of the same run")
+    if CARD == "cuda":
+        torch.cuda.empty_cache()
+    sizes = {"LM18_TRAIN": LM18_TRAIN, "LM19_DECODE": LM19_DECODE,
+             "LM22_STEPS": LM22_STEPS, "LM22_WARM": LM22_WARM}
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_config
+    name, n_layers, *_ = LM18_TRAIN
+    cfg = get_config(name)
+    if n_layers:
+        cfg = replace(cfg, n_layers=n_layers)
+    cfgs = (cfg, pd_config(*LM19_DECODE[0][:3]))
+    ranks = lm22_spawn(sizes, cfgs, LM22_REF["decode"]["fed"])
+    check(not any(g["nccl"] for g in ranks), "phase 22: an NCCL group on "
+          "one card")
+    launches, train = lm22_check_train(ranks, p18_p50)
+    pre, decode = lm22_check_decode(ranks)
+    add_counts(launches, pre)
+    readings = {"train": train, "decode": decode,
+                "seconds": time.perf_counter() - start}
+    name, _, B, S, _, _, shape = LM18_TRAIN
+    print(f"phase 22: {name} on {shape} over {MP_WORLD} processes x "
+          f"{int(np.prod(shape)) // MP_WORLD} logical shards of "
+          f"{ranks[0]['device']} over gloo, B {B} x S {S}, AdamW, hybrid, "
+          f"remat: {LM22_STEPS} steps bitwise phase 18 (a)'s first (loss, "
+          "metrics, every block's digest, collectives), launches per local "
+          "shard as one process's; step ms " + "; ".join(
+              f"rank {r} p50 {x['step_ms_p50']:.3f} p95 "
+              f"{x['step_ms_p95']:.3f}, staged a step "
+              f"{x['staged_per_step']['calls']:.0f} exchanges, D2H "
+              f"{x['staged_per_step']['d2h_bytes']:.0f} B, H2D "
+              f"{x['staged_per_step']['h2d_bytes']:.0f} B, "
+              f"{x['staged_per_step']['ms']:.3f} ms host, peak "
+              f"{(x['peak_bytes'] or 0) / 1e9:.3f} GB"
+              for r, x in enumerate(train["ranks"]))
+          + f" (phase 18 (a) p50 {p18_p50:.3f}); decode "
+          f"{LM19_DECODE[0][0]} on {LM19_DECODE[0][7]}: prefill and "
+          f"{LM22_REF['decode']['fed'].shape[1]} steps bitwise phase 19 "
+          "(d)'s, the same global logits on every rank; " + "; ".join(
+              f"rank {r} prefill {x['prefill_ms']:.3f} ms, step p50 "
+              f"{x['decode_ms_p50']:.3f} p95 {x['decode_ms_p95']:.3f}, peak "
+              f"{(x['peak_bytes'] or 0) / 1e9:.3f} GB"
+              for r, x in enumerate(decode["ranks"]))
+          + f"; {readings['seconds']:.1f} s")
+    return launches, readings
 
 
 # --- phase 20: the dry-run's dtype on the card -------------------------------
@@ -7150,6 +7508,8 @@ def main():
     sharded_lm_launches, sharded_lm, sharded_lm_worst = phase18(
         dev, ops, lm_runs[0]["loss_first"], lm_runs[0]["step_ms_p50"])
     lm_mesh_launches, lm_mesh, lm_mesh_worst = phase19(dev, ops)
+    lm_processes_launches, lm_processes = phase22(
+        ops, sharded_lm["train"]["step_ms_p50"])
     lm_bf16, bf16_readings, bf16_worst, bf16_times = phase20(dev, ops)
     paths = {"serve": launches, "refine": refine_launches,
              "train": train_launches, "per_frame": frame_launches,
@@ -7160,7 +7520,8 @@ def main():
              "examples": example_launches, "sharded": sharded_launches,
              "sharded_lm": sharded_lm_launches, "lm_mesh": lm_mesh_launches,
              "lm_bf16": lm_bf16["launches"],
-             "multiprocess": multiprocess_launches}
+             "multiprocess": multiprocess_launches,
+             "lm_processes": lm_processes_launches}
     print("kernels: " + "; ".join(f"{p} path " + ", ".join(
         f"{n} launches={c}" for n, c in counts.items())
         for p, counts in paths.items()))
@@ -7291,6 +7652,7 @@ def main():
                  "bound_ms": row["bound_ms"][r["name"]]}
                 for row in lm_mesh["flash_ms"] if r["name"] in row]
     print(json.dumps({"lm_mesh": lm_mesh}))
+    print(json.dumps({"lm_processes": lm_processes}))
     records += lm20_records(lm_bf16, bf16_worst, bf16_times)
     print(json.dumps({"lm_bf16": bf16_readings}))
     print(json.dumps({"kernels": records}))

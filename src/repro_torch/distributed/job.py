@@ -21,6 +21,11 @@ collectives in different orders fail at the first call that differs
 instead of mixing payloads; a process that does not call at all fails
 the others at the group's timeout.
 
+Each tensor travels in the order of its memory (a transposed gradient
+as it lies) with its dims' order, and is rebuilt with the sender's
+layout: an elementwise sum or a reduction over it then runs in the
+sender's order, as one process holding every shard would run it.
+
 Over gloo a CUDA payload stages through pinned host memory: one
 device->host copy of this process's shards before the transfer, one
 host->device copy of the gathered buffer after.  ``Job.staged`` counts
@@ -122,6 +127,14 @@ def _padded(n) -> int:
     return -(-n // _ALIGN) * _ALIGN
 
 
+def _order(x) -> list:
+    """The dims of ``x`` from outermost to innermost in memory, where
+    ``x`` is dense in some order of its dims (a transposed or permuted
+    tensor), else in index order."""
+    perm = sorted(range(x.dim()), key=lambda d: (-x.stride(d), d))
+    return perm if x.permute(perm).is_contiguous() else list(range(x.dim()))
+
+
 def exchange(trees, owners, kind) -> list:
     """Every shard's value on every process of the job.
 
@@ -141,6 +154,9 @@ def exchange(trees, owners, kind) -> list:
         raise ValueError(f"{kind}: {k} local shard values where the layout "
                          f"gives rank {job.rank} {counts[job.rank]}")
     flat = [leaves(t) for t in trees]
+    # each value's tensors' dims in memory order, sent as one more tensor
+    flat = [lv + [torch.tensor([d for x in lv for d in _order(x)],
+                               dtype=torch.int64)] for lv in flat]
     specs = [(tuple(x.shape), x.dtype) for x in flat[0]]
     for lv in flat[1:]:
         if [(tuple(x.shape), x.dtype) for x in lv] != specs:
@@ -163,10 +179,13 @@ def exchange(trees, owners, kind) -> list:
         payload = torch.empty(k * per, dtype=torch.uint8,
                               device=dev if on_card else "cpu")
         for j, lv in enumerate(flat):
+            orders = lv[-1].tolist() + [0]
             for x, off in zip(lv, offs):
                 n = _nbytes(x)
+                perm, orders = orders[:x.dim()], orders[x.dim():]
                 payload[j * per + off:j * per + off + n].copy_(
-                    x.detach().to(dev).reshape(-1).view(torch.uint8))
+                    x.detach().to(dev).permute(perm).reshape(-1)
+                    .view(torch.uint8))
         buf = torch.zeros(size, dtype=torch.uint8,
                           device=dev if nccl else "cpu",
                           pin_memory=on_card and not nccl)
@@ -191,6 +210,14 @@ def exchange(trees, owners, kind) -> list:
                     f"{heads[r].tolist()}, rank {job.rank} expected "
                     f"{want.tolist()} (every process must call the same "
                     "collectives in the same order on the same layout)")
+        # every value's dims in memory order (the last tensor of each),
+        # read where the gathered buffer lies before it moves
+        last = offs[-1]
+        orders = {(r, j): out[r * size + _HEADER + j * per + last:
+                              r * size + _HEADER + j * per + last
+                              + _nbytes(flat[0][-1])].view(torch.int64)
+                  .tolist() for r in range(job.world)
+                  for j in range(counts[r]) if r != job.rank}
         if on_card and not nccl:
             job.staged["d2h_bytes"] += k * per
             job.staged["h2d_bytes"] += out.numel()
@@ -207,9 +234,14 @@ def exchange(trees, owners, kind) -> list:
             result.append(next(mine))
             continue
         base = r * size + _HEADER + j * per
-        result.append(rebuild(trees[0], [
-            out[base + off:base + off + _nbytes(x)].view(x.dtype).view(
-                x.shape) for x, off in zip(flat[0], offs)]))
+        got = [out[base + off:base + off + _nbytes(x)].view(x.dtype)
+               for x, off in zip(flat[0][:-1], offs)]
+        order, new = orders[r, j], []
+        for x, t in zip(flat[0][:-1], got):
+            perm, order = order[:x.dim()], order[x.dim():]
+            new.append(t.view([x.shape[d] for d in perm]).permute(
+                sorted(range(x.dim()), key=perm.__getitem__)))
+        result.append(rebuild(trees[0], new))
     return result
 
 

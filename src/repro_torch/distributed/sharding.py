@@ -49,12 +49,22 @@ results: the plain forms over every process's shards in rank order
 name more than one process.  Each gathers every shard's value to every
 process (``job.exchange``) and runs the one-process collective on them,
 so every result equals bitwise what one process holding every shard
-returns at those shards.  Autograd through such a collective gathers
-every shard's output gradient likewise and replays the one-process
-collective's backward on them, accumulating the shards' gradients as
-one process's engine does for a program built shard by shard (the last
-shard's first); so each shard's gradient reaches the process that owns
-it, and a backward through a collective must run on every process.
+returns at those shards.  An ``*_over`` form whose groups each lie
+within one process (``Mesh.crosses``, decided from the mesh alone, so
+every process decides alike) runs this process's groups where they are
+and exchanges nothing.  Autograd through a collective that crosses
+gathers every shard's output gradient likewise and replays the
+one-process collective's backward on them, accumulating the shards'
+gradients as one process's engine does for a program built shard by
+shard (the last shard's first); so each shard's gradient reaches the
+process that owns it, and a backward through a collective must run on
+every process.  For that, each shard's result is a node of its own (a
+view where the shards share a device), so its uses' gradients are summed
+per shard before they reach the reduced value; and an output gradient
+that is all zeros counts as none, so a process that seeds its copy of a
+replicated loss with 0 (``runtime/trainer``) adds nothing.  On such a
+mesh a ``Placed`` holds this process's blocks only, and its ``gather``
+assembles the whole tensor on every process.
 
 ``count_collectives()`` counts the collectives run inside it: a dict of
 ``collective_bytes`` and, by kind (the reference's names: all-reduce,
@@ -154,6 +164,22 @@ class Mesh:
         return [i for i, p in enumerate(self.axis_process_ids(axis))
                 if p == me]
 
+    def local(self) -> list:
+        """The global (row-major) indices of the shards this process
+        owns, in order: every shard outside a joined job."""
+        me = _job.rank()
+        return [i for i, p in enumerate(self.process_ids.flat) if p == me]
+
+    def crosses(self, axes) -> bool:
+        """Whether a group of ``axis_groups(self, axes)`` holds shards of
+        more than one process (decided from the mesh alone, so every
+        process decides alike)."""
+        if not self.spans:
+            return False
+        ids = self.process_ids.reshape(-1)
+        return any(len({int(ids[i]) for i in g}) > 1
+                   for g in axis_groups(self, axes))
+
     def __repr__(self):
         return f"Mesh({self.shape}, {list(self.devices.flat)})"
 
@@ -231,6 +257,14 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
+def _own(a, x):
+    """``a`` on ``x``'s device as a node of its own (a view where the
+    device is the same): each shard's result takes its own gradient, which
+    reaches ``a`` once the shard's uses of it are summed, whatever the
+    shards' devices."""
+    return a.to(x.device) if a.device != x.device else a.view_as(a)
+
+
 def _reduce(xs, op):
     """``op`` folded over the shards' values in shard order on the first
     shard's device -> one result per shard, on its own device."""
@@ -246,8 +280,7 @@ def _reduce(xs, op):
             acc = op(acc, v.to(acc.device))
         return acc
     total = _tree_map(leaf, *xs)
-    return PerShard(_tree_map(lambda a, x: a.to(x.device), total, x)
-                    for x in xs)
+    return PerShard(_tree_map(_own, total, x) for x in xs)
 
 
 # -- across processes --------------------------------------------------------
@@ -343,8 +376,12 @@ class _Spanned(torch.autograd.Function):
         cots = []
         for s in range(plan.k):
             g = grads[s * n:(s + 1) * n]
-            have = torch.tensor([x is not None for x in g], dtype=torch.uint8,
-                                device=like[0].device)
+            # an output with no gradient, or an all-zero one (a process
+            # that seeds its copy of a replicated loss with 0), adds no
+            # term: one process differentiates only the copy it returns
+            none = torch.zeros((), dtype=torch.bool, device=like[0].device)
+            have = torch.stack([none if x is None else x.ne(0).any()
+                                for x in g]).to(torch.uint8)
             cots.append([x if x is not None else torch.zeros_like(t)
                          for x, t in zip(g, like)] + [have])
         gathered = _job.exchange(cots, plan.owners,
@@ -465,8 +502,7 @@ def all_gather(xs, axis=0, *, tiled=False, axis_name=None):
     if _COUNT["rec"] is not None:
         _tally("all-gather", len(xs), lambda: len(xs) * _nbytes(xs[0]))
     total = _tree_map(leaf, *xs)
-    return PerShard(_tree_map(lambda a, x: a.to(x.device), total, x)
-                    for x in xs)
+    return PerShard(_tree_map(_own, total, x) for x in xs)
 
 
 def all_to_all(xs, split_axis, concat_axis, axis_name=None):
@@ -524,24 +560,32 @@ def _over(fn, vals, mesh, axes, kind, gathered=False):
     """``fn`` on each group of ``axis_groups(mesh, axes)``: one collective
     of ``kind`` (one shard's result the group's values stacked when
     ``gathered``, else one shard's value), whose groups' own calls are not
-    counted again."""
+    counted again.  On a mesh that spans processes ``vals`` are this
+    process's shards' values: a collective whose groups each lie within
+    one process runs this process's groups here and exchanges nothing;
+    one whose groups cross gathers every shard's value (``_span``)."""
     vals = list(vals)
-    if _mesh_cross(mesh):
-        return _span(lambda g: _over(fn, g, mesh, axes, kind, gathered),
-                     vals, list(mesh.process_ids.flat), kind)
-    out = [None] * len(vals)
     groups = axis_groups(mesh, axes)
+    at = range(len(vals))
+    if _mesh_cross(mesh):
+        if mesh.crosses(axes):
+            return _span(lambda g: _over(fn, g, mesh, axes, kind, gathered),
+                         vals, list(mesh.process_ids.flat), kind)
+        local = mesh.local()
+        if len(vals) != len(local):
+            raise ValueError(f"{kind}: {len(vals)} values for this "
+                             f"process's {len(local)} shards")
+        at = dict(zip(local, at))
+        groups = [g for g in groups if g[0] in at]
+    out = [None] * len(vals)
     rec = _COUNT["rec"]
     if rec is not None:
         R = len(groups[0])
         _tally(kind, R, lambda: (R if gathered else 1) * _nbytes(vals[0]))
-        _COUNT["rec"] = None
-    try:
+    with _one_process(count=False):
         for group in groups:
-            for i, v in zip(group, fn([vals[i] for i in group])):
-                out[i] = v
-    finally:
-        _COUNT["rec"] = rec
+            for i, v in zip(group, fn([vals[at[i]] for i in group])):
+                out[at[i]] = v
     return PerShard(out)
 
 
@@ -609,7 +653,7 @@ def fsdp_gather_over(vals, mesh, axes, dim):
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     if math.prod(mesh.shape[a] for a in axes) == 1:
         return PerShard(vals)
-    if _mesh_cross(mesh):
+    if _mesh_cross(mesh) and mesh.crosses(axes):
         return _span(lambda g: fsdp_gather_over(g, mesh, axes, dim), vals,
                      list(mesh.process_ids.flat), "all-gather")
     groups = []
@@ -780,7 +824,9 @@ class NamedSharding:
 
 class Placed:
     """A global tensor held on a mesh as one block a shard (in the mesh's
-    row-major order), each the slice ``sharding.slices(shape)`` names."""
+    row-major order), each the slice ``sharding.slices(shape)`` names.
+    On a mesh that spans processes a process holds only its own shards'
+    blocks (``local_blocks``), and None for every other shard's."""
 
     def __init__(self, blocks, sharding: NamedSharding, shape):
         self.blocks = list(blocks)
@@ -788,25 +834,56 @@ class Placed:
         self.shape = torch.Size(shape)
 
     @classmethod
+    def from_local(cls, blocks, sharding: NamedSharding, shape):
+        """This process's shards' blocks (in global order) -> the
+        ``Placed`` that holds them, None at every other shard."""
+        out = [None] * sharding.mesh.devices.size
+        local = sharding.mesh.local()
+        blocks = list(blocks)
+        if len(blocks) != len(local):
+            raise ValueError(f"{len(blocks)} blocks for this process's "
+                             f"{len(local)} shards")
+        for i, b in zip(local, blocks):
+            out[i] = b
+        return cls(out, sharding, shape)
+
+    @classmethod
     def put(cls, x, sharding: NamedSharding, *, copy=True):
-        """``x`` (a tensor anywhere) laid out by ``sharding``: each block
-        its own contiguous copy on its shard's device with ``copy`` (what
-        a state that is updated in place needs), else views where the
-        device allows (differentiable)."""
+        """``x`` (a tensor anywhere) laid out by ``sharding``: each of
+        this process's blocks its own contiguous copy on its shard's
+        device with ``copy`` (what a state that is updated in place
+        needs), else views where the device allows (differentiable)."""
+        local = sharding.mesh.local()
+        slices = sharding.slices(x.shape)
         blocks = []
-        for dev, sl in zip(sharding.devices, sharding.slices(x.shape)):
-            b = x[sl].to(dev)
+        for i in local:
+            b = x[slices[i]].to(sharding.devices[i])
             blocks.append(b.clone(memory_format=torch.contiguous_format)
                           if copy else b)
-        return cls(blocks, sharding, x.shape)
+        return cls.from_local(blocks, sharding, x.shape)
+
+    @property
+    def local_blocks(self) -> list:
+        """This process's blocks, in global shard order."""
+        return [b for b in self.blocks if b is not None]
 
     @property
     def dtype(self):
-        return self.blocks[0].dtype
+        return self.local_blocks[0].dtype
 
     def gather(self, device=None) -> torch.Tensor:
-        """The full tensor on ``device`` (default the first shard's),
-        assembled from one replica of each block (differentiable)."""
+        """The full tensor on ``device`` (default this process's first
+        shard's), assembled from one replica of each block
+        (differentiable).  Across processes every process calls it and
+        gets the whole tensor: the blocks are gathered (``_span``), and
+        the gradient of each copy reaches the blocks' owners."""
+        if any(b is None for b in self.blocks):
+            mesh = self.sharding.mesh
+            whole = _span(lambda g: [Placed(g, self.sharding, self.shape)
+                                     .gather()] * len(g),
+                          self.local_blocks, list(mesh.process_ids.flat),
+                          "gather")[0]
+            return whole if device is None else whole.to(device)
         device = device or self.blocks[0].device
         out = torch.zeros(self.shape, dtype=self.dtype, device=device)
         seen = set()
@@ -827,7 +904,7 @@ class Placed:
 
     def __repr__(self):
         return (f"Placed({tuple(self.shape)}, {self.sharding.spec}, "
-                f"{len(self.blocks)} blocks)")
+                f"{len(self.local_blocks)} of {len(self.blocks)} blocks)")
 
 
 def shard(x, *axes):
@@ -862,10 +939,11 @@ def map_placed(fn, tree):
     return fn(tree) if isinstance(tree, Placed) else tree
 
 
-def local_trees(tree, n) -> list:
-    """A tree of ``Placed`` leaves -> n trees of blocks, shard s's
-    holding each leaf's block s."""
-    return [map_placed(lambda t, s=s: t.blocks[s], tree) for s in range(n)]
+def local_trees(tree, shards) -> list:
+    """A tree of ``Placed`` leaves -> one tree of blocks a shard of
+    ``shards`` (global indices, such as ``ShardLayout.local``), shard
+    s's holding each leaf's block s."""
+    return [map_placed(lambda t, s=s: t.blocks[s], tree) for s in shards]
 
 
 def gather_tree(tree, device=None):
@@ -984,7 +1062,13 @@ class ShardLayout:
     them: each shard has a rank along 'model' (0 without that axis) and
     a batch group (its coordinates on the other axes), in the mesh's
     row-major order.  The ``*_model`` collectives run within each batch
-    group, the ``*_batch`` ones across the batch groups of each rank."""
+    group, the ``*_batch`` ones across the batch groups of each rank.
+
+    ``n`` counts every shard of the mesh, ``local`` lists the global
+    indices of this process's (every shard outside a joined job), and
+    ``rank`` and ``group`` give each local shard's rank along 'model' and
+    batch group; the sharded programs run over the local shards, in that
+    order, on ``device`` (the first local shard's)."""
 
     def __init__(self, rules: AxisRules):
         mesh = rules.mesh
@@ -995,12 +1079,17 @@ class ShardLayout:
         self.n = len(self.devices)
         self.M = mesh.shape.get("model", 1)
         self.batch_axes = tuple(a for a in mesh.axis_names if a != "model")
+        self.local = mesh.local()
+        if not self.local:
+            raise ValueError("this process owns no shard of the mesh")
+        self.device = self.devices[self.local[0]]
         names = mesh.axis_names
-        self.rank = []
-        for coords in itertools.product(*(range(k)
-                                          for k in mesh.devices.shape)):
-            at = dict(zip(names, coords))
-            self.rank.append(at.get("model", 0))
+        coords = list(itertools.product(*(range(k)
+                                          for k in mesh.devices.shape)))
+        at = [dict(zip(names, c)) for c in coords]
+        self.rank = [at[i].get("model", 0) for i in self.local]
+        self.group = [tuple(v for a, v in at[i].items() if a != "model")
+                      for i in self.local]
         batch = rules.act_rules.get("batch")
         self.batch_spec = P(batch)
         self.batch_split = batch is not None
@@ -1020,15 +1109,16 @@ class ShardLayout:
         act rules' 'batch' entry; whole on every shard when it is
         None)."""
         sharding = NamedSharding(self.mesh, self.batch_spec)
-        return Placed.put(x, sharding, copy=copy).blocks
+        return Placed.put(x, sharding, copy=copy).local_blocks
 
     def gather_batch(self, xs):
-        """Each shard's rows (whole over 'model') -> the global tensor on
-        the first shard's device (one replica a block)."""
+        """Each local shard's rows (whole over 'model') -> the global
+        tensor on the first local shard's device (one replica a block;
+        across processes gathered from every process, differentiable)."""
         sharding = NamedSharding(self.mesh, self.batch_spec)
         groups = self.n // self.M if self.batch_split else 1
         shape = (xs[0].shape[0] * groups,) + tuple(xs[0].shape[1:])
-        return Placed(xs, sharding, shape).gather()
+        return Placed.from_local(xs, sharding, shape).gather()
 
     def _over(self, fn, vals, axes):
         axes = tuple(a for a in axes if a in self.mesh.axis_names)

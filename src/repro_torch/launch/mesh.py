@@ -4,7 +4,8 @@ Port of ``repro.launch.mesh``: the production, test and sessions meshes
 and ``maybe_init_distributed``.  After ``maybe_init_distributed`` joined
 a job of several processes, ``make_sessions_mesh()`` spans the job: each
 process contributes its devices, in rank order, and owns their shards
-(``Mesh.process_ids``), and the collectives of ``distributed.sharding``
+(``Mesh.process_ids``), and so do ``make_test_mesh`` and
+``make_production_mesh``; the collectives of ``distributed.sharding``
 cross processes (``distributed.job``).  The reference builds its meshes over
 ``jax.devices()``; here each builder
 takes an explicit ``devices=`` list, which may name one device more
@@ -69,14 +70,48 @@ def _devices(n, devices):
     return out
 
 
+def _spanned(devices):
+    """In a joined job of several processes: every process's
+    ``devices`` (checked by ``_devices``; default its visible CUDA
+    devices), in rank order -> (the job's devices, the rank owning each);
+    else None."""
+    job = current_job()
+    if job is None or job.world == 1:
+        return None
+    devs = _devices(None, devices)
+    import torch.distributed as dist
+    everyone = [None] * job.world
+    dist.all_gather_object(everyone, [str(d) for d in devs],
+                           group=job.group)
+    flat = [torch.device(d) for ds in everyone for d in ds]
+    return flat, [r for r, ds in enumerate(everyone) for _ in ds]
+
+
+def _mesh(shape, axes, devices, owners=None):
+    arr = np.empty(len(devices), dtype=object)
+    for i, d in enumerate(devices):
+        arr[i] = d
+    return Mesh(arr.reshape(shape), axes, process_ids=None if owners is None
+                else np.asarray(owners).reshape(shape))
+
+
 def make_test_mesh(shape=(2, 2), axes=("data", "model"), *, devices=None):
     """A mesh of ``shape`` with axis names ``axes`` over ``devices`` (in
-    row-major order; default the first prod(shape) CUDA devices)."""
+    row-major order; default the first prod(shape) CUDA devices).
+
+    In a joined job of several processes every process calls it and the
+    mesh spans the job: each process contributes its ``devices`` (default
+    its visible CUDA devices), in rank order, and owns their shards
+    (``Mesh.process_ids``); ``prod(shape)`` must equal the job's total."""
     n = math.prod(shape)
-    arr = np.empty(n, dtype=object)
-    for i, d in enumerate(_devices(n, devices)):
-        arr[i] = d
-    return Mesh(arr.reshape(shape), axes)
+    joined = _spanned(devices)
+    if joined is None:
+        return _mesh(shape, axes, _devices(n, devices))
+    devs, owners = joined
+    if len(devs) != n:
+        raise ValueError(f"a mesh of {tuple(shape)} ({n} shards) over the "
+                         f"job's {len(devs)} devices")
+    return _mesh(shape, axes, devs, owners)
 
 
 def make_sessions_mesh(n_shards=None, *, axis=None, devices=None):
@@ -98,23 +133,18 @@ def make_sessions_mesh(n_shards=None, *, axis=None, devices=None):
     if n_shards is not None and n_shards % job.world:
         raise ValueError(f"{n_shards} session shards do not split over "
                          f"{job.world} processes")
-    devs = _devices(None if n_shards is None else n_shards // job.world,
-                    devices)
-    import torch.distributed as dist
-    everyone = [None] * job.world
-    dist.all_gather_object(everyone, [str(d) for d in devs],
-                           group=job.group)
-    flat = np.empty(sum(map(len, everyone)), dtype=object)
-    for i, d in enumerate(d for ds in everyone for d in ds):
-        flat[i] = torch.device(d)
-    owners = [r for r, ds in enumerate(everyone) for _ in ds]
-    return Mesh(flat, (axis or SESSIONS_AXIS,), process_ids=owners)
+    if n_shards is not None:
+        devices = _devices(n_shards // job.world, devices)
+    devs, owners = _spanned(devices)
+    return _mesh((len(devs),), (axis or SESSIONS_AXIS,), devs, owners)
 
 
 def make_production_mesh(*, multi_pod: bool = False, devices=None):
     """16x16 ``("data", "model")``, or 2x16x16 ``("pod", "data",
     "model")`` with ``multi_pod``, over ``devices`` (default the first
-    256 or 512 visible CUDA devices; fewer raise)."""
+    256 or 512 visible CUDA devices; fewer raise).  In a joined job it
+    spans the job as ``make_test_mesh`` does: the job's devices must
+    number 256 (512)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_test_mesh(shape, axes, devices=devices)

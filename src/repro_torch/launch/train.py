@@ -14,6 +14,14 @@ production mesh (``make_production_mesh(multi_pod=)``: 16 x 16, or 2 x
 batch=, kind="train")``; devices that cannot form that mesh raise, and
 so does ``--multi-pod`` wherever the 512 devices are not there.
 ``train_4k`` (256 x 4,096 tokens) does not fit one card in float32.
+
+It first joins a multi-process job where the environment names one
+(``maybe_init_distributed``: ``REPRO_COORDINATOR``,
+``REPRO_NUM_PROCESSES``, ``REPRO_PROCESS_ID``; a no-op without them), the
+counterpart of the pod runtime that makes the reference's
+``jax.devices()`` global.  In a joined job the production mesh spans the
+job (every process contributing its devices), each process trains its
+own shards, and every process prints the same final loss.
 """
 from __future__ import annotations
 
@@ -35,8 +43,10 @@ def main(argv=None):
     from repro_torch.configs.base import SHAPES, get_config, smoke_config
     from repro_torch.data.tokens import random_batch
     from repro_torch.distributed import sharding as shd
-    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.runtime.trainer import TrainCfg, Trainer
+
+    joined = mesh_mod.maybe_init_distributed()
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -73,8 +83,9 @@ def main(argv=None):
         return random_batch(torch.Generator().manual_seed(step), cfg.vocab,
                             batch, seq)
 
-    if args.multi_pod or (device_count(args.device) > 1 and not args.smoke):
-        mesh = make_production_mesh(multi_pod=args.multi_pod)
+    if args.multi_pod or ((joined or device_count(args.device) > 1)
+                          and not args.smoke):
+        mesh = mesh_mod.make_production_mesh(multi_pod=args.multi_pod)
         rules = shd.rules_for(mesh, cfg, batch=batch, kind="train")
         ctx = shd.axis_rules(rules)
     else:

@@ -26,8 +26,14 @@ sums psum'd over the data axes.  Under FSDP rules (``rules_for(...,
 fsdp=True)``) params are split over 'data' too and each layer's blocks
 are gathered whole over it where the layer runs (inside its remat; the
 gradient reduce-scattered back, ``fsdp_gather_over``).  Each shard runs
-its block in lockstep with the others in one process; the reference's
-``shard`` annotations are where the port's collectives sit.  The global
+its block in lockstep with the others of its process; the reference's
+``shard`` annotations are where the port's collectives sit.  On a mesh
+that spans a joined job (``launch.mesh``) every process runs the same
+program over its own shards only (``ShardLayout.local``, with their
+ranks along 'model'), holds only their blocks of the params and the
+decode state, and gathers the logits from every process, so every
+process returns the same global logits (the reference's replicated
+output).  The global
 entry points lay the params out by ``param_axes`` (views, so gradients
 reach the global tree; or take them laid out already, ``Placed``) and
 gather the hidden states and logits back; ``runtime/trainer`` calls
@@ -514,9 +520,9 @@ def _laid_out(cfg, params, lay):
     ``weights.lm_to_mesh`` lays them out under the same rules) -> their
     blocks."""
     if isinstance(_first_leaf(params), shd.Placed):
-        return shd.local_trees(params, lay.n)
+        return shd.local_trees(params, lay.local)
     placed = shd.place_tree(params, param_shardings(cfg, lay), copy=False)
-    return shd.local_trees(placed, lay.n)
+    return shd.local_trees(placed, lay.local)
 
 
 def _inputs(lay, tokens, embeds):
@@ -759,30 +765,34 @@ def init_decode_state_sharded(lay, cfg, batch, max_len, dtype=None):
     out = {}
     for k, sh in decode_state_sharding(cfg, lay.rules).items():
         t = whole[k]
-        out[k] = shd.Placed(
-            [torch.zeros(t[sl].shape, dtype=t.dtype, device=dev)
-             for dev, sl in zip(sh.devices, sh.slices(t.shape))],
+        slices = sh.slices(t.shape)
+        out[k] = shd.Placed.from_local(
+            [torch.zeros(t[slices[i]].shape, dtype=t.dtype,
+                         device=sh.devices[i]) for i in lay.local],
             sh, t.shape)
     return out
 
 
-def _kv_offsets(state):
-    """Each shard's first cache position (its ``kv_seq`` block's start),
-    or zeros for a state without a cache."""
+def _kv_offsets(lay, state):
+    """Each local shard's first cache position (its ``kv_seq`` block's
+    start), or None for a state without a cache."""
     if "k" not in state:
         return None
     k = state["k"]
-    return [sl[3].start for sl in k.sharding.slices(k.shape)]
+    slices = k.sharding.slices(k.shape)
+    return [slices[i][3].start for i in lay.local]
 
 
 def _gather_logits(lay, cfg, blocks):
-    """Each shard's (B_l, vocab block) logits -> the global (B, vocab) on
-    the first shard's device."""
+    """Each local shard's (B_l, vocab block) logits -> the global (B,
+    vocab) on the first local shard's device: across processes gathered
+    from every process, so every process returns the same logits (the
+    reference's replicated output)."""
     B = blocks[0].shape[0] * (lay.n // lay.M if lay.batch_split else 1)
     spec = shd.P(lay.rules.act_rules.get("batch"),
                  "model" if lay.split("vocab") else None)
-    return shd.Placed(blocks, shd.NamedSharding(lay.mesh, spec),
-                      (B, cfg.vocab)).gather()
+    return shd.Placed.from_local(blocks, shd.NamedSharding(lay.mesh, spec),
+                                 (B, cfg.vocab)).gather()
 
 
 def _last_logits(lay, cfg, ps, plan, xs):
@@ -803,8 +813,8 @@ def prefill_sharded(lay, cfg, ps, state, tokens=None, embeds=None):
     xs = _embed_sharded(lay, cfg, _top(lay, plan, ps, ("embed",)), tokens,
                         embeds)
     S = xs[0].shape[1]
-    sts = shd.local_trees(state, lay.n)
-    offs = _kv_offsets(state)
+    sts = shd.local_trees(state, lay.local)
+    offs = _kv_offsets(lay, state)
     for st in sts:
         st["index"].fill_(S)
 
@@ -838,8 +848,8 @@ def decode_step_sharded(lay, cfg, ps, state, tokens):
     plan = _fsdp_plan(cfg, lay)
     xs = _embed_sharded(lay, cfg, _top(lay, plan, ps, ("embed",)),
                         [t[:, None] for t in tokens], None)
-    sts = shd.local_trees(state, lay.n)
-    offs = _kv_offsets(state)
+    sts = shd.local_trees(state, lay.local)
+    offs = _kv_offsets(lay, state)
     idxs = [st["index"] for st in sts]
     max_len = state["k"].shape[3] if "k" in state else None
 

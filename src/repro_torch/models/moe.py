@@ -276,7 +276,7 @@ def moe_ep(p, moe_cfg, x, *, cap_factor=1.25):
     lay = shd.ShardLayout(rules)
     placed = shd.place_tree(p, shd.param_sharding(_moe_axes(moe_cfg)),
                             copy=False)
-    ps = shd.local_trees(placed, lay.n)
+    ps = shd.local_trees(placed, lay.local)
     ys, aux = moe_ep_sharded(lay, ps, moe_cfg, lay.batch_blocks(x),
                              cap_factor=cap_factor)
     return lay.gather_batch(ys).to(x.device), aux[0].to(x.device)

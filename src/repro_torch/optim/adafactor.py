@@ -90,10 +90,12 @@ def adafactor_update_placed(params, grads, state, *, lr, decay=0.8,
     ``Placed`` leaves laid out by ``placed_stats_sharding``.  Every mean
     of the factored statistics and the update's RMS is taken over the
     whole leaf: each shard's partial sums psum'd over the mesh axes that
-    split the reduced dims.  Replicas of a block compute the same bits."""
+    split the reduced dims.  Replicas of a block compute the same bits.
+    On a mesh that spans processes each process updates its own blocks
+    (``grads`` then hold this process's shards')."""
     from repro_torch.distributed.sharding import psum_over, spec_axes
 
-    steps = state["step"].blocks
+    steps = state["step"].local_blocks
     for t in steps:
         t += 1
     for leaf, gs, st in zip(tree_leaves(params), grads,
@@ -108,7 +110,7 @@ def adafactor_update_placed(params, grads, state, *, lr, decay=0.8,
             axes = spec_axes(tuple(spec[d] for d in dims))
             return psum_over(vals, mesh, axes) if axes else vals
 
-        n = len(leaf.blocks)
+        n = len(leaf.local_blocks)
         g = [x.float() for x in gs]
         g2 = [x.square() + eps for x in g]
         betas = [1.0 - t.float() ** (-decay) for t in steps]
@@ -116,7 +118,7 @@ def adafactor_update_placed(params, grads, state, *, lr, decay=0.8,
             nd = len(leaf.shape)
             rows = total([x.sum(-1) for x in g2], (nd - 1,))
             cols = total([x.sum(-2) for x in g2], (nd - 2,))
-            vr, vc = st["vr"].blocks, st["vc"].blocks
+            vr, vc = st["vr"].local_blocks, st["vc"].local_blocks
             for s in range(n):
                 b = betas[s]
                 vr[s].copy_(b * vr[s] + (1 - b) * (rows[s] / leaf.shape[-1]))
@@ -126,13 +128,13 @@ def adafactor_update_placed(params, grads, state, *, lr, decay=0.8,
                                     .clamp_min(eps))[..., None]
                  * torch.rsqrt(vc[s])[..., None, :] for s in range(n)]
         else:
-            v = st["v"].blocks
+            v = st["v"].local_blocks
             for s in range(n):
                 v[s].copy_(betas[s] * v[s] + (1 - betas[s]) * g2[s])
             u = [g[s] * torch.rsqrt(v[s]) for s in range(n)]
         sq = total([x.square().sum() for x in u], range(len(leaf.shape)))
         numel = leaf.shape.numel()
-        for s, p in enumerate(leaf.blocks):
+        for s, p in enumerate(leaf.local_blocks):
             rms = torch.sqrt(sq[s] / numel)
             us = u[s] / torch.clamp_min(rms / clip_threshold, 1.0)
             if weight_decay:

@@ -63,6 +63,7 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.hybrid import regularisers
+from repro_torch.distributed import job as _job
 from repro_torch.distributed import sharding as shd
 from repro_torch.core.swd import seeded_generator
 from repro_torch.kernels.ops import resolve_device
@@ -211,17 +212,30 @@ def make_sharded_loss_fn(cfg, tcfg: TrainCfg, lay):
 
 
 def sharded_value_and_grad(fn, params, n, *args):
-    """``fn(ps, *args) -> (loss, aux)`` over the blocks of a tree of
-    ``Placed`` leaves -> ((loss detached, aux), grads: one list of n
-    per-shard blocks a leaf, in ``tree_leaves`` order; a block the loss
-    does not reach gets zeros)."""
+    """``fn(ps, *args) -> (loss, aux)`` over this process's blocks of a
+    tree of ``Placed`` leaves (``n`` of them a leaf) -> ((loss detached,
+    aux), grads: one list of n per-shard blocks a leaf, in
+    ``tree_leaves`` order; a block the loss does not reach gets zeros).
+
+    Across processes every process holds a copy of the loss (its first
+    local shard's).  One process differentiates global shard 0's copy
+    only, so the process owning shard 0 seeds its copy with 1 and every
+    other one seeds 0: each still runs the whole backward, and every
+    collective's backward exchange, in the same order."""
     placed = tree_leaves(params)
-    leaves = [[b.detach().requires_grad_() for b in t.blocks] for t in placed]
+    leaves = [[b.detach().requires_grad_() for b in t.local_blocks]
+              for t in placed]
+    if any(len(bs) != n for bs in leaves):
+        raise ValueError(f"{n} shards for a process holding "
+                         f"{len(leaves[0])} blocks a leaf")
     flat = [b for bs in leaves for b in bs]
     ps = [tree_unflatten(params, [bs[s] for bs in leaves]) for s in range(n)]
     with torch.enable_grad():
         loss, aux = fn(ps, *args)
-        gs = torch.autograd.grad(loss, flat, allow_unused=True)
+        seed = (torch.ones_like if placed[0].blocks[0] is not None
+                else torch.zeros_like)(loss)
+        gs = torch.autograd.grad(loss, flat, grad_outputs=seed,
+                                 allow_unused=True)
     gs = [torch.zeros_like(b) if g is None else g for b, g in zip(flat, gs)]
     return (loss.detach(), aux), [gs[i * n:(i + 1) * n]
                                   for i in range(len(placed))]
@@ -242,17 +256,36 @@ def reduce_replicas(params, grads):
 
 def global_norm(params, grads):
     """The gradient's global norm over the blocks, each block counted once
-    (its first replica), summed in fixed order on the first shard's
-    device."""
-    dev = grads[0][0].device
-    total = torch.zeros((), device=dev)
-    for t, gs in zip(tree_leaves(params), grads):
-        seen = set()
-        for g, sl in zip(gs, t.sharding.slices(t.shape)):
+    (its first replica), summed in fixed order on the first local
+    shard's device.  Across processes each process squares and sums the
+    first replicas it holds, the sums are exchanged (one ``exchange``),
+    and every process folds them in the one-process order."""
+    placed = tree_leaves(params)
+    mesh = placed[0].sharding.mesh
+    firsts = []
+    for t in placed:
+        seen, first = set(), []
+        for i, sl in enumerate(t.sharding.slices(t.shape)):
             key = tuple((x.start, x.stop) for x in sl)
             if key not in seen:
                 seen.add(key)
-                total = total + g.float().square().sum().to(dev)
+                first.append(i)
+        firsts.append(first)
+    dev = grads[0][0].device
+    local = mesh.local()
+    zero = torch.zeros((), device=dev)
+    sums = [[gs[j].float().square().sum().to(dev) if i in first else zero
+             for gs, first in zip(grads, firsts)]
+            for j, i in enumerate(local)]
+    if len(local) < len(placed[0].blocks):
+        every = _job.exchange([torch.stack(x) for x in sums],
+                              list(mesh.process_ids.flat), "global norm")
+    else:
+        every = sums
+    total = torch.zeros((), device=dev)
+    for li, first in enumerate(firsts):
+        for i in first:
+            total = total + every[i][li]
     return torch.sqrt(total)
 
 
@@ -276,10 +309,11 @@ def opt_shardings(optimizer, shardings, params):
 
 
 def _assemble(locals_, shardings, meta):
-    """Per-shard trees of blocks (``locals_``), a tree of shardings and a
-    tree of global-shaped (meta) tensors -> a tree of ``Placed``."""
+    """This process's shards' trees of blocks (``locals_``), a tree of
+    shardings and a tree of global-shaped (meta) tensors -> a tree of
+    ``Placed``."""
     if isinstance(shardings, shd.NamedSharding):
-        return shd.Placed(locals_, shardings, meta.shape)
+        return shd.Placed.from_local(locals_, shardings, meta.shape)
     if isinstance(shardings, dict):
         return {k: _assemble([t[k] for t in locals_], shardings[k], meta[k])
                 for k in shardings}
@@ -306,36 +340,38 @@ def place_train_state(state, cfg, optimizer, lay):
             "opt": _place_state(state["opt"], opt_shardings(
                 optimizer, shardings, state["params"])),
             "step": torch.as_tensor(state["step"], dtype=torch.int32).to(
-                lay.devices[0])}
+                lay.device)}
 
 
 def init_sharded_train_state(cfg, tcfg: TrainCfg, generator, lay):
-    """``init_train_state``'s parameters (drawn on the generator's device,
-    then laid out, one copied block a shard) and an optimizer state made
-    on each shard's blocks (no whole copy), every leaf a ``Placed``."""
+    """``init_train_state``'s parameters (drawn whole on the generator's
+    device, then laid out, one copied block a local shard) and an
+    optimizer state made on each local shard's blocks (no whole copy),
+    every leaf a ``Placed``."""
     shardings = lm.param_shardings(cfg, lay)
     params = shd.place_tree(lm.init_lm(cfg, generator), shardings)
     opt_init, _ = get_optimizer(tcfg.optimizer)
     meta = lm.init_lm(cfg, None)
-    opt = _assemble([opt_init(p) for p in shd.local_trees(params, lay.n)],
+    opt = _assemble([opt_init(p) for p in shd.local_trees(params,
+                                                          lay.local)],
                     opt_shardings(tcfg.optimizer, shardings, meta),
                     opt_init(meta))
     return {"params": params, "opt": opt,
-            "step": torch.zeros((), dtype=torch.int32,
-                                device=lay.devices[0])}
+            "step": torch.zeros((), dtype=torch.int32, device=lay.device)}
 
 
 def make_sharded_train_step(cfg, tcfg: TrainCfg, lay):
     """``make_train_step`` on ``lay``'s mesh: ``train_step(params,
     opt_state, batch, step, keys)`` with the params and optimizer state
     of ``init_sharded_train_state`` and a global batch (split into each
-    shard's rows here) -> (params, opt_state, metrics), in place.  The
-    metrics are 0-d tensors on the first shard's device (``lr`` a float32
-    CPU tensor)."""
+    local shard's rows here) -> (params, opt_state, metrics), in place.
+    The metrics are 0-d tensors on the first local shard's device
+    (``lr`` a float32 CPU tensor).  Across processes every process calls
+    it on the same batch and steps its own shards' blocks."""
     _, opt_update = get_optimizer(tcfg.optimizer)
     loss_fn = make_sharded_loss_fn(cfg, tcfg, lay)
     schedule = SCHEDULES[tcfg.schedule]
-    n = lay.n
+    n = len(lay.local)
 
     def blocks(batch):
         return {k: lay.batch_blocks(v) for k, v in batch.items()}
@@ -377,8 +413,8 @@ def make_sharded_train_step(cfg, tcfg: TrainCfg, lay):
                                     max=1.0)
                 grads = [[g * scale.to(g.device, g.dtype) for g in gs]
                          for gs in grads]
-            local_p = shd.local_trees(params, n)
-            local_o = shd.local_trees(opt_state, n)
+            local_p = shd.local_trees(params, lay.local)
+            local_o = shd.local_trees(opt_state, lay.local)
             for s in range(n):
                 opt_update(local_p[s], [gs[s] for gs in grads], local_o[s],
                            lr=lr, **kw)
@@ -415,8 +451,11 @@ class Trainer:
     ``(seed, step)``, drawn from by each microbatch in turn.
 
     Built under rules with a mesh (``axis_rules``), it trains on that
-    mesh (``make_sharded_train_step``); ``device`` is then the mesh's
-    first device, and ``layout`` the mesh's ``ShardLayout``."""
+    mesh (``make_sharded_train_step``); ``device`` is then this process's
+    first shard's device, and ``layout`` the mesh's ``ShardLayout``.  On
+    a mesh that spans processes every process builds it and runs the same
+    steps on its own shards; checkpoints are refused there (a process
+    holds only its own blocks)."""
 
     def __init__(self, cfg, tcfg: TrainCfg, data_fn, *, ckpt_dir=None,
                  ckpt_every=50, keep=3, async_ckpt=True,
@@ -424,8 +463,12 @@ class Trainer:
         rules = shd.current_rules()
         self.layout = None if rules is None or rules.mesh is None \
             else shd.ShardLayout(rules)
+        if ckpt_dir and self.layout is not None and self.layout.mesh.spans:
+            raise NotImplementedError(
+                "checkpoints of a train state on a mesh that spans "
+                "processes: each process holds only its own blocks")
         self.device = resolve_device(device if self.layout is None
-                                     else self.layout.devices[0])
+                                     else self.layout.device)
         self.cfg, self.tcfg = cfg, tcfg
         self.data_fn = data_fn
         self.state = self._fresh_state()

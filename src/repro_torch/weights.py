@@ -107,7 +107,8 @@ def lm_to_mesh(params, cfg, rules, *, copy=True) -> dict:
     ``rules.mesh`` by ``rules``'s param rules (any family; FSDP rules
     split them over 'data' too) -> a tree of ``Placed``, each block a copy
     on its shard's device, or with ``copy=False`` a view where the device
-    allows."""
+    allows.  On a mesh that spans processes only this process's blocks
+    are made."""
     from repro_torch.distributed.sharding import ShardLayout, place_tree
     from repro_torch.models.lm import param_shardings
     return place_tree(params, param_shardings(cfg, ShardLayout(rules)),
@@ -116,7 +117,8 @@ def lm_to_mesh(params, cfg, rules, *, copy=True) -> dict:
 
 def lm_from_mesh(placed, device="cpu") -> dict:
     """A tree of ``Placed`` (or plain tensors) -> full tensors on
-    ``device``."""
+    ``device`` (across processes every process calls it and gets them
+    whole: each leaf's blocks are gathered from their owners)."""
     from repro_torch.distributed.sharding import gather_tree
     return to_device(gather_tree(placed), device)
 
@@ -258,7 +260,8 @@ def decode_state_to_mesh(state, cfg, rules) -> dict:
     """An LM's whole decode state (``decode_state_from_jax``'s, or
     ``lm.prefill``'s on one device) laid out on ``rules.mesh`` as
     ``lm.prefill`` lays its own out there (``lm.decode_state_sharding``)
-    -> a dict of ``Placed``, one copied block a shard, which
+    -> a dict of ``Placed``, one copied block a shard (this process's
+    shards' only, on a mesh that spans processes), which
     ``lm.decode_step`` under ``rules`` advances in place."""
     from repro_torch.distributed.sharding import Placed
     from repro_torch.models.lm import decode_state_sharding
@@ -267,7 +270,8 @@ def decode_state_to_mesh(state, cfg, rules) -> dict:
 
 
 def decode_state_from_mesh(placed, device="cpu") -> dict:
-    """A decode state on a mesh -> whole tensors on ``device``."""
+    """A decode state on a mesh -> whole tensors on ``device`` (gathered
+    across processes, as ``lm_from_mesh``)."""
     return lm_from_mesh(placed, device)
 
 

@@ -155,7 +155,7 @@ def test_expert_parallel_path_waits(fn):
         else:
             lay = shd.ShardLayout(rules)
             ps = shd.local_trees(shd.place_tree(p, shd.param_sharding(
-                moe._moe_axes(c))), lay.n)
+                moe._moe_axes(c))), lay.local)
             blk = [x[:, :2], x[:, 2:]]              # seq over 'model'
             ys, aux, _ = moe._local_moe(lay, ps, c, blk, 8.0)
             y, aux = torch.cat(ys, 1), aux[0]

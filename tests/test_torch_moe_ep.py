@@ -100,7 +100,7 @@ def test_capacity_drops_are_counted_and_change_the_output(reference):
     lay = shd.ShardLayout(rules)
     with shd.axis_rules(rules):
         placed = shd.place_tree(p, shd.param_sharding(M._moe_axes(cfg)))
-        ps = shd.local_trees(placed, lay.n)
+        ps = shd.local_trees(placed, lay.local)
         for c, want_drops in ((cap, True), (8.0, False)):
             ys, aux, dropped = M.moe_ep_sharded(
                 lay, ps, cfg, lay.batch_blocks(x), cap_factor=c,

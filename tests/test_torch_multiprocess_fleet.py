@@ -73,12 +73,13 @@ def free_port():
 
 
 def run_job(program, world, tmp, *, ranks=None, timeout=JOB_TIMEOUT_S,
-            check=True, env=None):
-    """This file as ``python <file> <program> <tmp>`` in ``world``
-    processes (``ranks`` of them started, default all; ``env`` added to
-    their environment) joined on 127.0.0.1 -> (exit codes, each rank's
-    saved result or None).  With ``check`` a rank that exits non-zero
-    fails the job: the others are killed and its error is raised."""
+            check=True, env=None, script=None):
+    """This file (or ``script``) as ``python <file> <program> <tmp>`` in
+    ``world`` processes (``ranks`` of them started, default all; ``env``
+    added to their environment) joined on 127.0.0.1 -> (exit codes, each
+    rank's saved result or None).  With ``check`` a rank that exits
+    non-zero fails the job: the others are killed and its error is
+    raised."""
     port = free_port()
     procs = {}
     for r in range(world) if ranks is None else ranks:
@@ -87,7 +88,8 @@ def run_job(program, world, tmp, *, ranks=None, timeout=JOB_TIMEOUT_S,
                      REPRO_COORDINATOR=f"127.0.0.1:{port}",
                      REPRO_NUM_PROCESSES=str(world), REPRO_PROCESS_ID=str(r))
         procs[r] = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), program, str(tmp)],
+            [sys.executable, script or os.path.abspath(__file__), program,
+             str(tmp)],
             env=child, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)
     deadline = time.monotonic() + timeout

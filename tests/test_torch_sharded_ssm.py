@@ -192,7 +192,7 @@ def test_mamba_block_on_a_mesh_matches_one_device(shape):
         axes = lm.param_axes(c)["blocks"]["layers"]["mamba"]
         placed = shd.place_tree(pm, shd.param_sharding(shd.map_axes(
             lambda a: a[1:], axes)))
-    ps = shd.local_trees(placed, lay.n)
+    ps = shd.local_trees(placed, lay.local)
     want, st = ssm.mamba_forward(pm, c.ssm, u, return_state=True)
     got, sts = ssm.mamba_forward_sharded(lay, ps, c.ssm, [u] * lay.n,
                                          return_state=True)
