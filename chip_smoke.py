@@ -2770,6 +2770,20 @@ FLASH_O_ATOL, FLASH_LSE_ATOL = 2e-5, 1e-5
 # large tier's padded sub-batch of 4)
 FLASH_TIMED = {"small": (8, 16, 16, 1024, 1024, 64),
                "large": (4, 16, 8, 1024, 1024, 128)}
+# the forward with a query offset (q a block of a prompt split over 'data',
+# at positions off .. off + Sq - 1 of the keys gathered from 0), (B, H, KV,
+# Sq, Sk, hd, off): zamba2-1.2b's split prefill in phase 19 (d) (2,048
+# queries at 2,048 of 4,096 keys, hd 64), the same at hd 128 with GQA,
+# offsets off the tiles, a block ending short of Sk, off = Sk - Sq, one
+# last row, the small head dims and hd 112
+FLASH_OFFSET_CASES = ((1, 16, 16, 2048, 4096, 64, 2048),
+                      (1, 16, 8, 2048, 4096, 128, 2048),
+                      (2, 4, 2, 300, 700, 64, 37),
+                      (1, 4, 4, 200, 333, 128, 133),
+                      (2, 8, 2, 77, 300, 112, 100),
+                      (1, 2, 2, 1, 4096, 64, 4095),
+                      (2, 4, 4, 130, 300, 16, 64),
+                      (1, 4, 2, 100, 250, 32, 150))
 
 
 def flash_inputs(g, dev, B, H, KV, Sq, Sk, hd):
@@ -2778,9 +2792,46 @@ def flash_inputs(g, dev, B, H, KV, Sq, Sk, hd):
             torch.randn(B, KV, Sk, hd, device=dev, generator=g))
 
 
+def hold_flash_offset(g, dev, ops, dt):
+    """The forward with a query offset in ``dt`` at ``FLASH_OFFSET_CASES``
+    against its plain version (phase 9's bars in float32, phase 20's in
+    bf16: ``fwd_hold``), bitwise run to run; and where the block ends at
+    Sk and the offset is a whole number of query tiles (128), the split
+    bitwise the whole: the block's launch at its offset gives the bits of
+    its rows in one offset-free launch over every query, and the first
+    rows' launch at offset 0 those of theirs -> (max |err| of o and lse,
+    the bf16 per-element share)."""
+    worst = ratio = 0.0
+    for B, H, KV, Sq, Sk, hd, off in FLASH_OFFSET_CASES:
+        what = (f"{dt} (B, H, KV, Sq, Sk, hd) {(B, H, KV, Sq, Sk, hd)} "
+                f"q_offset={off}")
+        q, k, v = (x.to(dt) for x in flash_inputs(g, dev, B, H, KV, Sk, Sk,
+                                                   hd))
+        blk = q[:, :, off:off + Sq].contiguous()
+        o, lse = same_bits(lambda *a: ops.flash_attention_fwd(
+            *a, causal=True, q_offset=off), (blk, k, v),
+            f"flash_attention_fwd at {what}")
+        o_err, lse_err, o_ratio = fwd_hold(ops, blk, k, v, o, lse, True,
+                                           what, q_offset=off)
+        worst, ratio = max(worst, o_err, lse_err), max(ratio, o_ratio)
+        if off + Sq == Sk and off % 128 == 0:
+            whole, whole_lse = ops.flash_attention_fwd(q, k, v, causal=True)
+            first, first_lse = ops.flash_attention_fwd(
+                q[:, :, :off].contiguous(), k, v, causal=True, q_offset=0)
+            check(torch.equal(o, whole[:, :, off:])
+                  and torch.equal(lse, whole_lse[:, :, off:])
+                  and torch.equal(first, whole[:, :, :off])
+                  and torch.equal(first_lse, whole_lse[:, :, :off]),
+                  f"flash_attention_fwd at {what}: the blocks at offsets 0 "
+                  f"and {off} are not the bits of one offset-free launch")
+        del q, k, v, blk, o, lse
+    return worst, ratio
+
+
 def phase9(dev, ops):
-    """``flash_attention_fwd`` against its plain version on the card ->
-    max |err| of o and lse."""
+    """``flash_attention_fwd`` against its plain version on the card, and
+    with a query offset (``hold_flash_offset``) -> max |err| of o and
+    lse."""
     g = torch.Generator(device=dev).manual_seed(9)
     worst = 0.0
     for B, H, KV, Sq, Sk, hd, causal in FLASH_CASES + PREFILL_FLASH_CASES:
@@ -2798,7 +2849,13 @@ def phase9(dev, ops):
           f"run, at (B, H, KV, Sq, Sk, hd, causal) in "
           f"{FLASH_CASES + PREFILL_FLASH_CASES}; max "
           f"|err| {worst:.3e}")
-    return worst
+    off_worst, _ = hold_flash_offset(g, dev, ops, torch.float32)
+    print(f"phase 9: flash_attention_fwd with a query offset == plain "
+          f"version (the same atols), bitwise run to run, at (B, H, KV, Sq, "
+          f"Sk, hd, q_offset) in {FLASH_OFFSET_CASES}; the blocks at "
+          "offsets 0 and 2,048 the bits of one offset-free launch; max "
+          f"|err| {off_worst:.3e}")
+    return max(worst, off_worst)
 
 
 def cascade_kernel_times(dev, ops):
@@ -3894,18 +3951,29 @@ def profile_decode_step(cfg, params, st, tok, step_ms):
 @contextlib.contextmanager
 def record_flash(calls):
     """A context in which every call of the attention layers' flash
-    kernel appends its arguments (q, k, v, causal, scale) to ``calls``."""
+    kernel appends its arguments (q, k, v, causal, scale, q_offset) to
+    ``calls``: the differentiable entry's (offset 0), and the forward's
+    where a block of a split prompt takes the kernel route at its
+    offset."""
     from repro_torch.kernels import flash_attention as fa
-    real = fa.flash_attention
+    from repro_torch.models import attention as attn_mod
+    real, real_kernel = fa.flash_attention, attn_mod._attend_kernel
 
     def recorded(q, k, v, causal=True, scale=None):
-        calls.append((q, k, v, causal, scale))
+        calls.append((q, k, v, causal, scale, 0))
         return real(q, k, v, causal, scale)
-    fa.flash_attention = recorded
+
+    def recorded_kernel(cfg, q, k, v, q_offset=None):
+        if q_offset is not None:          # the forward alone, at an offset
+            calls.append(tuple(x.transpose(1, 2).contiguous()
+                               for x in (q, k, v))
+                         + (True, attn_mod._scale(cfg), q_offset))
+        return real_kernel(cfg, q, k, v, q_offset)
+    fa.flash_attention, attn_mod._attend_kernel = recorded, recorded_kernel
     try:
         yield
     finally:
-        fa.flash_attention = real
+        fa.flash_attention, attn_mod._attend_kernel = real, real_kernel
 
 
 def hold_prefill_flash(ops, calls, name):
@@ -3915,13 +3983,13 @@ def hold_prefill_flash(ops, calls, name):
     check(len(calls) == PD_FLASH[name], f"{name}: {len(calls)} flash calls "
           f"recorded in a prefill, want {PD_FLASH[name]}")
     worst = 0.0
-    for i, (q, k, v, causal, scale) in enumerate(calls):
+    for i, (q, k, v, causal, scale, off) in enumerate(calls):
         worst = max(worst, hold(
             "flash_attention_fwd",
             lambda q, k, v: ops.flash_attention_fwd(
-                q, k, v, causal=causal, scale=scale),
+                q, k, v, causal=causal, scale=scale, q_offset=off),
             lambda q, k, v: ops.flash_attention_ref(
-                q, k, v, causal, scale),
+                q, k, v, causal, scale, off),
             (q, k, v), [(0.0, FLASH_O_ATOL), (0.0, FLASH_LSE_ATOL)],
             f"{name} prefill layer {i}: q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}"))
@@ -5916,13 +5984,15 @@ LM19_RTOL = 1e-4
 LM19_SSM_RTOL = 3e-3
 # the flash kernels at this phase's per-shard shapes (B, H, KV, Sq, Sk,
 # hd): (b)'s shared block and (c)'s layers in training (forward, dq,
-# dk/dv), then the prefills' (forward): qwen3-1.7b on (2, 2) is (c)'s, on
-# (1, 16) one q head meeting its kv head, zamba2's batch-1 prompt, the
-# arctic cut on (1, 4)
+# dk/dv), then the prefills' (forward, and its query offset last):
+# qwen3-1.7b on (2, 2) is (c)'s, on (1, 16) one q head meeting its kv head,
+# zamba2's batch-1 prompt split over 'data' (data shard 1's block: 2,048
+# queries at 2,048 over the 4,096 keys; shard 0's is the same at offset 0),
+# the arctic cut on (1, 4)
 LM19_FLASH_TRAIN = ((2, 16, 16, 1024, 1024, 64), (2, 8, 4, 1024, 1024, 128))
-LM19_FLASH_PREFILL = ((4, 1, 1, 1024, 1024, 128),
-                      (1, 16, 16, 4096, 4096, 64),
-                      (2, 14, 2, 256, 256, 128))
+LM19_FLASH_PREFILL = ((4, 1, 1, 1024, 1024, 128, 0),
+                      (1, 16, 16, 2048, 4096, 64, 2048),
+                      (2, 14, 2, 256, 256, 128, 0))
 
 
 def lm19_train(dev, ops, spec, launches):
@@ -6192,18 +6262,19 @@ def lm19_decode(dev, ops, spec, launches):
         lm.decode_step(cfg, pm, st, fed[:, 0])
         del st
         flash_worst = 0.0
-        for q, k, v, causal, scale in calls:
+        for q, k, v, causal, scale, off in calls:
             flash_worst = max(flash_worst, hold(
                 "flash_attention_fwd",
                 lambda q, k, v: ops.flash_attention_fwd(
-                    q, k, v, causal=causal, scale=scale),
+                    q, k, v, causal=causal, scale=scale, q_offset=off),
                 lambda q, k, v: ops.flash_attention_ref(q, k, v, causal,
-                                                        scale),
+                                                        scale, off),
                 (q, k, v), [(0.0, FLASH_O_ATOL), (0.0, FLASH_LSE_ATOL)],
                 f"{name} on {shape} prefill: q {tuple(q.shape)}, k "
-                f"{tuple(k.shape)}"))
-        shapes = sorted({(tuple(q.shape), tuple(k.shape))
-                         for q, k, _, _, _ in calls})
+                f"{tuple(k.shape)}, q_offset {off}"))
+        shapes = sorted({(tuple(q.shape), tuple(k.shape), off)
+                         for q, k, _, _, _, off in calls})
+        offsets = sorted(off for *_, off in calls)
         del calls
         zero_counts(ops)
         torch.cuda.synchronize()
@@ -6219,6 +6290,24 @@ def lm19_decode(dev, ops, spec, launches):
               f"{name} on {shape}: the prefill launched {pre}, want "
               f"{attn * n} flash forwards (one an attention layer a shard) "
               "and no other kernel")
+        # at batch 1 the prompt's positions split over 'data' where its
+        # shards divide S: each shard's flash forward at its block's offset
+        lay = shd.ShardLayout(rules)
+        starts = lay.seq_starts(S)
+        split = starts is not None
+        check(split == (B == 1 and shape[0] > 1 and S % shape[0] == 0),
+              f"{name} on {shape}: the prompt split over 'data' is {split}")
+        check(offsets == sorted((starts or [0] * n) * attn),
+              f"{name} on {shape}: flash offsets {offsets}, want each "
+              f"shard's block start {starts} for each attention layer")
+        for key in ("ssm", "conv") if split else ():
+            if key in st:
+                blocks = st[key].blocks
+                check(all(torch.equal(blocks[i], blocks[j])
+                          for i in range(n) for j in range(n)
+                          if lay.rank[i] == lay.rank[j]),
+                      f"{name} on {shape}: the split prefill's {key} state "
+                      "differs across the data shards")
     zero_counts(ops)
     with torch.inference_mode():
         got, step_ms = lm19_decode_steps(cfg, pm, st, fed, rules)
@@ -6266,7 +6355,9 @@ def lm19_decode(dev, ops, spec, launches):
                               for k in ("k", "v") if k in st
                               for b in st[k].blocks),
            "flash_launches": pre["flash_attention_fwd"],
-           "flash_shapes": [list(q) + list(k) for q, k in shapes],
+           "flash_shapes": [list(q) + list(k) + [off]
+                            for q, k, off in shapes],
+           "flash_offsets": offsets, "seq_split": bool(split),
            "flash_err": flash_worst, "profile": prof}
     print(f"phase 19 (d): {name} ({cfg.n_layers} layers) on {shape}, B {B}, "
           f"prompt {S}, max_len {max_len}: kv heads over "
@@ -6291,25 +6382,43 @@ def hold_lm19_flash(dev, ops):
     plain versions (phase 9's atols; phase 11's 1e-5 of each gradient's
     max), bitwise run to run, each timed -> ({name: max |err|}, [{shape,
     name: device ms}])."""
+    import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(19)
     worst = dict.fromkeys(("flash_attention_fwd",) + BWD_KERNELS, 0.0)
     times = []
-    for shape in LM19_FLASH_TRAIN + LM19_FLASH_PREFILL:
+    for spec in LM19_FLASH_TRAIN + LM19_FLASH_PREFILL:
+        shape, off = spec[:6], (spec[6:] or (0,))[0]
         B, H, KV, Sq, Sk, hd = shape
-        what = f"B={B} H={H} KV={KV} S={Sq} hd={hd}"
+        what = f"B={B} H={H} KV={KV} Sq={Sq} Sk={Sk} hd={hd} q_offset={off}"
         q, k, v = flash_inputs(g, dev, B, H, KV, Sq, Sk, hd)
         worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"], hold(
             "flash_attention_fwd",
-            lambda q, k, v: ops.flash_attention_fwd(q, k, v, causal=True),
-            lambda q, k, v: ops.flash_attention_ref(q, k, v, True),
+            lambda q, k, v: ops.flash_attention_fwd(q, k, v, causal=True,
+                                                    q_offset=off),
+            lambda q, k, v: ops.flash_attention_ref(q, k, v, True, None,
+                                                    off),
             (q, k, v), [(0.0, FLASH_O_ATOL), (0.0, FLASH_LSE_ATOL)], what))
-        row = {"shape": list(shape), "flash_attention_fwd": device_ms(
-            lambda a: ops.flash_attention_fwd(*a, causal=True), (q, k, v)),
-            "bound_ms": {n: lm19_flash_bound_ms(shape, n)
-                         for n in ("flash_attention_fwd",) + (
-                             BWD_KERNELS if shape in LM19_FLASH_TRAIN
-                             else ())}}
-        if shape in LM19_FLASH_TRAIN:
+        row = {"shape": list(shape), "q_offset": off,
+               "flash_attention_fwd": device_ms(
+                   lambda a: ops.flash_attention_fwd(*a, causal=True,
+                                                     q_offset=off),
+                   (q, k, v)),
+               "bound_ms": {n: lm19_flash_bound_ms(shape, n, off)
+                            for n in ("flash_attention_fwd",) + (
+                                BWD_KERNELS if spec in LM19_FLASH_TRAIN
+                                else ())}}
+        if off:
+            # the plain version, and one PyTorch call (timed only): SDPA
+            # with the offset's mask as booleans (its is_causal is
+            # top-left aligned)
+            keep = (torch.arange(Sq, device=dev)[:, None] + off
+                    >= torch.arange(Sk, device=dev)[None, :])
+            row["plain_ms"] = device_ms(lambda a: ops.flash_attention_ref(
+                *a, True, None, off), (q, k, v), reps=5)
+            row["library_ms"] = device_ms(
+                lambda a: F.scaled_dot_product_attention(
+                    *a, attn_mask=keep, enable_gqa=True), (q, k, v))
+        if spec in LM19_FLASH_TRAIN:
             do = torch.randn(B, H, Sq, hd, device=dev, generator=g)
             o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
             args = (q, k, v, do, lse, (do * o).sum(-1))
@@ -6335,24 +6444,28 @@ def hold_lm19_flash(dev, ops):
                 lambda a: ops.flash_attention_bwd_dkv(*a, causal=True), args)
         times.append(row)
     print("phase 19: flash kernels at the per-shard shapes (B, H, KV, Sq, "
-          f"Sk, hd) {LM19_FLASH_TRAIN + LM19_FLASH_PREFILL} == plain (o atol "
+          f"Sk, hd[, q_offset]) {LM19_FLASH_TRAIN + LM19_FLASH_PREFILL} == "
+          "plain (o atol "
           f"{FLASH_O_ATOL}, lse atol {FLASH_LSE_ATOL}; backward at the "
           f"training shapes {FLASH_BWD_RTOL} of each gradient's max), "
           "bitwise run to run; max |err| " + ", ".join(
               f"{k} {v:.3e}" for k, v in worst.items()) + "; device ms " +
-          "; ".join(f"{r['shape']}: " + ", ".join(
-              f"{k} {v:.3f} (bound {r['bound_ms'][k]:.3f})"
-              for k, v in r.items() if k not in ("shape", "bound_ms"))
+          "; ".join(f"{r['shape']} at {r['q_offset']}: " + ", ".join(
+              f"{k} {v:.3f}" + (f" (bound {r['bound_ms'][k]:.3f})"
+                                if k in r["bound_ms"] else "")
+              for k, v in r.items()
+              if k not in ("shape", "bound_ms", "q_offset"))
               for r in times))
     return worst, times
 
 
-def lm19_flash_bound_ms(shape, name):
+def lm19_flash_bound_ms(shape, name, q_offset=0):
     """The least time of a causal flash kernel at ``shape`` (B, H, KV, Sq,
-    Sk, hd): its products (forward 2, dq 3, dk/dv 4) at 3xTF32's rate or
-    its inputs and outputs once at the HBM rate, the larger."""
+    Sk, hd), q's rows at ``q_offset`` on: its products (forward 2, dq 3,
+    dk/dv 4) over the (query, key) pairs the mask keeps, at 3xTF32's rate,
+    or its inputs and outputs once at the HBM rate, the larger."""
     B, H, KV, Sq, Sk, hd = shape
-    pairs = sum(min(i + 1, Sk) for i in range(Sq))
+    pairs = sum(min(i + 1 + q_offset, Sk) for i in range(Sq))
     products = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 3,
                 "flash_attention_bwd_dkv": 4}[name]
     q, kv, row = B * H * Sq * hd, B * KV * Sk * hd, B * H * Sq
@@ -6793,14 +6906,15 @@ LM20_DRYRUN_WORKERS = 4
 LM20_DRYRUN_WAIT_S = 300  # the longest (d) waits for the last cell
 
 
-def flash_bound(name, dt, shape, causal=True):
+def flash_bound(name, dt, shape, causal=True, q_offset=0):
     """The least time of a flash kernel at ``shape`` (B, H, KV, Sq, Sk,
-    hd): its products (forward 2, dq 3, dk/dv 4) at the tensor cores' rate
-    for ``dt`` (bf16's, or 3xTF32's for float32), or its inputs and
-    outputs once at the HBM rate, the larger -> (ms, "bytes" or
-    "operations")."""
+    hd), q's rows at ``q_offset`` on: its products (forward 2, dq 3, dk/dv
+    4) at the tensor cores' rate for ``dt`` (bf16's, or 3xTF32's for
+    float32), or its inputs and outputs once at the HBM rate, the larger
+    -> (ms, "bytes" or "operations")."""
     B, H, KV, Sq, Sk, hd = shape
-    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    pairs = (sum(min(i + 1 + q_offset, Sk) for i in range(Sq)) if causal
+             else Sq * Sk)
     products = {"fwd": 2, "dq": 3, "dkv": 4}[name]
     q, kv, row = B * H * Sq * hd, B * KV * Sk * hd, B * H * Sq
     width = 2 if dt == torch.bfloat16 else 4
@@ -6813,14 +6927,16 @@ def flash_bound(name, dt, shape, causal=True):
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
-def fwd_hold(ops, q, k, v, o, lse, causal, what, name="flash_attention_fwd"):
-    """A forward's o and lse at (q, k, v) against the plain version, at
-    phase 9's bars (float32) or phase 20's (bf16: o atol ``BF16_O_ATOL``,
-    each element within ``BF16_O_ULP`` |o| + ``BF16_P_RTOL`` sum p |v|,
-    lse ``BF16_LSE_ATOL``) -> (max |o err|, max |lse err|, the worst
-    element's share of the per-element bar, 0 in float32)."""
+def fwd_hold(ops, q, k, v, o, lse, causal, what, name="flash_attention_fwd",
+             q_offset=0):
+    """A forward's o and lse at (q, k, v) (and ``q_offset``) against the
+    plain version, at phase 9's bars (float32) or phase 20's (bf16: o atol
+    ``BF16_O_ATOL``, each element within ``BF16_O_ULP`` |o| +
+    ``BF16_P_RTOL`` sum p |v|, lse ``BF16_LSE_ATOL``) -> (max |o err|, max
+    |lse err|, the worst element's share of the per-element bar, 0 in
+    float32)."""
     dt = q.dtype
-    ro, rlse = ops.flash_attention_ref(q, k, v, causal)
+    ro, rlse = ops.flash_attention_ref(q, k, v, causal, None, q_offset)
     bf = dt == torch.bfloat16
     o_err = (o.float() - ro.float()).abs().max().item()
     lse_err = (lse - rlse).abs().max().item()
@@ -6833,7 +6949,7 @@ def fwd_hold(ops, q, k, v, o, lse, causal, what, name="flash_attention_fwd"):
     if bf:
         # sum_j p_j |v_j|: the plain forward of |v| in float32
         pv = ops.flash_attention_ref(q.float(), k.float(), v.float().abs(),
-                                     causal)[0]
+                                     causal, None, q_offset)[0]
         o_ratio = ((o.float() - ro.float()).abs() / (
             BF16_O_ULP * ro.float().abs() + BF16_P_RTOL * pv).clamp_min(
                 1e-30)).max().item()
@@ -6906,6 +7022,14 @@ def lm20_holds(dev, ops):
             rel[t] = max(rel[t], got["grad_rel"])
             o_ratio = max(o_ratio, got["o_ratio"])
             torch.cuda.empty_cache()
+    off_err, off_ratio = hold_flash_offset(g, dev, ops, torch.bfloat16)
+    worst["bf16"]["fwd"] = max(worst["bf16"]["fwd"], off_err)
+    print(f"phase 20 (a): the bf16 forward with a query offset == plain "
+          f"(phase 20's bars; per element worst at {off_ratio:.3f} of it), "
+          f"bitwise run to run, at (B, H, KV, Sq, Sk, hd, q_offset) in "
+          f"{FLASH_OFFSET_CASES}; the blocks at offsets 0 and 2,048 the bits "
+          f"of one offset-free launch; max |err| {off_err:.3e}")
+    o_ratio = max(o_ratio, off_ratio)
     print(f"phase 20 (a): the flash forward, dq and dk/dv in bf16 (o atol "
           f"{BF16_O_ATOL} and per element {BF16_O_ULP} |o| + {BF16_P_RTOL} "
           f"sum p |v|, worst at {o_ratio:.3f} of it, lse {BF16_LSE_ATOL}, "
@@ -6980,7 +7104,38 @@ def lm20_times(dev, ops):
                   f" at {pair:.3f}x it)")
             del q, k, v, do, o, lse, args, leaves, o_sdpa
             torch.cuda.empty_cache()
+    out["offset"] = lm20_offset_times(g, dev, ops)
     return out
+
+
+def lm20_offset_times(g, dev, ops):
+    """The bf16 forward at zamba2-1.2b's split prefill block (phase 19's
+    offset shape), its plain version and SDPA with the offset's mask as
+    booleans (timed only: its ``is_causal`` is top-left aligned) -> the
+    times and bound."""
+    import torch.nn.functional as F
+    spec = next(s for s in LM19_FLASH_PREFILL if s[6])
+    shape, off = spec[:6], spec[6]
+    B, H, KV, Sq, Sk, hd = shape
+    dt = torch.bfloat16
+    q, k, v = (x.to(dt) for x in flash_inputs(g, dev, *shape))
+    keep = (torch.arange(Sq, device=dev)[:, None] + off
+            >= torch.arange(Sk, device=dev)[None, :])
+    bound, by = flash_bound("fwd", dt, shape, q_offset=off)
+    row = {"ms": device_ms(lambda a: ops.flash_attention_fwd(
+               *a, q_offset=off), (q, k, v)),
+           "plain_ms": device_ms(lambda a: ops.flash_attention_ref(
+               *a, True, None, off), (q, k, v), reps=5),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": device_ms(lambda a: F.scaled_dot_product_attention(
+               *a, attn_mask=keep, enable_gqa=True), (q, k, v)),
+           "shape": list(shape), "q_offset": off}
+    print(f"phase 20 (b): bf16 forward at {shape} q_offset {off}: "
+          f"{row['ms'] * 1e3:.2f} us (plain {row['plain_ms'] * 1e3:.2f}, "
+          f"bound {bound * 1e3:.2f} by {by}, at {bound / row['ms']:.3f} of "
+          f"it); SDPA with the boolean mask {row['library_ms'] * 1e3:.2f} us "
+          f"(the kernel at {row['ms'] / row['library_ms']:.3f}x it)")
+    return row
 
 
 def lm20_config(name, layers, experts, dtype):
@@ -7400,6 +7555,8 @@ def lm20_records(total, worst, times):
             if v.startswith("bf16"):
                 records[-1]["built"] = attrs[112 if "hd112" in v
                                              else 128][short]
+            if (v, short) == ("bf16", "fwd"):
+                records[-1]["offset_shape"] = times["offset"]
     return records
 
 
@@ -7648,8 +7805,11 @@ def main():
         r["lm_mesh_max_abs_err"] = lm_mesh_worst.get(r["name"])
         if r["name"] in lm_mesh_worst:
             r["lm_mesh_shapes_ms"] = [
-                {"shape": row["shape"], "ms": row[r["name"]],
-                 "bound_ms": row["bound_ms"][r["name"]]}
+                {"shape": row["shape"], "q_offset": row["q_offset"],
+                 "ms": row[r["name"]],
+                 "bound_ms": row["bound_ms"][r["name"]],
+                 **{k: row[k] for k in ("plain_ms", "library_ms")
+                    if k in row and r["name"] == "flash_attention_fwd"}}
                 for row in lm_mesh["flash_ms"] if r["name"] in row]
     print(json.dumps({"lm_mesh": lm_mesh}))
     print(json.dumps({"lm_processes": lm_processes}))

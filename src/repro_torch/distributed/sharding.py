@@ -1090,6 +1090,14 @@ class ShardLayout:
         self.rank = [at[i].get("model", 0) for i in self.local]
         self.group = [tuple(v for a, v in at[i].items() if a != "model")
                       for i in self.local]
+        # each local shard's index along the axes ``seq`` splits over,
+        # row-major over them in the rule's order (``axis_groups``' order)
+        self.seq_axes = self.act_axes("seq")
+        self.seq_shards = math.prod(mesh.shape[a] for a in self.seq_axes)
+        self.seq_index = [0] * len(self.local)
+        for a in self.seq_axes:
+            self.seq_index = [j * mesh.shape[a] + at[i][a]
+                              for j, i in zip(self.seq_index, self.local)]
         batch = rules.act_rules.get("batch")
         self.batch_spec = P(batch)
         self.batch_split = batch is not None
@@ -1103,6 +1111,24 @@ class ShardLayout:
         logical axis ``name`` over."""
         return tuple(a for a in entry_axes(self.rules.act_rules.get(name))
                      if self.mesh.shape.get(a, 1) > 1)
+
+    def seq_starts(self, S):
+        """Where the act rules split ``seq`` (at batch 1 outside training:
+        over 'data') and its shards divide ``S``: each local shard's first
+        position of its block of ``S / seq_shards`` -> a list; else None
+        (every shard holds the whole sequence: ``shard_slices`` takes even
+        blocks only, where the reference lets GSPMD pad)."""
+        if not self.seq_axes or S % self.seq_shards:
+            return None
+        return [i * (S // self.seq_shards) for i in self.seq_index]
+
+    def all_gather_seq(self, vals, dim):
+        """Each shard's block of a sequence along ``dim`` -> the whole
+        sequence on every shard, the blocks in order (an all-gather over
+        the ``seq`` axes; across processes through ``_span``, bitwise one
+        process holding every shard)."""
+        return self._over(lambda v, m, a: all_gather_over(
+            v, m, a, dim, tiled=True), vals, self.seq_axes)
 
     def batch_blocks(self, x, *, copy=False):
         """A batch-leading global tensor -> each shard's rows (the

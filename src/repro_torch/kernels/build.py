@@ -83,14 +83,14 @@ SIGNATURES = {
     },
     "flash_attention.cu": {
         "flash_attention_fwd_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, _F, _I, _P], _I),
+                                     _I, _F, _I, _I, _P], _I),
         "flash_attention_bwd_dq_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                         _I, _I, _I, _I, _F, _I, _P], _I),
         "flash_attention_bwd_dkv_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                          _I, _I, _I, _I, _I, _F, _I, _P],
                                         _I),
         "flash_attention_fwd_bf16": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _I, _I, _F, _I, _P], _I),
+                                      _I, _I, _F, _I, _I, _P], _I),
         "flash_attention_bwd_dq_bf16": ([_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                          _I, _I, _I, _I, _F, _I, _P], _I),
         "flash_attention_bwd_dkv_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _I,

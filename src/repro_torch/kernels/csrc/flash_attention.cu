@@ -9,11 +9,18 @@
 // `_dq_kernel` and `_dkv_kernel` (see the section "Backward").  For q (B,
 // H, Sq, hd) and k, v (B, KV, Sk, hd), query head h reading KV head h / (H
 // / KV) (the grouping of models/attention.py), and each query row i:
-//   s_ij  = scale * (q_i . k_j),  masked to -1e30 where causal and i < j
+//   s_ij  = scale * (q_i . k_j),  masked to -1e30 where causal and
+//           i + off < j
 //   o_i   = sum_j exp(s_ij - m_i) v_j / max(l_i, 1e-30)
 //   lse_i = m_i + log(max(l_i, 1e-30))
 // with the running max m and sum l of an online softmax over key tiles, so
-// no (Sq, Sk) score matrix reaches device memory.  Unlike the TPU kernel it
+// no (Sq, Sk) score matrix reaches device memory.  The forwards take a
+// query offset off >= 0 (0 without the mask; the backward has none): q's
+// rows are the positions off + i of the keys' 0 .. Sk - 1, a block of a
+// prompt split over 'data' meeting the keys gathered from position 0.
+// Every causal bound of a forward (the key tiles a query tile reads, the
+// tiles a warp skips, the element mask) is the diagonal moved right by
+// off, so at off = 0 each does exactly what it did without one.  Unlike the TPU kernel it
 // takes any Sq and Sk (ragged tiles are masked: keys past Sk weigh 0) and
 // GQA without expanding k and v.  The reference scales q before the
 // product; here the scale multiplies the product, as in the backward: a
@@ -445,7 +452,7 @@ __global__ void __launch_bounds__(2 * BQ)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int BH, int H, int KV, int Sq,
-                 int Sk, float scale, int causal) {
+                 int Sk, float scale, int causal, int off) {
   using namespace tc;
   constexpr int kWarpThreads = 2 * BQ;        // a warp per 16 query rows
   constexpr int P = pitch<HD>();
@@ -485,7 +492,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   acc.zero();
   const Operand<P, true> qop{qs, qlo};
 
-  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int k_end = causal ? min(Sk, q0 + off + BQ) : Sk;
   const int n_kt = (k_end + BK - 1) / BK;
   for (int it = 0; it < n_kt; ++it) {
     const int k0 = it * BK, st = it & 1;
@@ -506,7 +513,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const Operand<P, PRE> kop{k_at(st), k_at(st) + kTile};
     const Operand<P, PRE> vop{v_at(st), v_at(st) + kTile};
     // a warp whose rows all precede the tile's first key has nothing here
-    if (!causal || k0 <= q0 + r0 + 15) {
+    if (!causal || k0 <= q0 + off + r0 + 15) {
       float sc[1][NT][4];
       product_t<KD, KD>(sc, {qop}, {kop}, r0, g, t);
       float (&s)[NT][4] = sc[0];
@@ -519,7 +526,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           float x = __fmul_rn(s[n][e], scale);
           if (j >= Sk) {
             x = -CUDART_INF_F;                 // past the end: weighs 0
-          } else if (causal && j > rows[e / 2]) {
+          } else if (causal && j > rows[e / 2] + off) {
             x = kMaskValue;
           }
           s[n][e] = x;
@@ -569,7 +576,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD, int BQ, int BK, bool PRE>
 int launch_fwd(const float* q, const float* k, const float* v, float* o,
                float* lse, int B, int H, int KV, int Sq, int Sk, float scale,
-               int causal, cudaStream_t stream) {
+               int causal, int off, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<HD, BQ, BK, PRE>();
   static_assert(smem <= 232448, "over the 227 KB a block can use");
   const long long blocks = static_cast<long long>((Sq + BQ - 1) / BQ) * B * H;
@@ -580,7 +587,7 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_fwd_kernel<HD, BQ, BK, PRE>
       <<<static_cast<unsigned>(blocks), 2 * BQ, smem, stream>>>(
-          q, k, v, o, lse, B * H, H, KV, Sq, Sk, scale, causal);
+          q, k, v, o, lse, B * H, H, KV, Sq, Sk, scale, causal, off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1858,7 +1865,8 @@ struct FwdSmem {
 };
 
 // a query tile: head bh (of B*H), rows q0 .. q0 + kFwdBQ - 1, n_kt key
-// tiles (none past the diagonal under the mask)
+// tiles (none past the diagonal, moved right by the offset, under the
+// mask)
 struct FwdTile {
   int bh, q0, n_kt;
 };
@@ -1868,13 +1876,14 @@ struct FwdTile {
 // most key tiles first); round r deals tiles r G .. r G + G - 1 to the G
 // blocks, in reverse order on odd rounds
 __device__ __forceinline__ FwdTile fwd_tile(int round, int n_tiles, int BH,
-                                            int Sq, int Sk, int causal) {
+                                            int Sq, int Sk, int causal,
+                                            int off) {
   const int G = gridDim.x;
   const int i = round * G + (round & 1 ? G - 1 - blockIdx.x : blockIdx.x);
   if (i >= n_tiles) return {-1, 0, 0};
   const int qt = i / BH;
   const int q0 = (causal ? (Sq + kFwdBQ - 1) / kFwdBQ - 1 - qt : qt) * kFwdBQ;
-  const int k_end = causal ? min(Sk, q0 + kFwdBQ) : Sk;
+  const int k_end = causal ? min(Sk, q0 + off + kFwdBQ) : Sk;
   return {i % BH, q0, (k_end + kFwdBK - 1) / kFwdBK};
 }
 
@@ -1885,7 +1894,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tv,
                       u16* __restrict__ o, float* __restrict__ lse, int BH,
                       int H, int KV, int Sq, int Sk, float scale, int causal,
-                      int n_tiles) {
+                      int off, int n_tiles) {
   using G = Geo<HD>;
   using L = FwdSmem<HD>;
   constexpr int BQ = kFwdBQ, BK = kFwdBK, NS = BK / 64;
@@ -1921,7 +1930,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x % 128 != 0) return;
     int kv = 0;                                  // K/V tiles streamed
     for (int round = 0;; ++round) {
-      const FwdTile tile = fwd_tile(round, n_tiles, BH, Sq, Sk, causal);
+      const FwdTile tile =
+          fwd_tile(round, n_tiles, BH, Sq, Sk, causal, off);
       if (tile.bh < 0) break;
       const int b = round % kFwdQBufs;
       mbar_wait(&q_empty[b], ((round / kFwdQBufs) & 1) ^ 1);
@@ -1946,7 +1956,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t st0 = smem_u32(stages);
   int kv = 0;                                    // K/V tiles consumed
   for (int round = 0;; ++round) {
-    const FwdTile tile = fwd_tile(round, n_tiles, BH, Sq, Sk, causal);
+    const FwdTile tile = fwd_tile(round, n_tiles, BH, Sq, Sk, causal, off);
     if (tile.bh < 0) break;
     const int n_kt = tile.n_kt;
     const int qb = round % kFwdQBufs;
@@ -1956,7 +1966,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     // its key tiles: the first n_own of the tile's (none past its rows'
     // diagonal, none at all if its rows all lie past Sq)
     const int n_own = qw >= Sq ? 0
-                      : causal ? min(n_kt, (qw + 63) / BK + 1)
+                      : causal ? min(n_kt, (qw + off + 63) / BK + 1)
                                : n_kt;
     int rows[2];
     float m[2], l[2], alpha[2] = {1.0f, 1.0f};
@@ -2002,13 +2012,13 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       for (int n = 0; n < NS; ++n) fence_regs(sc[n]);
       const int k0 = kt * BK;
       // the diagonal tile and the ragged last one mask
-      if ((causal && k0 + BK - 1 > qw) || k0 + BK > Sk) {
+      if ((causal && k0 + BK - 1 > qw + off) || k0 + BK > Sk) {
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
 #pragma unroll
           for (int e = 0; e < 32; ++e) {
             const int j = k0 + 64 * n + 8 * (e / 4) + 2 * t + (e & 1);
-            if (j >= Sk || (causal && j > rows[(e >> 1) & 1])) {
+            if (j >= Sk || (causal && j > rows[(e >> 1) & 1] + off)) {
               sc[n][e] = -CUDART_INF_F;          // weighs 0
             }
           }
@@ -2258,7 +2268,7 @@ int launch_bwd_dkv(const u16* q, const u16* k, const u16* v, const u16* dout,
 template <int HD>
 int launch_fwd(const u16* q, const u16* k, const u16* v, u16* o, float* lse,
                int B, int H, int KV, int Sq, int Sk, float scale, int causal,
-               cudaStream_t stream) {
+               int off, cudaStream_t stream) {
   constexpr size_t smem = FwdSmem<HD>::kBytes;
   static_assert(smem <= 232448, "over the 227 KB a block can use");
   // q in boxes of the block's rows, k and v of a tile's
@@ -2279,7 +2289,7 @@ int launch_fwd(const u16* q, const u16* k, const u16* v, u16* o, float* lse,
   if (err != cudaSuccess) return static_cast<int>(err);
   return bf::launch(flash_fwd_bf16_kernel<HD>, tiles < sms ? tiles : sms,
                     kThreads, smem, stream, m[0], m[1], m[2], o, lse,
-                    B * H, H, KV, Sq, Sk, scale, causal,
+                    B * H, H, KV, Sq, Sk, scale, causal, off,
                     static_cast<int>(tiles));
 }
 
@@ -2324,13 +2334,21 @@ static cudaError_t args_check(int B, int H, int KV, int Sq, int Sk,
   return cudaSuccess;
 }
 
-#define FWD_ARGS q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, stream
+// the forwards' query offset: >= 0, and 0 without the mask
+static cudaError_t offset_check(int q_offset, int causal) {
+  return q_offset < 0 || (q_offset != 0 && !causal) ? cudaErrorInvalidValue
+                                                    : cudaSuccess;
+}
+
+#define FWD_ARGS \
+  q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, q_offset, stream
 
 int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
                             float* o, float* lse, int B, int H, int KV,
                             int Sq, int Sk, int hd, float scale, int causal,
-                            cudaStream_t stream) {
-  const cudaError_t bad = args_check(B, H, KV, Sq, Sk, {q, k, v, o});
+                            int q_offset, cudaStream_t stream) {
+  cudaError_t bad = args_check(B, H, KV, Sq, Sk, {q, k, v, o});
+  if (bad == cudaSuccess) bad = offset_check(q_offset, causal);
   if (bad != cudaSuccess) return static_cast<int>(bad);
   switch (hd) {
     case 16:
@@ -2412,8 +2430,9 @@ using bf::u16;
 int flash_attention_fwd_bf16(const u16* q, const u16* k, const u16* v,
                              u16* o, float* lse, int B, int H, int KV,
                              int Sq, int Sk, int hd, float scale, int causal,
-                             cudaStream_t stream) {
-  const cudaError_t bad = args_check(B, H, KV, Sq, Sk, {q, k, v, o});
+                             int q_offset, cudaStream_t stream) {
+  cudaError_t bad = args_check(B, H, KV, Sq, Sk, {q, k, v, o});
+  if (bad == cudaSuccess) bad = offset_check(q_offset, causal);
   if (bad != cudaSuccess) return static_cast<int>(bad);
   switch (hd) {
     case 16:

@@ -3,14 +3,20 @@ backward.
 
 Port of ``repro.kernels.flash_attention``: the forward (``_fwd``) and the
 backward (``_bwd_rule``'s two passes).  ``flash_attention_fwd(q, k, v,
-causal=True, scale=None)`` -> ``(o, lse)`` for q (B, H, Sq, hd) and k, v
-(B, KV, Sk, hd), with o (B, H, Sq, hd) and lse (B, H, Sq).  Query head h
-reads KV head h // (H // KV), the grouping of ``models/attention.py``
-(``_attend_dense``'s reshape and ``_attend_chunked``'s ``repeat``), so GQA
-callers pass k and v as they are.  The causal mask is top-left aligned
-(row i sees keys j <= i) and masks with -1e30, as the reference's
-``flash_attention_ref`` does; ``scale`` defaults to 1/sqrt(hd).  Unlike
-the TPU kernel, any Sq and Sk work.
+causal=True, scale=None, q_offset=0)`` -> ``(o, lse)`` for q (B, H, Sq,
+hd) and k, v (B, KV, Sk, hd), with o (B, H, Sq, hd) and lse (B, H, Sq).
+Query head h reads KV head h // (H // KV), the grouping of
+``models/attention.py`` (``_attend_dense``'s reshape and
+``_attend_chunked``'s ``repeat``), so GQA callers pass k and v as they
+are.  The causal mask is top-left aligned (row i sees keys j <= i) and
+masks with -1e30, as the reference's ``flash_attention_ref`` does;
+``scale`` defaults to 1/sqrt(hd).  The forward also takes ``q_offset`` >=
+0, under the mask only: q's rows are the positions ``q_offset + i`` of the
+keys' ``arange(Sk)``, so row i sees keys j <= i + q_offset (a block of a
+prompt whose positions are split over 'data', meeting the keys gathered
+from position 0).  The differentiable entry ``flash_attention`` takes no
+offset: a split prompt is never differentiated.  Unlike the TPU kernel,
+any Sq and Sk work.
 
 The backward recomputes the probabilities from the forward's lse:
 ``flash_attention_bwd_dq`` gives dq and ``flash_attention_bwd_dkv`` gives
@@ -80,10 +86,11 @@ def _default_scale(hd, scale):
     return 1.0 / math.sqrt(hd) if scale is None else float(scale)
 
 
-def flash_attention_ref(q, k, v, causal=True, scale=None):
+def flash_attention_ref(q, k, v, causal=True, scale=None, q_offset=0):
     """Plain version: the reference's einsum-and-softmax oracle with GQA
     (k and v repeated over each group of H // KV query heads) and the
-    scores' logsumexp -> (o (B, H, Sq, hd), lse (B, H, Sq))."""
+    scores' logsumexp -> (o (B, H, Sq, hd), lse (B, H, Sq)).  Under the
+    mask row i keeps keys j <= i + ``q_offset``."""
     H, hd = q.shape[1], q.shape[-1]
     G = H // k.shape[1]
     if G > 1:
@@ -93,7 +100,7 @@ def flash_attention_ref(q, k, v, causal=True, scale=None):
         * _default_scale(hd, scale)
     if causal:
         Sq, Sk = s.shape[-2:]
-        keep = (torch.arange(Sq, device=s.device)[:, None]
+        keep = (torch.arange(Sq, device=s.device)[:, None] + q_offset
                 >= torch.arange(Sk, device=s.device)[None, :])
         s = s.masked_fill(~keep, NEG_INF)
     o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v.float())
@@ -127,19 +134,33 @@ def _check_shapes(q, k, v, name="flash_attention_fwd") -> None:
         raise ValueError(f"{name} needs non-empty inputs")
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
+def _check_offset(q_offset, causal) -> int:
+    """``q_offset`` as an int: >= 0, and 0 without the causal mask (where
+    every row sees every key, an offset means nothing)."""
+    q_offset = int(q_offset)
+    if q_offset < 0 or (q_offset and not causal):
+        raise ValueError(f"flash_attention_fwd takes q_offset >= 0 under "
+                         f"the causal mask only, got {q_offset} with "
+                         f"causal={causal}")
+    return q_offset
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, scale=None, q_offset=0):
     """Softmax attention of q (B, H, Sq, hd) over k, v (B, KV, Sk, hd) ->
-    ``(o (B, H, Sq, hd) in the inputs' type, lse (B, H, Sq) float32)``.
+    ``(o (B, H, Sq, hd) in the inputs' type, lse (B, H, Sq) float32)``;
+    under the mask q's row i sees keys j <= i + ``q_offset``.
 
     Float32 or bf16 (all one type), contiguous inputs on one device, none
     requiring a gradient (``flash_attention`` is the differentiable
-    entry); hd in ``HEAD_DIMS``.  A CUDA launch adds one to
+    entry); hd in ``HEAD_DIMS``; ``q_offset`` >= 0, and 0 unless
+    ``causal``.  A CUDA launch adds one to
     ``flash_attention_fwd.launches``."""
     dt = _dtype("flash_attention_fwd", q)
     build.check_inputs("flash_attention_fwd", q, k, v, dtype=dt)
     _check_shapes(q, k, v)
+    q_offset = _check_offset(q_offset, causal)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal, scale)
+        return flash_attention_ref(q, k, v, causal, scale, q_offset)
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     lib = build.load("flash_attention.cu")
@@ -150,7 +171,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, scale=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, H, KV, Sq, Sk, hd,
             float(np.float32(_default_scale(hd, scale))), int(bool(causal)),
-            build.stream_of(q))
+            q_offset, build.stream_of(q))
     build.raise_on_error(lib, "flash_attention", err)
     _count(flash_attention_fwd, q)
     return o, lse

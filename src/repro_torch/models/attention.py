@@ -27,8 +27,8 @@ the positions ``arange(S)`` itself, so its prompt may take the kernel.
 
 ``attention_decode`` is the reference's masked einsum over the whole
 ``max_len`` cache in plain torch ops, on every device: the kernel's
-causal mask is top-left aligned (row i sees keys j <= i), so one query
-row over the cache would see key 0 alone.  It writes the new k and v into
+causal mask moves only by a ``q_offset`` the host passes, and a step
+reads the index on the device only.  It writes the new k and v into
 the cache in place (``index_copy_`` at the index, clamped to ``max_len -
 1`` as ``dynamic_update_slice`` clamps its start) and reads the index on
 the device only: a step copies no cache and waits for nothing.
@@ -39,7 +39,11 @@ params and of the cache, laid out by ``rules_for``: kv heads over 'model'
 where they divide it, else the cache's positions (``kv_seq``) over
 'model', or over 'data' at batch 1.  Decode over split positions combines
 the shards' blocks as flash-decoding does (see
-``attention_decode_sharded``).
+``attention_decode_sharded``).  A batch-1 prompt whose positions split
+over 'data' (``attention_prefill_sharded``'s ``starts``) attends its q
+block to k and v gathered over 'data', at its block's offset: on the card
+the flash forward's ``q_offset``, here ``_attend_dense`` /
+``_attend_chunked`` with ``q_pos = off + arange``, as the reference.
 """
 from __future__ import annotations
 
@@ -169,29 +173,44 @@ def uses_kernel(cfg, window, S) -> bool:
             and cfg.xdtype in fa.DTYPES)
 
 
-def _attend_kernel(cfg, q, k, v):
+def _attend_kernel(cfg, q, k, v, q_offset=None):
     """The kernels on (B, H, S, hd) copies of q, k, v -> (B, S, H, hd) in
     their type (float32 or bf16, as ``_attend_chunked`` returns
-    ``q.dtype``), differentiable in q, k and v."""
-    o = fa.flash_attention(q.transpose(1, 2).contiguous(),
-                           k.transpose(1, 2).contiguous(),
-                           v.transpose(1, 2).contiguous(),
-                           True, _scale(cfg))
+    ``q.dtype``), differentiable in q, k and v.  With ``q_offset`` (q a
+    block of the keys' positions, from that one on) the forward kernel
+    alone, which takes the offset: such a block is never differentiated,
+    and asking for a gradient raises rather than drop the offset."""
+    q, k, v = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if q_offset is None:
+        o = fa.flash_attention(q, k, v, True, _scale(cfg))
+    elif torch.is_grad_enabled() and any(x.requires_grad
+                                         for x in (q, k, v)):
+        raise NotImplementedError("the flash kernels' backward takes no "
+                                  "query offset: a prompt split over "
+                                  "'data' is not differentiated")
+    else:
+        o, _ = fa.flash_attention_fwd(q, k, v, causal=True,
+                                      scale=_scale(cfg), q_offset=q_offset)
     return o.transpose(1, 2)
 
 
-def _attend(cfg, q, k, v, positions, window, index_positions):
+def _attend(cfg, q, k, v, positions, window, index_positions,
+            q_offset=None):
     """The route of a full-sequence layer: the kernels on the card where
     ``uses_kernel`` and ``index_positions`` allow, else the reference's
-    chunked (S > ``attn_chunk``) or dense path."""
-    S = q.shape[1]
+    chunked (Sk > ``attn_chunk``) or dense path.  Without ``q_offset``, q
+    and k share ``positions``; with it, q holds the positions ``q_offset
+    + arange(Sq)`` (``positions``) of the keys' ``arange(Sk)``."""
+    Sk = k.shape[1]
     pos1 = positions[0] if positions.ndim > 1 else positions
-    if index_positions and q.is_cuda and uses_kernel(cfg, window, S):
-        return _attend_kernel(cfg, q, k, v)
-    if cfg.attn_chunk and S > cfg.attn_chunk:
-        return _attend_chunked(cfg, q, k, v, pos1, pos1, window,
+    k_pos = pos1 if q_offset is None else torch.arange(
+        Sk, dtype=pos1.dtype, device=pos1.device)
+    if index_positions and q.is_cuda and uses_kernel(cfg, window, Sk):
+        return _attend_kernel(cfg, q, k, v, q_offset)
+    if cfg.attn_chunk and Sk > cfg.attn_chunk:
+        return _attend_chunked(cfg, q, k, v, pos1, k_pos, window,
                                cfg.attn_chunk)
-    return _attend_dense(cfg, q, k, v, pos1, pos1, window)
+    return _attend_dense(cfg, q, k, v, pos1, k_pos, window)
 
 
 def attention(p, cfg, x, positions, *, window=None, index_positions=False):
@@ -273,9 +292,11 @@ def _wo_sharded(lay, ps, cfg, outs):
 
 
 def _attend_sharded(lay, cfg, qs, ks, vs, positions, window,
-                    index_positions):
+                    index_positions, q_offsets=None):
     """Each shard's ``_attend`` on its q heads: where q is column-parallel
-    and k, v are not, each q head meets the kv head it indexes."""
+    and k, v are not, each q head meets the kv head it indexes.
+    ``q_offsets[s]``: shard s's q block starts there (``_attend``'s
+    ``q_offset``)."""
     H, KV = cfg.n_heads, cfg.n_kv_heads
     outs = []
     for s, (q, k, v) in enumerate(zip(qs, ks, vs)):
@@ -283,7 +304,8 @@ def _attend_sharded(lay, cfg, qs, ks, vs, positions, window,
             Hl = H // lay.M
             k, v = _kv_for_local_heads(k, v, lay.rank[s] * Hl, Hl, H // KV)
         outs.append(_attend(cfg, q, k, v, positions[s], window,
-                            index_positions))
+                            index_positions,
+                            None if q_offsets is None else q_offsets[s]))
     return outs
 
 
@@ -396,25 +418,38 @@ def attention_decode(p, cfg, x, cache: KVCache, index, *, window=None):
 
 
 def attention_prefill_sharded(lay, ps, cfg, xs, caches, offs, *,
-                              window=None):
+                              window=None, starts=None):
     """``attention_prefill`` on a mesh: ``xs[s]`` shard s's rows of the
     prompt at positions ``arange(S)``, ``caches[s]`` its block of the
     layer's cache (its kv heads where they split over 'model', else every
     kv head; the positions ``[offs[s], offs[s] + T)`` where ``kv_seq``
     splits) -> each shard's output, whole over 'model'.  Each shard
     writes the k, v of the prompt's positions that fall in its block, in
-    place."""
+    place.
+
+    With ``starts`` (``ShardLayout.seq_starts``: the prompt's positions
+    split over 'data'), ``xs[s]`` is shard s's block of them, from
+    ``starts[s]`` on: it projects q, k, v of its own positions only; k and
+    v are gathered over 'data' along the sequence, and its q block meets
+    the keys ``[0, starts[s] + S_l)`` under the causal mask, window and
+    soft-cap of the global positions (on the card the flash forward with
+    ``q_offset = starts[s]``)."""
     B, S = xs[0].shape[:2]
-    positions = [torch.arange(S, dtype=torch.int32,
+    first = starts or [0] * len(xs)
+    positions = [torch.arange(f, f + S, dtype=torch.int32,
                               device=x.device).expand(x.shape[0], S)
-                 for x in xs]
+                 for f, x in zip(first, xs)]
     qs, ks, vs = _qkv_sharded(lay, ps, cfg, xs, positions)
+    if starts is not None:
+        ks, vs = lay.all_gather_seq(ks, 1), lay.all_gather_seq(vs, 1)
+        S = ks[0].shape[1]
     for cache, k, v, off in zip(caches, ks, vs, offs):
         n = max(0, min(S - off, cache.k.shape[2]))
         if n:
             cache.k[:, :, :n].copy_(k[:, off:off + n].transpose(1, 2))
             cache.v[:, :, :n].copy_(v[:, off:off + n].transpose(1, 2))
-    outs = _attend_sharded(lay, cfg, qs, ks, vs, positions, window, True)
+    outs = _attend_sharded(lay, cfg, qs, ks, vs, positions, window, True,
+                           starts)
     return _wo_sharded(lay, ps, cfg, outs)
 
 

@@ -556,10 +556,14 @@ def _embed_sharded(lay, cfg, ps, tokens, embeds):
     return xs
 
 
-def _block_sharded(lay, cfg, ps, xs, attend):
+def _block_sharded(lay, cfg, ps, xs, attend, starts=None):
     """``_block`` on a mesh (per-shard params, whole over the FSDP axes,
     and rows) with ``attend(p_attns, hs)`` its attention -> (rows, aux a
-    shard or None)."""
+    shard or None).  With ``starts`` (a prompt's positions split over
+    'data', ``xs[s]`` shard s's block from ``starts[s]`` on) the MoE layer
+    takes the whole prompt, gathered over 'data' (the reference's
+    ``moe_ep`` holds every position on each data shard: the same slots,
+    drops and aux), and each shard keeps its block of the output."""
     hs = [apply_norm(cfg.norm, p["ln1"], x) for p, x in zip(ps, xs)]
     att = attend([p["attn"] for p in ps], hs)
     xs = [x + a for x, a in zip(xs, att)]
@@ -568,8 +572,12 @@ def _block_sharded(lay, cfg, ps, xs, attend):
         ys = mlp_mod.apply_mlp_sharded(lay, [p["mlp"] for p in ps], hs,
                                        act=cfg.act)
         return [x + y for x, y in zip(xs, ys)], None
+    whole = hs if starts is None else lay.all_gather_seq(hs, 1)
     ys, aux = moe_mod.apply_moe_sharded(lay, [p["moe"] for p in ps],
-                                        cfg.moe, hs)
+                                        cfg.moe, whole)
+    if starts is not None:
+        n = hs[0].shape[1]
+        ys = [y[:, f:f + n] for y, f in zip(ys, starts)]
     for name in ("shared_mlp", "dense_mlp"):
         if name in ps[0]:
             zs = mlp_mod.apply_mlp_sharded(lay, [p[name] for p in ps], hs,
@@ -806,13 +814,30 @@ def prefill_sharded(lay, cfg, ps, state, tokens=None, embeds=None):
     """``prefill`` on a mesh into ``state`` (``init_decode_state_sharded``'s
     or one carried by ``weights.decode_state_to_mesh``), in place:
     ``ps[s]`` shard s's param blocks, ``tokens``/``embeds`` its rows
-    -> each shard's last-token logits (B_l, its vocab block).  At batch
-    1 every data shard runs the whole prompt (the reference's ``seq``
-    over 'data') and keeps its block of the cache's positions."""
+    -> each shard's last-token logits (B_l, its vocab block).
+
+    Where the rules split ``seq`` (batch 1 outside training: over 'data',
+    the reference's layout) and the data shards divide the prompt's S,
+    each data shard embeds, normalises and projects only its block of S /
+    D positions (``ShardLayout.seq_starts``), and runs the MLP and SSM on
+    it (``ssm.mamba_forward_sharded``: the blocks pass states);
+    attention takes q from the block against k and v gathered over 'data'
+    (``attention.attention_prefill_sharded``), an MoE layer the gathered
+    prompt (``_block_sharded``).  The last position's hidden row is
+    gathered from the last block, so every shard returns the same logits.
+    Where D does not divide S, every data shard runs the whole prompt:
+    the same function.  Each shard keeps its block of the cache's
+    positions either way."""
     plan = _fsdp_plan(cfg, lay)
+    S = (tokens if tokens is not None else embeds)[0].shape[1]
+    starts = lay.seq_starts(S)
+    if starts is not None:
+        n = S // lay.seq_shards
+        tokens, embeds = (None if t is None else
+                          [x[:, f:f + n] for x, f in zip(t, starts)]
+                          for t in (tokens, embeds))
     xs = _embed_sharded(lay, cfg, _top(lay, plan, ps, ("embed",)), tokens,
                         embeds)
-    S = xs[0].shape[1]
     sts = shd.local_trees(state, lay.local)
     offs = _kv_offsets(lay, state)
     for st in sts:
@@ -823,12 +848,13 @@ def prefill_sharded(lay, cfg, ps, state, tokens=None, embeds=None):
         return _block_sharded(
             lay, cfg, _gather_fsdp(lay, pl, p_ls), xs,
             lambda pa, hs: attn_mod.attention_prefill_sharded(
-                lay, pa, cfg, hs, caches, offs, window=w))
+                lay, pa, cfg, hs, caches, offs, window=w, starts=starts),
+            starts)
 
     def mamba(i, p_ls, pl, xs):
         def ssm(pm, hs):
             ys, states = ssm_mod.mamba_forward_sharded(
-                lay, pm, cfg.ssm, hs, return_state=True)
+                lay, pm, cfg.ssm, hs, return_state=True, starts=starts)
             for st, new in zip(sts, states):
                 st["ssm"][i].copy_(new.ssm)
                 st["conv"][i].copy_(new.conv)
@@ -837,6 +863,8 @@ def prefill_sharded(lay, cfg, ps, state, tokens=None, embeds=None):
                                     xs, ssm)
 
     xs, _ = _stack_sharded(cfg, ps, plan, xs, attend, mamba)
+    if starts is not None:
+        xs = lay.all_gather_seq([x[:, -1:] for x in xs], 1)
     return _last_logits(lay, cfg, ps, plan, xs)
 
 

@@ -23,7 +23,9 @@ are column-parallel over ``ssm_heads``, ``conv_x``, ``dt_bias``, ``A_log``,
 row-parallel.  The gated RMSNorm normalises each head over its P channels
 and the SSD scan runs per head, so a shard runs the one-device block on
 its heads and only ``wo``'s partial products cross shards (psum'd over
-'model').  The states are blocks of heads too.
+'model').  The states are blocks of heads too.  A batch-1 prompt whose
+positions split over 'data' runs each block on its own shard and passes
+the state between blocks (``_split_forward``).
 """
 from __future__ import annotations
 
@@ -135,19 +137,13 @@ def _project(p, ssm_cfg, u):
     return z, x, Bv, Cv, dt
 
 
-def mamba_forward(p, ssm_cfg, u, *, return_state=False):
-    """u: (B, S, d_model) -> (B, S, d_model) via chunked SSD; with
-    ``return_state``, also the ``SSMState`` after the last token (the
-    final inter-chunk state and the last W-1 pre-conv inputs, zero-padded
-    on the left when S < W-1)."""
+def _ssd(ssm_cfg, x, dt, Bv, Cv, A):
+    """The chunked SSD of x (B, S, H, P) from a zero state -> (y (B, S, H,
+    P) float32, before the skip term; the state after the last position
+    (B, H, P, N) float32)."""
     H, P, G = ssm_cfg.n_heads, ssm_cfg.head_dim, ssm_cfg.n_groups
     Q = ssm_cfg.chunk
-    B_, S, _ = u.shape
-    z, x_raw, Bv, Cv, dt = _project(p, ssm_cfg, u)
-    x = F.silu(_causal_depthwise_conv(x_raw, p["conv_x"]).float()).to(
-        u.dtype)
-    A = -torch.exp(p["A_log"])                        # (H,)
-
+    B_, S = x.shape[:2]
     nc = -(-S // Q)
     pad = nc * Q - S
 
@@ -182,15 +178,39 @@ def mamba_forward(p, ssm_cfg, u, *, return_state=False):
     Yoff = torch.einsum("bcqhn,bchpn->bcqhp", Ch, prev_states) \
         * torch.exp(dA_cs)[..., None]
 
-    y = (Ydiag + Yoff).reshape(B_, nc * Q, H, P)[:, :S]
+    return (Ydiag + Yoff).reshape(B_, nc * Q, H, P)[:, :S], s
+
+
+def _finish(p, y, x, z, dtype):
+    """The SSD's y (float32) -> the block's output: the skip term, the
+    gated RMSNorm, ``wo``."""
     y = y + x.float() * p["D"][:, None]
-    y = _gated_rmsnorm(y, z, p["norm_scale"]).to(u.dtype)
-    out = apply_dense(p["wo"], y, contract=2)
+    y = _gated_rmsnorm(y, z, p["norm_scale"]).to(dtype)
+    return apply_dense(p["wo"], y, contract=2)
+
+
+def _last_inputs(x_raw, W):
+    """The last W-1 pre-conv inputs of x_raw (B, S, H, P), zero-padded on
+    the left when S < W-1: the decode state's ``conv``."""
+    S = x_raw.shape[1]
+    return (x_raw[:, -(W - 1):] if S >= W - 1
+            else F.pad(x_raw, (0, 0, 0, 0, W - 1 - S, 0)))
+
+
+def mamba_forward(p, ssm_cfg, u, *, return_state=False):
+    """u: (B, S, d_model) -> (B, S, d_model) via chunked SSD; with
+    ``return_state``, also the ``SSMState`` after the last token (the
+    final inter-chunk state and the last W-1 pre-conv inputs, zero-padded
+    on the left when S < W-1)."""
+    z, x_raw, Bv, Cv, dt = _project(p, ssm_cfg, u)
+    x = F.silu(_causal_depthwise_conv(x_raw, p["conv_x"]).float()).to(
+        u.dtype)
+    A = -torch.exp(p["A_log"])                        # (H,)
+    y, s = _ssd(ssm_cfg, x, dt, Bv, Cv, A)
+    out = _finish(p, y, x, z, u.dtype)
     if not return_state:
         return out
-    W = ssm_cfg.conv_width
-    conv = (x_raw[:, -(W - 1):] if S >= W - 1
-            else F.pad(x_raw, (0, 0, 0, 0, W - 1 - S, 0)))
+    conv = _last_inputs(x_raw, ssm_cfg.conv_width)
     return out, SSMState(ssm=s.to(u.dtype), conv=conv.to(u.dtype))
 
 
@@ -230,11 +250,83 @@ def _local(ssm_cfg, ps):
     return replace(ssm_cfg, n_heads=H)
 
 
-def mamba_forward_sharded(lay, ps, ssm_cfg, us, *, return_state=False):
+def _split_forward(lay, ps, ssm_cfg, us, starts):
+    """``mamba_forward`` (with its state) of a sequence whose positions
+    split over 'data': ``us[s]`` shard s's block, from ``starts[s]`` on
+    -> (each shard's output, before ``wo``'s psum; its ``SSMState``).
+
+    The inter-chunk recurrence is sequential, so the blocks pass states:
+    - the conv's halo: every shard's last W-1 pre-conv inputs (its whole
+      block where shorter) are gathered over 'data', and a shard's halo is
+      the last W-1 of the blocks before it (zeros before position 0), so
+      its conv sums what one device's does;
+    - each shard runs the chunked SSD of its block from a zero state ->
+      its outputs, its final state ``s_loc`` and its block's decay
+      ``exp(sum dA)``;
+    - ``(s_loc, decay)`` are gathered over 'data' and every shard folds
+      them in block order, ``s <- s * decay + s_loc`` (the same order on
+      every shard, so the same bits): the state entering each block
+      ``s_in``, and the whole sequence's final state;
+    - each shard adds ``C_t . s_in * exp(cumsum dA from its block's start
+      to t)`` to its outputs.
+    The decode state (the fold's final state and the last W-1 inputs of
+    the gathered tails) is the same on every data shard, as
+    ``decode_state_sharding`` replicates it over 'data' at batch 1."""
+    local = _local(ssm_cfg, ps)
+    H, G, W = local.n_heads, local.n_groups, local.conv_width
+    S_l = us[0].shape[1]
+    T = min(W - 1, S_l)
+    parts = [(p,) + _project(p, local, u) for p, u in zip(ps, us)]
+    tails = lay.all_gather_seq([x_raw[:, S_l - T:]
+                                for _, _, x_raw, _, _, _ in parts], 1)
+    runs, states, decays = [], [], []
+    for (p, z, x_raw, Bv, Cv, dt), tail, first in zip(parts, tails, starts):
+        zeros = x_raw.new_zeros((x_raw.shape[0], W - 1) + x_raw.shape[2:])
+        before = torch.cat([zeros, tail[:, :first // S_l * T]], 1)
+        halo = before[:, before.shape[1] - (W - 1):]
+        conv = _causal_depthwise_conv(torch.cat([halo, x_raw], 1),
+                                      p["conv_x"])[:, W - 1:]
+        x = F.silu(conv.float()).to(x_raw.dtype)
+        A = -torch.exp(p["A_log"])
+        y, s_loc = _ssd(local, x, dt, Bv, Cv, A)
+        cum = torch.cumsum(dt * A, dim=1)             # (B, S_l, H)
+        runs.append((p, z, x, y, Cv, cum))
+        states.append(s_loc[None])
+        decays.append(torch.exp(cum[:, -1])[None])
+    states = lay.all_gather_seq(states, 0)            # (D, B, H, P, N)
+    decays = lay.all_gather_seq(decays, 0)            # (D, B, H)
+    outs, finals = [], []
+    for (p, z, x, y, Cv, cum), st, dec, tail, first in zip(
+            runs, states, decays, tails, starts):
+        s, s_in = torch.zeros_like(st[0]), None
+        for j in range(st.shape[0]):
+            if j == first // S_l:
+                s_in = s
+            s = s * dec[j][..., None, None] + st[j]
+        if first:
+            Ch = Cv.repeat_interleave(H // G, dim=2)  # (B, S_l, H, N)
+            y = y + torch.einsum("bshn,bhpn->bshp", Ch, s_in) \
+                * torch.exp(cum)[..., None]
+        outs.append(_finish(p, y, x, z, us[0].dtype))
+        conv = _last_inputs(tail, W)
+        finals.append(SSMState(ssm=s.to(us[0].dtype),
+                               conv=conv.to(us[0].dtype)))
+    return outs, finals
+
+
+def mamba_forward_sharded(lay, ps, ssm_cfg, us, *, return_state=False,
+                          starts=None):
     """``mamba_forward`` on a mesh: ``ps[s]`` shard s's blocks (heads over
     'model'), ``us[s]`` its rows, whole over 'model' -> each shard's
     output, whole over 'model' (with ``return_state``, also each shard's
-    ``SSMState`` of its heads)."""
+    ``SSMState`` of its heads).  With ``starts``
+    (``ShardLayout.seq_starts``), ``us[s]`` is shard s's block of the
+    positions, from ``starts[s]`` on, and the blocks pass states over
+    'data' (``_split_forward``)."""
+    if starts is not None:
+        outs, states = _split_forward(lay, ps, ssm_cfg, us, starts)
+        outs = lay.psum_model(outs)
+        return (outs, states) if return_state else outs
     local = _local(ssm_cfg, ps)
     outs = [mamba_forward(p, local, u, return_state=return_state)
             for p, u in zip(ps, us)]

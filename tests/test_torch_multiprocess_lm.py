@@ -77,7 +77,10 @@ TRAIN = {
 }
 # name: (config, mesh, batch, prompt, max_len)
 DECODE = {"decode-2x2": ("qwen3-1.7b", (2, 2), 4, 21, 32),
-          "decode-batch1-2x2": ("qwen3-1.7b", (2, 2), 1, 21, 32)}
+          "decode-batch1-2x2": ("qwen3-1.7b", (2, 2), 1, 21, 32),
+          # the prompt's 24 positions split over 'data', which crosses the
+          # ranks: k, v, the SSM's tails and states gathered across them
+          "zamba2-split-2x2": ("zamba2-1.2b", (2, 2), 1, 24, 32)}
 # the step held to the reference: (config, mesh)
 REF = ("qwen1.5-0.5b", (2, 2))
 # the cases of the job whose processes hold two shards, and of the one

@@ -232,8 +232,8 @@ def _variants():
         "threadIdx.x) / 128, 0);": "  const int wg = threadIdx.x / 128;"}
     out["one_tile_a_block"] = {GRID: "flash_fwd_bf16_kernel<HD>, tiles,"}
     out.update({
-        "probe_no_mask": {"if ((causal && k0 + BK - 1 > qw) || k0 + BK > "
-                          "Sk) {": "if (false) {"},
+        "probe_no_mask": {"if ((causal && k0 + BK - 1 > qw + off) || k0 + BK "
+                          "> Sk) {": "if (false) {"},
         "probe_no_exp": {
             "sc[n][e] = ex2(__fmaf_rn(sc[n][e], scale2, mneg[h]));":
             "sc[n][e] = __fmaf_rn(sc[n][e], scale2, mneg[h]);"},
