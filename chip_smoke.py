@@ -455,17 +455,20 @@ of both card vs CPU in bf16 (loss 1e-2, gradients 5e-2 of every leaf's
 max; the CPU's MoE router takes the experts the card's chose, so a
 near-tie that rounds the other way does not reroute a token) and float32
 (1e-4). Counted as the ``lm_bf16`` path, by variant.
-(d) The dry-run (``repro_torch.launch.dryrun.build_and_compile``) of six
-of the reference test's seven cells (not kimi-k2's) on
+(d) The dry-run (``repro_torch.launch.dryrun``) of six of the reference
+test's seven cells (not kimi-k2's) on
 ``make_production_mesh(devices=["meta"] * 256)`` and its 2 x 16 x 16 form
-on 512: host work in ``LM20_DRYRUN_WORKERS`` worker processes, started
-after (b) and (c)'s timed runs, so that nothing timed runs beside them,
-and traced while (a) and (c)'s card-vs-CPU comparisons run (awaited at
-most 300 s), each cell cut to its least depth (see ``LM20_DRYRUN``),
-gated as
-the reference's test gates them; their summary lines and the report's
-two tables. A ``{"lm_bf16": ...}`` line comes before the kernels' line,
-which gains a record for each bf16 and hd-112 variant.
+on 512, each at its config's full depth: every cell's cuts
+(``dryrun.plan``: a few shallow depths) are traced by ``trace_cut`` as
+tasks of ``LM20_DRYRUN_WORKERS`` worker processes, started after (b) and
+(c)'s timed runs, so that nothing timed runs beside them, and traced
+while (a) and (c)'s card-vs-CPU comparisons run (awaited until
+``LM20_DRYRUN_WAIT_S`` after the pool's start); the main process composes
+each cell's record from its cuts (``dryrun.compose``, ``dryrun.record``)
+and gates it as the reference's test gates a cell; each cell's summary
+line with its layer counts and cuts, and the report's two tables. A
+``{"lm_bf16": ...}`` line comes before the kernels' line, which gains a
+record for each bf16 and hd-112 variant.
 
 Any failure exits non-zero.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero before printing any
@@ -4451,9 +4454,11 @@ def phase15(cfg, ops):
 # those the whole script took 1,261 s of a 1,200 s limit on a slow host
 # (phase 16 334 s of it; see PERF.md), at 110 and 75 1,089 s once phase 21
 # was added (phase 16 192 s), at 80 and 55 1,049 s once phase 22 was
-# added (phase 16 146 s); the edge learner's shapes at ENC: d 32, 16
-# virtual negatives, the 96-frame buffer and a batch of 8
-QUALITY_STEPS, QUALITY_CALIB_STEPS = 64, 44
+# added (phase 16 146 s), at 64 and 44 about 1,050 s once phase 20 (d)
+# traced its cells at full depth (phase 16 115 s); the edge learner's
+# shapes at ENC: d 32, 16 virtual negatives, the 96-frame buffer and a
+# batch of 8
+QUALITY_STEPS, QUALITY_CALIB_STEPS = 48, 33
 Q_D, Q_SYN, Q_DIRS, Q_KNN, Q_C = 32, 16, 32, 3, 16
 # the demos' refine shapes (sessions, window): quickstart, fleet demo
 DEMO_REFINE = ((8, 32), (32, 50))
@@ -6887,23 +6892,24 @@ LM20_BF16_LOSS_RTOL, LM20_BF16_GRAD_RTOL = 1e-2, 5e-2
 # decode's attention is the plain one over the cache
 LM20_PREFILL_RTOL, LM20_DECODE_RTOL = 3e-2, 5e-2
 # (d): six of the reference test's seven dry-run cells
-# (tests/test_dryrun_cells.py) on the production meshes, each cut to the
-# least depth that keeps its layer kinds (the trace runs every shard's
-# work on the host: the reference test's cuts would take longer than the
-# script has; see PERF.md).  The seventh, kimi-k2 train_4k on 2 x 16 x 16
-# (~370 s of host at 2 layers), is left to tests/test_torch_dryrun.py's
-# (2, 2, 4) mesh.  They run in worker processes of one thread each, the
-# longest cell first, from the end of (c)'s timed runs, beside (a) and the
-# card-vs-CPU comparisons, which are not timed.
-LM20_DRYRUN = (("arctic-480b", "train_4k", {"n_layers": 1}, False),
-               ("qwen3-1.7b", "train_4k", {"n_layers": 1}, True),
-               ("gemma2-2b", "prefill_32k", {"n_layers": 2}, False),
-               ("qwen3-1.7b", "train_4k", {"n_layers": 1}, False),
-               ("zamba2-1.2b", "decode_32k",
-                {"n_layers": 1, "hybrid_period": 1}, False),
-               ("mamba2-780m", "long_500k", {"n_layers": 1}, False))
-LM20_DRYRUN_WORKERS = 4
-LM20_DRYRUN_WAIT_S = 300  # the longest (d) waits for the last cell
+# (tests/test_dryrun_cells.py) on the production meshes at their configs'
+# full depth, each composed from its cuts (the trace runs every shard's
+# work on the host, so a cell traces a few shallow depths and counts each
+# layer kind by its number; see PERF.md).  The seventh, kimi-k2 train_4k
+# on 2 x 16 x 16 (its 2- and 3-layer cuts, ~370 s of host and more), is
+# left to tools/dryrun_depth_check.py and tests/test_torch_dryrun_depth_
+# moe.py's (2, 2, 4) mesh.  The cuts run as tasks of worker processes of
+# one thread each, the deepest cut of the widest mesh first, from the end
+# of (c)'s timed runs, beside (a) and the card-vs-CPU comparisons, which
+# are not timed.  (arch, shape, multi_pod)
+LM20_DRYRUN = (("arctic-480b", "train_4k", False),
+               ("qwen3-1.7b", "train_4k", True),
+               ("gemma2-2b", "prefill_32k", False),
+               ("qwen3-1.7b", "train_4k", False),
+               ("zamba2-1.2b", "decode_32k", False),
+               ("mamba2-780m", "long_500k", False))
+LM20_DRYRUN_WORKERS = 6
+LM20_DRYRUN_WAIT_S = 600  # the longest (d) waits for the last cut
 
 
 def flash_bound(name, dt, shape, causal=True, q_offset=0):
@@ -7457,51 +7463,93 @@ def lm20_worker_init():
     torch.set_num_threads(1)
 
 
-def lm20_dryrun_cell(spec):
-    """One dry-run cell in a worker process -> its record."""
-    arch, shape, overrides, multi_pod = spec
+def lm20_dryrun_cut(task):
+    """One cut of a dry-run cell in a worker process -> its raw counts
+    (``dryrun.trace_cut``)."""
+    arch, shape, multi_pod, ovr = task
     src = os.path.join(ROOT, "src")
     if src not in sys.path:
         sys.path.insert(0, src)
+    from dataclasses import replace
+    from repro_torch.configs.base import SHAPES
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
     mesh = make_production_mesh(multi_pod=multi_pod, devices=["meta"] * (
         512 if multi_pod else 256))
-    return dryrun.build_and_compile(arch, shape, mesh, overrides=overrides)
+    cfg = replace(dryrun.cell_config(arch), **ovr)
+    return dryrun.trace_cut(cfg, SHAPES[shape], dryrun.policy_for(arch),
+                            mesh)
+
+
+def lm20_dryrun_tasks():
+    """(d): every cell's cuts at full depth, as (cell index, task), the
+    costliest first: by shards, the layers and shared-block uses plus one,
+    and the step's kind (a layer's trace takes ~4x as long in a train step
+    as in a decode step, ~2x in a prefill)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    weight = {"train": 4, "prefill": 2, "decode": 1}
+    tasks = []
+    for i, (arch, shape, mp) in enumerate(LM20_DRYRUN):
+        cfg, kind = dryrun.cell_config(arch), SHAPES[shape].kind
+        for o in dryrun.plan(cfg, kind):
+            cost = (1 + mp) * weight[kind] * (1 + dryrun._depth(cfg, o))
+            tasks.append((cost, i, (arch, shape, mp, o)))
+    return [(i, task) for _, i, task in sorted(
+        tasks, key=lambda t: -t[0])]
 
 
 def lm20_dryrun_start():
-    """(d): ``LM20_DRYRUN``'s cells in a pool of spawned worker processes
-    -> (pool, pending results)."""
+    """(d): the cells' cuts in a pool of spawned worker processes -> (pool,
+    [(cell index, task, pending counts)])."""
     import multiprocessing
     pool = multiprocessing.get_context("spawn").Pool(
         LM20_DRYRUN_WORKERS, initializer=lm20_worker_init)
-    return pool, [pool.apply_async(lm20_dryrun_cell, (spec,))
-                  for spec in LM20_DRYRUN]
+    return pool, [(i, task, pool.apply_async(lm20_dryrun_cut, (task,)))
+                  for i, task in lm20_dryrun_tasks()]
 
 
 def lm20_dryrun_finish(pool, pending, t0):
-    """(d): the cells' records (the pool terminated on leaving, a
-    failure's too), each checked as the reference's test checks it, their
-    summary lines and the report's two tables -> records.  ``t0``: the
-    pool's start on ``time.perf_counter``."""
-    from repro_torch.launch.dryrun import summary_line
+    """(d): each cell's record composed at full depth from its cuts' counts
+    (the pool terminated on leaving, a failure's too), checked as the
+    reference's test checks a cell, their summary lines and the report's
+    two tables -> records.  ``t0``: the pool's start on
+    ``time.perf_counter``."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.runtime.roofline_report import fmt_table
     t1 = time.perf_counter()
     try:
-        recs = [r.get(timeout=max(1.0, LM20_DRYRUN_WAIT_S
-                                  - (time.perf_counter() - t0)))
-                for r in pending]
+        got = [(i, task, r.get(timeout=max(1.0, LM20_DRYRUN_WAIT_S
+                                           - (time.perf_counter() - t0))))
+               for i, task, r in pending]
     finally:
         pool.terminate()
         pool.join()
     now = time.perf_counter()
-    print(f"phase 20 (d): the dry-run's cells in {LM20_DRYRUN_WORKERS} "
-          f"workers took {now - t0:.1f} s, {now - t1:.1f} s of it awaited")
-    for (arch, shape, ovr, mp), rec in zip(LM20_DRYRUN, recs):
+    print(f"phase 20 (d): the dry-run's {len(got)} cuts of "
+          f"{len(LM20_DRYRUN)} cells in {LM20_DRYRUN_WORKERS} workers took "
+          f"{now - t0:.1f} s, {now - t1:.1f} s of it awaited")
+    recs = []
+    for i, (arch, shape, mp) in enumerate(LM20_DRYRUN):
+        cfg = dryrun.cell_config(arch)
+        ovrs = dryrun.plan(cfg, SHAPES[shape].kind)
+        traced = [(o, c) for o in ovrs
+                  for j, task, c in got if j == i and task[3] == o]
+        check(len(traced) == len(ovrs) == sum(j == i for j, _, _ in got),
+              f"dry-run cell {arch} {shape}: traced {traced}, plan {ovrs}")
+        counts = dryrun.compose(cfg, traced)
+        mesh = make_production_mesh(multi_pod=mp, devices=["meta"] * (
+            512 if mp else 256))
+        rec = dryrun.record(arch, shape, mesh, cfg, counts, ovrs)
+        recs.append(rec)
         r = rec["roofline"]
+        secs = ", ".join("%.1f" % c["trace_s"] for _, c in traced)
         print(f"=== {arch}__{shape}__{'multi' if mp else 'single'} "
-              f"{ovr} on {rec['mesh']} ===\n" + summary_line(rec)
+              f"{dryrun.layer_counts(cfg)} from cuts {rec['cuts']} "
+              f"({secs} s) "
+              f"on {rec['mesh']} ===\n" + dryrun.summary_line(rec)
               + "  peak/chip "
               f"{rec['memory']['peak_memory_in_bytes'] / 1e9:.2f} GB "
               f"fits={rec['memory']['fits']}  collectives "
