@@ -6849,13 +6849,20 @@ def phase22(ops, p18_p50):
 # the flash kernels in bf16 and at hd 112: the layer shapes of the small
 # tier, the large tier (qwen3-1.7b) and kimi-k2's full width, causal and
 # full, then the edges: Sq != Sk, Sq = Sk = 1, S no multiple of a tile,
-# GQA (B, H, KV, Sq, Sk, hd)
+# GQA (B, H, KV, Sq, Sk, hd).  The last three reach the float32 hd-112
+# backward's tiling: S 1,000 (ragged 64-key and 32-query tiles, mirrored
+# key tiles) with a group of 7, 64 queries over 1,088 keys under the mask
+# (key tiles no query sees: dk and dv 0; an odd count of mirrored tiles)
+# with a group of 8, and a group of 1 without the mask
 LM20_SHAPES = {"small": (8, 16, 16, 1024, 1024, 64),
                "large": (4, 16, 8, 1024, 1024, 128),
                "kimi": (2, 64, 8, 1024, 1024, 112)}
 LM20_EDGES = ((2, 8, 2, 200, 333, 64, False), (1, 2, 2, 1, 1, 112, True),
               (2, 4, 1, 1000, 1000, 128, True), (1, 8, 2, 77, 300, 112, False),
-              (2, 4, 4, 130, 130, 32, True), (1, 8, 8, 100, 37, 16, True))
+              (2, 4, 4, 130, 130, 32, True), (1, 8, 8, 100, 37, 16, True),
+              (1, 7, 1, 1000, 1000, 112, True),
+              (1, 8, 1, 64, 1088, 112, True),
+              (2, 4, 4, 200, 200, 112, False))
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor cores (H100 SXM data sheet, 700 W)
 # bf16 o against the plain version (upcast, float32, o rounded once): the
 # reference's own bar on unit-normal inputs (tests/test_flash_attention.py);
@@ -7401,6 +7408,7 @@ def lm20_card_vs_cpu(dev, ops, name, experts, total):
     reported."""
     from repro_torch.checkpoint.serial import _paths
     from repro_torch.data.tokens import random_batch
+    from repro_torch.kernels.flash_attention import variant
     from repro_torch.models import lm
     from repro_torch.optim.sgd import value_and_grad
     from repro_torch.weights import to_device
@@ -7422,6 +7430,11 @@ def lm20_card_vs_cpu(dev, ops, name, experts, total):
             (l_dev, _), g_dev = value_and_grad(
                 loss_fn, p_dev, {k: x.to(dev) for k, x in batch.items()})
         launched = ops.KERNELS["flash_attention_bwd_dq"].launches
+        # each backward kernel once a layer, of this type and head dim's
+        # variant (kimi-k2's float32: the hd-112 wgmma kernels)
+        v = variant(getattr(torch, dt), cfg.head_dim)
+        by_variant = {n: c[v] for n, c in lm20_variant_counts(ops).items()
+                      if n != "flash_attention_fwd"}
         lm20_add(total, ops)
         g_dev = [x.cpu() for x in g_dev]
         del p_dev
@@ -7434,11 +7447,13 @@ def lm20_card_vs_cpu(dev, ops, name, experts, total):
         out[dt] = {"loss": abs(l_dev.item() - l_cpu.item())
                    / abs(l_cpu.item()), "gradients": leaf[worst],
                    "worst_leaf": worst, "dq_launches": launched,
+                   "bwd_launches_of_variant": {v: by_variant},
                    "router_calls": len(routes), "routing_flips": flips[0]}
         loss_bar, grad_bar = ((LM20_BF16_LOSS_RTOL, LM20_BF16_GRAD_RTOL)
                               if dt == "bfloat16" else (LM_RTOL, LM_RTOL))
-        check(launched == 2, f"{name} 2-layer {dt}: {launched} dq launches "
-              "on the card, want 2")
+        check(launched == 2 and all(c == 2 for c in by_variant.values()),
+              f"{name} 2-layer {dt}: {launched} dq launches on the card, "
+              f"{by_variant} of variant {v}; want 2 of each")
         check(out[dt]["loss"] <= loss_bar and out[dt]["gradients"]
               <= grad_bar, f"{name} 2-layer cut card vs CPU in {dt}: "
               f"{out[dt]} (bars {loss_bar}, {grad_bar})")
@@ -7570,6 +7585,7 @@ def lm20_records(total, worst, times):
     launches on the ``lm_bf16`` path and its times at the other shapes."""
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                       bwd_bf16_attributes,
+                                                      bwd_f32_attributes,
                                                       fwd_bf16_attributes)
     # the bf16 forward and backward (wgmma, warp-specialised) as built:
     # registers a thread at launch (the consumers rise to 232 with
@@ -7585,6 +7601,15 @@ def lm20_records(total, worst, times):
     check(all(a["local_bytes"] == 0 for at in attrs.values()
               for a in at.values()),
           f"a bf16 flash kernel spills: {attrs}")
+    # the float32 dq and dk/dv at hd 112 (wgmma fed by TMA; 256 threads, so
+    # every one may take 255 registers): no spill either
+    f32_attrs = bwd_f32_attributes(112)
+    print("phase 20 (b): the float32 hd-112 dq and dk/dv kernels' registers"
+          " and local bytes: " + ", ".join(
+              f"{k} {a['registers']} / {a['local_bytes']} B"
+              for k, a in f32_attrs.items()))
+    check(all(a["local_bytes"] == 0 for a in f32_attrs.values()),
+          f"a float32 hd-112 flash backward kernel spills: {f32_attrs}")
     records = []
     for v, tier in (("bf16", "large"), ("bf16_hd112", "kimi"),
                     ("f32_hd112", "kimi")):
@@ -7603,6 +7628,8 @@ def lm20_records(total, worst, times):
             if v.startswith("bf16"):
                 records[-1]["built"] = attrs[112 if "hd112" in v
                                              else 128][short]
+            elif short != "fwd":
+                records[-1]["built"] = f32_attrs[short]
             if (v, short) == ("bf16", "fwd"):
                 records[-1]["offset_shape"] = times["offset"]
     return records

@@ -98,6 +98,7 @@ SIGNATURES = {
                                          _I),
         "flash_attention_fwd_bf16_attributes": ([_I, _P], _I),
         "flash_attention_bwd_bf16_attributes": ([_I, _P], _I),
+        "flash_attention_bwd_f32_attributes": ([_I, _P], _I),
         "flash_attention_error_string": ([_I], _S),
     },
 }

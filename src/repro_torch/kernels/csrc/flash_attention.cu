@@ -2,6 +2,8 @@
 // tensor cores (sm_90a).  The float32 kernels come first; the bf16
 // numerics are in the section "bf16", and the bf16 forward and backward,
 // on warpgroup MMAs fed by TMA, in the section "bf16 on Hopper's
+// warpgroup tensor cores"; the float32 backward at hd 112, on warpgroup
+// MMAs fed by TMA too, in the section "float32 at hd 112 on Hopper's
 // warpgroup tensor cores".
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention.py: the
@@ -643,12 +645,12 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o,
 // lives in shared memory (VS): with dk and dv both in registers (128 of
 // them a thread) the kernel spills, though it runs 15 % faster
 // (tools/flash_bwd_variants.py).  Blocks with the most tiles start first.
-// Tiles and shared memory a block:
+// Tiles and shared memory a block (hd 112 takes the kernels of the
+// section "float32 at hd 112 on Hopper's warpgroup tensor cores"):
 //   dq   hd 16, 32: BQ 64, BK 32, 32 KB; hd 64: 64 KB, three blocks an
-//        SM; hd 112, 128: BQ 128 (8 warps), BK 32, 192 KB
+//        SM; hd 128: BQ 128 (8 warps), BK 32, 192 KB
 //   dkv  hd 16, 32: BK 64, BQ 32, 48.5 KB; hd 64: 96.5 KB, two blocks an
-//        SM; hd 128: BK 128 (8 warps), BQ 16, 224.3 KB; hd 112 as 128,
-//        216.3 KB
+//        SM; hd 128: BK 128 (8 warps), BQ 16, 224.3 KB
 
 template <int HD, int BQ, int BK>
 constexpr size_t dq_smem_bytes() {
@@ -2309,6 +2311,953 @@ cudaError_t fwd_attributes(cudaFuncAttributes* fwd) {
 
 }  // namespace hb
 
+// ---------------------------------------------------------------------------
+// float32 at hd 112 on Hopper's warpgroup tensor cores.
+//
+// The dq and dk/dv kernels for float32 q, k, v and dO at hd 112 (kimi-k2's
+// head dim): the function of the section "Backward" (the TPU kernel's
+// `_dq_kernel` and `_dkv_kernel` under `_bwd_rule`), with the score
+// products on `wgmma` m64n32k8 TF32 fed by TMA copies and the accumulation
+// products on `mma.sync` m16n8k8 TF32, all in 3xTF32.  The other head dims
+// keep the kernels of the section "Backward".
+//
+// Operands.  TF32 `wgmma` reads both shared-memory operands K-major only (it
+// has no transpose bit).  The score products have both K-major as stored
+// (hd contiguous): S = Q K^T and dP = dO V^T in dq, S^T = K Q^T and dP^T =
+// V dO^T in dk/dv, so they go to `wgmma` from shared memory.  The three
+// accumulation products (dq += dS K, dv += P^T dO, dk += dS^T Q) sum over
+// keys or queries, the rows of their B as stored (MN-major): a transposed
+// copy of each streamed tile, hi and lo, has no room beside two stages
+// (below), so they stay on `mma.sync`, fed straight from the `wgmma`
+// accumulators (each warp's 16 rows of an m64n32 accumulator have the
+// m16n8 layout that tc::acc_to_a takes) and reading B from the tiles the
+// score products read.  Those reads are conflict-free: under the 64-byte
+// swizzle rows 2t and 2t + 1 lie in the two halves of one 128-byte line,
+// so lanes g < 4 read row 2t and lanes g >= 4 row 2t + 1 in one load and
+// the other in the next, and each lane swaps its pair back (load_b).  A
+// fragment's chain of `mma.sync` is dependent throughout, so the output
+// fragments go two at a time, their chains interleaved
+// (tools/flash_bwd_f32_variants.py times other counts).
+//
+// 3xTF32.  Every tile that TMA lands is split once by the producer
+// warpgroup, as the section "Backward" splits: hi = tf32(x) (to nearest,
+// ties away) in place, lo = tf32(x - hi) in a tile beside it, so the
+// tensor cores read hi exactly.  A raw float32 tile would be read as a
+// truncated hi, whose dropped lo * lo term is four times larger: it puts
+// dq and dk at Sq = Sk = 1 over phase 20's bar on 0.25 % of draws
+// (tools/tc_truncation.py; tests/test_torch_flash_bwd_f32_hd112.py).  A
+// product is lo*hi + hi*lo + hi*hi; `wgmma` sums each of its 8 columns into
+// the accumulator and truncates, so a chain drifts with its length.  S
+// sums its 28 cross terms first (small, so their truncation is too) and
+// then its 14 hi * hi steps in one chain; dP the same but with its hi * hi
+// steps dealt in turn to kDpChains = 4 accumulators, joined in order by
+// rounded adds (tools/tc_truncation.py: one chain puts dq and dk at Sq =
+// Sk = 1 over the bar on 4.3 % of 4,000 draws at hd 112, two on 0.25 %,
+// four on none, with the most margin).  The
+// accumulation products sum each step's 32 rows in the tensor cores from
+// 0 (tc::mma3's order) and join their float32 accumulators by one rounded
+// add a step, as the section "Backward" does a tile.  p = exp(s scale -
+// lse) is one fmaf and one ex2.approx with the scale and lse taken to base
+// 2 (a few float32 ulps).  No atomics and a fixed order: two launches give
+// the same bits.
+//
+// Bound: the section "Backward"'s (dq 3 products, dk/dv 4, at 3xTF32's 165
+// TFLOP/s of the 495 TFLOP/s dense TF32 of NVIDIA's H100 SXM data sheet,
+// 700 W): operations bound both at kimi-k2's layer (chip_smoke.py phase 20
+// prints each bound beside each time).
+//
+// Design.  A block is one consumer warpgroup, which owns kRows = 64 output
+// rows (keys in dk/dv, queries in dq), and one producer warpgroup (256
+// threads).  The producer's thread 0 issues every copy as a TMA load
+// (`cp.async.bulk.tensor.3d`, 3-D maps over (B*H or B*KV, S, hd), so a
+// ragged tile's rows past S are zero inside their own head), and its 128
+// threads split each tile once it lands and release it to the consumer
+// on a `ready` mbarrier after a `fence.proxy.async` (their generic writes
+// come before the tensor cores' reads and before TMA refills the buffer);
+// the consumer never copies and the main loop has no __syncthreads().
+// The producer splits step i, then issues step i + 1's copy once the
+// consumer has released its stage, so a step's copy and split run under
+// the step before.
+//   dk/dv: the block holds K and V of its 64 keys (hi and lo, resident) and
+//   streams kStep = 32 queries a step through kStages stages (Q and dO, hi
+//   and lo; lse * log2 e and delta by the producer's plain loads, +inf and 0
+//   past Sq, so P and dS vanish there), each of the G query heads of the
+//   group in turn: GQA's sum runs inside the block in a fixed order.  Where
+//   the grid is one wave under the mask (kimi-k2's: 16 key tiles x 16 KV
+//   heads), a block takes a key tile and its mirror from the far end of Sk
+//   in turn, so every block walks as many query steps as any other (272 at
+//   kimi-k2's shape); over several waves, one tile a block, the most work
+//   first.  Query steps before the tile's first key are not streamed, the
+//   two diagonal steps mask.
+//   dq: persistent, one block an SM, walking its share of the 64-query
+//   tiles (the most key steps first, dealt in a snake order, as
+//   hb::flash_fwd_bf16_kernel deals them); the block holds Q and dO (hi and
+//   lo) of its tile and streams kStep = 32 keys a step, up to the diagonal.
+//   The next tile's first K and V copy runs under the last step.
+// Shared memory at hd 112 (pitch 112, the 64-byte swizzle: 7 boxes of 16
+// columns a row): a 64-row tile is 28 KB, so the resident hi and lo of two
+// tensors are 112 KB; a stage of 32 rows of two tensors, hi and lo, is 56
+// KB, and two stages 112 KB: 224 KB, with lse, delta and the barriers
+// 225.6 KB of the 227 KB a block can use.  Two consumer warpgroups (128
+// output rows) or stages of 64 rows would need 112 KB more, a transposed
+// copy of the accumulation products' B 28 KB a stage; one stage would
+// leave every copy exposed.  One block an SM.
+// Registers: with 256 threads a block every thread may take 255, so the
+// producer needs no `setmaxnreg` to give any back.  dk and dv are 56 + 56 a
+// consumer thread (dv stays in registers); the four dP^T chains and S^T
+// would be 80 more, so dk/dv issues its score products in five commit
+// groups (dP's chains one at a time, each joined as it is done, then S:
+// no more than two accumulators at once), and dq, with room, in one.  A step's
+// descriptors are one a tile, each instruction adding its offset
+// (ss_m64n32), and the resident tiles' and the lanes' offsets are rebuilt
+// each step (opaque), not held through the loop.  chip_smoke.py phase 20
+// (b) prints both kernels' registers and local bytes, and fails on a
+// spill.
+namespace tf {
+
+constexpr int kThreads = 256;   // the consumer warpgroup, then the producer's
+constexpr int kRows = 64;       // a block's output rows: keys or queries
+constexpr int kStep = 32;       // the rows a step streams: queries or keys
+constexpr int kStages = 2;
+constexpr int kDpChains = 4;    // dP's hi * hi steps in 4 chains
+constexpr int kDkvChainsAtOnce = 1;  // dP's chains a commit group in dk/dv
+// output fragments an accumulation product interleaves (more would spill
+// in dk/dv: tools/flash_bwd_f32_variants.py)
+constexpr int kAccDv = 2, kAccDk = 2, kAccDq = 2;
+
+// A tile of rows of HD float32 values in shared memory, as TMA writes it:
+// HD / 16 boxes of `rows` rows of 64 bytes (16 columns), each under the
+// 64-byte swizzle; a wgmma k step covers 8 columns (32 bytes), two a box
+template <int HD>
+struct Geo {
+  static_assert(HD % 16 == 0, "whole boxes of 16 columns");
+  static constexpr int kSteps = HD / 8;
+  __host__ __device__ static constexpr int tile(int rows) {
+    return 4 * rows * HD;
+  }
+};
+
+// rows row0 .. row0 + rows - 1 of head `head` (all HD columns) into a tile
+template <int HD>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int row0, int head,
+                                         int rows) {
+#pragma unroll
+  for (int b = 0; b < HD / 16; ++b) {
+    hb::tma_load3(dst + b * rows * 64, map, bar, 16 * b, row0, head);
+  }
+}
+
+// the tile of `rows` rows at x, as TMA landed it, split by the 128 threads
+// of the producer (p its thread): hi in place, lo to the same place at lo
+template <int HD>
+__device__ __forceinline__ void split_tile(unsigned char* x,
+                                           unsigned char* lo, int rows,
+                                           int p) {
+  float4* x4 = reinterpret_cast<float4*>(x);
+  uint4* lo4 = reinterpret_cast<uint4*>(lo);
+  for (int e = p; e < rows * HD / 4; e += 128) {
+    const float4 v = x4[e];
+    uint4 h, l;
+    tc::split(v.x, h.x, l.x);
+    tc::split(v.y, h.y, l.y);
+    tc::split(v.z, h.z, l.z);
+    tc::split(v.w, h.w, l.w);
+    reinterpret_cast<uint4*>(x4)[e] = h;
+    lo4[e] = l;
+  }
+}
+
+// A K-major operand's descriptor: all rows of a tile at shared address
+// `tile` (8 rows of 64 bytes a swizzle atom); the hd columns 8kk .. 8kk +
+// 7 of a tile of R rows lie kmajor_at(R, kk) 16-byte units on
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile) {
+  return hb::desc(tile, 16, 512, 2);
+}
+
+__host__ __device__ constexpr int kmajor_at(int rows, int kk) {
+  return (kk >> 1) * rows * 4 + (kk & 1) * 2;
+}
+
+// x, as the compiler cannot see through: the resident tiles'
+// descriptors, derived from it inside the step loop, are not hoisted out
+// of it to hold registers through the loop
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// d (+)= A . B^T, m64n32k8 TF32: A (64 x 8) and B (32 x 8) K-major in
+// shared memory, their descriptors da + OA and db + OB (added here, so the
+// compiler keeps one descriptor a tile and no copy an instruction); ACC 0
+// overwrites d
+template <int OA, int OB, int ACC>
+__device__ __forceinline__ void ss_m64n32(float (&d)[16], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 a, b;\n"
+      "add.s64 a, %16, %18;\nadd.s64 b, %17, %19;\n"
+      "setp.ne.b32 p, %20, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, a, b, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "n"(OA), "n"(OB), "n"(ACC));
+}
+
+// A step's eight tiles, by their place after the first of their four:
+// x hi, x lo, a hi, a lo (the block's 64 rows, at descriptor dx), y hi,
+// y lo, b hi, b lo (the step's 32, at dy)
+enum { kHi = 0, kLo = 1, kBHi = 2, kBLo = 3 };
+
+// ss_m64n32 on hd step KK of the block's tile TA and the step's tile TB
+template <int HD, int KK, int TA, int TB, int ACC>
+__device__ __forceinline__ void ss(float (&d)[16], uint64_t dx,
+                                   uint64_t dy) {
+  ss_m64n32<kmajor_at(kRows, KK) + TA * (Geo<HD>::tile(kRows) >> 4),
+            kmajor_at(kStep, KK) + TB * (Geo<HD>::tile(kStep) >> 4), ACC>(
+      d, dx, dy);
+}
+
+// Turn I of a score product, I < 2 kSteps: the cross terms of hd step I
+// (I < kSteps), then the hi * hi product of hd step I - kSteps.  dP's hi *
+// hi step kk belongs to chain kk kDpChains / kSteps; dp_turn issues dP's
+// chains LO .. LO + CA - 1, chain 0 (its cross terms first) into dp[0],
+// the others into dp[1] on (chain 0's group: dp[c]); s_turn issues S into
+// sc
+template <int HD, int LO, int CA, int I>
+__device__ __forceinline__ void dp_turn(float (&dp)[kDpChains + 1][16],
+                                        uint64_t dx, uint64_t dy) {
+  constexpr int K = Geo<HD>::kSteps;
+  if constexpr (I < 2 * K) {
+    constexpr int kk = I % K;
+    constexpr int c = kk * kDpChains / K;
+    constexpr bool first = kk == 0 || (kk - 1) * kDpChains / K != c;
+    constexpr int slot = LO == 0 ? c : 1 + c - LO;
+    if constexpr (I < K && LO == 0) {
+      ss<HD, kk, kBLo, kBHi, (kk > 0)>(dp[0], dx, dy);
+      ss<HD, kk, kBHi, kBLo, 1>(dp[0], dx, dy);
+    } else if constexpr (I >= K && c >= LO && c < LO + CA) {
+      ss<HD, kk, kBHi, kBHi, (c > 0 && first ? 0 : 1)>(dp[slot], dx, dy);
+    }
+    dp_turn<HD, LO, CA, I + 1>(dp, dx, dy);
+  }
+}
+
+template <int HD, int I>
+__device__ __forceinline__ void s_turn(float (&sc)[16], uint64_t dx,
+                                       uint64_t dy) {
+  constexpr int K = Geo<HD>::kSteps;
+  if constexpr (I < 2 * K) {
+    constexpr int kk = I % K;
+    if constexpr (I < K) {
+      ss<HD, kk, kLo, kHi, (kk > 0)>(sc, dx, dy);
+      ss<HD, kk, kHi, kLo, 1>(sc, dx, dy);
+    } else {
+      ss<HD, kk, kHi, kHi, 1>(sc, dx, dy);
+    }
+    s_turn<HD, I + 1>(sc, dx, dy);
+  }
+}
+
+// dP's chains LO on, CA a commit group, each group joined into dp[0] in
+// chain order by rounded adds once it is done
+template <int HD, int CA, int LO = 0>
+__device__ __forceinline__ void dp_groups(float (&dp)[kDpChains + 1][16],
+                                          uint64_t dx, uint64_t dy) {
+  if constexpr (LO < kDpChains) {
+    static_assert(kDpChains % CA == 0, "whole groups of chains");
+    hb::wg_fence();
+    dp_turn<HD, LO, CA, 0>(dp, dx, dy);
+    hb::wg_commit();
+    hb::wg_wait_all();
+    constexpr int used = LO == 0 ? CA : CA + 1;     // accumulators
+#pragma unroll
+    for (int c = 0; c < used; ++c) hb::fence_regs(dp[c]);
+#pragma unroll
+    for (int c = 1; c < used; ++c) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) dp[0][e] = __fadd_rn(dp[0][e], dp[c][e]);
+    }
+    dp_groups<HD, CA, LO + CA>(dp, dx, dy);
+  }
+}
+
+// A step's two score products, sc = x . y^T and dp = a . b^T over the hd
+// columns (x and a the block's 64 rows, y and b the step's 32; the
+// descriptors dx and dy), each chain summing its cross terms lo*hi and
+// hi*lo first, then its hi*hi steps; dp's hi*hi steps in kDpChains
+// chains, joined in order by rounded adds -> dp in dp[0].  dP's chains go
+// CA a commit group, then S in its own, so that no more than CA + 1
+// accumulators hold registers at once
+template <int HD, int CA>
+__device__ __forceinline__ void scores(float (&sc)[16],
+                                       float (&dp)[kDpChains + 1][16],
+                                       uint64_t dx, uint64_t dy) {
+  dp_groups<HD, CA>(dp, dx, dy);
+  hb::wg_fence();
+  s_turn<HD, 0>(sc, dx, dy);
+  hb::wg_commit();
+  hb::wg_wait_all();
+  hb::fence_regs(sc);
+  hb::fence_regs(dp[0]);
+}
+
+// score_turn in one commit group: S into sc, dP's chain c into dp[c]
+template <int HD, int I>
+__device__ __forceinline__ void score_turn_all(float (&sc)[16],
+                                               float (&dp)[kDpChains][16],
+                                               uint64_t dx, uint64_t dy) {
+  constexpr int K = Geo<HD>::kSteps;
+  if constexpr (I < 2 * K) {
+    constexpr int kk = I % K;
+    constexpr int c = kk * kDpChains / K;
+    constexpr bool first = c > 0 && (kk - 1) * kDpChains / K != c;
+    if constexpr (I < K) {
+      ss<HD, kk, kLo, kHi, (kk > 0)>(sc, dx, dy);
+      ss<HD, kk, kHi, kLo, 1>(sc, dx, dy);
+      ss<HD, kk, kBLo, kBHi, (kk > 0)>(dp[0], dx, dy);
+      ss<HD, kk, kBHi, kBLo, 1>(dp[0], dx, dy);
+    } else {
+      ss<HD, kk, kHi, kHi, 1>(sc, dx, dy);
+      ss<HD, kk, kBHi, kBHi, (first ? 0 : 1)>(dp[c], dx, dy);
+    }
+    score_turn_all<HD, I + 1>(sc, dp, dx, dy);
+  }
+}
+
+// scores in one commit group, every chain's accumulator at once (dq's
+// registers have the room; dk/dv's do not): the same chains, joined in the
+// same order -> dp in dp[0]
+template <int HD>
+__device__ __forceinline__ void scores_one_group(
+    float (&sc)[16], float (&dp)[kDpChains][16], uint64_t dx, uint64_t dy) {
+  hb::wg_fence();
+  score_turn_all<HD, 0>(sc, dp, dx, dy);
+  hb::wg_commit();
+  hb::wg_wait_all();
+  hb::fence_regs(sc);
+#pragma unroll
+  for (int c = 0; c < kDpChains; ++c) hb::fence_regs(dp[c]);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    float x = dp[0][e];
+#pragma unroll
+    for (int c = 1; c < kDpChains; ++c) x = __fadd_rn(x, dp[c][e]);
+    dp[0][e] = x;
+  }
+}
+
+// This lane's float offsets in a step's (kStep, hd) tile for the B
+// operand of c . y, k permuted as tc::acc_to_a's: b0 = y[k0 + 2t][n0 + g],
+// b1 = y[k0 + 2t + 1][n0 + g].  Lanes g >= 4 load row 2t + 1 first, so
+// each load's 32 lanes fall in 32 distinct banks (rows 2t and 2t + 1 lie
+// in the two halves of one 128-byte line), and swap the pair back.  Under
+// the 64-byte swizzle, element (r, c) of a tile of R rows is float (c >>
+// 4) R 16 + r 16 + 4 (((c & 15) >> 2) ^ ((r >> 1) & 3)) + (c & 3); here r
+// >> 1 & 3 is t for every k0 (a multiple of 8), so a lane's offset is one
+// of four, by load and by n0 / 8 even or odd, plus a constant
+struct BLanes {
+  int first[2], second[2];        // [n0 / 8 odd]
+  __device__ __forceinline__ BLanes(int g, int t) {
+    const int sw = g >> 2;
+#pragma unroll
+    for (int odd = 0; odd < 2; ++odd) {
+      const int col = 4 * ((2 * odd + sw) ^ t) + (g & 3);
+      first[odd] = (2 * t + sw) * 16 + col;
+      second[odd] = (2 * t + 1 - sw) * 16 + col;
+    }
+  }
+};
+
+template <int K0, int N0>
+__device__ __forceinline__ void load_b(tc::FragB& b, const float* yh,
+                                       const float* yl, const BLanes& ln,
+                                       int sw) {
+  constexpr int base = (N0 >> 4) * kStep * 16 + K0 * 16;
+  const int i0 = base + ln.first[(N0 >> 3) & 1];
+  const int i1 = base + ln.second[(N0 >> 3) & 1];
+  const uint32_t h0 = __float_as_uint(yh[i0]), h1 = __float_as_uint(yh[i1]);
+  const uint32_t l0 = __float_as_uint(yl[i0]), l1 = __float_as_uint(yl[i1]);
+  b.hi[0] = sw ? h1 : h0;
+  b.hi[1] = sw ? h0 : h1;
+  b.lo[0] = sw ? l1 : l0;
+  b.lo[1] = sw ? l0 : l1;
+}
+
+// B of output fragments N0 / 8 + I .. N0 / 8 + W - 1, rows K0 .. K0 + 7
+template <int K0, int N0, int W, int I = 0>
+__device__ __forceinline__ void load_bs(tc::FragB (&b)[W], const float* yh,
+                                        const float* yl, const BLanes& ln,
+                                        int sw) {
+  if constexpr (I < W) {
+    load_b<K0, N0 + 8 * I>(b[I], yh, yl, ln, sw);
+    load_bs<K0, N0, W, I + 1>(b, yh, yl, ln, sw);
+  }
+}
+
+// rows K0 .. K0 + 7 of W output fragments' chains: the A fragment split
+// here from the accumulator c (again for each group of fragments: the raw
+// accumulator holds half the registers of its split fragments), each
+// chain in tc::mma3's order, the W chains interleaved
+template <int K0, int N0, int W>
+__device__ __forceinline__ void acc_step(float (&x)[W][4],
+                                         const float (&c)[16],
+                                         const float* yh, const float* yl,
+                                         const BLanes& ln, int sw) {
+  tc::FragA a;
+  tc::acc_to_a(a, reinterpret_cast<const float(&)[4]>(c[K0 / 2]));
+  tc::FragB b[W];
+  load_bs<K0, N0, W>(b, yh, yl, ln, sw);
+#pragma unroll
+  for (int i = 0; i < W; ++i) tc::mma_tf32(x[i], a.lo, b[i].hi);
+#pragma unroll
+  for (int i = 0; i < W; ++i) tc::mma_tf32(x[i], a.hi, b[i].lo);
+#pragma unroll
+  for (int i = 0; i < W; ++i) tc::mma_tf32(x[i], a.hi, b[i].hi);
+}
+
+// the output fragments ND .. HD / 8 - 1 of accumulate, W at a time: a
+// fragment's chain of mma.sync is dependent throughout, so the chains of W
+// fragments interleave
+template <int HD, int W, int ND>
+__device__ __forceinline__ void accumulate_from(
+    tc::RegAcc<HD / 8>& acc, float (&c)[16], const float* yh,
+    const float* yl, const BLanes& ln, int sw) {
+  static_assert((HD / 8) % W == 0, "whole groups of fragments");
+  if constexpr (ND < HD / 8) {
+    hb::fence_regs(c);          // so the compiler splits c anew, not once
+    float x[W][4];
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[i][e] = 0.0f;
+    }
+    acc_step<0, 8 * ND, W>(x, c, yh, yl, ln, sw);
+    acc_step<8, 8 * ND, W>(x, c, yh, yl, ln, sw);
+    acc_step<16, 8 * ND, W>(x, c, yh, yl, ln, sw);
+    acc_step<24, 8 * ND, W>(x, c, yh, yl, ln, sw);
+#pragma unroll
+    for (int i = 0; i < W; ++i) acc.add(ND + i, x[i]);
+    accumulate_from<HD, W, ND + W>(acc, c, yh, yl, ln, sw);
+  }
+}
+
+// acc += c . y: c this warp's 16 rows of a step's 64 x 32 accumulator (the
+// A operand, each 8 columns by tc::acc_to_a), y the step's (kStep, hd)
+// tile as B, its hi at yh and lo at yl.  Each output fragment sums the
+// step in the tensor cores from 0, then joins acc in one rounded float32
+// add.  The lane's offsets are computed here, from a lane index the compiler
+// cannot see through, so they hold no registers between steps
+template <int HD, int W>
+__device__ __forceinline__ void accumulate(tc::RegAcc<HD / 8>& acc,
+                                           float (&c)[16], const float* yh,
+                                           const float* yl) {
+  static_assert(kStep == 32, "four k steps of 8");
+  const int lane = static_cast<int>(opaque(threadIdx.x % 32));
+  const BLanes ln(lane / 4, lane % 4);
+  accumulate_from<HD, W, 0>(acc, c, yh, yl, ln, lane >> 4);
+}
+
+// The shared memory of both kernels: the block's four 64-row tiles (x hi,
+// x lo, a hi, a lo: K and V in dk/dv, Q and dO in dq), kStages stages of
+// four kStep-row tiles (y hi, y lo, b hi, b lo: Q and dO, or K and V),
+// dk/dv's lse and delta of each stage, then the barriers
+template <int HD>
+struct Smem {
+  static constexpr int kBig = Geo<HD>::tile(kRows);
+  static constexpr int kSmall = Geo<HD>::tile(kStep);
+  static constexpr int kStage = 4 * kSmall;
+  static constexpr int kStagesAt = 4 * kBig;
+  static constexpr int kRowsAt = kStagesAt + kStages * kStage;
+  static constexpr int kBarsAt = kRowsAt + 4 * 2 * kStep * kStages;
+  // full, ready and empty a stage; the block tile's full, ready, empty
+  static constexpr int kBytes = kBarsAt + 8 * (3 * kStages + 3) + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int BKV, int H, int KV, int Sq, int Sk, float scale,
+                         int causal, int mirrored) {
+  using L = Smem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hb::align1024(smem_raw);
+  unsigned char* ks = smem;                         // K hi, K lo, V hi, V lo
+  unsigned char* stages = smem + L::kStagesAt;      // Q hi, lo, dO hi, lo
+  float* rows_f = reinterpret_cast<float*>(smem + L::kRowsAt);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarsAt);
+  uint64_t* ready = full + kStages;
+  uint64_t* empty = ready + kStages;
+  uint64_t* kv_full = empty + kStages;
+  uint64_t* kv_ready = kv_full + 1;
+  uint64_t* kv_empty = kv_ready + 1;
+  auto stage = [&](int s, int i) {                  // tile i of stage s
+    return stages + s * L::kStage + i * L::kSmall;
+  };
+
+  // the block's key tiles of 64: tile i of Sk's, or `mirrored` tile i and
+  // then its mirror from the far end (none where the two meet).  These
+  // and the tile's numbers below are computed where they are used, from
+  // the block's index (opaque: not hoisted), so that none holds a register
+  // through the consumer's loop
+  auto block = [&] { return static_cast<int>(opaque(blockIdx.x)); };
+  auto n_tiles = [&] {
+    const int bt = block() / BKV, t1 = (Sk + kRows - 1) / kRows - 1 - bt;
+    return mirrored && t1 != bt ? 2 : 1;
+  };
+  const int group = H / KV;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hb::mbar_init(&full[s], 1);                   // the producer's thread 0
+      hb::mbar_init(&ready[s], 128);                // every producer thread
+      hb::mbar_init(&empty[s], 128);                // every consumer thread
+    }
+    hb::mbar_init(kv_full, 1);
+    hb::mbar_init(kv_ready, 128);
+    hb::mbar_init(kv_empty, 128);
+    hb::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the warpgroup, as a value ptxas sees is the same across each warp (a
+  // branch it takes for divergent serializes every wgmma: C7518)
+  const int wg =
+      __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  // key tile j of the block: its first key, first query row (query rows
+  // before k0 see none of its keys under the mask), query tiles and steps
+  struct KeyTile {
+    int k0, q_lo, n_qt, n_steps;
+  };
+  auto key_tile = [&](int j) {
+    const int bt = block() / BKV;
+    KeyTile kt;
+    kt.k0 = kRows * (j == 0 ? bt : (Sk + kRows - 1) / kRows - 1 - bt);
+    kt.q_lo = causal ? kt.k0 : 0;
+    kt.n_qt = kt.q_lo < Sq ? (Sq - kt.q_lo + kStep - 1) / kStep : 0;
+    kt.n_steps = group * kt.n_qt;
+    return kt;
+  };
+  if (wg == 1) {
+    const int p = threadIdx.x - 128;
+    const int bkv = blockIdx.x % BKV, tiles = n_tiles();
+    const int b = bkv / KV, kvh = bkv % KV;
+    int n = 0;                                      // query steps before
+    for (int j = 0; j < tiles; ++j) {
+      const KeyTile kt = key_tile(j);
+      if (j > 0) hb::mbar_wait(kv_empty, (j - 1) & 1);
+      if (p == 0) {
+        hb::mbar_expect_tx(kv_full, 2 * L::kBig);
+        tma_tile<HD>(ks, &tk, kv_full, kt.k0, bkv, kRows);
+        tma_tile<HD>(ks + 2 * L::kBig, &tv, kv_full, kt.k0, bkv, kRows);
+      }
+      // step i's copies into stage (n + i) % kStages, once it is free
+      auto issue = [&](int i) {
+        const int m = n + i, s = m % kStages;
+        hb::mbar_wait(&empty[s], ((m / kStages) & 1) ^ 1);
+        const int q0 = kt.q_lo + (i % kt.n_qt) * kStep;
+        const int bh = b * H + kvh * group + i / kt.n_qt;
+        if (p < kStep) {
+          float* ls = rows_f + s * 2 * kStep;
+          const int row = q0 + p;
+          const size_t r = static_cast<size_t>(bh) * Sq + row;
+          ls[p] = row < Sq ? __fmul_rn(lse[r], hb::kLog2e) : CUDART_INF_F;
+          ls[kStep + p] = row < Sq ? delta[r] : 0.0f;
+        }
+        if (p == 0) {
+          hb::mbar_expect_tx(&full[s], 2 * L::kSmall);
+          tma_tile<HD>(stage(s, 0), &tq, &full[s], q0, bh, kStep);
+          tma_tile<HD>(stage(s, 2), &tdo, &full[s], q0, bh, kStep);
+        }
+      };
+      if (kt.n_steps > 0) issue(0);
+      hb::mbar_wait(kv_full, j & 1);
+      split_tile<HD>(ks, ks + L::kBig, kRows, p);
+      split_tile<HD>(ks + 2 * L::kBig, ks + 3 * L::kBig, kRows, p);
+      hb::fence_proxy_async();
+      hb::mbar_arrive(kv_ready);
+      for (int i = 0; i < kt.n_steps; ++i) {
+        const int m = n + i, s = m % kStages;
+        hb::mbar_wait(&full[s], (m / kStages) & 1);
+        split_tile<HD>(stage(s, 0), stage(s, 1), kStep, p);
+        split_tile<HD>(stage(s, 2), stage(s, 3), kStep, p);
+        hb::fence_proxy_async();
+        hb::mbar_arrive(&ready[s]);
+        if (i + 1 < kt.n_steps) issue(i + 1);
+      }
+      n += kt.n_steps;
+    }
+    return;
+  }
+  // this lane's first key row, 16 w + g of warp w, and its t
+  const int row = static_cast<int>(threadIdx.x / 32 * 16 +
+                                   threadIdx.x / 4 % 8);
+  const int t = threadIdx.x % 4;
+  const float scale2 = __fmul_rn(scale, hb::kLog2e);
+  const uint32_t ka = hb::smem_u32(ks);
+  for (int j = 0; j < n_tiles(); ++j) {
+    const KeyTile kt = key_tile(j);
+    // the block's query steps before this tile's (none, or the first
+    // tile's), anew: no count lives from one tile to the next
+    int m = j == 0 ? 0 : key_tile(0).n_steps;
+    tc::RegAcc<HD / 8> acc_k, acc_v;
+    acc_k.zero();
+    acc_v.zero();
+    hb::mbar_wait(kv_ready, j & 1);
+    // the step's query tile of its head, 0 .. n_qt - 1: under the mask the
+    // queries start at the tile's first key, so only the first
+    // kRows / kStep tiles reach past the diagonal, and a key's place
+    // against a query there is row - (kStep qi + column): the loop holds
+    // no key or query index
+    int qi = 0;
+    for (int i = 0; i < kt.n_steps; ++i, ++m) {
+      const int s = m % kStages;
+      hb::mbar_wait(&ready[s], (m / kStages) & 1);
+      const uint32_t qa = hb::smem_u32(stage(s, 0));
+      float sc[16], dp[kDpChains + 1][16];          // S^T and dP^T
+      scores<HD, kDkvChainsAtOnce>(sc, dp, kmajor(opaque(ka)), kmajor(qa));
+      const bool diag = causal && qi < kRows / kStep;
+      const float* ls = rows_f + s * 2 * kStep;
+      // lse and delta of queries 8n + 2t and 8n + 2t + 1, one 8-byte load
+      const float2* l2 = reinterpret_cast<const float2*>(ls) + t;
+      const float2* d2 = reinterpret_cast<const float2*>(ls + kStep) + t;
+#pragma unroll
+      for (int nq = 0; nq < kStep / 8; ++nq) {
+        const float2 lse2 = l2[4 * nq], delta2 = d2[4 * nq];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int e = 4 * nq + x, c = 8 * nq + 2 * t + (x & 1);
+          float pe = hb::ex2(__fmaf_rn(sc[e], scale2,
+                                       -(x & 1 ? lse2.y : lse2.x)));
+          if (diag && row + 8 * (x >> 1) > kStep * qi + c) pe = 0.0f;
+          sc[e] = pe;
+          dp[0][e] = __fmul_rn(pe, __fsub_rn(dp[0][e], x & 1 ? delta2.y
+                                                              : delta2.x));
+        }
+      }
+      const float* oh = reinterpret_cast<const float*>(stage(s, 2));
+      const float* ol = reinterpret_cast<const float*>(stage(s, 3));
+      const float* qh = reinterpret_cast<const float*>(stage(s, 0));
+      const float* ql = reinterpret_cast<const float*>(stage(s, 1));
+      accumulate<HD, kAccDv>(acc_v, sc, oh, ol);    // dv += P^T dO
+      accumulate<HD, kAccDk>(acc_k, dp[0], qh, ql); // dk += dS^T q
+      hb::mbar_arrive(&empty[s]);
+      if (++qi == kt.n_qt) qi = 0;
+    }
+    if (j + 1 < n_tiles()) hb::mbar_arrive(kv_empty);
+    const size_t kv_rows0 = static_cast<size_t>(block() % BKV) * Sk;
+    const int k0 = key_tile(static_cast<int>(opaque(j))).k0;  // anew
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = k0 + row + 8 * half;
+      if (key >= Sk) continue;
+      float* outk = dk + (kv_rows0 + key) * HD;
+      float* outv = dv + (kv_rows0 + key) * HD;
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+        const float2 rk = acc_k.get(nd, half);
+        *reinterpret_cast<float2*>(outk + 8 * nd + 2 * t) =
+            make_float2(__fmul_rn(rk.x, scale), __fmul_rn(rk.y, scale));
+        *reinterpret_cast<float2*>(outv + 8 * nd + 2 * t) =
+            acc_v.get(nd, half);
+      }
+    }
+  }
+}
+
+// a 64-query tile of dq: head bh (of B*H), rows q0 .. q0 + 63, n_kt key
+// steps (none past the diagonal under the mask)
+struct DqTile {
+  int bh, q0, n_kt;
+};
+
+// the block's round-th tile, or bh -1 past the last: tile i is head i %
+// BH's query tile i / BH counted from the end under the mask (the most key
+// steps first); round r deals tiles r G .. r G + G - 1 to the G blocks, in
+// reverse order on odd rounds
+__device__ __forceinline__ DqTile dq_tile(int round, int n_tiles, int BH,
+                                          int Sq, int Sk, int causal) {
+  const int G = gridDim.x;
+  const int i = round * G + (round & 1 ? G - 1 - blockIdx.x : blockIdx.x);
+  if (i >= n_tiles) return {-1, 0, 0};
+  const int qt = i / BH;
+  const int q0 = (causal ? (Sq + kRows - 1) / kRows - 1 - qt : qt) * kRows;
+  const int k_end = causal ? min(Sk, q0 + kRows) : Sk;
+  return {i % BH, q0, (k_end + kStep - 1) / kStep};
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int BH, int H, int KV, int Sq,
+                        int Sk, float scale, int causal, int n_tiles) {
+  using L = Smem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hb::align1024(smem_raw);
+  unsigned char* qs = smem;                         // Q hi, Q lo, dO hi, lo
+  unsigned char* stages = smem + L::kStagesAt;      // K hi, lo, V hi, lo
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarsAt);
+  uint64_t* ready = full + kStages;
+  uint64_t* empty = ready + kStages;
+  uint64_t* q_full = empty + kStages;
+  uint64_t* q_ready = q_full + 1;
+  uint64_t* q_empty = q_ready + 1;
+  auto stage = [&](int s, int i) {
+    return stages + s * L::kStage + i * L::kSmall;
+  };
+  auto kv_head = [&](int bh) { return bh / H * KV + bh % H / (H / KV); };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hb::mbar_init(&full[s], 1);
+      hb::mbar_init(&ready[s], 128);
+      hb::mbar_init(&empty[s], 128);
+    }
+    hb::mbar_init(q_full, 1);
+    hb::mbar_init(q_ready, 128);
+    hb::mbar_init(q_empty, 128);
+    hb::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg =
+      __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 1) {
+    const int p = threadIdx.x - 128;
+    // step m's K and V into stage m % kStages, once it is free
+    auto issue = [&](const DqTile& tl, int kt, int m) {
+      const int s = m % kStages;
+      hb::mbar_wait(&empty[s], ((m / kStages) & 1) ^ 1);
+      if (p == 0) {
+        hb::mbar_expect_tx(&full[s], 2 * L::kSmall);
+        tma_tile<HD>(stage(s, 0), &tk, &full[s], kt * kStep, kv_head(tl.bh),
+                     kStep);
+        tma_tile<HD>(stage(s, 2), &tv, &full[s], kt * kStep, kv_head(tl.bh),
+                     kStep);
+      }
+    };
+    // the step to issue next: one ahead of the one split, issued once
+    // that one is released
+    DqTile nt = dq_tile(0, n_tiles, BH, Sq, Sk, causal);
+    int n_round = 0, nkt = 0, issued = 0;
+    auto next = [&] {
+      issue(nt, nkt, issued++);
+      if (++nkt == nt.n_kt) {
+        nkt = 0;
+        nt = dq_tile(++n_round, n_tiles, BH, Sq, Sk, causal);
+      }
+    };
+    if (nt.bh >= 0) next();
+    int m = 0;
+    for (int round = 0;; ++round) {
+      const DqTile tl = dq_tile(round, n_tiles, BH, Sq, Sk, causal);
+      if (tl.bh < 0) break;
+      for (int kt = 0; kt < tl.n_kt; ++kt, ++m) {
+        if (kt == 0) {                    // the tile's Q and dO, once free
+          hb::mbar_wait(q_empty, (round & 1) ^ 1);
+          if (p == 0) {
+            hb::mbar_expect_tx(q_full, 2 * L::kBig);
+            tma_tile<HD>(qs, &tq, q_full, tl.q0, tl.bh, kRows);
+            tma_tile<HD>(qs + 2 * L::kBig, &tdo, q_full, tl.q0, tl.bh,
+                         kRows);
+          }
+        }
+        const int s = m % kStages;
+        hb::mbar_wait(&full[s], (m / kStages) & 1);
+        split_tile<HD>(stage(s, 0), stage(s, 1), kStep, p);
+        split_tile<HD>(stage(s, 2), stage(s, 3), kStep, p);
+        if (kt == 0) {
+          hb::mbar_wait(q_full, round & 1);
+          split_tile<HD>(qs, qs + L::kBig, kRows, p);
+          split_tile<HD>(qs + 2 * L::kBig, qs + 3 * L::kBig, kRows, p);
+        }
+        hb::fence_proxy_async();
+        if (kt == 0) hb::mbar_arrive(q_ready);
+        hb::mbar_arrive(&ready[s]);
+        if (nt.bh >= 0) next();
+      }
+    }
+    return;
+  }
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float scale2 = __fmul_rn(scale, hb::kLog2e);
+  const uint32_t qa = hb::smem_u32(qs);
+  int m = 0;                                        // key steps consumed
+  for (int round = 0;; ++round) {
+    const DqTile tl = dq_tile(round, n_tiles, BH, Sq, Sk, causal);
+    if (tl.bh < 0) break;
+    const size_t rows0 = static_cast<size_t>(tl.bh) * Sq;
+    int rows[2];
+    float lse2[2], delta_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rows[h] = tl.q0 + 16 * w + g + 8 * h;
+      const bool in = rows[h] < Sq;
+      lse2[h] = in ? __fmul_rn(lse[rows0 + rows[h]], hb::kLog2e) : 0.0f;
+      delta_r[h] = in ? delta[rows0 + rows[h]] : 0.0f;
+    }
+    tc::RegAcc<HD / 8> acc;
+    acc.zero();
+    hb::mbar_wait(q_ready, round & 1);
+    for (int kt = 0; kt < tl.n_kt; ++kt, ++m) {
+      const int s = m % kStages, k0 = kt * kStep;
+      hb::mbar_wait(&ready[s], (m / kStages) & 1);
+      const uint32_t ka = hb::smem_u32(stage(s, 0));
+      float sc[16], dp[kDpChains][16];              // S and dP
+      scores_one_group<HD>(sc, dp, kmajor(opaque(qa)), kmajor(ka));
+      // the diagonal step and the ragged last one mask; keys past Sk are
+      // zero rows of K but must not weigh: exp(-lse) may overflow
+      const bool masked =
+          (causal && k0 + kStep - 1 > tl.q0) || k0 + kStep > Sk;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int j = k0 + 8 * (e / 4) + 2 * t + (e & 1);
+        const int h = (e >> 1) & 1;
+        float pe = hb::ex2(__fmaf_rn(sc[e], scale2, -lse2[h]));
+        if (masked && (j >= Sk || (causal && j > rows[h]))) pe = 0.0f;
+        dp[0][e] = __fmul_rn(pe, __fsub_rn(dp[0][e], delta_r[h]));
+      }
+      accumulate<HD, kAccDq>(acc, dp[0],              // dq += dS k
+                             reinterpret_cast<const float*>(stage(s, 0)),
+                             reinterpret_cast<const float*>(stage(s, 1)));
+      hb::mbar_arrive(&empty[s]);
+    }
+    hb::mbar_arrive(q_empty);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rows[h] >= Sq) continue;
+      float* out = dq + (rows0 + rows[h]) * HD;
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd) {
+        const float2 r = acc.get(nd, h);
+        *reinterpret_cast<float2*>(out + 8 * nd + 2 * t) =
+            make_float2(__fmul_rn(r.x, scale), __fmul_rn(r.y, scale));
+      }
+    }
+  }
+}
+
+// A (heads, S, HD) float32 tensor as a 3-D map of boxes of `rows` rows and
+// 16 columns, under the 64-byte swizzle; rows past S read as zeros
+template <int HD>
+cudaError_t tensor_map(CUtensorMap* map, const float* base, int S, int heads,
+                       int rows) {
+  const hb::EncodeTiled encode = hb::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {4ull * HD, 4ull * HD * S};
+  const cuuint32_t box[3] = {16, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// q and dO in boxes of `q_rows` rows, k and v of `k_rows`
+template <int HD>
+cudaError_t maps(CUtensorMap (&m)[4], const float* q, const float* k,
+                 const float* v, const float* dout, int B, int H, int KV,
+                 int Sq, int Sk, int q_rows, int k_rows) {
+  cudaError_t err = tensor_map<HD>(&m[0], q, Sq, B * H, q_rows);
+  if (err == cudaSuccess) err = tensor_map<HD>(&m[1], k, Sk, B * KV, k_rows);
+  if (err == cudaSuccess) err = tensor_map<HD>(&m[2], v, Sk, B * KV, k_rows);
+  if (err == cudaSuccess) {
+    err = tensor_map<HD>(&m[3], dout, Sq, B * H, q_rows);
+  }
+  return err;
+}
+
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return err;
+}
+
+template <int HD>
+int launch_bwd_dq(const float* q, const float* k, const float* v,
+                  const float* dout, const float* lse, const float* delta,
+                  float* dq, int B, int H, int KV, int Sq, int Sk,
+                  float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = Smem<HD>::kBytes;
+  static_assert(smem <= 232448, "over the 227 KB a block can use");
+  CUtensorMap m[4];
+  cudaError_t err = maps<HD>(m, q, k, v, dout, B, H, KV, Sq, Sk, kRows,
+                             kStep);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles =
+      static_cast<long long>((Sq + kRows - 1) / kRows) * B * H;
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // a block an SM, each walking over its share of the query tiles
+  return bf::launch(flash_bwd_dq_f32_kernel<HD>, tiles < sms ? tiles : sms,
+                    kThreads, smem, stream, m[0], m[1], m[2], m[3], lse,
+                    delta, dq, B * H, H, KV, Sq, Sk, scale, causal,
+                    static_cast<int>(tiles));
+}
+
+template <int HD>
+int launch_bwd_dkv(const float* q, const float* k, const float* v,
+                   const float* dout, const float* lse, const float* delta,
+                   float* dk, float* dv, int B, int H, int KV, int Sq, int Sk,
+                   float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = Smem<HD>::kBytes;
+  static_assert(smem <= 232448, "over the 227 KB a block can use");
+  CUtensorMap m[4];
+  cudaError_t err = maps<HD>(m, q, k, v, dout, B, H, KV, Sq, Sk, kStep,
+                             kRows);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one wave (a block an SM) under the mask: the longest block sets the
+  // time, so a block takes a tile and its mirror; otherwise a tile a
+  // block, the first tiles (the most queries) first
+  const long long n64 = (Sk + kRows - 1) / kRows;
+  const long long pairs = (n64 + 1) / 2 * B * KV;
+  const int mirrored = causal && pairs <= sms;
+  return bf::launch(flash_bwd_dkv_f32_kernel<HD>,
+                    mirrored ? pairs : n64 * B * KV, kThreads, smem, stream,
+                    m[0], m[1], m[2], m[3], lse, delta, dk, dv, B * KV, H,
+                    KV, Sq, Sk, scale, causal, mirrored);
+}
+
+template <int HD>
+cudaError_t attributes(cudaFuncAttributes* dq, cudaFuncAttributes* dkv) {
+  const cudaError_t err =
+      cudaFuncGetAttributes(dq, flash_bwd_dq_f32_kernel<HD>);
+  return err != cudaSuccess
+             ? err
+             : cudaFuncGetAttributes(dkv, flash_bwd_dkv_f32_kernel<HD>);
+}
+
+}  // namespace tf
+
 }  // namespace
 
 extern "C" {
@@ -2390,7 +3339,7 @@ int flash_attention_bwd_dq_f32(const float* q, const float* k, const float* v,
     case 64:
       return launch_bwd_dq<64, 64, 32>(BWD_DQ_ARGS);
     case 112:
-      return launch_bwd_dq<112, 128, 32>(BWD_DQ_ARGS);
+      return tf::launch_bwd_dq<112>(BWD_DQ_ARGS);
     case 128:
       return launch_bwd_dq<128, 128, 32>(BWD_DQ_ARGS);
     default:
@@ -2415,7 +3364,7 @@ int flash_attention_bwd_dkv_f32(const float* q, const float* k,
     case 64:
       return launch_bwd_dkv<64, 64, 32, true, false>(BWD_DKV_ARGS);
     case 112:
-      return launch_bwd_dkv<112, 128, 16, false, true>(BWD_DKV_ARGS);
+      return tf::launch_bwd_dkv<112>(BWD_DKV_ARGS);
     case 128:
       return launch_bwd_dkv<128, 128, 16, false, true>(BWD_DKV_ARGS);
     default:
@@ -2562,6 +3511,22 @@ int flash_attention_fwd_bf16_attributes(int hd, int* out) {
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = fwd.numRegs;
   out[1] = static_cast<int>(fwd.localSizeBytes);
+  return 0;
+}
+
+// The float32 backward kernels on wgmma (hd 112, the only head dim that
+// takes them) as built, for the record: out[0], out[1] the dq kernel's
+// registers a thread and its local memory (spills and stack) in bytes a
+// thread, out[2], out[3] dk/dv's.
+int flash_attention_bwd_f32_attributes(int hd, int* out) {
+  if (hd != 112) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes dq, dkv;
+  const cudaError_t err = tf::attributes<112>(&dq, &dkv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = dq.numRegs;
+  out[1] = static_cast<int>(dq.localSizeBytes);
+  out[2] = dkv.numRegs;
+  out[3] = static_cast<int>(dkv.localSizeBytes);
   return 0;
 }
 

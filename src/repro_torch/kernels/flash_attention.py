@@ -39,7 +39,9 @@ the reference's kernel writes them.  hd is one of ``HEAD_DIMS``.  The
 float32 kernels run every product on the tensor cores in 3xTF32 (three
 TF32 products of split operands), which keeps float32 accuracy, not
 bitwise: the forward within 2e-5 of o and 1e-5 of lse, the backward within
-1e-5 of each gradient's max, of the exact float32 plain versions.  The
+1e-5 of each gradient's max, of the exact float32 plain versions (at hd
+112 the float32 dq and dk/dv run their score products on Hopper's
+warpgroup MMAs fed by TMA copies, and the rest on ``mma.sync``).  The
 bf16 kernels run bf16 products with float32 sums, rounding p and ds to
 bf16 where they meet v, k, q and dO (``csrc/flash_attention.cu``: the
 forward, dq and dk/dv on Hopper's warpgroup MMAs fed by TMA copies,
@@ -318,6 +320,20 @@ def bwd_bf16_attributes(hd) -> dict:
     out = (ctypes.c_int * 4)()
     build.raise_on_error(lib, "flash_attention",
                          lib.flash_attention_bwd_bf16_attributes(hd, out))
+    return {"dq": {"registers": out[0], "local_bytes": out[1]},
+            "dkv": {"registers": out[2], "local_bytes": out[3]}}
+
+
+def bwd_f32_attributes(hd) -> dict:
+    """The float32 dq and dk/dv kernels on ``wgmma`` (hd 112, the head dim
+    that takes them), as built: {"dq", "dkv": {"registers": a thread's at
+    launch, "local_bytes": its spills and stack}}
+    (``cudaFuncGetAttributes``; needs the card)."""
+    import ctypes
+    lib = build.load("flash_attention.cu")
+    out = (ctypes.c_int * 4)()
+    build.raise_on_error(lib, "flash_attention",
+                         lib.flash_attention_bwd_f32_attributes(hd, out))
     return {"dq": {"registers": out[0], "local_bytes": out[1]},
             "dkv": {"registers": out[2], "local_bytes": out[3]}}
 

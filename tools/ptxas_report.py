@@ -15,11 +15,11 @@ the count of its tensor-core instructions in its SASS, from ``cuobjdump
 (wgmma) and ``UTMALDG`` (TMA loads).  Prints the card's name and power
 limit first when ``nvidia-smi`` is there, and any ``ptxas`` warning.
 Exits non-zero if a flash-attention kernel (forward or backward, any head
-dim) has no tensor-core instruction, if a bf16 kernel (the forward, dq,
-dk/dv: wgmma fed by TMA) has no ``HGMMA`` or no ``UTMALDG``, spills, or
-has its wgmma serialized by ptxas (its notes C7514 / C7518: a wait after
-every wgmma), or if the float32 forward spills; names the other backward
-kernels that spill.
+dim) has no tensor-core instruction, if a kernel on wgmma fed by TMA (the
+bf16 forward, dq and dk/dv; the float32 dq and dk/dv at hd 112) has no
+``HGMMA`` or no ``UTMALDG``, spills, or has its wgmma serialized by ptxas
+(its notes C7514 / C7518: a wait after every wgmma), or if the float32
+forward spills; names the other backward kernels that spill.
 """
 from __future__ import annotations
 
@@ -105,7 +105,9 @@ def report(source, out_dir):
                          f"{frame} B, " + ", ".join(
                              f"{op} {ops.get(op, '?')}" for op in OPS))
             spills = stores != "0" or loads != "0"
-            wgmma = "flash_" in name and "bf16" in name
+            wgmma = "flash_" in name and ("bf16" in name
+                                          or name.startswith("tf::")
+                                          or " tf::" in name)
             if wgmma and not (ops.get("HGMMA") and ops.get("UTMALDG")):
                 bad.append(f"{name} (no HGMMA or no UTMALDG)")
             elif wgmma and entry in serialized:
@@ -141,8 +143,9 @@ def main():
     if bad:
         sys.exit("flash-attention kernels at fault: " + ", ".join(bad))
     print("every flash-attention kernel runs on the tensor cores, the bf16 "
-          "forward and backward on HGMMA fed by UTMALDG without spills or "
-          "serialized wgmma; the float32 forward spills at no head dim")
+          "forward and backward and the float32 backward at hd 112 on HGMMA "
+          "fed by UTMALDG without spills or serialized wgmma; the float32 "
+          "forward spills at no head dim")
 
 
 if __name__ == "__main__":

@@ -13,11 +13,22 @@ lo*hi, hi*lo, hi*hi in one truncating chain, and the chain joined to a
 float32 sum by a rounded add every ``join`` steps of 8 columns (``None``:
 one chain over the whole row).
 
-It prints two tables, over seeded random draws:
+``wgmma_chain(a, b, split_fn, chains)`` is the same dot product as the
+float32 backward at hd 112 runs its score products on ``wgmma`` (its
+``dp_turn``): the cross terms lo*hi and hi*lo of every 8 columns
+first, then the hi*hi steps, in one truncating chain, or with the hi*hi
+steps dealt in turn to ``chains`` chains joined in order by rounded adds.
+``split_fn`` is ``split`` (hi rounded to TF32, as the kernels' split
+writes it) or ``split_trunc`` (hi truncated, as the tensor cores would
+read a raw float32 tile).
+
+It prints three tables, over seeded random draws:
 
 - dq and dk at Sq = Sk = 1, exactly 0 there, as ``chip_smoke.py`` phase
   11 measures them (against 0.1 of the largest gradient, dv = dO): the
   dp chain against the forward's o = hi(v) + lo(v) in delta;
+- the same at hd 112 with dp summed as ``wgmma_chain`` sums it, by split
+  and chains;
 - the forward's lse of a 1,024-key row with the score chain, against
   float64.
 """
@@ -41,11 +52,19 @@ def split(x):
     return hi, tf32((np.asarray(x, F32) - hi).astype(F32))
 
 
+def split_trunc(x):
+    """hi = x with its low 13 mantissa bits dropped, lo = tf32(x - hi)."""
+    x = np.ascontiguousarray(x, F32)
+    hi = (x.view(np.uint32) & np.uint32(0xffffe000)).view(F32)
+    return hi, tf32((x - hi).astype(F32))
+
+
 def trunc32(x):
-    """float64 values to float32, rounded toward zero."""
-    r = x.astype(F32)
-    away = np.abs(r.astype(np.float64)) > np.abs(x)
-    return np.where(away, np.nextafter(r, F32(0)), r).astype(F32)
+    """float64 values (in float32's normal range, or 0) to float32, rounded
+    toward zero: the 29 low mantissa bits dropped."""
+    x = np.ascontiguousarray(x, np.float64)
+    return (x.view(np.uint64) & np.uint64(0xffffffffe0000000)).view(
+        np.float64).astype(F32)
 
 
 def chain(a, b, join=None):
@@ -67,9 +86,33 @@ def chain(a, b, join=None):
     return total
 
 
-def degenerate_errors(hd, join, draws=400, seed=1):
+def wgmma_chain(a, b, split_fn=split, chains=1):
+    """sum over the last axis of a * b as the hd-112 float32 backward's
+    wgmma sums a score product: the cross terms first, then hi*hi step i in
+    chain i * chains // steps, the chains joined in order (see the module
+    docstring)."""
+    (ah, al), (bh, bl) = split_fn(a), split_fn(b)
+    steps = a.shape[-1] // 8
+    terms = [[] for _ in range(chains)]
+    terms[0] = [(x, y, i) for i in range(steps)
+                for x, y in ((al, bh), (ah, bl))]
+    for i in range(steps):
+        terms[i * chains // steps].append((ah, bh, i))
+    total = None
+    for chain in terms:
+        part = np.zeros(a.shape[:-1], F32)
+        for x, y, i in chain:
+            cols = slice(8 * i, 8 * i + 8)
+            part = trunc32(part.astype(np.float64) + (
+                x[..., cols].astype(np.float64) * y[..., cols]).sum(-1))
+        total = part if total is None else (total + part).astype(F32)
+    return total
+
+
+def degenerate_errors(hd, join, draws=400, seed=1, dot=None):
     """phase 11's measure of dq and dk at Sq = Sk = 1 (2 heads), one value
-    a draw: max |dq|, |dk| over 0.1 max |dv|."""
+    a draw: max |dq|, |dk| over 0.1 max |dv|; dp summed by ``dot(do, v)``
+    (default ``chain(do, v, join)``)."""
     rng = np.random.default_rng(seed)
     scale = F32(1 / np.sqrt(hd))
     out = []
@@ -79,7 +122,8 @@ def degenerate_errors(hd, join, draws=400, seed=1):
         vh, vl = split(v)
         o = trunc32(vl.astype(np.float64) + vh)      # the forward's p v, p 1
         delta = (do * o).sum(-1, dtype=F32)
-        ds = (chain(do, v, join) - delta).astype(F32)
+        dp = dot(do, v) if dot else chain(do, v, join)
+        ds = (dp - delta).astype(F32)
         worst = max(np.abs(scale * ds[:, None] * k).max(),
                     np.abs(scale * ds[:, None] * q).max())
         out.append(worst / (0.1 * np.abs(do).max()))
@@ -116,6 +160,15 @@ def main():
             print(f"  hd {hd}, join {join or 'none'}: median {np.median(r):.2e}"
                   f", p90 {np.percentile(r, 90):.2e}, max {r.max():.2e}, "
                   f"share over the bar {(r > PHASE11_BAR).mean():.3f}")
+    print("the same at hd 112, dp on wgmma (dp_turn's order):")
+    for name, fn in (("rounded hi", split), ("truncated hi", split_trunc)):
+        for chains in (1, 2, 3, 4):
+            r = np.concatenate([degenerate_errors(
+                112, None, draws=1000, seed=seed, dot=lambda a, b:
+                wgmma_chain(a, b, fn, chains)) for seed in range(1, 5)])
+            print(f"  {name}, {chains} chain(s), 4,000 draws: median "
+                  f"{np.median(r):.2e}, max {r.max():.2e}, share over the "
+                  f"bar {(r > PHASE11_BAR).mean():.4f}")
     print("forward lse error, 8 rows x 1,024 keys, 20 draws:")
     for hd in (64, 128):
         for join in (1, 2, None):
